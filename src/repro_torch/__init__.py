@@ -1,0 +1,5 @@
+"""PyTorch/CUDA port of the SPT reproduction (serving path on Hopper).
+
+Mirrors the layout of the JAX package ``repro``; imports torch, numpy and
+the standard library only.  Kernels are hand-written CUDA C++ for sm_90a,
+built at first use (``repro_torch.kernels``)."""

@@ -1,0 +1,56 @@
+"""LoRA: low-rank adaptation (paper §2.2, Eq. 5).
+
+Y = X W + s * (X B) C     with W frozen, B in R^{d x r}, C in R^{r x h}.
+
+B is fan-in initialized, C zero-initialized so fine-tuning starts from the
+pre-trained function exactly (s = alpha / r).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.params import ParamDef
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    rank: int = 16
+    alpha: float = 16.0
+    enabled: bool = True
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / max(1, self.rank)
+
+
+def param_defs(d_in: int, d_out: int, cfg: LoRAConfig) -> dict:
+    return {
+        "b": ParamDef((d_in, cfg.rank), torch.float32, init="fan_in"),
+        "c": ParamDef((cfg.rank, d_out), torch.float32, init="zeros"),
+    }
+
+
+def linear_defs(d_in: int, d_out: int, cfg: LoRAConfig,
+                base_init: str = "fan_in", dtype=torch.bfloat16) -> dict:
+    """A frozen base projection + its LoRA adapter."""
+    out = {"w": ParamDef((d_in, d_out), dtype, init=base_init,
+                         trainable=False)}
+    if cfg.enabled:
+        out["lora"] = param_defs(d_in, d_out, cfg)
+    return out
+
+
+def apply_lora(x: torch.Tensor, lora, scale: float) -> torch.Tensor:
+    """s * (x B) C, narrow first so FLOPs stay O(n d r)."""
+    xb = x @ lora["b"].to(x.dtype)
+    return scale * (xb @ lora["c"].to(x.dtype))
+
+
+def linear(x: torch.Tensor, p, cfg: LoRAConfig) -> torch.Tensor:
+    """Y = X W (+ LoRA delta); W is frozen (``requires_grad=False``)."""
+    y = x @ p["w"].to(x.dtype)
+    if cfg.enabled and "lora" in p:
+        y = y + apply_lora(x, p["lora"], cfg.scale)
+    return y

@@ -1,0 +1,151 @@
+"""Parameter definition machinery (port of the JAX ``core/params.py``).
+
+Every layer declares its parameters as a nested dict of :class:`ParamDef`
+(shape + dtype + initializer + trainable flag).  ``init_tree`` materializes
+one on a device from an explicit ``torch.Generator``; ``from_numpy_tree``
+loads the JAX package's parameter tree (nested dicts of numpy arrays, the
+same layout: stacked units on a leading axis U) so both packages compute
+the same function.  :class:`ParamTree` turns either tree into an
+``nn.Module`` whose frozen leaves have ``requires_grad=False``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+Tree = Any  # nested dict of ParamDef / tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative description of a single parameter tensor."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal:0.02"  # zeros | ones | normal:<std> | uniform:<s> | fan_in
+    trainable: bool = True     # False => frozen (pre-trained base weights)
+
+
+def is_def(x: Any) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def _map_defs(fn, tree: Tree) -> Tree:
+    if is_def(tree):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _map_defs(fn, v) for k, v in tree.items()}
+    raise TypeError(f"bad def tree node: {type(tree)}")
+
+
+def _materialize(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
+    kind, _, arg = d.init.partition(":")
+    dev = gen.device
+    if kind == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=dev)
+    if kind == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=dev)
+    if kind in ("normal", "fan_in"):
+        if kind == "normal":
+            std = float(arg or 0.02)
+        else:
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+            std = 1.0 / math.sqrt(max(1, fan_in))
+        x = torch.randn(d.shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (x * std).to(d.dtype)
+    if kind == "uniform":
+        s = float(arg or 1.0)
+        x = torch.rand(d.shape, generator=gen, device=dev,
+                       dtype=torch.float32)
+        return ((2.0 * x - 1.0) * s).to(d.dtype)
+    raise ValueError(f"unknown init {d.init!r}")
+
+
+def init_tree(tree: Tree, generator: torch.Generator) -> Tree:
+    """Materialize parameters on ``generator.device``.  Leaves are drawn in
+    sorted-path order, so a seed fixes the whole tree.  (The numbers differ
+    from JAX's PRNG; parity tests load JAX's tree with from_numpy_tree.)"""
+    def build(t):
+        if is_def(t):
+            return _materialize(t, generator)
+        return {k: build(t[k]) for k in sorted(t)}
+    return build(tree)
+
+
+def stack_defs(tree: Tree, n: int) -> Tree:
+    """Prepend a leading unit axis of size n to every def."""
+    return _map_defs(lambda d: dataclasses.replace(d, shape=(n, *d.shape)),
+                     tree)
+
+
+def count_params(tree: Tree, only_trainable: Optional[bool] = None) -> int:
+    total = 0
+
+    def one(d: ParamDef):
+        nonlocal total
+        if only_trainable is None or d.trainable == only_trainable:
+            total += math.prod(d.shape)
+
+    _map_defs(one, tree)
+    return total
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes bf16 from a JAX array
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def from_numpy_tree(tree: Tree, device, dtype_map: Optional[Mapping] = None
+                    ) -> Tree:
+    """JAX param tree as nested dicts of numpy arrays -> the same tree of
+    torch tensors on ``device``.  ``dtype_map`` maps a source dtype name
+    ("bfloat16", "float32", ...) to the torch dtype to store it as."""
+    dtype_map = dict(dtype_map or {})
+
+    def conv(t):
+        if isinstance(t, Mapping):
+            return {k: conv(v) for k, v in t.items()}
+        a = np.asarray(t)
+        x = _to_torch(a)
+        if a.dtype.name in dtype_map:
+            x = x.to(dtype_map[a.dtype.name])
+        return x.to(device)
+    return conv(tree)
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict as an nn.Module: ``p["wq"]["w"]`` and
+    ``"lora" in p`` work as on the dict, and ``parameters()`` /
+    ``state_dict()`` see every leaf.  ``defs`` (the matching ParamDef
+    tree) checks each leaf's shape and sets ``requires_grad`` from the
+    def's trainable flag — frozen base weights never collect grads."""
+
+    def __init__(self, tree: Tree, defs: Tree):
+        super().__init__()
+        if set(tree) != set(defs):
+            raise ValueError(f"param keys {sorted(tree)} != defs "
+                             f"{sorted(defs)}")
+        for k in sorted(tree):
+            v, d = tree[k], defs[k]
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v, d))
+                continue
+            if tuple(v.shape) != tuple(d.shape):
+                raise ValueError(f"param {k}: shape {tuple(v.shape)} != "
+                                 f"def {tuple(d.shape)}")
+            self.register_parameter(
+                k, nn.Parameter(v, requires_grad=d.trainable))
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._modules or k in self._parameters

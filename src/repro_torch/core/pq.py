@@ -1,0 +1,70 @@
+"""Product quantization (PQ) for sparse-MHA candidate selection (paper §4.1,
+§5.1).  A head vector x in R^d is cut into M sub-vectors of size d' = d/M;
+sub-vector m takes the index of its nearest codeword (L2) in codebook C^m
+of E codewords.  The query/key similarity is the integer number of shared
+codewords (paper Eq. 6): s(q, k) = sum_m 1[t_q^m == t_k^m] in {0..M}.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.params import ParamDef
+
+
+@dataclasses.dataclass(frozen=True)
+class PQConfig:
+    head_dim: int
+    code_dim: int = 8           # d'
+    num_codewords: int = 16     # E
+    update_interval: int = 20
+
+    @property
+    def num_books(self) -> int:  # M
+        if self.head_dim % self.code_dim:
+            raise ValueError(f"head_dim {self.head_dim} not divisible by "
+                             f"code_dim {self.code_dim}")
+        return self.head_dim // self.code_dim
+
+
+def param_defs(cfg: PQConfig) -> dict:
+    """Codebooks shared by Q and K of one attention layer: (M, E, d')."""
+    return {"codebooks": ParamDef(
+        (cfg.num_books, cfg.num_codewords, cfg.code_dim), torch.float32,
+        init="normal:1.0", trainable=True)}
+
+
+def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Nearest codeword per sub-vector, in the JAX form ||c||^2 - 2 x.c
+    (||x||^2 is constant over the argmin) computed in float32.
+
+    x: (..., n, d) with d = M * d'; codebooks: (M, E, d')
+    returns codes (..., n, M) int32 in [0, E)
+    """
+    m, e, dp = codebooks.shape
+    *lead, n, d = x.shape
+    if d != m * dp:
+        raise ValueError(f"x {tuple(x.shape)} vs codebooks "
+                         f"{tuple(codebooks.shape)}")
+    xs = x.reshape(*lead, n, m, dp).float()
+    cb = codebooks.float()
+    dots = torch.einsum("...nmd,med->...nme", xs, cb)
+    c2 = (cb * cb).sum(-1)                                  # (M, E)
+    dist = c2 - 2.0 * dots
+    return dist.argmin(-1).to(torch.int32)
+
+
+def match_scores(codes_q: torch.Tensor, codes_k: torch.Tensor,
+                 num_codewords: int) -> torch.Tensor:
+    """Integer similarity as a one-hot inner product (exact: 0/1 products
+    summing to <= M).  codes_q (..., nq, M), codes_k (..., nk, M) ->
+    (..., nq, nk) float32 counts.  On the card the one-hots are bf16, whose
+    product with f32 accumulation is exact for these small integers."""
+    dt = torch.bfloat16 if codes_q.is_cuda else torch.float32
+    e = num_codewords
+    oh_q = torch.nn.functional.one_hot(codes_q.long(), e).to(dt)
+    oh_k = torch.nn.functional.one_hot(codes_k.long(), e).to(dt)
+    oh_q = oh_q.flatten(-2)                                 # (..., nq, M*E)
+    oh_k = oh_k.flatten(-2)                                 # (..., nk, M*E)
+    return torch.matmul(oh_q, oh_k.transpose(-1, -2)).float()

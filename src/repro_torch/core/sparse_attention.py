@@ -1,0 +1,269 @@
+"""Sparse multi-head attention (paper §4.1, Algorithm 1), plain torch.
+
+Pipeline per attention layer: PQ-quantize Q and K (core/pq.py), integer
+match-count scores s(q, k) in [0, M], top-L selection under the causal /
+window mask, attention restricted to the selected pairs with the softmax
+renormalized over them.  Canonical tie-break (shared with the CUDA decode
+kernel so index sets match exactly): higher score first, then the more
+recent key (higher index).
+
+These are the oracle paths: the ragged prefill always runs ``sparse_mha``
+here, and ``REPRO_DISABLE_KERNELS=1`` sends decode to
+``sparse_mha_decode`` instead of the fused CUDA kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import pq
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseAttentionConfig:
+    pq: pq.PQConfig
+    top_fraction: float = 0.125
+    min_l: int = 16
+    pad_l_to: int = 1
+    chunk_q: int = 256
+    select_granularity: str = "qhead"  # "qhead" | "kvgroup"
+    qerr_loss_weight: float = 0.0
+
+
+def top_l(seq_len: int, cfg: SparseAttentionConfig,
+          window: Optional[int] = None) -> int:
+    """L for a given sequence length (bounded by the SWA window if any)."""
+    horizon = seq_len if window is None else min(seq_len, window)
+    l = max(cfg.min_l, int(round(horizon * cfg.top_fraction)))
+    l = -(-l // cfg.pad_l_to) * cfg.pad_l_to
+    return min(l, horizon)
+
+
+def top_l_dyn(horizon: torch.Tensor, cfg: SparseAttentionConfig,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Per-row ``top_l`` for (B,) int lengths; float32 round-half-even like
+    the host formula (exact for the dyadic fractions every config uses)."""
+    h = horizon.to(torch.int32)
+    if window is not None:
+        h = torch.clamp(h, max=window)
+    l = torch.round(h.float() * cfg.top_fraction).to(torch.int32)
+    l = torch.clamp(l, min=cfg.min_l)
+    l = -(-l // cfg.pad_l_to) * cfg.pad_l_to
+    return torch.minimum(l, h)
+
+
+def bucket_select(scores: torch.Tensor, valid: torch.Tensor, l: int,
+                  max_score: int, l_dyn: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-free top-L (the paper's bucket sort, Algorithm 3).
+
+    scores: (..., nk) integer-valued in [0, max_score]; valid broadcastable
+    to it.  Takes every key above the threshold bucket t plus the ``need``
+    most recent keys at t.  l_dyn: optional per-row budgets (<= l)
+    broadcastable to scores.shape[:-1].  Returns (idx (..., L) int32 in
+    ascending key order, sel_valid (..., L) bool)."""
+    s = torch.where(valid, scores.to(torch.int32), -1)
+    nk = s.shape[-1]
+    budget = torch.as_tensor(l if l_dyn is None else l_dyn,
+                             dtype=torch.int64, device=s.device)
+    counts = torch.stack([(s == v).sum(-1) for v in range(max_score + 1)],
+                         dim=-1)
+    ge = counts.flip(-1).cumsum(-1).flip(-1)                # #(s >= v)
+    meets = (ge >= budget[..., None]).sum(-1)
+    t = torch.clamp(meets - 1, min=0)                       # threshold bucket
+    ge_pad = torch.cat([ge, torch.zeros_like(ge[..., :1])], dim=-1)
+    n_above = ge_pad.gather(-1, (t + 1)[..., None])[..., 0]
+    need = budget - n_above
+    above = s > t[..., None]
+    at_t = s == t[..., None]
+    rev_rank = at_t.int().flip(-1).cumsum(-1).flip(-1)      # 1 = newest tie
+    eligible = above | (at_t & (rev_rank <= need[..., None]))
+    n_sel = eligible.sum(-1)
+    pos = torch.arange(nk, dtype=torch.int32, device=s.device)
+    key = torch.where(eligible, pos, nk)
+    idx = torch.topk(key, l, dim=-1, largest=False, sorted=True).values
+    idx = torch.clamp(idx, max=nk - 1).to(torch.int32)
+    targets = torch.arange(1, l + 1, device=s.device)
+    return idx, targets <= n_sel[..., None]
+
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """(nq, nk) bool validity mask built from positions."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+def _kv_rows(b: int, hk: int, hsel: int, device) -> torch.Tensor:
+    """(B, Hsel) row of the flattened (B*Hk) kv-head axis serving each
+    selection head (Hsel = Hq: query head h reads kv head h // R)."""
+    r = hsel // hk
+    heads = torch.arange(hsel, device=device) // r
+    return torch.arange(b, device=device)[:, None] * hk + heads[None, :]
+
+
+def _masked_softmax(logits: torch.Tensor, valid: torch.Tensor
+                    ) -> torch.Tensor:
+    logits = torch.where(valid, logits, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.where(valid, w, 0.0)                       # all-invalid -> 0
+
+
+def attention_from_indices(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           indices: torch.Tensor, valid: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """Gather-based sparse attention.  q: (B, Hq, nq, d); k, v: (B, Hk,
+    nk, d); indices/valid: (B, Hq, nq, L) key positions per query head.
+    Only the gathered (B, Hq, nq, L, d) rows are built; the cache is never
+    repeated across query heads."""
+    b, hq, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    l = indices.shape[-1]
+    rows = _kv_rows(b, hk, hq, q.device)[:, :, None, None] * nk
+    flat = (rows + indices.long()).reshape(-1)
+    k_sel = k.reshape(b * hk * nk, d).index_select(0, flat)
+    v_sel = v.reshape(b * hk * nk, d).index_select(0, flat)
+    k_sel = k_sel.reshape(b, hq, nq, l, d)
+    v_sel = v_sel.reshape(b, hq, nq, l, d)
+    logits = torch.einsum("bhnd,bhnld->bhnl", q.float(), k_sel.float())
+    w = _masked_softmax(logits * scale, valid)
+    return torch.einsum("bhnl,bhnld->bhnd", w.to(v.dtype), v_sel)
+
+
+def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               codebooks: torch.Tensor, cfg: SparseAttentionConfig,
+               scale: float, causal: bool = True,
+               window: Optional[int] = None, q_offset: int = 0,
+               seq_lengths: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """Algorithm 1 for a (possibly GQA) layer, train/prefill form.
+
+    q: (B, Hq, nq, d); k, v: (B, Hk, nk, d).  seq_lengths: optional (B,)
+    real lengths of a right-padded ragged batch; each row then selects with
+    the budget top_l(seq_lengths[b]) its exact-length prefill would have
+    (the causal mask already hides the pad keys from real queries).
+    Selection and gather run per query chunk, so the live gather buffer is
+    (B, H, chunk, L, d).  Returns (out (B, Hq, nq, d), {"l": L})."""
+    b, hq, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    r = hq // hk
+    m = codebooks.shape[0]
+    l = top_l(nk, cfg, window)
+    l_dyn = (None if seq_lengths is None
+             else top_l_dyn(seq_lengths, cfg, window).reshape(b, 1, 1))
+    codes_q = pq.assign(q, codebooks)                       # (B, Hq, nq, M)
+    codes_k = pq.assign(k, codebooks)                       # (B, Hk, nk, M)
+    k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
+    kvgroup = cfg.select_granularity == "kvgroup"
+    max_s = cfg.pq.num_books * (r if kvgroup else 1)
+    chunk = min(cfg.chunk_q, nq)
+    if nq % chunk:
+        chunk = nq
+    outs = []
+    for start in range(0, nq, chunk):
+        q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
+                                                device=q.device)
+        mask = attention_mask(q_pos, k_pos, causal, window)
+        cqc = codes_q[:, :, start:start + chunk].reshape(b, hk, r, chunk, m)
+        s = pq.match_scores(cqc, codes_k[:, :, None], cfg.pq.num_codewords)
+        s = s.sum(2) if kvgroup else s.reshape(b, hq, chunk, nk)
+        idx, vld = bucket_select(s, mask[None, None], l, max_s, l_dyn=l_dyn)
+        if kvgroup:                              # broadcast to query heads
+            idx = idx.repeat_interleave(r, dim=1)
+            vld = vld.repeat_interleave(r, dim=1)
+        outs.append(attention_from_indices(
+            q[:, :, start:start + chunk], k, v, idx, vld, scale))
+    return torch.cat(outs, dim=2), {"l": l}
+
+
+def _decode_attention_from_indices(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, indices: torch.Tensor,
+                                   valid: torch.Tensor, scale: float
+                                   ) -> torch.Tensor:
+    """Single-token gather attention grouped by kv head.  q: (B, Hq, 1,
+    d); k, v: (B, Hk, S, d); indices/valid: (B, Hsel, 1, L) with Hsel = Hk
+    ("kvgroup") or Hq ("qhead")."""
+    b, hq, _, d = q.shape
+    _, hk, s, _ = k.shape
+    r = hq // hk
+    l = indices.shape[-1]
+    rsel = indices.shape[1] // hk
+    rows = _kv_rows(b, hk, hk, q.device)[:, :, None] * s
+    flat = (rows + indices.reshape(b, hk, rsel * l).long()).reshape(-1)
+    k_sel = k.reshape(b * hk * s, d).index_select(0, flat)
+    v_sel = v.reshape(b * hk * s, d).index_select(0, flat)
+    k_sel = k_sel.reshape(b, hk, rsel, l, d)
+    v_sel = v_sel.reshape(b, hk, rsel, l, d)
+    qg = q.reshape(b, hk, r, d).float()
+    vld = valid.reshape(b, hk, rsel, l)
+    if rsel == 1:                        # selection shared by the R heads
+        k_sel, v_sel = k_sel[:, :, 0], v_sel[:, :, 0]
+        logits = torch.einsum("bgrd,bgld->bgrl", qg, k_sel.float())
+    else:
+        logits = torch.einsum("bgrd,bgrld->bgrl", qg, k_sel.float())
+    w = _masked_softmax(logits * scale, vld).to(v.dtype)
+    eq = "bgrl,bgld->bgrd" if rsel == 1 else "bgrl,bgrld->bgrd"
+    return torch.einsum(eq, w, v_sel).reshape(b, hq, 1, d)
+
+
+def sparse_mha_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, codes_cache: torch.Tensor,
+                      codebooks: torch.Tensor, cfg: SparseAttentionConfig,
+                      scale: float, kv_valid: torch.Tensor) -> torch.Tensor:
+    """One-token decode over the cached keys' codes (the kernel's oracle).
+
+    q: (B, Hq, 1, d); caches: (B, Hk, S, d); codes_cache: (B, Hk, S, M);
+    kv_valid: (B, S) bool.  GQA broadcasting is by reshape only."""
+    b, hq, _, d = q.shape
+    _, hk, s, _ = k_cache.shape
+    r = hq // hk
+    l = top_l(s, cfg, None)
+    codes_q = pq.assign(q, codebooks)                       # (B, Hq, 1, M)
+    cq = codes_q.reshape(b, hk, r, 1, -1)
+    scores = pq.match_scores(cq, codes_cache[:, :, None],
+                             cfg.pq.num_codewords)          # (B,Hk,R,1,S)
+    kvgroup = cfg.select_granularity == "kvgroup"
+    scores = scores.sum(2) if kvgroup else scores.reshape(b, hq, 1, s)
+    max_s = cfg.pq.num_books * (r if kvgroup else 1)
+    idx, vld = bucket_select(scores, kv_valid[:, None, None, :], l, max_s)
+    return _decode_attention_from_indices(q, k_cache, v_cache, idx, vld,
+                                          scale)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    kv_valid: Optional[torch.Tensor] = None,
+                    chunk_q: int = 512) -> torch.Tensor:
+    """Dense (Full/LoRA baseline) attention, query-chunked, GQA-aware.
+    kv_valid: optional (B, nk) bool for decode-style masking."""
+    b, hq, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    r = hq // hk
+    qf = q.reshape(b, hk, r, nq, d)
+    k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
+    chunk = min(chunk_q, nq)
+    if nq % chunk:
+        chunk = nq
+    outs = []
+    for start in range(0, nq, chunk):
+        q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
+                                                device=q.device)
+        mask = attention_mask(q_pos, k_pos, causal, window)
+        if kv_valid is not None:
+            mask = (mask[None] & kv_valid[:, None, :])[:, None, None]
+        logits = torch.einsum("bgrnd,bgmd->bgrnm",
+                              qf[:, :, :, start:start + chunk].float(),
+                              k.float()) * scale
+        logits = torch.where(mask, logits, float("-inf"))
+        w = torch.softmax(logits, dim=-1)
+        w = torch.where(torch.isfinite(logits).any(-1, keepdim=True), w, 0.0)
+        outs.append(torch.einsum("bgrnm,bgmd->bgrnd", w.to(v.dtype), v))
+    return torch.cat(outs, dim=3).reshape(b, hq, nq, d)

@@ -1,0 +1,179 @@
+"""Public routed-FFN ops (serving; inference-only).
+
+``routed_ffn`` (prefill): route + capacity plan in plain torch, then the
+grouped-FFN CUDA kernel runs the grouped products (LoRA included) with the
+token gather inside the kernel, so the (B, G, C, d) dispatch buffer never
+exists in device memory; the combine scatter-add stays in torch, as it
+stays jnp in JAX.  ``routed_ffn_decode`` (x of shape (B, 1, d)): no plan
+at all — the top-G' choices index the weight blocks inside the decode
+kernel.  The training slice adds the autograd Function (kernel forward,
+reference backward) that JAX's custom_vjp provides.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import dispatch, lora
+from repro_torch.core.routed_ffn import RoutedFFNConfig, plan_for, route
+from repro_torch.kernels.routed_ffn.ref import decode_ffn_ref, grouped_ffn_ref
+
+_LORA_KEYS = ("lora_inner", "lora_gate", "lora_outer")
+
+
+def _lora_ptrs(lora_params, gated: bool):
+    """Pointers of the six f32 LoRA leaves in launcher order (0 = absent)
+    and the rank, checked for the kernels' contract."""
+    if lora_params is None:
+        return [None] * 6, 0
+    leaves = [lora_params["lora_inner"]["b"], lora_params["lora_inner"]["c"]]
+    if gated:
+        leaves += [lora_params["lora_gate"]["b"],
+                   lora_params["lora_gate"]["c"]]
+    else:
+        leaves += [None, None]
+    leaves += [lora_params["lora_outer"]["b"], lora_params["lora_outer"]["c"]]
+    for t in leaves:
+        if t is not None and (t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise TypeError("LoRA leaves must be contiguous float32")
+    ptrs = [None if t is None else t.data_ptr() for t in leaves]
+    return ptrs, lora_params["lora_inner"]["b"].shape[-1]
+
+
+def _check_weights(name, x, w_inner, w_outer, w_gate):
+    ws = [w_inner, w_outer] + ([w_gate] if w_gate is not None else [])
+    kernels.require_cuda(name, x, *ws)
+    if any(w.dtype != x.dtype for w in ws):
+        raise TypeError(f"{name}: weights must have x's dtype {x.dtype}")
+
+
+def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
+                w_outer: torch.Tensor, w_gate: Optional[torch.Tensor] = None,
+                lora_params: Optional[dict] = None, lora_scale: float = 1.0,
+                *, act: str = "relu") -> torch.Tensor:
+    """x: (B, S, d); index: (B, G, C) int32 plan (S = empty slot);
+    w_inner/w_gate: (G, d, F); w_outer: (G, F, d).  Returns y (B, G, C, d)
+    in x's dtype; empty slots hold finite rows that ``dispatch.combine``
+    drops.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (csrc/grouped_ffn.cu)."""
+    if x.device.type == "cpu":
+        return grouped_ffn_ref(x, index, w_inner, w_outer, w_gate,
+                               lora_params, lora_scale, act)
+    name = "grouped_ffn"
+    _check_weights(name, x, w_inner, w_outer, w_gate)
+    kernels.require_cuda(name, x, index)
+    b, s, d = x.shape
+    _, g, c = index.shape
+    f = w_inner.shape[-1]
+    if (index.dtype != torch.int32 or w_inner.shape != (g, d, f)
+            or w_outer.shape != (g, f, d)):
+        raise ValueError(f"{name}: inconsistent shapes or index dtype")
+    lp, r = _lora_ptrs(lora_params, w_gate is not None)
+    y = torch.empty((b, g, c, d), dtype=x.dtype, device=x.device)
+    err = kernels.library().repro_grouped_ffn(
+        kernels.dtype_code(x), x.data_ptr(), index.data_ptr(),
+        w_inner.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
+        w_outer.data_ptr(), *lp, y.data_ptr(), b, s, d, g, c, f, r,
+        float(lora_scale), kernels.act_code(act), kernels.stream_ptr())
+    kernels.check(err, name)
+    grouped_ffn.launches += 1
+    return y
+
+
+grouped_ffn.launches = 0
+
+
+def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
+               w_inner: torch.Tensor, w_outer: torch.Tensor,
+               w_gate: Optional[torch.Tensor] = None,
+               lora_params: Optional[dict] = None, lora_scale: float = 1.0,
+               *, act: str = "relu") -> torch.Tensor:
+    """x: (B, d); choice: (B, G') int32; gate: (B, G') f32.  Returns y
+    (B, d) in x's dtype.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/decode_ffn.cu: hidden pass + output pass, the
+    sum over G' in a fixed order)."""
+    if x.device.type == "cpu":
+        return decode_ffn_ref(x, choice, gate, w_inner, w_outer, w_gate,
+                              lora_params, lora_scale, act)
+    name = "decode_ffn"
+    _check_weights(name, x, w_inner, w_outer, w_gate)
+    kernels.require_cuda(name, x, choice, gate)
+    b, d = x.shape
+    ga = choice.shape[1]
+    f = w_inner.shape[-1]
+    if (choice.dtype != torch.int32 or gate.dtype != torch.float32
+            or gate.shape != choice.shape or w_inner.shape[1] != d):
+        raise ValueError(f"{name}: inconsistent shapes or dtypes")
+    if d % 8 or f % 8:
+        raise ValueError(f"{name}: d={d} and F={f} must be multiples of 8 "
+                         "(16-byte weight rows)")
+    lp, r = _lora_ptrs(lora_params, w_gate is not None)
+    h = torch.empty((b, ga, f), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, d), dtype=x.dtype, device=x.device)
+    err = kernels.library().repro_decode_ffn(
+        kernels.dtype_code(x), x.data_ptr(), choice.data_ptr(),
+        gate.data_ptr(), w_inner.data_ptr(),
+        None if w_gate is None else w_gate.data_ptr(), w_outer.data_ptr(),
+        *lp, h.data_ptr(), y.data_ptr(), b, d, ga, f, r, float(lora_scale),
+        kernels.act_code(act), kernels.stream_ptr())
+    kernels.check(err, name)
+    decode_ffn.launches += 1
+    return y
+
+
+decode_ffn.launches = 0
+
+
+def _lora_tree(p, lora_cfg) -> Optional[dict]:
+    if lora_cfg.enabled and "lora_inner" in p:
+        return {k: p[k] for k in _LORA_KEYS if k in p}
+    return None
+
+
+def _gate_w(p, cfg: RoutedFFNConfig):
+    return p["w_gate"] if cfg.gated else None
+
+
+def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
+               lora_cfg: lora.LoRAConfig, *, need_aux: bool = True,
+               seq_lengths: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Drop-in for core.routed_ffn.routed_ffn (grouped semantics) through
+    the grouped-FFN kernel.  seq_lengths gives right-padded ragged prefill
+    rows their exact-length dispatch capacity."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    b, s, d = x.shape
+    choice, gate_w, probs = route(x, p["router"], cfg, need_aux=need_aux)
+    plan = plan_for(x, choice, gate_w, cfg, seq_lengths)
+    y = grouped_ffn(x.contiguous(), plan.index, p["w_inner"], p["w_outer"],
+                    _gate_w(p, cfg), _lora_tree(p, lora_cfg), lora_cfg.scale,
+                    act=cfg.activation)
+    out = dispatch.combine(y, plan, s)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": (dispatch.load_balance_loss(probs, choice,
+                                                  cfg.num_groups)
+                       if need_aux else zero),
+           "dropped": plan.dropped}
+    return (out[0] if squeeze else out), aux
+
+
+def routed_ffn_decode(x: torch.Tensor, p, cfg: RoutedFFNConfig,
+                      lora_cfg: lora.LoRAConfig
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode-shaped routed FFN: x (B, 1, d) (or (B, d)) -> same shape.
+    Aux is zeros (no load-balance term at serving time)."""
+    squeeze = x.dim() == 2
+    x3 = x[:, None] if squeeze else x
+    choice, gate_w, _ = route(x3, p["router"], cfg, need_aux=False)
+    y = decode_ffn(x3[:, 0].contiguous(), choice[:, 0].contiguous(),
+                   gate_w[:, 0].contiguous(), p["w_inner"], p["w_outer"],
+                   _gate_w(p, cfg), _lora_tree(p, lora_cfg), lora_cfg.scale,
+                   act=cfg.activation)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "dropped": zero}
+    return (y if squeeze else y[:, None]), aux

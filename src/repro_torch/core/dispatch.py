@@ -115,6 +115,12 @@ def kernels_disabled() -> bool:
         not in ("", "0", "false")
 
 
+def use_sparse_attn_kernel(cfg) -> bool:
+    """Train/prefill sparse MHA through the fused CUDA kernels (PQ
+    assignment, top-L thresholds, thresholded attention)?"""
+    return cfg.spt.attn_impl == "pallas" and not kernels_disabled()
+
+
 def use_sparse_decode_kernel(cfg) -> bool:
     """Sparse-MHA decode through the fused CUDA kernel?  decode_attn_impl
     "auto" follows attn_impl ("pallas" = kernel)."""

@@ -121,6 +121,74 @@ def from_numpy_tree(tree: Tree, device, dtype_map: Optional[Mapping] = None
     return conv(tree)
 
 
+def trainable_mask(tree: Tree) -> Tree:
+    """Boolean tree: True for trainable leaves (LoRA/router/codebooks)."""
+    return _map_defs(lambda d: d.trainable, tree)
+
+
+def partition(tree: Tree, mask: Tree) -> Tuple[Tree, Tree]:
+    """Split a value tree into (selected, rest) by a bool tree of the same
+    dict structure; unselected positions become None, so gradients are
+    only ever taken over the selected tree."""
+    def pick(t, m, keep):
+        if isinstance(t, Mapping):
+            return {k: pick(t[k], m[k], keep) for k in t}
+        return t if bool(m) == keep else None
+    return pick(tree, mask, True), pick(tree, mask, False)
+
+
+def combine(a: Tree, b: Tree) -> Tree:
+    """Inverse of :func:`partition`."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if not (isinstance(a, Mapping) and isinstance(b, Mapping)):
+        raise ValueError("combine: two leaves at one position")
+    return {k: combine(a.get(k), b.get(k)) for k in set(a) | set(b)}
+
+
+def leaves(tree: Tree, path: Tuple[str, ...] = ()):
+    """(path, leaf) pairs of a value tree (nested dicts or a ParamTree) in
+    sorted-path order, None positions skipped."""
+    if isinstance(tree, (Mapping, ParamTree)):
+        for k in sorted(tree.keys()):
+            yield from leaves(tree[k], path + (k,))
+    elif tree is not None:
+        yield path, tree
+
+
+def unflatten(paths, values) -> dict:
+    """The nested dict holding ``values`` at ``paths`` (inverse of
+    :func:`leaves`)."""
+    out: dict = {}
+    for path, v in zip(paths, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def from_numpy_state(state: Mapping, device,
+                     dtype_map: Optional[Mapping] = None) -> dict:
+    """A JAX train state ``{step, train, frozen, opt: {m, v}}`` given as
+    numpy arrays (None for the empty positions of the partition) -> the
+    port's state of the same layout on ``device``: ``step`` an int32
+    scalar tensor, every other leaf as ``from_numpy_tree`` loads it."""
+    def conv(t):
+        if t is None:
+            return None
+        if isinstance(t, Mapping):
+            return {k: conv(v) for k, v in t.items()}
+        return from_numpy_tree({"x": t}, device, dtype_map)["x"]
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device),
+            "train": conv(state["train"]), "frozen": conv(state["frozen"]),
+            "opt": {"m": conv(state["opt"]["m"]),
+                    "v": conv(state["opt"]["v"])}}
+
+
 class ParamTree(nn.Module):
     """A nested parameter dict as an nn.Module: ``p["wq"]["w"]`` and
     ``"lora" in p`` work as on the dict, and ``parameters()`` /
@@ -146,6 +214,9 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, k: str):
         return getattr(self, k)
+
+    def keys(self):
+        return [*self._modules, *self._parameters]
 
     def __contains__(self, k: str) -> bool:
         return k in self._modules or k in self._parameters

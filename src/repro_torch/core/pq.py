@@ -7,6 +7,7 @@ codewords (paper Eq. 6): s(q, k) = sum_m 1[t_q^m == t_k^m] in {0..M}.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -39,6 +40,12 @@ def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Nearest codeword per sub-vector, in the JAX form ||c||^2 - 2 x.c
     (||x||^2 is constant over the argmin) computed in float32.
 
+    The sums over d' run in a fixed order, one rounded multiply and one
+    rounded add per term (j = 0 .. d'-1), which the PQ assignment CUDA
+    kernel repeats, so the two give equal codes on any device; JAX's
+    einsum sums in another order, so codes can differ from JAX's only
+    where two distances tie within rounding.
+
     x: (..., n, d) with d = M * d'; codebooks: (M, E, d')
     returns codes (..., n, M) int32 in [0, E)
     """
@@ -49,10 +56,27 @@ def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
                          f"{tuple(codebooks.shape)}")
     xs = x.reshape(*lead, n, m, dp).float()
     cb = codebooks.float()
-    dots = torch.einsum("...nmd,med->...nme", xs, cb)
-    c2 = (cb * cb).sum(-1)                                  # (M, E)
+    dots = xs[..., 0:1] * cb[..., 0]                       # (..., n, M, E)
+    c2 = cb[..., 0] * cb[..., 0]                           # (M, E)
+    for j in range(1, dp):
+        dots = dots + xs[..., j:j + 1] * cb[..., j]
+        c2 = c2 + cb[..., j] * cb[..., j]
     dist = c2 - 2.0 * dots
     return dist.argmin(-1).to(torch.int32)
+
+
+def quantization_error(x: torch.Tensor, codebooks: torch.Tensor,
+                       codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean squared distance between vectors and their codewords (the DKM
+    error of the ``qerr`` aux loss), f32.  x: (..., n, d)."""
+    m, e, dp = codebooks.shape
+    *lead, n, d = x.shape
+    if codes is None:
+        codes = assign(x, codebooks)
+    xs = x.reshape(*lead, n, m, dp).float()
+    books = torch.arange(m, device=x.device)
+    sel = codebooks.float()[books, codes.long()]            # (..., n, M, d')
+    return ((xs - sel) ** 2).sum(-1).mean()
 
 
 def match_scores(codes_q: torch.Tensor, codes_k: torch.Tensor,

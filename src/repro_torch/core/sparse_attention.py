@@ -17,6 +17,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import pq
 
@@ -142,7 +143,7 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                scale: float, causal: bool = True,
                window: Optional[int] = None, q_offset: int = 0,
                seq_lengths: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict[str, int]]:
+               ) -> Tuple[torch.Tensor, Dict[str, object]]:
     """Algorithm 1 for a (possibly GQA) layer, train/prefill form.
 
     q: (B, Hq, nq, d); k, v: (B, Hk, nk, d).  seq_lengths: optional (B,)
@@ -150,7 +151,8 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the budget top_l(seq_lengths[b]) its exact-length prefill would have
     (the causal mask already hides the pad keys from real queries).
     Selection and gather run per query chunk, so the live gather buffer is
-    (B, H, chunk, L, d).  Returns (out (B, Hq, nq, d), {"l": L})."""
+    (B, H, chunk, L, d).  Returns (out (B, Hq, nq, d), aux {"l": L, and
+    "qerr" when cfg.qerr_loss_weight > 0})."""
     b, hq, nq, d = q.shape
     _, hk, nk, _ = k.shape
     r = hq // hk
@@ -166,8 +168,8 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk = min(cfg.chunk_q, nq)
     if nq % chunk:
         chunk = nq
-    outs = []
-    for start in range(0, nq, chunk):
+
+    def chunk_fn(start, q, k, v):
         q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
                                                 device=q.device)
         mask = attention_mask(q_pos, k_pos, causal, window)
@@ -178,9 +180,22 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if kvgroup:                              # broadcast to query heads
             idx = idx.repeat_interleave(r, dim=1)
             vld = vld.repeat_interleave(r, dim=1)
-        outs.append(attention_from_indices(
-            q[:, :, start:start + chunk], k, v, idx, vld, scale))
-    return torch.cat(outs, dim=2), {"l": l}
+        return attention_from_indices(q[:, :, start:start + chunk], k, v,
+                                      idx, vld, scale)
+
+    # Under autograd each chunk is checkpointed: its (chunk, L, d) gathers
+    # are recomputed in backward instead of kept for all chunks, so O(n L d)
+    # stays live chunk-wise (JAX: jax.checkpoint(chunk_fn)).
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    outs = [checkpoint(chunk_fn, start, q, k, v, use_reentrant=False,
+                       preserve_rng_state=False) if remat
+            else chunk_fn(start, q, k, v) for start in range(0, nq, chunk)]
+    aux: Dict[str, object] = {"l": l}
+    if cfg.qerr_loss_weight > 0:
+        aux["qerr"] = (pq.quantization_error(q, codebooks, codes_q)
+                       + pq.quantization_error(k, codebooks, codes_k))
+    return torch.cat(outs, dim=2), aux
 
 
 def _decode_attention_from_indices(q: torch.Tensor, k: torch.Tensor,

@@ -38,6 +38,11 @@ SIGNATURES = {
                                   + [_F, _I, _I, _P]),
     "repro_grouped_ffn": [_I] + [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "repro_decode_ffn": [_I] + [_P] * 14 + [_I] * 5 + [_F, _I, _P],
+    "repro_pq_assign": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 3
+                       + [_P],
+    "repro_topl_thresholds": [_P] * 3 + [_I] * 11 + [_P],
+    "repro_sparse_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
+                              + [_P],
 }
 
 _lock = threading.Lock()
@@ -127,6 +132,14 @@ def require_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: needs contiguous inputs")
 
 
+def require_aligned(name: str, *tensors) -> None:
+    """Row-vector loads need 16-byte aligned data (a contiguous view may
+    start inside its storage)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: needs 16-byte aligned inputs")
+
+
 def act_code(act: str) -> int:
     return {"relu": 0, "gelu": 1, "silu": 2}[act]
 
@@ -139,7 +152,10 @@ def stream_ptr() -> int:
 def wrappers():
     """The launching wrappers of every ported kernel (their ``launches``
     counters are what a run reads to show it went through the kernels)."""
+    from repro_torch.kernels.pq_quantize import ops as pq_ops
     from repro_torch.kernels.routed_ffn import ops as rffn_ops
     from repro_torch.kernels.sparse_attention import ops as sa_ops
-    return [sa_ops.fused_sparse_decode_attention, rffn_ops.grouped_ffn,
-            rffn_ops.decode_ffn]
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    return [pq_ops.pq_assign, topl_ops.topl_thresholds,
+            sa_ops.sparse_attention, sa_ops.fused_sparse_decode_attention,
+            rffn_ops.grouped_ffn, rffn_ops.decode_ffn]

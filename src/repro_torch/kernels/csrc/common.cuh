@@ -62,4 +62,45 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// PQ codes of one query row in registers (books past M hold -1, which
+// no code equals), read from codes[(row) * M].
+template <int M_MAX>
+__device__ __forceinline__ void load_query_codes(const int32_t* row, int M,
+                                                 int (&qc)[M_MAX]) {
+#pragma unroll
+  for (int m = 0; m < M_MAX; ++m) qc[m] = m < M ? row[m] : -1;
+}
+
+// Match count s(q, k) = #{m : code_q[m] == code_k[m]} (paper Eq. 6),
+// exact integer compares over the M books of one key row.  With VEC the
+// row is read as 16-byte vectors (M % 4 == 0, 16-byte aligned rows): a
+// warp reading 32 rows then issues M / 4 loads instead of M.
+template <int M_MAX, bool VEC>
+__device__ __forceinline__ int match_count(const int32_t* key_row, int M,
+                                           const int (&qc)[M_MAX]) {
+  int s = 0;
+  if constexpr (VEC) {
+    const int4* r4 = reinterpret_cast<const int4*>(key_row);
+#pragma unroll
+    for (int c = 0; c < M_MAX / 4; ++c) {
+      if (4 * c < M) {
+        const int4 v = __ldg(r4 + c);
+        s += (v.x == qc[4 * c]) + (v.y == qc[4 * c + 1]) +
+             (v.z == qc[4 * c + 2]) + (v.w == qc[4 * c + 3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < M_MAX; ++m)
+      if (m < M) s += key_row[m] == qc[m];
+  }
+  return s;
+}
+
+// The kv group serving query group g = b * hq + h (GQA, rep query heads
+// per kv head): b * (hq / rep) + h / rep.
+__device__ __forceinline__ int kv_group(int g, int hq, int rep) {
+  return (g / hq) * (hq / rep) + (g % hq) / rep;
+}
+
 }  // namespace repro

@@ -1,13 +1,18 @@
-"""Public routed-FFN ops (serving; inference-only).
+"""Public routed-FFN ops.
 
-``routed_ffn`` (prefill): route + capacity plan in plain torch, then the
-grouped-FFN CUDA kernel runs the grouped products (LoRA included) with the
-token gather inside the kernel, so the (B, G, C, d) dispatch buffer never
-exists in device memory; the combine scatter-add stays in torch, as it
-stays jnp in JAX.  ``routed_ffn_decode`` (x of shape (B, 1, d)): no plan
-at all — the top-G' choices index the weight blocks inside the decode
-kernel.  The training slice adds the autograd Function (kernel forward,
-reference backward) that JAX's custom_vjp provides.
+``routed_ffn`` (train / prefill): route + capacity plan in plain torch,
+then the grouped-FFN CUDA kernel runs the grouped products (LoRA
+included) with the token gather inside the kernel, so the (B, G, C, d)
+dispatch buffer never exists in device memory; the combine scatter-add
+stays in torch, as it stays jnp in JAX.  Under autograd it runs in a
+``torch.autograd.Function`` whose backward differentiates the reference
+grouped path (``core.routed_ffn.routed_ffn(impl="grouped")``): the same
+routing plan, so the same function — the JAX custom_vjp's contract.  The
+ragged ``seq_lengths`` form is serving-only: it bypasses the Function and
+raises under grad instead of dropping the capacity override.
+
+``routed_ffn_decode`` (x of shape (B, 1, d)): no plan at all — the top-G'
+choices index the weight blocks inside the decode kernel.  Inference-only.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import dispatch, lora
+from repro_torch.core.params import leaves, unflatten
 from repro_torch.core.routed_ffn import RoutedFFNConfig, plan_for, route
+from repro_torch.core.routed_ffn import routed_ffn as routed_ffn_core
 from repro_torch.kernels.routed_ffn.ref import decode_ffn_ref, grouped_ffn_ref
 
 _LORA_KEYS = ("lora_inner", "lora_gate", "lora_outer")
@@ -137,28 +144,83 @@ def _gate_w(p, cfg: RoutedFFNConfig):
     return p["w_gate"] if cfg.gated else None
 
 
-def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
-               lora_cfg: lora.LoRAConfig, *, need_aux: bool = True,
-               seq_lengths: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Drop-in for core.routed_ffn.routed_ffn (grouped semantics) through
-    the grouped-FFN kernel.  seq_lengths gives right-padded ragged prefill
-    rows their exact-length dispatch capacity."""
-    squeeze = x.dim() == 2
-    if squeeze:
-        x = x[None]
-    b, s, d = x.shape
+def _forward(x: torch.Tensor, p, cfg: RoutedFFNConfig,
+             lora_cfg: lora.LoRAConfig, need_aux: bool,
+             seq_lengths: Optional[torch.Tensor] = None):
+    """Route, plan, the grouped kernel, combine: (out, lb_loss, dropped)."""
+    s = x.shape[1]
     choice, gate_w, probs = route(x, p["router"], cfg, need_aux=need_aux)
     plan = plan_for(x, choice, gate_w, cfg, seq_lengths)
     y = grouped_ffn(x.contiguous(), plan.index, p["w_inner"], p["w_outer"],
                     _gate_w(p, cfg), _lora_tree(p, lora_cfg), lora_cfg.scale,
                     act=cfg.activation)
     out = dispatch.combine(y, plan, s)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": (dispatch.load_balance_loss(probs, choice,
-                                                  cfg.num_groups)
-                       if need_aux else zero),
-           "dropped": plan.dropped}
+    lb = (dispatch.load_balance_loss(probs, choice, cfg.num_groups)
+          if need_aux else torch.zeros((), dtype=torch.float32,
+                                       device=x.device))
+    return out, lb, plan.dropped
+
+
+class _RoutedFFN(torch.autograd.Function):
+    """Kernel forward, reference backward (JAX: ``_op`` / ``_bwd``).  The
+    leaves of ``p`` are separate tensor arguments so that autograd sees
+    each; ``dropped`` is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, lora_cfg, need_aux, paths, *values):
+        out, lb, dropped = _forward(x, unflatten(paths, values), cfg,
+                                    lora_cfg, need_aux)
+        ctx.save_for_backward(x, *values)
+        ctx.args = (cfg, lora_cfg, need_aux, paths)
+        ctx.mark_non_differentiable(dropped)
+        return out, lb, dropped
+
+    @staticmethod
+    def backward(ctx, g_out, g_lb, _g_dropped):
+        x, *values = ctx.saved_tensors
+        cfg, lora_cfg, need_aux, paths = ctx.args
+        want = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w)
+                      for t, w in zip([x, *values], want)]
+            out, aux = routed_ffn_core(
+                inputs[0], unflatten(paths, inputs[1:]), cfg, lora_cfg,
+                impl="grouped", need_aux=need_aux)
+            outs, cts = [out], [g_out]
+            if need_aux and aux["lb_loss"].requires_grad:
+                outs.append(aux["lb_loss"])
+                cts.append(g_lb)
+            wrt = [t for t, w in zip(inputs, want) if w]
+            got = iter(torch.autograd.grad(outs, wrt, cts, allow_unused=True))
+        grads = [next(got) if w else None for w in want]
+        grads = [torch.zeros_like(t) if w and gr is None else gr
+                 for t, w, gr in zip([x, *values], want, grads)]
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
+def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
+               lora_cfg: lora.LoRAConfig, *, need_aux: bool = True,
+               seq_lengths: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Drop-in for core.routed_ffn.routed_ffn (grouped semantics) through
+    the grouped-FFN kernel.  seq_lengths gives right-padded ragged prefill
+    rows their exact-length dispatch capacity (forward only)."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    if seq_lengths is not None:
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(t.requires_grad
+                                       for _, t in leaves(p))):
+            raise RuntimeError("routed_ffn: the ragged seq_lengths path "
+                               "is forward-only (serving)")
+        out, lb, dropped = _forward(x, p, cfg, lora_cfg, need_aux,
+                                    seq_lengths)
+    else:
+        paths, values = zip(*leaves(p))
+        out, lb, dropped = _RoutedFFN.apply(x, cfg, lora_cfg, need_aux,
+                                            paths, *values)
+    aux = {"lb_loss": lb, "dropped": dropped}
     return (out[0] if squeeze else out), aux
 
 

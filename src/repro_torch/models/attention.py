@@ -130,19 +130,25 @@ def kv_valid_mask(cache: dict, q_pos, window: Optional[int]
 def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, causal: bool, window: Optional[int],
            q_offset: int = 0, seq_lengths: Optional[torch.Tensor] = None
-           ) -> torch.Tensor:
-    """Full-sequence attention (train/prefill), sparse or dense.  The
-    sparse form is the core/ gather path (with per-row budgets for ragged
-    prefill); the fused train/prefill kernels arrive with the training
-    slice."""
+           ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence attention (train/prefill), sparse or dense; returns
+    (out, aux).  Sparse MHA takes the fused CUDA kernels when
+    ``dispatch.use_sparse_attn_kernel`` says so and the rows are not
+    ragged; ragged prefill (``seq_lengths``: per-row top-L budgets) always
+    takes the core/ gather path, as in the JAX package."""
     scale = cfg.resolved_head_dim ** -0.5
-    if sparse_applicable(cfg):
-        out, _ = sa.sparse_mha(q, k, v, p["pq"]["codebooks"], _sa_config(cfg),
-                               scale, causal=causal, window=window,
-                               q_offset=q_offset, seq_lengths=seq_lengths)
-        return out
-    return sa.dense_attention(q, k, v, scale, causal=causal, window=window,
-                              q_offset=q_offset, chunk_q=cfg.spt.chunk_q)
+    if not sparse_applicable(cfg):
+        return sa.dense_attention(q, k, v, scale, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  chunk_q=cfg.spt.chunk_q), {}
+    args = (q, k, v, p["pq"]["codebooks"], _sa_config(cfg), scale)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if seq_lengths is not None:
+        return sa.sparse_mha(*args, seq_lengths=seq_lengths, **kw)
+    if dispatch.use_sparse_attn_kernel(cfg):
+        from repro_torch.kernels.sparse_attention import ops as sa_ops
+        return sa_ops.sparse_mha(*args, **kw)
+    return sa.sparse_mha(*args, **kw)
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
@@ -150,11 +156,11 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                cache: Optional[dict] = None, pos=None,
                kv_valid: Optional[torch.Tensor] = None,
                seq_lengths: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (y, cache).  x: (B, S, d_model).  pos: absolute position of
-    x[:, 0], an int or a (B,) tensor (ragged decode slots).  kv_valid:
-    decode only, the engine's (B, S_cache) slot validity; without it the
-    mask is derived from the cache's slot_pos."""
+               ) -> Tuple[torch.Tensor, Optional[dict], dict]:
+    """Returns (y, cache, aux).  x: (B, S, d_model).  pos: absolute
+    position of x[:, 0], an int or a (B,) tensor (ragged decode slots).
+    kv_valid: decode only, the engine's (B, S_cache) slot validity;
+    without it the mask is derived from the cache's slot_pos."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     lc = cfg.spt.lora
@@ -172,9 +178,10 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
         q = layers.apply_rope(q, pos_q, cfg.rope_theta)
         k = layers.apply_rope(k, pos_q, cfg.rope_theta)
 
+    aux: dict = {}
     if mode in ("train", "prefill"):
-        out = attend(p, cfg, q, k, v, causal, window,
-                     seq_lengths=seq_lengths)
+        out, aux = attend(p, cfg, q, k, v, causal, window,
+                          seq_lengths=seq_lengths)
         if mode == "prefill":
             cache = write_cache(cache, cfg, p, k, v, pos_q)
     elif mode == "decode":
@@ -205,4 +212,4 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
         raise ValueError(mode)
 
     out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * hd)
-    return lora.linear(out, p["wo"], lc), cache
+    return lora.linear(out, p["wo"], lc), cache, aux

@@ -6,19 +6,26 @@ The parameter tree keeps the JAX layout — ``{"embed", "final_norm",
 so the JAX package's params load unchanged (core/params.from_numpy_tree);
 :class:`LM` holds each unit as its own ``ParamTree`` (views of the stacked
 tensors).  Caches keep the JAX tree too, stacked on U, and are written in
-place.  This slice serves the dense attention stack (pattern ("attn",)).
+place.  Training runs on the param tree itself (``lm_hidden``: per-unit
+views of the stacked leaves, so gradients land on the stacked leaves as
+JAX's scan gives them).  The port covers the dense attention stack
+(pattern ("attn",)).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
                                      stack_defs)
 from repro_torch.models import attention, ffn, layers
+
+
+AUX_KEYS = ("lb_loss", "dropped", "qerr")
 
 
 def resolve_device(device) -> torch.device:
@@ -45,17 +52,23 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache=None, pos=None, kv_valid=None, seq_lengths=None):
+    """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
+    its layers report (scalars, f32)."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
-    y, cache = attention.attn_apply(
+    y, cache, a_aux = attention.attn_apply(
         p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
         cache=cache, pos=pos, kv_valid=kv_valid, seq_lengths=seq_lengths)
     x = x + y.to(x.dtype)
+    f_aux: dict = {}
     if "ffn" in p:
         h2 = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
-        y2, _ = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
-                              seq_lengths=seq_lengths)
+        y2, f_aux = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
+                                  seq_lengths=seq_lengths)
         x = x + y2.to(x.dtype)
-    return x, cache
+    # attention reports qerr, the FFN lb_loss and dropped: no key in both
+    aux = {k: v for a in (a_aux, f_aux) for k, v in a.items()
+           if k in AUX_KEYS}
+    return x, cache, aux
 
 
 def _unit_defs(cfg: ModelConfig) -> dict:
@@ -123,6 +136,10 @@ class LM(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(cfg, init_tree(lm_defs(cfg), gen), device=dev)
 
+    def __getitem__(self, k: str):
+        """``model["embed"]`` as on the param tree."""
+        return getattr(self, k)
+
     @property
     def device(self) -> torch.device:
         return self.embed["embedding"].device
@@ -142,24 +159,72 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 
 
 # ---------------------------------------------------------------- forward
-def _run_blocks(model: LM, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
-                caches=None, pos=None, kv_valid=None, seq_lengths=None):
-    for u, unit in enumerate(model.units):
+def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+                caches=None, pos=None, remat: bool = True, kv_valid=None,
+                seq_lengths=None):
+    """Run the pattern units (``LM.units`` or per-unit param dicts) over
+    x.  Returns (x, aux): in train mode aux sums AUX_KEYS over every
+    block, and with ``remat`` each unit runs under a non-reentrant
+    checkpoint (its activations are recomputed in backward, kernels
+    included, as JAX's jax.checkpoint of the scan body does).  Inference
+    modes skip the aux sums (no extra launches on the decode path)."""
+    train = mode == "train"
+    aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
+                  for k in AUX_KEYS} if train else {})
+
+    def unit_body(h, unit, u):
+        aux_u = {}
         for i, kind in enumerate(cfg.pattern):
             name = f"b{i}_{kind}"
             c = (None if caches is None else
                  {k: v[u] for k, v in caches["units"][name].items()})
-            x, _ = block_apply(unit[name], x, cfg, mode=mode, cache=c,
-                               pos=pos, kv_valid=kv_valid,
-                               seq_lengths=seq_lengths)
-    return x
+            h, _, aux = block_apply(unit[name], h, cfg, mode=mode, cache=c,
+                                    pos=pos, kv_valid=kv_valid,
+                                    seq_lengths=seq_lengths)
+            for k, val in aux.items():
+                aux_u[k] = aux_u[k] + val if k in aux_u else val
+        return h, aux_u
+
+    for u, unit in enumerate(units):
+        if train and remat and torch.is_grad_enabled():
+            x, aux_u = checkpoint(unit_body, x, unit, u, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, aux_u = unit_body(x, unit, u)
+        for k, val in aux_u.items():
+            if train:
+                aux_total[k] = aux_total[k] + val
+    return x, aux_total
+
+
+def _unit_trees(params: dict, cfg: ModelConfig) -> list:
+    """Per-unit views of the stacked ``params["units"]`` tree."""
+    return [_unit_slice(params["units"], u) for u in range(num_units(cfg))]
+
+
+def lm_hidden(params: dict, cfg: ModelConfig,
+              batch: Dict[str, torch.Tensor], remat: bool = True
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Train-mode forward of a JAX-layout param tree to the final hidden
+    states (B, S, d) and the summed aux.  Gradients reach the stacked
+    leaves through the per-unit views."""
+    x = layers.embed_lookup(params["embed"], batch["tokens"], cfg.scale_embed,
+                            cfg.d_model)
+    x, aux = _run_blocks(_unit_trees(params, cfg), cfg, x, mode="train",
+                         remat=remat)
+    return layers.apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+def head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    """(d, V_padded) LM head: the tied embedding's transpose or ``head``."""
+    if cfg.tie_embeddings:
+        return params["embed"]["embedding"].t()
+    return params["head"]["w"]
 
 
 def logits_of(model: LM, cfg: ModelConfig, hidden: torch.Tensor
               ) -> torch.Tensor:
-    w = (model.embed["embedding"].t() if cfg.tie_embeddings
-         else model.head["w"])
-    out = hidden @ w.to(hidden.dtype)
+    out = hidden @ head_weight(model, cfg).to(hidden.dtype)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         out = torch.tanh(out / c) * c
@@ -175,8 +240,8 @@ def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
     every layer.  Writes the caches in place; returns logits (B, 1, V)."""
     x = layers.embed_lookup(model.embed, token[:, None], cfg.scale_embed,
                             cfg.d_model)
-    x = _run_blocks(model, cfg, x, mode="decode", caches=caches, pos=pos,
-                    kv_valid=kv_valid)
+    x, _ = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
+                       pos=pos, kv_valid=kv_valid)
     x = layers.apply_norm(model.final_norm, x, cfg.norm)
     return logits_of(model, cfg, x)
 
@@ -212,8 +277,8 @@ def lm_prefill_ragged(model: LM, cfg: ModelConfig,
     x = layers.embed_lookup(model.embed, tokens, cfg.scale_embed,
                             cfg.d_model)
     sl = lengths if length_sensitive(cfg) else None
-    x = _run_blocks(model, cfg, x, mode="prefill", caches=caches, pos=0,
-                    seq_lengths=sl)
+    x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
+                       pos=0, seq_lengths=sl)
     idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
     x_last = x.gather(1, idx[:, None, None].expand(bsz, 1, x.shape[-1]))
     x_last = layers.apply_norm(model.final_norm, x_last, cfg.norm)

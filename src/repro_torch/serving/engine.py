@@ -162,9 +162,10 @@ class Engine:
         return rows, logits, bpb
 
     def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """Argmax over the real vocabulary (the padded tail of the tied
-        embedding is no token)."""
-        return logits[..., :self.cfg.vocab_size].float().argmax(-1)
+        """Argmax over the full padded vocabulary, as the JAX engine takes
+        it: the padded tail of the embedding holds (random) rows like any
+        other, so an id >= vocab_size can win."""
+        return logits.float().argmax(-1)
 
     def _admit(self, st: _State, group: List[tuple]) -> None:
         t0 = time.perf_counter()

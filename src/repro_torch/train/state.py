@@ -1,0 +1,40 @@
+"""Train state: {step, train (LoRA/router/codebooks), frozen (base), opt}.
+
+The trainable/frozen split is at the tree level (core.params.partition),
+so gradients are only ever taken over the small trainable subtree; the
+frozen base never gets gradient buffers.  The layout is the JAX
+package's, so a JAX state loads with ``core.params.from_numpy_state``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import params as P
+from repro_torch.models import transformer
+from repro_torch.optim.adamw import adamw_init
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    """The param defs of a model (dense decoder LMs so far)."""
+    return transformer.lm_defs(cfg)
+
+
+def model_hidden(params: dict, cfg: ModelConfig, batch: Dict[str, Any],
+                 remat: bool = True):
+    return transformer.lm_hidden(params, cfg, batch, remat=remat)
+
+
+def init_state(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random weights from a seed on ``device`` (CUDA unless the caller
+    asks for the CPU), split into trainable and frozen trees, with zero
+    AdamW moments."""
+    dev = transformer.resolve_device(device)
+    defs = model_defs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = P.init_tree(defs, gen)
+    train, frozen = P.partition(params, P.trainable_mask(defs))
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "train": train, "frozen": frozen, "opt": adamw_init(train)}

@@ -100,3 +100,35 @@ def test_engine_rejects_invalid_requests_and_serves_the_rest():
     assert [len(c.tokens) for c in outs] == [3, 0, 0, 0, 3]
     assert all(c.detail for c in outs[1:4])
     assert eng.last_stats.admitted == eng.last_stats.completed == 2
+
+
+def test_greedy_argmax_spans_the_padded_vocabulary():
+    """vocab 200 is padded to 256 embedding rows (random like the rest):
+    the JAX engine's greedy argmax runs over all 256 columns, so it can
+    emit an id >= vocab_size; the port's streams must equal JAX's, and
+    this workload does emit such ids, so the test shows the difference
+    from an argmax over the real vocabulary."""
+    import dataclasses
+    jcfg = dataclasses.replace(smoke_cfg(attn_impl="pallas",
+                                         ffn_impl="pallas"), vocab_size=200)
+    assert jcfg.padded_vocab == 256
+    tree = jax_params(jcfg)
+    prompts = [p[:6] for p in _workload()[:3]]
+    prompts = [[tok % 200 for tok in p] for p in prompts]
+    jeng = JEngine(jcfg, tree, max_len=MAX_LEN, num_slots=3, decode_chunk=4)
+    want = [c.tokens for c in jeng.run(
+        [JRequest(uid=i, tokens=p, max_new_tokens=6)
+         for i, p in enumerate(prompts)])]
+    model = port_model(jcfg, tree)
+    eng = Engine(model.cfg, model, max_len=MAX_LEN, num_slots=3,
+                 decode_chunk=4, device="cpu")
+    got = [c.tokens for c in eng.run(
+        [Request(uid=i, tokens=p, max_new_tokens=6)
+         for i, p in enumerate(prompts)])]
+    for prompt, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        gap = _replay_gap(jcfg, tree, prompt + w[:i], g[i], w[i])
+        assert gap <= 1e-3, (g, w, gap)
+    assert max(max(w) for w in want) >= jcfg.vocab_size

@@ -191,8 +191,8 @@ def test_attention_layer_prefill_and_decode_match(gran):
     jy, jc, _ = prefill(jp, jnp.asarray(x), jattention.init_cache(jcfg, 3, 32),
                         jnp.asarray(lens))
     tc = attention.init_cache(pcfg, 3, 32, "cpu")
-    ty, tc = attention.attn_apply(tp, t(x), pcfg, mode="prefill", cache=tc,
-                                  pos=0, seq_lengths=t(lens))
+    ty, tc, _ = attention.attn_apply(tp, t(x), pcfg, mode="prefill",
+                                     cache=tc, pos=0, seq_lengths=t(lens))
     close(ty, jy)
     close(tc["k"], jc["k"])
     # decode one token per row against the SAME cache (JAX's codes)
@@ -203,8 +203,8 @@ def test_attention_layer_prefill_and_decode_match(gran):
         np.float32)
     jy, jc2, _ = decode(jp, jnp.asarray(xd), jc, jnp.asarray(pos),
                         jnp.asarray(valid))
-    ty, tc = attention.attn_apply(tp, t(xd), pcfg, mode="decode", cache=tc,
-                                  pos=t(pos), kv_valid=t(valid))
+    ty, tc, _ = attention.attn_apply(tp, t(xd), pcfg, mode="decode",
+                                     cache=tc, pos=t(pos), kv_valid=t(valid))
     close(ty, jy)
     assert np.array_equal(tc["slot_pos"].numpy(), np.asarray(jc2["slot_pos"]))
 

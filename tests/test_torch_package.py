@@ -6,7 +6,10 @@ builds nothing at import; weights load from the JAX tree layout."""
 import ast
 import dataclasses
 import importlib
+import os
 import pkgutil
+import subprocess
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -16,10 +19,16 @@ import torch
 
 from repro.configs import base as jbase
 from repro.core import lora as jlora
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
+from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch import configs, kernels
 from repro_torch.configs import base
 from repro_torch.core import lora
 from repro_torch.core.params import from_numpy_tree
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.optim.adamw import OptimizerConfig
+from repro_torch.train.trainer import TrainerConfig
 from repro_torch.models import transformer
 from repro_torch.serving.engine import Engine
 
@@ -44,10 +53,34 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad
 
 
+def test_every_port_module_imports_with_jax_and_repro_blocked():
+    """Each module of the package imports in a fresh interpreter where
+    ``import jax`` and ``import repro`` fail."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
+
+
 @pytest.mark.parametrize("port_cls,jax_cls", [
     (base.ModelConfig, jbase.ModelConfig),
     (base.SPTConfig, jbase.SPTConfig),
     (lora.LoRAConfig, jlora.LoRAConfig),
+    (OptimizerConfig, JOptimizerConfig),
+    (TrainerConfig, JTrainerConfig),
+    (DataConfig, JDataConfig),
 ])
 def test_config_field_names_match_jax(port_cls, jax_cls):
     names = lambda c: [f.name for f in dataclasses.fields(c)]
@@ -75,12 +108,20 @@ def test_kernel_modules_import_without_nvcc_and_build_nothing():
     for name in names:
         importlib.import_module(name)
     assert {"repro_torch.kernels.sparse_attention.ops",
-            "repro_torch.kernels.routed_ffn.ops"} <= set(names)
+            "repro_torch.kernels.routed_ffn.ops",
+            "repro_torch.kernels.pq_quantize.ops",
+            "repro_torch.kernels.topl_select.ops"} <= set(names)
     assert kernels._lib is None                          # nothing built
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
-        "decode_ffn.cu", "grouped_ffn.cu", "sparse_decode.cu"]
+        "decode_ffn.cu", "grouped_ffn.cu", "pq_assign.cu",
+        "sparse_attention.cu", "sparse_decode.cu", "topl_thresholds.cu"]
     assert [w.__name__ for w in kernels.wrappers()] == [
+        "pq_assign", "topl_thresholds", "sparse_attention",
         "fused_sparse_decode_attention", "grouped_ffn", "decode_ffn"]
+    assert set(kernels.SIGNATURES) == {
+        "repro_" + n for n in ("pq_assign", "topl_thresholds",
+                               "sparse_attention", "fused_sparse_decode",
+                               "grouped_ffn", "decode_ffn")}
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

@@ -1,0 +1,267 @@
+"""The port's train-path kernels against the JAX Pallas kernels they
+replace (interpret mode on the CPU), on the same numpy inputs from a seed:
+
+  * PQ assignment (kernel 1) — codes equal up to the margin rule: a code
+    may differ only where the two nearest distances lie within 1e-5;
+  * top-L thresholds (kernel 2) — [t, need] exactly equal, causal and
+    windowed, q_offset != 0, nq != nk, GQA (the port indexes the kv head,
+    JAX repeats the key codes per query head);
+  * thresholded sparse attention (kernel 4) — GQA, f32, atol=rtol 1e-5;
+  * the ``sparse_mha`` and ``routed_ffn`` autograd Functions — outputs and
+    gradients against ``jax.grad`` of the JAX custom_vjp ops, f32 to
+    1e-5 (outputs) and 1e-4 (gradients: the backwards differentiate two
+    references that sum in different orders).
+
+On CPU tensors the port's wrappers take their plain versions; the CUDA
+kernels are held to those on the card by chip_smoke.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import lora as jlora
+from repro.core import pq as jpq
+from repro.core import routed_ffn as jrf
+from repro.core import sparse_attention as jsa
+from repro.core.params import init_tree as jinit_tree
+from repro.kernels.pq_quantize.ops import pq_assign as jpq_assign
+from repro.kernels.routed_ffn.ops import routed_ffn as jrouted_ffn
+from repro.kernels.sparse_attention.ops import sparse_mha as jsparse_mha
+from repro.kernels.sparse_attention.sparse_attention import \
+    sparse_attention_kernel
+from repro.kernels.topl_select.topl_select import topl_thresholds_kernel
+from repro_torch.core import lora
+from repro_torch.core import pq
+from repro_torch.core import routed_ffn as rf
+from repro_torch.core import sparse_attention as sa
+from repro_torch.kernels.pq_quantize import ops as pq_ops
+from repro_torch.kernels.routed_ffn import ops as rffn_ops
+from repro_torch.kernels.sparse_attention import ops as sa_ops
+from repro_torch.kernels.topl_select import ops as topl_ops
+from test_torch_model import close, perturb_lora, t
+
+GRAD_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread (the suite runs in several worker processes);
+    autograd stays on, these tests take gradients."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------ kernel 1: PQ assignment
+@pytest.mark.parametrize("shape", [(2, 48, 32), (3, 40, 16)])
+def test_pq_assign_plain_matches_jax_kernel(shape):
+    rng = np.random.default_rng(shape[0])
+    x = rng.standard_normal(shape).astype(np.float32)
+    m = shape[-1] // 8
+    cb = rng.standard_normal((m, 16, 8)).astype(np.float32)
+    want = np.asarray(jpq_assign(jnp.asarray(x), jnp.asarray(cb), tile_n=16,
+                                 interpret=True))
+    got = pq_ops.pq_assign(t(x), t(cb)).numpy()
+    assert got.dtype == np.int32 and got.shape == want.shape
+    xs = x.reshape(*shape[:-1], m, 8)
+    dist = (cb * cb).sum(-1) - 2.0 * np.einsum("...md,med->...me", xs, cb)
+    srt = np.sort(dist, axis=-1)
+    tie = (srt[..., 1] - srt[..., 0]) < 1e-5
+    assert np.array_equal(got[~tie], want[~tie])
+
+
+def _codes(rng, g, n, m=4, e=4):
+    """Few books over few codewords: many equal scores, so the tie budget
+    is exercised."""
+    return rng.integers(0, e, (g, n, m)).astype(np.int32)
+
+
+# ------------------------------------------------ kernel 2: thresholds
+@pytest.mark.parametrize("nq,nk,causal,window,q_offset,rep", [
+    (32, 32, True, None, 0, 2),
+    (24, 56, True, 16, 32, 2),       # windowed, ragged offset, nq != nk
+    (16, 40, False, None, 0, 1),
+    (40, 64, True, None, 24, 4),
+])
+def test_topl_thresholds_plain_matches_jax_kernel(nq, nk, causal, window,
+                                                  q_offset, rep):
+    rng = np.random.default_rng(nq + nk)
+    b, hq = 2, 4
+    cq = _codes(rng, b * hq, nq)
+    ck = _codes(rng, b * hq // rep, nk)
+    l = jsa.top_l(nk, jsa.SparseAttentionConfig(
+        pq=jpq.PQConfig(head_dim=32), top_fraction=0.25, min_l=4), window)
+    ck_rep = np.repeat(ck.reshape(b, hq // rep, nk, 4), rep,
+                       axis=1).reshape(b * hq, nk, 4)
+    want = topl_thresholds_kernel(
+        jnp.asarray(cq), jnp.asarray(ck_rep), l=l, max_score=4,
+        causal=causal, window=window, q_offset=q_offset, tile_q=8, tile_k=8,
+        interpret=True)
+    got = topl_ops.topl_thresholds(
+        t(cq), t(ck), l=l, max_score=4, causal=causal, window=window,
+        q_offset=q_offset, heads_per_batch=hq, rep=rep)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------ kernel 4: attention
+@pytest.mark.parametrize("window,q_offset", [(None, 0), (12, 16)])
+def test_sparse_attention_plain_matches_jax_kernel(window, q_offset):
+    rng = np.random.default_rng(7 + q_offset)
+    b, hq, hk, nq, nk, dh = 2, 4, 2, 24, 40, 16
+    r = hq // hk
+    q = rng.standard_normal((b * hq, nq, dh)).astype(np.float32)
+    k = rng.standard_normal((b * hk, nk, dh)).astype(np.float32)
+    v = rng.standard_normal((b * hk, nk, dh)).astype(np.float32)
+    cq, ck = _codes(rng, b * hq, nq), _codes(rng, b * hk, nk)
+    ck_rep = np.repeat(ck.reshape(b, hk, nk, 4), r,
+                       axis=1).reshape(b * hq, nk, 4)
+    thr = np.asarray(topl_thresholds_kernel(
+        jnp.asarray(cq), jnp.asarray(ck_rep), l=10, max_score=4, causal=True,
+        window=window, q_offset=q_offset, interpret=True))
+    want = sparse_attention_kernel(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cq),
+        jnp.asarray(ck), jnp.asarray(thr), scale=dh ** -0.5, causal=True,
+        window=window, q_offset=q_offset,
+        kv_map=lambda g: (g // hq) * hk + (g % hq) // r, tile_q=8, tile_k=8,
+        interpret=True)
+    got = sa_ops.sparse_attention(
+        t(q), t(k), t(v), t(cq), t(ck), t(thr), scale=dh ** -0.5,
+        causal=True, window=window, q_offset=q_offset, heads_per_batch=hq,
+        rep=r)
+    close(got, want)
+
+
+# ------------------------------------------------ sparse_mha Function
+def _sa_setup(gran, seed):
+    rng = np.random.default_rng(seed)
+    b, hq, hk, n, d = 1, 4, 2, 32, 16
+    q = rng.standard_normal((b, hq, n, d)).astype(np.float32)
+    k = rng.standard_normal((b, hk, n, d)).astype(np.float32)
+    v = rng.standard_normal((b, hk, n, d)).astype(np.float32)
+    cb = rng.standard_normal((2, 16, 8)).astype(np.float32)
+    wts = rng.standard_normal((b, hq, n, d)).astype(np.float32)
+    jcfg = jsa.SparseAttentionConfig(pq=jpq.PQConfig(head_dim=d),
+                                     top_fraction=0.25, min_l=4, chunk_q=16,
+                                     select_granularity=gran)
+    pcfg = sa.SparseAttentionConfig(pq=pq.PQConfig(head_dim=d),
+                                    top_fraction=0.25, min_l=4, chunk_q=16,
+                                    select_granularity=gran)
+    return (q, k, v, cb, wts), jcfg, pcfg
+
+
+@pytest.mark.parametrize("gran", ["qhead", "kvgroup"])
+def test_sparse_mha_function_matches_jax_grad(gran):
+    (q, k, v, cb, wts), jcfg, pcfg = _sa_setup(gran, 3)
+    scale = 16 ** -0.5
+
+    def jloss(q, k, v, cb):
+        out, _ = jsparse_mha(q, k, v, cb, jcfg, scale, interpret=True)
+        return jnp.sum(out * wts), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                           has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v, cb)))
+    leaves = [t(a).requires_grad_() for a in (q, k, v, cb)]
+    out, aux = sa_ops.sparse_mha(*leaves, pcfg, scale)
+    (out * t(wts)).sum().backward()
+    assert aux["l"] == jsa.top_l(32, jcfg)
+    close(out.detach(), jout)
+    for got, want in zip(leaves[:3], jgrads[:3]):
+        close(got.grad, want, GRAD_TOL)
+    # argmin has no derivative: zeros on both sides (not None in the port)
+    assert not leaves[3].grad.any() and not np.asarray(jgrads[3]).any()
+
+
+def test_sparse_mha_function_qerr_aux_matches_jax():
+    (q, k, v, cb, _), jcfg, pcfg = _sa_setup("qhead", 4)
+    jcfg = jsa.SparseAttentionConfig(**{**jcfg.__dict__,
+                                        "qerr_loss_weight": 0.1})
+    pcfg = sa.SparseAttentionConfig(**{**pcfg.__dict__,
+                                       "qerr_loss_weight": 0.1})
+    _, jaux = jsparse_mha(*(jnp.asarray(a) for a in (q, k, v, cb)), jcfg,
+                          0.25, interpret=True)
+    cbt = t(cb).requires_grad_()
+    _, aux = sa_ops.sparse_mha(t(q), t(k), t(v), cbt, pcfg, 0.25)
+    close(aux["qerr"].detach(), jaux["qerr"])
+    aux["qerr"].backward()
+    jg = jax.grad(lambda c: jsparse_mha(
+        *(jnp.asarray(a) for a in (q, k, v)), c, jcfg, 0.25,
+        interpret=True)[1]["qerr"])(jnp.asarray(cb))
+    close(cbt.grad, jg, GRAD_TOL)
+
+
+# ------------------------------------------------ routed_ffn Function
+def _torch_tree(tree, grad_keys=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _torch_tree(v, grad_keys)
+        else:
+            out[k] = t(v).requires_grad_(k in grad_keys or
+                                         not k.startswith("w_"))
+    return out
+
+
+@pytest.mark.parametrize("gated,act", [(True, "silu"), (False, "gelu")])
+def test_routed_ffn_function_matches_jax_grad(gated, act):
+    lcfg = jlora.LoRAConfig(rank=4, alpha=8.0)
+    jcfg = jrf.RoutedFFNConfig(d_model=32, d_ff=96, num_groups=4,
+                               active_groups=2, capacity_factor=0.5,
+                               activation=act, gated=gated)
+    pcfg = rf.RoutedFFNConfig(**jcfg.__dict__)
+    plcfg = lora.LoRAConfig(**lcfg.__dict__)
+    p = jinit_tree(jrf.param_defs(jcfg, lcfg), jax.random.PRNGKey(1))
+    p = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), p)
+    p = perturb_lora(p, np.random.default_rng(2))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 20, 32)).astype(np.float32)
+    wts = rng.standard_normal((2, 20, 32)).astype(np.float32)
+
+    def jloss(x, p):
+        out, aux = jrouted_ffn(x, p, jcfg, lcfg, interpret=True)
+        return jnp.sum(out * wts) + 0.5 * aux["lb_loss"], (out, aux)
+
+    (_, (jout, jaux)), (jgx, jgp) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, p))
+    assert float(jaux["dropped"]) > 0.0                 # capacity drops
+    xt = t(x).requires_grad_()
+    pt = _torch_tree(p)
+    out, aux = rffn_ops.routed_ffn(xt, pt, pcfg, plcfg)
+    ((out * t(wts)).sum() + 0.5 * aux["lb_loss"]).backward()
+    close(out.detach(), jout)
+    close(aux["lb_loss"].detach(), jaux["lb_loss"])
+    close(aux["dropped"], jaux["dropped"])
+    assert not aux["dropped"].requires_grad
+    close(xt.grad, jgx, GRAD_TOL)
+
+    def check(tree, jtree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                check(v, jtree[k])
+            elif v.requires_grad:
+                close(v.grad, jtree[k], GRAD_TOL)
+            else:
+                assert v.grad is None                    # frozen weights
+    check(pt, jgp)
+
+
+def test_routed_ffn_ragged_path_is_forward_only():
+    lcfg = lora.LoRAConfig(rank=4, alpha=8.0)
+    cfg = rf.RoutedFFNConfig(d_model=16, d_ff=32, num_groups=4,
+                             active_groups=2)
+    gen = torch.Generator().manual_seed(0)
+    from repro_torch.core.params import init_tree
+    p = init_tree(rf.param_defs(cfg, lcfg), gen)
+    x = torch.randn(2, 8, 16, generator=gen, requires_grad=True)
+    lens = torch.tensor([8, 5])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        rffn_ops.routed_ffn(x, p, cfg, lcfg, seq_lengths=lens)
+    with torch.no_grad():
+        out, _ = rffn_ops.routed_ffn(x, p, cfg, lcfg, seq_lengths=lens)
+    want, _ = rf.routed_ffn(x.detach(), p, cfg, lcfg, seq_lengths=lens)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)

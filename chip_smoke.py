@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py                  # every phase; needs one CUDA card
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernels)
-    python3 chip_smoke.py --only train     # phases 1-3, 6-7
+    python3 chip_smoke.py --only serve     # phases 1-6
+    python3 chip_smoke.py --only train     # phases 1-3, 7-8
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -12,26 +13,37 @@ Phases (each raises on failure; nothing is caught):
      full-width shapes — the training step's (batch 4 x 1024, 16/8 heads
      of 128, M = 16) for PQ assignment, top-L thresholds and sparse
      attention (plus small windowed / offset / non-causal cases), the
-     serving path's (8 slots, S=4096 decode; a (8, 1024) prefill bucket)
-     for the rest: f32 to atol 1e-4, bf16 compared in f32 to atol=rtol
-     2e-2, thresholds exactly equal, PQ codes equal up to the margin rule;
-     times by CUDA events (L2 flushed between launches) beside the least
-     time the card could take (bytes over 3.35 TB/s or operations over
-     the peak rate);
+     serving path's (8 slots x 8 kv heads, R = 2, S = 4096 decode; the
+     paged view 32 pages of 128 over a shuffled 320-page pool, 2048 live
+     slots; a (8, 1024) prefill bucket) for the rest: f32 to atol 1e-4,
+     bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
+     codes equal up to the margin rule; the paged kernel bit-identical to
+     the contiguous one over gathered views and the two-pass pair to the
+     fused kernel; times by CUDA events (L2 flushed between launches)
+     beside the least time the card could take (bytes over 3.35 TB/s or
+     operations over the peak rate);
   4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
      prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
-  5. the same model cut to 4 layers, in f32: greedy streams with kernels
-     on equal those of REPRO_DISABLE_KERNELS=1 up to logit near-ties
-     (<= 1e-3, replayed through the port's ragged prefill);
-  6. full-width qwen3-0.6b fine-tuned in bf16 by Trainer.run: 3 steps of
+  5. the same serve on the paged KV layout (pages of 128, a pool of 64
+     pages: a quarter of the contiguous footprint): sparse MHA through
+     the page table (kernel 7), the two-pass tier over gathered views
+     (kernels 3 and 5) and sparse MHA off (kernel 8, the dense
+     baseline), counters zeroed just before each and read just after;
+     and one paged decode step's device and wall time;
+  6. the model cut to 4 layers, in f32: greedy streams of every decode
+     tier — contiguous fused and two-pass, paged kernel-native and paged
+     gathered two-pass (and paged dense) — equal those of
+     REPRO_DISABLE_KERNELS=1 up to logit near-ties (<= 1e-3, replayed
+     through the port's ragged prefill);
+  7. full-width qwen3-0.6b fine-tuned in bf16 by Trainer.run: 3 steps of
      batch 4 x 1024 (seeded random tokens), counters zeroed just before
      and read just after, then one profiled step;
-  7. the same model cut to 4 layers, in f32: each block's output and
+  8. the same model cut to 4 layers, in f32: each block's output and
      gradients from the same inputs, and the loss and gradients of one
      train step, with kernels on equal those of REPRO_DISABLE_KERNELS=1;
-  8. one JSON line of the kernels (launches per path), then the result
-     line.
+  9. one JSON line of the ten kernels (launches per path), then the
+     result line.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
@@ -165,6 +177,243 @@ def check_decode_attention(torch, gen):
             "max_abs_err": main["err"], "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": "G=64 (8 slots x 8 kv heads), R=2, S=4096, dh=128, M=16, bf16"}
+
+
+# The serving decode shapes of the paged and two-pass kernels: 8 slots x 8
+# kv heads, R = 2 query rows per kv head, dh 128, M 16 books of E 16; the
+# paged view is MP 32 pages of 128 (max_len 4096) over a pool larger
+# than the view, 2048 live slots per row.
+SB, SHK, SR, SDH, SM, SE = 8, 8, 2, 128, 16, 16
+SPS, SMP, SLIVE, SPOOL = 128, 32, 2048, 320
+
+
+def _decode_kw(gran, s):
+    sum_rows = gran == "kvgroup"
+    return dict(l=max(16, round(s * 0.125)),
+                max_score=SM * (SR if sum_rows else 1), sum_rows=sum_rows,
+                heads_per_batch=SHK)
+
+
+def _rows_read(ref, cq, ck, valid, kw):
+    """(K/V rows any query row of a group selects, selected pairs)."""
+    elig, _ = ref.select(cq, ck, valid, **kw)
+    return int(elig.any(1).sum()), int(elig.sum())
+
+
+def check_two_pass(torch, gen):
+    """Kernels 3 and 5 at the serving decode shape (G = 64, S = 4096,
+    2048 live slots): kernel 3's [t, need] equal to the plain version's
+    and to kernel 6's, kernel 5's output within tolerance of its plain
+    version and bit-identical to kernel 6's (bf16 and f32, "qhead" and
+    "kvgroup")."""
+    from repro_torch.kernels.sparse_attention import ops, ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.kernels.topl_select import ref as topl_ref
+    g, s = SB * SHK, SMP * SPS
+    rows = {}
+    for dtn, gran in (("bfloat16", "qhead"), ("float32", "qhead"),
+                      ("float32", "kvgroup"), ("bfloat16", "kvgroup")):
+        dt = getattr(torch, dtn)
+        q = torch.randn(g, SR, SDH, device="cuda", generator=gen).to(dt)
+        k = torch.randn(g, s, SDH, device="cuda", generator=gen).to(dt)
+        v = torch.randn(g, s, SDH, device="cuda", generator=gen).to(dt)
+        cq = torch.randint(0, SE, (g, SR, SM), device="cuda", generator=gen,
+                           dtype=torch.int32)
+        ck = torch.randint(0, SE, (g, s, SM), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        valid = (torch.arange(s, device="cuda") < SLIVE)[None].expand(
+            SB, s).contiguous()
+        kw = _decode_kw(gran, s)
+        sel = dict(sum_rows=kw["sum_rows"], heads_per_batch=SHK)
+        thr = topl_ops.decode_topl_thresholds(cq, ck, valid, **kw)
+        out = ops.sparse_decode_attention(q, k, v, cq, ck, thr, valid,
+                                          scale=SDH ** -0.5, **sel)
+        out6, thr6 = ops.fused_sparse_decode_attention(
+            q, k, v, cq, ck, valid, scale=SDH ** -0.5,
+            return_thresholds=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(thr, topl_ref.decode_topl_thresholds_ref(
+                cq, ck, valid, **kw)):
+            raise AssertionError(f"decode_topl_thresholds {gran}: [t, need] "
+                                 "differ from the plain version")
+        if not torch.equal(thr, thr6):
+            raise AssertionError(f"decode_topl_thresholds {gran}: [t, need] "
+                                 "differ from kernel 6's")
+        want = ref.sparse_decode_attention_ref(q, k, v, cq, ck, thr, valid,
+                                               scale=SDH ** -0.5, **sel)
+        err = close(out, want, BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+        if not torch.equal(out, out6):
+            raise AssertionError(f"sparse_decode_attention {dtn} {gran}: "
+                                 "differs from kernel 6")
+        print(f"  two-pass {dtn} {gran}: [t, need] exact (plain, kernel 6); "
+              f"kernel 5 max_abs_err {err:.3e}, bit-identical to kernel 6",
+              flush=True)
+        if (dtn, gran) != ("bfloat16", "qhead"):
+            continue
+        t3 = time_ms(lambda: topl_ops.decode_topl_thresholds(
+            cq, ck, valid, **kw), 30)
+        p3 = time_ms(lambda: topl_ref.decode_topl_thresholds_ref(
+            cq, ck, valid, **kw), 5)
+        live = int(valid.sum()) * SHK                 # valid (group, slot)s
+        codes_read = live * SM
+        bms, by = bound(nbytes(cq, valid, thr) + codes_read,
+                        live * SR * SM, torch.float32)
+        rows["decode_topl_thresholds"] = {
+            "name": "decode_topl_thresholds", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sparse_decode_two_pass.cu",
+            "replaces": "src/repro/kernels/topl_select/topl_select.py:161",
+            "max_abs_err": 0.0, "ms": t3, "plain_ms": p3, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"codes_q ({g}, {SR}, {SM}), codes_k ({g}, {s}, {SM}) "
+                     f"int8, {SLIVE} live slots; max_abs_err counts differing "
+                     "[t, need]; bound: the live code rows once, or M int "
+                     "compares per (live slot, row) at the f32 CUDA-core rate"}
+        t5 = time_ms(lambda: ops.sparse_decode_attention(
+            q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, **sel), 30)
+        p5 = time_ms(lambda: ref.sparse_decode_attention_ref(
+            q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, **sel), 5)
+        read, pairs = _rows_read(ref, cq, ck, valid, kw)
+        moved = (nbytes(q, cq, thr, valid) + codes_read + nbytes(out)
+                 + 2 * read * SDH * k.element_size())
+        bms, by = bound(moved, 4 * SDH * pairs, dt)
+        rows["sparse_decode_attention"] = {
+            "name": "sparse_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sparse_decode_two_pass.cu",
+            "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:254",
+            "max_abs_err": err, "ms": t5, "plain_ms": p5, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "shape": f"G={g} (8 slots x 8 kv heads), R={SR}, S={s}, "
+                     f"{SLIVE} live, dh={SDH}, M={SM}, bf16"}
+    return [rows["decode_topl_thresholds"], rows["sparse_decode_attention"]]
+
+
+def _paged_inputs(torch, gen, dt):
+    """Pools of SPOOL pages, a page table of shuffled ids with the pages
+    past the live rows unallocated (-1), validity = the first SLIVE view
+    slots AND page occupancy."""
+    from repro_torch.serving import kv_pages
+    g = SB * SHK
+    q = torch.randn(g, SR, SDH, device="cuda", generator=gen).to(dt)
+    k_pool = torch.randn(SPOOL, SHK, SPS, SDH, device="cuda",
+                         generator=gen).to(dt)
+    v_pool = torch.randn(SPOOL, SHK, SPS, SDH, device="cuda",
+                         generator=gen).to(dt)
+    cq = torch.randint(0, SE, (g, SR, SM), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    codes = torch.randint(0, SE, (SPOOL, SHK, SPS, SM), device="cuda",
+                          generator=gen, dtype=torch.int8)
+    ids = torch.randperm(SPOOL, device="cuda", generator=gen)[:SB * SMP]
+    held = torch.arange(SMP, device="cuda")[None] <= SLIVE // SPS
+    pt = torch.where(held, ids.reshape(SB, SMP), -1).to(torch.int32)
+    valid = ((torch.arange(SMP * SPS, device="cuda")[None] < SLIVE)
+             & kv_pages.occupancy(pt, SPS))
+    return q, k_pool, v_pool, cq, codes, pt, valid
+
+
+def _views(pt, *pools):
+    from repro_torch.serving import kv_pages
+    return [kv_pages.gather_pages(p, pt).reshape(SB * SHK, SMP * SPS, -1)
+            for p in pools]
+
+
+def check_paged(torch, gen):
+    """Kernels 7 and 8 at the paged serving decode shape.  Kernel 7: [t,
+    need] equal to the plain version's, output within tolerance of it,
+    and output and [t, need] bit-identical to kernel 6 over gathered
+    views.  Kernel 8: within tolerance of its plain version.  Yardsticks
+    the port never calls: kernel 6 over gathered views plus the gather
+    (what paging saves), and scaled_dot_product_attention over the
+    gathered view with a boolean mask beside the gather's own time."""
+    from repro_torch.kernels.sparse_attention import ops, ref
+    g, view = SB * SHK, SMP * SPS
+    out_rows = {}
+    for dtn, gran in (("bfloat16", "qhead"), ("float32", "qhead"),
+                      ("float32", "kvgroup"), ("bfloat16", "kvgroup")):
+        dt = getattr(torch, dtn)
+        q, k_pool, v_pool, cq, codes, pt, valid = _paged_inputs(torch, gen, dt)
+        kw = dict(scale=SDH ** -0.5, **_decode_kw(gran, view))
+        args = (pt, q, k_pool, v_pool, cq, codes, valid)
+        out, thr = ops.fused_sparse_decode_attention_paged(
+            *args, return_thresholds=True, **kw)
+        kv = _views(pt, k_pool, v_pool, codes)
+        out6, thr6 = ops.fused_sparse_decode_attention(
+            q, kv[0], kv[1], cq, kv[2], valid, return_thresholds=True, **kw)
+        torch.cuda.synchronize()
+        want, thr_ref = ref.fused_decode_paged_ref(*args, **kw)
+        if not torch.equal(thr, thr_ref):
+            raise AssertionError(f"paged {dtn} {gran}: [t, need] differ")
+        err = close(out, want, BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+        if not (torch.equal(out, out6) and torch.equal(thr, thr6)):
+            raise AssertionError(f"paged {dtn} {gran}: differs from kernel 6 "
+                                 "over gathered views")
+        print(f"  fused_sparse_decode_attention_paged {dtn} {gran}: "
+              f"max_abs_err {err:.3e}, [t, need] exact, bit-identical to "
+              "kernel 6 over gathered views", flush=True)
+        if (dtn, gran) == ("bfloat16", "qhead"):
+            ms = time_ms(lambda: ops.fused_sparse_decode_attention_paged(
+                *args, **kw), 30)
+            plain = time_ms(lambda: ref.fused_decode_paged_ref(*args, **kw), 5)
+            gather = time_ms(lambda: _views(pt, k_pool, v_pool, codes),
+                             10)
+            k6 = time_ms(lambda: ops.fused_sparse_decode_attention(
+                q, kv[0], kv[1], cq, kv[2], valid, **kw), 30)
+            read, pairs = _rows_read(ref, cq, kv[2], valid,
+                                     {k: v for k, v in kw.items()
+                                      if k != "scale"})
+            live = int(valid.sum()) * SHK
+            moved = (nbytes(q, cq, pt, valid, out) + live * SM
+                     + 2 * read * SDH * k_pool.element_size())
+            bms, by = bound(moved, 4 * SDH * pairs, dt)
+            out_rows["sparse"] = {
+                "name": "fused_sparse_decode_attention_paged", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/sparse_decode.cu",
+                "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:510",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "gather_ms": gather, "kernel6_over_gathered_ms": k6,
+                "shape": f"G={g}, R={SR}, page table ({SB}, {SMP}) of pages "
+                         f"of {SPS} over a {SPOOL}-page pool, {SLIVE} live, "
+                         f"dh={SDH}, M={SM}, bf16"}
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        q, k_pool, v_pool, _, _, pt, valid = _paged_inputs(torch, gen, dt)
+        args = (pt, q, k_pool, v_pool, valid)
+        kw = dict(scale=SDH ** -0.5, heads_per_batch=SHK)
+        out = ops.dense_decode_attention_paged(*args, **kw)
+        torch.cuda.synchronize()
+        err = close(out, ref.dense_decode_paged_ref(*args, **kw),
+                    BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+        print(f"  dense_decode_attention_paged {dtn}: max_abs_err {err:.3e}",
+              flush=True)
+        if dtn != "bfloat16":
+            continue
+        ms = time_ms(lambda: ops.dense_decode_attention_paged(*args, **kw), 30)
+        plain = time_ms(lambda: ref.dense_decode_paged_ref(*args, **kw), 5)
+        gather = time_ms(lambda: _views(pt, k_pool, v_pool), 10)
+        # yardstick: SDPA over the gathered view (kv heads repeated for
+        # the R query rows), a boolean mask of the valid slots
+        kv = _views(pt, k_pool, v_pool)
+        k4, v4 = (x.reshape(SB, SHK, view, SDH).repeat_interleave(SR, 1)
+                  for x in kv)
+        q4 = q.reshape(SB, SHK * SR, 1, SDH)
+        mask = valid[:, None, None, :]
+        sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, scale=SDH ** -0.5), 30)
+        live = int(valid.sum()) * SHK
+        moved = (nbytes(q, pt, valid, out)
+                 + 2 * live * SDH * k_pool.element_size())
+        bms, by = bound(moved, 4 * SDH * SR * live, dt)
+        out_rows["dense"] = {
+            "name": "dense_decode_attention_paged", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dense_decode_paged.cu",
+            "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:630",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": sdpa, "gather_ms": gather,
+            "shape": f"G={g}, R={SR}, page table ({SB}, {SMP}) of pages of "
+                     f"{SPS} over a {SPOOL}-page pool, {SLIVE} live, "
+                     f"dh={SDH}, bf16; library_ms: SDPA over the gathered "
+                     "view (gather_ms not included)"}
+    return [out_rows["sparse"], out_rows["dense"]]
 
 
 # qwen3-0.6b's training step: batch 4 x 1024 tokens, 16 query / 8 kv
@@ -448,7 +697,7 @@ def check_decode_ffn(torch, gen):
     return out
 
 
-# ------------------------------------------------------------ phases 4-5
+# ------------------------------------------------------------ phases 4-6
 def _perturbed_model(torch, cfg, seed):
     """Random full-width weights from a seed; LoRA c leaves (zero at
     init) get small values so the LoRA halves of the kernels do work."""
@@ -471,15 +720,25 @@ def _requests(n, lo, hi, gen_tokens, vocab, seed):
         for i in range(n)]
 
 
-def serve_full_width(torch):
-    from repro_torch import configs, kernels
+SERVE_CFG = dict(attn_impl="pallas", ffn_impl="pallas")
+PAGED = dict(kv_layout="paged", kv_page_size=128)
+PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
+
+
+def _serve(torch, model, cfg, label, kv_pages=None):
+    """Engine.run of the phase-4 workload (16 requests, prompts 128-2048,
+    64 new tokens, 8 slots, max_len 4096) after a warm-up run, the launch
+    counters zeroed just before and read just after.  Checks that every
+    request completes and that the decode and prefill kernels of the
+    path launched once per layer per step / prefill group; returns the
+    launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import dispatch
     from repro_torch.core.params import count_params
     from repro_torch.models.transformer import lm_defs
     from repro_torch.serving.engine import Engine
-    cfg = configs.get_config("qwen3-0.6b").with_spt(attn_impl="pallas",
-                                                    ffn_impl="pallas")
-    model = _perturbed_model(torch, cfg, seed=0)
-    eng = Engine(cfg, model, max_len=4096, num_slots=8, decode_chunk=16)
+    eng = Engine(cfg, model, max_len=4096, num_slots=8, decode_chunk=16,
+                 kv_pages=kv_pages)
     eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1))     # warm-up
     reqs = _requests(16, 128, 2048, 64, cfg.vocab_size, seed=2)
     torch.cuda.synchronize()
@@ -499,13 +758,26 @@ def serve_full_width(torch):
                                  f"({c.finish_reason})")
     layers = cfg.num_layers
     # the ragged prefill takes the oracle attention (as in JAX), so the
-    # train-path attention kernels stay idle here
-    want = {"pq_assign": 0, "topl_thresholds": 0, "sparse_attention": 0,
-            "fused_sparse_decode_attention": layers * st.decode_steps,
-            "grouped_ffn": layers * st.prefill_batches,
-            "decode_ffn": layers * st.decode_steps}
+    # train-path attention kernels stay idle here; each decode step runs
+    # its tier's decode kernels once per layer
+    if dispatch.use_paged_kv(cfg) and dispatch.use_paged_native_decode(cfg):
+        decode_attn = (["fused_sparse_decode_attention_paged"]
+                       if cfg.spt.sparse_mha
+                       else ["dense_decode_attention_paged"])
+    elif dispatch.use_fused_decode_attn(cfg):
+        decode_attn = ["fused_sparse_decode_attention"]
+    else:
+        decode_attn = ["decode_topl_thresholds", "sparse_decode_attention"]
+    want = {name: 0 for name in launches}
+    want.update({name: layers * st.decode_steps for name in decode_attn})
+    want.update({"grouped_ffn": layers * st.prefill_batches,
+                 "decode_ffn": layers * st.decode_steps})
     if launches != want:
-        raise AssertionError(f"launches {launches} != expected {want}")
+        raise AssertionError(f"{label} launches {launches} != expected {want}")
+    if kv_pages is not None and not (0 < st.kv_pages_peak <= kv_pages
+                                     and st.kv_pages_total == kv_pages):
+        raise AssertionError(f"{label}: peak {st.kv_pages_peak} of "
+                             f"{st.kv_pages_total} pages")
     stats = {"params": count_params(lm_defs(cfg)),
              "requests": len(reqs), "wall_s": wall,
              "prefill_tok_s": st.prefill_tok_s, "decode_tok_s": st.decode_tok_s,
@@ -513,28 +785,77 @@ def serve_full_width(torch):
              "prefill_tokens": st.prefill_tokens, "decode_tokens": st.decode_tokens,
              "decode_steps": st.decode_steps, "prefill_batches": st.prefill_batches,
              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    print("  serve " + json.dumps(stats), flush=True)
-    print("  launches " + json.dumps(launches), flush=True)
-    decode_step_split(torch, eng.model, cfg)
+    if kv_pages is not None:
+        stats.update(page_size=st.page_size, kv_pages_total=st.kv_pages_total,
+                     kv_pages_peak=st.kv_pages_peak,
+                     admission_stalls=st.admission_stalls)
+    print(f"  {label} " + json.dumps(stats), flush=True)
+    print(f"  {label} launches " + json.dumps(launches), flush=True)
     return launches
 
 
-def decode_step_split(torch, model, cfg):
+def serve_full_width(torch):
+    from repro_torch import configs
+    cfg = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, cfg, seed=0)
+    launches = _serve(torch, model, cfg, "serve")
+    decode_step_split(torch, model, cfg)
+    return launches, model
+
+
+def serve_paged(torch, model):
+    """Phase 5: the phase-4 serve on the paged layout with a 64-page pool:
+    sparse MHA on through the page table (kernel 7, the phase-4 model);
+    the two-pass tier over gathered views (kernels 3 and 5); sparse MHA
+    off (kernel 8, a model without PQ codebooks from the same seed)."""
+    from repro_torch import configs
+    base = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG, **PAGED)
+    launches = {"serve_paged": _serve(torch, model, base, "paged serve",
+                                      kv_pages=PAGED_POOL)}
+    decode_step_split(torch, model, base, paged=True)
+    launches["serve_paged_two_pass"] = _serve(
+        torch, model, base.with_spt(kv_paged_native="gather",
+                                    decode_attn_fuse="two_pass"),
+        "paged gathered two-pass serve", kv_pages=PAGED_POOL)
+    dense_cfg = base.with_spt(sparse_mha=False)
+    dense = _perturbed_model(torch, dense_cfg, seed=0)
+    launches["serve_paged_dense"] = _serve(torch, dense, dense_cfg,
+                                           "paged dense serve",
+                                           kv_pages=PAGED_POOL)
+    return launches
+
+
+def decode_step_split(torch, model, cfg, paged=False):
     """Device vs wall time of one full-width decode step (8 slots, 2048 of
-    4096 cache slots live): how far the host holds the card back.  Device
-    time is the profiler's sum of kernel times (CUDA events cannot hide
-    the host here: a step issues more launches than the launch queue
-    holds)."""
+    4096 cache slots live; paged: the live pages shuffled over a
+    256-page pool): how far the host holds the card back.  Device time is
+    the profiler's sum of kernel times (CUDA events cannot hide the host
+    here: a step issues more launches than the launch queue holds)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer
-    caches = transformer.init_caches(cfg, 8, 4096, "cuda")
-    tok = torch.zeros(8, dtype=torch.long, device="cuda")
+    from repro_torch.serving import kv_pages
     pos = torch.full((8,), 2047, device="cuda")
-    valid = torch.arange(4096, device="cuda")[None, :] <= pos[:, None]
+    tok = torch.zeros(8, dtype=torch.long, device="cuda")
+    if paged:
+        ps = cfg.spt.kv_page_size
+        mp = 4096 // ps
+        caches = transformer.init_caches(cfg, 8, 4096, "cuda", kv_pages=8 * mp)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        ids = torch.randperm(8 * mp, device="cuda", generator=gen)
+        held = torch.arange(mp, device="cuda")[None] <= 2047 // ps
+        pt = torch.where(held, ids.reshape(8, mp), -1).to(torch.int32)
+        valid = ((torch.arange(4096, device="cuda")[None, :] <= pos[:, None])
+                 & kv_pages.occupancy(pt, ps))
+        label = "paged decode step (8 slots, view 32 x 128)"
+    else:
+        caches = transformer.init_caches(cfg, 8, 4096, "cuda")
+        pt = None
+        valid = torch.arange(4096, device="cuda")[None, :] <= pos[:, None]
+        label = "decode step (8 slots, S=4096)"
 
     def step():
         transformer.lm_decode_step(model, cfg, caches, tok, pos,
-                                   kv_valid=valid)
+                                   kv_valid=valid, page_table=pt)
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -551,57 +872,120 @@ def decode_step_split(torch, model, cfg):
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     device = sum(r[0] for r in rows)
     if not rows:
-        print(f"  decode step (8 slots, S=4096): wall {wall:.2f} ms; device "
-              "time not measured (the profiler saw no device activity)",
-              flush=True)
+        print(f"  {label}: wall {wall:.2f} ms; device time not measured (the "
+              "profiler saw no device activity)", flush=True)
         return
-    print(f"  decode step (8 slots, S=4096): device {device:.2f} ms in "
+    print(f"  {label}: device {device:.2f} ms in "
           f"{sum(r[1] for r in rows):.0f} kernels, wall {wall:.2f} ms, "
           f"device busy {device / wall:.0%}", flush=True)
     for ms, n, name in rows[:8]:
         print(f"    {ms:8.3f} ms  x{n:5.0f}  {name[:90]}", flush=True)
 
 
+# the decode tiers of phase 6: (config switches, kernels that must launch)
+TIERS = {
+    "contiguous fused": ({}, {"fused_sparse_decode_attention"}),
+    "contiguous two-pass": ({"decode_attn_fuse": "two_pass"},
+                            {"decode_topl_thresholds",
+                             "sparse_decode_attention"}),
+    "paged native": (PAGED, {"fused_sparse_decode_attention_paged"}),
+    "paged gathered two-pass": (dict(PAGED, kv_paged_native="gather",
+                                     decode_attn_fuse="two_pass"),
+                                {"decode_topl_thresholds",
+                                 "sparse_decode_attention"}),
+}
+DECODE_KERNELS = {"fused_sparse_decode_attention", "decode_topl_thresholds",
+                  "sparse_decode_attention",
+                  "fused_sparse_decode_attention_paged",
+                  "dense_decode_attention_paged"}
+
+
 def agree_f32(torch):
-    import numpy as np
-    from repro_torch import configs
+    """Phase 6: 4 layers in f32, 8 requests over 4 slots; every decode
+    tier's greedy streams against REPRO_DISABLE_KERNELS=1 (contiguous,
+    core/ oracles), and the dense baseline's paged kernel-native streams
+    (kernel 8) against its own oracle.  Each tier must launch its decode
+    kernels and no other decode kernel, and the sparse kernel tiers must
+    give exactly the contiguous fused tier's streams (bit-identical
+    kernels over a deterministic prefill)."""
+    from repro_torch import configs, kernels
     from repro_torch.models import transformer
     from repro_torch.serving.engine import Engine
-    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"), num_layers=4,
-                              dtype=torch.float32).with_spt(
-                                  attn_impl="pallas", ffn_impl="pallas")
-    model = _perturbed_model(torch, cfg, seed=3)
-    model.to(torch.float32)
-    reqs = _requests(8, 64, 512, 16, cfg.vocab_size, seed=4)
-    streams = {}
-    for mode in ("kernels", "oracle"):
-        if mode == "oracle":
+    base = dataclasses.replace(configs.get_config("qwen3-0.6b"), num_layers=4,
+                               dtype=torch.float32).with_spt(**SERVE_CFG)
+    reqs = _requests(8, 64, 512, 16, base.vocab_size, seed=4)
+
+    def streams(model, cfg, kernels_on):
+        if not kernels_on:
             os.environ["REPRO_DISABLE_KERNELS"] = "1"
-        eng = Engine(cfg, model, max_len=1024, num_slots=4, decode_chunk=8)
-        streams[mode] = [c.tokens for c in eng.run(reqs)]
-    flips = 0
-    for req, got_k, got_o in zip(reqs, streams["kernels"], streams["oracle"]):
-        if got_k == got_o:
-            continue
-        t = next(i for i, (a, b) in enumerate(zip(got_k, got_o)) if a != b)
-        ctx = list(req.tokens) + got_o[:t]
-        with torch.no_grad():
-            _, logits = transformer.lm_prefill_ragged(
-                model, cfg, {"tokens": torch.tensor([ctx], device="cuda")},
-                torch.tensor([len(ctx)], device="cuda"), 1024)
-        lg = logits[0, -1].float().cpu().numpy()
-        gap = float(lg.max()) - min(float(lg[got_k[t]]), float(lg[got_o[t]]))
-        if gap > 1e-3:
-            raise AssertionError(f"request {req.uid} diverged at step {t} "
-                                 f"with a logit gap {gap:.3e}")
-        flips += 1
-    del os.environ["REPRO_DISABLE_KERNELS"]
-    print(f"  4-layer f32 greedy streams: kernels == REPRO_DISABLE_KERNELS=1 "
-          f"for {len(reqs) - flips}/{len(reqs)} requests, {flips} replayed "
-          "near-tie flips (<= 1e-3)", flush=True)
+        try:
+            before = {w.__name__: w.launches for w in kernels.wrappers()}
+            eng = Engine(cfg, model, max_len=1024, num_slots=4, decode_chunk=8)
+            out = [c.tokens for c in eng.run(reqs)]
+            torch.cuda.synchronize()
+            ran = {w.__name__ for w in kernels.wrappers()
+                   if w.launches != before[w.__name__]}
+        finally:
+            os.environ.pop("REPRO_DISABLE_KERNELS", None)
+        return out, ran & DECODE_KERNELS
+
+    def compare(model, cfg, name, got, want):
+        os.environ["REPRO_DISABLE_KERNELS"] = "1"
+        flips = 0
+        try:
+            for req, g, w in zip(reqs, got, want):
+                if g == w:
+                    continue
+                t = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+                ctx = list(req.tokens) + w[:t]
+                with torch.no_grad():
+                    _, logits = transformer.lm_prefill_ragged(
+                        model, cfg, {"tokens": torch.tensor([ctx], device="cuda")},
+                        torch.tensor([len(ctx)], device="cuda"), 1024)
+                lg = logits[0, -1].float().cpu().numpy()
+                gap = float(lg.max()) - min(float(lg[g[t]]), float(lg[w[t]]))
+                if gap > 1e-3:
+                    raise AssertionError(f"{name}: request {req.uid} diverged "
+                                         f"at step {t} with a logit gap {gap:.3e}")
+                flips += 1
+        finally:
+            os.environ.pop("REPRO_DISABLE_KERNELS", None)
+        print(f"  4-layer f32 greedy streams, {name} == REPRO_DISABLE_KERNELS=1 "
+              f"for {len(reqs) - flips}/{len(reqs)} requests, {flips} replayed "
+              "near-tie flips (<= 1e-3)", flush=True)
+
+    model = _perturbed_model(torch, base, seed=3)
+    model.to(torch.float32)
+    oracle, ran = streams(model, base, False)
+    if ran:
+        raise AssertionError(f"the oracle launched {ran}")
+    fused = None
+    for name, (spt, must) in TIERS.items():
+        got, ran = streams(model, base.with_spt(**spt), True)
+        if ran != must:
+            raise AssertionError(f"{name}: decode kernels {ran} != {must}")
+        compare(model, base, name, got, oracle)
+        # the kernel tiers are bit-identical by design (same splits, same
+        # attention body), and the prefill is deterministic: equal streams
+        if fused is None:
+            fused = got
+        elif got != fused:
+            raise AssertionError(f"{name}: streams differ from the "
+                                 "contiguous fused tier's")
+    print(f"  contiguous two-pass, paged native and paged gathered two-pass "
+          f"streams identical to contiguous fused for all {len(reqs)} "
+          "requests", flush=True)
+    dense_cfg = base.with_spt(sparse_mha=False)
+    dense = _perturbed_model(torch, dense_cfg, seed=3)
+    dense.to(torch.float32)
+    d_oracle, _ = streams(dense, dense_cfg, False)
+    got, ran = streams(dense, dense_cfg.with_spt(**PAGED), True)
+    if ran != {"dense_decode_attention_paged"}:
+        raise AssertionError(f"paged dense: decode kernels {ran}")
+    compare(dense, dense_cfg, "paged dense native", got, d_oracle)
 
 
-# ------------------------------------------------------------ phases 6-7
+# ------------------------------------------------------------ phases 7-8
 def _train_cfg(torch, **kw):
     from repro_torch import configs
     cfg = configs.get_config("qwen3-0.6b")
@@ -672,9 +1056,10 @@ def train_full_width(torch):
             raise AssertionError(f"step {r['step']}: loss {r['loss']}, "
                                  f"grad_norm {r['grad_norm']}")
     per_step = cfg.num_layers * steps
-    want = {"pq_assign": 4 * per_step, "topl_thresholds": 2 * per_step,
-            "sparse_attention": 2 * per_step, "grouped_ffn": 2 * per_step,
-            "fused_sparse_decode_attention": 0, "decode_ffn": 0}
+    want = {name: 0 for name in launches}
+    want.update({"pq_assign": 4 * per_step, "topl_thresholds": 2 * per_step,
+                 "sparse_attention": 2 * per_step,
+                 "grouped_ffn": 2 * per_step})
     if launches != want:
         raise AssertionError(f"train launches {launches} != expected {want}")
     print(f"  train peak memory {peak:.2f} GiB; launches "
@@ -843,9 +1228,11 @@ def _map_tree(fn, tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "train"), default=None,
+    ap.add_argument("--only", choices=("kernels", "serve", "train"),
+                    default=None,
                     help="stop after the kernel checks (phases 1-3), or "
-                         "skip the serving phases (4-5)")
+                         "after the serving phases (1-6), or skip the "
+                         "serving phases (4-6)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -865,42 +1252,58 @@ def main() -> int:
     kernels.build(verbose=True)
     kernels.library()
     print(f"[2] built the kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions, in the order of the TPU
+    # kernels they replace
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    thr3, attn5 = check_two_pass(torch, gen)
+    paged7, dense8 = check_paged(torch, gen)
     rows = [check_pq_assign(torch, gen), check_topl_thresholds(torch, gen),
-            check_sparse_attention(torch, gen),
-            check_decode_attention(torch, gen), check_grouped_ffn(torch, gen),
-            check_decode_ffn(torch, gen)]
+            thr3, check_sparse_attention(torch, gen), attn5,
+            check_decode_attention(torch, gen), paged7, dense8,
+            check_grouped_ffn(torch, gen), check_decode_ffn(torch, gen)]
+    if [r["name"] for r in rows] != [w.__name__ for w in kernels.wrappers()]:
+        raise AssertionError("phase 3 does not cover every kernel wrapper")
     for row in rows:
+        lib = ("no single PyTorch call computes it, so library_ms is n/a"
+               if row["library_ms"] is None
+               else f"library {row['library_ms']:.4f} ms")
         print(f"[3] {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
-              f"{row['shape']}; no single PyTorch call computes it, so "
-              "library_ms is n/a", flush=True)
-    paths = {"serve": {r["name"]: 0 for r in rows},
-             "train": {r["name"]: 0 for r in rows}}
-    if args.only is None:
+              f"{row['shape']}; {lib}", flush=True)
+    print(f"[3] took {time.perf_counter() - t0:.1f} s", flush=True)
+    paths = {p: {r["name"]: 0 for r in rows}
+             for p in ("serve", "serve_paged", "serve_paged_two_pass",
+                       "serve_paged_dense", "train")}
+    if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
         print("[4] full-width qwen3-0.6b bf16 serve", flush=True)
-        paths["serve"] = serve_full_width(torch)
-        # 5. card-side agreement
+        paths["serve"], model = serve_full_width(torch)
+        # 5. the same on the paged layout, sparse and dense
         t1 = time.perf_counter()
-        print(f"[5] 4-layer f32 serve agreement (phase 4 took {t1 - t0:.1f} s)",
+        print(f"[5] paged serves, pool {PAGED_POOL} pages of 128 (phase 4 "
+              f"took {t1 - t0:.1f} s)", flush=True)
+        paths.update(serve_paged(torch, model))
+        del model
+        # 6. card-side agreement of every decode tier
+        t2 = time.perf_counter()
+        print(f"[6] 4-layer f32 serve agreement (phase 5 took {t2 - t1:.1f} s)",
               flush=True)
         agree_f32(torch)
-        print(f"[5] took {time.perf_counter() - t1:.1f} s", flush=True)
-    if args.only != "kernels":
-        # 6. full-width fine-tune steps
+        print(f"[6] took {time.perf_counter() - t2:.1f} s", flush=True)
+    if args.only in (None, "train"):
+        # 7. full-width fine-tune steps
         t0 = time.perf_counter()
-        print("[6] full-width qwen3-0.6b bf16 train, 3 steps of 4 x 1024",
+        print("[7] full-width qwen3-0.6b bf16 train, 3 steps of 4 x 1024",
               flush=True)
         paths["train"] = train_full_width(torch)
-        # 7. card-side agreement of the train step
+        # 8. card-side agreement of the train step
         t1 = time.perf_counter()
-        print(f"[7] 4-layer f32 train agreement (phase 6 took {t1 - t0:.1f} s)",
+        print(f"[8] 4-layer f32 train agreement (phase 7 took {t1 - t0:.1f} s)",
               flush=True)
         train_agree_f32(torch)
-        print(f"[7] took {time.perf_counter() - t1:.1f} s", flush=True)
+        print(f"[8] took {time.perf_counter() - t1:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -35,9 +35,13 @@ class SPTConfig:
     # decode attention: "kernel" = fused CUDA decode kernel, "jnp" = the
     # core/ oracle, "auto" = kernel iff attn_impl == "pallas".
     decode_attn_impl: str = "auto"  # auto | kernel | jnp
-    # only "fused" has a kernel in this port; "two_pass" is not ported yet
+    # sparse decode kernel tier: "fused" = one pass (kernel 6 / 7),
+    # "two_pass" = thresholds then attention (kernels 3 and 5)
     decode_attn_fuse: str = "auto"  # auto | fused | two_pass
-    kv_paged_native: str = "auto"   # auto | kernel | gather (paged KV: not ported)
+    # paged decode: "kernel" = kernels 7 / 8 through the page table,
+    # "gather" = decode over gathered per-slot views, "auto" = follow
+    # attn_impl ("pallas" = kernel)
+    kv_paged_native: str = "auto"   # auto | kernel | gather
     # routed FFN (§4.2): G groups, G' active (beta = G'/G)
     ffn_groups: int = 8
     ffn_active_groups: int = 4
@@ -50,8 +54,8 @@ class SPTConfig:
     # decode routed FFN at (B, 1, d): "kernel" = block-gather CUDA kernel,
     # "jnp" = the grouped capacity path, "auto" = follow ffn_impl.
     decode_ffn_impl: str = "auto"   # auto | kernel | jnp
-    kv_layout: str = "contiguous"   # only "contiguous" is ported
-    kv_page_size: int = 128
+    kv_layout: str = "contiguous"   # contiguous | paged
+    kv_page_size: int = 128         # rows per KV page
     routed_ffn_in_experts: bool = False
     lb_loss_weight: float = 0.01
     qerr_loss_weight: float = 0.0

@@ -93,14 +93,18 @@ def combine(y: torch.Tensor, plan: DispatchPlan, seq_len: int
             ) -> torch.Tensor:
     """(B, G, C, d) -> (B, S, d) scatter-add with combine weights; empty
     and dropped slots carry weight 0 and index S, so their (arbitrary,
-    finite) rows land in a discarded row."""
+    finite) rows land in a discarded row.  The add is an accumulating
+    ``index_put_``, which CUDA sums in a fixed (sorted) order; the
+    atomics of ``index_add_`` sum a token's groups in an order that
+    changes from run to run, so the same prefill differed in its last
+    bits between runs."""
     b, g, c, d = y.shape
     w = torch.where(plan.slot_ok, plan.combine_w, 0.0).to(y.dtype)
     yw = (y * w[..., None]).reshape(b * g * c, d)
     rows = (torch.arange(b, device=y.device)[:, None] * (seq_len + 1)
             + plan.index.reshape(b, g * c).long())
     out = y.new_zeros(b * (seq_len + 1), d)
-    out.index_add_(0, rows.reshape(-1), yw)
+    out.index_put_((rows.reshape(-1),), yw, accumulate=True)
     return out.reshape(b, seq_len + 1, d)[:, :seq_len]
 
 
@@ -133,10 +137,37 @@ def use_sparse_decode_kernel(cfg) -> bool:
 
 
 def use_fused_decode_attn(cfg) -> bool:
-    """Within the decode kernel tier: the one-pass fused kernel (the only
-    tier ported so far) vs the two-pass pair."""
+    """Within the sparse-decode kernel tier: the one-pass fused kernel
+    (kernel 6, or 7 on the paged pool) vs the two-pass pair (threshold
+    kernel 3, then attention kernel 5), the bisection tier; both give
+    identical output.  decode_attn_fuse "auto" = fused.  Only consulted
+    once use_sparse_decode_kernel said yes, so the kill switch needs no
+    handling here."""
     mode = cfg.spt.decode_attn_fuse
     return True if mode == "auto" else mode == "fused"
+
+
+def use_paged_native_decode(cfg) -> bool:
+    """Paged-pool decode attention addressed straight through the page
+    table by the kernels (7 sparse, 8 dense) instead of over gathered
+    per-slot views (models/paged_fallback.py)?  kv_paged_native "auto"
+    follows attn_impl ("pallas" = native).  A kernel decision, so
+    REPRO_DISABLE_KERNELS=1 sends the paged route to the gathered-view
+    tier."""
+    if kernels_disabled():
+        return False
+    impl = cfg.spt.kv_paged_native
+    if impl == "auto":
+        return cfg.spt.attn_impl == "pallas"
+    return impl == "kernel"
+
+
+def use_paged_kv(cfg) -> bool:
+    """Serving KV cache laid out as fixed-size pages from a shared pool
+    (serving/kv_pages.py) instead of one max_len strip per slot?  A pure
+    layout decision, so the kill switch does not apply; the engine also
+    needs transformer.paged_applicable(cfg)."""
+    return cfg.spt.kv_layout == "paged"
 
 
 def use_routed_ffn_kernel(cfg) -> bool:

@@ -43,6 +43,12 @@ SIGNATURES = {
     "repro_topl_thresholds": [_P] * 3 + [_I] * 11 + [_P],
     "repro_sparse_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
                               + [_P],
+    "repro_fused_sparse_decode_paged": ([_I] + [_P] * 11 + [_I] * 10
+                                        + [_F, _I, _I, _P]),
+    "repro_decode_thresholds": [_P] * 5 + [_I] * 10 + [_P],
+    "repro_sparse_decode_attention": ([_I] + [_P] * 10 + [_I] * 7
+                                      + [_F, _I, _I, _P]),
+    "repro_dense_decode_paged": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -140,6 +146,21 @@ def require_aligned(name: str, *tensors) -> None:
             raise ValueError(f"{name}: needs 16-byte aligned inputs")
 
 
+DECODE_TILE = 128             # slots per tile of the decode kernels
+DECODE_BLOCKS = 528          # ~4 blocks per SM of the H100's 132
+
+
+def decode_splits(g: int, s: int):
+    """(ns, sp): the decode kernels cut the S-slot cache of each of the g
+    kv groups into ns splits of sp slots (a tile multiple) so that g * ns
+    blocks fill the card.  Every decode kernel over the same (g, s) uses
+    the same splits, which keeps the tiers bit-identical."""
+    tiles = -(-s // DECODE_TILE)
+    ns = max(1, min(tiles, -(-DECODE_BLOCKS // g)))
+    sp = -(-tiles // ns) * DECODE_TILE
+    return -(-s // sp), sp
+
+
 def act_code(act: str) -> int:
     return {"relu": 0, "gelu": 1, "silu": 2}[act]
 
@@ -150,12 +171,17 @@ def stream_ptr() -> int:
 
 
 def wrappers():
-    """The launching wrappers of every ported kernel (their ``launches``
-    counters are what a run reads to show it went through the kernels)."""
+    """The launching wrappers of every ported kernel, in the order of the
+    TPU kernels they replace (their ``launches`` counters are what a run
+    reads to show it went through the kernels)."""
     from repro_torch.kernels.pq_quantize import ops as pq_ops
     from repro_torch.kernels.routed_ffn import ops as rffn_ops
     from repro_torch.kernels.sparse_attention import ops as sa_ops
     from repro_torch.kernels.topl_select import ops as topl_ops
     return [pq_ops.pq_assign, topl_ops.topl_thresholds,
-            sa_ops.sparse_attention, sa_ops.fused_sparse_decode_attention,
-            rffn_ops.grouped_ffn, rffn_ops.decode_ffn]
+            topl_ops.decode_topl_thresholds, sa_ops.sparse_attention,
+            sa_ops.sparse_decode_attention,
+            sa_ops.fused_sparse_decode_attention,
+            sa_ops.fused_sparse_decode_attention_paged,
+            sa_ops.dense_decode_attention_paged, rffn_ops.grouped_ffn,
+            rffn_ops.decode_ffn]

@@ -8,13 +8,24 @@ reference selects the same top-L set (same integer thresholds and tie
 rule), so the gradient is that of the fused forward up to float
 summation order — the contract of the JAX custom_vjp it mirrors.
 
-Serving decode (``sparse_mha_decode``): the one-token query codes are
-assigned in plain torch (O(B*Hq*M*E), as the JAX op does), and all O(S)
-work — code matching, the threshold histogram and the attention sweep —
-runs in the CUDA kernel ``fused_sparse_decode_attention`` with the R
-query heads of a kv head in one block per split of the cache.  L comes
-from the unpadded cache length; the kernel masks its ragged last tile
-itself, so no padding enters the selection.  Inference-only.
+Serving decode, inference-only.  The one-token query codes are assigned
+in plain torch (O(B*Hq*M*E), as the JAX op does); all O(S) work — code
+matching, the threshold histogram and the attention sweep — runs in CUDA
+kernels with the R query heads of a kv head in one block per split of the
+cache (the same splits in every decode kernel, ``kernels.decode_
+splits``):
+  * ``sparse_mha_decode`` on the contiguous cache: the one-pass
+    ``fused_sparse_decode_attention`` (kernel 6), or with ``fuse=False``
+    the two-pass tier, ``decode_topl_thresholds`` (kernel 3) then
+    ``sparse_decode_attention`` (kernel 5), with identical output;
+  * ``sparse_mha_decode_paged`` on the page pools through the page table:
+    ``fused_sparse_decode_attention_paged`` (kernel 7), identical to
+    kernel 6 over gathered views; the top-L budget is taken over the view
+    length MP * page_size, as in JAX;
+  * ``dense_mha_decode_paged``: ``dense_decode_attention_paged``
+    (kernel 8), the dense baseline on the page pools.
+L comes from the unpadded cache (or view) length; the kernels mask their
+ragged last tile themselves, so no padding enters the selection.
 """
 from __future__ import annotations
 
@@ -26,31 +37,50 @@ from repro_torch import kernels
 from repro_torch.core import pq
 from repro_torch.core import sparse_attention as sa
 from repro_torch.kernels.pq_quantize.ops import pq_assign
-from repro_torch.kernels.sparse_attention.ref import (fused_decode_ref,
-                                                      sparse_attention_ref)
-from repro_torch.kernels.topl_select.ops import topl_thresholds
+from repro_torch.kernels.sparse_attention.ref import (
+    dense_decode_paged_ref, fused_decode_paged_ref, fused_decode_ref,
+    sparse_attention_ref, sparse_decode_attention_ref)
+from repro_torch.kernels.topl_select.ops import (decode_topl_thresholds,
+                                                 topl_thresholds)
 
-TILE = 128            # slots per tile of the CUDA kernel
-BLOCKS_PER_CALL = 528  # ~4 blocks per SM of the H100's 132
+
+def _check_decode(name, q, k, v, codes_q, codes_k, kv_valid, s,
+                  heads_per_batch):
+    """The decode kernels' input contract: q (G, R, dh); k, v with dh
+    wide rows; codes_q (G, R, M) int32; codes_k int8 with M wide rows;
+    kv_valid (G / heads_per_batch, s) bool."""
+    g, r, dh = q.shape
+    m = codes_q.shape[-1]
+    if (k.shape[-1] != dh or v.shape != k.shape or codes_q.shape[:2] != (g, r)
+            or (codes_k is not None and codes_k.shape[-1] != m)
+            or kv_valid.shape != (g // heads_per_batch, s)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if not (q.dtype == k.dtype == v.dtype and codes_q.dtype == torch.int32
+            and (codes_k is None or codes_k.dtype == torch.int8)
+            and kv_valid.dtype == torch.bool):
+        raise TypeError(f"{name}: takes float q/k/v of one dtype, int32 "
+                        "query codes, int8 cached codes and a bool mask")
 
 
-def splits(g: int, s: int):
-    """(ns, sp): the cache of each of the g kv groups is cut into ns
-    splits of sp slots (a tile multiple) so that g * ns blocks fill the
-    card."""
-    tiles = -(-s // TILE)
-    ns = max(1, min(tiles, -(-BLOCKS_PER_CALL // g)))
-    sp = -(-tiles // ns) * TILE
-    return -(-s // sp), sp
+def _scratch(g, ns, r, dh, dev):
+    """The per-split partial softmaxes, (G, ns, R, dh + 2) f32."""
+    return torch.empty((g, ns, r, dh + 2), dtype=torch.float32, device=dev)
+
+
+def _pt_ids(page_table: torch.Tensor, num_pages: int) -> torch.Tensor:
+    """Page ids the paged kernels may read: unallocated -1 entries clamp
+    to page 0 (their rows carry kv_valid == 0, as in JAX), and nothing
+    points past the pool."""
+    return page_table.clamp(0, num_pages - 1).to(torch.int32).contiguous()
 
 
 def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
                                   scale: float, l: int, max_score: int,
                                   sum_rows: bool, heads_per_batch: int,
                                   return_thresholds: bool = False):
-    """q: (G, R, dh); k, v: (G, S, dh) with G = B * heads_per_batch;
-    codes_q: (G, R, M) int32; codes_k: (G, S, M) int8; kv_valid: (B, S)
-    bool.  Returns out (G, R, dh) in q's dtype, and with
+    """Kernel 6.  q: (G, R, dh); k, v: (G, S, dh) with G = B *
+    heads_per_batch; codes_q: (G, R, M) int32; codes_k: (G, S, M) int8;
+    kv_valid: (B, S) bool.  Returns out (G, R, dh) in q's dtype, and with
     ``return_thresholds`` also the (G, R_out, 2) int32 [t, need] the
     selection used.  CPU tensors take the plain version; CUDA tensors
     launch the kernel (csrc/sparse_decode.cu)."""
@@ -65,23 +95,19 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
     g, r, dh = q.shape
     s = k.shape[1]
     m = codes_q.shape[-1]
-    if (k.shape != (g, s, dh) or v.shape != k.shape
-            or codes_k.shape != (g, s, m)
-            or kv_valid.shape != (g // heads_per_batch, s)):
+    _check_decode(name, q, k, v, codes_q, codes_k, kv_valid, s,
+                  heads_per_batch)
+    if k.shape != (g, s, dh) or codes_k.shape != (g, s, m):
         raise ValueError(f"{name}: inconsistent shapes")
-    if not (q.dtype == k.dtype == v.dtype and codes_q.dtype == torch.int32
-            and codes_k.dtype == torch.int8 and kv_valid.dtype == torch.bool):
-        raise TypeError(f"{name}: takes float q/k/v of one dtype, int32 "
-                        "query codes, int8 cached codes and a bool mask")
     r_out = 1 if sum_rows else r
-    ns, sp = splits(g, s)
+    ns, sp = kernels.decode_splits(g, s)
     dev = q.device
     out = torch.empty_like(q)
     thr = (torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)
            if return_thresholds else None)
     hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
                        device=dev)
-    part = torch.empty((g, ns, r, dh + 2), dtype=torch.float32, device=dev)
+    part = _scratch(g, ns, r, dh, dev)
     err = kernels.library().repro_fused_sparse_decode(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         codes_q.data_ptr(), codes_k.data_ptr(), kv_valid.data_ptr(),
@@ -97,27 +123,226 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
 fused_sparse_decode_attention.launches = 0
 
 
+def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
+                            kv_valid, *, scale: float, sum_rows: bool,
+                            heads_per_batch: int) -> torch.Tensor:
+    """Kernel 5, the two-pass decode's attention half: shapes as
+    ``fused_sparse_decode_attention`` plus thresholds (G, R_out, 2) int32
+    [t, need] (from ``decode_topl_thresholds``).  Returns (G, R, dh).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/sparse_decode_two_pass.cu)."""
+    kw = dict(scale=scale, sum_rows=sum_rows, heads_per_batch=heads_per_batch)
+    if q.device.type == "cpu":
+        return sparse_decode_attention_ref(q, k, v, codes_q, codes_k,
+                                           thresholds, kv_valid, **kw)
+    name = "sparse_decode_attention"
+    kernels.require_cuda(name, q, k, v, codes_q, codes_k, thresholds,
+                         kv_valid)
+    g, r, dh = q.shape
+    s = k.shape[1]
+    m = codes_q.shape[-1]
+    r_out = 1 if sum_rows else r
+    _check_decode(name, q, k, v, codes_q, codes_k, kv_valid, s,
+                  heads_per_batch)
+    if (k.shape != (g, s, dh) or codes_k.shape != (g, s, m)
+            or thresholds.shape != (g, r_out, 2)
+            or thresholds.dtype != torch.int32):
+        raise ValueError(f"{name}: inconsistent shapes or thresholds")
+    ns, sp = kernels.decode_splits(g, s)
+    dev = q.device
+    out = torch.empty_like(q)
+    ties = torch.empty((g, ns, r_out), dtype=torch.int32, device=dev)
+    part = _scratch(g, ns, r, dh, dev)
+    err = kernels.library().repro_sparse_decode_attention(
+        kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
+        kv_valid.data_ptr(), out.data_ptr(), ties.data_ptr(),
+        part.data_ptr(), g, s, r, dh, m, heads_per_batch, int(sum_rows),
+        float(scale), ns, sp, kernels.stream_ptr())
+    kernels.check(err, name)
+    sparse_decode_attention.launches += 1
+    return out
+
+
+sparse_decode_attention.launches = 0
+
+
+def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
+                                        codes_q, codes_pool, kv_valid, *,
+                                        scale: float, l: int,
+                                        max_score: int, sum_rows: bool,
+                                        heads_per_batch: int,
+                                        return_thresholds: bool = False):
+    """Kernel 7: kernel 6 read through a page table.  page_table (B, MP)
+    int32 (-1 = unallocated, clamped to page 0 here); q (G, R, dh),
+    codes_q (G, R, M) int32 with G = B * Hk; k_pool, v_pool (P, Hk, ps,
+    dh); codes_pool (P, Hk, ps, M) int8; kv_valid (B, MP*ps) bool in view
+    coordinates.  Returns as ``fused_sparse_decode_attention``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/sparse_decode.cu)."""
+    kw = dict(scale=scale, l=l, max_score=max_score, sum_rows=sum_rows,
+              heads_per_batch=heads_per_batch)
+    if q.device.type == "cpu":
+        out, thr = fused_decode_paged_ref(page_table, q, k_pool, v_pool,
+                                          codes_q, codes_pool, kv_valid, **kw)
+        return (out, thr) if return_thresholds else out
+    name = "fused_sparse_decode_attention_paged"
+    kernels.require_cuda(name, q, k_pool, v_pool, codes_q, codes_pool,
+                         kv_valid, page_table)
+    kernels.require_aligned(name, k_pool, v_pool)
+    g, r, dh = q.shape
+    npool, hk, ps, _ = k_pool.shape
+    b, mp = page_table.shape
+    m = codes_q.shape[-1]
+    _check_decode(name, q, k_pool, v_pool, codes_q, codes_pool, kv_valid,
+                  mp * ps, heads_per_batch)
+    if (hk != heads_per_batch or g != b * hk
+            or codes_pool.shape != (npool, hk, ps, m)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    r_out = 1 if sum_rows else r
+    ns, sp = kernels.decode_splits(g, mp * ps)
+    dev = q.device
+    pt = _pt_ids(page_table, npool)
+    out = torch.empty_like(q)
+    thr = (torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)
+           if return_thresholds else None)
+    hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
+                       device=dev)
+    part = _scratch(g, ns, r, dh, dev)
+    err = kernels.library().repro_fused_sparse_decode_paged(
+        kernels.dtype_code(q), pt.data_ptr(), q.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), codes_q.data_ptr(),
+        codes_pool.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
+        None if thr is None else thr.data_ptr(), hist.data_ptr(),
+        part.data_ptr(), g, mp, ps, r, dh, m, hk, l, max_score,
+        int(sum_rows), float(scale), ns, sp, kernels.stream_ptr())
+    kernels.check(err, name)
+    fused_sparse_decode_attention_paged.launches += 1
+    return (out, thr) if return_thresholds else out
+
+
+fused_sparse_decode_attention_paged.launches = 0
+
+
+def dense_decode_attention_paged(page_table, q, k_pool, v_pool, kv_valid,
+                                 *, scale: float,
+                                 heads_per_batch: int) -> torch.Tensor:
+    """Kernel 8: dense one-token attention over every valid slot of the
+    paged view; shapes as ``fused_sparse_decode_attention_paged``.
+    Returns (G, R, dh); a row with no valid slot gives 0.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel
+    (csrc/dense_decode_paged.cu)."""
+    if q.device.type == "cpu":
+        return dense_decode_paged_ref(page_table, q, k_pool, v_pool,
+                                      kv_valid, scale=scale,
+                                      heads_per_batch=heads_per_batch)
+    name = "dense_decode_attention_paged"
+    kernels.require_cuda(name, q, k_pool, v_pool, kv_valid, page_table)
+    kernels.require_aligned(name, k_pool, v_pool)
+    g, r, dh = q.shape
+    npool, hk, ps, _ = k_pool.shape
+    b, mp = page_table.shape
+    if (k_pool.shape[-1] != dh or v_pool.shape != k_pool.shape
+            or hk != heads_per_batch or g != b * hk
+            or kv_valid.shape != (b, mp * ps)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype
+            and kv_valid.dtype == torch.bool):
+        raise TypeError(f"{name}: takes float q and pools of one dtype and "
+                        "a bool mask")
+    ns, sp = kernels.decode_splits(g, mp * ps)
+    pt = _pt_ids(page_table, npool)
+    out = torch.empty_like(q)
+    part = _scratch(g, ns, r, dh, q.device)
+    err = kernels.library().repro_dense_decode_paged(
+        kernels.dtype_code(q), pt.data_ptr(), q.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), kv_valid.data_ptr(),
+        out.data_ptr(), part.data_ptr(), g, mp, ps, r, dh, hk,
+        float(scale), ns, sp, kernels.stream_ptr())
+    kernels.check(err, name)
+    dense_decode_attention_paged.launches += 1
+    return out
+
+
+dense_decode_attention_paged.launches = 0
+
+
+def _decode_setup(q, codebooks, cfg: sa.SparseAttentionConfig, hk: int,
+                  s: int):
+    """The query groups (G, R, d), their PQ codes (G, R, M) and the
+    selection constants of a one-token decode over s slots."""
+    b, hq, _, d = q.shape
+    r = hq // hk
+    m = codebooks.shape[0]
+    sum_rows = cfg.select_granularity == "kvgroup"
+    sel = dict(l=sa.top_l(s, cfg, None),
+               max_score=cfg.pq.num_books * (r if sum_rows else 1),
+               sum_rows=sum_rows, heads_per_batch=hk)
+    codes_q = pq.assign(q, codebooks).reshape(b * hk, r, m)
+    return q.reshape(b * hk, r, d), codes_q, sel
+
+
 def sparse_mha_decode(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, codes_cache: torch.Tensor,
                       codebooks: torch.Tensor,
                       cfg: sa.SparseAttentionConfig, scale: float,
-                      kv_valid: torch.Tensor) -> torch.Tensor:
+                      kv_valid: torch.Tensor, *,
+                      fuse: bool = True) -> torch.Tensor:
     """Drop-in for core.sparse_attention.sparse_mha_decode.
     q: (B, Hq, 1, d); caches: (B, Hk, S, d); codes_cache: (B, Hk, S, M)
-    int8; kv_valid: (B, S) bool."""
+    int8; kv_valid: (B, S) bool.  fuse=True: the one-pass kernel 6;
+    fuse=False: the two-pass tier (kernels 3 then 5), identical output."""
     b, hq, _, d = q.shape
     _, hk, s, _ = k_cache.shape
-    r = hq // hk
     m = codebooks.shape[0]
-    sum_rows = cfg.select_granularity == "kvgroup"
-    codes_q = pq.assign(q, codebooks).reshape(b * hk, r, m)
-    out = fused_sparse_decode_attention(
-        q.reshape(b * hk, r, d), k_cache.reshape(b * hk, s, d),
-        v_cache.reshape(b * hk, s, d), codes_q,
-        codes_cache.reshape(b * hk, s, m), kv_valid, scale=scale,
-        l=sa.top_l(s, cfg, None),
-        max_score=cfg.pq.num_books * (r if sum_rows else 1),
-        sum_rows=sum_rows, heads_per_batch=hk)
+    qg, codes_q, sel = _decode_setup(q, codebooks, cfg, hk, s)
+    kv = (k_cache.reshape(b * hk, s, d), v_cache.reshape(b * hk, s, d))
+    ck = codes_cache.reshape(b * hk, s, m)
+    if fuse:
+        out = fused_sparse_decode_attention(qg, *kv, codes_q, ck, kv_valid,
+                                            scale=scale, **sel)
+    else:
+        thr = decode_topl_thresholds(codes_q, ck, kv_valid, **sel)
+        out = sparse_decode_attention(
+            qg, *kv, codes_q, ck, thr, kv_valid, scale=scale,
+            sum_rows=sel["sum_rows"], heads_per_batch=hk)
+    return out.reshape(b, hq, 1, d)
+
+
+def sparse_mha_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, codes_pool: torch.Tensor,
+                            codebooks: torch.Tensor,
+                            cfg: sa.SparseAttentionConfig, scale: float,
+                            kv_valid: torch.Tensor,
+                            page_table: torch.Tensor) -> torch.Tensor:
+    """Paged counterpart of ``sparse_mha_decode``: kernel 7 reads the
+    pools through the page table; no gathered view is built.  q: (B, Hq,
+    1, d); pools: (P, Hk, ps, .); page_table: (B, MP) int32 (-1 =
+    unallocated); kv_valid: (B, MP*ps) bool.  The top-L budget is taken
+    over the view length, so the output equals ``sparse_mha_decode`` over
+    ``kv_pages.gather_pages`` views."""
+    b, hq, _, d = q.shape
+    hk, ps = k_pool.shape[1], k_pool.shape[2]
+    view = page_table.shape[1] * ps
+    qg, codes_q, sel = _decode_setup(q, codebooks, cfg, hk, view)
+    out = fused_sparse_decode_attention_paged(
+        page_table, qg, k_pool, v_pool, codes_q, codes_pool, kv_valid,
+        scale=scale, **sel)
+    return out.reshape(b, hq, 1, d)
+
+
+def dense_mha_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, scale: float,
+                           kv_valid: torch.Tensor,
+                           page_table: torch.Tensor) -> torch.Tensor:
+    """Dense decode attention straight off the paged pools (kernel 8).
+    q: (B, Hq, 1, d); pools: (P, Hk, ps, d); kv_valid: (B, MP*ps);
+    page_table: (B, MP) int32 (-1 = unallocated)."""
+    b, hq, _, d = q.shape
+    hk = k_pool.shape[1]
+    out = dense_decode_attention_paged(
+        page_table, q.reshape(b * hk, hq // hk, d), k_pool, v_pool,
+        kv_valid, scale=scale, heads_per_batch=hk)
     return out.reshape(b, hq, 1, d)
 
 

@@ -3,11 +3,16 @@
 ``sparse_attention_ref`` is the train/prefill kernel's function
 (csrc/sparse_attention.cu): given [t, need] per query row, attention over
 the keys the causal / window mask admits with score > t plus the ``need``
-newest keys with score == t.  ``fused_decode_ref`` is the decode kernel's
-(csrc/sparse_decode.cu): the [t, need] of every row from a histogram of
-its whole valid code row, then the same selection.  Both take the softmax
-in f32 and give 0 for a row with nothing selected.  The CPU tests hold
-them to the JAX kernels; ``chip_smoke.py`` holds the CUDA kernels to them.
+newest keys with score == t.  The decode kernels' functions:
+``fused_decode_ref`` (csrc/sparse_decode.cu, kernel 6): the [t, need] of
+every row from a histogram of its whole valid code row, then the same
+selection; ``sparse_decode_attention_ref`` (the two-pass attention half,
+kernel 5): the same selection from given [t, need]; the paged forms read
+the pools through a page table (``fused_decode_paged_ref``, kernel 7;
+``dense_decode_paged_ref``, kernel 8: every valid slot).  All take the
+softmax in f32 and give 0 for a row with nothing selected.  The CPU tests
+hold them to the JAX kernels; ``chip_smoke.py`` holds the CUDA kernels to
+them.
 """
 from __future__ import annotations
 
@@ -15,8 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.topl_select.ref import (hist_reduce, kv_groups,
-                                                 masked_scores)
+from repro_torch.kernels.topl_select.ref import (decode_scores,
+                                                 decode_topl_thresholds_ref,
+                                                 kv_groups, masked_scores)
+from repro_torch.serving.kv_pages import gather_pages
 
 
 def newest_ties(sm: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -60,21 +67,14 @@ def select(codes_q: torch.Tensor, codes_k: torch.Tensor,
            kv_valid: torch.Tensor, *, l: int, max_score: int,
            sum_rows: bool, heads_per_batch: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's selection: (eligible (G, R_out, S) bool, thresholds
-    (G, R_out, 2) int32).  R_out = 1 for the shared "kvgroup" selection."""
-    g, s = codes_k.shape[:2]
-    valid = kv_valid.bool().repeat_interleave(heads_per_batch, dim=0)
-    scores = (codes_q.long()[:, :, None, :]
-              == codes_k.long()[:, None, :, :]).sum(-1)      # (G, R, S)
-    if sum_rows:
-        scores = scores.sum(1, keepdim=True)                 # (G, 1, S)
-    sm = torch.where(valid[:, None, :], scores, -1)
-    r_out = sm.shape[1]
-    flat = sm.reshape(g * r_out, s)
-    hist = torch.stack([(flat == b).sum(-1) for b in range(max_score + 1)],
-                       dim=-1)
-    thr = hist_reduce(hist, l).reshape(g, r_out, 2)
-    return newest_ties(sm, thr), thr
+    """The decode kernels' selection: (eligible (G, R_out, S) bool,
+    thresholds (G, R_out, 2) int32).  R_out = 1 for the shared "kvgroup"
+    selection."""
+    kw = dict(sum_rows=sum_rows, heads_per_batch=heads_per_batch)
+    thr = decode_topl_thresholds_ref(codes_q, codes_k, kv_valid, l=l,
+                                     max_score=max_score, **kw)
+    return newest_ties(decode_scores(codes_q, codes_k, kv_valid, **kw),
+                       thr), thr
 
 
 def fused_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,3 +89,54 @@ def fused_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            max_score=max_score, sum_rows=sum_rows,
                            heads_per_batch=heads_per_batch)
     return _attend(q, k, v, eligible, scale), thr
+
+
+def sparse_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, codes_q: torch.Tensor,
+                                codes_k: torch.Tensor,
+                                thresholds: torch.Tensor,
+                                kv_valid: torch.Tensor, *, scale: float,
+                                sum_rows: bool, heads_per_batch: int
+                                ) -> torch.Tensor:
+    """The two-pass attention half: shapes as ``fused_decode_ref`` plus
+    thresholds (G, R_out, 2) [t, need].  Returns (G, R, dh)."""
+    sm = decode_scores(codes_q, codes_k, kv_valid, sum_rows=sum_rows,
+                       heads_per_batch=heads_per_batch)
+    return _attend(q, k, v, newest_ties(sm, thresholds), scale)
+
+
+def _views(page_table: torch.Tensor, *pools):
+    """(G, MP*ps, X) per-group views of (P, Hk, ps, X) pools."""
+    out = []
+    for pool in pools:
+        view = gather_pages(pool, page_table)             # (B, Hk, S, X)
+        out.append(view.reshape(-1, *view.shape[2:]))
+    return out
+
+
+def fused_decode_paged_ref(page_table: torch.Tensor, q: torch.Tensor,
+                           k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           codes_q: torch.Tensor, codes_pool: torch.Tensor,
+                           kv_valid: torch.Tensor, *, scale: float, l: int,
+                           max_score: int, sum_rows: bool,
+                           heads_per_batch: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_decode_ref`` read through a page table: page_table (B, MP)
+    (-1 reads page 0, whose rows kv_valid must leave out); q, codes_q
+    (G, R, .) with G = B * Hk; pools (P, Hk, ps, .); kv_valid
+    (B, MP*ps).  Returns (out (G, R, dh), thresholds (G, R_out, 2))."""
+    k, v, ck = _views(page_table, k_pool, v_pool, codes_pool)
+    return fused_decode_ref(q, k, v, codes_q, ck, kv_valid, scale=scale,
+                            l=l, max_score=max_score, sum_rows=sum_rows,
+                            heads_per_batch=heads_per_batch)
+
+
+def dense_decode_paged_ref(page_table: torch.Tensor, q: torch.Tensor,
+                           k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           kv_valid: torch.Tensor, *, scale: float,
+                           heads_per_batch: int) -> torch.Tensor:
+    """Dense decode attention over every valid slot of the paged view:
+    shapes as ``fused_decode_paged_ref``.  Returns (G, R, dh)."""
+    k, v = _views(page_table, k_pool, v_pool)
+    valid = kv_valid.bool().repeat_interleave(heads_per_batch, dim=0)
+    return _attend(q, k, v, valid[:, None, :], scale)

@@ -1,6 +1,8 @@
-"""Public top-L threshold op: [t, need] per query row for the fused
-train/prefill sparse attention (paper Algorithm 3, bucket form).  No
-indices are ever emitted: the attention kernel consumes the thresholds."""
+"""Public top-L threshold ops: [t, need] per query row (paper Algorithm
+3, bucket form) for the train/prefill sparse attention
+(``topl_thresholds``) and for the two-pass decode (``decode_topl_
+thresholds``).  No indices are ever emitted: the attention kernels
+consume the thresholds."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +10,8 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.topl_select.ref import thresholds_ref
+from repro_torch.kernels.topl_select.ref import (decode_topl_thresholds_ref,
+                                                 thresholds_ref)
 
 
 def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
@@ -46,3 +49,46 @@ def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
 
 
 topl_thresholds.launches = 0
+
+
+def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
+                           kv_valid: torch.Tensor, *, l: int,
+                           max_score: int, sum_rows: bool,
+                           heads_per_batch: int) -> torch.Tensor:
+    """The two-pass decode's first half: codes_q (G, R, M) int32 (the R
+    query heads of each kv group, G = B * heads_per_batch); codes_k
+    (G, S, M) int8 cached codes; kv_valid (B, S) bool.  Returns
+    (G, R_out, 2) int32 [t, need] (R_out = 1 when ``sum_rows``, the
+    "kvgroup" selection).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (csrc/sparse_decode_two_pass.cu)."""
+    kw = dict(l=l, max_score=max_score, sum_rows=sum_rows,
+              heads_per_batch=heads_per_batch)
+    if codes_q.device.type == "cpu":
+        return decode_topl_thresholds_ref(codes_q, codes_k, kv_valid, **kw)
+    name = "decode_topl_thresholds"
+    kernels.require_cuda(name, codes_q, codes_k, kv_valid)
+    g, r, m = codes_q.shape
+    s = codes_k.shape[1]
+    if (codes_k.shape != (g, s, m)
+            or kv_valid.shape != (g // heads_per_batch, s)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if not (codes_q.dtype == torch.int32 and codes_k.dtype == torch.int8
+            and kv_valid.dtype == torch.bool):
+        raise TypeError(f"{name}: takes int32 query codes, int8 cached "
+                        "codes and a bool mask")
+    r_out = 1 if sum_rows else r
+    ns, sp = kernels.decode_splits(g, s)
+    dev = codes_q.device
+    thr = torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)
+    hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
+                       device=dev)
+    err = kernels.library().repro_decode_thresholds(
+        codes_q.data_ptr(), codes_k.data_ptr(), kv_valid.data_ptr(),
+        thr.data_ptr(), hist.data_ptr(), g, s, r, m, heads_per_batch, l,
+        max_score, int(sum_rows), ns, sp, kernels.stream_ptr())
+    kernels.check(err, name)
+    decode_topl_thresholds.launches += 1
+    return thr
+
+
+decode_topl_thresholds.launches = 0

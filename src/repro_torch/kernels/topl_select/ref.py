@@ -1,11 +1,13 @@
 """Plain torch version of the top-L threshold kernel's function, and the
 histogram reduction every selection shares.
 
-``thresholds_ref`` has the inputs and outputs of the CUDA kernel
-(csrc/topl_thresholds.cu): the per-query histogram of PQ match scores
-under the causal / window mask, reduced by ``hist_reduce`` to [t, need].
-The CPU tests hold it to the JAX kernel; ``chip_smoke.py`` holds the CUDA
-kernel to it, exactly.
+``thresholds_ref`` has the inputs and outputs of the train/prefill CUDA
+kernel (csrc/topl_thresholds.cu): the per-query histogram of PQ match
+scores under the causal / window mask, reduced by ``hist_reduce`` to
+[t, need].  ``decode_topl_thresholds_ref`` is the decode kernel's
+(csrc/sparse_decode_two_pass.cu): one histogram per decode row over its
+valid cached code row.  The CPU tests hold both to the JAX kernels;
+``chip_smoke.py`` holds the CUDA kernels to them, exactly.
 """
 from __future__ import annotations
 
@@ -60,6 +62,34 @@ def thresholds_ref(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
     sm = masked_scores(codes_q, codes_k, causal=causal, window=window,
                        q_offset=q_offset, heads_per_batch=heads_per_batch,
                        rep=rep)
+    hist = torch.stack([(sm == b).sum(-1) for b in range(max_score + 1)],
+                       dim=-1)
+    return hist_reduce(hist, l)
+
+
+def decode_scores(codes_q: torch.Tensor, codes_k: torch.Tensor,
+                  kv_valid: torch.Tensor, *, sum_rows: bool,
+                  heads_per_batch: int) -> torch.Tensor:
+    """(G, R_out, S) int64 match counts of each decode row (codes_q
+    (G, R, M)) against its kv group's cached codes (codes_k (G, S, M)),
+    -1 at slots kv_valid (B, S), G = B * heads_per_batch, leaves out.
+    sum_rows ("kvgroup"): the R rows' counts summed, R_out = 1."""
+    valid = kv_valid.bool().repeat_interleave(heads_per_batch, dim=0)
+    scores = (codes_q.long()[:, :, None, :]
+              == codes_k.long()[:, None, :, :]).sum(-1)      # (G, R, S)
+    if sum_rows:
+        scores = scores.sum(1, keepdim=True)                 # (G, 1, S)
+    return torch.where(valid[:, None, :], scores, -1)
+
+
+def decode_topl_thresholds_ref(codes_q: torch.Tensor, codes_k: torch.Tensor,
+                               kv_valid: torch.Tensor, *, l: int,
+                               max_score: int, sum_rows: bool,
+                               heads_per_batch: int) -> torch.Tensor:
+    """codes_q (G, R, M), codes_k (G, S, M) int, kv_valid (B, S) ->
+    (G, R_out, 2) int32 [t, need] of each row's valid score histogram."""
+    sm = decode_scores(codes_q, codes_k, kv_valid, sum_rows=sum_rows,
+                       heads_per_batch=heads_per_batch)
     hist = torch.stack([(sm == b).sum(-1) for b in range(max_score + 1)],
                        dim=-1)
     return hist_reduce(hist, l)

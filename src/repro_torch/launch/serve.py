@@ -4,7 +4,8 @@
 
 Random weights from a seed (no checkpoint ships with the repo), greedy
 decoding, the config's kernels (attn_impl / ffn_impl "pallas" = the CUDA
-kernels).  A short warm-up run comes first; the timed run prints one JSON
+kernels), on the contiguous or the paged KV layout (``--kv-layout paged
+--page-size N [--kv-pages P]``).  A short warm-up run comes first; the timed run prints one JSON
 blob of its stats.  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -43,17 +44,30 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=None,
                     help="cache length per slot (default prompt-len + gen)")
+    ap.add_argument("--kv-layout", default="contiguous",
+                    choices=("contiguous", "paged"),
+                    help="serving KV-cache layout: 'paged' shares a pool of "
+                         "fixed-size pages across slots (admission waits for "
+                         "pages, not just a free slot)")
+    ap.add_argument("--page-size", type=int, default=128,
+                    help="rows per KV page (paged layout)")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="page-pool size (default: the contiguous footprint "
+                         "slots*ceil(max_len/page_size); set lower to serve "
+                         "under a fixed KV-memory budget)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    cfg = cfg.with_spt(attn_impl="pallas", ffn_impl="pallas")
+    cfg = cfg.with_spt(attn_impl="pallas", ffn_impl="pallas",
+                       kv_layout=args.kv_layout,
+                       kv_page_size=args.page_size)
     device = transformer.resolve_device(args.device)
     model = transformer.LM.init(cfg, seed=0, device=device)
     max_len = args.max_len or args.prompt_len + args.gen
     engine = Engine(cfg, model, max_len=max_len, num_slots=args.slots,
-                    device=device)
+                    kv_pages=args.kv_pages, device=device)
     reqs = build_requests(cfg.vocab_size, args.requests, args.prompt_len,
                           args.gen)
     engine.run(reqs[:1])                                     # warm-up

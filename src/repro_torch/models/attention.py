@@ -5,8 +5,11 @@ Modes: ``train`` (full-sequence causal), ``prefill`` (train-mode compute
 + populate the KV and PQ-code cache), ``decode`` (one token per row
 against the cache; sparse MHA selects the top-L over the cached keys'
 codes).  Caches keep the JAX layout — k/v (B, Hk, S, hd), codes (B, Hk,
-S, M) int8, slot_pos (B, S) — and are updated IN PLACE (the JAX functions
-return new arrays; here the returned dict is the same, mutated one).
+S, M) int8, slot_pos (B, S) — or, paged (serving/kv_pages.py), the same
+keys as pools of (P, Hk, page_size, .) pages addressed through the
+engine's (B, MP) page table.  Both are updated IN PLACE (the JAX
+functions return new arrays; here the returned dict is the same, mutated
+one).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch, lora, pq
 from repro_torch.core import sparse_attention as sa
-from repro_torch.models import layers
+from repro_torch.models import layers, paged_fallback
+from repro_torch.serving import kv_pages
 
 
 def _pq_config(cfg: ModelConfig) -> pq.PQConfig:
@@ -79,6 +83,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     return cache
 
 
+def init_paged_cache(cfg: ModelConfig, num_pages: int, device
+                     ) -> Dict[str, torch.Tensor]:
+    """Paged pool layout: the per-slot (B, size, ...) strips become a
+    global (num_pages, page_size, ...) pool addressed through the engine's
+    slot->page table.  Same keys as init_cache."""
+    ps = cfg.spt.kv_page_size
+    hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    cache = {
+        "k": torch.zeros((num_pages, hk, ps, hd), dtype=cfg.dtype,
+                         device=device),
+        "v": torch.zeros((num_pages, hk, ps, hd), dtype=cfg.dtype,
+                         device=device),
+        "slot_pos": torch.full((num_pages, ps), -1, dtype=torch.int32,
+                               device=device),
+    }
+    if sparse_applicable(cfg):
+        m = _pq_config(cfg).num_books
+        cache["codes"] = torch.zeros((num_pages, hk, ps, m),
+                                     dtype=torch.int8, device=device)
+    return cache
+
+
 def _project(p, x: torch.Tensor, lc, heads: int, hd: int) -> torch.Tensor:
     y = lora.linear(x, p, lc)
     b, s, _ = y.shape
@@ -113,6 +139,25 @@ def write_cache(cache: dict, cfg: ModelConfig, p, k: torch.Tensor,
     if "codes" in cache:
         codes = pq.assign(k, p["pq"]["codebooks"])
         cache["codes"][:, :, slots] = codes.to(torch.int8)
+    return cache
+
+
+def write_cache_paged(cache: dict, cfg: ModelConfig, p, k: torch.Tensor,
+                      v: torch.Tensor, pos: torch.Tensor,
+                      page_table: torch.Tensor) -> dict:
+    """Decode-time paged write, in place: one new token per slot at
+    absolute position ``pos`` (B,), into page page_table[b, pos // ps],
+    row pos % ps.  Slots whose page is unallocated (retired slots
+    decoding dead air inside a chunk) drop the write."""
+    ps = cache["k"].shape[2]
+    kv_pages.scatter_row(cache["k"], page_table, pos, k[:, :, 0], ps)
+    kv_pages.scatter_row(cache["v"], page_table, pos, v[:, :, 0], ps)
+    kv_pages.scatter_row(cache["slot_pos"], page_table, pos,
+                         pos.to(torch.int32), ps)
+    if "codes" in cache:
+        codes = pq.assign(k, p["pq"]["codebooks"])        # (B, Hk, 1, M)
+        kv_pages.scatter_row(cache["codes"], page_table, pos,
+                             codes[:, :, 0].to(torch.int8), ps)
     return cache
 
 
@@ -151,16 +196,45 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return sa.sparse_mha(*args, **kw)
 
 
+def _decode_paged(p, cfg: ModelConfig, q, k, v, cache: dict, pos_b,
+                  kv_valid, page_table, scale: float) -> torch.Tensor:
+    """Paged-pool decode: write the new token into its slot's page, then
+    attend.  Kernel-native tier: kernel 7 (sparse) or 8 (dense) reads the
+    pools through the page table.  Gathered-view tier (the core/ oracle,
+    the kill switch, ``kv_paged_native="gather"``, or a caller without a
+    view-coordinate validity mask): models/paged_fallback.py."""
+    write_cache_paged(cache, cfg, p, k, v, pos_b, page_table)
+    s_view = page_table.shape[1] * cache["k"].shape[2]
+    sparse = sparse_applicable(cfg)
+    engine_valid = kv_valid is not None and kv_valid.shape[-1] == s_view
+    if (engine_valid and dispatch.use_paged_native_decode(cfg)
+            and (not sparse or dispatch.use_sparse_decode_kernel(cfg))):
+        from repro_torch.kernels.sparse_attention import ops as sa_ops
+        if sparse:
+            return sa_ops.sparse_mha_decode_paged(
+                q, cache["k"], cache["v"], cache["codes"],
+                p["pq"]["codebooks"], _sa_config(cfg), scale, kv_valid,
+                page_table)
+        return sa_ops.dense_mha_decode_paged(q, cache["k"], cache["v"],
+                                             scale, kv_valid, page_table)
+    return paged_fallback.decode_attend_gathered(
+        p, cfg, q, cache, page_table, pos_b, kv_valid, scale)
+
+
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                causal: bool = True, window: Optional[int] = None,
                cache: Optional[dict] = None, pos=None,
                kv_valid: Optional[torch.Tensor] = None,
+               page_table: Optional[torch.Tensor] = None,
                seq_lengths: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (y, cache, aux).  x: (B, S, d_model).  pos: absolute
     position of x[:, 0], an int or a (B,) tensor (ragged decode slots).
-    kv_valid: decode only, the engine's (B, S_cache) slot validity;
-    without it the mask is derived from the cache's slot_pos."""
+    kv_valid: decode only, the engine's (B, S_cache) slot validity (with
+    a page table, (B, MP * page_size) in view coordinates); without it
+    the mask is derived from the cache's slot_pos.  page_table: decode
+    only, the (B, MP) slot->page map that marks ``cache`` as a paged pool
+    (ring-buffer SWA caches ignore it)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     lc = cfg.spt.lora
@@ -184,6 +258,10 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                           seq_lengths=seq_lengths)
         if mode == "prefill":
             cache = write_cache(cache, cfg, p, k, v, pos_q)
+    elif mode == "decode" and page_table is not None and window is None:
+        pos_b = start.expand(b) if start.dim() == 0 else start
+        out = _decode_paged(p, cfg, q, k, v, cache, pos_b, kv_valid,
+                            page_table, hd ** -0.5)
     elif mode == "decode":
         cache = write_cache(cache, cfg, p, k, v, pos_q)
         size = cache["k"].shape[2]
@@ -196,13 +274,10 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
         if sparse_applicable(cfg):
             args = (q, cache["k"], cache["v"], cache["codes"],
                     p["pq"]["codebooks"], _sa_config(cfg), scale, valid)
-            if (dispatch.use_sparse_decode_kernel(cfg)
-                    and dispatch.use_fused_decode_attn(cfg)):
+            if dispatch.use_sparse_decode_kernel(cfg):
                 from repro_torch.kernels.sparse_attention import ops as sa_ops
-                out = sa_ops.sparse_mha_decode(*args)
-            elif dispatch.use_sparse_decode_kernel(cfg):
-                raise NotImplementedError(
-                    "decode_attn_fuse='two_pass' has no kernel in the port")
+                out = sa_ops.sparse_mha_decode(
+                    *args, fuse=dispatch.use_fused_decode_attn(cfg))
             else:
                 out = sa.sparse_mha_decode(*args)
         else:

@@ -5,11 +5,12 @@ The parameter tree keeps the JAX layout — ``{"embed", "final_norm",
 "units": {"b0_attn": ...} stacked on a leading unit axis U, ["head"]}`` —
 so the JAX package's params load unchanged (core/params.from_numpy_tree);
 :class:`LM` holds each unit as its own ``ParamTree`` (views of the stacked
-tensors).  Caches keep the JAX tree too, stacked on U, and are written in
-place.  Training runs on the param tree itself (``lm_hidden``: per-unit
-views of the stacked leaves, so gradients land on the stacked leaves as
-JAX's scan gives them).  The port covers the dense attention stack
-(pattern ("attn",)).
+tensors).  Caches keep the JAX tree too, stacked on U — per-slot strips,
+or with ``kv_pages`` page pools shared by the slots (serving/kv_pages.py)
+— and are written in place.  Training runs on the param tree itself
+(``lm_hidden``: per-unit views of the stacked leaves, so gradients land
+on the stacked leaves as JAX's scan gives them).  The port covers the
+dense attention stack (pattern ("attn",)).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
                                      stack_defs)
 from repro_torch.models import attention, ffn, layers
+from repro_torch.serving import kv_pages as kvp
 
 
 AUX_KEYS = ("lb_loss", "dropped", "qerr")
@@ -51,13 +53,15 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                cache=None, pos=None, kv_valid=None, seq_lengths=None):
+                cache=None, pos=None, kv_valid=None, page_table=None,
+                seq_lengths=None):
     """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
     its layers report (scalars, f32)."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
     y, cache, a_aux = attention.attn_apply(
         p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
-        cache=cache, pos=pos, kv_valid=kv_valid, seq_lengths=seq_lengths)
+        cache=cache, pos=pos, kv_valid=kv_valid, page_table=page_table,
+        seq_lengths=seq_lengths)
     x = x + y.to(x.dtype)
     f_aux: dict = {}
     if "ffn" in p:
@@ -151,8 +155,28 @@ def _to(t, dev):
     return t.to(dev)
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    one = attention.init_cache(cfg, batch, max_len, device, cfg.window)
+def _kind_paged(cfg: ModelConfig, kind: str, kv_pages) -> bool:
+    """A block's cache uses the paged pool layout: attention without a SWA
+    ring (the ring is already window-bounded) under a paged engine."""
+    return kind == "attn" and kv_pages is not None and cfg.window is None
+
+
+def paged_applicable(cfg: ModelConfig) -> bool:
+    """The paged KV layout has something to page: at least one attention
+    block whose cache is a full-length strip (no SWA ring bound)."""
+    return ("attn" in cfg.pattern and cfg.window is None
+            and cfg.family != "audio")
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                kv_pages: Optional[int] = None) -> dict:
+    """kv_pages: when set, the attention caches are (kv_pages, page_size,
+    ...) pools shared across slots instead of per-slot (batch, max_len,
+    ...) strips."""
+    if _kind_paged(cfg, "attn", kv_pages):
+        one = attention.init_paged_cache(cfg, kv_pages, device)
+    else:
+        one = attention.init_cache(cfg, batch, max_len, device, cfg.window)
     u = num_units(cfg)
     return {"units": {"b0_attn": {
         k: v[None].expand(u, *v.shape).contiguous() for k, v in one.items()}}}
@@ -161,7 +185,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 # ---------------------------------------------------------------- forward
 def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                 caches=None, pos=None, remat: bool = True, kv_valid=None,
-                seq_lengths=None):
+                page_table=None, seq_lengths=None):
     """Run the pattern units (``LM.units`` or per-unit param dicts) over
     x.  Returns (x, aux): in train mode aux sums AUX_KEYS over every
     block, and with ``remat`` each unit runs under a non-reentrant
@@ -180,6 +204,7 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                  {k: v[u] for k, v in caches["units"][name].items()})
             h, _, aux = block_apply(unit[name], h, cfg, mode=mode, cache=c,
                                     pos=pos, kv_valid=kv_valid,
+                                    page_table=page_table,
                                     seq_lengths=seq_lengths)
             for k, val in aux.items():
                 aux_u[k] = aux_u[k] + val if k in aux_u else val
@@ -234,14 +259,19 @@ def logits_of(model: LM, cfg: ModelConfig, hidden: torch.Tensor
 @torch.no_grad()
 def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
                    token: torch.Tensor, pos: torch.Tensor,
-                   kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   kv_valid: Optional[torch.Tensor] = None,
+                   page_table: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """One token for every row.  token: (B,); pos: (B,) per-slot
     positions; kv_valid: optional (B, cache_size) slot validity shared by
-    every layer.  Writes the caches in place; returns logits (B, 1, V)."""
+    every layer ((B, MP * page_size) with a page table); page_table:
+    optional (B, MP) slot->page map, given when the attention caches are
+    paged pools (``init_caches(..., kv_pages=)``).  Writes the caches in
+    place; returns logits (B, 1, V)."""
     x = layers.embed_lookup(model.embed, token[:, None], cfg.scale_embed,
                             cfg.d_model)
     x, _ = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
-                       pos=pos, kv_valid=kv_valid)
+                       pos=pos, kv_valid=kv_valid, page_table=page_table)
     x = layers.apply_norm(model.final_norm, x, cfg.norm)
     return logits_of(model, cfg, x)
 
@@ -298,3 +328,49 @@ def write_slot_caches_rows(dst: dict, rows: dict, slots: torch.Tensor
         for k, v in blk.items():                          # (U, B, ...)
             v[:, dest] = rows["units"][name][k][:, keep].to(v.dtype)
     return dst
+
+
+def write_slot_caches_paged_rows(dst: dict, rows: dict, slots: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 cfg: ModelConfig) -> dict:
+    """Paged counterpart of ``write_slot_caches_rows``: one page-wise
+    write per cache tensor covers every row of a prefill group, in place.
+    slots: (Bp,) slot per row, -1 for bucket-padding dummy rows, whose
+    page rows become all -1 so every write drops; page rows past a
+    slot's allocation (bucketed right-pad overhang, -1 ids) drop too —
+    decode overwrites them before any read.  The U units are folded into
+    the page axis (unit u's page i is row u * P + i of the folded pool),
+    so each tensor takes one write.  Page ids are unique across slots."""
+    ps = cfg.spt.kv_page_size
+    ns = page_table.shape[0]
+    slots = slots.to(page_table.device)
+    pt_rows = torch.where(slots[:, None] >= 0,
+                          page_table[slots.clamp(0, ns - 1).long()],
+                          -1)                             # (Bp, MP)
+    for name, blk in dst["units"].items():
+        for key, pool in blk.items():                     # (U, P, ...)
+            u, p = pool.shape[:2]
+            off = torch.arange(u, device=pool.device)[:, None, None] * p
+            pts = torch.where(pt_rows[None] >= 0, pt_rows[None] + off, -1)
+            seqs = rows["units"][name][key]               # (U, Bp, ...)
+            kvp.scatter_prefill_rows(
+                pool.view(u * p, *pool.shape[2:]),
+                pts.reshape(-1, pts.shape[-1]),
+                seqs.reshape(-1, *seqs.shape[2:]).to(pool.dtype), ps,
+                pad_value=-1 if key == "slot_pos" else 0)
+    return dst
+
+
+def reset_page_slots(caches: dict, cfg: ModelConfig, pid: torch.Tensor,
+                     ok: torch.Tensor) -> dict:
+    """Invalidate slot_pos of freshly allocated pages, in place (pid (B,),
+    ok (B,) from kv_pages.alloc_masked): a recycled page still carries its
+    previous tenant's slot_pos rows, which would look valid to the
+    self-derived kv_valid of the gathered-view tier.  K/V/code rows need
+    no reset — validity masks them until they are overwritten."""
+    for blk in caches["units"].values():
+        sp = blk["slot_pos"]                              # (U, P, ps)
+        kvp.put_masked(sp, (slice(None), pid),
+                       sp.new_full((sp.shape[0], pid.shape[0], sp.shape[2]),
+                                   -1), ok, axis=1)
+    return caches

@@ -65,13 +65,15 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "assert {'repro_torch.serving.kv_pages',\n"
+        "        'repro_torch.models.paged_fallback'} <= set(names)\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={**os.environ,
                                          "PYTHONPATH": str(ROOT / "src")},
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    assert int(out.stdout.strip()) >= 32
 
 
 @pytest.mark.parametrize("port_cls,jax_cls", [
@@ -113,15 +115,23 @@ def test_kernel_modules_import_without_nvcc_and_build_nothing():
             "repro_torch.kernels.topl_select.ops"} <= set(names)
     assert kernels._lib is None                          # nothing built
     assert sorted(p.name for p in kernels.CSRC.glob("*.cu")) == [
-        "decode_ffn.cu", "grouped_ffn.cu", "pq_assign.cu",
-        "sparse_attention.cu", "sparse_decode.cu", "topl_thresholds.cu"]
+        "decode_ffn.cu", "dense_decode_paged.cu", "grouped_ffn.cu",
+        "pq_assign.cu", "sparse_attention.cu", "sparse_decode.cu",
+        "sparse_decode_two_pass.cu", "topl_thresholds.cu"]
     assert [w.__name__ for w in kernels.wrappers()] == [
-        "pq_assign", "topl_thresholds", "sparse_attention",
-        "fused_sparse_decode_attention", "grouped_ffn", "decode_ffn"]
+        "pq_assign", "topl_thresholds", "decode_topl_thresholds",
+        "sparse_attention", "sparse_decode_attention",
+        "fused_sparse_decode_attention",
+        "fused_sparse_decode_attention_paged",
+        "dense_decode_attention_paged", "grouped_ffn", "decode_ffn"]
     assert set(kernels.SIGNATURES) == {
         "repro_" + n for n in ("pq_assign", "topl_thresholds",
-                               "sparse_attention", "fused_sparse_decode",
-                               "grouped_ffn", "decode_ffn")}
+                               "decode_thresholds", "sparse_attention",
+                               "sparse_decode_attention",
+                               "fused_sparse_decode",
+                               "fused_sparse_decode_paged",
+                               "dense_decode_paged", "grouped_ffn",
+                               "decode_ffn")}
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

@@ -8,20 +8,25 @@
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
-  2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc);
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, with
+     -Xptxas -v), and count the tensor-core instructions (HGMMA, HMMA) in
+     the SASS of the routed-FFN kernels (cuobjdump);
   3. every kernel against its plain torch version at its path's
      full-width shapes — the training step's (batch 4 x 1024, 16/8 heads
      of 128, M = 16) for PQ assignment, top-L thresholds and sparse
      attention (plus small windowed / offset / non-causal cases), the
      serving path's (8 slots x 8 kv heads, R = 2, S = 4096 decode; the
      paged view 32 pages of 128 over a shuffled 320-page pool, 2048 live
-     slots; a (8, 1024) prefill bucket) for the rest: f32 to atol 1e-4,
+     slots; a (8, 1024) prefill bucket) for the rest, the routed-FFN
+     kernels also at the train shape, at 1 slot and on small edge cases,
+     each launched twice with bit-identical outputs: f32 to atol 1e-4,
      bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
      codes equal up to the margin rule; the paged kernel bit-identical to
      the contiguous one over gathered views and the two-pass pair to the
      fused kernel; times by CUDA events (L2 flushed between launches)
      beside the least time the card could take (bytes over 3.35 TB/s or
-     operations over the peak rate);
+     operations over the peak rate), and for kernels 9 and 10 a torch
+     yardstick of the same function in bf16;
   4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
      prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
@@ -71,6 +76,25 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def sass_counts(lib_path) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
+    routed-FFN kernel of the built library."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "grouped_ffn" in fn or "decode_ffn" in fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn in counts:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += op in line
+    return counts
 
 
 def time_ms(fn, reps: int) -> float:
@@ -323,7 +347,8 @@ def check_paged(torch, gen):
     views.  Kernel 8: within tolerance of its plain version.  Yardsticks
     the port never calls: kernel 6 over gathered views plus the gather
     (what paging saves), and scaled_dot_product_attention over the
-    gathered view with a boolean mask beside the gather's own time."""
+    gathered view with a boolean mask beside the gather's own time (the
+    two together compute kernel 8's function)."""
     from repro_torch.kernels.sparse_attention import ops, ref
     g, view = SB * SHK, SMP * SPS
     out_rows = {}
@@ -408,11 +433,13 @@ def check_paged(torch, gen):
             "source": "src/repro_torch/kernels/csrc/dense_decode_paged.cu",
             "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:630",
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": sdpa, "gather_ms": gather,
+            "bound_by": by, "library_ms": None, "sdpa_over_gathered_ms": sdpa,
+            "gather_ms": gather,
             "shape": f"G={g}, R={SR}, page table ({SB}, {SMP}) of pages of "
                      f"{SPS} over a {SPOOL}-page pool, {SLIVE} live, "
-                     f"dh={SDH}, bf16; library_ms: SDPA over the gathered "
-                     "view (gather_ms not included)"}
+                     f"dh={SDH}, bf16; no single call computes it: the same "
+                     "function through PyTorch is gather_ms + "
+                     "sdpa_over_gathered_ms"}
     return [out_rows["sparse"], out_rows["dense"]]
 
 
@@ -604,96 +631,286 @@ def _ffn_weights(torch, gen, g, d, f, r, dt):
     return weights, lora
 
 
-def check_grouped_ffn(torch, gen):
-    """Kernel 9 at a (8, 1024) prefill bucket of qwen3-0.6b widths."""
+def _twice(torch, fn, what):
+    """fn() launched twice on the same inputs: the outputs must be
+    bit-identical (no atomics, every sum in a fixed order)."""
+    y = fn()
+    y2 = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(y, y2):
+        raise AssertionError(f"{what}: two launches differ")
+    return y
+
+
+def _bf16_lora(torch, lora):
+    return {k: {n: t.to(torch.bfloat16) for n, t in v.items()}
+            for k, v in lora.items()}
+
+
+def grouped_ffn_yardstick(torch, x, index, wts, lora16, scale):
+    """Kernel 9's function in bf16 through PyTorch calls (the port never
+    calls it): gather the slots' rows, three bmm over the groups, silu x
+    up, and the LoRA products.  Every slot is computed, as the function
+    says; the output is (G, B*C, d)."""
+    b, s, d = x.shape
+    _, g, c = index.shape
+    rows = index.clamp(max=s - 1).long().transpose(0, 1).reshape(g, b * c)
+    xg = x[torch.arange(b, device=x.device).repeat_interleave(c)[None],
+           rows]                                             # (G, B*C, d)
+    li, lg, lo = (lora16[k] for k in ("lora_inner", "lora_gate", "lora_outer"))
+    up = torch.bmm(xg, wts["w_inner"]) + scale * torch.bmm(
+        xg @ li["b"], li["c"])
+    gt = torch.bmm(xg, wts["w_gate"]) + scale * torch.bmm(
+        xg @ lg["b"], lg["c"])
+    h = torch.nn.functional.silu(gt) * up
+    return torch.bmm(h, wts["w_outer"]) + scale * (torch.bmm(h, lo["b"])
+                                                   @ lo["c"])
+
+
+def _grouped_case(torch, gen, dtn, *, b, s, d, f, g, ga, r, capf, act,
+                  gated, lens=None, choice=None, reverse=False):
+    """One kernel-9 case from seeded random inputs (r = 0: no LoRA):
+    launched twice (bit-identical), every row finite, the kept slots
+    within tolerance of the plain version.  reverse: each row's slots in
+    reverse order, so the kept slots come last and a tile may start on
+    an empty slot and still keep some.  Returns the case's tensors."""
+    from repro_torch.core import dispatch
     from repro_torch.core import routed_ffn as rf
     from repro_torch.kernels.routed_ffn import ops, ref
-    bp, s, d, dff, g, ga, r = 8, 1024, 1024, 3072, 8, 4, 16
-    rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=dff, num_groups=g,
-                              active_groups=ga, capacity_factor=1.25,
-                              activation="silu", gated=True)
-    f = rcfg.group_dim
+    dt = getattr(torch, dtn)
+    rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=f * g, num_groups=g,
+                              active_groups=ga, capacity_factor=capf,
+                              activation=act, gated=gated)
+    wts, lora = _ffn_weights(torch, gen, g, d, f, max(r, 1), dt)
+    if not gated:
+        del wts["w_gate"], lora["lora_gate"]
+    lora = lora if r else None
+    x = torch.randn(b, s, d, device="cuda", generator=gen).to(dt)
+    if choice is None:
+        router = torch.randn(d, g, device="cuda", generator=gen) / d ** 0.5
+        choice, gate, _ = rf.route(x, router, rcfg, need_aux=False)
+    else:
+        gate = torch.ones(choice.shape, device="cuda")
+    plan = rf.plan_for(x, choice, gate, rcfg, lens)
+    index, slot_ok = plan.index, plan.slot_ok
+    if reverse:
+        index, slot_ok = index.flip(-1).contiguous(), slot_ok.flip(-1)
+    args = (x, index, wts["w_inner"], wts["w_outer"], wts.get("w_gate"),
+            lora, 1.0)
+    y = _twice(torch, lambda: ops.grouped_ffn(*args, act=act), "grouped_ffn")
+    if not bool(torch.isfinite(y.float()).all()):
+        raise AssertionError("grouped_ffn: a non-finite row")
+    want = ref.grouped_ffn_ref(*args, act=act)
+    ok = slot_ok[..., None]                     # empty slots are dropped
+    err = close(torch.where(ok, y.float(), 0.0),
+                torch.where(ok, want.float(), 0.0),
+                BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+    kept_rows = slot_ok.sum(-1)
+    # 64-slot tiles that start on an empty slot and keep some slot
+    c = index.shape[-1]
+    tiles = torch.arange(0, c, 64, device="cuda")
+    kept_in = torch.stack([slot_ok[..., t:t + 64].any(-1) for t in
+                           tiles.tolist()], -1)
+    split_tiles = int((kept_in & (index[..., tiles] == s)).sum())
+    return dict(err=err, args=args, plan=plan, y=y, wts=wts, lora=lora,
+                x=x, dropped=float(plan.dropped), split_tiles=split_tiles,
+                empty_rows=int((kept_rows == 0).sum()), c=c)
+
+
+def _grouped_bound(torch, case, d, f, r, dt):
+    kept = int(case["plan"].slot_ok.sum())
+    flops = kept * (2 * d * f * 3 + 2 * r * (3 * d + 2 * f + d))
+    moved = (nbytes(case["x"], case["plan"].index, case["y"],
+                    *case["wts"].values())
+             + sum(nbytes(*t.values()) for t in case["lora"].values()))
+    return bound(moved, flops, dt)
+
+
+def check_grouped_ffn(torch, gen):
+    """Kernel 9 at a (8, 1024) prefill bucket and at the train step's 4 x
+    1024 full rows (qwen3-0.6b widths, SwiGLU, LoRA r = 16), and on small
+    edge cases, bf16 and f32: ungated ReLU without LoRA; C and F that are
+    not tile multiples; a (b, g) row with no kept slot; capacity drops;
+    LoRA ranks 12 (ungated) and 32; kept slots last in each row.  Each
+    case launched twice with bit-identical outputs."""
+    from repro_torch.kernels.routed_ffn import ops, ref
+    d, g, ga, r, f = 1024, 8, 4, 16, 384
     out = None
     for dtn in ("bfloat16", "float32"):
         dt = getattr(torch, dtn)
-        wts, lora = _ffn_weights(torch, gen, g, d, f, r, dt)
-        x = torch.randn(bp, s, d, device="cuda", generator=gen).to(dt)
-        router = torch.randn(d, g, device="cuda", generator=gen) / d ** 0.5
-        lens = torch.randint(128, s + 1, (bp,), device="cuda", generator=gen)
-        choice, gate, _ = rf.route(x, router, rcfg, need_aux=False)
-        plan = rf.plan_for(x, choice, gate, rcfg, lens)
-        args = (x, plan.index, wts["w_inner"], wts["w_outer"], wts["w_gate"],
-                lora, 1.0)
-        y = ops.grouped_ffn(*args, act="silu")
-        torch.cuda.synchronize()
-        want = ref.grouped_ffn_ref(*args, act="silu")
-        ok = plan.slot_ok[..., None]            # empty slots are dropped
-        err = close(torch.where(ok, y.float(), 0.0),
-                    torch.where(ok, want.float(), 0.0),
-                    BF16_TOL if dt == torch.bfloat16 else F32_TOL)
-        print(f"  grouped_ffn {dtn} (8, 1024) bucket C={plan.index.shape[-1]}: "
-              f"max_abs_err {err:.3e}", flush=True)
-        if dtn == "bfloat16":
-            ms = time_ms(lambda: ops.grouped_ffn(*args, act="silu"), 10)
-            plain = time_ms(lambda: ref.grouped_ffn_ref(*args, act="silu"), 3)
-            kept = int(plan.slot_ok.sum())
-            flops = kept * (2 * d * f * 3 + 2 * r * (3 * d + 2 * f + d))
-            moved = (nbytes(x, plan.index, y, *wts.values())
-                     + sum(nbytes(*t.values()) for t in lora.values()))
-            bms, by = bound(moved, flops, dt)
-            out = {"name": "grouped_ffn", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/grouped_ffn.cu",
-                   "replaces": "src/repro/kernels/routed_ffn/routed_ffn.py:187",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None,
-                   "shape": f"x (8, 1024, 1024), index (8, 8, {plan.index.shape[-1]}), "
-                            "F=384, SwiGLU, LoRA r=16, bf16"}
+        lens = torch.randint(128, 1025, (8,), device="cuda", generator=gen)
+        bucket = _grouped_case(torch, gen, dtn, b=8, s=1024, d=d, f=f, g=g,
+                               ga=ga, r=r, capf=1.25, act="silu", gated=True,
+                               lens=lens)
+        train = _grouped_case(torch, gen, dtn, b=4, s=1024, d=d, f=f, g=g,
+                              ga=ga, r=r, capf=1.25, act="silu", gated=True)
+        for label, cs in (("(8, 1024) bucket", bucket),
+                          ("train 4 x 1024", train)):
+            print(f"  grouped_ffn {dtn} {label} C={cs['c']}: max_abs_err "
+                  f"{cs['err']:.3e}, two launches bit-identical", flush=True)
+        # small edge cases
+        ungated = _grouped_case(torch, gen, dtn, b=2, s=100, d=256, f=192,
+                                g=4, ga=2, r=0, capf=1.0, act="relu",
+                                gated=False)
+        ragged = _grouped_case(torch, gen, dtn, b=2, s=90, d=200, f=200, g=4,
+                               ga=2, r=16, capf=1.25, act="gelu", gated=True)
+        # batch row 0 never chooses group 0: its (0, 0) row keeps no slot
+        first = torch.randint(1, 4, (2, 80), device="cuda", generator=gen)
+        ch = torch.stack([first, first % 3 + 1], -1)     # two distinct groups
+        ch[1, :8, 0] = 0
+        empty = _grouped_case(torch, gen, dtn, b=2, s=80, d=128, f=128, g=4,
+                              ga=2, r=8, capf=1.0, act="silu", gated=True,
+                              choice=ch.to(torch.int32))
+        drops = _grouped_case(torch, gen, dtn, b=2, s=128, d=128, f=64, g=4,
+                              ga=2, r=16, capf=0.5, act="silu", gated=True)
+        # a LoRA rank the wrapper pads (12 -> 16) and the bf16 kernel's
+        # largest (32), ungated with LoRA, and kept slots last in each row
+        rank12 = _grouped_case(torch, gen, dtn, b=2, s=96, d=128, f=128,
+                               g=4, ga=2, r=12, capf=1.25, act="gelu",
+                               gated=False)
+        rank32 = _grouped_case(torch, gen, dtn, b=2, s=160, d=256, f=192,
+                               g=4, ga=2, r=32, capf=1.25, act="silu",
+                               gated=True, reverse=True)
+        if not (empty["empty_rows"] >= 1 and drops["dropped"] > 0
+                and rank32["split_tiles"] >= 1):
+            raise AssertionError("grouped_ffn edge cases: no empty row, no "
+                                 "capacity drop or no tile that starts "
+                                 "empty and keeps a slot")
+        for label, cs in (("ungated relu, no LoRA", ungated),
+                          ("d=F=200, C not a tile multiple", ragged),
+                          (f"{empty['empty_rows']} (b, g) rows with no kept "
+                           "slot", empty),
+                          (f"capacity drops ({drops['dropped']:.2f})", drops),
+                          ("ungated gelu, LoRA r=12 (padded to 16)", rank12),
+                          (f"LoRA r=32, kept slots last "
+                           f"({rank32['split_tiles']} tiles start empty and "
+                           "keep slots)", rank32)):
+            print(f"  grouped_ffn {dtn} {label} C={cs['c']}: max_abs_err "
+                  f"{cs['err']:.3e}, bit-identical", flush=True)
+        if dtn != "bfloat16":
+            continue
+        args = bucket["args"]
+        ms = time_ms(lambda: ops.grouped_ffn(*args, act="silu"), 10)
+        plain = time_ms(lambda: ref.grouped_ffn_ref(*args, act="silu"), 3)
+        lora16 = _bf16_lora(torch, bucket["lora"])
+        yard = time_ms(lambda: grouped_ffn_yardstick(
+            torch, args[0], args[1], bucket["wts"], lora16, 1.0), 10)
+        bms, by = _grouped_bound(torch, bucket, d, f, r, dt)
+        targs = train["args"]
+        tms = time_ms(lambda: ops.grouped_ffn(*targs, act="silu"), 10)
+        tyard = time_ms(lambda: grouped_ffn_yardstick(
+            torch, targs[0], targs[1], train["wts"],
+            _bf16_lora(torch, train["lora"]), 1.0), 10)
+        tbms, _ = _grouped_bound(torch, train, d, f, r, dt)
+        out = {"name": "grouped_ffn", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/grouped_ffn.cu",
+               "replaces": "src/repro/kernels/routed_ffn/routed_ffn.py:187",
+               "max_abs_err": bucket["err"], "ms": ms, "plain_ms": plain,
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "torch_yardstick_ms": yard, "train_shape_ms": tms,
+               "train_shape_bound_ms": tbms,
+               "train_shape_yardstick_ms": tyard,
+               "kept_slots": int(bucket["plan"].slot_ok.sum()),
+               "shape": f"x (8, 1024, 1024), index (8, 8, {bucket['c']}), "
+                        "F=384, SwiGLU, LoRA r=16, bf16; yardstick: gather + "
+                        "bmm x 3 + silu*up + LoRA bmm in bf16; train shape: "
+                        f"x (4, 1024, 1024), C={train['c']}"}
     return out
 
 
+def decode_ffn_yardstick(torch, x, choice, gate, wts, lora16, scale):
+    """Kernel 10's function in bf16 through PyTorch calls (the port never
+    calls it): each slot's chosen weight blocks gathered and contracted
+    with bmm, then the gated sum over G'."""
+    b, ga = choice.shape
+    ch = choice.long()
+    li, lg, lo = (lora16[k] for k in ("lora_inner", "lora_gate", "lora_outer"))
+    xr = x[:, None, None, :].expand(b, ga, 1, -1).reshape(b * ga, 1, -1)
+
+    def up_of(w, lr):
+        u = torch.bmm(xr, w[ch].flatten(0, 1))
+        xb = (x @ lr["b"])[:, None, None, :].expand(b, ga, 1, -1)
+        return u + scale * torch.bmm(xb.reshape(b * ga, 1, -1),
+                                     lr["c"][ch].flatten(0, 1))
+    h = torch.nn.functional.silu(up_of(wts["w_gate"], lg)) * up_of(
+        wts["w_inner"], li)
+    wo = wts["w_outer"][ch].flatten(0, 1)
+    y = torch.bmm(h, wo) + scale * (torch.bmm(h, lo["b"][ch].flatten(0, 1))
+                                    @ lo["c"])
+    return (gate.to(x.dtype)[..., None] * y.reshape(b, ga, -1)).sum(1)
+
+
 def check_decode_ffn(torch, gen):
-    """Kernel 10 at 8 decode slots of qwen3-0.6b widths."""
+    """Kernel 10 at 8 decode slots of qwen3-0.6b widths (bf16, f32, f32
+    with output gates), at 1 slot, at 8 slots that all choose the same
+    groups, ungated ReLU without LoRA, and LoRA rank 6 with x off 16 bytes;
+    each launched twice with bit-identical outputs."""
     from repro_torch.core import routed_ffn as rf
     from repro_torch.kernels.routed_ffn import ops, ref
-    b, d, dff, g, ga, r = 8, 1024, 3072, 8, 4, 16
+    d, dff, g, ga, r = 1024, 3072, 8, 4, 16
     f = dff // g
     out = None
-    for dtn, gated_out in (("bfloat16", False), ("float32", False),
-                           ("float32", True)):
+    cases = [("bfloat16", 8, True, False, "router"),
+             ("float32", 8, True, False, "router"),
+             ("float32", 8, True, True, "router"),
+             ("bfloat16", 1, True, False, "router"),
+             ("float32", 1, True, False, "router"),
+             ("bfloat16", 8, True, False, "same groups"),
+             ("float32", 8, True, False, "same groups"),
+             ("bfloat16", 8, False, False, "ungated relu, no LoRA"),
+             ("float32", 8, False, False, "ungated relu, no LoRA"),
+             ("bfloat16", 8, True, False, "LoRA r=6, x off 16 bytes"),
+             ("float32", 8, True, False, "LoRA r=6, x off 16 bytes")]
+    for dtn, b, gated, gated_out, how in cases:
         dt = getattr(torch, dtn)
+        plain_relu = how.startswith("ungated")
+        odd = how.startswith("LoRA r=6")
+        act = "relu" if plain_relu else "silu"
         rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=dff, num_groups=g,
-                                  active_groups=ga, activation="silu",
-                                  gated=True, gate_outputs=gated_out)
-        wts, lora = _ffn_weights(torch, gen, g, d, f, r, dt)
+                                  active_groups=ga, activation=act,
+                                  gated=gated, gate_outputs=gated_out)
+        wts, lora = _ffn_weights(torch, gen, g, d, f, 6 if odd else r, dt)
+        if plain_relu:
+            lora = None
         x = torch.randn(b, d, device="cuda", generator=gen).to(dt)
+        if odd:                   # a view that starts one element in
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(b, d)
         router = torch.randn(d, g, device="cuda", generator=gen) / d ** 0.5
         choice, gate, _ = rf.route(x[:, None], router, rcfg, need_aux=False)
         choice, gate = choice[:, 0].contiguous(), gate[:, 0].contiguous()
+        if how == "same groups":
+            choice = choice[:1].expand(b, ga).contiguous()
         args = (x, choice, gate, wts["w_inner"], wts["w_outer"],
-                wts["w_gate"], lora, 1.0)
-        y = ops.decode_ffn(*args, act="silu")
-        torch.cuda.synchronize()
-        want = ref.decode_ffn_ref(*args, act="silu")
+                wts["w_gate"] if gated else None, lora, 1.0)
+        y = _twice(torch, lambda: ops.decode_ffn(*args, act=act), "decode_ffn")
+        want = ref.decode_ffn_ref(*args, act=act)
         err = close(y, want, BF16_TOL if dt == torch.bfloat16 else F32_TOL)
-        print(f"  decode_ffn {dtn}{' gated outputs' if gated_out else ''}: "
-              f"max_abs_err {err:.3e}", flush=True)
-        if dtn == "bfloat16":
-            ms = time_ms(lambda: ops.decode_ffn(*args, act="silu"), 30)
-            plain = time_ms(lambda: ref.decode_ffn_ref(*args, act="silu"), 5)
-            blocks = int(torch.unique(choice).numel())   # touched groups
-            per_block = 3 * d * f * x.element_size()
-            lora_bytes = sum(nbytes(*t.values()) for t in lora.values())
-            moved = (blocks * per_block + lora_bytes
-                     + nbytes(x, choice, gate) + b * d * x.element_size())
-            flops = b * ga * 2 * d * f * 3
-            bms, by = bound(moved, flops, dt)
-            out = {"name": "decode_ffn", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/decode_ffn.cu",
-                   "replaces": "src/repro/kernels/routed_ffn/routed_ffn.py:344",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None,
-                   "shape": f"x (8, 1024), G'=4 of G=8 ({blocks} blocks touched), "
-                            "F=384, SwiGLU, LoRA r=16, bf16"}
+        print(f"  decode_ffn {dtn} B={b} {how}"
+              f"{', gated outputs' if gated_out else ''}: max_abs_err "
+              f"{err:.3e}, bit-identical", flush=True)
+        if (dtn, b, how, gated_out) != ("bfloat16", 8, "router", False):
+            continue
+        ms = time_ms(lambda: ops.decode_ffn(*args, act=act), 30)
+        plain = time_ms(lambda: ref.decode_ffn_ref(*args, act=act), 5)
+        lora16 = _bf16_lora(torch, lora)
+        yard = time_ms(lambda: decode_ffn_yardstick(
+            torch, x, choice, gate, wts, lora16, 1.0), 30)
+        blocks = int(torch.unique(choice).numel())   # touched groups
+        per_block = 3 * d * f * x.element_size()
+        lora_bytes = sum(nbytes(*t.values()) for t in lora.values())
+        moved = (blocks * per_block + lora_bytes
+                 + nbytes(x, choice, gate) + b * d * x.element_size())
+        flops = b * ga * 2 * d * f * 3
+        bms, by = bound(moved, flops, dt)
+        out = {"name": "decode_ffn", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/decode_ffn.cu",
+               "replaces": "src/repro/kernels/routed_ffn/routed_ffn.py:344",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "torch_yardstick_ms": yard,
+               "shape": f"x (8, 1024), G'=4 of G=8 ({blocks} blocks touched), "
+                        "F=384, SwiGLU, LoRA r=16, bf16; yardstick: each "
+                        "slot's gathered weight blocks through bmm, bf16"}
     return out
 
 
@@ -1249,9 +1466,14 @@ def main() -> int:
           flush=True)
     # 2. build
     t0 = time.perf_counter()
-    kernels.build(verbose=True)
+    lib_path = kernels.build(verbose=True)
     kernels.library()
     print(f"[2] built the kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    sass = sass_counts(lib_path)
+    for fn, n in sass.items():
+        print(f"[2] SASS {fn}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA", flush=True)
+    if not any("wgmma" in fn and n["HGMMA"] for fn, n in sass.items()):
+        raise AssertionError("grouped_ffn's bf16 body has no HGMMA in its SASS")
     # 3. kernels against their plain versions, in the order of the TPU
     # kernels they replace
     t0 = time.perf_counter()

@@ -30,24 +30,51 @@ from repro_torch.kernels.routed_ffn.ref import decode_ffn_ref, grouped_ffn_ref
 _LORA_KEYS = ("lora_inner", "lora_gate", "lora_outer")
 
 
-def _lora_ptrs(lora_params, gated: bool):
-    """Pointers of the six f32 LoRA leaves in launcher order (0 = absent)
-    and the rank, checked for the kernels' contract."""
+# The rank axis of each LoRA leaf, in launcher order: inner b (d, r),
+# inner c (G, r, F), gate b and c alike, outer b (G, F, r), outer c (r, d).
+_RANK_AXIS = (-1, -2, -1, -2, -1, -2)
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t, or a copy of it in storage of its own when its data does not
+    start on 16 bytes (the kernels load rows as 16-byte vectors; a
+    contiguous view may start inside its storage)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _lora_leaves(lora_params, gated: bool, dtype=torch.float32,
+                 multiple: int = 1):
+    """The six LoRA leaves in launcher order (None = absent), in ``dtype``
+    (the bf16 grouped kernel takes them rounded to bf16), with the rank
+    padded by zeros to a multiple of ``multiple`` (the kernels read rank
+    rows as 16-byte vectors; a zero rank adds nothing to the function),
+    16-byte aligned, and the padded rank.  Keep the returned tensors alive
+    until the launch is enqueued."""
     if lora_params is None:
         return [None] * 6, 0
-    leaves = [lora_params["lora_inner"]["b"], lora_params["lora_inner"]["c"]]
+    ts = [lora_params["lora_inner"]["b"], lora_params["lora_inner"]["c"]]
     if gated:
-        leaves += [lora_params["lora_gate"]["b"],
-                   lora_params["lora_gate"]["c"]]
+        ts += [lora_params["lora_gate"]["b"], lora_params["lora_gate"]["c"]]
     else:
-        leaves += [None, None]
-    leaves += [lora_params["lora_outer"]["b"], lora_params["lora_outer"]["c"]]
-    for t in leaves:
+        ts += [None, None]
+    ts += [lora_params["lora_outer"]["b"], lora_params["lora_outer"]["c"]]
+    for t in ts:
         if t is not None and (t.dtype != torch.float32
                               or not t.is_contiguous()):
             raise TypeError("LoRA leaves must be contiguous float32")
-    ptrs = [None if t is None else t.data_ptr() for t in leaves]
-    return ptrs, lora_params["lora_inner"]["b"].shape[-1]
+    r = ts[0].shape[-1]
+    pad = -r % multiple
+    if pad:
+        ts = [None if t is None else
+              torch.nn.functional.pad(t, (0, 0) * (-ax - 1) + (0, pad))
+              for t, ax in zip(ts, _RANK_AXIS)]
+    if dtype != torch.float32:
+        ts = [None if t is None else t.to(dtype) for t in ts]
+    return [_aligned(t) for t in ts], r + pad
+
+
+def _ptrs(ts):
+    return [None if t is None else t.data_ptr() for t in ts]
 
 
 def _check_weights(name, x, w_inner, w_outer, w_gate):
@@ -64,8 +91,11 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
     """x: (B, S, d); index: (B, G, C) int32 plan (S = empty slot);
     w_inner/w_gate: (G, d, F); w_outer: (G, F, d).  Returns y (B, G, C, d)
     in x's dtype; empty slots hold finite rows that ``dispatch.combine``
-    drops.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (csrc/grouped_ffn.cu)."""
+    drops.  Any order of the index is computed right (a 64-slot tile
+    that keeps no slot is skipped).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (csrc/grouped_ffn.cu: bf16 on the
+    tensor cores, d and F multiples of 8 and a LoRA rank of at most 32;
+    f32 on the CUDA cores)."""
     if x.device.type == "cpu":
         return grouped_ffn_ref(x, index, w_inner, w_outer, w_gate,
                                lora_params, lora_scale, act)
@@ -78,12 +108,23 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
     if (index.dtype != torch.int32 or w_inner.shape != (g, d, f)
             or w_outer.shape != (g, f, d)):
         raise ValueError(f"{name}: inconsistent shapes or index dtype")
-    lp, r = _lora_ptrs(lora_params, w_gate is not None)
+    bf16 = x.dtype == torch.bfloat16    # the tensor-core body's contract
+    if bf16:
+        if d % 8 or f % 8:
+            raise ValueError(f"{name}: bf16 needs d={d} and F={f} to be "
+                             "multiples of 8 (16-byte rows)")
+        x, w_inner, w_outer, w_gate = map(_aligned,
+                                          (x, w_inner, w_outer, w_gate))
+    lo, r = _lora_leaves(lora_params, w_gate is not None, x.dtype,
+                         8 if bf16 else 1)
+    if bf16 and r > 32:
+        raise ValueError(f"{name}: the bf16 kernel takes a LoRA rank of at "
+                         f"most 32, got {r}")
     y = torch.empty((b, g, c, d), dtype=x.dtype, device=x.device)
     err = kernels.library().repro_grouped_ffn(
         kernels.dtype_code(x), x.data_ptr(), index.data_ptr(),
         w_inner.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
-        w_outer.data_ptr(), *lp, y.data_ptr(), b, s, d, g, c, f, r,
+        w_outer.data_ptr(), *_ptrs(lo), y.data_ptr(), b, s, d, g, c, f, r,
         float(lora_scale), kernels.act_code(act), kernels.stream_ptr())
     kernels.check(err, name)
     grouped_ffn.launches += 1
@@ -100,8 +141,8 @@ def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
                *, act: str = "relu") -> torch.Tensor:
     """x: (B, d); choice: (B, G') int32; gate: (B, G') f32.  Returns y
     (B, d) in x's dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/decode_ffn.cu: hidden pass + output pass, the
-    sum over G' in a fixed order)."""
+    launch the kernel (csrc/decode_ffn.cu: group-major, each chosen
+    group's weights read once, every sum in a fixed order)."""
     if x.device.type == "cpu":
         return decode_ffn_ref(x, choice, gate, w_inner, w_outer, w_gate,
                               lora_params, lora_scale, act)
@@ -117,15 +158,24 @@ def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
     if d % 8 or f % 8:
         raise ValueError(f"{name}: d={d} and F={f} must be multiples of 8 "
                          "(16-byte weight rows)")
-    lp, r = _lora_ptrs(lora_params, w_gate is not None)
-    h = torch.empty((b, ga, f), dtype=torch.float32, device=x.device)
+    x, w_inner, w_outer, w_gate = map(_aligned, (x, w_inner, w_outer, w_gate))
+    lo, r = _lora_leaves(lora_params, w_gate is not None, multiple=4)
+    if r > 64:
+        raise ValueError(f"{name}: the kernel takes a LoRA rank of at most "
+                         f"64, got {r}")
+    g = w_inner.shape[0]
+    # h (B*G', F), pass 2's h W_O (B*G', d) and its column blocks' shares
+    # of h B_O (d / 64, B*G', r): csrc/decode_ffn.cu, Scratch
+    bga = b * ga
+    scratch = torch.empty(bga * (f + d) + -(-d // 64) * bga * r,
+                          dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=x.dtype, device=x.device)
     err = kernels.library().repro_decode_ffn(
         kernels.dtype_code(x), x.data_ptr(), choice.data_ptr(),
         gate.data_ptr(), w_inner.data_ptr(),
         None if w_gate is None else w_gate.data_ptr(), w_outer.data_ptr(),
-        *lp, h.data_ptr(), y.data_ptr(), b, d, ga, f, r, float(lora_scale),
-        kernels.act_code(act), kernels.stream_ptr())
+        *_ptrs(lo), scratch.data_ptr(), y.data_ptr(), b, d, g, ga, f, r,
+        float(lora_scale), kernels.act_code(act), kernels.stream_ptr())
     kernels.check(err, name)
     decode_ffn.launches += 1
     return y

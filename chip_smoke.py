@@ -9,7 +9,8 @@
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, with
-     -Xptxas -v), and count the tensor-core instructions (HGMMA, HMMA) in
+     -Xptxas -v: each kernel's registers, static shared memory and spills
+     are printed), and count the tensor-core instructions (HGMMA, HMMA) in
      the SASS of the routed-FFN kernels (cuobjdump);
   3. every kernel against its plain torch version at its path's
      full-width shapes — the training step's (batch 4 x 1024, 16/8 heads
@@ -19,6 +20,8 @@ Phases (each raises on failure; nothing is caught):
      paged view 32 pages of 128 over a shuffled 320-page pool, 2048 live
      slots; a (8, 1024) prefill bucket) for the rest, the routed-FFN
      kernels also at the train shape, at 1 slot and on small edge cases,
+     the decode attention kernels (3, 5-8) also on edge cases (1 slot,
+     R = 1 and 8, dh = 64 and 256, l >= live, rows with no valid slot),
      each launched twice with bit-identical outputs: f32 to atol 1e-4,
      bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
      codes equal up to the margin rule; the paged kernel bit-identical to
@@ -97,6 +100,41 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
+def ptxas_usage() -> list:
+    """(source, kernel, registers, static shared bytes, spill bytes) of
+    every kernel entry, from the ptxas -v logs the verbose build keeps
+    (names demangled by cu++filt where the toolkit has it)."""
+    import re
+    import shutil
+    from repro_torch import kernels
+    rows = []
+    for log in sorted(kernels.BUILD_DIR.glob("*.log")):
+        fn = spill = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+            if m and fn:
+                rows.append([log.stem, fn, int(m.group(1)),
+                             int(m.group(2) or 0), spill])
+                fn = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(r[1] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for r, name in zip(rows, names):
+            name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "",
+                          name)
+            r[1] = name[:name.index(">(") + 1] if ">(" in name else \
+                name.split("(")[0]
+    return rows
+
+
 def time_ms(fn, reps: int) -> float:
     """Median device time of fn over reps launches, L2 flushed before
     each (the serving path finds its weights and caches cold).  The card
@@ -149,7 +187,8 @@ def check_decode_attention(torch, gen):
     rows = []
     cases = [("bfloat16", "qhead", 4096, False), ("float32", "qhead", 4096, False),
              ("bfloat16", "kvgroup", 4096, False),
-             ("float32", "qhead", 4000, True), ("float32", "kvgroup", 4000, True)]
+             ("float32", "qhead", 4000, True), ("float32", "kvgroup", 4000, True),
+             ("bfloat16", "qhead", 4000, True)]
     for dtn, gran, s, dead_row in cases:
         dt = getattr(torch, dtn)
         g = b * hk
@@ -168,16 +207,19 @@ def check_decode_attention(torch, gen):
         kw = dict(scale=dh ** -0.5, l=max(16, round(s * 0.125)),
                   max_score=m * (r if sum_rows else 1), sum_rows=sum_rows,
                   heads_per_batch=hk)
-        out, thr = ops.fused_sparse_decode_attention(
-            q, k, v, cq, ck, valid, return_thresholds=True, **kw)
-        torch.cuda.synchronize()
+        out, thr = _twice(torch, lambda: ops.fused_sparse_decode_attention(
+            q, k, v, cq, ck, valid, return_thresholds=True, **kw),
+            "fused_sparse_decode_attention")
+        if dead_row and out[3 * hk:4 * hk].any():
+            raise AssertionError("fused_sparse_decode_attention: a row with no "
+                                 "valid slot is not 0")
         want, thr_ref = ref.fused_decode_ref(q, k, v, cq, ck, valid, **kw)
         if not torch.equal(thr, thr_ref):
             raise AssertionError(f"decode thresholds differ ({dtn}, {gran}, S={s})")
         err = close(out, want, BF16_TOL if dt == torch.bfloat16 else F32_TOL)
         print(f"  fused_sparse_decode_attention {dtn} {gran} S={s}"
-              f"{' +dead row' if dead_row else ''}: max_abs_err {err:.3e}, "
-              "[t, need] exact", flush=True)
+              f"{' +dead row (0)' if dead_row else ''}: max_abs_err {err:.3e}, "
+              "[t, need] exact, bit-identical twice", flush=True)
         rows.append((dtn, gran, s, err))
         if (dtn, gran, s) == ("bfloat16", "qhead", 4096):
             main = dict(q=q, k=k, v=v, cq=cq, ck=ck, valid=valid, kw=kw, err=err)
@@ -250,8 +292,9 @@ def check_two_pass(torch, gen):
         kw = _decode_kw(gran, s)
         sel = dict(sum_rows=kw["sum_rows"], heads_per_batch=SHK)
         thr = topl_ops.decode_topl_thresholds(cq, ck, valid, **kw)
-        out = ops.sparse_decode_attention(q, k, v, cq, ck, thr, valid,
-                                          scale=SDH ** -0.5, **sel)
+        out = _twice(torch, lambda: ops.sparse_decode_attention(
+            q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, **sel),
+            "sparse_decode_attention")
         out6, thr6 = ops.fused_sparse_decode_attention(
             q, k, v, cq, ck, valid, scale=SDH ** -0.5,
             return_thresholds=True, **kw)
@@ -270,8 +313,8 @@ def check_two_pass(torch, gen):
             raise AssertionError(f"sparse_decode_attention {dtn} {gran}: "
                                  "differs from kernel 6")
         print(f"  two-pass {dtn} {gran}: [t, need] exact (plain, kernel 6); "
-              f"kernel 5 max_abs_err {err:.3e}, bit-identical to kernel 6",
-              flush=True)
+              f"kernel 5 max_abs_err {err:.3e}, bit-identical to kernel 6 "
+              "and twice", flush=True)
         if (dtn, gran) != ("bfloat16", "qhead"):
             continue
         t3 = time_ms(lambda: topl_ops.decode_topl_thresholds(
@@ -349,6 +392,7 @@ def check_paged(torch, gen):
     (what paging saves), and scaled_dot_product_attention over the
     gathered view with a boolean mask beside the gather's own time (the
     two together compute kernel 8's function)."""
+    from repro_torch import kernels
     from repro_torch.kernels.sparse_attention import ops, ref
     g, view = SB * SHK, SMP * SPS
     out_rows = {}
@@ -358,8 +402,9 @@ def check_paged(torch, gen):
         q, k_pool, v_pool, cq, codes, pt, valid = _paged_inputs(torch, gen, dt)
         kw = dict(scale=SDH ** -0.5, **_decode_kw(gran, view))
         args = (pt, q, k_pool, v_pool, cq, codes, valid)
-        out, thr = ops.fused_sparse_decode_attention_paged(
-            *args, return_thresholds=True, **kw)
+        out, thr = _twice(torch, lambda: ops.fused_sparse_decode_attention_paged(
+            *args, return_thresholds=True, **kw),
+            "fused_sparse_decode_attention_paged")
         kv = _views(pt, k_pool, v_pool, codes)
         out6, thr6 = ops.fused_sparse_decode_attention(
             q, kv[0], kv[1], cq, kv[2], valid, return_thresholds=True, **kw)
@@ -373,7 +418,7 @@ def check_paged(torch, gen):
                                  "over gathered views")
         print(f"  fused_sparse_decode_attention_paged {dtn} {gran}: "
               f"max_abs_err {err:.3e}, [t, need] exact, bit-identical to "
-              "kernel 6 over gathered views", flush=True)
+              "kernel 6 over gathered views and twice", flush=True)
         if (dtn, gran) == ("bfloat16", "qhead"):
             ms = time_ms(lambda: ops.fused_sparse_decode_attention_paged(
                 *args, **kw), 30)
@@ -404,12 +449,18 @@ def check_paged(torch, gen):
         q, k_pool, v_pool, _, _, pt, valid = _paged_inputs(torch, gen, dt)
         args = (pt, q, k_pool, v_pool, valid)
         kw = dict(scale=SDH ** -0.5, heads_per_batch=SHK)
-        out = ops.dense_decode_attention_paged(*args, **kw)
-        torch.cuda.synchronize()
+        out = _twice(torch, lambda: ops.dense_decode_attention_paged(*args, **kw),
+                     "dense_decode_attention_paged")
         err = close(out, ref.dense_decode_paged_ref(*args, **kw),
                     BF16_TOL if dt == torch.bfloat16 else F32_TOL)
-        print(f"  dense_decode_attention_paged {dtn}: max_abs_err {err:.3e}",
-              flush=True)
+        rows_max = _list_rows(torch, valid, g)
+        if rows_max <= kernels.DECODE_CHUNK * kernels.decode_stages(
+                SDH, q.element_size()):
+            raise AssertionError("dense case: no split lists more rows than "
+                                 "the ring holds")
+        print(f"  dense_decode_attention_paged {dtn}: max_abs_err {err:.3e}, "
+              f"bit-identical twice; a split lists up to {rows_max} rows, "
+              f"{kernels.DECODE_CHUNK} a ring stage", flush=True)
         if dtn != "bfloat16":
             continue
         ms = time_ms(lambda: ops.dense_decode_attention_paged(*args, **kw), 30)
@@ -441,6 +492,114 @@ def check_paged(torch, gen):
                      "function through PyTorch is gather_ms + "
                      "sdpa_over_gathered_ms"}
     return [out_rows["sparse"], out_rows["dense"]]
+
+
+def _list_rows(torch, valid, g):
+    """The most valid slots any (kv group, split) of the decode plan holds:
+    the longest list kernel 8's attention pass streams through its ring."""
+    from repro_torch import kernels
+    b, s = valid.shape
+    ns, sp = kernels.decode_splits(g, s)
+    pad = torch.zeros(b, ns * sp, dtype=torch.int32, device=valid.device)
+    pad[:, :s] = valid.int()
+    return int(pad.reshape(b, ns, sp).sum(-1).max())
+
+
+# Edge cases of the decode attention pass (name, b, hk, R, dh, gran, l_all,
+# dead): 2048 live slots of a 32 x 128 paged view over a shuffled pool.
+# l_all: l = the view length, so every valid slot is selected and kernel
+# 7 must equal kernel 8 bit for bit; dead: the last slot has no valid key.
+DECODE_EDGES = [
+    ("G=8 (1 slot, 32 splits a group)", 1, 8, 2, 128, "qhead", False, False),
+    ("R=1", 4, 8, 1, 128, "qhead", False, True),
+    ("R=8", 2, 8, 8, 128, "qhead", False, True),
+    ("R=8 kvgroup", 2, 8, 8, 128, "kvgroup", False, False),
+    ("dh=64", 4, 8, 2, 64, "qhead", False, True),
+    ("dh=256", 4, 8, 2, 256, "qhead", False, False),
+    ("l >= live", 8, 8, 2, 128, "qhead", True, True),
+]
+
+
+def check_decode_edges(torch, gen):
+    """Kernels 3, 5, 6, 7 and 8 on DECODE_EDGES, bf16 and f32: each within
+    tolerance of its plain version and bit-identical across two launches,
+    [t, need] exact, kernel 7 bit-identical to kernel 6 over gathered
+    views, kernels 3 + 5 bit-identical to kernel 6, a dead slot's rows 0,
+    and with l >= live kernel 7 bit-identical to kernel 8."""
+    from repro_torch import kernels
+    from repro_torch.kernels.sparse_attention import ops, ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.serving import kv_pages
+    mp, ps, live, e, m = SMP, SPS, SLIVE, SE, SM
+    view = mp * ps
+    for name, b, hk, r, dh, gran, l_all, dead in DECODE_EDGES:
+        for dtn in ("bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+            g, pool = b * hk, b * mp + 64
+            q = torch.randn(g, r, dh, device="cuda", generator=gen).to(dt)
+            k_pool, v_pool = (torch.randn(pool, hk, ps, dh, device="cuda",
+                                          generator=gen).to(dt)
+                              for _ in range(2))
+            cq = torch.randint(0, e, (g, r, m), device="cuda", generator=gen,
+                               dtype=torch.int32)
+            codes = torch.randint(0, e, (pool, hk, ps, m), device="cuda",
+                                  generator=gen, dtype=torch.int8)
+            ids = torch.randperm(pool, device="cuda", generator=gen)[:b * mp]
+            held = torch.arange(mp, device="cuda")[None] <= live // ps
+            pt = torch.where(held, ids.reshape(b, mp), -1).to(torch.int32)
+            valid = ((torch.arange(view, device="cuda")[None] < live)
+                     & kv_pages.occupancy(pt, ps))
+            if dead:
+                valid[b - 1] = False
+            sum_rows = gran == "kvgroup"
+            kw = dict(scale=dh ** -0.5,
+                      l=view if l_all else max(16, round(view * 0.125)),
+                      max_score=m * (r if sum_rows else 1), sum_rows=sum_rows,
+                      heads_per_batch=hk)
+            sel = {x: kw[x] for x in ("l", "max_score", "sum_rows",
+                                      "heads_per_batch")}
+            what = f"{name} {dtn}"
+            args = (pt, q, k_pool, v_pool, cq, codes, valid)
+            out7, thr7 = _twice(torch, lambda: ops.fused_sparse_decode_attention_paged(
+                *args, return_thresholds=True, **kw), f"kernel 7, {what}")
+            want, thr_ref = ref.fused_decode_paged_ref(*args, **kw)
+            if not torch.equal(thr7, thr_ref):
+                raise AssertionError(f"kernel 7, {what}: [t, need] differ")
+            err7 = close(out7, want, tol)
+            kv = [x.reshape(g, view, -1) for x in
+                  (kv_pages.gather_pages(p, pt) for p in (k_pool, v_pool, codes))]
+            out6, thr6 = _twice(torch, lambda: ops.fused_sparse_decode_attention(
+                q, kv[0], kv[1], cq, kv[2], valid, return_thresholds=True,
+                **kw), f"kernel 6, {what}")
+            if not (torch.equal(out7, out6) and torch.equal(thr7, thr6)):
+                raise AssertionError(f"kernel 7, {what}: differs from kernel 6 "
+                                     "over gathered views")
+            thr3 = topl_ops.decode_topl_thresholds(cq, kv[2], valid, **sel)
+            out5 = _twice(torch, lambda: ops.sparse_decode_attention(
+                q, kv[0], kv[1], cq, kv[2], thr3, valid, scale=kw["scale"],
+                sum_rows=sum_rows, heads_per_batch=hk), f"kernel 5, {what}")
+            if not (torch.equal(thr3, thr6) and torch.equal(out5, out6)):
+                raise AssertionError(f"kernels 3 + 5, {what}: differ from "
+                                     "kernel 6")
+            dargs = (pt, q, k_pool, v_pool, valid)
+            dkw = dict(scale=kw["scale"], heads_per_batch=hk)
+            out8 = _twice(torch, lambda: ops.dense_decode_attention_paged(
+                *dargs, **dkw), f"kernel 8, {what}")
+            err8 = close(out8, ref.dense_decode_paged_ref(*dargs, **dkw), tol)
+            if l_all and not torch.equal(out7, out8):
+                raise AssertionError(f"{what}: kernel 7 selecting every valid "
+                                     "slot differs from kernel 8")
+            if dead and (out7[-hk:].any() or out8[-hk:].any()):
+                raise AssertionError(f"{what}: a slot with no valid key "
+                                     "does not output 0")
+            ns, sp = kernels.decode_splits(g, view)
+            print(f"  decode edge {what} (G={g}, {ns} splits of {sp} slots, "
+                  f"{_list_rows(torch, valid, g)} rows the longest list): "
+                  f"kernels 7/8 max_abs_err {err7:.3e}/{err8:.3e}; 5, 6, 7 "
+                  "bit-identical"
+                  f"{'; 7 == 8' if l_all else ''}"
+                  f"{'; dead slot 0' if dead else ''}; each twice", flush=True)
 
 
 # qwen3-0.6b's training step: batch 4 x 1024 tokens, 16 query / 8 kv
@@ -632,12 +791,14 @@ def _ffn_weights(torch, gen, g, d, f, r, dt):
 
 
 def _twice(torch, fn, what):
-    """fn() launched twice on the same inputs: the outputs must be
-    bit-identical (no atomics, every sum in a fixed order)."""
+    """fn() launched twice on the same inputs: the outputs (a tensor or a
+    tuple of them) must be bit-identical (no atomics, every sum in a fixed
+    order)."""
     y = fn()
     y2 = fn()
     torch.cuda.synchronize()
-    if not torch.equal(y, y2):
+    pairs = zip(y, y2) if isinstance(y, tuple) else [(y, y2)]
+    if not all(torch.equal(a, b) for a, b in pairs):
         raise AssertionError(f"{what}: two launches differ")
     return y
 
@@ -1469,6 +1630,9 @@ def main() -> int:
     lib_path = kernels.build(verbose=True)
     kernels.library()
     print(f"[2] built the kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    for src, fn, regs, smem, spill in ptxas_usage():
+        print(f"[2] ptxas {src}: {fn}: {regs} registers, {smem} bytes static "
+              f"smem, {spill} bytes spilled", flush=True)
     sass = sass_counts(lib_path)
     for fn, n in sass.items():
         print(f"[2] SASS {fn}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA", flush=True)
@@ -1480,6 +1644,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     thr3, attn5 = check_two_pass(torch, gen)
     paged7, dense8 = check_paged(torch, gen)
+    check_decode_edges(torch, gen)
     rows = [check_pq_assign(torch, gen), check_topl_thresholds(torch, gen),
             thr3, check_sparse_attention(torch, gen), attn5,
             check_decode_attention(torch, gen), paged7, dense8,

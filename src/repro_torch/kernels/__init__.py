@@ -35,7 +35,7 @@ _F = ctypes.c_float
 # cudaError_t of its launch.
 SIGNATURES = {
     "repro_fused_sparse_decode": ([_I] + [_P] * 10 + [_I] * 9
-                                  + [_F, _I, _I, _P]),
+                                  + [_F] + [_I] * 3 + [_P]),
     "repro_grouped_ffn": [_I] + [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "repro_decode_ffn": [_I] + [_P] * 14 + [_I] * 6 + [_F, _I, _P],
     "repro_pq_assign": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 3
@@ -44,11 +44,12 @@ SIGNATURES = {
     "repro_sparse_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
                               + [_P],
     "repro_fused_sparse_decode_paged": ([_I] + [_P] * 11 + [_I] * 10
-                                        + [_F, _I, _I, _P]),
+                                        + [_F] + [_I] * 3 + [_P]),
     "repro_decode_thresholds": [_P] * 5 + [_I] * 10 + [_P],
     "repro_sparse_decode_attention": ([_I] + [_P] * 10 + [_I] * 7
-                                      + [_F, _I, _I, _P]),
-    "repro_dense_decode_paged": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+                                      + [_F] + [_I] * 3 + [_P]),
+    "repro_dense_decode_paged": [_I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
+                                + [_P],
 }
 
 _lock = threading.Lock()
@@ -65,7 +66,9 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into one shared library (skipped when a library
-    built from the same sources and flags exists) and return its path."""
+    built from the same sources and flags exists) and return its path.
+    verbose: print nvcc's output, with ptxas's registers and shared memory
+    of every kernel (-Xptxas -v), and keep it as build/.../<source>.log."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
@@ -83,10 +86,13 @@ def build(verbose: bool = False) -> Path:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
-    for src, _, p in procs:
+    for src, obj, p in procs:
         out, _ = p.communicate()
+        text = out.decode(errors="replace")
+        if verbose:
+            obj.with_suffix(".log").write_text(text)
         if verbose or p.returncode:
-            print(out.decode(errors="replace"), flush=True)
+            print(text, flush=True)
         if p.returncode:
             errors.append(src.name)
     if errors:
@@ -147,7 +153,9 @@ def require_aligned(name: str, *tensors) -> None:
 
 
 DECODE_TILE = 128             # slots per tile of the decode kernels
-DECODE_BLOCKS = 528          # ~4 blocks per SM of the H100's 132
+DECODE_BLOCKS = 1056         # ~8 blocks per SM of the H100's 132
+DECODE_CHUNK = 32            # list rows a ring stage of the attention pass
+DECODE_RING_BYTES = 49152    # a 3-stage ring when it fits, else 2 stages
 
 
 def decode_splits(g: int, s: int):
@@ -159,6 +167,16 @@ def decode_splits(g: int, s: int):
     ns = max(1, min(tiles, -(-DECODE_BLOCKS // g)))
     sp = -(-tiles // ns) * DECODE_TILE
     return -(-s // sp), sp
+
+
+def decode_stages(dh: int, elem_bytes: int) -> int:
+    """Ring stages of the decode attention pass for K and V rows of dh
+    elements of elem_bytes: 3 when three stages of DECODE_CHUNK rows fit
+    DECODE_RING_BYTES (bf16 up to dh = 128), else 2 (at most 128 KB, f32
+    at dh = 256).  The stage count moves no sum, only how many chunks are
+    in flight."""
+    stage = DECODE_CHUNK * 2 * dh * elem_bytes
+    return 3 if 3 * stage <= DECODE_RING_BYTES else 2
 
 
 def act_code(act: str) -> int:

@@ -20,13 +20,48 @@
 //  thr_kernel    [t, need] per row from the summed histograms;
 //  tie_kernel    per-split count of the ties at t (given [t, need]);
 //  attend_kernel the split's online-softmax partial (acc, max, sum per
-//                row), keys newest first in 128-slot tiles, one slot per
-//                thread.  Selection modes: SEL_FUSED derives [t, need]
-//                and the newer splits' ties from hist_part (one pass);
-//                SEL_GIVEN reads [t, need] and tie_part (two-pass);
-//                SEL_DENSE takes every valid slot (no codes).
-//  combine_kernel merges the splits' partials; a row with nothing
-//                selected outputs 0.
+//                row) over the keys it selects.  Selection modes:
+//                SEL_FUSED derives [t, need] and the newer splits' ties
+//                from hist_part (one pass); SEL_GIVEN reads [t, need] and
+//                tie_part (two-pass); SEL_DENSE takes every valid slot
+//                (no codes).
+//  combine_kernel merges the splits' partials, one block per (kv group,
+//                query row); a row with nothing selected outputs 0.
+//
+// What bounds the attention pass: memory.  It must read each selected
+// key's K and V row once (256 bytes each in bf16 at dh = 128); its
+// arithmetic is one dot product and one axpy per (selected key, row).
+// The selected rows are scattered (sparse modes) or, under a page table,
+// contiguous only within a page, so the pass has to keep many coalesced
+// row copies in flight per SM.
+//
+// attend_kernel's design: selection is separated from data movement, and
+// the arithmetic is spread so that no long chain of dependent steps runs
+// per row.
+//  1. Select.  The split is cut into windows of LIST_MAX slots, newest
+//     first.  The loads of a window (validity, page-table entry, code
+//     row of each of its 4 x 128 slots, one slot per thread and tile) are
+//     sent together; then, tile by tile, warp ballots and a block scan
+//     of the ties decide each slot's query-row bits (ties at t taken
+//     newest first while the running count stays under need, carried
+//     across tiles and windows), and the eligible slots are appended,
+//     newest first, to a compact list in shared memory: the slot's K/V
+//     row and its bits.
+//  2. Move.  The list is streamed in chunks of CHUNK = 32 rows through a
+//     shared-memory ring of 2-3 stages by cp.async: 16-byte copies, 16
+//     consecutive lanes per 256-byte row, so a 128-thread instruction
+//     moves 8 whole rows; the next chunks are in flight while one
+//     computes, and one barrier a chunk hands the stages over.
+//  3. Compute from shared memory, each warp on its own 8 rows of every
+//     chunk with its own f32 online softmax (max, sum, acc): QK with 4
+//     lanes per row (a quarter of dh each, two shuffles), the softmax over
+//     the warp's 8 rows by shuffles, PV with each lane owning 4-column
+//     quads of every query row and summing the warp's rows in list order.
+//     The query rows are a template parameter RT (R padded to 1, 2, 4 or
+//     8 with zero rows), so these loops unroll without branches.  At the
+//     end the 4 warps' states merge in warp order.
+// The sum order depends on the list alone, so contiguous and paged runs
+// over the same splits, and a run and the next, are bit-identical.
 // Everything here is internal to the including source.
 #pragma once
 #include "common.cuh"
@@ -35,13 +70,20 @@ namespace {
 
 using namespace repro;
 
-constexpr int THREADS = 128;          // slots per tile, one per thread
+constexpr int THREADS = 128;          // threads a block; slots a tile
 constexpr int WARPS = THREADS / 32;
 constexpr int R_MAX = 8;              // query heads per kv head
 constexpr int M_MAX = 32;             // PQ books
 constexpr int HIST_MAX = 264;         // >= R_out * (max_score + 1)
 constexpr int D_MAX = 256;            // head dim
-constexpr int ND = D_MAX / THREADS;   // head-dim columns per thread
+constexpr int LIST_MAX = 512;         // slots a selection window
+constexpr int WIN_TILES = LIST_MAX / THREADS;
+constexpr int CHUNK = 32;             // list rows a ring stage
+constexpr int ROWS_W = CHUNK / WARPS; // rows of a chunk each warp computes
+constexpr int LPR = 32 / ROWS_W;      // lanes per row in QK
+constexpr int SEG_MAX = D_MAX / 8 / LPR;   // 8-wide segments a lane, at most
+constexpr int NQ = D_MAX / 4 / 32;    // 4-column quads a lane owns in PV
+constexpr int RING_MAX = 131072;      // ring bytes, at most
 
 enum Sel { SEL_FUSED = 0, SEL_GIVEN = 1, SEL_DENSE = 2 };
 
@@ -72,23 +114,79 @@ inline bool decode_args_ok(int G, int S, int R, int dh, int M, int hk,
          (long long)ns * sp >= S;
 }
 
+// The ring's contract: 2 or 3 stages of CHUNK K and V rows of dh elements
+// of elem bytes (kernels.decode_stages picks the count).
+inline bool ring_ok(int stages, int dh, int elem) {
+  return (stages == 2 || stages == 3) &&
+         (long long)stages * CHUNK * 2 * dh * elem <= RING_MAX;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Eight consecutive elements of a shared-memory row as floats (16-byte
+// aligned).
+__device__ __forceinline__ void lds8(const float* p, float out[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+__device__ __forceinline__ void lds8(const __nv_bfloat16* p, float out[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// Four consecutive elements of a shared-memory row as floats (8-byte
+// aligned for bf16, 16-byte for float).
+__device__ __forceinline__ void lds4(const float* p, float out[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+}
+__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float out[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
 // Match counts of one cached slot against the R query code rows; summed
 // into sc[0] for the GQA-shared ("kvgroup") selection.
+template <int N>
 __device__ __forceinline__ void slot_scores(const int8_t* row, const int* cq,
                                             int R, int M, int sum_rows,
-                                            int (&sc)[R_MAX]) {
+                                            int (&sc)[N]) {
 #pragma unroll
-  for (int r = 0; r < R_MAX; ++r) sc[r] = 0;
+  for (int r = 0; r < N; ++r) sc[r] = 0;
   for (int m = 0; m < M; ++m) {
     const int cm = row[m];
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r)
+    for (int r = 0; r < N; ++r)
       if (r < R) sc[r] += (cq[r * M + m] == cm);
   }
   if (sum_rows) {
     int t = 0;
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r) t += sc[r];
+    for (int r = 0; r < N; ++r) t += sc[r];
     sc[0] = t;
   }
 }
@@ -196,29 +294,39 @@ __global__ void __launch_bounds__(THREADS) tie_kernel(
     tie_part[((size_t)g * ns + j) * r_out + threadIdx.x] = cnt[threadIdx.x];
 }
 
-// grid (G, ns).  sel: SEL_FUSED hist_part (G, ns, R_out, max_score + 1);
-// SEL_GIVEN thresholds (G, R_out, 2), with ties = tie_part (G, ns,
-// R_out); SEL_DENSE unused (codes too).  part (G, ns, R, dh + 2) gets
-// (acc[dh], max, sum) per row; thr_out (SEL_FUSED, may be null) the
-// [t, need] used.
-template <typename T, typename Addr, int SEL>
-__global__ void __launch_bounds__(THREADS) attend_kernel(
+// grid (G, ns), THREADS threads, attend_smem_bytes<T, RT>(stages, dh) of
+// dynamic shared memory; R <= RT query rows per kv group (the rows past R
+// are zero padding).  sel: SEL_FUSED hist_part (G, ns, R_out,
+// max_score + 1); SEL_GIVEN thresholds (G, R_out, 2), with ties =
+// tie_part (G, ns, R_out); SEL_DENSE unused (codes too).  part (G, ns, R,
+// dh + 2) gets (acc[dh], max, sum) per row; thr_out (SEL_FUSED, may be
+// null) the [t, need] used.
+template <typename T, int RT>
+inline size_t attend_smem_bytes(int stages, int dh) {
+  return (size_t)stages * CHUNK * 2 * dh * sizeof(T) +
+         (size_t)RT * dh * sizeof(float);
+}
+
+template <typename T, typename Addr, int SEL, int RT>
+__global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int32_t* __restrict__ codes_q,
     const int8_t* __restrict__ codes_k, const uint8_t* __restrict__ kv_valid,
     Addr addr, const int32_t* __restrict__ sel,
     const int32_t* __restrict__ ties, float* __restrict__ part,
     int32_t* __restrict__ thr_out, int S, int R, int dh, int M, int hk,
-    int l, int max_score, int sum_rows, float scale, int SP) {
+    int l, int max_score, int sum_rows, float scale, int SP, int stages) {
+  extern __shared__ __align__(128) unsigned char ring[];
   __shared__ int cq[R_MAX * M_MAX];
-  __shared__ int thr[R_MAX * 3];                  // t, need, ties taken
-  __shared__ float qs[R_MAX * D_MAX];
-  __shared__ float ps[R_MAX * THREADS];
-  __shared__ float red_max[R_MAX * WARPS];
-  __shared__ float red_sum[R_MAX * WARPS];
-  __shared__ int tie_cnt[R_MAX * WARPS];
-  __shared__ int elig_cnt[WARPS];
-  __shared__ int list[THREADS];
+  __shared__ int hsum[HIST_MAX];                  // SEL_FUSED: all splits
+  __shared__ int thr[RT * 3];                     // t, need, ties taken
+  // K/V row of each list entry: 32 bits hold it, since 2^32 rows of K and
+  // V at >= 16 bytes each would not fit a card
+  __shared__ uint32_t list_row[LIST_MAX];
+  __shared__ uint8_t list_bits[LIST_MAX];         // its query-row bits
+  __shared__ int tie_cnt[2][RT * WARPS];          // by tile parity
+  __shared__ int elig_cnt[2][WARPS];
+  __shared__ float warp_ml[WARPS][2][RT];         // each warp's max, sum
 
   const int g = blockIdx.x, j = blockIdx.y, ns = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -226,17 +334,31 @@ __global__ void __launch_bounds__(THREADS) attend_kernel(
   const int r_out = sum_rows ? 1 : R;
   const int lo = j * SP, hi = min(S, lo + SP);
   const uint8_t* valid_row = kv_valid + (size_t)(g / hk) * S;
+  const int row_bytes = dh * (int)sizeof(T);
+  const int stage_bytes = CHUNK * 2 * row_bytes;  // K rows, then V rows
+  float* qs = reinterpret_cast<float*>(ring + stages * stage_bytes);
 
-  for (int i = tid; i < R * dh; i += THREADS) qs[i] = to_f(q[(size_t)g * R * dh + i]);
+  for (int i = tid; i < RT * dh; i += THREADS)
+    qs[i] = i < R * dh ? to_f(q[(size_t)g * R * dh + i]) : 0.f;
   if constexpr (SEL != SEL_DENSE) {
     load_codes_q(cq, codes_q, g, R, M);
+    const int nb = max_score + 1;
+    if constexpr (SEL == SEL_FUSED) {             // sum the splits at once
+      const size_t stride = (size_t)r_out * nb;
+      const int32_t* hp = sel + (size_t)g * ns * stride;
+      for (int i = tid; i < r_out * nb; i += THREADS) {
+        int h = 0;
+        for (int s = 0; s < ns; ++s) h += hp[s * stride + i];
+        hsum[i] = h;
+      }
+      __syncthreads();
+    }
     if (tid < r_out) {
       int t, need, newer = 0;                     // newer: ties in newer splits
       if constexpr (SEL == SEL_FUSED) {
-        const int nb = max_score + 1;
-        const int32_t* hp = sel + (size_t)g * ns * r_out * nb + tid * nb;
         const size_t stride = (size_t)r_out * nb;
-        reduce_thr(hp, stride, ns, max_score, l, t, need);
+        const int32_t* hp = sel + (size_t)g * ns * stride + tid * nb;
+        reduce_thr(hsum + tid * nb, 0, 1, max_score, l, t, need);
         for (int s = j + 1; s < ns; ++s) newer += hp[s * stride + t];
         if (thr_out != nullptr && j == 0) {
           thr_out[((size_t)g * r_out + tid) * 2] = t;
@@ -255,197 +377,324 @@ __global__ void __launch_bounds__(THREADS) attend_kernel(
   }
   __syncthreads();
 
-  int taken[R_MAX];
-  float m_run[R_MAX], l_run[R_MAX], acc[R_MAX][ND];
+  int taken[RT];
 #pragma unroll
-  for (int r = 0; r < R_MAX; ++r) {
+  for (int r = 0; r < RT; ++r)
     taken[r] = (SEL != SEL_DENSE && r < r_out) ? thr[3 * r + 2] : 0;
+
+  // this warp's online softmax over its rows: lanes hold equal m, l
+  float m_run[RT], l_run[RT], acc[RT][NQ][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < ND; ++jj) acc[r][jj] = 0.f;
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][c][e] = 0.f;
   }
+  const int quarter = lane % LPR;
+  const int my_row = warp * ROWS_W + lane / LPR;  // QK: this lane's row
+  // copies: thread tid starts at row ci0, 16-byte piece cp0 of a chunk
+  // and steps THREADS pieces at a time
+  const int pieces = row_bytes / 16;
+  const int ci0 = tid / pieces, cp0 = tid - ci0 * pieces;
+  const int cdi = THREADS / pieces, cdp = THREADS - cdi * pieces;
+  constexpr unsigned LIVE = 1u << 16;
 
-  for (int tile_end = hi; tile_end > lo; tile_end -= THREADS) {
-    const int slot = tile_end - 1 - tid;            // tid 0 = newest slot
-    const bool live = slot >= lo && valid_row[slot];
-    const size_t srow = live ? addr.row(g, slot) : 0;
-    unsigned bits = 0;
-    if constexpr (SEL == SEL_DENSE) {
-      if (live) bits = (1u << R) - 1u;
-    } else {
-      int sc[R_MAX];
-      if (live) slot_scores(codes_k + srow * M, cq, R, M, sum_rows, sc);
-      bool above[R_MAX], at[R_MAX];
-      int pre[R_MAX];
+  int parity = 0;
+  for (int w_end = hi; w_end > lo; w_end -= LIST_MAX) {
+    // 1. the window's eligible slots, newest first, into the list
+    const int w_lo = max(lo, w_end - LIST_MAX);
+    const int n_tiles = (w_end - w_lo + THREADS - 1) / THREADS;
+    uint32_t rows[WIN_TILES];
+    unsigned flags[WIN_TILES];        // LIVE | above bits | at bits << 8
 #pragma unroll
-      for (int r = 0; r < R_MAX; ++r) {
-        above[r] = at[r] = false;
-        pre[r] = 0;
-        if (r < r_out) {
-          const int sm = live ? sc[r] : -1;
-          const int t = thr[3 * r];
-          above[r] = sm > t;
-          at[r] = sm == t;
-          const unsigned mask = __ballot_sync(FULL_MASK, at[r]);
-          pre[r] = __popc(mask & lane_lt);
-          if (lane == 0) tie_cnt[r * WARPS + warp] = __popc(mask);
+    for (int tl = 0; tl < WIN_TILES; ++tl) {
+      const int slot = w_end - 1 - tl * THREADS - tid;   // tid 0 = newest
+      rows[tl] = 0;
+      flags[tl] = 0;
+      if (slot >= w_lo) {
+        rows[tl] = (uint32_t)addr.row(g, slot);
+        if (valid_row[slot]) flags[tl] = LIVE;
+      }
+    }
+    if constexpr (SEL != SEL_DENSE) {
+#pragma unroll
+      for (int tl = 0; tl < WIN_TILES; ++tl) {
+        if (flags[tl]) {
+          int sc[RT];
+          slot_scores(codes_k + (size_t)rows[tl] * M, cq, R, M, sum_rows, sc);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            if (r < r_out) {
+              const int t = thr[3 * r];
+              flags[tl] |= (unsigned)(sc[r] > t) << r;
+              flags[tl] |= (unsigned)(sc[r] == t) << (8 + r);
+            }
+          }
         }
       }
+    }
+    int n = 0;
+#pragma unroll
+    for (int tl = 0; tl < WIN_TILES; ++tl) {
+      if (tl >= n_tiles) break;                     // uniform
+      unsigned bits = 0;
+      if constexpr (SEL == SEL_DENSE) {
+        if (flags[tl]) bits = (1u << R) - 1u;
+      } else {
+        int pre[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          pre[r] = 0;
+          if (r < r_out) {
+            const unsigned mask =
+                __ballot_sync(FULL_MASK, (flags[tl] >> (8 + r)) & 1u);
+            pre[r] = __popc(mask & lane_lt);
+            if (lane == 0) tie_cnt[parity][r * WARPS + warp] = __popc(mask);
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          if (r < r_out) {
+            int before = 0, total = 0;
+            for (int w = 0; w < WARPS; ++w) {
+              const int c = tie_cnt[parity][r * WARPS + w];
+              total += c;
+              if (w < warp) before += c;
+            }
+            const int need = thr[3 * r + 1];
+            const bool above = (flags[tl] >> r) & 1u;
+            const bool at = (flags[tl] >> (8 + r)) & 1u;
+            if (above || (at && taken[r] + before + pre[r] < need))
+              bits |= 1u << r;
+            taken[r] += min(total, max(need - taken[r], 0));
+          }
+        }
+      }
+      const unsigned em = __ballot_sync(FULL_MASK, bits != 0);
+      if (lane == 0) elig_cnt[parity][warp] = __popc(em);
       __syncthreads();
-#pragma unroll
-      for (int r = 0; r < R_MAX; ++r) {
-        if (r < r_out) {
-          int before = 0, total = 0;
-          for (int w = 0; w < WARPS; ++w) {
-            const int c = tie_cnt[r * WARPS + w];
-            total += c;
-            if (w < warp) before += c;
-          }
-          const int need = thr[3 * r + 1];
-          if (above[r] || (at[r] && taken[r] + before + pre[r] < need))
-            bits |= 1u << r;
-          taken[r] += min(total, max(need - taken[r], 0));
-        }
+      int base = 0, tile_n = 0;
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = elig_cnt[parity][w];
+        if (w < warp) base += c;
+        tile_n += c;
       }
+      if (bits) {
+        const int e = n + base + __popc(em & lane_lt);
+        list_row[e] = rows[tl];
+        list_bits[e] = (uint8_t)bits;
+      }
+      n += tile_n;
+      parity ^= 1;
     }
-    const unsigned em = __ballot_sync(FULL_MASK, bits != 0);
-    if (lane == 0) elig_cnt[warp] = __popc(em);
-    __syncthreads();
-    int base = 0, n_list = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      if (w < warp) base += elig_cnt[w];
-      n_list += elig_cnt[w];
-    }
-    if (n_list == 0) continue;                      // uniform: skip tile
-    if (bits) list[base + __popc(em & lane_lt)] = tid;
+    __syncthreads();                                // the list is written
+    if (n == 0) continue;                           // uniform: no K/V reads
 
-    float lg[R_MAX];
+    // 2. stream the list's K/V rows through the ring
+    const int nch = (n + CHUNK - 1) / CHUNK;
+    auto fetch = [&](int c) {
+      const int c0 = c * CHUNK, cn = min(CHUNK, n - c0);
+      unsigned char* st = ring + (c % stages) * stage_bytes;
+      for (int i = ci0, pc = cp0; i < cn;) {
+        const size_t off = (size_t)list_row[c0 + i] * row_bytes + pc * 16;
+        cp16(smem_u32(st + i * row_bytes + pc * 16),
+             reinterpret_cast<const unsigned char*>(k) + off);
+        cp16(smem_u32(st + (CHUNK + i) * row_bytes + pc * 16),
+             reinterpret_cast<const unsigned char*>(v) + off);
+        i += cdi;
+        pc += cdp;
+        if (pc >= pieces) {
+          pc -= pieces;
+          ++i;
+        }
+      }
+    };
+    for (int c = 0; c < stages - 1; ++c) {
+      if (c < nch) fetch(c);
+      cp_commit();
+    }
+    for (int c = 0; c < nch; ++c) {
+      if (stages == 3) cp_wait<1>(); else cp_wait<0>();
+      __syncthreads();          // chunk c landed; chunk c - 1 is consumed
+      if (c + stages - 1 < nch) fetch(c + stages - 1);
+      cp_commit();
+      const int c0 = c * CHUNK, cn = min(CHUNK, n - c0);
+      const T* ks =
+          reinterpret_cast<const T*>(ring + (c % stages) * stage_bytes);
+      const T* vs = ks + CHUNK * dh;
+
+      // 3. QK: 4 lanes per row, each on every 4th 8-wide segment
+      float dot[RT];
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r) lg[r] = -INFINITY;
-    if (bits) {
-      float dot[R_MAX];
+      for (int r = 0; r < RT; ++r) dot[r] = 0.f;
+      if (my_row < cn) {
 #pragma unroll
-      for (int r = 0; r < R_MAX; ++r) dot[r] = 0.f;
-      const T* krow = k + srow * dh;
-      for (int d0 = 0; d0 < dh; d0 += 8) {
-        float kv8[8];
-        load8(krow + d0, kv8);
+        for (int sg = 0; sg < SEG_MAX; ++sg) {
+          const int s8 = (quarter + sg * LPR) * 8;
+          if (s8 < dh) {
+            float kf[8];
+            lds8(ks + my_row * dh + s8, kf);
 #pragma unroll
-        for (int r = 0; r < R_MAX; ++r) {
-          if (r < R) {
+            for (int r = 0; r < RT; ++r) {
+              float qf[8];
+              lds8(qs + r * dh + s8, qf);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) dot[r] += kv8[e] * qs[r * dh + d0 + e];
+              for (int e = 0; e < 8; ++e) dot[r] += kf[e] * qf[e];
+            }
           }
         }
       }
+      const unsigned bits = my_row < cn ? list_bits[c0 + my_row] : 0u;
+      float p[RT];
 #pragma unroll
-      for (int r = 0; r < R_MAX; ++r) {
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int o = 1; o < LPR; o <<= 1)
+          dot[r] += __shfl_xor_sync(FULL_MASK, dot[r], o);
         const bool e = sum_rows ? (bits & 1u) : ((bits >> r) & 1u);
-        if (r < R && e) lg[r] = dot[r] * scale;
-      }
-    }
+        const float lg = e ? dot[r] * scale : -INFINITY;
+        // online softmax over the warp's ROWS_W rows
+        float mx = lg;
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r) {
-      if (r < R) {
-        const float mx = warp_max(lg[r]);
-        if (lane == 0) red_max[r * WARPS + warp] = mx;
-      }
-    }
-    __syncthreads();
-    float alpha[R_MAX];
-#pragma unroll
-    for (int r = 0; r < R_MAX; ++r) {
-      alpha[r] = 1.f;
-      if (r < R) {
-        float tmax = -INFINITY;
-        for (int w = 0; w < WARPS; ++w) tmax = fmaxf(tmax, red_max[r * WARPS + w]);
-        const float m_new = fmaxf(m_run[r], tmax);
+        for (int o = LPR; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, o));
+        const float m_new = fmaxf(m_run[r], mx);
         const bool finite = m_new > -INFINITY;
         const float m_safe = finite ? m_new : 0.f;
-        alpha[r] = finite ? expf(m_run[r] - m_safe) : 1.f;
+        const float alpha = finite ? expf(m_run[r] - m_safe) : 1.f;
+        p[r] = lg == -INFINITY ? 0.f : expf(lg - m_safe);
+        float sum = p[r];
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1)
+          sum += __shfl_xor_sync(FULL_MASK, sum, o);
         m_run[r] = m_new;
-        const float p = lg[r] == -INFINITY ? 0.f : expf(lg[r] - m_safe);
-        ps[r * THREADS + tid] = p;
-        const float sum = warp_sum(p);
-        if (lane == 0) red_sum[r * WARPS + warp] = sum;
+        l_run[r] = l_run[r] * alpha + sum;
+#pragma unroll
+        for (int c4 = 0; c4 < NQ; ++c4)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) acc[r][c4][e4] *= alpha;
       }
-    }
-    __syncthreads();
+      // PV: the warp's rows in list order
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r) {
-      if (r < R) {
-        float tsum = 0.f;
-        for (int w = 0; w < WARPS; ++w) tsum += red_sum[r * WARPS + w];
-        l_run[r] = l_run[r] * alpha[r] + tsum;
+      for (int ii = 0; ii < ROWS_W; ++ii) {
+        const int i = warp * ROWS_W + ii;
+        if (i >= cn) break;                         // uniform in the warp
+        float pr[RT];
 #pragma unroll
-        for (int jj = 0; jj < ND; ++jj) acc[r][jj] *= alpha[r];
-      }
-    }
-#pragma unroll 4
-    for (int e = 0; e < n_list; ++e) {
-      const int i = list[e];
-      const T* vrow = v + addr.row(g, tile_end - 1 - i) * dh;
+        for (int r = 0; r < RT; ++r)
+          pr[r] = __shfl_sync(FULL_MASK, p[r], ii * LPR);
 #pragma unroll
-      for (int jj = 0; jj < ND; ++jj) {
-        const int d = tid + jj * THREADS;
-        if (d < dh) {
-          const float vv = to_f(vrow[d]);
+        for (int c4 = 0; c4 < NQ; ++c4) {
+          const int col = (lane + 32 * c4) * 4;
+          if (col < dh) {
+            float vf[4];
+            lds4(vs + i * dh + col, vf);
 #pragma unroll
-          for (int r = 0; r < R_MAX; ++r)
-            if (r < R) acc[r][jj] += ps[r * THREADS + i] * vv;
+            for (int r = 0; r < RT; ++r)
+#pragma unroll
+              for (int e4 = 0; e4 < 4; ++e4) acc[r][c4][e4] += pr[r] * vf[e4];
+          }
         }
       }
     }
-    __syncthreads();
+    cp_wait<0>();                                   // only empty groups left
   }
 
-  // partial softmax of this split: (acc[dh], max, sum) per row
+  // merge the warps' states in warp order: the split's partial softmax,
+  // (acc[dh], max, sum) per row
+  __syncthreads();                                  // the ring is free
+  float* wacc = reinterpret_cast<float*>(ring);     // (WARPS, RT, dh)
 #pragma unroll
-  for (int r = 0; r < R_MAX; ++r) {
-    if (r < R) {
-      float* pr = part + (((size_t)g * ns + j) * R + r) * (dh + 2);
+  for (int r = 0; r < RT; ++r) {
 #pragma unroll
-      for (int jj = 0; jj < ND; ++jj) {
-        const int d = tid + jj * THREADS;
-        if (d < dh) pr[d] = acc[r][jj];
-      }
-      if (tid == 0) {
-        pr[dh] = m_run[r];
-        pr[dh + 1] = l_run[r];
+    for (int c4 = 0; c4 < NQ; ++c4) {
+      const int col = (lane + 32 * c4) * 4;
+      if (col < dh)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4)
+          wacc[(warp * RT + r) * dh + col + e4] = acc[r][c4][e4];
+    }
+    if (lane == 0) {
+      warp_ml[warp][0][r] = m_run[r];
+      warp_ml[warp][1][r] = l_run[r];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < R * (dh + 2); i += THREADS) {
+    const int r = i / (dh + 2), d = i - r * (dh + 2);
+    float mx = -INFINITY;
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, warp_ml[w][0][r]);
+    float val = 0.f;
+    if (d == dh) {
+      val = mx;
+    } else {
+      for (int w = 0; w < WARPS; ++w) {
+        const float mw = warp_ml[w][0][r];
+        if (mw > -INFINITY)
+          val += expf(mw - mx) *
+                 (d < dh ? wacc[(w * RT + r) * dh + d] : warp_ml[w][1][r]);
       }
     }
+    part[(((size_t)g * ns + j) * R + r) * (dh + 2) + d] = val;
   }
 }
 
+// grid (G, R): one block per (kv group, query row).
 template <typename T>
 __global__ void __launch_bounds__(THREADS) combine_kernel(
     const float* __restrict__ part, T* __restrict__ out, int R, int dh,
     int ns) {
-  const int g = blockIdx.x;
-  for (int r = 0; r < R; ++r) {
-    const size_t stride = (size_t)R * (dh + 2);    // between splits
-    const float* p0 = part + ((size_t)g * ns * R + r) * (dh + 2);
-    float mx = -INFINITY;
-    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, p0[s * stride + dh]);
-    float den = 0.f;
+  const int g = blockIdx.x, r = blockIdx.y;
+  const size_t stride = (size_t)R * (dh + 2);      // between splits
+  const float* p0 = part + ((size_t)g * ns * R + r) * (dh + 2);
+  float mx = -INFINITY;
+  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, p0[s * stride + dh]);
+  float den = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float m = p0[s * stride + dh];
+    if (m > -INFINITY) den += expf(m - mx) * p0[s * stride + dh + 1];
+  }
+  for (int d = threadIdx.x; d < dh; d += THREADS) {
+    float num = 0.f;
     for (int s = 0; s < ns; ++s) {
       const float m = p0[s * stride + dh];
-      if (m > -INFINITY) den += expf(m - mx) * p0[s * stride + dh + 1];
+      if (m > -INFINITY) num += expf(m - mx) * p0[s * stride + d];
     }
-    for (int d = threadIdx.x; d < dh; d += THREADS) {
-      float num = 0.f;
-      for (int s = 0; s < ns; ++s) {
-        const float m = p0[s * stride + dh];
-        if (m > -INFINITY) num += expf(m - mx) * p0[s * stride + d];
-      }
-      out[((size_t)g * R + r) * dh + d] =
-          from_f<T>(den > 0.f ? num / fmaxf(den, 1e-30f) : 0.f);
-    }
+    out[((size_t)g * R + r) * dh + d] =
+        from_f<T>(den > 0.f ? num / fmaxf(den, 1e-30f) : 0.f);
   }
 }
 
-// The attention pass, then the combine, on stream st.
+template <typename T, typename Addr, int SEL, int RT>
+cudaError_t launch_attend(const void* q, const void* k, const void* v,
+                          const int32_t* cq, const int8_t* ck,
+                          const uint8_t* vp, Addr addr, const int32_t* sel,
+                          const int32_t* ties, float* part, int32_t* thr_out,
+                          int G, int S, int R, int dh, int M, int hk, int l,
+                          int max_score, int sum_rows, float scale, int ns,
+                          int sp, int stages, cudaStream_t st) {
+  const size_t smem = attend_smem_bytes<T, RT>(stages, dh);
+  auto kern = attend_kernel<T, Addr, SEL, RT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)                         // room for 4 blocks an SM
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(G, ns), THREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), cq, ck, vp, addr, sel, ties, part, thr_out,
+      S, R, dh, M, hk, l, max_score, sum_rows, scale, sp, stages);
+  return cudaGetLastError();
+}
+
+// The attention pass (R padded to RT = 1, 2, 4 or 8 query rows), then the
+// combine, on stream st.
 template <typename T, typename Addr, int SEL>
 int attend_and_combine(const void* q, const void* k, const void* v,
                        const int32_t* cq, const int8_t* ck,
@@ -453,15 +702,21 @@ int attend_and_combine(const void* q, const void* k, const void* v,
                        const int32_t* ties, float* part, int32_t* thr_out,
                        void* out, int G, int S, int R, int dh, int M, int hk,
                        int l, int max_score, int sum_rows, float scale,
-                       int ns, int sp, cudaStream_t st) {
-  attend_kernel<T, Addr, SEL><<<dim3(G, ns), THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cq, ck, vp, addr, sel, ties, part, thr_out,
-      S, R, dh, M, hk, l, max_score, sum_rows, scale, sp);
-  cudaError_t err = cudaGetLastError();
+                       int ns, int sp, int stages, cudaStream_t st) {
+  if (!ring_ok(stages, dh, (int)sizeof(T))) return (int)cudaErrorInvalidValue;
+#define REPRO_ATTEND(RT)                                                   \
+  launch_attend<T, Addr, SEL, RT>(q, k, v, cq, ck, vp, addr, sel, ties,    \
+                                  part, thr_out, G, S, R, dh, M, hk, l,    \
+                                  max_score, sum_rows, scale, ns, sp,      \
+                                  stages, st)
+  cudaError_t err = R <= 1   ? REPRO_ATTEND(1)
+                    : R <= 2 ? REPRO_ATTEND(2)
+                    : R <= 4 ? REPRO_ATTEND(4)
+                             : REPRO_ATTEND(8);
+#undef REPRO_ATTEND
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T><<<G, THREADS, 0, st>>>(part, static_cast<T*>(out), R, dh,
-                                          ns);
+  combine_kernel<T><<<dim3(G, R), THREADS, 0, st>>>(
+      part, static_cast<T*>(out), R, dh, ns);
   return (int)cudaGetLastError();
 }
 

@@ -10,28 +10,32 @@
 // row (S*M int8, read twice), the validity row, and the K/V rows of the
 // selected keys (about top_fraction of the cache per query row); the
 // arithmetic is one dh-long dot product and one dh-long axpy per selected
-// (key, row).
+// (key, row).  The selected rows are scattered, so what matters is how
+// many row copies are in flight on each SM.
 //
 // Design: the R query rows of a kv head travel together, so every code,
 // K and V byte is read once per kv group, never per query head.  The cache
 // of each (b, kv head) is cut into NS splits of SP slots (a multiple of
-// the 128-slot tile) so that B*Hk*NS blocks fill the card:
+// the 128-slot tile, kernels.decode_splits) so that B*Hk*NS blocks fill
+// the card:
 //  1. hist_kernel, one block per (kv group, split): scores its slots'
 //     codes straight from global memory into a shared-memory histogram
 //     and writes it out.  The TPU kernel pinned the whole code row on
 //     chip instead (512 KB at S = 32k).
-//  2. attend_kernel (SEL_FUSED), same grid: sums the splits' histograms
-//     into the full one and reduces it to [t, need] per row exactly as
-//     topl_select.hist_reduce does; the histograms of the newer splits,
-//     read at bucket t, give the ties already taken before this split.
-//     It then sweeps its slots newest first in 128-slot tiles, one slot
-//     per thread: keys with score > t are taken, keys with score == t
-//     while the ties at newer slots number fewer than need (a block-wide
-//     scan of warp ballots, carried across tiles by a running count).
-//     A tile with no eligible key skips all K/V reads; only eligible K
-//     and V rows are loaded.  The softmax is an f32 online softmax whose
-//     (max, sum, acc) per split go to a scratch buffer.
-//  3. combine_kernel: merges the splits' partial softmaxes.
+//  2. attend_kernel (SEL_FUSED), same grid (decode_attention.cuh): sums
+//     the splits' histograms and reduces them to [t, need] per row exactly
+//     as topl_select.hist_reduce does; the histograms of the newer
+//     splits, read at bucket t, give the ties already taken before this
+//     split.  It then selects, newest first, the keys with score > t and
+//     those at t while the ties at newer slots number fewer than need,
+//     into a compact list in shared memory, and streams only the listed
+//     K and V rows through a 3-stage cp.async ring (coalesced 16-byte
+//     copies, two chunks in flight while one computes); each warp
+//     computes QK, an f32 online softmax and PV on its 8 rows of every
+//     32-row chunk from shared memory, and the warps merge in a fixed
+//     order.  Its (max, sum, acc) per split go to a scratch buffer.
+//  3. combine_kernel, one block per (kv group, query row): merges the
+//     splits' partial softmaxes.
 // The paged form walks the same splits of the MP*ps-slot view, finding
 // each slot's row through the page table (decode_attention.cuh, Paged),
 // so over the same data it is bit-identical to the contiguous form over
@@ -49,14 +53,14 @@ int launch_fused(const void* q, const void* k, const void* v,
                  Addr addr, void* out, int32_t* tp, int32_t* hist_part,
                  float* part, int G, int S, int R, int dh, int M, int hk,
                  int l, int max_score, int sum_rows, float scale, int ns,
-                 int sp, cudaStream_t st) {
+                 int sp, int stages, cudaStream_t st) {
   hist_kernel<Addr><<<dim3(G, ns), THREADS, 0, st>>>(
       cq, ck, vp, addr, hist_part, S, R, M, hk, max_score, sum_rows, sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return attend_and_combine<T, Addr, SEL_FUSED>(
       q, k, v, cq, ck, vp, addr, hist_part, nullptr, part, tp, out, G, S, R,
-      dh, M, hk, l, max_score, sum_rows, scale, ns, sp, st);
+      dh, M, hk, l, max_score, sum_rows, scale, ns, sp, stages, st);
 }
 
 template <typename Addr>
@@ -65,7 +69,7 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
              Addr addr, void* out, void* thr_out, void* hist_part, void* part,
              int G, int S, int R, int dh, int M, int hk, int l,
              int max_score, int sum_rows, float scale, int ns, int sp,
-             void* stream) {
+             int stages, void* stream) {
   const int r_out = sum_rows ? 1 : R;
   if (!decode_args_ok(G, S, R, dh, M, hk, r_out * (max_score + 1), ns, sp))
     return (int)cudaErrorInvalidValue;
@@ -79,11 +83,12 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch_fused<float, Addr>(q, k, v, cqp, ckp, vp, addr, out, tp,
                                      hp, pp, G, S, R, dh, M, hk, l,
-                                     max_score, sum_rows, scale, ns, sp, st);
+                                     max_score, sum_rows, scale, ns, sp,
+                                     stages, st);
   if (dtype == 1)
     return launch_fused<__nv_bfloat16, Addr>(
         q, k, v, cqp, ckp, vp, addr, out, tp, hp, pp, G, S, R, dh, M, hk, l,
-        max_score, sum_rows, scale, ns, sp, st);
+        max_score, sum_rows, scale, ns, sp, stages, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -95,16 +100,18 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
 // (G, R_out, 2) int32 receives [t, need].  Scratch from the caller:
 // hist_part (G, ns, R_out, max_score + 1) int32 and part (G, ns, R,
 // dh + 2) float32, for ns splits of sp slots (sp a multiple of 128,
-// (ns - 1) * sp < S <= ns * sp).  Returns the cudaError_t of the launches.
+// (ns - 1) * sp < S <= ns * sp); stages: the attention pass's ring
+// stages (kernels.decode_stages).  k and v rows start on 16 bytes.
+// Returns the cudaError_t of the launches.
 extern "C" int repro_fused_sparse_decode(
     int dtype, const void* q, const void* k, const void* v,
     const void* codes_q, const void* codes_k, const void* kv_valid, void* out,
     void* thr_out, void* hist_part, void* part, int G, int S, int R, int dh,
     int M, int hk, int l, int max_score, int sum_rows, float scale, int ns,
-    int sp, void* stream) {
+    int sp, int stages, void* stream) {
   return dispatch(dtype, q, k, v, codes_q, codes_k, kv_valid, Contig{S}, out,
                   thr_out, hist_part, part, G, S, R, dh, M, hk, l, max_score,
-                  sum_rows, scale, ns, sp, stream);
+                  sum_rows, scale, ns, sp, stages, stream);
 }
 
 // Kernel 7: kernel 6 over (P, Hk, ps, .) pools (k_pool, v_pool,
@@ -117,10 +124,11 @@ extern "C" int repro_fused_sparse_decode_paged(
     const void* v_pool, const void* codes_q, const void* codes_pool,
     const void* kv_valid, void* out, void* thr_out, void* hist_part,
     void* part, int G, int MP, int ps, int R, int dh, int M, int hk, int l,
-    int max_score, int sum_rows, float scale, int ns, int sp, void* stream) {
+    int max_score, int sum_rows, float scale, int ns, int sp, int stages,
+    void* stream) {
   if (MP < 1 || ps < 1) return (int)cudaErrorInvalidValue;
   const Paged addr{static_cast<const int32_t*>(page_table), MP, ps, hk};
   return dispatch(dtype, q, k_pool, v_pool, codes_q, codes_pool, kv_valid,
                   addr, out, thr_out, hist_part, part, G, MP * ps, R, dh, M,
-                  hk, l, max_score, sum_rows, scale, ns, sp, stream);
+                  hk, l, max_score, sum_rows, scale, ns, sp, stages, stream);
 }

@@ -20,10 +20,12 @@
 // Kernel 5 takes [t, need] (G, R_out, 2).  Its tie budget counts the ties
 // at newer slots across the whole row, so it first counts, per split, the
 // ties at bucket t (tie_kernel: one re-read of the int8 code row), then
-// runs the fused kernel's attention body (SEL_GIVEN) with the newer
-// splits' tie count as its starting budget, and the same combine.  Given
-// equal [t, need], every eligibility decision, softmax update and sum
-// happens in the fused kernel's order: the outputs are bit-identical.
+// runs the fused kernel's attention body (SEL_GIVEN: the selected keys
+// listed in shared memory, their K/V rows streamed through a cp.async
+// ring) with the newer splits' tie count as its starting budget, and the
+// same combine.  Given equal [t, need], every eligibility decision, list
+// entry, softmax update and sum happens in the fused kernel's order: the
+// outputs are bit-identical.
 #include "decode_attention.cuh"
 
 // Kernel 3.  codes_q (G, R, M) int32, codes_k (G, S, M) int8, kv_valid
@@ -53,13 +55,13 @@ extern "C" int repro_decode_thresholds(
 // Kernel 5.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  q
 // (G, R, dh); k, v (G, S, dh); codes as kernel 3; thr (G, R_out, 2)
 // int32.  Scratch: tie_part (G, ns, R_out) int32 and part (G, ns, R,
-// dh + 2) float32.
+// dh + 2) float32; the ring stages as kernel 6.
 extern "C" int repro_sparse_decode_attention(
     int dtype, const void* q, const void* k, const void* v,
     const void* codes_q, const void* codes_k, const void* thr,
     const void* kv_valid, void* out, void* tie_part, void* part, int G,
     int S, int R, int dh, int M, int hk, int sum_rows, float scale, int ns,
-    int sp, void* stream) {
+    int sp, int stages, void* stream) {
   if (!decode_args_ok(G, S, R, dh, M, hk, 0, ns, sp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -77,10 +79,10 @@ extern "C" int repro_sparse_decode_attention(
   if (dtype == 0)
     return attend_and_combine<float, Contig, SEL_GIVEN>(
         q, k, v, cqp, ckp, vp, addr, tp, ties, pp, nullptr, out, G, S, R, dh,
-        M, hk, 0, 0, sum_rows, scale, ns, sp, st);
+        M, hk, 0, 0, sum_rows, scale, ns, sp, stages, st);
   if (dtype == 1)
     return attend_and_combine<__nv_bfloat16, Contig, SEL_GIVEN>(
         q, k, v, cqp, ckp, vp, addr, tp, ties, pp, nullptr, out, G, S, R, dh,
-        M, hk, 0, 0, sum_rows, scale, ns, sp, st);
+        M, hk, 0, 0, sum_rows, scale, ns, sp, stages, st);
   return (int)cudaErrorInvalidValue;
 }

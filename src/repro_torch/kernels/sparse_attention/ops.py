@@ -92,6 +92,7 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
         return (out, thr) if return_thresholds else out
     name = "fused_sparse_decode_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, kv_valid)
+    kernels.require_aligned(name, k, v)
     g, r, dh = q.shape
     s = k.shape[1]
     m = codes_q.shape[-1]
@@ -114,7 +115,7 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
         out.data_ptr(), None if thr is None else thr.data_ptr(),
         hist.data_ptr(), part.data_ptr(), g, s, r, dh, m, heads_per_batch, l,
         max_score, int(sum_rows), float(scale), ns, sp,
-        kernels.stream_ptr())
+        kernels.decode_stages(dh, q.element_size()), kernels.stream_ptr())
     kernels.check(err, name)
     fused_sparse_decode_attention.launches += 1
     return (out, thr) if return_thresholds else out
@@ -138,6 +139,7 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
     name = "sparse_decode_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, thresholds,
                          kv_valid)
+    kernels.require_aligned(name, k, v)
     g, r, dh = q.shape
     s = k.shape[1]
     m = codes_q.shape[-1]
@@ -158,7 +160,8 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
         codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
         kv_valid.data_ptr(), out.data_ptr(), ties.data_ptr(),
         part.data_ptr(), g, s, r, dh, m, heads_per_batch, int(sum_rows),
-        float(scale), ns, sp, kernels.stream_ptr())
+        float(scale), ns, sp, kernels.decode_stages(dh, q.element_size()),
+        kernels.stream_ptr())
     kernels.check(err, name)
     sparse_decode_attention.launches += 1
     return out
@@ -215,7 +218,8 @@ def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
         codes_pool.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
         None if thr is None else thr.data_ptr(), hist.data_ptr(),
         part.data_ptr(), g, mp, ps, r, dh, m, hk, l, max_score,
-        int(sum_rows), float(scale), ns, sp, kernels.stream_ptr())
+        int(sum_rows), float(scale), ns, sp,
+        kernels.decode_stages(dh, q.element_size()), kernels.stream_ptr())
     kernels.check(err, name)
     fused_sparse_decode_attention_paged.launches += 1
     return (out, thr) if return_thresholds else out
@@ -258,7 +262,8 @@ def dense_decode_attention_paged(page_table, q, k_pool, v_pool, kv_valid,
         kernels.dtype_code(q), pt.data_ptr(), q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), kv_valid.data_ptr(),
         out.data_ptr(), part.data_ptr(), g, mp, ps, r, dh, hk,
-        float(scale), ns, sp, kernels.stream_ptr())
+        float(scale), ns, sp, kernels.decode_stages(dh, q.element_size()),
+        kernels.stream_ptr())
     kernels.check(err, name)
     dense_decode_attention_paged.launches += 1
     return out

@@ -15,11 +15,17 @@ larger than the view, at page/tile sizes (8, 8), (16, 16) and (16, 8)
 (the tile is the JAX kernel's; the port's kernels do not tile by page).
 Both sides get the same PQ codes.  The CUDA kernels are held to these
 plain versions on the card by chip_smoke.py.
+
+The launchers' plan, which the kernels' bit-identity rests on, is
+checked here too: ``kernels.decode_splits`` covers every slot exactly
+once with tile-multiple splits and at most ceil(DECODE_BLOCKS / g) of
+them, and ``kernels.decode_stages`` sizes a ring the kernel takes.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import pq as jpq
 from repro.core import sparse_attention as jsa
@@ -30,6 +36,7 @@ from repro.kernels.sparse_attention.sparse_attention import (
 from repro.kernels.topl_select.topl_select import \
     decode_topl_thresholds_kernel
 from repro.serving import kv_pages as jkvp
+from repro_torch import kernels
 from repro_torch.core import pq
 from repro_torch.core import sparse_attention as sa
 from repro_torch.kernels.sparse_attention import ops as sa_ops
@@ -220,3 +227,33 @@ def test_paged_dense_plain_matches_jax_kernel(ps, tile):
         heads_per_batch=HK)
     close(got, want)
     assert not got.reshape(B, HK, -1, D)[1].any()
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(g=st.integers(1, 4096), s=st.integers(1, 1 << 17))
+def test_decode_splits_cover_each_slot_once(g, s):
+    """Every decode kernel cuts each group's s slots by this plan, so it
+    must cover each slot exactly once with tile-multiple splits, and
+    give at most ceil(DECODE_BLOCKS / g) splits a group."""
+    ns, sp = kernels.decode_splits(g, s)
+    assert ns >= 1 and sp >= kernels.DECODE_TILE
+    assert sp % kernels.DECODE_TILE == 0
+    assert ns <= -(-kernels.DECODE_BLOCKS // g)
+    bounds = [(j * sp, min(s, (j + 1) * sp)) for j in range(ns)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == s
+    assert all(lo < hi for lo, hi in bounds)              # none empty
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("elem", [2, 4])                  # bf16, f32
+def test_decode_stages_fit_the_ring(elem):
+    """Ring stages for every head dim the launchers take (a multiple of 8
+    up to 256): 2 or 3, three exactly when they fit DECODE_RING_BYTES,
+    and never more than the kernel's 128 KB ring."""
+    for dh in range(8, 257, 8):
+        stages = kernels.decode_stages(dh, elem)
+        stage = kernels.DECODE_CHUNK * 2 * dh * elem
+        assert stages in (2, 3)
+        assert (stages == 3) == (3 * stage <= kernels.DECODE_RING_BYTES)
+        assert stages * stage <= 128 * 1024
+    assert kernels.decode_stages(128, 2) == 3

@@ -11,18 +11,22 @@ Phases (each raises on failure; nothing is caught):
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, with
      -Xptxas -v: each kernel's registers, static shared memory and spills
      are printed), and count the tensor-core instructions (HGMMA, HMMA) in
-     the SASS of the routed-FFN kernels (cuobjdump);
+     the SASS of the routed-FFN and sparse-attention kernels (cuobjdump;
+     kernel 9's and kernel 4's bf16 bodies must have them);
   3. every kernel against its plain torch version at its path's
      full-width shapes — the training step's (batch 4 x 1024, 16/8 heads
      of 128, M = 16) for PQ assignment, top-L thresholds and sparse
-     attention (plus small windowed / offset / non-causal cases), the
+     attention (plus small windowed / offset / non-causal cases, and for
+     sparse attention key counts below one tile, at dh 128, 80 and 64,
+     each launched twice bit-identically), the
      serving path's (8 slots x 8 kv heads, R = 2, S = 4096 decode; the
      paged view 32 pages of 128 over a shuffled 320-page pool, 2048 live
      slots; a (8, 1024) prefill bucket) for the rest, the routed-FFN
      kernels also at the train shape, at 1 slot and on small edge cases,
      the decode attention kernels (3, 5-8) also on edge cases (1 slot,
      R = 1 and 8, dh = 64 and 256, l >= live, rows with no valid slot),
-     each launched twice with bit-identical outputs: f32 to atol 1e-4,
+     each launched twice with bit-identical outputs, and kernel 3 again
+     after kernel 6 and 100 times back to back: f32 to atol 1e-4,
      bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
      codes equal up to the margin rule; the paged kernel bit-identical to
      the contiguous one over gathered views and the two-pass pair to the
@@ -83,7 +87,8 @@ def card_line() -> str:
 
 def sass_counts(lib_path) -> dict:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
-    routed-FFN kernel of the built library."""
+    routed-FFN and train-path sparse-attention kernel of the built
+    library."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -92,7 +97,8 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "grouped_ffn" in fn or "decode_ffn" in fn:
+            if any(x in fn for x in ("grouped_ffn", "decode_ffn",
+                                     "sparse_attention_")):
                 counts[fn] = {"HGMMA": 0, "HMMA": 0}
         elif fn in counts:
             for op in ("HGMMA", "HMMA"):
@@ -312,9 +318,20 @@ def check_two_pass(torch, gen):
         if not torch.equal(out, out6):
             raise AssertionError(f"sparse_decode_attention {dtn} {gran}: "
                                  "differs from kernel 6")
-        print(f"  two-pass {dtn} {gran}: [t, need] exact (plain, kernel 6); "
-              f"kernel 5 max_abs_err {err:.3e}, bit-identical to kernel 6 "
-              "and twice", flush=True)
+        # kernel 3 right after kernel 6, then 100 launches back to back:
+        # no launch may leave state that the next one reads
+        after6 = topl_ops.decode_topl_thresholds(cq, ck, valid, **kw)
+        runs = [topl_ops.decode_topl_thresholds(cq, ck, valid, **kw)
+                for _ in range(100)]
+        torch.cuda.synchronize()
+        bad = sum(not torch.equal(x, thr) for x in [after6] + runs)
+        if bad:
+            raise AssertionError(f"decode_topl_thresholds {gran}: {bad} of 101 "
+                                 "repeated launches differ")
+        print(f"  two-pass {dtn} {gran}: [t, need] exact (plain, kernel 6, "
+              f"after kernel 6 and 100 launches back to back); kernel 5 "
+              f"max_abs_err {err:.3e}, bit-identical to kernel 6 and twice",
+              flush=True)
         if (dtn, gran) != ("bfloat16", "qhead"):
             continue
         t3 = time_ms(lambda: topl_ops.decode_topl_thresholds(
@@ -719,60 +736,85 @@ def check_topl_thresholds(torch, gen):
     return out
 
 
+# Kernel 4's cases: the training shape and the small cases of kernel 2,
+# then key counts below one 64-key tile (causal with an offset, and
+# non-causal); with q_offset, nq = 72 is not a multiple of the 64-row tile.
+def _attn_cases():
+    return _topl_cases() + [("nk < 64", 40, 48, True, None, 8),
+                            ("non-causal nk < 64", 24, 40, False, None, 0)]
+
+
+ATTN_HEAD_DIMS = (128, 80, 64)      # qwen3's, OPT-2560's, and a small one
+
+
 def check_sparse_attention(torch, gen):
-    """Kernel 4 against its plain version at the training shape (bf16 and
-    f32) and the small windowed / offset / non-causal cases (f32)."""
+    """Kernel 4 against its plain version at dh 128, 80 and 64, bf16 and
+    f32, on every case of _attn_cases, each launched twice with
+    bit-identical outputs; timed in bf16 at the training shape (every dh)
+    beside SDPA over the same selection given as a mask (dh 128)."""
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select.ref import masked_scores, thresholds_ref
-    out = None
-    cases = [(n, "bfloat16") for n in _topl_cases()[:1]] + \
-        [(n, "float32") for n in _topl_cases()]
-    for (name, nq, nk, causal, window, q_off), dtn in cases:
-        dt = getattr(torch, dtn)
-        cq, ck = _train_codes(torch, gen, nq, nk)
-        q = torch.randn(TB * HQ, nq, DH, device="cuda", generator=gen).to(dt)
-        k = torch.randn(TB * HK, nk, DH, device="cuda", generator=gen).to(dt)
-        v = torch.randn(TB * HK, nk, DH, device="cuda", generator=gen).to(dt)
-        sel = dict(causal=causal, window=window, q_offset=q_off,
-                   heads_per_batch=HQ, rep=HQ // HK)
-        thr = thresholds_ref(cq, ck, l=_top_l(nk, window), max_score=M_BOOKS,
-                             **sel)
-        kw = dict(scale=DH ** -0.5, **sel)
-        got = ops.sparse_attention(q, k, v, cq, ck, thr, **kw)
-        torch.cuda.synchronize()
-        want = ref.sparse_attention_ref(q, k, v, cq, ck, thr, **kw)
-        err = close(got, want, BF16_TOL if dt == torch.bfloat16 else F32_TOL)
-        print(f"  sparse_attention {dtn} {name} (nq={nq}, nk={nk}): "
-              f"max_abs_err {err:.3e}", flush=True)
-        if out is None:
-            ms = time_ms(lambda: ops.sparse_attention(q, k, v, cq, ck, thr,
-                                                      **kw), 20)
-            plain = time_ms(lambda: ref.sparse_attention_ref(
-                q, k, v, cq, ck, thr, **kw), 3)
-            sm = masked_scores(cq, ck, **sel)
-            kept = ref.newest_ties(sm, thr)                  # (G, nq, nk)
-            rows = kept.reshape(TB * HK, HQ // HK * nq, nk).any(1)
-            moved = (nbytes(q, cq, ck, thr) + q.numel() * q.element_size()
-                     + 2 * int(rows.sum()) * DH * k.element_size())
-            pairs = int(kept.sum())
-            flops = 4 * DH * pairs
-            bms, by = bound(moved, flops, dt)
-            # yardstick only (the port never calls it): SDPA over the same
-            # selection given as a precomputed boolean mask
-            kv = torch.arange(TB * HQ, device="cuda") // (HQ // HK)
-            mask = kept.reshape(TB, HQ, nq, nk)
-            q4, k4, v4 = (t.reshape(TB, HQ, nq, DH) for t in
-                          (q, k[kv], v[kv]))
-            sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=DH ** -0.5), 20)
-            out = {"name": "sparse_attention", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/sparse_attention.cu",
-                   "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:115",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None,
-                   "masked_sdpa_ms": sdpa, "kept_pairs": pairs,
-                   "shape": f"q ({TB * HQ}, {nq}, {DH}), k/v ({TB * HK}, {nk}, "
-                            f"{DH}) bf16, GQA 2, causal, L=128"}
+    out, worst, ms_dh = None, {}, {}
+    for dh in ATTN_HEAD_DIMS:
+        for dtn in ("bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            errs = []
+            for name, nq, nk, causal, window, q_off in _attn_cases():
+                cq, ck = _train_codes(torch, gen, nq, nk)
+                q = torch.randn(TB * HQ, nq, dh, device="cuda", generator=gen).to(dt)
+                k = torch.randn(TB * HK, nk, dh, device="cuda", generator=gen).to(dt)
+                v = torch.randn(TB * HK, nk, dh, device="cuda", generator=gen).to(dt)
+                sel = dict(causal=causal, window=window, q_offset=q_off,
+                           heads_per_batch=HQ, rep=HQ // HK)
+                thr = thresholds_ref(cq, ck, l=_top_l(nk, window),
+                                     max_score=M_BOOKS, **sel)
+                kw = dict(scale=dh ** -0.5, **sel)
+                got = _twice(torch, lambda: ops.sparse_attention(
+                    q, k, v, cq, ck, thr, **kw),
+                    f"sparse_attention {dtn} dh={dh} {name}")
+                want = ref.sparse_attention_ref(q, k, v, cq, ck, thr, **kw)
+                err = close(got, want,
+                            BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+                errs.append(f"{name} {err:.2e}")
+                worst[dtn] = max(worst.get(dtn, 0.0), err)
+                if name != "train" or dt != torch.bfloat16:
+                    continue
+                ms_dh[dh] = time_ms(lambda: ops.sparse_attention(
+                    q, k, v, cq, ck, thr, **kw), 20)
+                if dh != DH:
+                    continue
+                plain = time_ms(lambda: ref.sparse_attention_ref(
+                    q, k, v, cq, ck, thr, **kw), 3)
+                sm = masked_scores(cq, ck, **sel)
+                kept = ref.newest_ties(sm, thr)              # (G, nq, nk)
+                rows = kept.reshape(TB * HK, HQ // HK * nq, nk).any(1)
+                moved = (nbytes(q, cq, ck, thr) + q.numel() * q.element_size()
+                         + 2 * int(rows.sum()) * dh * k.element_size())
+                pairs = int(kept.sum())
+                bms, by = bound(moved, 4 * dh * pairs, dt)
+                # yardstick only (the port never calls it): SDPA over the
+                # same selection given as a precomputed boolean mask
+                kv = torch.arange(TB * HQ, device="cuda") // (HQ // HK)
+                mask = kept.reshape(TB, HQ, nq, nk)
+                q4, k4, v4 = (x.reshape(TB, HQ, nq, dh) for x in
+                              (q, k[kv], v[kv]))
+                sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=dh ** -0.5), 20)
+                out = {"name": "sparse_attention", "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/sparse_attention.cu",
+                       "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:115",
+                       "max_abs_err": err, "ms": ms_dh[dh], "plain_ms": plain,
+                       "bound_ms": bms, "bound_by": by, "library_ms": None,
+                       "masked_sdpa_ms": sdpa, "kept_pairs": pairs,
+                       "shape": f"q ({TB * HQ}, {nq}, {dh}), k/v ({TB * HK}, {nk}, "
+                                f"{dh}) bf16, GQA 2, causal, L=128"}
+            print(f"  sparse_attention {dtn} dh={dh}, max_abs_err by case: "
+                  f"{'; '.join(errs)}; each bit-identical twice", flush=True)
+    out["ms_by_head_dim"] = ms_dh
+    out["max_abs_err_all"] = worst
+    print(f"  sparse_attention bf16 at the training shape: "
+          + ", ".join(f"dh={d} {t:.4f} ms" for d, t in ms_dh.items()),
+          flush=True)
     return out
 
 
@@ -1463,7 +1505,7 @@ def train_full_width(torch):
     for ms, n, name in top[:10]:
         print(f"    {ms:9.3f} ms  x{n:6d}  {name[:90]}", flush=True)
     for kern in ("pq_assign_kernel", "topl_thresholds_kernel",
-                 "sparse_attention_kernel", "grouped_ffn_kernel"):
+                 "sparse_attention_bf16_kernel", "grouped_ffn_kernel"):
         hit = [(ms, n) for ms, n, name in top if kern in name]
         ms, n = sum(h[0] for h in hit), sum(h[1] for h in hit)
         print(f"    {kern}: {ms:.1f} ms in {n} launches "
@@ -1638,6 +1680,10 @@ def main() -> int:
         print(f"[2] SASS {fn}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA", flush=True)
     if not any("wgmma" in fn and n["HGMMA"] for fn, n in sass.items()):
         raise AssertionError("grouped_ffn's bf16 body has no HGMMA in its SASS")
+    bodies = [n for fn, n in sass.items() if "sparse_attention_bf16" in fn]
+    if not bodies or not all(n["HMMA"] + n["HGMMA"] for n in bodies):
+        raise AssertionError("sparse_attention's bf16 body has no HMMA or "
+                             "HGMMA in its SASS")
     # 3. kernels against their plain versions, in the order of the TPU
     # kernels they replace
     t0 = time.perf_counter()

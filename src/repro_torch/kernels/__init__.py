@@ -45,7 +45,7 @@ SIGNATURES = {
                               + [_P],
     "repro_fused_sparse_decode_paged": ([_I] + [_P] * 11 + [_I] * 10
                                         + [_F] + [_I] * 3 + [_P]),
-    "repro_decode_thresholds": [_P] * 5 + [_I] * 10 + [_P],
+    "repro_decode_thresholds": [_P] * 6 + [_I] * 10 + [_P],
     "repro_sparse_decode_attention": ([_I] + [_P] * 10 + [_I] * 7
                                       + [_F] + [_I] * 3 + [_P]),
     "repro_dense_decode_paged": [_I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
@@ -150,6 +150,22 @@ def require_aligned(name: str, *tensors) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: needs 16-byte aligned inputs")
+
+
+_arrive = {}
+
+
+def arrival_counters(n: int, device):
+    """(>= n,) int32 zeros on ``device``: the per-kv-group arrival counts
+    of the decode threshold kernel (the last block of a group to finish
+    reduces it).  Every launch leaves them zero, so one buffer serves all
+    launches in stream order."""
+    import torch
+    buf = _arrive.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrive[device] = buf
+    return buf
 
 
 DECODE_TILE = 128             # slots per tile of the decode kernels

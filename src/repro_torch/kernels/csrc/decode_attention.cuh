@@ -16,8 +16,9 @@
 //
 // Passes:
 //  hist_kernel   per-split score histograms (M+1 buckets per row for
-//                "qhead", R*M+1 for "kvgroup") into hist_part;
-//  thr_kernel    [t, need] per row from the summed histograms;
+//                "qhead", R*M+1 for "kvgroup") into hist_part; for
+//                kernel 3 the last block of each kv group to finish also
+//                reduces them to [t, need] per row (one launch);
 //  tie_kernel    per-split count of the ties at t (given [t, need]);
 //  attend_kernel the split's online-softmax partial (acc, max, sum per
 //                row) over the keys it selects.  Selection modes:
@@ -217,47 +218,234 @@ __device__ __forceinline__ void reduce_thr(const int32_t* hp, size_t stride,
   need = l - n_above;
 }
 
+// Cached code rows as bytes, four books a word.
+constexpr int CW_MAX = M_MAX / 4;
+
+// The launchers' code-row load width: 2 = 16-byte loads (M % 16 == 0),
+// 1 = 4-byte loads (M % 4 == 0), 0 = bytes; every row must start aligned.
+inline int code_vec(const void* codes, int M) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(codes);
+  return M % 16 == 0 && a % 16 == 0 ? 2 : M % 4 == 0 && a % 4 == 0 ? 1 : 0;
+}
+
+// The M int8 codes of one cached row as CW_MAX words (words past M hold
+// 0), loaded vec-wide.
+__device__ __forceinline__ void load_code_words(const int8_t* row, int M,
+                                                int vec,
+                                                uint32_t (&w)[CW_MAX]) {
+#pragma unroll
+  for (int i = 0; i < CW_MAX; ++i) w[i] = 0;
+  if (vec == 2) {
+#pragma unroll
+    for (int c = 0; c < CW_MAX / 4; ++c)
+      if (16 * c < M) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + c);
+        w[4 * c] = x.x; w[4 * c + 1] = x.y; w[4 * c + 2] = x.z; w[4 * c + 3] = x.w;
+      }
+  } else if (vec == 1) {
+#pragma unroll
+    for (int c = 0; c < CW_MAX; ++c)
+      if (4 * c < M) w[c] = __ldg(reinterpret_cast<const uint32_t*>(row) + c);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M_MAX; ++m)
+      if (m < M) w[m / 4] |= (uint32_t)(uint8_t)row[m] << (8 * (m % 4));
+  }
+}
+
+// Books in which a query word a and a cached word b differ: bytes that
+// differ, plus those marked in never (0x80 in books past M and in query
+// codes outside int8's range, which no cached int8 code equals).
+__device__ __forceinline__ int book_misses(uint32_t a, uint32_t b,
+                                           uint32_t never) {
+  const uint32_t x = a ^ b;
+  return __popc(((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) | never) &
+                0x80808080u);
+}
+
+// [t, need] of one row from its histogram h (nb buckets, in shared
+// memory) by one warp, the same numbers as reduce_thr: chunks of 32
+// buckets from the top, lane i on bucket top - 1 - i, a shuffle scan for
+// #(score >= bucket), a ballot for the highest bucket where it reaches l.
+__device__ __forceinline__ void warp_reduce_thr(const int* h, int nb, int l,
+                                                int lane, int& t,
+                                                int& need) {
+  int carry = 0, ge1 = 0;                 // #(score >= chunk top), >= 1
+  for (int top = nb; top > 0; top -= 32) {
+    const int b = top - 1 - lane;
+    int ge = b >= 0 ? h[b] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, ge, o);
+      if (lane >= o) ge += y;
+    }
+    ge += carry;                          // #(score >= b)
+    if (top >= 2 && top - 32 <= 1)       // bucket 1 is in this chunk
+      ge1 = __shfl_sync(FULL_MASK, ge, top - 2);
+    const unsigned meets = __ballot_sync(FULL_MASK, b >= 0 && ge >= l);
+    if (meets) {                          // lowest lane: highest bucket
+      const int jl = __ffs(meets) - 1;
+      const int newer = __shfl_sync(FULL_MASK, ge, jl > 0 ? jl - 1 : 0);
+      t = top - 1 - jl;
+      need = l - (jl > 0 ? newer : carry);
+      return;
+    }
+    carry = __shfl_sync(FULL_MASK, ge, 31);
+  }
+  t = 0;                                  // no bucket reaches l
+  need = l - ge1;
+}
+
+// grid (G, ns): per-split score histograms (M+1 buckets per row for "qhead",
+// R*M+1 for "kvgroup") into hist_part (G, ns, R_out, nb).  Each thread scores
+// two slots a round: their validity, then the 16-byte code rows of the valid
+// ones, are loaded first, each of the R query rows is compared four books a
+// word, and each score is one shared atomic (tried and slower on this card:
+// one atomic per distinct score of a warp by __match_any_sync or by ballots,
+// 512-thread blocks, and a thread-block cluster reduction in place of the
+// last block).  Kernels 6 and 7 launch it with thr = null: their attention
+// pass reduces the histograms.  For kernel 3 the last block of each kv group
+// to finish also reduces them to thr (G, R_out, 2) [t, need]: after a
+// barrier, one thread counts the block in arrive[g] with an acquire-release
+// atomic, so the block's histogram is visible before its arrival is; the
+// block that counts ns sums the ns histograms into shared memory, reduces
+// each row with one warp (warp_reduce_thr) and sets arrive[g] back to
+// zero.  arrive (G,) int32 is zero before the launch and after it, so
+// launches in stream order (and a captured graph's replays) reuse it.
 template <typename Addr>
 __global__ void __launch_bounds__(THREADS) hist_kernel(
     const int32_t* __restrict__ codes_q, const int8_t* __restrict__ codes_k,
     const uint8_t* __restrict__ kv_valid, Addr addr,
-    int32_t* __restrict__ hist_part, int S, int R, int M, int hk,
-    int max_score, int sum_rows, int SP) {
-  __shared__ int cq[R_MAX * M_MAX];
+    int32_t* __restrict__ hist_part, int32_t* __restrict__ thr,
+    int32_t* __restrict__ arrive, int S, int R, int M, int hk, int max_score,
+    int sum_rows, int l, int SP, int vec) {
+  __shared__ uint32_t qw[R_MAX][CW_MAX];      // query codes as bytes
+  __shared__ uint32_t qn[R_MAX][CW_MAX];      // books they never match
   __shared__ int hist[HIST_MAX];
+  __shared__ int last;
   const int g = blockIdx.x, j = blockIdx.y, ns = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r_out = sum_rows ? 1 : R;
   const int nb = max_score + 1;
+  const int cw = (M + 3) / 4;
   const int lo = j * SP, hi = min(S, lo + SP);
   const uint8_t* valid_row = kv_valid + (size_t)(g / hk) * S;
-  load_codes_q(cq, codes_q, g, R, M);
-  for (int i = threadIdx.x; i < r_out * nb; i += THREADS) hist[i] = 0;
-  __syncthreads();
-  for (int s = lo + threadIdx.x; s < hi; s += THREADS) {
-    if (!valid_row[s]) continue;
-    int sc[R_MAX];
-    slot_scores(codes_k + addr.row(g, s) * M, cq, R, M, sum_rows, sc);
+  // a round's slots: their rows (a page-table read for Paged) and
+  // validity bytes are loaded together, then the code rows of valid slots
+  uint32_t kw[2][CW_MAX];
+  bool live[2];
+  auto load_round = [&](int base) {
+    size_t row[2];
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r)
-      if (r < r_out) atomicAdd(&hist[r * nb + sc[r]], 1);
+    for (int u = 0; u < 2; ++u) {
+      const int s = base + u * THREADS + tid;
+      row[u] = addr.row(g, s < hi ? s : lo);
+      live[u] = s < hi;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      live[u] = live[u] && valid_row[base + u * THREADS + tid];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (live[u]) {
+        load_code_words(codes_k + row[u] * M, M, vec, kw[u]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < CW_MAX; ++w) kw[u][w] = 0;
+      }
+    }
+  };
+  int cq4[4];                   // query codes: loads sent before any wait
+  const int qr = tid / CW_MAX, qwi = tid % CW_MAX;
+  if (tid < R * CW_MAX)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      cq4[b] = 4 * qwi + b < M ? codes_q[((size_t)g * R + qr) * M + 4 * qwi + b]
+                               : 0;
+  load_round(lo);
+  if (tid < R * CW_MAX) {
+    uint32_t word = 0, never = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = cq4[b];
+      word |= (uint32_t)(c & 0xff) << (8 * b);
+      if (4 * qwi + b >= M || c < -128 || c > 127) never |= 0x80u << (8 * b);
+    }
+    qw[qr][qwi] = word;
+    qn[qr][qwi] = never;
+  }
+  for (int i = tid; i < r_out * nb; i += THREADS) hist[i] = 0;
+  __syncthreads();
+  for (int base = lo;;) {                                    // uniform trips
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      int sc[R_MAX];
+#pragma unroll
+      for (int r = 0; r < R_MAX; ++r) {
+        int miss = 0;
+        if (r < R)
+#pragma unroll
+          for (int w = 0; w < CW_MAX; ++w)
+            if (w < cw) miss += book_misses(qw[r][w], kw[u][w], qn[r][w]);
+        sc[r] = 4 * cw - miss;
+      }
+      if (sum_rows) {
+        int t = 0;
+#pragma unroll
+        for (int r = 0; r < R_MAX; ++r) t += r < R ? sc[r] : 0;
+        sc[0] = t;
+      }
+#pragma unroll
+      for (int r = 0; r < R_MAX; ++r)
+        if (r < r_out && live[u]) atomicAdd(&hist[r * nb + sc[r]], 1);
+    }
+    base += 2 * THREADS;
+    if (base >= hi) break;
+    load_round(base);
   }
   __syncthreads();
   int32_t* out = hist_part + ((size_t)g * ns + j) * r_out * nb;
-  for (int i = threadIdx.x; i < r_out * nb; i += THREADS) out[i] = hist[i];
-}
-
-// grid G, one thread per row: (G, R_out, 2) [t, need]
-__global__ void thr_kernel(const int32_t* __restrict__ hist_part,
-                           int32_t* __restrict__ thr, int r_out, int ns,
-                           int max_score, int l) {
-  const int g = blockIdx.x, r = threadIdx.x;
-  if (r >= r_out) return;
-  const int nb = max_score + 1;
-  int t, need;
-  reduce_thr(hist_part + (size_t)g * ns * r_out * nb + r * nb,
-             (size_t)r_out * nb, ns, max_score, l, t, need);
-  thr[((size_t)g * r_out + r) * 2] = t;
-  thr[((size_t)g * r_out + r) * 2 + 1] = need;
+  for (int i = tid; i < r_out * nb; i += THREADS) out[i] = hist[i];
+  if (thr == nullptr) return;                               // uniform
+  __syncthreads();
+  if (tid == 0) {   // arrival, ordered after the block's writes (release)
+    int before;       // and before the last block's reads (acquire)
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(before)
+                 : "l"(arrive + g)
+                 : "memory");
+    last = before == ns - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // sum the group's ns histograms: SUM_LOADS loads a thread in flight at
+  // once, so the common case (ns * R_out * nb <= 1024) is one round trip
+  constexpr int SUM_LOADS = 8;
+  const int rn = r_out * nb, total = ns * rn;
+  const int32_t* hg = hist_part + (size_t)g * total;
+  for (int i = tid; i < rn; i += THREADS) hist[i] = 0;
+  __syncthreads();
+  for (int base = tid; base < total; base += THREADS * SUM_LOADS) {
+    int h[SUM_LOADS];
+#pragma unroll
+    for (int k = 0; k < SUM_LOADS; ++k) {
+      const int i = base + k * THREADS;
+      h[k] = i < total ? __ldcg(hg + i) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < SUM_LOADS; ++k)
+      if (h[k]) atomicAdd(&hist[(base + k * THREADS) % rn], h[k]);
+  }
+  __syncthreads();
+  for (int r = warp; r < r_out; r += WARPS) {
+    int t, need;
+    warp_reduce_thr(hist + r * nb, nb, l, lane, t, need);
+    if (lane == 0) {
+      thr[((size_t)g * r_out + r) * 2] = t;
+      thr[((size_t)g * r_out + r) * 2 + 1] = need;
+    }
+  }
+  if (tid == 0) arrive[g] = 0;
 }
 
 // grid (G, ns): tie_part (G, ns, R_out) = #(valid slots of the split

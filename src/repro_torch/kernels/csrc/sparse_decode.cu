@@ -18,10 +18,11 @@
 // of each (b, kv head) is cut into NS splits of SP slots (a multiple of
 // the 128-slot tile, kernels.decode_splits) so that B*Hk*NS blocks fill
 // the card:
-//  1. hist_kernel, one block per (kv group, split): scores its slots'
-//     codes straight from global memory into a shared-memory histogram
-//     and writes it out.  The TPU kernel pinned the whole code row on
-//     chip instead (512 KB at S = 32k).
+//  1. hist_kernel, one block per (kv group, split): scores its valid
+//     slots' codes straight from global memory (16-byte rows, four books
+//     a word) into a shared-memory histogram and writes it out.  The TPU
+//     kernel pinned the whole code row on chip instead (512 KB at
+//     S = 32k).
 //  2. attend_kernel (SEL_FUSED), same grid (decode_attention.cuh): sums
 //     the splits' histograms and reduces them to [t, need] per row exactly
 //     as topl_select.hist_reduce does; the histograms of the newer
@@ -55,7 +56,8 @@ int launch_fused(const void* q, const void* k, const void* v,
                  int l, int max_score, int sum_rows, float scale, int ns,
                  int sp, int stages, cudaStream_t st) {
   hist_kernel<Addr><<<dim3(G, ns), THREADS, 0, st>>>(
-      cq, ck, vp, addr, hist_part, S, R, M, hk, max_score, sum_rows, sp);
+      cq, ck, vp, addr, hist_part, nullptr, nullptr, S, R, M, hk, max_score,
+      sum_rows, l, sp, code_vec(ck, M));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return attend_and_combine<T, Addr, SEL_FUSED>(

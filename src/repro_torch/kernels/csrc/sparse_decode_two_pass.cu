@@ -14,9 +14,12 @@
 // rows of the selected keys.
 //
 // Design: both kernels walk the fused kernel's splits with its passes.
-// Kernel 3 is hist_kernel (per-split score histograms in shared memory)
-// then thr_kernel, which sums the splits and reduces to [t, need] with the
-// fused kernel's own reduction, so the two tiers get equal [t, need].
+// Kernel 3 is one launch of hist_kernel, the fused kernel's first pass
+// (per-split score histograms in shared memory from 16-byte code-row
+// loads), in which the last block of each kv group to finish sums the
+// group's splits and reduces them to [t, need] with one warp a row
+// (decode_attention.cuh, warp_reduce_thr: the numbers of
+// topl_select.hist_reduce), so the two tiers get equal [t, need].
 // Kernel 5 takes [t, need] (G, R_out, 2).  Its tie budget counts the ties
 // at newer slots across the whole row, so it first counts, per split, the
 // ties at bucket t (tie_kernel: one re-read of the int8 code row), then
@@ -30,25 +33,24 @@
 
 // Kernel 3.  codes_q (G, R, M) int32, codes_k (G, S, M) int8, kv_valid
 // (B, S) bool, G = B * hk -> thr (G, R_out, 2) int32 [t, need].  Scratch:
-// hist_part (G, ns, R_out, max_score + 1) int32, splits as kernel 6.
+// hist_part (G, ns, R_out, max_score + 1) int32, splits as kernel 6, and
+// arrive (G,) int32, zero before the launch and left zero by it.
 extern "C" int repro_decode_thresholds(
     const void* codes_q, const void* codes_k, const void* kv_valid,
-    void* thr, void* hist_part, int G, int S, int R, int M, int hk, int l,
-    int max_score, int sum_rows, int ns, int sp, void* stream) {
+    void* thr, void* hist_part, void* arrive, int G, int S, int R, int M,
+    int hk, int l, int max_score, int sum_rows, int ns, int sp,
+    void* stream) {
   const int r_out = sum_rows ? 1 : R;
   if (!decode_args_ok(G, S, R, 8, M, hk, r_out * (max_score + 1), ns, sp))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int32_t* hp = static_cast<int32_t*>(hist_part);
-  hist_kernel<Contig><<<dim3(G, ns), THREADS, 0, st>>>(
+  hist_kernel<Contig><<<dim3(G, ns), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(codes_q),
       static_cast<const int8_t*>(codes_k),
-      static_cast<const uint8_t*>(kv_valid), Contig{S}, hp, S, R, M, hk,
-      max_score, sum_rows, sp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  thr_kernel<<<G, 32, 0, st>>>(hp, static_cast<int32_t*>(thr), r_out, ns,
-                               max_score, l);
+      static_cast<const uint8_t*>(kv_valid), Contig{S},
+      static_cast<int32_t*>(hist_part), static_cast<int32_t*>(thr),
+      static_cast<int32_t*>(arrive), S, R, M, hk, max_score, sum_rows, l, sp,
+      code_vec(codes_k, M));
   return (int)cudaGetLastError();
 }
 

@@ -352,18 +352,49 @@ def dense_mha_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 # ------------------------------------------------------------ train/prefill
+D_MAX = 256                   # kernel 4's head dims: multiples of 8 up to this
+
+
+def check_sparse_attention_args(q, k, v, codes_q, codes_k, thresholds, *,
+                                heads_per_batch: int, rep: int) -> None:
+    """Kernel 4's input contract, checked before anything is built or
+    launched: the shapes ``sparse_attention`` names, float q/k/v of one
+    dtype, int32 codes and thresholds, and a head dim that is a multiple
+    of 8 and at most 256 (the kernel pads dh to its mma depth of 16 and
+    keeps the output rows in registers)."""
+    name = "sparse_attention"
+    g, nq, dh = q.shape
+    gk, nk, _ = k.shape
+    m = codes_q.shape[-1]
+    if (g % heads_per_batch or heads_per_batch % rep or gk * rep != g
+            or v.shape != k.shape or k.shape[-1] != dh
+            or codes_q.shape != (g, nq, m) or codes_k.shape != (gk, nk, m)
+            or thresholds.shape != (g, nq, 2)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if dh % 8 or not 8 <= dh <= D_MAX:
+        raise ValueError(f"{name}: head dim {dh} is not a multiple of 8 "
+                         f"in [8, {D_MAX}]")
+    if not (q.dtype == k.dtype == v.dtype and codes_q.dtype == torch.int32
+            and codes_k.dtype == torch.int32
+            and thresholds.dtype == torch.int32):
+        raise TypeError(f"{name}: takes float q/k/v of one dtype and int32 "
+                        "codes and thresholds")
+
+
 def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      codes_q: torch.Tensor, codes_k: torch.Tensor,
                      thresholds: torch.Tensor, *, scale: float,
                      causal: bool = True, window: Optional[int] = None,
                      q_offset: int = 0, heads_per_batch: int = 1,
                      rep: int = 1) -> torch.Tensor:
-    """q: (G, nq, dh); k, v: (G / rep, nk, dh); codes_q: (G, nq, M) and
-    codes_k: (G / rep, nk, M) int32; thresholds: (G, nq, 2) int32
+    """Kernel 4.  q: (G, nq, dh); k, v: (G / rep, nk, dh); codes_q:
+    (G, nq, M) and codes_k: (G / rep, nk, M) int32 codes in [0, 128) (the
+    bf16 kernel compares them as 7-bit bytes); thresholds: (G, nq, 2) int32
     [t, need].  G = B * heads_per_batch; query head h of batch b reads kv
-    group b * Hk + h // rep.  Returns (G, nq, dh) in q's dtype.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/sparse_attention.cu)."""
+    group b * Hk + h // rep.  dh: a multiple of 8 up to 256.  Returns
+    (G, nq, dh) in q's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (csrc/sparse_attention.cu): bf16 on the
+    tensor cores, f32 on the CUDA cores."""
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               heads_per_batch=heads_per_batch, rep=rep)
     if q.device.type == "cpu":
@@ -372,27 +403,16 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "sparse_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, thresholds)
     kernels.require_aligned(name, q, k, v)
+    check_sparse_attention_args(q, k, v, codes_q, codes_k, thresholds,
+                                heads_per_batch=heads_per_batch, rep=rep)
     g, nq, dh = q.shape
-    gk, nk, _ = k.shape
-    m = codes_q.shape[-1]
-    if (g % heads_per_batch or heads_per_batch % rep or gk * rep != g
-            or v.shape != k.shape or k.shape[-1] != dh
-            or codes_k.shape != (gk, nk, m)
-            or thresholds.shape != (g, nq, 2)):
-        raise ValueError(f"{name}: inconsistent shapes")
-    if dh not in (32, 64, 128, 256):
-        raise ValueError(f"{name}: head dim {dh} is not 32, 64, 128 or 256")
-    if not (q.dtype == k.dtype == v.dtype and codes_q.dtype == torch.int32
-            and codes_k.dtype == torch.int32
-            and thresholds.dtype == torch.int32):
-        raise TypeError(f"{name}: takes float q/k/v of one dtype and int32 "
-                        "codes and thresholds")
+    nk = k.shape[1]
     out = torch.empty_like(q)
     err = kernels.library().repro_sparse_attention(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
-        out.data_ptr(), g, nq, nk, dh, m, heads_per_batch, rep,
-        float(scale), int(causal), 0 if window is None else window,
+        out.data_ptr(), g, nq, nk, dh, codes_q.shape[-1], heads_per_batch,
+        rep, float(scale), int(causal), 0 if window is None else window,
         q_offset, kernels.stream_ptr())
     kernels.check(err, name)
     sparse_attention.launches += 1
@@ -416,6 +436,9 @@ def _fused_forward(q, k, v, codebooks, cfg: sa.SparseAttentionConfig,
     kf = k.reshape(b * hk, nk, dh).contiguous()
     vf = v.reshape(b * hk, nk, dh).contiguous()
     cb = codebooks.float().contiguous()
+    if q.is_cuda and cb.shape[1] > 128:
+        raise ValueError("sparse_mha: kernel 4 takes codes in [0, 128), "
+                         f"got {cb.shape[1]} codewords")
     codes_q = pq_assign(qf, cb)
     codes_k = pq_assign(kf, cb)
     kw = dict(causal=causal, window=window, q_offset=q_offset,

@@ -60,7 +60,8 @@ def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
     (G, S, M) int8 cached codes; kv_valid (B, S) bool.  Returns
     (G, R_out, 2) int32 [t, need] (R_out = 1 when ``sum_rows``, the
     "kvgroup" selection).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (csrc/sparse_decode_two_pass.cu)."""
+    tensors launch the kernel (csrc/sparse_decode_two_pass.cu): one
+    launch, whose last block per kv group reduces the splits."""
     kw = dict(l=l, max_score=max_score, sum_rows=sum_rows,
               heads_per_batch=heads_per_batch)
     if codes_q.device.type == "cpu":
@@ -82,10 +83,12 @@ def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
     thr = torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)
     hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
                        device=dev)
+    arrive = kernels.arrival_counters(g, dev)
     err = kernels.library().repro_decode_thresholds(
         codes_q.data_ptr(), codes_k.data_ptr(), kv_valid.data_ptr(),
-        thr.data_ptr(), hist.data_ptr(), g, s, r, m, heads_per_batch, l,
-        max_score, int(sum_rows), ns, sp, kernels.stream_ptr())
+        thr.data_ptr(), hist.data_ptr(), arrive.data_ptr(), g, s, r, m,
+        heads_per_batch, l, max_score, int(sum_rows), ns, sp,
+        kernels.stream_ptr())
     kernels.check(err, name)
     decode_topl_thresholds.launches += 1
     return thr

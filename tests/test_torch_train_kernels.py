@@ -6,7 +6,9 @@ replace (interpret mode on the CPU), on the same numpy inputs from a seed:
   * top-L thresholds (kernel 2) — [t, need] exactly equal, causal and
     windowed, q_offset != 0, nq != nk, GQA (the port indexes the kv head,
     JAX repeats the key codes per query head);
-  * thresholded sparse attention (kernel 4) — GQA, f32, atol=rtol 1e-5;
+  * thresholded sparse attention (kernel 4) — GQA, f32, atol=rtol 1e-5,
+    at head dims 16, 64 and 80; its wrapper takes any dh that is a
+    multiple of 8 up to 256 and refuses the rest before building;
   * the ``sparse_mha`` and ``routed_ffn`` autograd Functions — outputs and
     gradients against ``jax.grad`` of the JAX custom_vjp ops, f32 to
     1e-5 (outputs) and 1e-4 (gradients: the backwards differentiate two
@@ -32,6 +34,7 @@ from repro.kernels.sparse_attention.ops import sparse_mha as jsparse_mha
 from repro.kernels.sparse_attention.sparse_attention import \
     sparse_attention_kernel
 from repro.kernels.topl_select.topl_select import topl_thresholds_kernel
+from repro_torch import kernels
 from repro_torch.core import lora
 from repro_torch.core import pq
 from repro_torch.core import routed_ffn as rf
@@ -108,10 +111,11 @@ def test_topl_thresholds_plain_matches_jax_kernel(nq, nk, causal, window,
 
 
 # ------------------------------------------------ kernel 4: attention
+@pytest.mark.parametrize("dh", [16, 64, 80])
 @pytest.mark.parametrize("window,q_offset", [(None, 0), (12, 16)])
-def test_sparse_attention_plain_matches_jax_kernel(window, q_offset):
+def test_sparse_attention_plain_matches_jax_kernel(window, q_offset, dh):
     rng = np.random.default_rng(7 + q_offset)
-    b, hq, hk, nq, nk, dh = 2, 4, 2, 24, 40, 16
+    b, hq, hk, nq, nk = 2, 4, 2, 24, 40
     r = hq // hk
     q = rng.standard_normal((b * hq, nq, dh)).astype(np.float32)
     k = rng.standard_normal((b * hk, nk, dh)).astype(np.float32)
@@ -133,6 +137,32 @@ def test_sparse_attention_plain_matches_jax_kernel(window, q_offset):
         causal=True, window=window, q_offset=q_offset, heads_per_batch=hq,
         rep=r)
     close(got, want)
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("dh,ok", [(80, True), (72, True), (256, True),
+                                   (84, False), (264, False)])
+def test_sparse_attention_head_dim_contract(dh, ok):
+    """Kernel 4 takes any dh that is a multiple of 8 up to 256 and refuses
+    the rest before anything is built or launched (meta tensors stand in
+    for CUDA ones: they take the kernel path without a card)."""
+    g, gk, n, m = 8, 4, 64, 16
+    i32 = torch.int32
+    args = (_meta(g, n, dh), _meta(gk, n, dh), _meta(gk, n, dh),
+            _meta(g, n, m, dtype=i32), _meta(gk, n, m, dtype=i32),
+            _meta(g, n, 2, dtype=i32))
+    before = sa_ops.sparse_attention.launches
+    if ok:
+        sa_ops.check_sparse_attention_args(*args, heads_per_batch=4, rep=2)
+    else:
+        with pytest.raises(ValueError, match=f"head dim {dh} "):
+            sa_ops.sparse_attention(*args, scale=1.0, heads_per_batch=4,
+                                    rep=2)
+    assert sa_ops.sparse_attention.launches == before
+    assert kernels._lib is None                  # nothing was built
 
 
 # ------------------------------------------------ sparse_mha Function

@@ -17,8 +17,11 @@ Phases (each raises on failure; nothing is caught):
      full-width shapes — the training step's (batch 4 x 1024, 16/8 heads
      of 128, M = 16) for PQ assignment, top-L thresholds and sparse
      attention (plus small windowed / offset / non-causal cases, and for
-     sparse attention key counts below one tile, at dh 128, 80 and 64,
-     each launched twice bit-identically), the
+     sparse attention key counts below one tile, at dh 128, 80 and 64;
+     PQ assignment also at d_head 64 and 80, E = 64, f32 and 1000 rows;
+     top-L thresholds also at M = 8 and 10, codes in [128, 256) and
+     beyond, nq = 100, rep 1 and 4; each launched twice
+     bit-identically), the
      serving path's (8 slots x 8 kv heads, R = 2, S = 4096 decode; the
      paged view 32 pages of 128 over a shuffled 320-page pool, 2048 live
      slots; a (8, 1024) prefill bucket) for the rest, the routed-FFN
@@ -33,7 +36,8 @@ Phases (each raises on failure; nothing is caught):
      fused kernel; times by CUDA events (L2 flushed between launches)
      beside the least time the card could take (bytes over 3.35 TB/s or
      operations over the peak rate), and for kernels 9 and 10 a torch
-     yardstick of the same function in bf16;
+     yardstick of the same function in bf16, for kernel 1 one in f32
+     (baddbmm + argmin);
   4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
      prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
@@ -624,66 +628,111 @@ def check_decode_edges(torch, gen):
 TB, TS, HQ, HK, DH, M_BOOKS, E_WORDS = 4, 1024, 16, 8, 128, 16, 16
 
 
-def _codebooks(torch, gen):
-    return torch.randn(M_BOOKS, E_WORDS, DH // M_BOOKS, device="cuda",
-                       generator=gen)
+def _codebooks(torch, gen, m=M_BOOKS, e=E_WORDS, dp=DH // M_BOOKS):
+    return torch.randn(m, e, dp, device="cuda", generator=gen)
 
 
 def _distances(torch, x, cb):
     """(..., M, E) f32 distances of the plain PQ assignment."""
-    xs = x.float().reshape(*x.shape[:-1], M_BOOKS, -1)
+    xs = x.float().reshape(*x.shape[:-1], cb.shape[0], -1)
     c2 = (cb * cb).sum(-1)
     return c2 - 2.0 * torch.einsum("...md,med->...me", xs, cb)
 
 
+def pq_yardstick(torch, x, cb):
+    """Kernel 1's function through PyTorch calls (a yardstick only; the
+    port never makes them): f32 distances of every book by one
+    torch.baddbmm, then argmin."""
+    m, e, dp = cb.shape
+    xs = x.reshape(-1, m, dp).float().transpose(0, 1)           # (M, n, d')
+    c2 = (cb * cb).sum(-1)[:, None, :]                          # (M, 1, E)
+    dist = torch.baddbmm(c2, xs, cb.transpose(1, 2), alpha=-2.0)
+    return dist.argmin(-1).t()                                  # (n, M)
+
+
+def _margin_flips(torch, got, x, cb, what):
+    """Codes that differ from the plain version's; each must sit where the
+    plain distances' two nearest lie within 1e-4 x the largest |distance|
+    of that sub-vector (the margin rule)."""
+    from repro_torch.kernels.pq_quantize import ref
+    want = ref.pq_assign_ref(x, cb)
+    diff = got != want
+    flips = int(diff.sum())
+    if flips:
+        dist = _distances(torch, x, cb)
+        top2 = dist.topk(2, dim=-1, largest=False).values
+        margin = top2[..., 1] - top2[..., 0]
+        scale = dist.abs().amax(-1)
+        if bool((margin[diff] > 1e-4 * scale[diff]).any()):
+            raise AssertionError(f"pq_assign {what}: {flips} codes differ "
+                                 "beyond the margin rule")
+    return flips, want.numel()
+
+
+# Kernel 1's cases (name, dtype, groups, rows, d_head, E): the training
+# step's q (bf16 and f32) and k at qwen3's d_head 128 (M = 16), the
+# paper's blocks' 64 and 80 (M = 8, 10), E = 64 (the general body), and
+# 1000 rows (a partial last tile).
+def _pq_cases():
+    return [("q", "bfloat16", TB * HQ, TS, DH, E_WORDS),
+            ("q f32", "float32", TB * HQ, TS, DH, E_WORDS),
+            ("k", "bfloat16", TB * HK, TS, DH, E_WORDS),
+            ("q dh=64", "bfloat16", TB * HQ, TS, 64, E_WORDS),
+            ("q dh=80", "bfloat16", TB * HQ, TS, 80, E_WORDS),
+            ("q dh=80 f32", "float32", TB * HQ, TS, 80, E_WORDS),
+            ("q dh=64 E=64", "bfloat16", TB * HQ, TS, 64, 64),
+            ("1000 rows", "bfloat16", 1, 1000, DH, E_WORDS)]
+
+
 def check_pq_assign(torch, gen):
-    """Kernel 1 at the training step's q shape (G = 4 x 16, n = 1024,
-    d = 128) and k shape (G = 4 x 8): codes equal up to the margin rule (a
-    code may differ only where the plain version's two nearest distances
-    lie within 1e-4 x the largest |distance| of that row)."""
+    """Kernel 1 on every case of _pq_cases, each launched twice with
+    bit-identical codes, equal to the plain version up to the margin rule;
+    timed in bf16 at the q shape for M = 8, 10 and 16 (d_head 64, 80,
+    128), beside the plain version and a torch yardstick."""
     from repro_torch.kernels.pq_quantize import ops, ref
-    out = None
-    for dtn, heads in (("bfloat16", HQ), ("float32", HQ), ("bfloat16", HK)):
+    out, ms_books = None, {}
+    for name, dtn, groups, n, dh, e in _pq_cases():
         dt = getattr(torch, dtn)
-        x = torch.randn(TB * heads, TS, DH, device="cuda", generator=gen).to(dt)
-        cb = _codebooks(torch, gen)
-        got = ops.pq_assign(x, cb)
-        torch.cuda.synchronize()
-        want = ref.pq_assign_ref(x, cb)
-        diff = got != want
-        flips = int(diff.sum())
-        if flips:
-            dist = _distances(torch, x, cb)
-            top2 = dist.topk(2, dim=-1, largest=False).values
-            margin = top2[..., 1] - top2[..., 0]
-            scale = dist.abs().amax(-1)
-            if bool((margin[diff] > 1e-4 * scale[diff]).any()):
-                raise AssertionError(f"pq_assign {dtn}: {flips} codes differ "
-                                     "beyond the margin rule")
-        print(f"  pq_assign {dtn} G={TB * heads}: {flips} of {want.numel()} "
-              "codes differ (margin rule)", flush=True)
-        if out is None:
-            ms = time_ms(lambda: ops.pq_assign(x, cb), 30)
-            plain = time_ms(lambda: ref.pq_assign_ref(x, cb), 5)
-            m, e, dp = cb.shape
-            moved = nbytes(x, cb, got)
-            flops = x.numel() // DH * m * e * (2 * dp + 2)
-            bms, by = bound(moved, flops, dt)
-            out = {"name": "pq_assign", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/pq_assign.cu",
-                   "replaces": "src/repro/kernels/pq_quantize/pq_quantize.py:38",
-                   "max_abs_err": float(flips), "ms": ms, "plain_ms": plain,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None,
-                   "shape": f"x ({TB * HQ}, {TS}, {DH}) bf16, codebooks "
-                            f"({M_BOOKS}, {E_WORDS}, {DH // M_BOOKS}); "
-                            "max_abs_err counts differing codes"}
+        x = torch.randn(groups, n, dh, device="cuda", generator=gen).to(dt)
+        cb = _codebooks(torch, gen, dh // 8, e, 8)
+        got = _twice(torch, lambda: ops.pq_assign(x, cb),
+                     f"pq_assign {name}")
+        flips, total = _margin_flips(torch, got, x, cb, name)
+        print(f"  pq_assign {name} ({dtn}, x {tuple(x.shape)}, E={e}): "
+              f"{flips} of {total} codes differ (margin rule); "
+              "bit-identical twice", flush=True)
+        if name in ("q", "q dh=64", "q dh=80"):
+            ms_books[dh // 8] = time_ms(lambda: ops.pq_assign(x, cb), 30)
+        if name != "q":
+            continue
+        plain = time_ms(lambda: ref.pq_assign_ref(x, cb), 5)
+        yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
+        m, e, dp = cb.shape
+        moved = nbytes(x, cb, got)
+        flops = x.numel() // dh * m * e * (2 * dp + 2)
+        bms, by = bound(moved, flops, dt)
+        out = {"name": "pq_assign", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/pq_assign.cu",
+               "replaces": "src/repro/kernels/pq_quantize/pq_quantize.py:38",
+               "max_abs_err": float(flips), "ms": ms_books[16],
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+               "library_ms": None, "torch_yardstick_ms": yard,
+               "shape": f"x ({TB * HQ}, {TS}, {DH}) bf16, codebooks "
+                        f"({M_BOOKS}, {E_WORDS}, {DH // M_BOOKS}); "
+                        "max_abs_err counts differing codes; library_ms "
+                        "n/a: no single PyTorch call assigns codes, the "
+                        "yardstick is baddbmm + argmin in f32"}
+    out["ms_by_books"] = ms_books
+    print("  pq_assign bf16 at the q shape: " + ", ".join(
+        f"M={m} {t:.4f} ms" for m, t in ms_books.items())
+        + f"; torch yardstick {out['torch_yardstick_ms']:.4f} ms", flush=True)
     return out
 
 
-def _train_codes(torch, gen, nq, nk, gq=TB * HQ, gk=TB * HK):
-    cq = torch.randint(0, E_WORDS, (gq, nq, M_BOOKS), device="cuda",
+def _train_codes(torch, gen, nq, nk, gq=TB * HQ, gk=TB * HK, m=M_BOOKS):
+    cq = torch.randint(0, E_WORDS, (gq, nq, m), device="cuda",
                        generator=gen, dtype=torch.int32)
-    ck = torch.randint(0, E_WORDS, (gk, nk, M_BOOKS), device="cuda",
+    ck = torch.randint(0, E_WORDS, (gk, nk, m), device="cuda",
                        generator=gen, dtype=torch.int32)
     return cq, ck
 
@@ -698,41 +747,81 @@ def _topl_cases():
             ("non-causal", 64, 100, False, None, 0)]
 
 
+# Kernel 2's cases beyond _topl_cases (name, nq, nk, causal, window,
+# q_offset, books, codes, rep): the paper's blocks' books at the training
+# shape; codes in [128, 256) (the byte body), >= 256 everywhere or in one
+# key tile (the int32 body, alone and beside the packed ones); nq = 100
+# (rows not a multiple of the 64-row tile); rep 1 and 4.
+def _topl_more_cases():
+    return [("train M=8", TS, TS, True, None, 0, 8, "e16", 2),
+            ("train M=10", TS, TS, True, None, 0, 10, "e16", 2),
+            ("codes in [128, 256)", TS, TS, True, None, 0, M_BOOKS, "byte", 2),
+            ("codes >= 256", 256, 256, True, 64, 0, M_BOOKS, "wide", 2),
+            ("one key tile >= 256", TS, TS, True, None, 0, M_BOOKS, "tile", 2),
+            ("nq=100", 100, 100, True, None, 0, M_BOOKS, "e16", 2),
+            ("rep 1", 512, 512, True, None, 0, M_BOOKS, "e16", 1),
+            ("rep 4", 512, 512, True, 200, 0, M_BOOKS, "e16", 4)]
+
+
+def _topl_codes(torch, gen, nq, nk, m, kind, rep):
+    """Codes of E_WORDS values, spread over [128, 256) ("byte") or over
+    negatives and values past 2^16 ("wide"); "tile": keys 512-575 shifted
+    by 256."""
+    cq, ck = _train_codes(torch, gen, nq, nk, TB * HQ, TB * HQ // rep, m)
+    if kind == "byte":
+        return 128 + 8 * cq, 128 + 8 * ck
+    if kind == "wide":
+        return cq * 4099 - 20000, ck * 4099 - 20000
+    if kind == "tile":
+        ck[:, 512:576] += 256
+    return cq, ck
+
+
 def _top_l(n, window=None):
     horizon = n if window is None else min(n, window)
     return min(max(16, round(horizon * 0.125)), horizon)
 
 
 def check_topl_thresholds(torch, gen):
-    """Kernel 2: [t, need] exactly equal to the plain version."""
+    """Kernel 2: [t, need] exactly equal to the plain version on every
+    case, each launched twice with bit-identical outputs; timed at the
+    training shape for M = 16, 8 and 10."""
     from repro_torch.kernels.topl_select import ops, ref
-    out = None
-    for name, nq, nk, causal, window, q_off in _topl_cases():
-        cq, ck = _train_codes(torch, gen, nq, nk)
-        kw = dict(l=_top_l(nk, window), max_score=M_BOOKS, causal=causal,
+    cases = [c + (M_BOOKS, "e16", HQ // HK) for c in _topl_cases()]
+    out, ms_books = None, {}
+    for name, nq, nk, causal, window, q_off, m, kind, rep in \
+            cases + _topl_more_cases():
+        cq, ck = _topl_codes(torch, gen, nq, nk, m, kind, rep)
+        kw = dict(l=_top_l(nk, window), max_score=m, causal=causal,
                   window=window, q_offset=q_off, heads_per_batch=HQ,
-                  rep=HQ // HK)
-        thr = ops.topl_thresholds(cq, ck, **kw)
-        torch.cuda.synchronize()
+                  rep=rep)
+        thr = _twice(torch, lambda: ops.topl_thresholds(cq, ck, **kw),
+                     f"topl_thresholds {name}")
         if not torch.equal(thr, ref.thresholds_ref(cq, ck, **kw)):
             raise AssertionError(f"topl_thresholds {name}: [t, need] differ")
-        print(f"  topl_thresholds {name} (nq={nq}, nk={nk}): [t, need] exact",
-              flush=True)
-        if out is None:
-            ms = time_ms(lambda: ops.topl_thresholds(cq, ck, **kw), 30)
-            plain = time_ms(lambda: ref.thresholds_ref(cq, ck, **kw), 3)
-            pairs = cq.shape[0] * nq * (nq + 1) // 2        # causal, nq = nk
-            bms, by = bound(nbytes(cq, ck, thr), pairs * M_BOOKS,
-                            torch.float32)
-            out = {"name": "topl_thresholds", "route": "cuda",
-                   "source": "src/repro_torch/kernels/csrc/topl_thresholds.cu",
-                   "replaces": "src/repro/kernels/topl_select/topl_select.py:69",
-                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None,
-                   "shape": f"codes_q ({TB * HQ}, {TS}, {M_BOOKS}), codes_k "
-                            f"({TB * HK}, {TS}, {M_BOOKS}), causal, L=128; "
-                            "bound: M int compares per admitted pair at the "
-                            "f32 CUDA-core rate"}
+        print(f"  topl_thresholds {name} (nq={nq}, nk={nk}, M={m}, "
+              f"rep {rep}): [t, need] exact; bit-identical twice", flush=True)
+        if name in ("train", "train M=8", "train M=10"):
+            ms_books[m] = time_ms(lambda: ops.topl_thresholds(cq, ck, **kw),
+                                  30)
+        if name != "train":
+            continue
+        plain = time_ms(lambda: ref.thresholds_ref(cq, ck, **kw), 3)
+        pairs = cq.shape[0] * nq * (nq + 1) // 2        # causal, nq = nk
+        bms, by = bound(nbytes(cq, ck, thr), pairs * M_BOOKS, torch.float32)
+        out = {"name": "topl_thresholds", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/topl_thresholds.cu",
+               "replaces": "src/repro/kernels/topl_select/topl_select.py:69",
+               "max_abs_err": 0.0, "ms": ms_books[M_BOOKS],
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+               "library_ms": None,
+               "shape": f"codes_q ({TB * HQ}, {TS}, {M_BOOKS}), codes_k "
+                        f"({TB * HK}, {TS}, {M_BOOKS}), causal, L=128; "
+                        "bound: M int compares per admitted pair at the "
+                        "f32 CUDA-core rate"}
+    out["ms_by_books"] = ms_books
+    print("  topl_thresholds at the training shape: " + ", ".join(
+        f"M={m} {t:.4f} ms" for m, t in sorted(ms_books.items())), flush=True)
     return out
 
 
@@ -1504,7 +1593,7 @@ def train_full_width(torch):
           f"{device / wall:.0%} of step 3", flush=True)
     for ms, n, name in top[:10]:
         print(f"    {ms:9.3f} ms  x{n:6d}  {name[:90]}", flush=True)
-    for kern in ("pq_assign_kernel", "topl_thresholds_kernel",
+    for kern in ("pq_assign_", "topl_thresholds_kernel",
                  "sparse_attention_bf16_kernel", "grouped_ffn_kernel"):
         hit = [(ms, n) for ms, n, name in top if kern in name]
         ms, n = sum(h[0] for h in hit), sum(h[1] for h in hit)
@@ -1672,7 +1761,8 @@ def main() -> int:
     lib_path = kernels.build(verbose=True)
     kernels.library()
     print(f"[2] built the kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    for src, fn, regs, smem, spill in ptxas_usage():
+    usage = ptxas_usage()
+    for src, fn, regs, smem, spill in usage:
         print(f"[2] ptxas {src}: {fn}: {regs} registers, {smem} bytes static "
               f"smem, {spill} bytes spilled", flush=True)
     sass = sass_counts(lib_path)
@@ -1697,6 +1787,11 @@ def main() -> int:
             check_grouped_ffn(torch, gen), check_decode_ffn(torch, gen)]
     if [r["name"] for r in rows] != [w.__name__ for w in kernels.wrappers()]:
         raise AssertionError("phase 3 does not cover every kernel wrapper")
+    for row in rows[:2]:                # the bodies of kernels 1 and 2
+        row["ptxas"] = [f"{fn}: {regs} registers, {smem} B static smem, "
+                        f"{spill} B spilled"
+                        for src, fn, regs, smem, spill in usage
+                        if src == Path(row["source"]).stem]
     for row in rows:
         lib = ("no single PyTorch call computes it, so library_ms is n/a"
                if row["library_ms"] is None

@@ -41,10 +41,10 @@ def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     (||x||^2 is constant over the argmin) computed in float32.
 
     The sums over d' run in a fixed order, one rounded multiply and one
-    rounded add per term (j = 0 .. d'-1), which the PQ assignment CUDA
-    kernel repeats, so the two give equal codes on any device; JAX's
-    einsum sums in another order, so codes can differ from JAX's only
-    where two distances tie within rounding.
+    rounded add per term (j = 0 .. d'-1), so the codes are the same on
+    any device.  JAX's einsum, and the PQ assignment CUDA kernel (fused
+    multiply-adds), sum in other orders, so their codes can differ from
+    these only where two distances tie within rounding.
 
     x: (..., n, d) with d = M * d'; codebooks: (M, E, d')
     returns codes (..., n, M) int32 in [0, E)

@@ -13,22 +13,18 @@ from repro_torch import kernels
 from repro_torch.kernels.topl_select.ref import (decode_topl_thresholds_ref,
                                                  thresholds_ref)
 
+BOOKS_MAX = 32          # PQ books the threshold kernel takes
+SCORE_MAX = 32          # largest max_score (histogram buckets - 1)
 
-def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
-                    max_score: int, causal: bool = True,
-                    window: Optional[int] = None, q_offset: int = 0,
-                    heads_per_batch: int = 1, rep: int = 1) -> torch.Tensor:
-    """codes_q: (G, nq, M) int32, G = B * heads_per_batch query groups;
-    codes_k: (G / rep, nk, M) int32 (query head h of batch b reads kv
-    group b * Hk + h // rep).  Returns (G, nq, 2) int32 [t, need].  CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/topl_thresholds.cu)."""
-    kw = dict(l=l, max_score=max_score, causal=causal, window=window,
-              q_offset=q_offset, heads_per_batch=heads_per_batch, rep=rep)
-    if codes_q.device.type == "cpu":
-        return thresholds_ref(codes_q, codes_k, **kw)
+
+def check_topl_args(codes_q: torch.Tensor, codes_k: torch.Tensor, *,
+                    l: int, max_score: int, q_offset: int,
+                    heads_per_batch: int, rep: int) -> None:
+    """Kernel 2's input contract, checked before anything is built or
+    launched: the shapes ``topl_thresholds`` names, int32 codes, 1 to
+    BOOKS_MAX books, M <= max_score <= SCORE_MAX (the kernel's histogram
+    rows), nq, nk, l >= 1 and q_offset >= 0."""
     name = "topl_thresholds"
-    kernels.require_cuda(name, codes_q, codes_k)
     g, nq, m = codes_q.shape
     gk, nk, mk = codes_k.shape
     if (mk != m or g % heads_per_batch or heads_per_batch % rep
@@ -38,6 +34,34 @@ def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
                          f"heads per batch, {rep} per kv head")
     if codes_q.dtype != torch.int32 or codes_k.dtype != torch.int32:
         raise TypeError(f"{name}: takes int32 codes")
+    if not (1 <= m <= BOOKS_MAX and m <= max_score <= SCORE_MAX):
+        raise ValueError(f"{name}: takes 1 to {BOOKS_MAX} books and M <= "
+                         f"max_score <= {SCORE_MAX}, got M = {m}, "
+                         f"max_score = {max_score}")
+    if nq < 1 or nk < 1 or l < 1 or q_offset < 0:
+        raise ValueError(f"{name}: needs nq, nk, l >= 1 and q_offset >= 0")
+
+
+def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
+                    max_score: int, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    heads_per_batch: int = 1, rep: int = 1) -> torch.Tensor:
+    """codes_q: (G, nq, M) int32, G = B * heads_per_batch query groups;
+    codes_k: (G / rep, nk, M) int32 (query head h of batch b reads kv
+    group b * Hk + h // rep); codes may be any int32 values.  Returns
+    (G, nq, 2) int32 [t, need].  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (csrc/topl_thresholds.cu)."""
+    kw = dict(l=l, max_score=max_score, causal=causal, window=window,
+              q_offset=q_offset, heads_per_batch=heads_per_batch, rep=rep)
+    if codes_q.device.type == "cpu":
+        return thresholds_ref(codes_q, codes_k, **kw)
+    name = "topl_thresholds"
+    kernels.require_cuda(name, codes_q, codes_k)
+    check_topl_args(codes_q, codes_k, l=l, max_score=max_score,
+                    q_offset=q_offset, heads_per_batch=heads_per_batch,
+                    rep=rep)
+    g, nq, m = codes_q.shape
+    nk = codes_k.shape[1]
     thr = torch.empty((g, nq, 2), dtype=torch.int32, device=codes_q.device)
     err = kernels.library().repro_topl_thresholds(
         codes_q.data_ptr(), codes_k.data_ptr(), thr.data_ptr(), g, nq, nk, m,

@@ -2,10 +2,14 @@
 replace (interpret mode on the CPU), on the same numpy inputs from a seed:
 
   * PQ assignment (kernel 1) — codes equal up to the margin rule: a code
-    may differ only where the two nearest distances lie within 1e-5;
+    may differ only where the two nearest distances lie within 1e-5; at
+    d_head 64, 80 and 128 with d' = 8, and d' = 5;
   * top-L thresholds (kernel 2) — [t, need] exactly equal, causal and
     windowed, q_offset != 0, nq != nk, GQA (the port indexes the kv head,
-    JAX repeats the key codes per query head);
+    JAX repeats the key codes per query head); M = 8, 10 and 16 books, and
+    codes in [128, 256) and beyond 256;
+  * the wrappers of kernels 1 and 2 refuse what their kernels do not take
+    (books, histogram rows, d', the staged codebook) before building;
   * thresholded sparse attention (kernel 4) — GQA, f32, atol=rtol 1e-5,
     at head dims 16, 64 and 80; its wrapper takes any dh that is a
     multiple of 8 up to 256 and refuses the rest before building;
@@ -76,6 +80,26 @@ def test_pq_assign_plain_matches_jax_kernel(shape):
     assert np.array_equal(got[~tie], want[~tie])
 
 
+@pytest.mark.parametrize("dh,dp", [(64, 8), (80, 8), (128, 8), (40, 5)])
+def test_pq_assign_plain_matches_jax_kernel_head_dims(dh, dp):
+    """The paper's blocks' books (d_head 64 and 80 give M = 8 and 10 at
+    d' = 8), qwen3's M = 16, and a d' = 5 codebook: codes equal up to the
+    tie tolerance."""
+    rng = np.random.default_rng(dh + dp)
+    m = dh // dp
+    x = rng.standard_normal((2, 24, dh)).astype(np.float32)
+    cb = rng.standard_normal((m, 16, dp)).astype(np.float32)
+    want = np.asarray(jpq_assign(jnp.asarray(x), jnp.asarray(cb), tile_n=8,
+                                 interpret=True))
+    got = pq_ops.pq_assign(t(x), t(cb)).numpy()
+    assert got.dtype == np.int32 and got.shape == want.shape == (2, 24, m)
+    xs = x.reshape(2, 24, m, dp)
+    dist = (cb * cb).sum(-1) - 2.0 * np.einsum("...md,med->...me", xs, cb)
+    srt = np.sort(dist, axis=-1)
+    tie = (srt[..., 1] - srt[..., 0]) < 1e-5
+    assert np.array_equal(got[~tie], want[~tie])
+
+
 def _codes(rng, g, n, m=4, e=4):
     """Few books over few codewords: many equal scores, so the tie budget
     is exercised."""
@@ -108,6 +132,80 @@ def test_topl_thresholds_plain_matches_jax_kernel(nq, nk, causal, window,
         q_offset=q_offset, heads_per_batch=hq, rep=rep)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("m,lo,hi", [
+    (8, 0, 16), (10, 0, 16), (16, 0, 16),   # E = 16: the nibble-packed range
+    (4, 128, 256),                          # byte codes with the top bit set
+    (4, 0, 300),                            # codes >= 256: int32 compares
+])
+def test_topl_thresholds_plain_matches_jax_kernel_books(m, lo, hi):
+    """[t, need] exactly equal at the paper's blocks' book counts (M = 8,
+    10) and qwen3's (16) over E = 16 codewords, and for codes beyond the
+    packed ranges the kernel chooses its body by: any int32 codes."""
+    rng = np.random.default_rng(m + hi)
+    b, hq, rep, nq, nk, window = 2, 4, 2, 24, 40, 16
+    cq = rng.integers(lo, hi, (b * hq, nq, m)).astype(np.int32)
+    ck = rng.integers(lo, hi, (b * hq // rep, nk, m)).astype(np.int32)
+    ck_rep = np.repeat(ck.reshape(b, hq // rep, nk, m), rep,
+                       axis=1).reshape(b * hq, nk, m)
+    for causal, win, q_offset in ((True, None, 16), (True, window, 16),
+                                  (False, None, 0)):
+        want = topl_thresholds_kernel(
+            jnp.asarray(cq), jnp.asarray(ck_rep), l=6, max_score=m,
+            causal=causal, window=win, q_offset=q_offset, tile_q=8,
+            tile_k=8, interpret=True)
+        got = topl_ops.topl_thresholds(
+            t(cq), t(ck), l=6, max_score=m, causal=causal, window=win,
+            q_offset=q_offset, heads_per_batch=hq, rep=rep)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------ kernels 1, 2: contracts
+def _i32(*shape):
+    return torch.empty(*shape, dtype=torch.int32, device="meta")
+
+
+@pytest.mark.parametrize("m,max_score,ok", [
+    (16, 16, True), (32, 32, True), (10, 32, True),
+    (33, 33, False),                    # more books than the kernel packs
+    (16, 33, False),                    # more histogram rows than it keeps
+    (16, 15, False),                    # scores above max_score
+])
+def test_topl_thresholds_contract(m, max_score, ok):
+    """Kernel 2's wrapper refuses what the kernel does not take before
+    anything is built or launched (meta tensors stand in for CUDA ones)."""
+    args = (_i32(8, 64, m), _i32(4, 64, m))
+    kw = dict(l=8, max_score=max_score, heads_per_batch=4, rep=2)
+    before = topl_ops.topl_thresholds.launches
+    if ok:
+        topl_ops.check_topl_args(*args, q_offset=0, **kw)
+    else:
+        with pytest.raises(ValueError, match="books"):
+            topl_ops.topl_thresholds(*args, **kw)
+    assert topl_ops.topl_thresholds.launches == before
+    assert kernels._lib is None                  # nothing was built
+
+
+@pytest.mark.parametrize("m,e,dp,ok", [
+    (16, 16, 8, True), (8, 64, 8, True), (32, 32, 8, True),
+    (2, 4, 33, False),                  # d' > 32
+    (64, 16, 9, False),                 # M E d' > 8192 floats staged
+    (128, 16, 1, False),                # M E > 1024 norms staged
+])
+def test_pq_assign_contract(m, e, dp, ok):
+    """Kernel 1's wrapper refuses codebooks beyond what the kernel stages
+    in shared memory before anything is built or launched."""
+    x = _meta(4, 64, m * dp)
+    cb = _meta(m, e, dp, dtype=torch.float32)
+    before = pq_ops.pq_assign.launches
+    if ok:
+        pq_ops.check_pq_args(x, cb)
+    else:
+        with pytest.raises(ValueError, match="staged limits"):
+            pq_ops.pq_assign(x, cb)
+    assert pq_ops.pq_assign.launches == before
+    assert kernels._lib is None                  # nothing was built
 
 
 # ------------------------------------------------ kernel 4: attention

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernels)
     python3 chip_smoke.py --only serve     # phases 1-6
     python3 chip_smoke.py --only train     # phases 1-3, 7-8
+    python3 chip_smoke.py --only paper     # phases 1-3, 9-11
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -29,7 +30,11 @@ Phases (each raises on failure; nothing is caught):
      the decode attention kernels (3, 5-8) also on edge cases (1 slot,
      R = 1 and 8, dh = 64 and 256, l >= live, rows with no valid slot),
      each launched twice with bit-identical outputs, and kernel 3 again
-     after kernel 6 and 100 times back to back: f32 to atol 1e-4,
+     after kernel 6 and 100 times back to back; the paper's shapes
+     (kernels 1, 2, 4 at the OPT-2.7B and LLaMA-2.7B training steps,
+     kernel 9 at the five blocks' widths, kernels 6 and 10 at OPT-2.7B's
+     decode, and dh 80 / R = 1 decode edges of kernels 3, 5-8, timed at
+     OPT-2.7B's serving width): f32 to atol 1e-4,
      bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
      codes equal up to the margin rule; the paged kernel bit-identical to
      the contiguous one over gathered views and the two-pass pair to the
@@ -58,8 +63,20 @@ Phases (each raises on failure; nothing is caught):
   8. the same model cut to 4 layers, in f32: each block's output and
      gradients from the same inputs, and the loss and gradients of one
      train step, with kernels on equal those of REPRO_DISABLE_KERNELS=1;
-  9. one JSON line of the ten kernels (launches per path), then the
-     result line.
+  9. the paper's five Table-2 blocks (opt-1024/2048/2560, llama-2560/
+     4096) at full width, one layer, bf16: 3 steps of Trainer.run at 4 x
+     1024 under apply_variant "spt" (kernels 1, 2, 4 and 9 exactly 4, 2,
+     2 and 2 times per layer per step), then "lora" (no kernel);
+  10. opt-2.7b and llama-2.7b (32 layers, bf16): 2 steps of Trainer.run
+     at 4 x 1024 and a profiled step each; opt-2.7b's lm_prefill at 4 x
+     1024 (kernels 1, 2, 4, 9) and a serve of 8 requests (prompts
+     128-1024, 32 new tokens, 8 slots, max_len 2048; kernels 6, 9, 10);
+     counters zeroed just before each and read just after;
+  11. an OPT-2560-width model cut to 2 layers, in f32, kernels on against
+     REPRO_DISABLE_KERNELS=1: greedy streams (kernels 6 and 7),
+     lm_prefill's logits and caches, one train step;
+  then one JSON line of the ten kernels (launches per path; each with its
+  times at the paper's shapes), then the result line.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
@@ -527,18 +544,25 @@ def _list_rows(torch, valid, g):
 
 
 # Edge cases of the decode attention pass (name, b, hk, R, dh, gran, l_all,
-# dead): 2048 live slots of a 32 x 128 paged view over a shuffled pool.
+# dead, M): 2048 live slots of a 32 x 128 paged view over a shuffled pool.
 # l_all: l = the view length, so every valid slot is selected and kernel
 # 7 must equal kernel 8 bit for bit; dead: the last slot has no valid key.
+# The dh = 80, R = 1 cases are OPT-2.7B's heads (M = 10 books of d' = 8);
+# the last, at its serving width (8 slots x 32 heads), is timed.
 DECODE_EDGES = [
-    ("G=8 (1 slot, 32 splits a group)", 1, 8, 2, 128, "qhead", False, False),
-    ("R=1", 4, 8, 1, 128, "qhead", False, True),
-    ("R=8", 2, 8, 8, 128, "qhead", False, True),
-    ("R=8 kvgroup", 2, 8, 8, 128, "kvgroup", False, False),
-    ("dh=64", 4, 8, 2, 64, "qhead", False, True),
-    ("dh=256", 4, 8, 2, 256, "qhead", False, False),
-    ("l >= live", 8, 8, 2, 128, "qhead", True, True),
+    ("G=8 (1 slot, 32 splits a group)", 1, 8, 2, 128, "qhead", False, False,
+     SM),
+    ("R=1", 4, 8, 1, 128, "qhead", False, True, SM),
+    ("R=8", 2, 8, 8, 128, "qhead", False, True, SM),
+    ("R=8 kvgroup", 2, 8, 8, 128, "kvgroup", False, False, SM),
+    ("dh=64", 4, 8, 2, 64, "qhead", False, True, SM),
+    ("dh=256", 4, 8, 2, 256, "qhead", False, False, SM),
+    ("l >= live", 8, 8, 2, 128, "qhead", True, True, SM),
+    ("dh=80 R=1 M=10 l >= live", 4, 8, 1, 80, "qhead", True, True, 10),
+    ("dh=80 R=1 M=10 (OPT-2.7B: 8 slots x 32 heads)", 8, 32, 1, 80, "qhead",
+     False, False, 10),
 ]
+TIMED_EDGE = DECODE_EDGES[-1][0]
 
 
 def check_decode_edges(torch, gen):
@@ -546,14 +570,17 @@ def check_decode_edges(torch, gen):
     tolerance of its plain version and bit-identical across two launches,
     [t, need] exact, kernel 7 bit-identical to kernel 6 over gathered
     views, kernels 3 + 5 bit-identical to kernel 6, a dead slot's rows 0,
-    and with l >= live kernel 7 bit-identical to kernel 8."""
+    and with l >= live kernel 7 bit-identical to kernel 8.  The bf16
+    run of TIMED_EDGE times each of the five kernels beside its bound;
+    returns {wrapper name: [case row]} of those."""
     from repro_torch import kernels
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select import ops as topl_ops
     from repro_torch.serving import kv_pages
-    mp, ps, live, e, m = SMP, SPS, SLIVE, SE, SM
+    mp, ps, live, e = SMP, SPS, SLIVE, SE
     view = mp * ps
-    for name, b, hk, r, dh, gran, l_all, dead in DECODE_EDGES:
+    timed = {}
+    for name, b, hk, r, dh, gran, l_all, dead, m in DECODE_EDGES:
         for dtn in ("bfloat16", "float32"):
             dt = getattr(torch, dtn)
             tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
@@ -621,6 +648,45 @@ def check_decode_edges(torch, gen):
                   "bit-identical"
                   f"{'; 7 == 8' if l_all else ''}"
                   f"{'; dead slot 0' if dead else ''}; each twice", flush=True)
+            if name != TIMED_EDGE or dt != torch.bfloat16:
+                continue
+            read, pairs = _rows_read(ref, cq, kv[2], valid, sel)
+            codes = int(valid.sum()) * hk * m         # live code bytes
+            kv_bytes = 2 * read * dh * q.element_size()
+            ops4 = 4 * dh * pairs
+            case = (f"{name} (G={g}, R={r}, view {mp} x {ps}, {live} live, "
+                    f"dh={dh}, M={m})")
+            for wname, fn, moved, n_ops, ot, err in (
+                    ("fused_sparse_decode_attention_paged",
+                     lambda: ops.fused_sparse_decode_attention_paged(
+                         *args, **kw),
+                     nbytes(q, cq, pt, valid, out7) + codes + kv_bytes, ops4,
+                     dt, err7),
+                    ("fused_sparse_decode_attention",
+                     lambda: ops.fused_sparse_decode_attention(
+                         q, kv[0], kv[1], cq, kv[2], valid, **kw),
+                     nbytes(q, cq, valid, out6) + codes + kv_bytes, ops4, dt,
+                     err7),
+                    ("decode_topl_thresholds",
+                     lambda: topl_ops.decode_topl_thresholds(
+                         cq, kv[2], valid, **sel),
+                     nbytes(cq, valid, thr3) + codes,
+                     int(valid.sum()) * hk * r * m, torch.float32, 0.0),
+                    ("sparse_decode_attention",
+                     lambda: ops.sparse_decode_attention(
+                         q, kv[0], kv[1], cq, kv[2], thr3, valid,
+                         scale=kw["scale"], sum_rows=sum_rows,
+                         heads_per_batch=hk),
+                     nbytes(q, cq, thr3, valid, out5) + codes + kv_bytes,
+                     ops4, dt, err7),
+                    ("dense_decode_attention_paged",
+                     lambda: ops.dense_decode_attention_paged(*dargs, **dkw),
+                     nbytes(q, pt, valid, out8)
+                     + 2 * int(valid.sum()) * hk * dh * q.element_size(),
+                     4 * dh * r * int(valid.sum()) * hk, dt, err8)):
+                _paper_row(timed, wname, case, time_ms(fn, 30),
+                           bound(moved, n_ops, ot), err)
+    return timed
 
 
 # qwen3-0.6b's training step: batch 4 x 1024 tokens, 16 query / 8 kv
@@ -1009,9 +1075,10 @@ def _grouped_case(torch, gen, dtn, *, b, s, d, f, g, ga, r, capf, act,
                 empty_rows=int((kept_rows == 0).sum()), c=c)
 
 
-def _grouped_bound(torch, case, d, f, r, dt):
+def _grouped_bound(torch, case, d, f, r, dt, gated=True):
     kept = int(case["plan"].slot_ok.sum())
-    flops = kept * (2 * d * f * 3 + 2 * r * (3 * d + 2 * f + d))
+    flops = kept * (2 * d * f * 3 + 2 * r * (3 * d + 2 * f + d) if gated
+                    else 2 * d * f * 2 + 2 * r * (2 * d + 2 * f))
     moved = (nbytes(case["x"], case["plan"].index, case["y"],
                     *case["wts"].values())
              + sum(nbytes(*t.values()) for t in case["lora"].values()))
@@ -1206,6 +1273,165 @@ def check_decode_ffn(torch, gen):
     return out
 
 
+# The paper's end-to-end models at their training step (batch 4 x 1024,
+# L = 128): (label, heads, d_head) — OPT-2.7B 32 heads of 80 (M = 10),
+# Sheared-LLaMA-2.7B 20 heads of 128 (M = 16); full MHA (R = 1) in both.
+PAPER_TRAIN = [("OPT-2.7B", 32, 80), ("LLaMA-2.7B", 20, 128)]
+# Kernel 9 at the paper blocks' widths (label, d, F = d_ff / 8, act,
+# gated), at the training step's 4 x 1024 rows with LoRA r = 16.
+PAPER_FFN = [("OPT-1024", 1024, 512, "relu", False),
+             ("OPT-2048", 2048, 1024, "relu", False),
+             ("OPT-2560", 2560, 1280, "relu", False),
+             ("LLaMA-2560", 2560, 864, "silu", True),
+             ("LLaMA-4096", 4096, 1376, "silu", True)]
+
+
+def _paper_row(out, name, case, ms, bnd, err):
+    print(f"  [paper] {name} {case}: {ms:.4f} ms, bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]}, max_abs_err {err:.3e}; bit-identical twice", flush=True)
+    out.setdefault(name, []).append(
+        {"case": case, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+         "max_abs_err": err})
+
+
+def check_paper_shapes(torch, gen):
+    """Kernels 1, 2 and 4 at the OPT-2.7B and LLaMA-2.7B training steps
+    (R = 1, dh 80 / M = 10 and dh 128 / M = 16), kernel 9 at the five
+    paper blocks' widths, and kernels 6 and 10 at OPT-2.7B's serving
+    decode (8 slots x 32 heads, R = 1, dh 80, M = 10, S = 2048; d 2560,
+    F 1280, ungated ReLU): each launched twice bit-identically, against
+    its plain version (codes by the margin rule, [t, need] exactly), and
+    timed by CUDA events beside its bound.  Returns {wrapper name: [case
+    rows]}."""
+    from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels.pq_quantize import ops as pq_ops
+    from repro_torch.kernels.routed_ffn import ops as ffn_ops
+    from repro_torch.kernels.routed_ffn import ref as ffn_ref
+    from repro_torch.kernels.sparse_attention import ops as sa_ops
+    from repro_torch.kernels.sparse_attention import ref as sa_ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.kernels.topl_select.ref import (masked_scores,
+                                                     thresholds_ref)
+    bf16 = torch.bfloat16
+    out = {}
+    for label, heads, dh in PAPER_TRAIN:
+        g, m = TB * heads, dh // 8
+        case = f"{label} train (G={g}, n={TS}, dh={dh}, M={m}, R=1)"
+        x = torch.randn(g, TS, dh, device="cuda", generator=gen).to(bf16)
+        cb = _codebooks(torch, gen, m, E_WORDS, 8)
+        codes = _twice(torch, lambda: pq_ops.pq_assign(x, cb),
+                       f"pq_assign {case}")
+        flips, _ = _margin_flips(torch, codes, x, cb, case)
+        ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
+        bnd = bound(nbytes(x, cb, codes), g * TS * m * E_WORDS * 18, bf16)
+        _paper_row(out, "pq_assign", case, ms, bnd, float(flips))
+        cq, ck = _train_codes(torch, gen, TS, TS, g, g, m)
+        kw = dict(l=_top_l(TS), max_score=m, causal=True, window=None,
+                  q_offset=0, heads_per_batch=heads, rep=1)
+        thr = _twice(torch, lambda: topl_ops.topl_thresholds(cq, ck, **kw),
+                     f"topl_thresholds {case}")
+        if not torch.equal(thr, thresholds_ref(cq, ck, **kw)):
+            raise AssertionError(f"topl_thresholds {case}: [t, need] differ")
+        ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
+        pairs = g * TS * (TS + 1) // 2
+        bnd = bound(nbytes(cq, ck, thr), pairs * m, torch.float32)
+        _paper_row(out, "topl_thresholds", case, ms, bnd, 0.0)
+        q, k, v = (torch.randn(g, TS, dh, device="cuda", generator=gen).to(bf16)
+                   for _ in range(3))
+        sel = dict(causal=True, window=None, q_offset=0,
+                   heads_per_batch=heads, rep=1)
+        akw = dict(scale=dh ** -0.5, **sel)
+        got = _twice(torch, lambda: sa_ops.sparse_attention(
+            q, k, v, cq, ck, thr, **akw), f"sparse_attention {case}")
+        err = close(got, sa_ref.sparse_attention_ref(q, k, v, cq, ck, thr,
+                                                     **akw), BF16_TOL)
+        ms = time_ms(lambda: sa_ops.sparse_attention(
+            q, k, v, cq, ck, thr, **akw), 20)
+        kept = sa_ref.newest_ties(masked_scores(cq, ck, **sel), thr)
+        moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
+                 + 2 * int(kept.any(1).sum()) * dh * k.element_size())
+        bnd = bound(moved, 4 * dh * int(kept.sum()), bf16)
+        _paper_row(out, "sparse_attention", case, ms, bnd, err)
+        del kept
+    for label, d, f, act, gated in PAPER_FFN:
+        cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=d, f=f, g=8,
+                           ga=4, r=16, capf=1.25, act=act, gated=gated)
+        args = cs["args"]
+        ms = time_ms(lambda: ffn_ops.grouped_ffn(*args, act=act), 10)
+        bnd = _grouped_bound(torch, cs, d, f, 16, bf16, gated)
+        _paper_row(out, "grouped_ffn", f"{label} train (x (4, 1024, {d}), "
+                   f"F={f}, {act}{' gated' if gated else ''}, C={cs['c']}, "
+                   "LoRA r=16)", ms, bnd, cs["err"])
+    # the wide form's edges: d and F not multiples of its 64-column
+    # slices, LoRA rank 32 with kept slots last and capacity drops, rank
+    # 12 (padded to 16) ungated
+    for what, kw in (("d=1032 F=520 silu gated, LoRA r=32, kept slots "
+                      "last, capacity 0.5", dict(r=32, capf=0.5, act="silu",
+                                                 gated=True, reverse=True)),
+                     ("d=1032 F=520 gelu ungated, LoRA r=12",
+                      dict(r=12, capf=1.25, act="gelu", gated=False))):
+        cs = _grouped_case(torch, gen, "bfloat16", b=2, s=160, d=1032, f=520,
+                           g=4, ga=2, **kw)
+        print(f"  [paper] grouped_ffn wide form {what} (C={cs['c']}, "
+              f"dropped {cs['dropped']:.2f}): max_abs_err {cs['err']:.3e}, "
+              "bit-identical twice", flush=True)
+    # OPT-2.7B serving decode: kernel 6, then kernel 10
+    b, hk, dh, m, s = 8, 32, 80, 10, 2048
+    g = b * hk
+    q = torch.randn(g, 1, dh, device="cuda", generator=gen).to(bf16)
+    k, v = (torch.randn(g, s, dh, device="cuda", generator=gen).to(bf16)
+            for _ in range(2))
+    cq = torch.randint(0, E_WORDS, (g, 1, m), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    ck = torch.randint(0, E_WORDS, (g, s, m), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    lens = torch.randint(128, s + 1, (b,), device="cuda", generator=gen)
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    kw = dict(scale=dh ** -0.5, l=_top_l(s), max_score=m, sum_rows=False,
+              heads_per_batch=hk)
+    case = f"OPT-2.7B decode (G={g}, R=1, S={s}, dh={dh}, M={m})"
+    got, thr = _twice(torch, lambda: sa_ops.fused_sparse_decode_attention(
+        q, k, v, cq, ck, valid, return_thresholds=True, **kw),
+        f"fused_sparse_decode_attention {case}")
+    want, thr_ref = sa_ref.fused_decode_ref(q, k, v, cq, ck, valid, **kw)
+    if not torch.equal(thr, thr_ref):
+        raise AssertionError(f"fused_sparse_decode_attention {case}: "
+                             "[t, need] differ")
+    err = close(got, want, BF16_TOL)
+    ms = time_ms(lambda: sa_ops.fused_sparse_decode_attention(
+        q, k, v, cq, ck, valid, **kw), 30)
+    read, pairs = _rows_read(sa_ref, cq, ck, valid,
+                             {x: kw[x] for x in kw if x != "scale"})
+    live = int(valid.sum()) * hk
+    moved = (2 * nbytes(q) + nbytes(cq, valid) + live * m
+             + 2 * read * dh * k.element_size())
+    _paper_row(out, "fused_sparse_decode_attention", case, ms,
+               bound(moved, 4 * dh * pairs, bf16), err)
+    d, f, ga, r = 2560, 1280, 4, 16
+    rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=8 * f, num_groups=8,
+                              active_groups=ga, activation="relu",
+                              gated=False)
+    wts, lora = _ffn_weights(torch, gen, 8, d, f, r, bf16)
+    del wts["w_gate"], lora["lora_gate"]
+    x = torch.randn(b, d, device="cuda", generator=gen).to(bf16)
+    router = torch.randn(d, 8, device="cuda", generator=gen) / d ** 0.5
+    choice, gate, _ = rf.route(x[:, None], router, rcfg, need_aux=False)
+    choice, gate = choice[:, 0].contiguous(), gate[:, 0].contiguous()
+    args = (x, choice, gate, wts["w_inner"], wts["w_outer"], None, lora, 1.0)
+    case = f"OPT-2.7B decode (x ({b}, {d}), F={f}, relu ungated, LoRA r={r})"
+    y = _twice(torch, lambda: ffn_ops.decode_ffn(*args, act="relu"),
+               f"decode_ffn {case}")
+    err = close(y, ffn_ref.decode_ffn_ref(*args, act="relu"), BF16_TOL)
+    ms = time_ms(lambda: ffn_ops.decode_ffn(*args, act="relu"), 30)
+    blocks = int(torch.unique(choice).numel())
+    moved = (blocks * 2 * d * f * x.element_size()
+             + sum(nbytes(*t.values()) for t in lora.values())
+             + nbytes(x, choice, gate) + b * d * x.element_size())
+    _paper_row(out, "decode_ffn", case, ms,
+               bound(moved, b * ga * 2 * d * f * 2, bf16), err)
+    return out
+
+
 # ------------------------------------------------------------ phases 4-6
 def _perturbed_model(torch, cfg, seed):
     """Random full-width weights from a seed; LoRA c leaves (zero at
@@ -1232,24 +1458,30 @@ def _requests(n, lo, hi, gen_tokens, vocab, seed):
 SERVE_CFG = dict(attn_impl="pallas", ffn_impl="pallas")
 PAGED = dict(kv_layout="paged", kv_page_size=128)
 PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
+# serve workloads (requests, prompt lengths lo-hi from numpy seed 2, new
+# tokens, max_len) on 8 slots, decode chunks of 16: phases 4-5, and the
+# paper's OPT-2.7B in phase 10
+PHASE4_WORK = dict(n=16, lo=128, hi=2048, gen=64, max_len=4096)
+PAPER_WORK = dict(n=8, lo=128, hi=1024, gen=32, max_len=2048)
 
 
-def _serve(torch, model, cfg, label, kv_pages=None):
-    """Engine.run of the phase-4 workload (16 requests, prompts 128-2048,
-    64 new tokens, 8 slots, max_len 4096) after a warm-up run, the launch
-    counters zeroed just before and read just after.  Checks that every
-    request completes and that the decode and prefill kernels of the
-    path launched once per layer per step / prefill group; returns the
-    launch counts."""
+def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
+    """Engine.run of a workload (phase 4's by default: 16 requests,
+    prompts 128-2048, 64 new tokens, 8 slots, max_len 4096) after a
+    warm-up run, the launch counters zeroed just before and read just
+    after.  Checks that every request completes and that the decode and
+    prefill kernels of the path launched once per layer per step /
+    prefill group; returns the launch counts and the stats."""
     from repro_torch import kernels
     from repro_torch.core import dispatch
     from repro_torch.core.params import count_params
     from repro_torch.models.transformer import lm_defs
     from repro_torch.serving.engine import Engine
-    eng = Engine(cfg, model, max_len=4096, num_slots=8, decode_chunk=16,
-                 kv_pages=kv_pages)
+    eng = Engine(cfg, model, max_len=work["max_len"], num_slots=8,
+                 decode_chunk=16, kv_pages=kv_pages)
     eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1))     # warm-up
-    reqs = _requests(16, 128, 2048, 64, cfg.vocab_size, seed=2)
+    reqs = _requests(work["n"], work["lo"], work["hi"], work["gen"],
+                     cfg.vocab_size, seed=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = kernels.wrappers()
@@ -1262,7 +1494,8 @@ def _serve(torch, model, cfg, label, kv_pages=None):
     launches = {w.__name__: w.launches for w in wrappers}
     st = eng.last_stats
     for c in outs:
-        if len(c.tokens) != 64 or not all(0 <= t < cfg.padded_vocab for t in c.tokens):
+        if len(c.tokens) != work["gen"] or not all(
+                0 <= t < cfg.padded_vocab for t in c.tokens):
             raise AssertionError(f"request {c.uid}: {len(c.tokens)} tokens "
                                  f"({c.finish_reason})")
     layers = cfg.num_layers
@@ -1299,15 +1532,16 @@ def _serve(torch, model, cfg, label, kv_pages=None):
                      kv_pages_peak=st.kv_pages_peak,
                      admission_stalls=st.admission_stalls)
     print(f"  {label} " + json.dumps(stats), flush=True)
+    print(f"  {label} ServeStats " + json.dumps(st.as_dict()), flush=True)
     print(f"  {label} launches " + json.dumps(launches), flush=True)
-    return launches
+    return launches, stats
 
 
 def serve_full_width(torch):
     from repro_torch import configs
     cfg = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG)
     model = _perturbed_model(torch, cfg, seed=0)
-    launches = _serve(torch, model, cfg, "serve")
+    launches, _ = _serve(torch, model, cfg, "serve")
     decode_step_split(torch, model, cfg)
     return launches, model
 
@@ -1320,17 +1554,17 @@ def serve_paged(torch, model):
     from repro_torch import configs
     base = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG, **PAGED)
     launches = {"serve_paged": _serve(torch, model, base, "paged serve",
-                                      kv_pages=PAGED_POOL)}
+                                      kv_pages=PAGED_POOL)[0]}
     decode_step_split(torch, model, base, paged=True)
     launches["serve_paged_two_pass"] = _serve(
         torch, model, base.with_spt(kv_paged_native="gather",
                                     decode_attn_fuse="two_pass"),
-        "paged gathered two-pass serve", kv_pages=PAGED_POOL)
+        "paged gathered two-pass serve", kv_pages=PAGED_POOL)[0]
     dense_cfg = base.with_spt(sparse_mha=False)
     dense = _perturbed_model(torch, dense_cfg, seed=0)
     launches["serve_paged_dense"] = _serve(torch, dense, dense_cfg,
                                            "paged dense serve",
-                                           kv_pages=PAGED_POOL)
+                                           kv_pages=PAGED_POOL)[0]
     return launches
 
 
@@ -1409,6 +1643,78 @@ DECODE_KERNELS = {"fused_sparse_decode_attention", "decode_topl_thresholds",
                   "dense_decode_attention_paged"}
 
 
+def _streams(torch, model, cfg, reqs, kernels_on, max_len=1024):
+    """Greedy streams of reqs (4 slots, chunks of 8), with the kernels or
+    under REPRO_DISABLE_KERNELS=1; and the decode kernels that launched."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine
+    if not kernels_on:
+        os.environ["REPRO_DISABLE_KERNELS"] = "1"
+    try:
+        before = {w.__name__: w.launches for w in kernels.wrappers()}
+        eng = Engine(cfg, model, max_len=max_len, num_slots=4, decode_chunk=8)
+        out = [c.tokens for c in eng.run(reqs)]
+        torch.cuda.synchronize()
+        ran = {w.__name__ for w in kernels.wrappers()
+               if w.launches != before[w.__name__]}
+    finally:
+        os.environ.pop("REPRO_DISABLE_KERNELS", None)
+    return out, ran & DECODE_KERNELS
+
+
+def _compare_streams(torch, model, cfg, reqs, name, got, want, max_len=1024):
+    """got == want per request, except past a logit near-tie (<= 1e-3) at
+    the first divergence, replayed through the oracle's ragged prefill."""
+    from repro_torch.models import transformer
+    os.environ["REPRO_DISABLE_KERNELS"] = "1"
+    flips = 0
+    try:
+        for req, g, w in zip(reqs, got, want):
+            if g == w:
+                continue
+            t = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+            ctx = list(req.tokens) + w[:t]
+            with torch.no_grad():
+                _, logits = transformer.lm_prefill_ragged(
+                    model, cfg, {"tokens": torch.tensor([ctx], device="cuda")},
+                    torch.tensor([len(ctx)], device="cuda"), max_len)
+            lg = logits[0, -1].float().cpu().numpy()
+            gap = float(lg.max()) - min(float(lg[g[t]]), float(lg[w[t]]))
+            if gap > 1e-3:
+                raise AssertionError(f"{name}: request {req.uid} diverged "
+                                     f"at step {t} with a logit gap {gap:.3e}")
+            flips += 1
+    finally:
+        os.environ.pop("REPRO_DISABLE_KERNELS", None)
+    print(f"  f32 greedy streams, {name} == REPRO_DISABLE_KERNELS=1 "
+          f"for {len(reqs) - flips}/{len(reqs)} requests, {flips} replayed "
+          "near-tie flips (<= 1e-3)", flush=True)
+
+
+def _tier_agreement(torch, model, base, reqs, tiers):
+    """Each decode tier's streams against the oracle's; each tier launches
+    its decode kernels and no other, and the kernel tiers give the first
+    tier's streams exactly (bit-identical kernels over a deterministic
+    prefill)."""
+    oracle, ran = _streams(torch, model, base, reqs, False)
+    if ran:
+        raise AssertionError(f"the oracle launched {ran}")
+    first = None
+    for name in tiers:
+        spt, must = TIERS[name]
+        got, ran = _streams(torch, model, base.with_spt(**spt), reqs, True)
+        if ran != must:
+            raise AssertionError(f"{name}: decode kernels {ran} != {must}")
+        _compare_streams(torch, model, base, reqs, name, got, oracle)
+        if first is None:
+            first = got
+        elif got != first:
+            raise AssertionError(f"{name}: streams differ from the "
+                                 f"{tiers[0]} tier's")
+    print(f"  {', '.join(tiers[1:])} streams identical to {tiers[0]} for "
+          f"all {len(reqs)} requests", flush=True)
+
+
 def agree_f32(torch):
     """Phase 6: 4 layers in f32, 8 requests over 4 slots; every decode
     tier's greedy streams against REPRO_DISABLE_KERNELS=1 (contiguous,
@@ -1417,81 +1723,22 @@ def agree_f32(torch):
     kernels and no other decode kernel, and the sparse kernel tiers must
     give exactly the contiguous fused tier's streams (bit-identical
     kernels over a deterministic prefill)."""
-    from repro_torch import configs, kernels
-    from repro_torch.models import transformer
-    from repro_torch.serving.engine import Engine
+    from repro_torch import configs
     base = dataclasses.replace(configs.get_config("qwen3-0.6b"), num_layers=4,
                                dtype=torch.float32).with_spt(**SERVE_CFG)
     reqs = _requests(8, 64, 512, 16, base.vocab_size, seed=4)
-
-    def streams(model, cfg, kernels_on):
-        if not kernels_on:
-            os.environ["REPRO_DISABLE_KERNELS"] = "1"
-        try:
-            before = {w.__name__: w.launches for w in kernels.wrappers()}
-            eng = Engine(cfg, model, max_len=1024, num_slots=4, decode_chunk=8)
-            out = [c.tokens for c in eng.run(reqs)]
-            torch.cuda.synchronize()
-            ran = {w.__name__ for w in kernels.wrappers()
-                   if w.launches != before[w.__name__]}
-        finally:
-            os.environ.pop("REPRO_DISABLE_KERNELS", None)
-        return out, ran & DECODE_KERNELS
-
-    def compare(model, cfg, name, got, want):
-        os.environ["REPRO_DISABLE_KERNELS"] = "1"
-        flips = 0
-        try:
-            for req, g, w in zip(reqs, got, want):
-                if g == w:
-                    continue
-                t = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
-                ctx = list(req.tokens) + w[:t]
-                with torch.no_grad():
-                    _, logits = transformer.lm_prefill_ragged(
-                        model, cfg, {"tokens": torch.tensor([ctx], device="cuda")},
-                        torch.tensor([len(ctx)], device="cuda"), 1024)
-                lg = logits[0, -1].float().cpu().numpy()
-                gap = float(lg.max()) - min(float(lg[g[t]]), float(lg[w[t]]))
-                if gap > 1e-3:
-                    raise AssertionError(f"{name}: request {req.uid} diverged "
-                                         f"at step {t} with a logit gap {gap:.3e}")
-                flips += 1
-        finally:
-            os.environ.pop("REPRO_DISABLE_KERNELS", None)
-        print(f"  4-layer f32 greedy streams, {name} == REPRO_DISABLE_KERNELS=1 "
-              f"for {len(reqs) - flips}/{len(reqs)} requests, {flips} replayed "
-              "near-tie flips (<= 1e-3)", flush=True)
-
     model = _perturbed_model(torch, base, seed=3)
     model.to(torch.float32)
-    oracle, ran = streams(model, base, False)
-    if ran:
-        raise AssertionError(f"the oracle launched {ran}")
-    fused = None
-    for name, (spt, must) in TIERS.items():
-        got, ran = streams(model, base.with_spt(**spt), True)
-        if ran != must:
-            raise AssertionError(f"{name}: decode kernels {ran} != {must}")
-        compare(model, base, name, got, oracle)
-        # the kernel tiers are bit-identical by design (same splits, same
-        # attention body), and the prefill is deterministic: equal streams
-        if fused is None:
-            fused = got
-        elif got != fused:
-            raise AssertionError(f"{name}: streams differ from the "
-                                 "contiguous fused tier's")
-    print(f"  contiguous two-pass, paged native and paged gathered two-pass "
-          f"streams identical to contiguous fused for all {len(reqs)} "
-          "requests", flush=True)
+    _tier_agreement(torch, model, base, reqs, list(TIERS))
     dense_cfg = base.with_spt(sparse_mha=False)
     dense = _perturbed_model(torch, dense_cfg, seed=3)
     dense.to(torch.float32)
-    d_oracle, _ = streams(dense, dense_cfg, False)
-    got, ran = streams(dense, dense_cfg.with_spt(**PAGED), True)
+    d_oracle, _ = _streams(torch, dense, dense_cfg, reqs, False)
+    got, ran = _streams(torch, dense, dense_cfg.with_spt(**PAGED), reqs, True)
     if ran != {"dense_decode_attention_paged"}:
         raise AssertionError(f"paged dense: decode kernels {ran}")
-    compare(dense, dense_cfg, "paged dense native", got, d_oracle)
+    _compare_streams(torch, dense, dense_cfg, reqs, "paged dense native", got,
+                     d_oracle)
 
 
 # ------------------------------------------------------------ phases 7-8
@@ -1515,20 +1762,34 @@ def _c_leaves(state):
     return [(".".join(p), v) for p, v in leaves(state["train"]) if p[-1] == "c"]
 
 
-def train_full_width(torch):
-    """Three steps of Trainer.run on full-width qwen3-0.6b in bf16, batch
-    4 x 1024 from the seeded random stream, with the launch counters zeroed
-    just before and read just after; then one more step under the
-    profiler for the device-busy share."""
-    from torch.profiler import ProfilerActivity, profile
+def _want_train_launches(cfg, names, steps):
+    """Launches of a train run: per layer per step, kernels 1, 2, 4 four,
+    two and two times with sparse MHA (the checkpointed forward runs
+    twice), kernel 9 twice with the routed FFN; nothing else."""
+    per_step = cfg.num_layers * steps
+    want = {name: 0 for name in names}
+    if cfg.spt.sparse_mha:
+        want.update({"pq_assign": 4 * per_step,
+                     "topl_thresholds": 2 * per_step,
+                     "sparse_attention": 2 * per_step})
+    if cfg.spt.routed_ffn:
+        want["grouped_ffn"] = 2 * per_step
+    return want
+
+
+def _train_run(torch, cfg, steps, label, profile=True, seed=0):
+    """``steps`` steps of Trainer.run in bf16, batch 4 x 1024 from the
+    seeded random stream, the launch counters zeroed just before and read
+    just after (checked against _want_train_launches); then, with
+    ``profile``, one more step under the profiler for the device-busy
+    share.  Returns (launches, per-step rows, peak GiB, trainer)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch import kernels
     from repro_torch.optim.adamw import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    steps = 3
-    cfg = _train_cfg(torch)
     trainer = Trainer(cfg, OptimizerConfig(lr=1e-3, total_steps=steps),
                       TrainerConfig(total_steps=steps, log_interval=1),
-                      seed=0, device="cuda")
+                      seed=seed, device="cuda")
     if any(bool(v.any()) for _, v in _c_leaves(trainer.state)):
         raise AssertionError("LoRA c leaves are not zero at init")
     rows = []
@@ -1541,7 +1802,7 @@ def train_full_width(torch):
                      "lm_loss": m["lm_loss"], "grad_norm": m["grad_norm"],
                      "lr": m["lr"], "lb_loss": m["lb_loss"],
                      "dropped": m["dropped"]})
-        print("  step " + json.dumps(rows[-1]), flush=True)
+        print(f"  {label} step " + json.dumps(rows[-1]), flush=True)
         clock[0] = time.perf_counter()
         if step == 1:
             for name, v in _c_leaves(trainer.state):
@@ -1564,21 +1825,19 @@ def train_full_width(torch):
                 and r["grad_norm"] > 0):
             raise AssertionError(f"step {r['step']}: loss {r['loss']}, "
                                  f"grad_norm {r['grad_norm']}")
-    per_step = cfg.num_layers * steps
-    want = {name: 0 for name in launches}
-    want.update({"pq_assign": 4 * per_step, "topl_thresholds": 2 * per_step,
-                 "sparse_attention": 2 * per_step,
-                 "grouped_ffn": 2 * per_step})
+    want = _want_train_launches(cfg, launches, steps)
     if launches != want:
-        raise AssertionError(f"train launches {launches} != expected {want}")
-    print(f"  train peak memory {peak:.2f} GiB; launches "
+        raise AssertionError(f"{label} launches {launches} != expected {want}")
+    print(f"  {label} peak memory {peak:.2f} GiB; launches "
           + json.dumps(launches), flush=True)
+    if not profile:
+        return launches, rows, peak, trainer
 
     batch = next(_batches(cfg, TB, TS, 1, seed=1))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer._step(trainer.state, batch)
         torch.cuda.synchronize()
     wall_prof = (time.perf_counter() - t0) * 1e3
@@ -1587,19 +1846,25 @@ def train_full_width(torch):
     top = sorted((r for r in top if r[0] > 0), reverse=True)
     device = sum(r[0] for r in top)
     wall = rows[-1]["wall_s"] * 1e3
-    print(f"  train step (4 x 1024, bf16): device {device:.1f} ms in "
-          f"{sum(r[1] for r in top)} kernels; wall {wall:.1f} ms (step 3), "
-          f"{wall_prof:.1f} ms (profiled step); device busy "
-          f"{device / wall:.0%} of step 3", flush=True)
+    print(f"  {label} step (4 x 1024, bf16): device {device:.1f} ms in "
+          f"{sum(r[1] for r in top)} kernels; wall {wall:.1f} ms (step "
+          f"{steps}), {wall_prof:.1f} ms (profiled step); device busy "
+          f"{device / wall:.0%} of step {steps}", flush=True)
     for ms, n, name in top[:10]:
         print(f"    {ms:9.3f} ms  x{n:6d}  {name[:90]}", flush=True)
     for kern in ("pq_assign_", "topl_thresholds_kernel",
-                 "sparse_attention_bf16_kernel", "grouped_ffn_kernel"):
+                 "sparse_attention_bf16_kernel", "grouped_ffn"):
         hit = [(ms, n) for ms, n, name in top if kern in name]
         ms, n = sum(h[0] for h in hit), sum(h[1] for h in hit)
         print(f"    {kern}: {ms:.1f} ms in {n} launches "
               f"({ms / max(n, 1):.4f} ms each, profiler)", flush=True)
-    return launches
+    return launches, rows, peak, trainer
+
+
+def train_full_width(torch):
+    """Phase 7: three steps of Trainer.run on full-width qwen3-0.6b in
+    bf16, batch 4 x 1024, then one profiled step."""
+    return _train_run(torch, _train_cfg(torch), 3, "train")[0]
 
 
 def _grad_check(what, got, want, tol):
@@ -1649,8 +1914,7 @@ def train_agree_f32(torch):
     check.  LoRA c leaves get small values first so that every LoRA
     gradient is non-zero."""
     from repro_torch.core.params import combine, leaves, unflatten
-    from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import transformer
     from repro_torch.train.state import init_state
     cfg = _train_cfg(torch, num_layers=4, dtype=torch.float32)
     state = init_state(cfg, seed=5, device="cuda")
@@ -1668,8 +1932,7 @@ def train_agree_f32(torch):
     units = transformer._unit_trees(params, cfg)
     os.environ["REPRO_DISABLE_KERNELS"] = "1"
     with torch.no_grad():
-        h = [layers.embed_lookup(params["embed"], batch["tokens"],
-                                 cfg.scale_embed, cfg.d_model)]
+        h = [transformer._embed_inputs(params, cfg, batch["tokens"])]
         for unit in units[:-1]:
             h.append(transformer.block_apply(unit["b0_attn"], h[-1], cfg,
                                              mode="train")[0])
@@ -1701,13 +1964,23 @@ def train_agree_f32(torch):
     print(f"  4 f32 blocks, same inputs: outputs within {worst[0]:.2e} x "
           f"max, gradients within {worst[1]:.2e} x max |g|", flush=True)
 
-    # (b) the whole train step, beside the oracle's own sensitivity: the
-    # oracle again with the embedding perturbed by 1e-6 (relative)
+    # (b) the whole train step
+    _step_agreement(torch, cfg, state, batch, gen, "4-layer f32 train step")
+
+
+def _step_agreement(torch, cfg, state, batch, gen, label):
+    """The loss and whole gradient of one train step with kernels on
+    against REPRO_DISABLE_KERNELS=1: loss to rel 1e-4, cosine of the two
+    gradients (every trainable leaf, flattened) >= 0.99, printed beside
+    the oracle's own move under 1e-6 (relative) noise on the embedding."""
+    from repro_torch.core.params import leaves
+    from repro_torch.launch.steps import loss_and_grads
     (lk, _, gk), (lo, _, go) = _both_modes(
         lambda: loss_and_grads(state, cfg, batch))
     rel = abs(float(lk) - float(lo)) / abs(float(lo))
     if rel > 1e-4:
-        raise AssertionError(f"loss {float(lk)} vs {float(lo)} (rel {rel:.2e})")
+        raise AssertionError(f"{label}: loss {float(lk)} vs {float(lo)} "
+                             f"(rel {rel:.2e})")
     emb = state["frozen"]["embed"]["embedding"]
     noisy = dict(state, frozen=dict(state["frozen"], embed={
         "embedding": emb * (1 + 1e-6 * torch.randn(emb.shape, device="cuda",
@@ -1719,14 +1992,182 @@ def train_agree_f32(torch):
     fk, fo, fn = flat(gk), flat(go), flat(gn)
     cos = float(torch.dot(fk, fo) / (fk.norm() * fo.norm()))
     if cos < 0.99:
-        raise AssertionError(f"gradient cosine {cos:.6f} < 0.99")
+        raise AssertionError(f"{label}: gradient cosine {cos:.6f} < 0.99")
     d_k = float((fk - fo).norm() / fo.norm())
     d_n = float((fn - fo).norm() / fo.norm())
-    print(f"  4-layer f32 train step: loss {float(lk):.6f} (kernels) vs "
+    print(f"  {label}: loss {float(lk):.6f} (kernels) vs "
           f"{float(lo):.6f} (REPRO_DISABLE_KERNELS=1), rel {rel:.2e}; whole "
           f"gradient cosine {cos:.6f}, |g_k - g_o| / |g_o| = {d_k:.2e}; the "
           f"oracle with 1e-6 noise on the embedding moves it {d_n:.2e}",
           flush=True)
+
+
+# ------------------------------------------------------------ phases 9-11
+PAPER_BLOCKS = ("opt-1024", "opt-2048", "opt-2560", "llama-2560",
+                "llama-4096")
+
+
+def _add(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_paper_blocks(torch):
+    """Phase 9: each Table-2 block at full width, one layer (the paper's
+    unit), its real vocabulary, bf16, random weights from a seed: three
+    steps of Trainer.run at 4 x 1024 under apply_variant "spt" (kernels
+    1, 2, 4 and 9: exactly 4, 2, 2 and 2 launches per layer per step),
+    then "lora" (dense attention and FFN: no kernel).  Prints tok/s at
+    step 3 and the peak memory of each; returns the summed launches."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import apply_variant
+    total, table = {}, []
+    for name in PAPER_BLOCKS:
+        base = configs.get_config(name).with_spt(**SERVE_CFG)
+        for variant in ("spt", "lora"):
+            cfg = apply_variant(base, variant)
+            launches, rows, peak, trainer = _train_run(
+                torch, cfg, 3, f"{name} {variant}", profile=False)
+            del trainer                 # the next run's peak is its own
+            total = _add(total, launches)
+            table.append({"block": name, "variant": variant,
+                          "tok_s_step3": rows[-1]["tok_s"],
+                          "step3_s": rows[-1]["wall_s"],
+                          "loss_step3": rows[-1]["loss"],
+                          "peak_gib": peak})
+            _free(torch)
+    for row in table:
+        print("  [9] " + json.dumps(row), flush=True)
+    return total
+
+
+def prefill_paper(torch, model, cfg):
+    """lm_prefill (through steps.build_prefill_step) of 4 x 1024 tokens,
+    the counters zeroed just before and read just after: kernels 1, 2, 4
+    and 9 launch exactly 2, 1, 1 and 1 times per layer; finite logits of
+    (4, 1, V); every cache slot written."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import build_prefill_step
+    toks = torch.as_tensor(next(_batches(cfg, TB, TS, 1, seed=2))["tokens"],
+                           device="cuda")
+    prefill = build_prefill_step(cfg, TS)
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    caches, logits = prefill(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    nl = cfg.num_layers
+    want = {name: 0 for name in launches}
+    want.update({"pq_assign": 2 * nl, "topl_thresholds": nl,
+                 "sparse_attention": nl, "grouped_ffn": nl})
+    if launches != want:
+        raise AssertionError(f"lm_prefill launches {launches} != {want}")
+    if logits.shape != (TB, 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"lm_prefill logits {tuple(logits.shape)}")
+    sp = caches["units"]["b0_attn"]["slot_pos"]
+    if not bool((sp == torch.arange(TS, device="cuda")).all()):
+        raise AssertionError("lm_prefill: slot_pos is not 0..S-1")
+    print(f"  {cfg.name} lm_prefill 4 x 1024: {wall * 1e3:.1f} ms, "
+          f"{TB * TS / wall:.1f} tok/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          + json.dumps(launches), flush=True)
+    return launches
+
+
+def paper_models(torch):
+    """Phase 10: opt-2.7b and llama-2.7b (32 layers, bf16) each take 2
+    steps of Trainer.run at 4 x 1024 (launches 128 / 64 / 64 / 64 of
+    kernels 1 / 2 / 4 / 9 per step) and one profiled step; opt-2.7b's
+    trained weights then run lm_prefill at 4 x 1024 and serve 8 requests
+    (prompts 128-1024, 32 new tokens, 8 slots, max_len 2048, chunks of 16)
+    on the contiguous layout (kernels 6 and 10 once per layer per decode
+    step, kernel 9 once per layer per prefill group).  Returns the
+    launches by path."""
+    from repro_torch import configs
+    from repro_torch.core.params import combine
+    from repro_torch.models import transformer
+    paths = {}
+    cfg = configs.get_config("opt-2.7b").with_spt(**SERVE_CFG)
+    paths["paper_train"], _, _, trainer = _train_run(torch, cfg, 2,
+                                                     "opt-2.7b train")
+    model = transformer.LM(cfg, combine(trainer.state["train"],
+                                        trainer.state["frozen"]))
+    del trainer
+    _free(torch)
+    paths["paper_prefill"] = prefill_paper(torch, model, cfg)
+    paths["paper_serve"], _ = _serve(torch, model, cfg, "opt-2.7b serve",
+                                     work=PAPER_WORK)
+    del model
+    _free(torch)
+    cfg = configs.get_config("llama-2.7b").with_spt(**SERVE_CFG)
+    launches, _, _, trainer = _train_run(torch, cfg, 2, "llama-2.7b train")
+    paths["paper_train"] = _add(paths["paper_train"], launches)
+    del trainer
+    _free(torch)
+    return paths
+
+
+def paper_agree_f32(torch):
+    """Phase 11: an OPT-2560-width model (learned positions, LayerNorm,
+    ungated ReLU, R = 1, dh 80, M = 10) cut to 2 layers, in f32, kernels
+    on against REPRO_DISABLE_KERNELS=1: the greedy streams of the
+    contiguous (kernel 6) and paged kernel-native (kernel 7) tiers, as
+    phase 6 holds them; lm_prefill's logits, K and V of every layer to
+    max-abs <= 1e-5 x max (phase 8's per-block tolerance), slot_pos
+    equal and codes equal up to the margin rule; one train step's loss
+    and gradient cosine, as phase 8 (b)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train.state import init_state
+    base = dataclasses.replace(configs.get_config("opt-2.7b"), num_layers=2,
+                               dtype=torch.float32).with_spt(**SERVE_CFG)
+    reqs = _requests(8, 64, 512, 16, base.vocab_size, seed=4)
+    model = _perturbed_model(torch, base, seed=3)
+    model.to(torch.float32)
+    _tier_agreement(torch, model, base, reqs,
+                    ["contiguous fused", "paged native"])
+
+    toks = torch.as_tensor(next(_batches(base, 2, 512, 1, seed=8))["tokens"],
+                           device="cuda")
+    (ck, lk), (co, lo) = _both_modes(
+        lambda: transformer.lm_prefill(model, base, {"tokens": toks}, 512))
+    worst = _grad_check("lm_prefill logits", lk.float(), lo.float(), 1e-5)
+    blk_k, blk_o = ck["units"]["b0_attn"], co["units"]["b0_attn"]
+    if not torch.equal(blk_k["slot_pos"], blk_o["slot_pos"]):
+        raise AssertionError("lm_prefill slot_pos differ")
+    flips = 0
+    for u, unit in enumerate(model.units):
+        for key in ("k", "v"):
+            worst = max(worst, _grad_check(f"lm_prefill layer {u} {key}",
+                                           blk_k[key][u], blk_o[key][u],
+                                           1e-5))
+        flips += _margin_flips(torch, blk_k["codes"][u], blk_o["k"][u],
+                               unit["b0_attn"]["mixer"]["pq"]["codebooks"],
+                               f"lm_prefill layer {u} cache codes")[0]
+    print(f"  2-layer f32 OPT-2560 lm_prefill (2 x 512): logits, K and V "
+          f"within {worst:.2e} x max of REPRO_DISABLE_KERNELS=1; slot_pos "
+          f"equal; {flips} cache codes differ (margin rule)", flush=True)
+
+    state = init_state(base, seed=5, device="cuda")
+    state["frozen"] = _map_tree(lambda x: x.float(), state["frozen"])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for _, v in _c_leaves(state):
+        v.copy_(torch.randn(v.shape, device="cuda", generator=gen) * 0.01)
+    batch = next(_batches(base, 2, 512, 1, seed=7))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    _step_agreement(torch, base, state, batch, gen,
+                    "2-layer f32 OPT-2560 train step")
 
 
 def _map_tree(fn, tree):
@@ -1737,11 +2178,12 @@ def _map_tree(fn, tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "serve", "train"),
+    ap.add_argument("--only", choices=("kernels", "serve", "train", "paper"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
-                         "after the serving phases (1-6), or skip the "
-                         "serving phases (4-6)")
+                         "run the serving phases (1-6), the qwen3 training "
+                         "phases (1-3, 7-8) or the paper's models (1-3, "
+                         "9-11) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1780,13 +2222,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     thr3, attn5 = check_two_pass(torch, gen)
     paged7, dense8 = check_paged(torch, gen)
-    check_decode_edges(torch, gen)
+    paper = check_decode_edges(torch, gen)
     rows = [check_pq_assign(torch, gen), check_topl_thresholds(torch, gen),
             thr3, check_sparse_attention(torch, gen), attn5,
             check_decode_attention(torch, gen), paged7, dense8,
             check_grouped_ffn(torch, gen), check_decode_ffn(torch, gen)]
     if [r["name"] for r in rows] != [w.__name__ for w in kernels.wrappers()]:
         raise AssertionError("phase 3 does not cover every kernel wrapper")
+    for name, cases in check_paper_shapes(torch, gen).items():
+        paper.setdefault(name, []).extend(cases)
+    for row in rows:                    # the paper's shapes, each kernel
+        row["paper_shapes"] = paper[row["name"]]
     for row in rows[:2]:                # the bodies of kernels 1 and 2
         row["ptxas"] = [f"{fn}: {regs} registers, {smem} B static smem, "
                         f"{spill} B spilled"
@@ -1802,7 +2248,8 @@ def main() -> int:
     print(f"[3] took {time.perf_counter() - t0:.1f} s", flush=True)
     paths = {p: {r["name"]: 0 for r in rows}
              for p in ("serve", "serve_paged", "serve_paged_two_pass",
-                       "serve_paged_dense", "train")}
+                       "serve_paged_dense", "train", "paper_blocks",
+                       "paper_train", "paper_prefill", "paper_serve")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -1832,6 +2279,23 @@ def main() -> int:
               flush=True)
         train_agree_f32(torch)
         print(f"[8] took {time.perf_counter() - t1:.1f} s", flush=True)
+    if args.only in (None, "paper"):
+        # 9. the paper's Table-2 blocks, spt and lora
+        t0 = time.perf_counter()
+        print("[9] paper blocks at full width, 1 layer, 3 steps of 4 x 1024, "
+              "spt then lora", flush=True)
+        paths["paper_blocks"] = train_paper_blocks(torch)
+        # 10. opt-2.7b and llama-2.7b at full depth: train, prefill, serve
+        t1 = time.perf_counter()
+        print(f"[10] opt-2.7b and llama-2.7b (phase 9 took {t1 - t0:.1f} s)",
+              flush=True)
+        paths.update(paper_models(torch))
+        # 11. card-side agreement at the OPT-2560 width
+        t2 = time.perf_counter()
+        print(f"[11] 2-layer f32 OPT-2560 agreement (phase 10 took "
+              f"{t2 - t1:.1f} s)", flush=True)
+        paper_agree_f32(torch)
+        print(f"[11] took {time.perf_counter() - t2:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

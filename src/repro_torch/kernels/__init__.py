@@ -36,7 +36,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_fused_sparse_decode": ([_I] + [_P] * 10 + [_I] * 9
                                   + [_F] + [_I] * 3 + [_P]),
-    "repro_grouped_ffn": [_I] + [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    "repro_grouped_ffn": [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _P],
+    "repro_grouped_ffn_h_elems": [_I] * 3,
     "repro_decode_ffn": [_I] + [_P] * 14 + [_I] * 6 + [_F, _I, _P],
     "repro_pq_assign": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 3
                        + [_P],

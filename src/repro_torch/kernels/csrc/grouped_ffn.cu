@@ -50,7 +50,10 @@
 //   the wgmma instructions behind a compiler-inserted warpgroup arrive;
 //   a warp-specialised producer with mbarriers is the next step.
 //
-//   It needs d and F to be multiples of 8 (16-byte cp.async rows).
+//   It needs d and F to be multiples of 8 (16-byte cp.async rows).  The
+//   resident x and h tiles fit a block's 227 KB up to qwen3's d = 1024,
+//   F = 384; wider FFNs (every paper block) run the wide form below: two
+//   tensor-core kernels with h in device memory between them.
 //
 // f32 — CUDA cores (grouped_ffn_kernel<RT>), the body of the port's first
 //   version, now for f32 data only: the x and h tiles in shared memory as f32,
@@ -696,6 +699,332 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
   }
 }
 
+// ------------------------------- the wide form: two passes through h
+// Where the resident x and h tiles above exceed a block's shared memory
+// (every paper block: d >= 1024 with F >= 512), the same function runs
+// as two tensor-core kernels with h (B, G, C, F) in bf16 device memory
+// between them.  Both stream their A operand as well as the weights
+// through a 3-stage cp.async ring of 64-row stages: an A slice of 64
+// slots x 64 contraction columns (one swizzled K-major tile) beside
+// 64-row MN-major weight blocks.  Per 64-slot tile (kept tiles only, as
+// above):
+//   up:   one block per 128 hidden columns: x rows gathered per stage,
+//         x W_I (and x W_gate) by m64n64k16, one warpgroup per 64
+//         columns; LoRA: s x [B_I | B_gate] first (one pass over d),
+//         then one extra stage of [C_I ; C_gate] rows; act (x gate) in
+//         f32, h rounded to bf16 (as the resident body rounds it).
+//   down: one block per 256 output columns: h W_O[g] by m64n128k16;
+//         LoRA: s h B_O[g] (one pass over F), then one stage of C_O rows.
+//         A tile that keeps no slot writes zeros here.
+constexpr int KS = 64;                   // contraction rows per stage
+constexpr int WBLK = KS * 128;           // one 64-column B block (8 KB)
+constexpr int WSTAGE = TILE + 4 * WBLK;  // A slice + 256 B columns: 40 KB
+
+__device__ __forceinline__ uint32_t bw_off(int k, int n) {
+  return (n >> 6) * WBLK + k * 128 + ((((n & 63) >> 3) ^ (k & 7)) << 4) +
+         (n & 7) * 2;
+}
+
+// pipeline() over WSTAGE-byte stages.
+template <typename Load, typename Issue>
+__device__ __forceinline__ void pipeline_w(int n, uint32_t ring, Load load,
+                                           Issue issue) {
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load(s, ring + s * WSTAGE);
+    cp_commit();
+  }
+  for (int t = 0; t < n; ++t) {
+    cp_wait_stages();
+    fence_async();
+    __syncthreads();
+    const int nt = t + STAGES - 1;
+    if (nt < n) load(nt, ring + (nt % STAGES) * WSTAGE);
+    cp_commit();
+    issue(t, ring + (t % STAGES) * WSTAGE);
+  }
+}
+
+// Warpgroup 0's 64 x 64 product of a stage's A slice (K = 64) with its
+// first B block, into acc.
+__device__ __forceinline__ void mma_slice_n64(float (&acc)[32],
+                                              uint32_t a_tile,
+                                              uint32_t b_block) {
+  reg_fence(acc);
+  wg_arrive();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_n64(acc, desc(a_tile + kk * 32, 16), desc(b_block + kk * 2048, WBLK));
+  wg_commit_wait();
+  reg_fence(acc);
+}
+
+// s * acc (64 x 64) as a bf16 K-major A tile at `at` (warpgroup 0).
+__device__ __forceinline__ void store_scaled_tile(uint8_t* at, float scale,
+                                                  const float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(at + a_off(acc_row(i), acc_col(i))) =
+        __floats2bfloat162_rn(scale * acc[i], scale * acc[i + 1]);
+}
+
+// Whether any of the 64 slots from c0 is kept (index < S); every thread
+// of the block gets the answer.
+__device__ __forceinline__ bool tile_kept(const int32_t* __restrict__ index,
+                                          size_t row0, int c0, int C, int S) {
+  const int tid = threadIdx.x;
+  return __syncthreads_or(tid < TM && c0 + tid < C &&
+                          index[row0 + c0 + tid] < S);
+}
+
+template <bool GATED>
+__global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_up_wgmma(
+    const bf16* __restrict__ x, const int32_t* __restrict__ index,
+    const bf16* __restrict__ wi, const bf16* __restrict__ wgt,
+    const bf16* __restrict__ lib, const bf16* __restrict__ lic,
+    const bf16* __restrict__ lgb, const bf16* __restrict__ lgc,
+    bf16* __restrict__ h, int S, int d, int G, int C, int F, int r,
+    float scale, int act, int n_ct) {
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x, w = tid >> 7;
+  const int c0 = (blockIdx.x % n_ct) * TM, f0 = (blockIdx.x / n_ct) * HC;
+  const int b = blockIdx.y, g = blockIdx.z;
+  const size_t row0 = ((size_t)b * G + g) * C;
+  if (!tile_kept(index, row0, c0, C, S)) return;  // its h rows go unread
+
+  const uint32_t s_raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - (s_raw & (ALIGN - 1))) & (ALIGN - 1);
+  uint8_t* base = smem_raw + pad;
+  const uint32_t sb = s_raw + pad;
+  // [s x [B_I | B_gate] tile] [ring] [row ids]
+  const uint32_t xe = 0, ring = TILE;
+  int* rows = reinterpret_cast<int*>(base + ring + STAGES * WSTAGE);
+  const bool lora = lib != nullptr && r > 0;
+  if (tid < TM) {
+    const int c = c0 + tid;
+    rows[tid] = min(c < C ? index[row0 + c] : S, S - 1);   // empty: clamp
+  }
+  __syncthreads();
+  const int nk = (d + KS - 1) / KS;
+  auto load_x = [&](int t, uint32_t buf) {        // x columns [64 t, +64)
+    for (int e = tid; e < TM * 8; e += THREADS) {
+      const int m = e >> 3, k = t * KS + (e & 7) * 8;
+      const bool ok = k < d;
+      cp16(buf + a_off(m, (e & 7) * 8),
+           ok ? x + ((size_t)b * S + rows[m]) * d + k : x, ok);
+    }
+  };
+
+  float acc_u[32], acc_g[32];
+  if (lora) {                                      // x [B_I | B_gate]
+    zero(acc_u);
+    pipeline_w(
+        nk, sb + ring,
+        [&](int t, uint32_t buf) {
+          load_x(t, buf);
+          for (int e = tid; e < KS * 8; e += THREADS) {
+            const int kr = e >> 3, col = (e & 7) * 8, k = t * KS + kr;
+            const bool ok = k < d && (col < r || (GATED && col < 2 * r));
+            const bf16* src = col < r ? lib + (size_t)k * r + col
+                                      : lgb + (size_t)k * r + col - r;
+            cp16(buf + TILE + bw_off(kr, col), ok ? src : x, ok);
+          }
+        },
+        [&](int t, uint32_t buf) {
+          if (w == 0) mma_slice_n64(acc_u, buf, buf + TILE);
+        });
+    if (w == 0) store_scaled_tile(base + xe, scale, acc_u);
+  }
+
+  // x W_I (and x W_gate) over d, then the [C_I ; C_gate] rows against
+  // the s x B tile; columns [f0 + 64 w, +64) per warpgroup.
+  zero(acc_u);
+  zero(acc_g);
+  pipeline_w(
+      nk + (lora ? 1 : 0), sb + ring,
+      [&](int t, uint32_t buf) {
+        if (t < nk) load_x(t, buf);
+        for (int e = tid; e < (GATED ? 2 : 1) * KS * 16; e += THREADS) {
+          const int prod = e / (KS * 16);          // 0: inner, 1: gate
+          const int kr = (e >> 4) & (KS - 1), cc = e & 15, col = f0 + cc * 8;
+          const bf16* src;
+          bool ok;
+          if (t < nk) {
+            const int k = t * KS + kr;
+            ok = k < d && col < F;
+            src = (prod ? wgt : wi) + ((size_t)g * d + k) * F + col;
+          } else {                                 // rows of [C_I ; C_gate]
+            const int j = kr - (prod ? r : 0);
+            ok = j >= 0 && j < r && col < F;
+            src = (prod ? lgc : lic) + ((size_t)g * r + j) * F + col;
+          }
+          cp16(buf + TILE + prod * 2 * WBLK + bw_off(kr, cc * 8),
+               ok ? src : x, ok);
+        }
+      },
+      [&](int t, uint32_t buf) {
+        const uint32_t a = t < nk ? buf : sb + xe;
+        reg_fence(acc_u);
+        reg_fence(acc_g);
+        wg_arrive();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_n64(acc_u, desc(a + kk * 32, 16),
+                    desc(buf + TILE + w * WBLK + kk * 2048, WBLK));
+          if constexpr (GATED)
+            wgmma_n64(acc_g, desc(a + kk * 32, 16),
+                      desc(buf + TILE + (2 + w) * WBLK + kk * 2048, WBLK));
+        }
+        wg_commit_wait();
+        reg_fence(acc_u);
+        reg_fence(acc_g);
+      });
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int c = c0 + acc_row(i), f = f0 + w * 64 + acc_col(i);
+    if (c >= C || f >= F) continue;
+    float h0 = activate(GATED ? acc_g[i] : acc_u[i], act);
+    float h1 = activate(GATED ? acc_g[i + 1] : acc_u[i + 1], act);
+    if (GATED) {
+      h0 *= acc_u[i];
+      h1 *= acc_u[i + 1];
+    }
+    *reinterpret_cast<__nv_bfloat162*>(h + (row0 + c) * F + f) =
+        __floats2bfloat162_rn(h0, h1);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_down_wgmma(
+    const bf16* __restrict__ h, const int32_t* __restrict__ index,
+    const bf16* __restrict__ wo, const bf16* __restrict__ lob,
+    const bf16* __restrict__ loc, bf16* __restrict__ y, int S, int d, int G,
+    int C, int F, int r, float scale, int n_ct) {
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x, w = tid >> 7;
+  const int c0 = (blockIdx.x % n_ct) * TM, n0 = (blockIdx.x / n_ct) * OC;
+  const int b = blockIdx.y, g = blockIdx.z;
+  const size_t row0 = ((size_t)b * G + g) * C;
+  if (!tile_kept(index, row0, c0, C, S)) {         // zero rows, dropped
+    const int nc = min(OC, d - n0) / 8;
+    for (int e = tid; e < min(TM, C - c0) * nc; e += THREADS) {
+      const int m = e / nc, n = n0 + (e - m * nc) * 8;
+      *reinterpret_cast<int4*>(y + (row0 + c0 + m) * d + n) =
+          make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const uint32_t s_raw = smem_u32(smem_raw);
+  const uint32_t pad = (ALIGN - (s_raw & (ALIGN - 1))) & (ALIGN - 1);
+  uint8_t* base = smem_raw + pad;
+  const uint32_t sb = s_raw + pad;
+  const uint32_t he = 0, ring = TILE;              // [s h B_O tile] [ring]
+  const bool lora = lob != nullptr && r > 0;
+  const int nk = (F + KS - 1) / KS;
+  auto load_h = [&](int t, uint32_t buf) {        // h columns [64 t, +64)
+    for (int e = tid; e < TM * 8; e += THREADS) {
+      const int m = e >> 3, k = t * KS + (e & 7) * 8, c = c0 + m;
+      const bool ok = k < F && c < C;
+      cp16(buf + a_off(m, (e & 7) * 8), ok ? h + (row0 + c) * F + k : h, ok);
+    }
+  };
+  if (lora) {                                      // h B_O[g] (F x r)
+    float acc_l[32];
+    zero(acc_l);
+    pipeline_w(
+        nk, sb + ring,
+        [&](int t, uint32_t buf) {
+          load_h(t, buf);
+          for (int e = tid; e < KS * 8; e += THREADS) {
+            const int kr = e >> 3, col = (e & 7) * 8, k = t * KS + kr;
+            const bool ok = k < F && col < r;
+            cp16(buf + TILE + bw_off(kr, col),
+                 ok ? lob + ((size_t)g * F + k) * r + col : h, ok);
+          }
+        },
+        [&](int t, uint32_t buf) {
+          if (w == 0) mma_slice_n64(acc_l, buf, buf + TILE);
+        });
+    if (w == 0) store_scaled_tile(base + he, scale, acc_l);
+  }
+
+  float acc_y[64];
+  zero(acc_y);
+  pipeline_w(
+      nk + (lora ? 1 : 0), sb + ring,
+      [&](int t, uint32_t buf) {
+        if (t < nk) load_h(t, buf);
+        for (int e = tid; e < KS * 32; e += THREADS) {
+          const int kr = e >> 5, cc = e & 31, col = n0 + cc * 8;
+          bool ok;
+          const bf16* src;
+          if (t < nk) {
+            const int k = t * KS + kr;
+            ok = k < F && col < d;
+            src = wo + ((size_t)g * F + k) * d + col;
+          } else {                                 // rows of C_O
+            ok = kr < r && col < d;
+            src = loc + (size_t)kr * d + col;
+          }
+          cp16(buf + TILE + bw_off(kr, cc * 8), ok ? src : h, ok);
+        }
+      },
+      [&](int t, uint32_t buf) {
+        const uint32_t a = t < nk ? buf : sb + he;
+        reg_fence(acc_y);
+        wg_arrive();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n128(acc_y, desc(a + kk * 32, 16),
+                     desc(buf + TILE + 2 * w * WBLK + kk * 2048, WBLK));
+        wg_commit_wait();
+        reg_fence(acc_y);
+      });
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int c = c0 + acc_row(i), n = n0 + w * 128 + acc_col(i);
+    if (c < C && n < d)
+      *reinterpret_cast<__nv_bfloat162*>(y + (row0 + c) * d + n) =
+          __floats2bfloat162_rn(acc_y[i], acc_y[i + 1]);
+  }
+}
+
+size_t wide_smem_bytes() {
+  return ALIGN + TILE + (size_t)STAGES * WSTAGE + TM * sizeof(int);
+}
+
+template <bool GATED>
+int launch_wide(const void* x, const void* index, const void* wi,
+                const void* wgt, const void* wo, const void* const* lo,
+                void* h, void* y, int B, int S, int d, int G, int C, int F,
+                int r, float scale, int act, cudaStream_t st) {
+  const size_t bytes = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_ffn_wide_up_wgmma<GATED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grouped_ffn_wide_down_wgmma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  auto p = [](const void* q) { return static_cast<const bf16*>(q); };
+  const int32_t* ix = static_cast<const int32_t*>(index);
+  const int n_ct = (C + TM - 1) / TM;
+  // a group's blocks adjacent, as in the resident body
+  grouped_ffn_wide_up_wgmma<GATED>
+      <<<dim3(n_ct * ((F + HC - 1) / HC), B, G), THREADS, bytes, st>>>(
+          p(x), ix, p(wi), p(wgt), p(lo[0]), p(lo[1]), p(lo[2]), p(lo[3]),
+          static_cast<bf16*>(h), S, d, G, C, F, r, scale, act, n_ct);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  grouped_ffn_wide_down_wgmma<<<dim3(n_ct * ((d + OC - 1) / OC), B, G),
+                                THREADS, bytes, st>>>(
+      static_cast<const bf16*>(h), ix, p(wo), p(lo[4]), p(lo[5]),
+      static_cast<bf16*>(y), S, d, G, C, F, r, scale, n_ct);
+  return (int)cudaGetLastError();
+}
+
 size_t smem_bytes(int d, int F) {
   const int nkt = (d + 63) / 64, nht = 2 * ((F + HC - 1) / HC);
   return ALIGN + (size_t)(nkt + nht) * TILE + (size_t)STAGES * STAGE +
@@ -720,14 +1049,24 @@ int launch_k(const void* x, const void* index, const void* wi,
   return (int)cudaGetLastError();
 }
 
+// The resident body when its x and h tiles fit a block's shared memory.
+bool resident_fits(int d, int F) { return smem_bytes(d, F) <= 232448; }
+
 int launch(const void* x, const void* index, const void* wi, const void* wgt,
-           const void* wo, const void* const* lo, void* y, int B, int S,
-           int d, int G, int C, int F, int r, float scale, int act,
+           const void* wo, const void* const* lo, void* h, void* y, int B,
+           int S, int d, int G, int C, int F, int r, float scale, int act,
            cudaStream_t st) {
   if (d % 8 || F % 8 || r % 8 || r > R_MAX || B > 65535 || G > 65535)
     return (int)cudaErrorInvalidValue;
+  if (!resident_fits(d, F)) {
+    if (h == nullptr) return (int)cudaErrorInvalidValue;
+    return wgt != nullptr
+               ? launch_wide<true>(x, index, wi, wgt, wo, lo, h, y, B, S, d,
+                                   G, C, F, r, scale, act, st)
+               : launch_wide<false>(x, index, wi, wgt, wo, lo, h, y, B, S, d,
+                                    G, C, F, r, scale, act, st);
+  }
   const size_t bytes = smem_bytes(d, F);
-  if (bytes > 232448) return (int)cudaErrorInvalidValue;
   return wgt != nullptr
              ? launch_k<true>(x, index, wi, wgt, wo, lo, y, B, S, d, G, C, F,
                               r, scale, act, bytes, st)
@@ -739,18 +1078,26 @@ int launch(const void* x, const void* index, const void* wi, const void* wgt,
 
 }  // namespace
 
+// Elements of h scratch per capacity slot the launcher needs: F where the
+// bf16 body takes its wide form (h (B, G, C, F) bf16 between its two
+// kernels), else 0.
+extern "C" int repro_grouped_ffn_h_elems(int dtype, int d, int F) {
+  return dtype == 1 && !wg::resident_fits(d, F) ? F : 0;
+}
+
 // dtype 0 = float32: x, weights, y and the LoRA leaves in float32 (CUDA-core
 // body, rank <= 128).  dtype 1 = bfloat16: x, weights, y and the LoRA
 // leaves in bfloat16 (tensor-core body; d, F and the rank multiples of 8,
-// rank <= 32, x and the weights 16-byte aligned).  w_gate null = ungated;
-// li_b null = no LoRA (then all LoRA pointers are ignored).  act: 0 relu,
-// 1 gelu (tanh), 2 silu.
+// rank <= 32, x and the weights 16-byte aligned; h: bf16 scratch of
+// repro_grouped_ffn_h_elems(...) per slot, null when that is 0).  w_gate
+// null = ungated; li_b null = no LoRA (then all LoRA pointers are
+// ignored).  act: 0 relu, 1 gelu (tanh), 2 silu.
 extern "C" int repro_grouped_ffn(
     int dtype, const void* x, const void* index, const void* w_inner,
     const void* w_gate, const void* w_outer, const void* li_b,
     const void* li_c, const void* lg_b, const void* lg_c, const void* lo_b,
-    const void* lo_c, void* y, int B, int S, int d, int G, int C, int F,
-    int r, float scale, int act, void* stream) {
+    const void* lo_c, void* h, void* y, int B, int S, int d, int G, int C,
+    int F, int r, float scale, int act, void* stream) {
   const int lr = li_b != nullptr ? r : 0;
   if (B < 1 || S < 1 || d < 1 || G < 1 || C < 1 || F < 1 || lr < 0 ||
       act < 0 || act > 2)
@@ -758,8 +1105,8 @@ extern "C" int repro_grouped_ffn(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* lo[6] = {li_b, li_c, lg_b, lg_c, lo_b, lo_c};
   if (dtype == 1)
-    return wg::launch(x, index, w_inner, w_gate, w_outer, lo, y, B, S, d, G,
-                      C, F, lr, scale, act, st);
+    return wg::launch(x, index, w_inner, w_gate, w_outer, lo, h, y, B, S, d,
+                      G, C, F, lr, scale, act, st);
   if (dtype == 0)
     return launch_f32(x, index, w_inner, w_gate, w_outer, lo, y, B, S, d, G,
                       C, F, lr, scale, act, st);

@@ -94,8 +94,9 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
     drops.  Any order of the index is computed right (a 64-slot tile
     that keeps no slot is skipped).  CPU tensors take the plain version;
     CUDA tensors launch the kernel (csrc/grouped_ffn.cu: bf16 on the
-    tensor cores, d and F multiples of 8 and a LoRA rank of at most 32;
-    f32 on the CUDA cores)."""
+    tensor cores, d and F multiples of 8 and a LoRA rank of at most 32 —
+    x and h resident in shared memory where they fit, else two passes
+    through an h scratch; f32 on the CUDA cores)."""
     if x.device.type == "cpu":
         return grouped_ffn_ref(x, index, w_inner, w_outer, w_gate,
                                lora_params, lora_scale, act)
@@ -121,11 +122,18 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
         raise ValueError(f"{name}: the bf16 kernel takes a LoRA rank of at "
                          f"most 32, got {r}")
     y = torch.empty((b, g, c, d), dtype=x.dtype, device=x.device)
-    err = kernels.library().repro_grouped_ffn(
+    lib = kernels.library()
+    # the bf16 body's wide form (x and h tiles past shared memory) keeps h
+    # (B, G, C, F) in device memory between its two kernels
+    h_elems = lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d, f)
+    h = (torch.empty(b * g * c * h_elems, dtype=x.dtype, device=x.device)
+         if h_elems else None)
+    err = lib.repro_grouped_ffn(
         kernels.dtype_code(x), x.data_ptr(), index.data_ptr(),
         w_inner.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
-        w_outer.data_ptr(), *_ptrs(lo), y.data_ptr(), b, s, d, g, c, f, r,
-        float(lora_scale), kernels.act_code(act), kernels.stream_ptr())
+        w_outer.data_ptr(), *_ptrs(lo), None if h is None else h.data_ptr(),
+        y.data_ptr(), b, s, d, g, c, f, r, float(lora_scale),
+        kernels.act_code(act), kernels.stream_ptr())
     kernels.check(err, name)
     grouped_ffn.launches += 1
     return y

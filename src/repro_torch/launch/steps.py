@@ -1,6 +1,6 @@
-"""The train step: forward, chunked cross-entropy, backward into the
-trainable leaves, AdamW (single device; the JAX package's
-``build_train_step`` without its sharding)."""
+"""Step builders (single device; the JAX package's without their
+sharding): the train step — forward, chunked cross-entropy, backward into
+the trainable leaves, AdamW — and the serving prefill and decode steps."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import params as P
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
+from repro_torch.serving import engine
 from repro_torch.train import state as S
 from repro_torch.train.loss import lm_cross_entropy
 
@@ -17,10 +18,12 @@ from repro_torch.train.loss import lm_cross_entropy
 def loss_and_grads(state: dict, cfg: ModelConfig,
                    batch: Dict[str, torch.Tensor], loss_chunk: int = 512):
     """(total loss, metrics, grads) of one batch; grads has the train
-    tree's structure (zeros where no path from the loss reaches a leaf).
+    tree's structure (zeros where no path from the loss reaches a leaf;
+    empty when nothing is trainable, as under the "full" variant).
     total = lm + lb_w * lb / num_layers (+ qerr_w * qerr / num_layers)."""
-    paths, vals = zip(*P.leaves(state["train"]))
-    train_vals = [v.detach().requires_grad_(True) for v in vals]
+    pairs = list(P.leaves(state["train"]))
+    paths = [p for p, _ in pairs]
+    train_vals = [v.detach().requires_grad_(True) for _, v in pairs]
     train = P.unflatten(paths, train_vals)
     params = P.combine(train, state["frozen"])
     with torch.enable_grad():
@@ -31,7 +34,8 @@ def loss_and_grads(state: dict, cfg: ModelConfig,
         total = lm_loss + cfg.spt.lb_loss_weight * aux["lb_loss"] / nl
         if cfg.spt.qerr_loss_weight:
             total = total + cfg.spt.qerr_loss_weight * aux["qerr"] / nl
-        grads = torch.autograd.grad(total, train_vals, allow_unused=True)
+        grads = (torch.autograd.grad(total, train_vals, allow_unused=True)
+                 if train_vals else [])
     # a leaf no path reaches has a zero gradient, as jax.grad gives it
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(train_vals, grads)]
@@ -56,3 +60,11 @@ def build_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
         return new_state, {"loss": loss, **metrics, **om}
 
     return train_step
+
+
+def build_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+    return engine.build_prefill_step(cfg, max_len)
+
+
+def build_decode_step(cfg: ModelConfig) -> Callable:
+    return engine.build_decode_step(cfg)

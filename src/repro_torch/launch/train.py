@@ -3,6 +3,12 @@ MHA and routed FFN on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 20 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch opt-2560 \\
+        --variant lora --steps 3 --batch 4 --seq 1024
+
+--arch takes any name ``configs.get_config`` takes (the assigned
+architectures, the paper's blocks, opt-2.7b, llama-2.7b); --variant picks
+the paper's baseline (``launch/dryrun.apply_variant``).
 
 Random weights from a seed (no checkpoint ships with the repo), synthetic
 data from the port's pipeline, the config's kernels (attn_impl / ffn_impl
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig, synthetic_dataset
+from repro_torch.launch.dryrun import VARIANTS, apply_variant
 from repro_torch.models import transformer
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -27,19 +34,21 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
+    ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--variant", default="spt", choices=VARIANTS)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    cfg = cfg.with_spt(attn_impl="pallas", ffn_impl="pallas")
+    cfg = apply_variant(cfg, args.variant).with_spt(attn_impl="pallas",
+                                                    ffn_impl="pallas")
     device = transformer.resolve_device(args.device)
     ocfg = OptimizerConfig(lr=args.lr, total_steps=args.steps)
     tcfg = TrainerConfig(total_steps=args.steps, log_interval=1)
@@ -53,7 +62,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     print(json.dumps({
-        "arch": cfg.name, "device": str(device),
+        "arch": cfg.name, "variant": args.variant, "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "final_step": report["final_step"], "wall_s": wall,

@@ -1,4 +1,5 @@
-"""Shared neural building blocks: norms, RoPE, embeddings."""
+"""Shared neural building blocks: norms, RoPE, embeddings (token and
+learned-position)."""
 from __future__ import annotations
 
 import torch
@@ -62,3 +63,9 @@ def embed_lookup(p, tokens: torch.Tensor, scale: bool,
     if scale:
         x = x * torch.tensor(d_model ** 0.5, dtype=x.dtype)
     return x
+
+
+def pos_embed_defs(max_pos: int, dim: int) -> dict:
+    """The learned-position table (OPT): frozen, bf16, (max_pos, dim)."""
+    return {"pos_embedding": ParamDef((max_pos, dim), torch.bfloat16,
+                                      init="normal:0.02", trainable=False)}

@@ -1,8 +1,9 @@
-"""Decoder-only LM: embeddings -> blocks (a Python loop over layers) ->
-final norm -> (tied or separate) LM head.
+"""Decoder-only LM: embeddings (plus learned positions, OPT) -> blocks (a
+Python loop over layers) -> final norm -> (tied or separate) LM head.
 
 The parameter tree keeps the JAX layout — ``{"embed", "final_norm",
-"units": {"b0_attn": ...} stacked on a leading unit axis U, ["head"]}`` —
+"units": {"b0_attn": ...} stacked on a leading unit axis U, ["head"],
+["pos"]}`` —
 so the JAX package's params load unchanged (core/params.from_numpy_tree);
 :class:`LM` holds each unit as its own ``ParamTree`` (views of the stacked
 tensors).  Caches keep the JAX tree too, stacked on U — per-slot strips,
@@ -10,7 +11,8 @@ or with ``kv_pages`` page pools shared by the slots (serving/kv_pages.py)
 — and are written in place.  Training runs on the param tree itself
 (``lm_hidden``: per-unit views of the stacked leaves, so gradients land
 on the stacked leaves as JAX's scan gives them).  The port covers the
-dense attention stack (pattern ("attn",)).
+dense attention stack (pattern ("attn",)), with RoPE or learned
+positions.
 """
 from __future__ import annotations
 
@@ -86,7 +88,7 @@ def num_units(cfg: ModelConfig) -> int:
 
 def _check_supported(cfg: ModelConfig) -> None:
     if (cfg.pattern != ("attn",) or cfg.num_experts or cfg.frontend
-            or cfg.positional == "learned" or cfg.family == "audio"):
+            or cfg.family == "audio"):
         raise NotImplementedError(
             f"{cfg.name}: only dense decoder-only attention stacks are "
             "ported so far")
@@ -103,6 +105,8 @@ def lm_defs(cfg: ModelConfig) -> dict:
         defs["head"] = {"w": ParamDef((cfg.d_model, cfg.padded_vocab),
                                       torch.bfloat16, init="fan_in",
                                       trainable=False)}
+    if cfg.positional == "learned":
+        defs["pos"] = layers.pos_embed_defs(cfg.max_position, cfg.d_model)
     return defs
 
 
@@ -113,7 +117,8 @@ def _unit_slice(tree, u: int):
 
 class LM(nn.Module):
     """The language model as modules: ``embed``, ``final_norm``, one
-    ``ParamTree`` per unit in ``units``, and ``head`` when untied.
+    ``ParamTree`` per unit in ``units``, ``head`` when untied and ``pos``
+    with learned positions.
 
     params: the JAX-layout tree of tensors (``init_tree`` or
     ``from_numpy_tree``); it is moved to ``device`` (CUDA by default)."""
@@ -130,8 +135,9 @@ class LM(nn.Module):
         self.units = nn.ModuleList(
             ParamTree(_unit_slice(params["units"], u), unit_defs)
             for u in range(num_units(cfg)))
-        if "head" in defs:
-            self.head = ParamTree(params["head"], defs["head"])
+        for key in ("head", "pos"):
+            if key in defs:
+                setattr(self, key, ParamTree(params[key], defs[key]))
 
     @classmethod
     def init(cls, cfg: ModelConfig, seed: int = 0, device="cuda") -> "LM":
@@ -183,6 +189,24 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 # ---------------------------------------------------------------- forward
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0
+                  ) -> torch.Tensor:
+    """Token embeddings (B, s, d), plus the learned position rows when
+    ``cfg.positional == "learned"``: a scalar ``pos0`` gives positions
+    pos0 + [0, s), a per-slot (B,) ``pos0`` gives (B, s) of them; each is
+    clamped to [0, max_position - 1], as JAX's ``take(mode="clip")``."""
+    x = layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
+                            cfg.d_model)
+    if cfg.positional == "learned":
+        s = x.shape[1]
+        p0 = torch.as_tensor(pos0, dtype=torch.long, device=x.device)
+        ar = torch.arange(s, dtype=torch.long, device=x.device)
+        pos = p0[:, None] + ar if p0.dim() else p0 + ar
+        x = x + params["pos"]["pos_embedding"][
+            pos.clamp(0, cfg.max_position - 1)]
+    return x
+
+
 def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                 caches=None, pos=None, remat: bool = True, kv_valid=None,
                 page_table=None, seq_lengths=None):
@@ -233,8 +257,7 @@ def lm_hidden(params: dict, cfg: ModelConfig,
     """Train-mode forward of a JAX-layout param tree to the final hidden
     states (B, S, d) and the summed aux.  Gradients reach the stacked
     leaves through the per-unit views."""
-    x = layers.embed_lookup(params["embed"], batch["tokens"], cfg.scale_embed,
-                            cfg.d_model)
+    x = _embed_inputs(params, cfg, batch["tokens"])
     x, aux = _run_blocks(_unit_trees(params, cfg), cfg, x, mode="train",
                          remat=remat)
     return layers.apply_norm(params["final_norm"], x, cfg.norm), aux
@@ -268,12 +291,28 @@ def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
     optional (B, MP) slot->page map, given when the attention caches are
     paged pools (``init_caches(..., kv_pages=)``).  Writes the caches in
     place; returns logits (B, 1, V)."""
-    x = layers.embed_lookup(model.embed, token[:, None], cfg.scale_embed,
-                            cfg.d_model)
+    x = _embed_inputs(model, cfg, token[:, None], pos0=pos)
     x, _ = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
                        pos=pos, kv_valid=kv_valid, page_table=page_table)
     x = layers.apply_norm(model.final_norm, x, cfg.norm)
     return logits_of(model, cfg, x)
+
+
+@torch.no_grad()
+def lm_prefill(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+               max_len: int):
+    """Prefill a (B, S) batch of full-length prompts.  Returns (caches,
+    logits (B, 1, V) at the last position).  The attention takes the
+    train-path kernels (PQ assignment, top-L thresholds, sparse
+    attention) when the config selects them: no per-row lengths, so no
+    ragged oracle."""
+    tokens = batch["tokens"]
+    caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
+    x = _embed_inputs(model, cfg, tokens)
+    x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
+                       pos=0, remat=False)
+    x = layers.apply_norm(model.final_norm, x[:, -1:], cfg.norm)
+    return caches, logits_of(model, cfg, x)
 
 
 def length_sensitive(cfg: ModelConfig) -> bool:
@@ -304,8 +343,7 @@ def lm_prefill_ragged(model: LM, cfg: ModelConfig,
     tokens = batch["tokens"]
     bsz = tokens.shape[0]
     caches = init_caches(cfg, bsz, max_len, tokens.device)
-    x = layers.embed_lookup(model.embed, tokens, cfg.scale_embed,
-                            cfg.d_model)
+    x = _embed_inputs(model, cfg, tokens)
     sl = lengths if length_sensitive(cfg) else None
     x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
                        pos=0, seq_lengths=sl)

@@ -31,9 +31,10 @@ class OptimizerConfig:
 
 
 def adamw_init(train_params: Any) -> dict:
-    paths, ps = zip(*leaves(train_params))
+    pairs = list(leaves(train_params))
+    paths = [path for path, _ in pairs]
     zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in ps]
+             for _, p in pairs]
     return {"m": unflatten(paths, zeros),
             "v": unflatten(paths, [z.clone() for z in zeros])}
 
@@ -53,10 +54,13 @@ def adamw_update(train_params: Any, grads: Any, opt_state: dict,
                  step, cfg: OptimizerConfig,
                  lr: Optional[torch.Tensor] = None) -> Tuple[Any, dict, dict]:
     """One AdamW step.  grads: the train tree's paths, a missing or None
-    leaf meaning zero.  Returns (new_params, new_opt, {grad_norm, lr})."""
+    leaf meaning zero; an empty tree (nothing trainable) stays empty.
+    Returns (new_params, new_opt, {grad_norm, lr})."""
     from repro_torch.optim.schedule import lr_at
-    paths, ps = zip(*leaves(train_params))
-    dev = ps[0].device
+    pairs = list(leaves(train_params))
+    paths = [path for path, _ in pairs]
+    ps = [p for _, p in pairs]
+    dev = ps[0].device if ps else torch.as_tensor(step).device
     gnorm = global_norm(grads).to(dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     scale = (torch.minimum(one, cfg.grad_clip / (gnorm + 1e-12))

@@ -47,6 +47,23 @@ from repro_torch.models import transformer
 from repro_torch.serving import kv_pages as kvp
 
 
+def build_prefill_step(cfg: ModelConfig, max_len: int):
+    """prefill(model, batch) -> (caches, last-position logits): the
+    non-ragged prefill of full-length prompts (``transformer.lm_prefill``)."""
+    def prefill(model, batch):
+        return transformer.lm_prefill(model, cfg, batch, max_len)
+    return prefill
+
+
+def build_decode_step(cfg: ModelConfig):
+    """decode(model, caches, token, pos) -> (caches, logits): one token a
+    row; the caches are written in place and returned."""
+    def decode(model, caches, token, pos):
+        return caches, transformer.lm_decode_step(model, cfg, caches, token,
+                                                  pos)
+    return decode
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request."""

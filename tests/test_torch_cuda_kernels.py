@@ -1,0 +1,60 @@
+"""Kernel checks of the PyTorch port that need the card: each CUDA
+kernel is built by nvcc and launched, so they skip where no CUDA device
+is visible.  On the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+``chip_smoke.py`` phase 3 holds every kernel to its plain version in
+full; these are the regression checks of faults found on the card.
+"""
+import pytest
+import torch
+
+from repro_torch.core import routed_ffn as rf
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+# The paper blocks' routed-FFN widths (d, F = d_ff / 8, act, gated): the
+# bf16 body once refused every one of them (its x and h tiles exceeded a
+# block's shared memory past qwen3's d = 1024, F = 384).
+PAPER_FFN = [(1024, 512, "relu", False), (2048, 1024, "relu", False),
+             (2560, 1280, "relu", False), (2560, 864, "silu", True),
+             (4096, 1376, "silu", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,act,gated", PAPER_FFN)
+def test_grouped_ffn_takes_the_paper_widths(card, d, f, act, gated):
+    from repro_torch.kernels.routed_ffn import ops, ref
+    g, r, bf16 = 8, 16, torch.bfloat16
+    rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=f * g, num_groups=g,
+                              active_groups=4, activation=act, gated=gated)
+
+    def w(*shape, fan):
+        return (torch.randn(*shape, device="cuda", generator=card)
+                / fan ** 0.5).to(bf16)
+
+    def lo(*shape):
+        return torch.randn(*shape, device="cuda", generator=card) * 0.05
+    lora = {"lora_inner": {"b": lo(d, r), "c": lo(g, r, f)},
+            "lora_outer": {"b": lo(g, f, r), "c": lo(r, d)}}
+    if gated:
+        lora["lora_gate"] = {"b": lo(d, r), "c": lo(g, r, f)}
+    x = torch.randn(2, 256, d, device="cuda", generator=card).to(bf16)
+    router = torch.randn(d, g, device="cuda", generator=card) / d ** 0.5
+    choice, gate, _ = rf.route(x, router, rcfg, need_aux=False)
+    plan = rf.plan_for(x, choice, gate, rcfg, None)
+    args = (x, plan.index, w(g, d, f, fan=d), w(g, f, d, fan=f),
+            w(g, d, f, fan=d) if gated else None, lora, 1.0)
+    got = ops.grouped_ffn(*args, act=act)
+    want = ref.grouped_ffn_ref(*args, act=act)
+    ok = plan.slot_ok[..., None]
+    torch.testing.assert_close(torch.where(ok, got.float(), 0.0),
+                               torch.where(ok, want.float(), 0.0),
+                               atol=2e-2, rtol=2e-2)

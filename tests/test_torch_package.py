@@ -131,7 +131,7 @@ def test_kernel_modules_import_without_nvcc_and_build_nothing():
                                "fused_sparse_decode",
                                "fused_sparse_decode_paged",
                                "dense_decode_paged", "grouped_ffn",
-                               "decode_ffn")}
+                               "grouped_ffn_h_elems", "decode_ffn")}
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

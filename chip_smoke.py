@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only serve     # phases 1-6
     python3 chip_smoke.py --only train     # phases 1-3, 7-8
     python3 chip_smoke.py --only paper     # phases 1-3, 9-11
+    python3 chip_smoke.py --only server    # phases 1-3, 12-13
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -42,7 +43,7 @@ Phases (each raises on failure; nothing is caught):
      beside the least time the card could take (bytes over 3.35 TB/s or
      operations over the peak rate), and for kernels 9 and 10 a torch
      yardstick of the same function in bf16, for kernel 1 one in f32
-     (baddbmm + argmin);
+     (baddbmm + argmin), at the qwen3 and at the paper's shapes;
   4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
      prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
@@ -75,6 +76,26 @@ Phases (each raises on failure; nothing is caught):
   11. an OPT-2560-width model cut to 2 layers, in f32, kernels on against
      REPRO_DISABLE_KERNELS=1: greedy streams (kernels 6 and 7),
      lm_prefill's logits and caches, one train step;
+  12. full-width qwen3-0.6b in bf16 through the long-lived server,
+     Engine.serve with telemetry "trace": 32 requests (prompts 128-2048,
+     64 new tokens) arriving as a seeded Poisson process at 2 requests/s
+     on the wall clock, half sampled (temperature 0.8 with top_k 50 or
+     top_p 0.9), priorities 0-2, a quarter with a 6 s TTFT deadline, a
+     seeded ChaosMonkey (cancels, forced preemptions, rejected
+     submissions) and a Watchdog raising on any invariant failure; 8
+     slots, max_len 4096, chunks of 16; contiguous (kernels 6, 9, 10),
+     the same schedule with telemetry "off" and "counters" (decode tok/s
+     of the three), then paged kernel-native on the 64-page pool (kernel
+     7); counters zeroed just before each and read just after, launch
+     counts exact (resume re-prefills counted), every request terminal,
+     the Chrome trace valid with a lane for every uid;
+  13. the model cut to 4 layers, in f32, under a ManualClock: one
+     schedule with priorities, deadlines, a queued and a mid-stream
+     cancel, a forced preemption and seeded sampling — kernels on equal
+     REPRO_DISABLE_KERNELS=1 (finish reasons, preemptions, stats; tokens
+     up to near-ties of the perturbed logits), the same seed twice
+     identical, and each preempted request's stream equal to its
+     unpreempted one;
   then one JSON line of the ten kernels (launches per path; each with its
   times at the paper's shapes), then the result line.
 Imports nothing of JAX or of the JAX package.
@@ -1005,22 +1026,29 @@ def _bf16_lora(torch, lora):
             for k, v in lora.items()}
 
 
-def grouped_ffn_yardstick(torch, x, index, wts, lora16, scale):
+def _torch_act(torch, act):
+    fn = torch.nn.functional
+    return {"silu": fn.silu, "relu": fn.relu, "gelu": fn.gelu}[act]
+
+
+def grouped_ffn_yardstick(torch, x, index, wts, lora16, scale, act="silu"):
     """Kernel 9's function in bf16 through PyTorch calls (the port never
-    calls it): gather the slots' rows, three bmm over the groups, silu x
-    up, and the LoRA products.  Every slot is computed, as the function
-    says; the output is (G, B*C, d)."""
+    calls it): gather the slots' rows, bmm over the groups (gated: act(gate)
+    x up; ungated: act(up)), and the LoRA products.  Every slot is
+    computed, as the function says; the output is (G, B*C, d)."""
     b, s, d = x.shape
     _, g, c = index.shape
     rows = index.clamp(max=s - 1).long().transpose(0, 1).reshape(g, b * c)
     xg = x[torch.arange(b, device=x.device).repeat_interleave(c)[None],
            rows]                                             # (G, B*C, d)
-    li, lg, lo = (lora16[k] for k in ("lora_inner", "lora_gate", "lora_outer"))
-    up = torch.bmm(xg, wts["w_inner"]) + scale * torch.bmm(
-        xg @ li["b"], li["c"])
-    gt = torch.bmm(xg, wts["w_gate"]) + scale * torch.bmm(
-        xg @ lg["b"], lg["c"])
-    h = torch.nn.functional.silu(gt) * up
+
+    def up_of(w, lr):
+        return torch.bmm(xg, w) + scale * torch.bmm(xg @ lr["b"], lr["c"])
+    up = up_of(wts["w_inner"], lora16["lora_inner"])
+    fn = _torch_act(torch, act)
+    h = (fn(up_of(wts["w_gate"], lora16["lora_gate"])) * up
+         if "w_gate" in wts else fn(up))
+    lo = lora16["lora_outer"]
     return torch.bmm(h, wts["w_outer"]) + scale * (torch.bmm(h, lo["b"])
                                                    @ lo["c"])
 
@@ -1177,13 +1205,13 @@ def check_grouped_ffn(torch, gen):
     return out
 
 
-def decode_ffn_yardstick(torch, x, choice, gate, wts, lora16, scale):
+def decode_ffn_yardstick(torch, x, choice, gate, wts, lora16, scale,
+                         act="silu"):
     """Kernel 10's function in bf16 through PyTorch calls (the port never
     calls it): each slot's chosen weight blocks gathered and contracted
-    with bmm, then the gated sum over G'."""
+    with bmm (gated or not), then the gated sum over G'."""
     b, ga = choice.shape
     ch = choice.long()
-    li, lg, lo = (lora16[k] for k in ("lora_inner", "lora_gate", "lora_outer"))
     xr = x[:, None, None, :].expand(b, ga, 1, -1).reshape(b * ga, 1, -1)
 
     def up_of(w, lr):
@@ -1191,8 +1219,11 @@ def decode_ffn_yardstick(torch, x, choice, gate, wts, lora16, scale):
         xb = (x @ lr["b"])[:, None, None, :].expand(b, ga, 1, -1)
         return u + scale * torch.bmm(xb.reshape(b * ga, 1, -1),
                                      lr["c"][ch].flatten(0, 1))
-    h = torch.nn.functional.silu(up_of(wts["w_gate"], lg)) * up_of(
-        wts["w_inner"], li)
+    up = up_of(wts["w_inner"], lora16["lora_inner"])
+    fn = _torch_act(torch, act)
+    h = (fn(up_of(wts["w_gate"], lora16["lora_gate"])) * up
+         if wts.get("w_gate") is not None else fn(up))
+    lo = lora16["lora_outer"]
     wo = wts["w_outer"][ch].flatten(0, 1)
     y = torch.bmm(h, wo) + scale * (torch.bmm(h, lo["b"][ch].flatten(0, 1))
                                     @ lo["c"])
@@ -1286,12 +1317,18 @@ PAPER_FFN = [("OPT-1024", 1024, 512, "relu", False),
              ("LLaMA-4096", 4096, 1376, "silu", True)]
 
 
-def _paper_row(out, name, case, ms, bnd, err):
+def _paper_row(out, name, case, ms, bnd, err, yard=None):
+    """yard: a torch yardstick's ms for the same function (kernels 1, 9,
+    10), else None."""
+    beside = "" if yard is None else f", torch yardstick {yard:.4f} ms"
     print(f"  [paper] {name} {case}: {ms:.4f} ms, bound {bnd[0]:.4f} ms by "
-          f"{bnd[1]}, max_abs_err {err:.3e}; bit-identical twice", flush=True)
-    out.setdefault(name, []).append(
-        {"case": case, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-         "max_abs_err": err})
+          f"{bnd[1]}{beside}, max_abs_err {err:.3e}; bit-identical twice",
+          flush=True)
+    row = {"case": case, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+           "max_abs_err": err}
+    if yard is not None:
+        row["torch_yardstick_ms"] = yard
+    out.setdefault(name, []).append(row)
 
 
 def check_paper_shapes(torch, gen):
@@ -1323,8 +1360,9 @@ def check_paper_shapes(torch, gen):
                        f"pq_assign {case}")
         flips, _ = _margin_flips(torch, codes, x, cb, case)
         ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
+        yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
         bnd = bound(nbytes(x, cb, codes), g * TS * m * E_WORDS * 18, bf16)
-        _paper_row(out, "pq_assign", case, ms, bnd, float(flips))
+        _paper_row(out, "pq_assign", case, ms, bnd, float(flips), yard)
         cq, ck = _train_codes(torch, gen, TS, TS, g, g, m)
         kw = dict(l=_top_l(TS), max_score=m, causal=True, window=None,
                   q_offset=0, heads_per_batch=heads, rep=1)
@@ -1358,10 +1396,14 @@ def check_paper_shapes(torch, gen):
                            ga=4, r=16, capf=1.25, act=act, gated=gated)
         args = cs["args"]
         ms = time_ms(lambda: ffn_ops.grouped_ffn(*args, act=act), 10)
+        lora16 = _bf16_lora(torch, cs["lora"])
+        yard = time_ms(lambda: grouped_ffn_yardstick(
+            torch, cs["x"], cs["plan"].index, cs["wts"], lora16, 1.0,
+            act=act), 10)
         bnd = _grouped_bound(torch, cs, d, f, 16, bf16, gated)
         _paper_row(out, "grouped_ffn", f"{label} train (x (4, 1024, {d}), "
                    f"F={f}, {act}{' gated' if gated else ''}, C={cs['c']}, "
-                   "LoRA r=16)", ms, bnd, cs["err"])
+                   "LoRA r=16)", ms, bnd, cs["err"], yard)
     # the wide form's edges: d and F not multiples of its 64-column
     # slices, LoRA rank 32 with kept slots last and capacity drops, rank
     # 12 (padded to 16) ungated
@@ -1423,12 +1465,15 @@ def check_paper_shapes(torch, gen):
                f"decode_ffn {case}")
     err = close(y, ffn_ref.decode_ffn_ref(*args, act="relu"), BF16_TOL)
     ms = time_ms(lambda: ffn_ops.decode_ffn(*args, act="relu"), 30)
+    lora16 = _bf16_lora(torch, lora)
+    yard = time_ms(lambda: decode_ffn_yardstick(
+        torch, x, choice, gate, wts, lora16, 1.0, act="relu"), 30)
     blocks = int(torch.unique(choice).numel())
     moved = (blocks * 2 * d * f * x.element_size()
              + sum(nbytes(*t.values()) for t in lora.values())
              + nbytes(x, choice, gate) + b * d * x.element_size())
     _paper_row(out, "decode_ffn", case, ms,
-               bound(moved, b * ga * 2 * d * f * 2, bf16), err)
+               bound(moved, b * ga * 2 * d * f * 2, bf16), err, yard)
     return out
 
 
@@ -1473,7 +1518,6 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
     prefill kernels of the path launched once per layer per step /
     prefill group; returns the launch counts and the stats."""
     from repro_torch import kernels
-    from repro_torch.core import dispatch
     from repro_torch.core.params import count_params
     from repro_torch.models.transformer import lm_defs
     from repro_torch.serving.engine import Engine
@@ -1498,22 +1542,11 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
                 0 <= t < cfg.padded_vocab for t in c.tokens):
             raise AssertionError(f"request {c.uid}: {len(c.tokens)} tokens "
                                  f"({c.finish_reason})")
-    layers = cfg.num_layers
-    # the ragged prefill takes the oracle attention (as in JAX), so the
-    # train-path attention kernels stay idle here; each decode step runs
-    # its tier's decode kernels once per layer
-    if dispatch.use_paged_kv(cfg) and dispatch.use_paged_native_decode(cfg):
-        decode_attn = (["fused_sparse_decode_attention_paged"]
-                       if cfg.spt.sparse_mha
-                       else ["dense_decode_attention_paged"])
-    elif dispatch.use_fused_decode_attn(cfg):
-        decode_attn = ["fused_sparse_decode_attention"]
-    else:
-        decode_attn = ["decode_topl_thresholds", "sparse_decode_attention"]
-    want = {name: 0 for name in launches}
-    want.update({name: layers * st.decode_steps for name in decode_attn})
-    want.update({"grouped_ffn": layers * st.prefill_batches,
-                 "decode_ffn": layers * st.decode_steps})
+    if eng.last_steps_run != st.decode_steps:     # no EOS: no dead steps
+        raise AssertionError(f"{label}: {eng.last_steps_run} steps run, "
+                             f"{st.decode_steps} with a slot active")
+    want = _want_serve_launches(cfg, launches, eng.last_steps_run,
+                                st.prefill_batches)
     if launches != want:
         raise AssertionError(f"{label} launches {launches} != expected {want}")
     if kv_pages is not None and not (0 < st.kv_pages_peak <= kv_pages
@@ -1535,6 +1568,29 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
     print(f"  {label} ServeStats " + json.dumps(st.as_dict()), flush=True)
     print(f"  {label} launches " + json.dumps(launches), flush=True)
     return launches, stats
+
+
+def _want_serve_launches(cfg, launches, steps, prefill_batches):
+    """The launches a serve must make: each executed decode step runs its
+    tier's decode kernels and the decode FFN once per layer; each prefill
+    batch (resume re-prefills included) the grouped FFN once per layer.
+    The ragged prefill takes the oracle attention (as in JAX), so the
+    train-path attention kernels stay idle."""
+    from repro_torch.core import dispatch
+    layers = cfg.num_layers
+    if dispatch.use_paged_kv(cfg) and dispatch.use_paged_native_decode(cfg):
+        decode_attn = (["fused_sparse_decode_attention_paged"]
+                       if cfg.spt.sparse_mha
+                       else ["dense_decode_attention_paged"])
+    elif dispatch.use_fused_decode_attn(cfg):
+        decode_attn = ["fused_sparse_decode_attention"]
+    else:
+        decode_attn = ["decode_topl_thresholds", "sparse_decode_attention"]
+    want = {name: 0 for name in launches}
+    want.update({name: layers * steps for name in decode_attn})
+    want.update({"grouped_ffn": layers * prefill_batches,
+                 "decode_ffn": layers * steps})
+    return want
 
 
 def serve_full_width(torch):
@@ -2170,6 +2226,322 @@ def paper_agree_f32(torch):
                     "2-layer f32 OPT-2560 train step")
 
 
+# ------------------------------------------------------------ phases 12-13
+# phase 12's traffic: 32 requests, prompts 128-2048 (numpy seed 2), 64 new
+# tokens, 8 slots, max_len 4096, chunks of 16, seeded Poisson arrivals at
+# 2 requests/s on the wall clock; every fourth request has a TTFT deadline
+SERVER_WORK = dict(n=32, lo=128, hi=2048, gen=64, max_len=4096, qps=2.0,
+                   deadline_s=6.0)
+SERVER_SEED = 12
+TERMINAL = {"eos", "length", "rejected", "cancelled", "shed"}
+
+
+def _server_mix(reqs, deadline_s):
+    """Half the requests sampled (temperature 0.8 with top_k 50, or with
+    top_p 0.9), half greedy; priorities 0, 1, 2 in turn; every fourth
+    request with a TTFT deadline."""
+    out = []
+    for i, r in enumerate(reqs):
+        samp = ({} if i % 2 == 0 else dict(temperature=0.8, top_k=50)
+                if i % 4 == 1 else dict(temperature=0.8, top_p=0.9))
+        out.append(dataclasses.replace(
+            r, priority=i % 3, deadline_s=deadline_s if i % 4 == 0 else None,
+            **samp))
+    return out
+
+
+def _server_run(torch, model, cfg, label, telemetry, kv_pages=None):
+    """Phase 12's serve: Engine.serve over the seeded Poisson schedule,
+    with a ChaosMonkey (cancels, forced preemptions, duplicate and
+    oversized submissions; no page-pool hogs, whose max_len - 2 = 4094
+    new tokens would decode for minutes at this width) and a Watchdog
+    that raises on any invariant failure, after a warm-up run; the launch
+    counters zeroed just before and read just after.  Checks every
+    request terminal (each of the 32 uids exactly once outside the
+    rejections, full-length ones with 64 tokens), the launch counts
+    exact (resume re-prefills counted), and with telemetry "trace" the
+    Chrome trace valid with a lane for every uid."""
+    from repro_torch import kernels
+    from repro_torch.serving import chaos, trace_export
+    from repro_torch.serving.engine import ArrivalSchedule, Engine
+    w = SERVER_WORK
+    eng = Engine(cfg.with_spt(telemetry=telemetry), model,
+                 max_len=w["max_len"], num_slots=8, decode_chunk=16,
+                 kv_pages=kv_pages)
+    eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1),
+            temperature=0.8, seed=1)                             # warm-up
+    reqs = _server_mix(_requests(w["n"], w["lo"], w["hi"], w["gen"],
+                                 cfg.vocab_size, seed=2), w["deadline_s"])
+    monkey = chaos.ChaosMonkey(SERVER_SEED, hog_p=0.0)
+    watchdog = chaos.Watchdog()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = kernels.wrappers()
+    for x in wrappers:
+        x.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.serve(ArrivalSchedule.poisson(reqs, w["qps"], seed=2),
+                     seed=SERVER_SEED,
+                     on_iteration=chaos.compose(monkey, watchdog))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {x.__name__: x.launches for x in wrappers}
+    st = eng.last_stats
+    if len(outs) != st.submitted or any(c.finish_reason not in TERMINAL
+                                        for c in outs):
+        raise AssertionError(f"{label}: a request is not terminal")
+    served = sorted(c.uid for c in outs if c.finish_reason != "rejected")
+    if served != list(range(w["n"])):
+        raise AssertionError(f"{label}: served uids {served}")
+    for c in outs:
+        if (c.finish_reason == "length" and len(c.tokens) != w["gen"]) or \
+                not all(0 <= t < cfg.padded_vocab for t in c.tokens):
+            raise AssertionError(f"{label}: request {c.uid}: "
+                                 f"{len(c.tokens)} tokens ({c.finish_reason})")
+    want = _want_serve_launches(cfg, launches, eng.last_steps_run,
+                                st.prefill_batches)
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches} != expected {want}")
+    stats = {"telemetry": telemetry, "wall_s": wall,
+             "decode_tok_s": st.decode_tok_s,
+             "decode_ms_per_step": 1e3 * st.decode_s / eng.last_steps_run,
+             "prefill_tok_s": st.prefill_tok_s,
+             "ttft_p50_s": st.ttft_p50_s, "ttft_p99_s": st.ttft_p99_s,
+             "tpot_p50_s": st.tpot_p50_s, "tpot_p99_s": st.tpot_p99_s,
+             "submitted": st.submitted, "completed": st.completed,
+             "preemptions": st.preemptions, "shed": st.shed,
+             "cancelled": st.cancelled, "rejections": st.rejections,
+             "keep_rate": st.device.get("keep_rate"),
+             "decode_steps": st.decode_steps, "steps_run": eng.last_steps_run,
+             "prefill_batches": st.prefill_batches,
+             "injected": dict(monkey.counts),
+             "watchdog_iterations": watchdog.iterations,
+             "max_memory_allocated_gib":
+                 torch.cuda.max_memory_allocated() / 2 ** 30}
+    if kv_pages is not None:
+        stats.update(kv_pages_total=st.kv_pages_total,
+                     kv_pages_peak=st.kv_pages_peak,
+                     admission_stalls=st.admission_stalls)
+    if telemetry == "trace":
+        trace = trace_export.chrome_trace(eng.last_recorder)
+        errs = trace_export.validate_chrome_trace(trace)
+        missing = {c.uid for c in outs} - trace_export.trace_uids(trace)
+        if errs or missing:
+            raise AssertionError(f"{label}: trace errors {errs[:3]}, uids "
+                                 f"without a lane {sorted(missing)[:5]}")
+        stats["trace_events"] = len(trace["traceEvents"])
+    print(f"  {label} " + json.dumps(stats), flush=True)
+    print(f"  {label} ServeStats " + json.dumps(st.as_dict()), flush=True)
+    print(f"  {label} launches " + json.dumps(launches), flush=True)
+    return launches, stats
+
+
+def server_full_width(torch):
+    """Phase 12: full-width qwen3-0.6b in bf16 through Engine.serve with
+    telemetry "trace", contiguous (kernels 6, 9, 10), then the same
+    schedule with telemetry "off" and "counters" (decode tok/s of the
+    three, and decode ms per executed step: the wall-clock schedules
+    differ between runs, and a host-bound step costs the same whatever
+    its active slots), then paged kernel-native on phase 5's 64-page
+    pool (kernels 7, 9, 10)."""
+    from repro_torch import configs
+    _free(torch)
+    cfg = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, cfg, seed=0)
+    keys = ("decode_tok_s", "decode_ms_per_step")
+    launches, stats = _server_run(torch, model, cfg, "server", "trace")
+    launches = {"server": launches}
+    rates = {"trace": {k: stats[k] for k in keys}}
+    for mode in ("off", "counters"):
+        stats = _server_run(torch, model, cfg, f"server ({mode})", mode)[1]
+        rates[mode] = {k: stats[k] for k in keys}
+    paged = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG, **PAGED)
+    launches["server_paged"] = _server_run(
+        torch, model, paged, "paged server", "trace", kv_pages=PAGED_POOL)[0]
+    return launches, rates
+
+
+def _replay_gap(torch, model, cfg, req, ctx, a, b, n, seed, max_len):
+    """Where two streams of ``req`` first differ (tokens a and b after
+    context ctx, the n-th generated token), the oracle's (kill switch on)
+    logits of ctx — for a sampled request perturbed as its draw sees them:
+    temperature-scaled, truncated, plus its Gumbel noise of (seed, uid,
+    n) — and the gap between their max and the smaller of a's and b's."""
+    from repro_torch.models import transformer
+    from repro_torch.serving import engine
+    with torch.no_grad():
+        _, logits = transformer.lm_prefill_ragged(
+            model, cfg, {"tokens": torch.tensor([ctx], device="cuda")},
+            torch.tensor([len(ctx)], device="cuda"), max_len)
+    lg = logits[0, -1:].float()
+    temp = req.temperature or 0.0
+    if temp > 0:
+        dev = lg.device
+        top_p = req.top_p if 0.0 < req.top_p < 1.0 else 0.0
+        lg = engine.truncate(
+            lg, torch.tensor([temp], device=dev),
+            torch.tensor([req.top_k], device=dev),
+            torch.tensor([req.top_p], device=dev), req.top_k, top_p > 0)
+        lg = lg + engine.gumbel_noise(
+            torch.tensor([engine.request_key(seed, req.uid)], device=dev),
+            torch.tensor([n], device=dev), lg.shape[-1])
+    lg = lg[0].cpu().numpy()
+    return float(lg.max()) - min(float(lg[a]), float(lg[b]))
+
+
+def _compare_sampled(torch, model, cfg, reqs, got, want, name, seed,
+                     max_len=1024):
+    """got == want per uid, except past a near-tie (<= 1e-3) of the
+    perturbed logits at the first divergence, replayed under the kill
+    switch; returns the number of replayed flips."""
+    by_uid = {r.uid: r for r in reqs}
+    os.environ["REPRO_DISABLE_KERNELS"] = "1"
+    flips = 0
+    try:
+        for uid in sorted(got):
+            g, w = got[uid], want[uid]
+            if g == w:
+                continue
+            t = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
+                     None)
+            if t is None:
+                raise AssertionError(f"{name}: uid {uid} lengths {len(g)} "
+                                     f"vs {len(w)}")
+            req = by_uid[uid]
+            gap = _replay_gap(torch, model, cfg, req, list(req.tokens) + w[:t],
+                              g[t], w[t], t, seed, max_len)
+            if gap > 1e-3:
+                raise AssertionError(f"{name}: uid {uid} diverged at token "
+                                     f"{t} with a gap {gap:.3e}")
+            flips += 1
+    finally:
+        os.environ.pop("REPRO_DISABLE_KERNELS", None)
+    return flips
+
+
+def _agree_serve(torch, model, cfg, trace, kernels_on, seed):
+    """One phase-13 serve under a ManualClock: the arrival trace, a hook
+    that cancels the last queued request from iteration 3 on (once),
+    force-preempts at iteration 4 and cancels the last occupied slot's
+    request from iteration 5 on (once) — each a function of the schedule
+    alone — and the Watchdog, with or without
+    the kernels.  Returns (completions by uid, the hook's log, stats,
+    decode-path kernels that launched)."""
+    from repro_torch import kernels
+    from repro_torch.serving import chaos
+    from repro_torch.serving.engine import ArrivalSchedule, Engine, ManualClock
+    log = []
+
+    def hook(e, iteration):
+        st = e._live
+        done = {x[0] for x in log}
+        if iteration >= 3 and st.queue and "cancel queued" not in done:
+            uid = st.queue[-1].req.uid
+            log.append(("cancel queued", uid, e.cancel(uid)))
+        if iteration == 4:
+            log.append(("preempt", e.preempt()))
+        live = [it.req.uid for it in st.slot_item if it is not None]
+        if iteration >= 5 and live and "cancel mid-stream" not in done:
+            log.append(("cancel mid-stream", live[-1], e.cancel(live[-1])))
+    if not kernels_on:
+        os.environ["REPRO_DISABLE_KERNELS"] = "1"
+    try:
+        before = {w.__name__: w.launches for w in kernels.wrappers()}
+        eng = Engine(cfg, model, max_len=1024, num_slots=4, decode_chunk=8)
+        outs = eng.serve(ArrivalSchedule.from_trace(trace),
+                         clock=ManualClock(dt=1.0), seed=seed,
+                         on_iteration=chaos.compose(hook, chaos.Watchdog()))
+        torch.cuda.synchronize()
+        ran = {w.__name__ for w in kernels.wrappers()
+               if w.launches != before[w.__name__]}
+    finally:
+        os.environ.pop("REPRO_DISABLE_KERNELS", None)
+    st = eng.last_stats
+    ints = {k: getattr(st, k) for k in (
+        "submitted", "admitted", "completed", "cancelled", "shed",
+        "preemptions", "prefill_batches", "decode_steps", "decode_tokens")}
+    return ({c.uid: c for c in outs}, log, ints, ran)
+
+
+def server_agree_f32(torch):
+    """Phase 13: qwen3 cut to 4 layers, f32, ManualClock: one schedule
+    (10 requests, prompts 64-512, 24 new tokens, 4 slots, arrivals every
+    0.25 s, the clock 1 s an iteration; priorities, TTFT deadlines of 3 s, half sampled, a queued and
+    a mid-stream cancel and a forced preemption) with the kernels, again
+    with the kernels (identical), and under REPRO_DISABLE_KERNELS=1:
+    finish reasons, details, preemptions, the hook's log and the stats
+    equal, tokens equal up to the replay rule on the perturbed logits.
+    Then the schedule again with top fraction 1 and capacity factor 8
+    (so that the resume's prefill recomputes the KV decode wrote: every
+    valid key selected in both, no capacity drop), and each request
+    preempted there served alone: its stream equals the preempted one
+    (same rule)."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import Engine
+    base = dataclasses.replace(configs.get_config("qwen3-0.6b"), num_layers=4,
+                               dtype=torch.float32).with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, base, seed=3)
+    model.to(torch.float32)
+    reqs = _server_mix(_requests(10, 64, 512, 24, base.vocab_size, seed=4),
+                       deadline_s=3.0)
+    trace = [(0.25 * i, r) for i, r in enumerate(reqs)]
+    seed = SERVER_SEED
+    runs = [_agree_serve(torch, model, base, trace, on, seed)
+            for on in (True, True, False)]
+    (got, log, ints, ran), again, (want, log_o, ints_o, ran_o) = runs
+    if ran != {"fused_sparse_decode_attention", "grouped_ffn",
+               "decode_ffn"} or ran_o:
+        raise AssertionError(f"kernels launched: {ran} (on), {ran_o} (off)")
+    if ({u: (c.tokens, c.finish_reason, c.preemptions) for u, c in
+         again[0].items()} != {u: (c.tokens, c.finish_reason, c.preemptions)
+                               for u, c in got.items()}
+            or again[1:3] != (log, ints)):
+        raise AssertionError("the same seed gave another run")
+    if (log != log_o or ints != ints_o
+            or {u: (c.finish_reason, c.detail, c.preemptions)
+                for u, c in got.items()}
+            != {u: (c.finish_reason, c.detail, c.preemptions)
+                for u, c in want.items()}):
+        raise AssertionError(f"kernels vs oracle schedules differ: {log} "
+                             f"{ints} vs {log_o} {ints_o}")
+    if not (ints["preemptions"] >= 1 and ints["cancelled"] == 2
+            and all(x[-1] for x in log) and len(log) == 3):
+        raise AssertionError(f"phase 13 schedule missed an event: {log} "
+                             f"{ints}")
+    flips = _compare_sampled(torch, model, base, reqs,
+                             {u: c.tokens for u, c in got.items()},
+                             {u: c.tokens for u, c in want.items()},
+                             "kernels vs oracle", seed)
+    reasons = sorted({c.finish_reason for c in got.values()})
+    print(f"  f32 server schedule: {json.dumps(ints)}; hook {log}; finish "
+          f"reasons {reasons}; streams == REPRO_DISABLE_KERNELS=1 for "
+          f"{len(got) - flips}/{len(got)} requests, {flips} replayed "
+          "near-tie flips (<= 1e-3 on the perturbed logits); the same seed "
+          "again identical", flush=True)
+    # recompute resume rebuilds a request's KV through the ragged prefill,
+    # which equals what decode wrote only where both select the same keys
+    # and no (token, group) pair overflows the routed FFN's capacity: top
+    # fraction 1 keeps every valid key in both (a budget of 16 in both
+    # also matches, but its selection turns float-order noise into 1e-2
+    # logit gaps), and capacity 8 drops nothing
+    exact = base.with_spt(attn_top_fraction=1.0, ffn_capacity_factor=8.0)
+    got = _agree_serve(torch, model, exact, trace, True, seed)[0]
+    by_uid = {r.uid: r for r in reqs}
+    resumed = [u for u, c in got.items()
+               if c.preemptions and c.finish_reason == "length"]
+    if not resumed:
+        raise AssertionError("no preempted request ran to its budget")
+    solo = {}
+    for u in resumed:
+        eng = Engine(exact, model, max_len=1024, num_slots=4, decode_chunk=8)
+        solo[u] = eng.run([by_uid[u]], seed=seed)[0].tokens
+    flips = _compare_sampled(torch, model, exact, reqs, solo,
+                             {u: got[u].tokens for u in resumed},
+                             "preempted vs alone", seed)
+    print(f"  preempted requests {resumed}: streams equal their unpreempted "
+          f"runs ({flips} replayed near-tie flips)", flush=True)
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -2178,12 +2550,14 @@ def _map_tree(fn, tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "serve", "train", "paper"),
+    ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
+                                       "server"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
-                         "phases (1-3, 7-8) or the paper's models (1-3, "
-                         "9-11) alone")
+                         "phases (1-3, 7-8), the paper's models (1-3, "
+                         "9-11) or the long-lived server (1-3, 12-13) "
+                         "alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2249,7 +2623,8 @@ def main() -> int:
     paths = {p: {r["name"]: 0 for r in rows}
              for p in ("serve", "serve_paged", "serve_paged_two_pass",
                        "serve_paged_dense", "train", "paper_blocks",
-                       "paper_train", "paper_prefill", "paper_serve")}
+                       "paper_train", "paper_prefill", "paper_serve",
+                       "server", "server_paged")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -2296,6 +2671,21 @@ def main() -> int:
               f"{t2 - t1:.1f} s)", flush=True)
         paper_agree_f32(torch)
         print(f"[11] took {time.perf_counter() - t2:.1f} s", flush=True)
+    if args.only in (None, "server"):
+        # 12. the long-lived server at full width, contiguous and paged
+        t0 = time.perf_counter()
+        print("[12] full-width qwen3-0.6b bf16 Engine.serve: 32 requests, "
+              "Poisson arrivals at 2/s, chaos and watchdog", flush=True)
+        server_paths, rates = server_full_width(torch)
+        paths.update(server_paths)
+        # 13. card-side agreement of the server schedule
+        t1 = time.perf_counter()
+        print("[12] decode by telemetry mode: " + json.dumps(rates),
+              flush=True)
+        print(f"[13] 4-layer f32 server agreement (phase 12 took "
+              f"{t1 - t0:.1f} s)", flush=True)
+        server_agree_f32(torch)
+        print(f"[13] took {time.perf_counter() - t1:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

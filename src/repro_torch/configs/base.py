@@ -59,7 +59,12 @@ class SPTConfig:
     routed_ffn_in_experts: bool = False
     lb_loss_weight: float = 0.01
     qerr_loss_weight: float = 0.0
-    telemetry: str = "off"          # only "off" is ported
+    # serving observability (serving/telemetry.py): "off" adds no counter
+    # work to the decode chunk; "counters" accumulates device counters
+    # (sparse-MHA kept/eligible slots, routed-FFN expert loads and drops,
+    # pages grown, sampled tokens) and drains them at the chunk's one host
+    # sync; "trace" adds the host-side request/scheduler event timeline
+    telemetry: str = "off"          # off | counters | trace
 
 
 @dataclasses.dataclass(frozen=True)

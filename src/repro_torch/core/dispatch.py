@@ -170,6 +170,20 @@ def use_paged_kv(cfg) -> bool:
     return cfg.spt.kv_layout == "paged"
 
 
+def telemetry_mode(cfg) -> str:
+    """Serving-observability level: "off" | "counters" | "trace".  A
+    config decision, not a kernel, so the kill switch does not apply."""
+    return cfg.spt.telemetry
+
+
+def use_telemetry_counters(cfg) -> bool:
+    """Do the model layers emit the device telemetry counters (``tel_*``
+    aux entries: sparse-MHA kept/eligible slots, routed-FFN expert loads
+    and capacity drops)?  Both "counters" and "trace" turn them on; off,
+    the decode step does no counter work."""
+    return telemetry_mode(cfg) in ("counters", "trace")
+
+
 def use_routed_ffn_kernel(cfg) -> bool:
     """Train/prefill routed FFN through the grouped-FFN CUDA kernel?"""
     if kernels_disabled():

@@ -1,16 +1,25 @@
 """Serving launcher of the port: continuous batching over decode slots.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --smoke --device cpu --requests 8 --prompt-len 24 --gen 6 \\
+        --slots 2 --arrival-qps 4 --priorities --deadline-s 2 \\
+        --temperature 0.8 --top-p 0.9 --telemetry trace --trace-out t.json
 
-Random weights from a seed (no checkpoint ships with the repo), greedy
-decoding, the config's kernels (attn_impl / ffn_impl "pallas" = the CUDA
-kernels), on the contiguous or the paged KV layout (``--kv-layout paged
---page-size N [--kv-pages P]``).  A short warm-up run comes first; the timed run prints one JSON
-blob of its stats.  Runs on the card unless ``--device cpu``.
+Random weights from a seed (no checkpoint ships with the repo), the
+config's kernels (attn_impl / ffn_impl "pallas" = the CUDA kernels,
+switchable per path), on the contiguous or the paged KV layout.  Greedy
+unless ``--temperature`` > 0 (then seeded by ``--sample-seed``, with
+``--top-k`` / ``--top-p`` truncation).  ``--arrival-qps`` serves through
+the long-lived loop (``Engine.serve``) with seeded Poisson arrivals
+instead of one burst.  A short warm-up run comes first; the timed run
+prints one JSON blob with the JAX launcher's keys.  Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -20,17 +29,36 @@ import torch
 
 from repro_torch import configs
 from repro_torch.models import transformer
-from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.engine import ArrivalSchedule, Engine, Request
 
 
 def build_requests(vocab: int, num: int, prompt_len: int, gen: int,
-                   seed: int = 1):
-    """Prompts of ragged lengths in [prompt_len/2, prompt_len]."""
+                   ragged: bool, seed: int = 1, top_k: int = 0,
+                   top_p: float = 0.0):
+    """``num`` prompts of ``prompt_len`` tokens, or of ragged lengths in
+    [max(4, prompt_len/2), prompt_len] with ``ragged``."""
     rng = np.random.default_rng(seed)
-    return [Request(uid=i, tokens=rng.integers(
-        0, vocab, size=int(rng.integers(max(1, prompt_len // 2),
-                                        prompt_len + 1))).tolist(),
-        max_new_tokens=gen) for i in range(num)]
+    reqs = []
+    for i in range(num):
+        ln = (int(rng.integers(max(4, prompt_len // 2), prompt_len + 1))
+              if ragged else prompt_len)
+        reqs.append(Request(uid=i, tokens=rng.integers(
+            0, vocab, size=ln).tolist(), max_new_tokens=gen,
+            top_k=top_k, top_p=top_p))
+    return reqs
+
+
+def with_slo(reqs, priorities: bool, deadline_s):
+    """The phased priority workload: with ``priorities`` the first half
+    of the requests is background (priority 0) and the second half
+    interactive (priority 1); ``deadline_s`` is the TTFT deadline of the
+    interactive half (of every request without ``priorities``)."""
+    half = len(reqs) // 2
+    return [dataclasses.replace(
+        r, priority=(0 if priorities and i < half
+                     else 1 if priorities else r.priority),
+        deadline_s=deadline_s if (not priorities or i >= half) else None)
+        for i, r in enumerate(reqs)]
 
 
 def main(argv=None) -> int:
@@ -42,9 +70,41 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--gen", type=int, default=64)
-    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=8,
+                    help="decode slots (batch width); requests beyond this "
+                         "queue and stream in as slots free up")
     ap.add_argument("--max-len", type=int, default=None,
                     help="cache length per slot (default prompt-len + gen)")
+    ap.add_argument("--decode-chunk", type=int, default=16,
+                    help="decode steps per chunk (one host sync each)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="token id that retires a slot early")
+    ap.add_argument("--ragged", action="store_true",
+                    help="draw ragged prompt lengths in [L/2, L]")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k sampling truncation inside the decode chunk "
+                         "(0 = off; needs --temperature > 0)")
+    ap.add_argument("--top-p", type=float, default=0.0,
+                    help="nucleus sampling inside the decode chunk (keep the "
+                         "smallest probability mass >= p; 0 = off; needs "
+                         "--temperature > 0)")
+    ap.add_argument("--sample-seed", type=int, default=3,
+                    help="seed of the sampler's draws (with --temperature)")
+    ap.add_argument("--decode-impl", default="auto",
+                    choices=("auto", "kernel", "jnp"),
+                    help="sparse-MHA decode path: CUDA kernel vs the plain "
+                         "torch path (auto follows the kernel config; "
+                         "REPRO_DISABLE_KERNELS=1 forces the plain path)")
+    ap.add_argument("--ffn-impl", default=None, choices=("pallas", "grouped"),
+                    help="routed-FFN prefill path: 'pallas' = the grouped-FFN "
+                         "CUDA kernel (the default), 'grouped' = the plain "
+                         "capacity path")
+    ap.add_argument("--decode-ffn-impl", default="auto",
+                    choices=("auto", "kernel", "jnp"),
+                    help="routed-FFN decode path at (B, 1, d): block-gather "
+                         "CUDA kernel vs the grouped plain path (auto "
+                         "follows --ffn-impl)")
     ap.add_argument("--kv-layout", default="contiguous",
                     choices=("contiguous", "paged"),
                     help="serving KV-cache layout: 'paged' shares a pool of "
@@ -56,33 +116,101 @@ def main(argv=None) -> int:
                     help="page-pool size (default: the contiguous footprint "
                          "slots*ceil(max_len/page_size); set lower to serve "
                          "under a fixed KV-memory budget)")
+    ap.add_argument("--prefill-batch", type=int, default=None,
+                    help="max queued requests per ragged prefill call "
+                         "(default: --slots; 1 = serial admission)")
+    ap.add_argument("--prefill-decode-ratio", type=float, default=0.0,
+                    help="overlap knob: with decodes in flight, admit at "
+                         "most ratio * decode_chunk * active_slots prompt "
+                         "tokens per scheduling iteration (0 = fill all "
+                         "free slots before each chunk)")
+    ap.add_argument("--arrival-qps", type=float, default=None,
+                    help="serve through the long-lived loop with seeded "
+                         "Poisson arrivals at this offered rate instead of "
+                         "one burst (stats add p50/p99 TTFT/TPOT, "
+                         "preemptions, shed)")
+    ap.add_argument("--priorities", action="store_true",
+                    help="phased priority workload: first half background "
+                         "(priority 0), second half interactive (priority "
+                         "1); under pressure backgrounds are preempted and "
+                         "re-admitted by recompute")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="TTFT deadline of the interactive requests (all "
+                         "requests without --priorities): a queued request "
+                         "past it is shed, one past half of it may preempt "
+                         "deadline-free peers")
+    ap.add_argument("--telemetry", default="off",
+                    choices=("off", "counters", "trace"),
+                    help="'counters' accumulates sparsity/expert/page "
+                         "counters on the device, drained once per chunk; "
+                         "'trace' adds per-request lifecycle timelines and "
+                         "scheduler spans; outputs are identical across all "
+                         "three")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Perfetto-loadable Chrome trace.json of the "
+                         "timed run here (implies --telemetry trace)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics snapshot (counters/"
+                         "gauges/histograms) as JSON here")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    cfg = cfg.with_spt(attn_impl="pallas", ffn_impl="pallas",
+    telemetry = "trace" if args.trace_out else args.telemetry
+    cfg = cfg.with_spt(attn_impl="pallas",
+                       ffn_impl=args.ffn_impl or "pallas",
+                       decode_attn_impl=args.decode_impl,
+                       decode_ffn_impl=args.decode_ffn_impl,
                        kv_layout=args.kv_layout,
-                       kv_page_size=args.page_size)
+                       kv_page_size=args.page_size, telemetry=telemetry)
     device = transformer.resolve_device(args.device)
     model = transformer.LM.init(cfg, seed=0, device=device)
     max_len = args.max_len or args.prompt_len + args.gen
     engine = Engine(cfg, model, max_len=max_len, num_slots=args.slots,
-                    kv_pages=args.kv_pages, device=device)
+                    eos_id=args.eos_id, decode_chunk=args.decode_chunk,
+                    kv_pages=args.kv_pages,
+                    prefill_batch=args.prefill_batch,
+                    prefill_decode_ratio=args.prefill_decode_ratio,
+                    device=device)
+    seed = args.sample_seed if args.temperature > 0 else None
     reqs = build_requests(cfg.vocab_size, args.requests, args.prompt_len,
-                          args.gen)
-    engine.run(reqs[:1])                                     # warm-up
+                          args.gen, args.ragged, top_k=args.top_k,
+                          top_p=args.top_p)
+    # warm-up (deadlines and priorities come after it, as in JAX)
     t0 = time.perf_counter()
-    outs = engine.run(reqs)
+    engine.run(reqs[:1], temperature=args.temperature, seed=seed)
+    warmup_wall_s = time.perf_counter() - t0
+    if args.priorities or args.deadline_s is not None:
+        reqs = with_slo(reqs, args.priorities, args.deadline_s)
+    t0 = time.perf_counter()
+    if args.arrival_qps is not None:
+        outs = engine.serve(
+            ArrivalSchedule.poisson(reqs, args.arrival_qps, seed=0),
+            temperature=args.temperature, seed=seed)
+    else:
+        outs = engine.run(reqs, temperature=args.temperature, seed=seed)
     wall = time.perf_counter() - t0
+    stats = engine.last_stats
     out = {"arch": cfg.name, "device": str(device),
            "device_name": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu"),
            "requests": args.requests, "slots": args.slots,
            "generated_tokens": sum(len(c.tokens) for c in outs),
-           "wall_s": wall, **engine.last_stats.as_dict(),
+           "warmup_wall_s": round(warmup_wall_s, 2),
+           "steady_wall_s": round(wall, 2), **stats.as_dict(),
            "finish_reasons": sorted({c.finish_reason for c in outs}),
            "sample": outs[0].tokens[:8]}
+    if args.trace_out:
+        from repro_torch.serving import trace_export
+        trace = trace_export.write_trace(engine.last_recorder,
+                                         args.trace_out)
+        out["trace_out"] = args.trace_out
+        out["trace_events"] = len(trace["traceEvents"])
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(stats.snapshot().as_dict(), f, indent=1)
+        out["metrics_out"] = args.metrics_out
     print(json.dumps(out, indent=1))
     return 0
 

@@ -221,6 +221,17 @@ def _decode_paged(p, cfg: ModelConfig, q, k, v, cache: dict, pos_b,
         p, cfg, q, cache, page_table, pos_b, kv_valid, scale)
 
 
+def _tel_decode_counters(cfg: ModelConfig, valid: torch.Tensor) -> dict:
+    """Sparsity counters of one decode step (telemetry), from the validity
+    mask alone: the decode paths select top-L = top_l(mask width) of the
+    valid slots, so per row kept = min(L, n_valid) and eligible = n_valid.
+    One mask reduction per attention layer; no score is recomputed."""
+    n_valid = valid.sum(-1).to(torch.float32)                   # (B,)
+    l = sa.top_l(valid.shape[-1], _sa_config(cfg), None)
+    return {"tel_attn_kept": torch.clamp(n_valid, max=float(l)),
+            "tel_attn_elig": n_valid}
+
+
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                causal: bool = True, window: Optional[int] = None,
                cache: Optional[dict] = None, pos=None,
@@ -234,7 +245,9 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
     a page table, (B, MP * page_size) in view coordinates); without it
     the mask is derived from the cache's slot_pos.  page_table: decode
     only, the (B, MP) slot->page map that marks ``cache`` as a paged pool
-    (ring-buffer SWA caches ignore it)."""
+    (ring-buffer SWA caches ignore it).  With telemetry counters on
+    (``dispatch.use_telemetry_counters``), a sparse decode step reports
+    ``tel_attn_kept`` / ``tel_attn_elig`` (B,) in aux."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     lc = cfg.spt.lora
@@ -260,6 +273,11 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
             cache = write_cache(cache, cfg, p, k, v, pos_q)
     elif mode == "decode" and page_table is not None and window is None:
         pos_b = start.expand(b) if start.dim() == 0 else start
+        s_view = page_table.shape[1] * cfg.spt.kv_page_size
+        if (sparse_applicable(cfg) and kv_valid is not None
+                and kv_valid.shape[-1] == s_view
+                and dispatch.use_telemetry_counters(cfg)):
+            aux.update(_tel_decode_counters(cfg, kv_valid))
         out = _decode_paged(p, cfg, q, k, v, cache, pos_b, kv_valid,
                             page_table, hd ** -0.5)
     elif mode == "decode":
@@ -272,6 +290,8 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
             valid = kv_valid_mask(cache, start, window)
         scale = hd ** -0.5
         if sparse_applicable(cfg):
+            if dispatch.use_telemetry_counters(cfg):
+                aux.update(_tel_decode_counters(cfg, valid))
             args = (q, cache["k"], cache["v"], cache["codes"],
                     p["pq"]["codebooks"], _sa_config(cfg), scale, valid)
             if dispatch.use_sparse_decode_kernel(cfg):

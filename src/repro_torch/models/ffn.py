@@ -45,8 +45,21 @@ def ffn_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _routed_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
-                  seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+def _tel_expert_load(choice: torch.Tensor, num_groups: int, x: torch.Tensor,
+                     seq_lengths) -> torch.Tensor:
+    """(B, G) per-row token->group load from the router's top-G' choices
+    (telemetry); right-pad rows of a ragged prefill batch are masked out,
+    so loads count real tokens only."""
+    oh = torch.nn.functional.one_hot(choice.long(), num_groups).float()
+    if seq_lengths is not None:                          # (B, S, G', G)
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                 < seq_lengths[:, None]).float()
+        oh = oh * valid[:, :, None, None]
+    return oh.sum((1, 2))
+
+
+def _routed_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                    seq_lengths=None) -> Tuple[torch.Tensor, dict]:
     lc = cfg.spt.lora
     rcfg = _routed_cfg(cfg)
     need_aux = mode == "train"
@@ -66,6 +79,24 @@ def _routed_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
         impl = "grouped"                             # REPRO_DISABLE_KERNELS=1
     return routed_ffn.routed_ffn(x, p, rcfg, lc, impl=impl,
                                  need_aux=need_aux, seq_lengths=seq_lengths)
+
+
+def _routed_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                  seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+    y, aux = _routed_forward(p, x, cfg, mode, seq_lengths)
+    if (dispatch.use_telemetry_counters(cfg) and x.dim() == 3
+            and mode in ("prefill", "decode")):
+        # telemetry counters: re-run the (small) router product so the
+        # kernel and plain paths report the same loads
+        rcfg = _routed_cfg(cfg)
+        choice, _, _ = routed_ffn.route(x, p["router"], rcfg,
+                                        need_aux=False)
+        aux = dict(aux)
+        aux["tel_expert_load"] = _tel_expert_load(
+            choice, rcfg.num_groups, x, seq_lengths)
+        aux["tel_expert_drop"] = torch.as_tensor(
+            aux.get("dropped", 0.0), dtype=torch.float32, device=x.device)
+    return y, aux
 
 
 def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",

@@ -58,7 +58,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache=None, pos=None, kv_valid=None, page_table=None,
                 seq_lengths=None):
     """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
-    its layers report (scalars, f32)."""
+    its layers report (scalars, f32) and, with telemetry counters on, its
+    ``tel_*`` counters."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
     y, cache, a_aux = attention.attn_apply(
         p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
@@ -71,9 +72,10 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         y2, f_aux = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
                                   seq_lengths=seq_lengths)
         x = x + y2.to(x.dtype)
-    # attention reports qerr, the FFN lb_loss and dropped: no key in both
+    # attention reports qerr (and tel_attn_*), the FFN lb_loss and dropped
+    # (and tel_expert_*): no key in both
     aux = {k: v for a in (a_aux, f_aux) for k, v in a.items()
-           if k in AUX_KEYS}
+           if k in AUX_KEYS or k.startswith("tel_")}
     return x, cache, aux
 
 
@@ -215,10 +217,14 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     block, and with ``remat`` each unit runs under a non-reentrant
     checkpoint (its activations are recomputed in backward, kernels
     included, as JAX's jax.checkpoint of the scan body does).  Inference
-    modes skip the aux sums (no extra launches on the decode path)."""
+    modes skip the aux sums (no extra launches on the decode path); the
+    telemetry counters (``tel_*``, present only when the config turns
+    them on) are summed over a unit's blocks and stacked per unit,
+    (U, ...), as JAX's scan stacks them."""
     train = mode == "train"
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in AUX_KEYS} if train else {})
+    tel: Dict[str, list] = {}
 
     def unit_body(h, unit, u):
         aux_u = {}
@@ -241,8 +247,11 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
         else:
             x, aux_u = unit_body(x, unit, u)
         for k, val in aux_u.items():
-            if train:
+            if k.startswith("tel_"):
+                tel.setdefault(k, []).append(val)
+            elif train:
                 aux_total[k] = aux_total[k] + val
+    aux_total.update({k: torch.stack(v) for k, v in tel.items()})
     return x, aux_total
 
 
@@ -279,23 +288,30 @@ def logits_of(model: LM, cfg: ModelConfig, hidden: torch.Tensor
     return out
 
 
+def _counters(aux: dict) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in aux.items() if k.startswith("tel_")}
+
+
 @torch.no_grad()
 def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
                    token: torch.Tensor, pos: torch.Tensor,
                    kv_valid: Optional[torch.Tensor] = None,
-                   page_table: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   page_table: Optional[torch.Tensor] = None,
+                   return_counters: bool = False):
     """One token for every row.  token: (B,); pos: (B,) per-slot
     positions; kv_valid: optional (B, cache_size) slot validity shared by
     every layer ((B, MP * page_size) with a page table); page_table:
     optional (B, MP) slot->page map, given when the attention caches are
     paged pools (``init_caches(..., kv_pages=)``).  Writes the caches in
-    place; returns logits (B, 1, V)."""
+    place; returns logits (B, 1, V), and with ``return_counters`` also the
+    telemetry counter tree (``tel_*`` stacked per unit; empty unless
+    ``spt.telemetry`` != "off")."""
     x = _embed_inputs(model, cfg, token[:, None], pos0=pos)
-    x, _ = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
-                       pos=pos, kv_valid=kv_valid, page_table=page_table)
+    x, aux = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
+                         pos=pos, kv_valid=kv_valid, page_table=page_table)
     x = layers.apply_norm(model.final_norm, x, cfg.norm)
-    return logits_of(model, cfg, x)
+    logits = logits_of(model, cfg, x)
+    return (logits, _counters(aux)) if return_counters else logits
 
 
 @torch.no_grad()
@@ -334,10 +350,11 @@ def _mask_invalid_slots(caches: dict, lengths: torch.Tensor) -> dict:
 @torch.no_grad()
 def lm_prefill_ragged(model: LM, cfg: ModelConfig,
                       batch: Dict[str, torch.Tensor], lengths: torch.Tensor,
-                      max_len: int):
+                      max_len: int, return_counters: bool = False):
     """Prefill a (B, S) batch of right-padded prompts of per-row
     ``lengths``.  Returns (caches, logits (B, 1, V) at each row's last
-    real position).  Each row's outputs equal an exact-length batch-1
+    real position), and with ``return_counters`` also the telemetry
+    counter tree.  Each row's outputs equal an exact-length batch-1
     prefill: the causal mask hides pad keys, and the lengths reach the
     sparse-MHA budgets and routed-FFN capacities."""
     tokens = batch["tokens"]
@@ -345,13 +362,16 @@ def lm_prefill_ragged(model: LM, cfg: ModelConfig,
     caches = init_caches(cfg, bsz, max_len, tokens.device)
     x = _embed_inputs(model, cfg, tokens)
     sl = lengths if length_sensitive(cfg) else None
-    x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
-                       pos=0, seq_lengths=sl)
+    x, aux = _run_blocks(model.units, cfg, x, mode="prefill",
+                         caches=caches, pos=0, seq_lengths=sl)
     idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
     x_last = x.gather(1, idx[:, None, None].expand(bsz, 1, x.shape[-1]))
     x_last = layers.apply_norm(model.final_norm, x_last, cfg.norm)
     caches = _mask_invalid_slots(caches, lengths)
-    return caches, logits_of(model, cfg, x_last)
+    logits = logits_of(model, cfg, x_last)
+    if return_counters:
+        return caches, logits, _counters(aux)
+    return caches, logits
 
 
 def write_slot_caches_rows(dst: dict, rows: dict, slots: torch.Tensor

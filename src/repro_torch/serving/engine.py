@@ -1,17 +1,40 @@
-"""Continuous-batching serving engine over decode slots (port of the JAX
-``serving/engine.py`` burst path).
+"""Serving: prefill/decode step functions and a continuous-batching engine
+over decode slots (port of the JAX package's ``serving/engine.py``).
 
-  * Requests queue up and are admitted into free slots as they open.
-    Admission is batched: as many queued requests as there are free
-    slots go through ONE ragged prefill, right-padded to a (Bp, S)
-    power-of-two bucket (per-row lengths reach the sparse-MHA budgets and
-    routed-FFN capacities, so every row equals its exact-length prefill),
-    and all resulting cache rows are copied into their slots at once; the
-    copy replaces whole rows, which recycles the slot.
+  * ``Engine.serve`` is the long-lived loop over an ``ArrivalSchedule``
+    (seeded Poisson, a trace, or a burst): requests arrive as the serve
+    clock (wall time, or a ``ManualClock`` that advances once per
+    scheduling iteration) passes their arrival time; ``submit``,
+    ``cancel`` and ``preempt`` work from inside the loop (an
+    ``on_iteration`` hook reaches the live state through
+    ``Engine._live``).  ``Engine.run`` is its burst wrapper.
+  * Admission is by priority, then submission order.  Up to
+    ``prefill_batch`` queued requests go through ONE ragged prefill,
+    right-padded to a (Bp, S) power-of-two bucket (per-row lengths reach
+    the sparse-MHA budgets and routed-FFN capacities, so every row equals
+    its exact-length prefill), and all its cache rows are copied into
+    their slots at once; the copy replaces whole rows, which recycles the
+    slot.  With ``prefill_decode_ratio > 0`` and decodes in flight, an
+    iteration admits at most ratio * decode_chunk * active_slots prompt
+    tokens before the next decode chunk.
+  * A queued request whose TTFT deadline lapses is shed; under slot or
+    page pressure the head of the queue evicts strictly-lower-priority
+    running requests (or, past half its deadline, deadline-free peers of
+    its priority).  An evicted request keeps its tokens and re-admits by
+    recompute: the prefill takes its prompt plus all but its last
+    generated token, and the last becomes the pending decode input, so
+    the stream continues where it stopped (exactly so in f32).
   * Decode runs in chunks of ``decode_chunk`` steps: a plain loop of
     device work with per-slot positions that syncs to the host once per
-    chunk (the JAX engine compiles the chunk as a lax.while_loop).
-    Greedy decoding; a slot retires on EOS or on its token budget.
+    chunk (the JAX engine compiles the chunk as a lax.while_loop).  A
+    slot retires on EOS or on its token budget.  Per-request sampling
+    (temperature, top-k, top-p; both truncations on the temperature-
+    scaled logits, intersected) runs inside the chunk on the sampled
+    slots' rows only; a run or chunk with no sampled slot takes the
+    argmax alone.  A request's draws depend only on (seed, uid, token
+    index) — a counter-based Gumbel draw (``categorical``) — so its
+    stream does not change with its slot, its batch mates or a
+    preemption.  The first token is sampled at admission.
   * With ``SPTConfig.kv_layout="paged"`` the attention caches are pools
     of fixed-size pages shared by the slots (serving/kv_pages.py), the
     allocator state and page table living on the device.  Admission
@@ -19,24 +42,27 @@
     that does not fit the pool's unreserved pages waits (counted in
     ``admission_stalls``, once per scheduling iteration) without blocking
     later requests that fit, and one larger than the whole pool is
-    rejected.  A group's pages come from one ``alloc_rows_pages`` and its
-    prefill rows land in one paged write; decode grows a slot by one page
-    inside the chunk, on the device, when it writes the first row of a
-    new page (the reservation makes that allocation infallible); retire
-    frees the slot's pages.
+    rejected.  Decode grows a slot by one page inside the chunk, on the
+    device, when it writes the first row of a new page; retire, cancel
+    and preemption free the slot's pages.
+  * Telemetry (``SPTConfig.telemetry``): "counters" accumulates the
+    model's device counters (serving/telemetry.py) inside the chunk and
+    drains them in the chunk's one host transfer (and once per admission
+    prefill); "trace" also records per-request lifecycle events and
+    scheduler spans (serving/trace_export.py writes them as a Chrome
+    trace).  "off" adds no counter work.
   * Each decode step goes through the CUDA kernels when the config
     selects them (core/dispatch.py): the sparse decode attention (fused,
     or two-pass; paged: read through the page table, sparse or dense) and
     the block-gather routed FFN; the prefill's routed FFN runs the
     grouped-FFN kernel.
 Timing is split into prefill and decode, each ended by a host sync.
-Not ported yet: preemption, arrivals over time, sampling and telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +71,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
 from repro_torch.models import transformer
 from repro_torch.serving import kv_pages as kvp
+from repro_torch.serving.telemetry import (MetricsSnapshot, Reservoir,
+                                           TelemetryRecorder)
 
 
 def build_prefill_step(cfg: ModelConfig, max_len: int):
@@ -64,41 +92,247 @@ def build_decode_step(cfg: ModelConfig):
     return decode
 
 
+# ---------------------------------------------------------------- sampling
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xorshift-multiply rounds) of ints, numpy
+    arrays or int64 tensors holding values in [0, 2**32).  Multipliers
+    below 2**31 keep every product below 2**63, so int64 never
+    overflows."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def request_key(seed: int, uid: int) -> int:
+    """A request's sampling key: a function of (seed, uid) alone."""
+    return _mix32(_mix32(int(seed) & _M32) ^ (int(uid) & _M32))
+
+
+def gumbel_noise(keys: torch.Tensor, n: torch.Tensor, vocab: int
+                 ) -> torch.Tensor:
+    """(R, V) f32 standard Gumbel noise, row r a function of (keys[r],
+    n[r]) alone: the counter-based draw of token n of the request keyed
+    keys[r].  23-bit uniforms in (0, 1), exact in f32."""
+    row = _mix32(keys.long() ^ _mix32(n.long() & _M32))[:, None]
+    j = torch.arange(vocab, dtype=torch.long, device=keys.device)[None]
+    h = _mix32(_mix32(row ^ ((j * 0x9E3779B1) & _M32)) ^ row)
+    u = ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(-torch.log(u))
+
+
+def categorical(logits: torch.Tensor, keys: torch.Tensor, n: torch.Tensor
+                ) -> torch.Tensor:
+    """One draw per row from softmax(logits) (Gumbel-max; -inf entries are
+    never drawn).  logits (R, V) f32; keys (R,) request keys; n (R,) the
+    index of the token being drawn.  Returns (R,) int64."""
+    return (logits + gumbel_noise(keys, n, logits.shape[-1])).argmax(-1)
+
+
+def truncate(lg: torch.Tensor, temps: torch.Tensor, topks: torch.Tensor,
+             topps: torch.Tensor, kmax: int, use_topp: bool) -> torch.Tensor:
+    """Temperature-scaled logits with top-k and top-p truncation (-inf
+    outside), the distribution a sampled row draws from.
+
+    lg (R, V) f32 logits; temps/topks/topps (R,).  Both truncations act
+    on the temperature-scaled logits and are intersected; the nucleus
+    keeps a token iff the mass strictly before it in sorted order is
+    below top_p, so the top-1 token always survives.  ``kmax`` (the
+    largest top_k of the rows, 0 = none) and ``use_topp`` (some row has
+    0 < top_p < 1) are host facts: without them the rows pay no top-k
+    selection and no sort."""
+    scaled = lg / temps.clamp(min=1e-6)[:, None]
+    vocab = scaled.shape[-1]
+    masked = scaled
+    srt = None
+    if use_topp:
+        srt = torch.sort(scaled, dim=-1, descending=True).values
+    if kmax > 0:
+        top = (srt if srt is not None else
+               torch.topk(scaled, min(kmax, vocab), dim=-1).values)
+        kcol = (topks.long() - 1).clamp(0, top.shape[-1] - 1)[:, None]
+        thr_k = top.gather(1, kcol)
+        masked = torch.where((topks > 0)[:, None] & (scaled < thr_k),
+                             float("-inf"), masked)
+    if use_topp:
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        kcnt = ((cum - probs) < topps[:, None]).sum(-1).clamp(1, vocab)
+        thr_p = srt.gather(1, (kcnt - 1)[:, None])
+        on = (topps > 0.0) & (topps < 1.0)
+        masked = torch.where(on[:, None] & (scaled < thr_p), float("-inf"),
+                             masked)
+    return masked
+
+
+def sample_rows(lg: torch.Tensor, keys: torch.Tensor, n: torch.Tensor,
+                temps: torch.Tensor, topks: torch.Tensor,
+                topps: torch.Tensor, kmax: int, use_topp: bool
+                ) -> torch.Tensor:
+    """One temperature + top-k + top-p draw per sampled row (temps > 0):
+    ``categorical`` over ``truncate``'s logits; keys (R,) request keys,
+    n (R,) the index of the token each row draws."""
+    return categorical(truncate(lg, temps, topks, topps, kmax, use_topp),
+                       keys, n)
+
+
+def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Copy tensors to host numpy in ONE transfer (and so one sync): each
+    is cast to float64 (exact for the ints and f32 counters the engine
+    moves), flattened and concatenated on the device."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    host = flat.cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        a = host[i:i + t.numel()].reshape(t.shape)
+        i += t.numel()
+        out.append(a.astype(bool) if t.dtype == torch.bool
+                   else a.astype(np.int64) if not t.is_floating_point()
+                   else a)
+    return out
+
+
+# ---------------------------------------------------------------- arrivals
+class ManualClock:
+    """Deterministic serve clock: ``clock()`` reads virtual time, and the
+    serve loop calls ``advance()`` once per scheduling iteration, so
+    arrivals, deadlines and preemptions are a function of the seed."""
+
+    def __init__(self, dt: float = 1.0):
+        self.now = 0.0
+        self.dt = float(dt)
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance(self) -> None:
+        self.now += self.dt
+
+
+class ArrivalSchedule:
+    """An arrival process feeding ``Engine.serve``: (t_s, Request) events
+    in time order, popped as the serve clock passes each arrival time.
+    Build one from a Poisson process (``poisson``), an explicit trace
+    (``from_trace``), or an all-at-t=0 burst (``burst``, what ``run``
+    serves)."""
+
+    def __init__(self, events: Sequence[Tuple[float, "Request"]]):
+        self._events = sorted(events, key=lambda e: e[0])      # stable
+        self._i = 0
+
+    @classmethod
+    def burst(cls, requests: Sequence["Request"],
+              at: float = 0.0) -> "ArrivalSchedule":
+        return cls([(at, r) for r in requests])
+
+    @classmethod
+    def poisson(cls, requests: Sequence["Request"], rate_qps: float,
+                seed: int = 0) -> "ArrivalSchedule":
+        """Seeded Poisson arrivals at ``rate_qps`` mean offered load."""
+        rng = np.random.default_rng(seed)
+        t, events = 0.0, []
+        for r in requests:
+            t += float(rng.exponential(1.0 / max(rate_qps, 1e-9)))
+            events.append((t, r))
+        return cls(events)
+
+    @classmethod
+    def from_trace(cls, pairs: Sequence[Tuple[float, "Request"]]
+                   ) -> "ArrivalSchedule":
+        return cls(list(pairs))
+
+    @property
+    def exhausted(self) -> bool:
+        return self._i >= len(self._events)
+
+    def next_time(self) -> Optional[float]:
+        return None if self.exhausted else self._events[self._i][0]
+
+    def due(self, now: float) -> List["Request"]:
+        out = []
+        while (self._i < len(self._events)
+               and self._events[self._i][0] <= now):
+            out.append(self._events[self._i][1])
+            self._i += 1
+        return out
+
+
+# ---------------------------------------------------------------- requests
 @dataclasses.dataclass
 class Request:
-    """One generation request."""
+    """One generation request.
+
+    Sampling: temperature None = the run's temperature, <= 0 = greedy;
+    top_k 0 = no truncation; top_p in (0, 1) keeps the smallest nucleus
+    with that much mass (0 or >= 1 = off); the two intersect.
+    Long-lived serving: priority — higher admits first, and under slot or
+    page pressure may evict a strictly-lower-priority running request;
+    deadline_s — TTFT target in serve-clock seconds after arrival: a
+    queued request past it is shed, and one past half of it may evict
+    deadline-free peers of its priority; on_token(uid, token_id, done) —
+    called by the host scheduler as tokens leave each decode chunk."""
     uid: int
     tokens: Sequence[int]                  # prompt token ids
     max_new_tokens: int = 16
+    temperature: Optional[float] = None
+    top_k: int = 0
+    top_p: float = 0.0
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    on_token: Optional[Callable[[int, int, bool], None]] = None
 
 
 @dataclasses.dataclass
 class Completion:
     uid: int
     tokens: List[int]                      # generated ids (EOS included)
-    finish_reason: str                     # "eos" | "length" | "rejected"
+    finish_reason: str     # "eos"|"length"|"rejected"|"cancelled"|"shed"
     prompt_len: int
-    detail: str = ""                       # reject reason, else ""
+    detail: str = ""                       # reject/shed reason, else ""
+    preemptions: int = 0                   # evict+resume count for this uid
 
 
 @dataclasses.dataclass
 class ServeStats:
-    """Wall-clock split of one ``Engine.run`` (host-synced boundaries)."""
+    """Wall-clock split and counters of one serve()/run() (host-synced
+    boundaries)."""
     prefill_s: float = 0.0
     decode_s: float = 0.0
     prefill_tokens: int = 0                # prompt tokens processed
     decode_tokens: int = 0                 # tokens produced by decode steps
-    decode_steps: int = 0                  # batch-wide decode steps run
+    decode_steps: int = 0                  # steps with some slot active
     admitted: int = 0
     completed: int = 0
     prefill_batches: int = 0               # ragged prefill calls issued
     ttft_s_sum: float = 0.0                # over admitted requests of
-    ttft_s_max: float = 0.0                # (first token ready - run start)
+    ttft_s_max: float = 0.0                # (first token ready - arrival)
+    # long-lived serving (zeros for plain burst runs)
+    submitted: int = 0                     # requests offered (incl. rejects)
+    preemptions: int = 0                   # slot evictions
+    rejections: int = 0                    # invalid requests isolated
+    cancelled: int = 0                     # cancel() mid-queue/mid-stream
+    shed: int = 0                          # TTFT deadline lapsed in queue
+    # per-request latency samples: bounded reservoirs (Algorithm R, fixed
+    # seeds) — the mean stays exact, percentiles carry sampling error only
+    # past the cap
+    ttft_samples: Reservoir = dataclasses.field(
+        default_factory=lambda: Reservoir(cap=2048, seed=17))
+    tpot_samples: Reservoir = dataclasses.field(
+        default_factory=lambda: Reservoir(cap=2048, seed=29))
     # paged KV cache (zeros when kv_layout="contiguous")
     page_size: int = 0
     kv_pages_total: int = 0                # pool capacity in pages
     kv_pages_peak: int = 0                 # peak pages in use
     admission_stalls: int = 0              # free slot but no pages
+    # device-counter aggregates (keep_rate, expert_load_imbalance, ...)
+    # from the telemetry recorder — empty when telemetry is off
+    device: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def prefill_tok_s(self) -> float:
@@ -110,23 +344,130 @@ class ServeStats:
 
     @property
     def ttft_avg_s(self) -> float:
-        return self.ttft_s_sum / self.admitted if self.admitted else 0.0
+        """Mean time-to-first-token, exact over every sample seen."""
+        return self.ttft_samples.mean
+
+    @staticmethod
+    def _pctl(xs, q: float) -> float:
+        vals = xs.values if isinstance(xs, Reservoir) else list(xs)
+        return float(np.percentile(np.array(vals), q)) if vals else 0.0
+
+    @property
+    def ttft_p50_s(self) -> float:
+        return self._pctl(self.ttft_samples, 50)
+
+    @property
+    def ttft_p99_s(self) -> float:
+        return self._pctl(self.ttft_samples, 99)
+
+    @property
+    def tpot_p50_s(self) -> float:
+        """Median per-request time per output token (completion wall time
+        after the first token, over the tokens generated after it)."""
+        return self._pctl(self.tpot_samples, 50)
+
+    @property
+    def tpot_p99_s(self) -> float:
+        return self._pctl(self.tpot_samples, 99)
+
+    @property
+    def prefill_batch_occupancy(self) -> float:
+        """Mean admitted rows per prefill call (1.0 = serial admission)."""
+        return (self.admitted / self.prefill_batches
+                if self.prefill_batches else 0.0)
+
+    # as_dict key order; snapshot() keys not in it (device-counter
+    # aggregates) follow, sorted
+    LEGACY_ORDER = (
+        "prefill_s", "decode_s", "prefill_tokens", "decode_tokens",
+        "decode_steps", "prefill_tok_s", "decode_tok_s", "admitted",
+        "completed", "prefill_batches", "prefill_batch_occupancy",
+        "ttft_avg_s", "ttft_max_s", "ttft_p50_s", "ttft_p99_s",
+        "tpot_p50_s", "tpot_p99_s", "preemptions", "rejections",
+        "cancelled", "shed", "page_size", "kv_pages_total",
+        "kv_pages_peak", "admission_stalls")
+
+    def snapshot(self) -> MetricsSnapshot:
+        """Point-in-time counters/gauges/histograms view — what as_dict
+        flattens, what the chaos watchdog dumps on invariant failures."""
+        counters: Dict[str, float] = {
+            "prefill_tokens": self.prefill_tokens,
+            "decode_tokens": self.decode_tokens,
+            "decode_steps": self.decode_steps,
+            "admitted": self.admitted, "completed": self.completed,
+            "prefill_batches": self.prefill_batches,
+            "preemptions": self.preemptions,
+            "rejections": self.rejections,
+            "cancelled": self.cancelled, "shed": self.shed}
+        gauges: Dict[str, float] = {
+            "prefill_s": round(self.prefill_s, 4),
+            "decode_s": round(self.decode_s, 4),
+            "prefill_tok_s": round(self.prefill_tok_s, 1),
+            "decode_tok_s": round(self.decode_tok_s, 1),
+            "prefill_batch_occupancy": round(
+                self.prefill_batch_occupancy, 2)}
+        if self.kv_pages_total:
+            gauges.update(page_size=self.page_size,
+                          kv_pages_total=self.kv_pages_total,
+                          kv_pages_peak=self.kv_pages_peak,
+                          admission_stalls=self.admission_stalls)
+        hists = {
+            "ttft": {"avg_s": round(self.ttft_avg_s, 4),
+                     "max_s": round(self.ttft_s_max, 4),
+                     "p50_s": round(self.ttft_p50_s, 4),
+                     "p99_s": round(self.ttft_p99_s, 4)},
+            "tpot": {"p50_s": round(self.tpot_p50_s, 5),
+                     "p99_s": round(self.tpot_p99_s, 5)}}
+        counters.update(self.device)
+        return MetricsSnapshot(counters=counters, gauges=gauges,
+                               histograms=hists,
+                               legacy_order=self.LEGACY_ORDER)
 
     def as_dict(self) -> Dict[str, float]:
-        out = dataclasses.asdict(self)
-        out.update(prefill_tok_s=self.prefill_tok_s,
-                   decode_tok_s=self.decode_tok_s,
-                   ttft_avg_s=self.ttft_avg_s)
-        return out
+        return self.snapshot().as_dict()
 
 
 @dataclasses.dataclass
-class _State:
-    """Mutable state of one run(): host mirrors of the per-slot decode
-    state, the caches (and, paged, the page table and allocator state)
-    on the device, and the queue."""
+class GenerationResult:
+    tokens: List[List[int]]
+    steps: int
+
+
+# ------------------------------------------------------- scheduler state
+@dataclasses.dataclass
+class _QItem:
+    """A request's scheduling record: queued, running in a slot, or
+    re-queued after preemption (``done`` holds the tokens generated before
+    eviction; re-admission recomputes their KV through the ragged prefill
+    and takes the last one as the pending decode input)."""
+    req: Request
+    order: int                             # submission order (stable key)
+    arrival_s: float                       # serve-clock arrival time
+    temp: float                            # resolved sampling temperature
+    done: List[int] = dataclasses.field(default_factory=list)
+    arrival_wall: float = 0.0              # wall clock at submit (TTFT base)
+    first_tok_wall: Optional[float] = None
+    preemptions: int = 0
+
+    def prefill_tokens(self) -> List[int]:
+        """Tokens to (re)compute through prefill: the prompt, plus — when
+        resuming — every generated token except the last."""
+        if self.done:
+            return list(self.req.tokens) + self.done[:-1]
+        return list(self.req.tokens)
+
+
+@dataclasses.dataclass
+class _SchedState:
+    """Mutable state of one serve()/run(), held on ``Engine._live`` so
+    submit()/cancel()/preempt() and the chaos watchdog reach it mid-loop:
+    host mirrors of the per-slot decode state, the caches (and, paged,
+    the page table and allocator state) on the device, and the queue."""
     stats: ServeStats
+    clock: Callable[[], float]
     eos_id: Optional[int]
+    greedy: bool                           # no seed: argmax everywhere
+    seed: int
     max_gen: int
     caches: Any
     page_table: Optional[torch.Tensor]
@@ -139,12 +480,29 @@ class _State:
     n_gen: np.ndarray
     limit: np.ndarray
     buf: np.ndarray
-    slot_item: List[Optional[tuple]]       # (order, Request) per slot
-    queue: List[tuple]
+    keys: np.ndarray                       # request_key per slot
+    temps: np.ndarray
+    topks: np.ndarray
+    topps: np.ndarray
+    slot_item: List[Optional[_QItem]]
+    queue: List[_QItem]
     results: Dict[int, Completion]
-    t0: float
+    seen_uids: set
+    default_temp: float
+    order: int = 0
+    iteration: int = 0
+    steps_run: int = 0                     # decode steps executed
+    t0_wall: float = 0.0
 
 
+def _queue_key(it: _QItem) -> Tuple[int, int]:
+    """Admission order: priority descending, then submission order (a
+    preempted request keeps its order, so it re-admits ahead of later
+    arrivals of its priority)."""
+    return (-it.req.priority, it.order)
+
+
+# ---------------------------------------------------------------- engine
 class Engine:
     """Continuous-batching engine over ``num_slots`` decode slots.
 
@@ -152,12 +510,25 @@ class Engine:
     asks for the CPU; without a card that request raises).  kv_pages:
     the page pool of the paged layout, by default the contiguous
     footprint (``num_slots * ceil(max_len / page_size)``); pass fewer to
-    serve under a fixed cache budget."""
+    serve under a fixed cache budget.  prefill_batch: most requests per
+    admission prefill (default num_slots; 1 = serial admission);
+    prefill_decode_ratio: > 0 interleaves admission with decode chunks
+    (at most ratio * decode_chunk * active_slots prompt tokens per
+    iteration while decodes are in flight); 0 fills every free slot
+    before each chunk.
+
+    ``serve(schedule)`` is the long-lived API, ``run(requests)`` its burst
+    wrapper and ``generate(batch, steps)`` the legacy fixed-batch API.
+    ``last_steps_run`` is the decode steps the last run's chunks executed
+    (retired slots' dead air included): each runs the decode kernels once
+    per layer, which is what a launch count is held to."""
 
     def __init__(self, cfg: ModelConfig, model: transformer.LM,
                  max_len: int = 512, *, num_slots: int = 8,
                  eos_id: Optional[int] = None, decode_chunk: int = 16,
-                 kv_pages: Optional[int] = None, device="cuda"):
+                 kv_pages: Optional[int] = None,
+                 prefill_batch: Optional[int] = None,
+                 prefill_decode_ratio: float = 0.0, device="cuda"):
         self.device = transformer.resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -169,6 +540,16 @@ class Engine:
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
         self.last_stats: Optional[ServeStats] = None
+        self.last_steps_run = 0
+        self._live: Optional[_SchedState] = None
+        self._tel_mode = dispatch.telemetry_mode(cfg)
+        self._tel_counters = dispatch.use_telemetry_counters(cfg)
+        self.recorder: Optional[TelemetryRecorder] = None      # live run
+        self.last_recorder: Optional[TelemetryRecorder] = None
+        self.prefill_batch = max(1, min(num_slots, num_slots
+                                        if prefill_batch is None
+                                        else prefill_batch))
+        self.prefill_decode_ratio = max(0.0, prefill_decode_ratio)
         self._paged = (dispatch.use_paged_kv(cfg)
                        and transformer.paged_applicable(cfg))
         self.page_size = cfg.spt.kv_page_size if self._paged else 0
@@ -178,13 +559,16 @@ class Engine:
                              if kv_pages is None else int(kv_pages))
         else:
             self.kv_pages = 0
+        # legacy per-token step functions (sampled generate())
+        self._prefill = build_prefill_step(cfg, max_len)
+        self._decode = build_decode_step(cfg)
 
     # ------------------------------------------------------------ prefill
     def _pad_len(self, n: int) -> int:
         """Prompt-length bucket: right-pad to a power of two (>= 8, capped
         at max_len); cache slots past the real length are invalidated."""
         p = 8
-        while p < max(1, n):
+        while p < n:
             p <<= 1
         return max(n, min(p, self.max_len))
 
@@ -196,11 +580,12 @@ class Engine:
             p <<= 1
         return p
 
-    def _prefill_group(self, group: Sequence[tuple]):
+    def _prefill_group(self, group: Sequence[_QItem]):
         """ONE ragged prefill over an admission group; dummy rows fill the
-        Bp bucket and are dropped by the slot copy.  Returns (cache rows,
-        logits (Bp, 1, V), Bp)."""
-        rows_toks = [list(req.tokens) for _, req in group]
+        Bp bucket and are dropped by the slot copy.  Resumed rows prefill
+        prompt + regenerated tokens.  Returns (cache rows, logits (Bp, 1,
+        V), Bp, counter tree or None)."""
+        rows_toks = [it.prefill_tokens() for it in group]
         p = self._pad_len(max(len(t) for t in rows_toks))
         bpb = self._pad_rows(len(group))
         toks = np.zeros((bpb, p), np.int64)            # pad id 0
@@ -210,188 +595,63 @@ class Engine:
             lens[i] = len(t)
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
         lengths = torch.as_tensor(lens, device=self.device)
-        rows, logits = transformer.lm_prefill_ragged(
-            self.model, self.cfg, batch, lengths, self.max_len)
-        return rows, logits, bpb
+        out = transformer.lm_prefill_ragged(
+            self.model, self.cfg, batch, lengths, self.max_len,
+            return_counters=self._tel_counters)
+        if self._tel_counters:
+            rows, logits, tel = out
+        else:
+            (rows, logits), tel = out, None
+        return rows, logits, bpb, tel
 
-    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """Argmax over the full padded vocabulary, as the JAX engine takes
-        it: the padded tail of the embedding holds (random) rows like any
-        other, so an id >= vocab_size can win."""
-        return logits.float().argmax(-1)
+    # ---------------------------------------------------------- sampling
+    def _sample_plan(self, rows: Sequence[int], slots: Sequence[int]
+                     ) -> Optional[dict]:
+        """Device inputs of the draws of logit rows ``rows``, which belong
+        to the sampling slots ``slots``; None when nothing samples (a
+        greedy run, or no sampled slot): the argmax alone then runs."""
+        if self._live.greedy or len(rows) == 0:
+            return None
+        st = self._live
+        dev = self.device
+        slots = np.asarray(slots, np.int64)
+        tp = st.topps[slots]
+        return {"idx": torch.as_tensor(np.asarray(rows, np.int64),
+                                       device=dev),
+                "keys": torch.as_tensor(st.keys[slots], device=dev),
+                "temps": torch.as_tensor(st.temps[slots], device=dev),
+                "topks": torch.as_tensor(st.topks[slots], device=dev),
+                "topps": torch.as_tensor(tp, device=dev),
+                "kmax": int(st.topks[slots].max()),
+                "use_topp": bool(((tp > 0.0) & (tp < 1.0)).any())}
 
+    @staticmethod
+    def _draw(lg: torch.Tensor, plan: Optional[dict], n: torch.Tensor
+              ) -> torch.Tensor:
+        """Argmax over the full padded vocabulary (an id >= vocab_size can
+        win, as in the JAX engine), with the plan's rows replaced by their
+        draws; n: (R,) index of the token each row draws."""
+        nxt = lg.argmax(-1)
+        if plan is None:
+            return nxt
+        idx = plan["idx"]
+        nxt[idx] = sample_rows(lg.index_select(0, idx), plan["keys"],
+                               n.index_select(0, idx), plan["temps"],
+                               plan["topks"], plan["topps"], plan["kmax"],
+                               plan["use_topp"])
+        return nxt
+
+    # ---------------------------------------------------------- scheduler
     def _pages_ws(self, req: Request) -> int:
         """Worst-case pages ``req`` can hold: one per page of rows
         [0, prompt + max_new - 1) (the last decode write lands at
-        position prompt + max_new - 2)."""
+        position prompt + max_new - 2); the same for a resumed item."""
         rows = len(req.tokens) + req.max_new_tokens - 1
         return kvp.num_pages(max(1, rows), self.page_size)
 
-    def _form_group(self, st: _State, stalled: set) -> List[tuple]:
-        """The next admission group: queued requests, in order, that have
-        a free slot and (paged) a worst-case page reservation.  A request
-        that does not fit the unreserved pages is skipped — it must not
-        block later ones that fit — and counted as a stall once per
-        scheduling iteration (``stalled`` holds this iteration's)."""
-        free = st.slot_item.count(None)
-        group: List[tuple] = []
-        picked: List[int] = []
-        group_ws = 0
-        for qi, item in enumerate(st.queue):
-            if len(group) == free:
-                break
-            if self._paged:
-                ws = self._pages_ws(item[1])
-                if ws > self.kv_pages - st.reserved - group_ws:
-                    if item[1].uid not in stalled:
-                        stalled.add(item[1].uid)
-                        st.stats.admission_stalls += 1
-                    continue
-                group_ws += ws
-            group.append(item)
-            picked.append(qi)
-        for qi in reversed(picked):
-            del st.queue[qi]
-        return group
-
-    def _admit(self, st: _State, group: List[tuple]) -> None:
-        t0 = time.perf_counter()
-        rows, logits, bpb = self._prefill_group(group)
-        slot_vec = np.full(bpb, -1, np.int64)
-        assigned = []
-        for i, item in enumerate(group):
-            b = st.slot_item.index(None)
-            st.slot_item[b] = item
-            assigned.append(b)
-            slot_vec[i] = b
-        slots = torch.as_tensor(slot_vec, device=self.device)
-        if self._paged:
-            npages = np.zeros(bpb, np.int64)
-            for i, (_, req) in enumerate(group):
-                ws = self._pages_ws(req)
-                st.reserved += ws
-                st.slot_ws[assigned[i]] = ws
-                npages[i] = kvp.num_pages(len(req.tokens), self.page_size)
-            st.astate, st.page_table = kvp.alloc_rows_pages(
-                st.astate, st.page_table, slots,
-                torch.as_tensor(npages, device=self.device))
-            transformer.write_slot_caches_paged_rows(
-                st.caches, rows, slots, st.page_table, self.cfg)
-        else:
-            transformer.write_slot_caches_rows(st.caches, rows, slots)
-        firsts = self._greedy(logits[:, -1]).tolist()  # the host sync
-        now = time.perf_counter()
-        st.stats.prefill_s += now - t0
-        st.stats.prefill_batches += 1
-        st.stats.prefill_tokens += sum(len(r.tokens) for _, r in group)
-        st.stats.admitted += len(group)
-        for i, (_, req) in enumerate(group):
-            b = assigned[i]
-            ttft = now - st.t0
-            st.stats.ttft_s_sum += ttft
-            st.stats.ttft_s_max = max(st.stats.ttft_s_max, ttft)
-            first = firsts[i]
-            st.limit[b] = req.max_new_tokens
-            st.buf[b] = 0
-            st.tok[b] = first
-            st.pos[b] = len(req.tokens)
-            st.n_gen[b] = 1
-            st.buf[b, 0] = first
-            done = (req.max_new_tokens <= 1
-                    or (st.eos_id is not None and first == st.eos_id))
-            st.active[b] = not done
-            if done:
-                self._retire(st, b)
-
-    # ------------------------------------------------------------- decode
-    def _decode_once(self, st: _State) -> None:
-        """One decode chunk on the device; one host sync at its end."""
-        act = st.active
-        steps = min(self.decode_chunk,
-                    int((st.limit[act] - st.n_gen[act]).max()))
-        n_prev = st.n_gen.copy()
-        was_active = st.active.copy()
-        dev = self.device
-        t0 = time.perf_counter()
-        tok = torch.as_tensor(st.tok, device=dev)
-        pos = torch.as_tensor(st.pos, device=dev)
-        active = torch.as_tensor(st.active, device=dev)
-        n = torch.as_tensor(st.n_gen, device=dev)
-        limit = torch.as_tensor(st.limit, device=dev)
-        buf = torch.as_tensor(st.buf, device=dev)
-        bidx = torch.arange(self.num_slots, device=dev)
-        ps = self.page_size
-        view = (self.max_pages_per_slot * ps if self._paged
-                else self.max_len)
-        slot_ids = torch.arange(view, device=dev)[None, :]
-        page_table, astate = st.page_table, st.astate
-        for _ in range(steps):
-            if self._paged:
-                # grow pages in the loop: a slot writing the first row of
-                # a new page pops one from the free list (admission
-                # reserved the worst case, so the pop cannot fail)
-                astate, pid, ok = kvp.alloc_masked(
-                    astate, active & (pos % ps == 0))
-                pj = torch.clamp(pos // ps, 0, page_table.shape[1] - 1)
-                page_table[bidx, pj] = torch.where(ok, pid,
-                                                   page_table[bidx, pj])
-                transformer.reset_page_slots(st.caches, self.cfg, pid, ok)
-            # slot validity from the engine's per-slot positions (and,
-            # paged, the page occupancy), built once per step and shared
-            # by every layer
-            kv_valid = slot_ids <= pos[:, None]
-            if self._paged:
-                kv_valid = kv_valid & kvp.occupancy(page_table, ps)
-            logits = transformer.lm_decode_step(
-                self.model, self.cfg, st.caches, tok, pos, kv_valid=kv_valid,
-                page_table=page_table if self._paged else None)
-            nxt = self._greedy(logits[:, -1])
-            col = torch.clamp(n, 0, st.max_gen - 1)
-            buf[bidx, col] = torch.where(active, nxt, buf[bidx, col])
-            step = active.to(n.dtype)
-            n = n + step
-            pos = pos + step.to(pos.dtype)
-            done = n >= limit
-            if st.eos_id is not None:
-                done |= nxt == st.eos_id
-            tok = torch.where(active, nxt, tok)
-            active = active & ~done
-        st.tok, st.pos, st.active, st.n_gen, st.buf = (
-            t.cpu().numpy().copy() for t in (tok, pos, active, n, buf))
-        st.stats.decode_s += time.perf_counter() - t0
-        st.astate = astate
-        self._track_peak(st)
-        st.stats.decode_steps += steps
-        st.stats.decode_tokens += int(st.n_gen.sum() - n_prev.sum())
-        for b in range(self.num_slots):
-            if st.slot_item[b] is not None and was_active[b] \
-                    and not st.active[b]:
-                self._retire(st, b)
-
-    def _retire(self, st: _State, b: int) -> None:
-        order, req = st.slot_item[b]
-        toks = st.buf[b, :st.n_gen[b]].tolist()
-        reason = ("eos" if st.eos_id is not None and toks
-                  and toks[-1] == st.eos_id else "length")
-        st.results[order] = Completion(uid=req.uid, tokens=toks,
-                                       finish_reason=reason,
-                                       prompt_len=len(req.tokens))
-        st.stats.completed += 1
-        st.slot_item[b] = None
-        st.active[b] = False
-        if self._paged:
-            st.astate, st.page_table = kvp.free_slot_pages(
-                st.astate, st.page_table, b)
-            st.reserved -= st.slot_ws[b]
-            st.slot_ws[b] = 0
-
-    def _track_peak(self, st: _State) -> None:
-        """Peak pages in use (one read of the allocator's stack top)."""
-        if self._paged:
-            used = self.kv_pages - int(st.astate["top"])
-            st.stats.kv_pages_peak = max(st.stats.kv_pages_peak, used)
-
     def _validate(self, req: Request, seen: set) -> Optional[str]:
+        """Why ``req`` must be rejected, or None: a bad request becomes a
+        rejected Completion while the rest keeps serving."""
         if req.uid in seen:
             return f"duplicate request uid {req.uid}"
         if req.max_new_tokens < 1:
@@ -406,23 +666,562 @@ class Engine:
                     f"{self.kv_pages}")
         return None
 
-    # ---------------------------------------------------------------- run
-    def run(self, requests: Sequence[Request], *,
-            eos_id: Any = "engine-default") -> List[Completion]:
-        """Serve a burst of requests (any count vs. num_slots) to
-        completion with greedy decoding.  Invalid requests finish as
-        rejected Completions.  Returns completions in request order; the
-        wall-clock split is left in ``self.last_stats``."""
+    # ------------------------------------------------- long-lived API
+    def submit(self, req: Request, now: Optional[float] = None) -> bool:
+        """Queue ``req`` into the live serve()/run() loop (from arrival
+        schedules, chaos injectors or callbacks).  Returns False when the
+        request is rejected; the rejection is a Completion in the
+        results, never an exception."""
+        st = self._live
+        if st is None:
+            raise RuntimeError("submit() requires a live serve()/run()")
+        if now is None:
+            now = st.clock()
+        order = st.order
+        st.order += 1
+        st.stats.submitted += 1
+        rec = self.recorder
+        wall = time.perf_counter()
+        if rec is not None:
+            rec.event(req.uid, "submit", wall, prompt_len=len(req.tokens),
+                      priority=req.priority)
+        why = self._validate(req, st.seen_uids)
+        if why is not None:
+            st.stats.rejections += 1
+            if rec is not None:
+                rec.event(req.uid, "rejected", wall, detail=why)
+            st.results[order] = Completion(
+                uid=req.uid, tokens=[], finish_reason="rejected",
+                prompt_len=len(req.tokens), detail=why)
+            return False
+        st.seen_uids.add(req.uid)
+        if rec is not None:
+            rec.event(req.uid, "queued", wall)
+        temp = (st.default_temp if req.temperature is None
+                else req.temperature)
+        self._grow_gen(req.max_new_tokens)
+        st.queue.append(_QItem(req=req, order=order, arrival_s=now,
+                               temp=temp,
+                               arrival_wall=time.perf_counter()))
+        st.queue.sort(key=_queue_key)
+        return True
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a queued or in-flight request: frees its slot and pages
+        and finishes it as Completion(finish_reason="cancelled") with the
+        tokens generated so far.  False when the uid is not live."""
+        st = self._live
+        if st is None:
+            return False
+        rec = self.recorder
+        for qi, it in enumerate(st.queue):
+            if it.req.uid == uid:
+                del st.queue[qi]
+                st.stats.cancelled += 1
+                if rec is not None:
+                    rec.event(uid, "cancelled", time.perf_counter(),
+                              detail="while queued")
+                st.results[it.order] = Completion(
+                    uid=uid, tokens=list(it.done),
+                    finish_reason="cancelled",
+                    prompt_len=len(it.req.tokens),
+                    detail="cancelled while queued",
+                    preemptions=it.preemptions)
+                return True
+        for b, it in enumerate(st.slot_item):
+            if it is not None and it.req.uid == uid:
+                st.stats.cancelled += 1
+                if rec is not None:
+                    rec.event(uid, "cancelled", time.perf_counter(),
+                              detail="mid-stream",
+                              n_gen=int(st.n_gen[b]))
+                st.results[it.order] = Completion(
+                    uid=uid, tokens=st.buf[b, :st.n_gen[b]].tolist(),
+                    finish_reason="cancelled",
+                    prompt_len=len(it.req.tokens),
+                    detail="cancelled mid-stream",
+                    preemptions=it.preemptions)
+                self._release_slot(b)
+                return True
+        return False
+
+    def preempt(self, uid: Optional[int] = None) -> bool:
+        """Force-preempt an active request: save its progress, free its
+        slot and pages, and re-queue it for recompute re-admission.
+        ``uid`` None picks the default victim (lowest priority, most
+        recently admitted).  False when nothing matches."""
+        st = self._live
+        if st is None:
+            return False
+        if uid is None:
+            b = self._pick_victim(None, False)
+            if b is None:
+                return False
+            self._preempt_slot(b)
+            return True
+        for b, it in enumerate(st.slot_item):
+            if it is not None and it.req.uid == uid and st.active[b]:
+                self._preempt_slot(b)
+                return True
+        return False
+
+    # ------------------------------------------------ slot-state plumbing
+    def _grow_gen(self, need: int) -> None:
+        """Grow the per-slot output buffer to a power-of-two token budget
+        as arrivals raise it (run() presizes the exact maximum)."""
+        st = self._live
+        if need <= st.max_gen:
+            return
+        new = max(8, st.max_gen)
+        while new < need:
+            new <<= 1
+        st.buf = np.pad(st.buf, ((0, 0), (0, new - st.buf.shape[1])))
+        st.max_gen = new
+
+    def _release_slot(self, b: int) -> None:
+        """Return slot b to the free pool (retire, cancel and preempt all
+        land here): paged, its pages go back to the allocator and its
+        worst-case reservation is dropped."""
+        st = self._live
+        st.slot_item[b] = None
+        st.active[b] = False
+        if self._paged:
+            st.astate, st.page_table = kvp.free_slot_pages(
+                st.astate, st.page_table, b)
+            st.reserved -= st.slot_ws[b]
+            st.slot_ws[b] = 0
+
+    def _retire(self, b: int) -> None:
+        st = self._live
+        it = st.slot_item[b]
+        toks = st.buf[b, :st.n_gen[b]].tolist()
+        reason = ("eos" if st.eos_id is not None and toks
+                  and toks[-1] == st.eos_id else "length")
+        now_wall = time.perf_counter()
+        if self.recorder is not None:
+            self.recorder.event(it.req.uid, "retired", now_wall,
+                                finish=reason, n_gen=int(st.n_gen[b]))
+        if it.first_tok_wall is not None and int(st.n_gen[b]) > 1:
+            st.stats.tpot_samples.append(
+                (now_wall - it.first_tok_wall) / (int(st.n_gen[b]) - 1))
+        st.results[it.order] = Completion(
+            uid=it.req.uid, tokens=toks, finish_reason=reason,
+            prompt_len=len(it.req.tokens), preemptions=it.preemptions)
+        st.stats.completed += 1
+        self._release_slot(b)
+
+    def _track_peak(self) -> None:
+        """Peak pages in use (one read of the allocator's stack top)."""
+        st = self._live
+        if self._paged:
+            used = self.kv_pages - int(st.astate["top"])
+            st.stats.kv_pages_peak = max(st.stats.kv_pages_peak, used)
+            if self.recorder is not None:
+                self.recorder.gauge("kv_pages_used", time.perf_counter(),
+                                    used)
+
+    def _preempt_slot(self, b: int) -> None:
+        """Evict slot b: save its generated tokens on the queue item, free
+        its pages and slot, and re-queue it for recompute re-admission."""
+        st = self._live
+        it = st.slot_item[b]
+        it.done = st.buf[b, :st.n_gen[b]].tolist()
+        it.preemptions += 1
+        st.stats.preemptions += 1
+        if self.recorder is not None:
+            self.recorder.event(it.req.uid, "preempted",
+                                time.perf_counter(), slot=b,
+                                n_gen=int(st.n_gen[b]))
+        self._release_slot(b)
+        st.queue.append(it)
+        st.queue.sort(key=_queue_key)
+
+    def _pick_victim(self, cand: Optional[_QItem],
+                     urgent: bool) -> Optional[int]:
+        """Lowest-priority, most-recently-admitted active slot that
+        ``cand`` may evict: strictly lower priority, or — when cand's
+        TTFT deadline is at risk (urgent) — a deadline-free peer of equal
+        priority.  cand None (forced preemption) matches any active
+        slot."""
+        st = self._live
+        best = None
+        for b, it in enumerate(st.slot_item):
+            if it is None or not st.active[b]:
+                continue
+            if cand is not None:
+                lower = it.req.priority < cand.req.priority
+                peer = (urgent and it.req.priority == cand.req.priority
+                        and it.req.deadline_s is None)
+                if not (lower or peer):
+                    continue
+            key = (it.req.priority, -it.order)
+            if best is None or key < best[0]:
+                best = (key, b)
+        return None if best is None else best[1]
+
+    def _shed_expired(self, now: float) -> None:
+        """Drop queued requests whose TTFT deadline already lapsed (resumed
+        items produced their first token and are never shed)."""
+        st = self._live
+        keep = []
+        for it in st.queue:
+            d = it.req.deadline_s
+            if (d is not None and it.first_tok_wall is None
+                    and now - it.arrival_s > d):
+                st.stats.shed += 1
+                if self.recorder is not None:
+                    self.recorder.event(it.req.uid, "shed",
+                                        time.perf_counter(),
+                                        deadline_s=d)
+                st.results[it.order] = Completion(
+                    uid=it.req.uid, tokens=[], finish_reason="shed",
+                    prompt_len=len(it.req.tokens),
+                    detail=f"TTFT deadline {d}s lapsed in queue",
+                    preemptions=it.preemptions)
+            else:
+                keep.append(it)
+        st.queue = keep
+
+    def _pressure_preempt(self, now: float) -> None:
+        """Slot / page-pool pressure: when the head of the queue cannot
+        fit, evict eligible victims (``_pick_victim``) until it fits or
+        none remains.  Uniform-priority bursts never trigger this."""
+        st = self._live
+        if not st.queue:
+            return
+        cand = st.queue[0]
+
+        def blocked() -> bool:
+            if not any(s is None for s in st.slot_item):
+                return True
+            return (self._paged and self._pages_ws(cand.req)
+                    > self.kv_pages - st.reserved)
+
+        d = cand.req.deadline_s
+        urgent = (d is not None and cand.first_tok_wall is None
+                  and now - cand.arrival_s >= 0.5 * d)
+        guard = 0
+        while blocked() and guard < self.num_slots:
+            b = self._pick_victim(cand, urgent)
+            if b is None:
+                break
+            self._preempt_slot(b)
+            guard += 1
+        if guard:
+            # the eviction was for cand: re-queued victims of equal
+            # priority carry an older order and would outrank it, so cand
+            # keeps the head
+            st.queue.remove(cand)
+            st.queue.insert(0, cand)
+
+    # -------------------------------------------------- admission + decode
+    def _form_group(self, stalled_seen: set) -> List[_QItem]:
+        """Scan the queue in order (priority, then submission) for the next
+        admission group: up to prefill_batch requests that have a free slot
+        and (paged) a worst-case page reservation.  A request that does not
+        fit the pool is counted as a stall once per scheduling iteration
+        and skipped, so it does not block later ones that fit.  With
+        overlap on and decodes in flight, the group is bounded by the
+        prefill token budget (always >= 1 request)."""
+        st = self._live
+        free = sum(1 for s in st.slot_item if s is None)
+        if not free or not st.queue:
+            return []
+        budget = None
+        if self.prefill_decode_ratio > 0 and st.active.any():
+            budget = max(1, int(self.prefill_decode_ratio
+                                * self.decode_chunk
+                                * int(st.active.sum())))
+        group: List[_QItem] = []
+        picked: List[int] = []
+        group_ws = group_tokens = 0
+        for qi, it in enumerate(st.queue):
+            if len(group) == min(free, self.prefill_batch):
+                break
+            ptoks = len(it.prefill_tokens())
+            if (budget is not None and group
+                    and group_tokens + ptoks > budget):
+                break
+            if (self._paged
+                    and self._pages_ws(it.req) > self.kv_pages
+                    - st.reserved - group_ws):
+                if it.req.uid not in stalled_seen:
+                    stalled_seen.add(it.req.uid)
+                    st.stats.admission_stalls += 1
+                continue
+            group.append(it)
+            picked.append(qi)
+            group_ws += self._pages_ws(it.req) if self._paged else 0
+            group_tokens += ptoks
+        for qi in reversed(picked):
+            del st.queue[qi]
+        return group
+
+    def _stream(self, it: _QItem, toks: Sequence[int], done: bool) -> None:
+        cb = it.req.on_token
+        if cb is None:
+            return
+        for j, t in enumerate(toks):
+            cb(it.req.uid, int(t), done and j == len(toks) - 1)
+
+    def _admit(self, group: List[_QItem]) -> None:
+        """ONE ragged prefill + ONE slot copy (and, paged, ONE page
+        allocation) admits the whole group; the first tokens (argmax, or
+        drawn for sampled requests) come to the host in one transfer with
+        the prefill's counters.  Resumed rows take their last generated
+        token as the pending decode input instead."""
+        st = self._live
+        ps = self.page_size
+        t0 = time.perf_counter()
+        rows, logits, bpb, tel = self._prefill_group(group)
+        slot_vec = np.full(bpb, -1, np.int64)        # -1 rows: dummies
+        assigned: List[int] = []
+        for i, it in enumerate(group):
+            b = next(j for j, s in enumerate(st.slot_item) if s is None)
+            st.slot_item[b] = it
+            assigned.append(b)
+            slot_vec[i] = b
+        slots = torch.as_tensor(slot_vec, device=self.device)
+        if self._paged:
+            npages = np.zeros(bpb, np.int64)
+            for i, it in enumerate(group):
+                ws = self._pages_ws(it.req)
+                st.reserved += ws
+                st.slot_ws[assigned[i]] = ws
+                npages[i] = kvp.num_pages(len(it.prefill_tokens()), ps)
+            st.astate, st.page_table = kvp.alloc_rows_pages(
+                st.astate, st.page_table, slots,
+                torch.as_tensor(npages, device=self.device))
+            transformer.write_slot_caches_paged_rows(
+                st.caches, rows, slots, st.page_table, self.cfg)
+        else:
+            transformer.write_slot_caches_rows(st.caches, rows, slots)
+        for i, it in enumerate(group):            # sampling state per slot
+            b, r = assigned[i], it.req
+            st.keys[b] = request_key(st.seed, r.uid)
+            st.temps[b] = it.temp
+            st.topks[b] = r.top_k
+            st.topps[b] = r.top_p
+        # first tokens: the prefill's last logits, drawn where the request
+        # samples (token index 0); resumed rows need none
+        drawn = [i for i, it in enumerate(group)
+                 if not it.done and it.temp > 0.0]
+        plan = self._sample_plan(drawn, [assigned[i] for i in drawn])
+        firsts_d = self._draw(logits[:len(group), -1].float(), plan,
+                              torch.zeros(len(group), dtype=torch.long,
+                                          device=self.device))
+        keys = sorted(tel) if tel else []
+        host = _to_host(firsts_d, *(tel[k] for k in keys))   # the sync
+        firsts = host[0].tolist()
+        now_wall = time.perf_counter()
+        rec = self.recorder
+        if rec is not None and tel is not None:
+            # trim dummy bucket rows: real rows are the first len(group)
+            ng = len(group)
+            rec.drain_counters({
+                k: (v[:, :ng] if v.ndim >= 2 and v.shape[1] == bpb else v)
+                for k, v in zip(keys, host[1:])})
+        if rec is not None:
+            rec.span("prefill_batch", t0, now_wall, st.iteration,
+                     group=len(group), bucket_rows=bpb)
+        st.stats.prefill_s += now_wall - t0
+        st.stats.prefill_batches += 1
+        st.stats.prefill_tokens += sum(
+            len(it.prefill_tokens()) for it in group)
+        st.stats.admitted += len(group)
+        for i, it in enumerate(group):
+            b = assigned[i]
+            r = it.req
+            st.limit[b] = r.max_new_tokens
+            st.buf[b] = 0
+            if it.done:                         # resume after preemption
+                nd = len(it.done)
+                st.buf[b, :nd] = it.done
+                st.tok[b] = it.done[-1]
+                st.pos[b] = len(it.prefill_tokens())
+                st.n_gen[b] = nd
+                if rec is not None:
+                    rec.event(r.uid, "resumed", now_wall, slot=b,
+                              regenerated=nd)
+                done_now = (nd >= r.max_new_tokens
+                            or (st.eos_id is not None
+                                and it.done[-1] == st.eos_id))
+                st.active[b] = not done_now
+                if done_now:
+                    self._retire(b)
+                continue
+            if rec is not None:
+                rec.event(r.uid, "admitted", now_wall, slot=b,
+                          prompt_len=len(r.tokens))
+            first = firsts[i]
+            # TTFT is arrival-relative: for a burst every arrival is the
+            # serve start; a late arrival is not charged for time it did
+            # not wait
+            ttft = now_wall - it.arrival_wall
+            st.stats.ttft_s_sum += ttft
+            st.stats.ttft_s_max = max(st.stats.ttft_s_max, ttft)
+            st.stats.ttft_samples.append(ttft)
+            it.first_tok_wall = now_wall
+            if rec is not None:
+                rec.event(r.uid, "first_token", now_wall,
+                          ttft_s=round(ttft, 6))
+            st.tok[b] = first
+            st.pos[b] = len(r.tokens)
+            st.n_gen[b] = 1
+            st.buf[b, 0] = first
+            done_now = (r.max_new_tokens <= 1
+                        or (st.eos_id is not None and first == st.eos_id))
+            st.active[b] = not done_now
+            self._stream(it, [first], done_now)
+            if done_now:
+                self._retire(b)
+
+    def _chunk(self, steps: int, plan: Optional[dict]):
+        """``steps`` decode steps on the device with no host sync: the
+        per-slot state advances in device tensors, paged slots grow a page
+        where they write a new page's first row, and (telemetry on) the
+        counters accumulate, each per-slot leaf weighted by the slots
+        still active.  Returns the state tensors and the counter dict."""
+        st = self._live
+        dev = self.device
+        slots = self.num_slots
+        tok = torch.as_tensor(st.tok, device=dev)
+        pos = torch.as_tensor(st.pos, device=dev)
+        active = torch.as_tensor(st.active, device=dev)
+        n = torch.as_tensor(st.n_gen, device=dev)
+        limit = torch.as_tensor(st.limit, device=dev)
+        buf = torch.as_tensor(st.buf, device=dev)
+        bidx = torch.arange(slots, device=dev)
+        ps = self.page_size
+        view = (self.max_pages_per_slot * ps if self._paged
+                else self.max_len)
+        slot_ids = torch.arange(view, device=dev)[None, :]
+        tel_on = self._tel_counters
+        ctr: Dict[str, torch.Tensor] = {}
+        if tel_on and not st.greedy:
+            sampled = torch.zeros(slots, dtype=torch.bool, device=dev)
+            if plan is not None:
+                sampled[plan["idx"]] = True
+
+        def acc(k, v):
+            ctr[k] = ctr[k] + v if k in ctr else v
+
+        page_table = st.page_table
+        for _ in range(steps):
+            ok = None
+            if self._paged:
+                # grow pages in the loop: a slot writing the first row of
+                # a new page pops one from the free list (admission
+                # reserved the worst case, so the pop cannot fail)
+                st.astate, pid, ok = kvp.alloc_masked(
+                    st.astate, active & (pos % ps == 0))
+                pj = torch.clamp(pos // ps, 0, page_table.shape[1] - 1)
+                page_table[bidx, pj] = torch.where(ok, pid,
+                                                   page_table[bidx, pj])
+                transformer.reset_page_slots(st.caches, self.cfg, pid, ok)
+            # slot validity from the per-slot positions (and, paged, the
+            # page occupancy), built once per step and shared by every
+            # layer
+            kv_valid = slot_ids <= pos[:, None]
+            if self._paged:
+                kv_valid = kv_valid & kvp.occupancy(page_table, ps)
+            out = transformer.lm_decode_step(
+                self.model, self.cfg, st.caches, tok, pos, kv_valid=kv_valid,
+                page_table=page_table if self._paged else None,
+                return_counters=tel_on)
+            logits, stel = out if tel_on else (out, None)
+            nxt = self._draw(logits[:, -1].float(), plan, n)
+            if tel_on:
+                amask = active.to(torch.float32)
+                for k, v in stel.items():
+                    v = v.to(torch.float32)
+                    if v.dim() >= 2 and v.shape[1] == slots:
+                        v = v * amask.reshape(
+                            (1, slots) + (1,) * (v.dim() - 2))
+                    acc(k, v)
+                acc("decode_tokens", amask.sum())
+                if self._paged:
+                    acc("pages_allocated", ok.to(torch.float32).sum())
+                if not st.greedy:
+                    acc("sampled_tokens",
+                        (active & sampled).to(torch.float32).sum())
+            col = torch.clamp(n, 0, st.max_gen - 1)
+            buf[bidx, col] = torch.where(active, nxt, buf[bidx, col])
+            step = active.to(n.dtype)
+            n = n + step
+            pos = pos + step
+            done = n >= limit
+            if st.eos_id is not None:
+                done |= nxt == st.eos_id
+            tok = torch.where(active, nxt, tok)
+            active = active & ~done
+        return (tok, pos, active, n, buf), ctr
+
+    def _decode_once(self) -> None:
+        """One decode chunk, then stream fresh tokens and retire slots that
+        finished inside it.  The chunk runs as many steps as the longest
+        remaining budget allows (at most decode_chunk): without a host
+        sync it cannot stop early when EOS retires every slot, so
+        ``decode_steps`` counts the steps in which some slot was active —
+        the largest per-slot token count the chunk added, read from the
+        synced state (slots only ever retire inside a chunk)."""
+        st = self._live
+        act = st.active
+        steps = min(self.decode_chunk,
+                    int((st.limit[act] - st.n_gen[act]).max()))
+        n_prev = st.n_gen.copy()
+        was_active = st.active.copy()
+        samp = np.flatnonzero(act & (st.temps > 0.0))
+        t0 = time.perf_counter()
+        state, ctr = self._chunk(steps, self._sample_plan(samp, samp))
+        keys = sorted(ctr)
+        host = _to_host(*state, *(ctr[k] for k in keys))    # the one sync
+        t1 = time.perf_counter()
+        st.stats.decode_s += t1 - t0
+        st.tok, st.pos, act_new, st.n_gen, st.buf = host[:5]
+        live = int((st.n_gen - n_prev).max())
+        rec = self.recorder
+        if rec is not None and self._tel_counters:
+            rec.drain_counters(dict(zip(keys, host[5:])))
+            t2 = time.perf_counter()
+            rec.span("drain", t1, t2, st.iteration)
+        if rec is not None:
+            rec.span("decode_chunk", t0, t1, st.iteration, steps=live,
+                     active=int(act_new.sum()))
+        self._track_peak()
+        st.steps_run += steps
+        st.stats.decode_steps += live
+        st.stats.decode_tokens += int(st.n_gen.sum() - n_prev.sum())
+        st.active = act_new
+        for b in range(self.num_slots):
+            it = st.slot_item[b]
+            if it is None or not was_active[b]:
+                continue
+            finished = not act_new[b]
+            fresh = st.buf[b, n_prev[b]:st.n_gen[b]]
+            if len(fresh):
+                self._stream(it, fresh.tolist(), finished)
+            if finished:
+                self._retire(b)
+
+    # -------------------------------------------------------- serve loop
+    def _start(self, *, temperature, seed, eos_id, clock, greedy,
+               max_gen) -> _SchedState:
+        if self._live is not None:
+            raise RuntimeError("engine already has a live serve()/run()")
         if eos_id == "engine-default":
             eos_id = self.eos_id
         slots = self.num_slots
-        max_gen = max([r.max_new_tokens for r in requests] + [1])
         dev = self.device
         paged = self._paged
-        st = _State(
+        t0 = time.perf_counter()
+        st = _SchedState(
             stats=ServeStats(page_size=self.page_size,
                              kv_pages_total=self.kv_pages),
-            eos_id=eos_id, max_gen=max_gen,
+            clock=(clock if clock is not None
+                   else (lambda: time.perf_counter() - t0)),
+            eos_id=eos_id, greedy=greedy,
+            seed=0 if seed is None else int(seed), max_gen=max_gen,
             caches=transformer.init_caches(
                 self.cfg, slots, self.max_len, dev,
                 kv_pages=self.kv_pages if paged else None),
@@ -433,29 +1232,176 @@ class Engine:
             tok=np.zeros(slots, np.int64), pos=np.zeros(slots, np.int64),
             active=np.zeros(slots, bool), n_gen=np.zeros(slots, np.int64),
             limit=np.ones(slots, np.int64),
-            buf=np.zeros((slots, max_gen), np.int64),
+            buf=np.zeros((slots, max(0, max_gen)), np.int64),
+            keys=np.zeros(slots, np.int64),
+            temps=np.zeros(slots, np.float32),
+            topks=np.zeros(slots, np.int64),
+            topps=np.zeros(slots, np.float32),
             slot_item=[None] * slots, queue=[], results={},
-            t0=time.perf_counter())
-        seen: set = set()
-        for order, req in enumerate(requests):
-            why = self._validate(req, seen)
-            if why is not None:
-                st.results[order] = Completion(
-                    uid=req.uid, tokens=[], finish_reason="rejected",
-                    prompt_len=len(req.tokens), detail=why)
-                continue
-            seen.add(req.uid)
-            st.queue.append((order, req))
-        with torch.no_grad():
-            while st.queue or st.active.any():
-                stalled: set = set()
+            seen_uids=set(), default_temp=temperature, t0_wall=t0)
+        if self._tel_mode != "off":
+            rec = TelemetryRecorder(
+                mode=("trace" if self._tel_mode == "trace"
+                      else "counters"),
+                time_origin=t0)
+            self.recorder = rec
+            self.last_recorder = rec
+        self._live = st
+        return st
+
+    def _iterate(self, schedule: Optional[ArrivalSchedule],
+                 on_iteration: Optional[Callable]) -> bool:
+        """One scheduling iteration: arrivals -> deadline shedding ->
+        pressure preemption -> batched admission -> one decode chunk
+        (streaming and retirement inside) -> the on_iteration hook.
+        Returns True when a decode chunk ran."""
+        st = self._live
+        rec = self.recorder
+        now = st.clock()
+        if schedule is not None:
+            for r in schedule.due(now):
+                self.submit(r, now=now)
+        self._shed_expired(now)
+        tp0 = time.perf_counter()
+        pre_before = st.stats.preemptions
+        self._pressure_preempt(now)
+        if rec is not None and st.stats.preemptions > pre_before:
+            rec.span("pressure_preempt", tp0, time.perf_counter(),
+                     st.iteration,
+                     evicted=st.stats.preemptions - pre_before)
+        ta0 = time.perf_counter()
+        admitted_before = st.stats.admitted
+        stalled_seen: set = set()
+        while True:
+            group = self._form_group(stalled_seen)
+            if not group:
+                break
+            self._admit(group)
+            if self.prefill_decode_ratio > 0 and st.active.any():
+                break           # overlap: hand control back to decode
+        if rec is not None and st.stats.admitted > admitted_before:
+            rec.span("admission", ta0, time.perf_counter(), st.iteration,
+                     admitted=st.stats.admitted - admitted_before,
+                     stalled=len(stalled_seen))
+        self._track_peak()
+        stepped = False
+        if st.active.any():
+            self._decode_once()
+            stepped = True
+        if rec is not None:
+            tg = time.perf_counter()
+            rec.gauge("queue_depth", tg, len(st.queue))
+            rec.gauge("active_slots", tg, int(st.active.sum()))
+        st.iteration += 1
+        if on_iteration is not None:
+            on_iteration(self, st.iteration)
+        if hasattr(st.clock, "advance"):
+            st.clock.advance()
+        return stepped
+
+    def serve(self, schedule: ArrivalSchedule, *,
+              temperature: float = 0.0, seed: Optional[int] = None,
+              eos_id: Any = "engine-default",
+              clock: Optional[Callable[[], float]] = None,
+              on_iteration: Optional[Callable] = None,
+              _greedy: Optional[bool] = None,
+              _max_gen: int = 0) -> List[Completion]:
+        """Long-lived serving loop over an ``ArrivalSchedule``.
+
+        Runs until the schedule is exhausted and every submitted request
+        reached a terminal state (completed, rejected, cancelled or
+        shed); returns completions in submission order and leaves the
+        stats in ``self.last_stats``.  ``seed`` None decodes greedily;
+        with a seed, requests whose temperature is > 0 sample.
+        ``clock`` reads serve time in seconds (default: wall clock since
+        serve start; a ManualClock makes arrivals and deadlines advance
+        per scheduling iteration).  ``on_iteration(engine, i)`` fires
+        after every iteration (chaos injection, invariant watchdog)."""
+        greedy = (seed is None) if _greedy is None else _greedy
+        st = self._start(temperature=temperature, seed=seed, eos_id=eos_id,
+                         clock=clock, greedy=greedy, max_gen=_max_gen)
+        try:
+            with torch.no_grad():
                 while True:
-                    group = self._form_group(st, stalled)
-                    if not group:
+                    stepped = self._iterate(schedule, on_iteration)
+                    idle = (not stepped and not st.queue
+                            and not st.active.any())
+                    if (schedule.exhausted and idle
+                            and all(s is None for s in st.slot_item)):
                         break
-                    self._admit(st, group)
-                self._track_peak(st)
-                if st.active.any():
-                    self._decode_once(st)
-        self.last_stats = st.stats
-        return [st.results[i] for i in range(len(requests))]
+                    if idle and not schedule.exhausted:
+                        nxt = schedule.next_time()
+                        wait = (nxt - st.clock()) if nxt is not None else 0.0
+                        if wait > 0 and not hasattr(st.clock, "advance"):
+                            time.sleep(min(wait, 0.05))
+        finally:
+            rec = self.recorder
+            if rec is not None:
+                st.stats.device.update(rec.device_aggregates())
+            self.last_stats = st.stats
+            self.last_steps_run = st.steps_run
+            self.recorder = None        # last_recorder keeps the handle
+            self._live = None
+        return [st.results[i] for i in range(st.order)]
+
+    def run(self, requests: Sequence[Request], *, temperature: float = 0.0,
+            seed: Optional[int] = None, eos_id: Any = "engine-default",
+            on_iteration: Optional[Callable] = None) -> List[Completion]:
+        """Serve a burst of requests (any count vs. num_slots) to
+        completion: a burst schedule through ``serve``.  Invalid requests
+        finish as rejected Completions.  Returns completions in request
+        order; the stats are left in ``self.last_stats``."""
+        eff = [(temperature if r.temperature is None else r.temperature)
+               for r in requests]
+        sampling = seed is not None and any(t > 0.0 for t in eff)
+        max_gen = max([r.max_new_tokens for r in requests] + [1])
+        return self.serve(ArrivalSchedule.burst(requests),
+                          temperature=temperature, seed=seed, eos_id=eos_id,
+                          on_iteration=on_iteration, _greedy=not sampling,
+                          _max_gen=max_gen)
+
+    # ------------------------------------------------------------- legacy
+    def generate(self, batch: Dict[str, torch.Tensor], steps: int,
+                 temperature: float = 0.0,
+                 seed: Optional[int] = None) -> GenerationResult:
+        """Fixed-batch generation (legacy API).  Greedy decoding runs on
+        the continuous-batching engine; temperature sampling and rolling
+        workloads where prompt + steps exceed max_len take the per-token
+        loop (``_generate_per_token``)."""
+        tokens = torch.as_tensor(batch["tokens"])
+        need = tokens.shape[1] + steps
+        if (temperature > 0.0 and seed is not None) or need > self.max_len:
+            return self._generate_per_token(batch, steps, temperature, seed)
+        rows = tokens.cpu().numpy()
+        reqs = [Request(uid=i, tokens=rows[i].tolist(), max_new_tokens=steps)
+                for i in range(rows.shape[0])]
+        outs = self.run(reqs, temperature=0.0, eos_id=None)
+        return GenerationResult(tokens=[c.tokens for c in outs], steps=steps)
+
+    @torch.no_grad()
+    def _generate_per_token(self, batch, steps, temperature, seed):
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        caches, logits = self._prefill(self.model, {"tokens": tokens})
+        pos0 = tokens.shape[1]
+        outs = []
+        tok = self._sample(logits[:, -1], temperature, seed, 0)
+        outs.append(tok)
+        for t in range(1, steps):
+            caches, logits = self._decode(
+                self.model, caches, tok,
+                torch.tensor(pos0 + t - 1, device=self.device))
+            tok = self._sample(logits[:, -1], temperature, seed, t)
+            outs.append(tok)
+        toks = torch.stack(outs, dim=1)
+        return GenerationResult(tokens=toks.tolist(), steps=steps)
+
+    def _sample(self, logits, temperature, seed, t):
+        """Greedy, or one draw per row from softmax(logits / temperature)
+        keyed by (seed, row) at token index t."""
+        if temperature <= 0.0 or seed is None:
+            return logits.float().argmax(-1)
+        b = logits.shape[0]
+        keys = torch.as_tensor([request_key(seed, i) for i in range(b)],
+                               device=logits.device)
+        n = torch.full((b,), t, dtype=torch.long, device=logits.device)
+        return categorical(logits.float() / temperature, keys, n)

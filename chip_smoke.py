@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only train     # phases 1-3, 7-8
     python3 chip_smoke.py --only paper     # phases 1-3, 9-11
     python3 chip_smoke.py --only server    # phases 1-3, 12-13
+    python3 chip_smoke.py --only moe       # phases 1-3, 14-15
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -35,7 +36,10 @@ Phases (each raises on failure; nothing is caught):
      (kernels 1, 2, 4 at the OPT-2.7B and LLaMA-2.7B training steps,
      kernel 9 at the five blocks' widths, kernels 6 and 10 at OPT-2.7B's
      decode, and dh 80 / R = 1 decode edges of kernels 3, 5-8, timed at
-     OPT-2.7B's serving width): f32 to atol 1e-4,
+     OPT-2.7B's serving width); kernels 9 and 10 at the MoE widths (d
+     6144, F 16,384 SwiGLU and 32,768 GeGLU, 8 experts top 2: 8 decode
+     slots and the 4 x 1024 training rows), kernel 10 in f32 at F 16,384
+     and its f32 refusal at d 6144: f32 to atol 1e-4,
      bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
      codes equal up to the margin rule; the paged kernel bit-identical to
      the contiguous one over gathered views and the two-pass pair to the
@@ -96,6 +100,18 @@ Phases (each raises on failure; nothing is caught):
      up to near-ties of the perturbed logits), the same seed twice
      identical, and each preempted request's stream equal to its
      unpreempted one;
+  14. mixtral-8x22b (4 of 56 layers) and grok-1-314b (2 of 64) at full
+     width in bf16, random weights from a seed: a burst Engine.run of 8
+     requests (prompts 128-2048, mixtral's last one 4608 tokens so that
+     its 4096 window wraps; 32 new tokens, 8 slots, max_len 8192, chunks
+     of 16; kernels 6, 9, 10), grok also paged on a 96-page pool (kernel
+     7), a decode step's split; Trainer.run at 4 x 1024 under "spt"
+     (kernels 1, 2, 4, 9), 2 steps and, for mixtral, a profiled step;
+     counters zeroed just before each and read just after, launch counts
+     exact;
+  15. both MoE configs at d 1024, F 2048, 2 layers (mixtral's window
+     64), in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy
+     streams up to near-ties, one train step's loss and gradient cosine;
   then one JSON line of the ten kernels (launches per path; each with its
   times at the paper's shapes), then the result line.
 Imports nothing of JAX or of the JAX package.
@@ -214,6 +230,27 @@ def close(got, want, tol):
     if not torch.allclose(g, w, atol=tol, rtol=tol if tol > F32_TOL else 0):
         raise AssertionError(f"max abs err {err:.3e} beyond {tol}")
     return err
+
+
+def close_scaled(got, want, tol):
+    """The bf16 rule at widths where kernel 9's documented bf16 roundings
+    (h, the LoRA leaves and the LoRA products s x B and s h B_O) sum over
+    F = 16,384 and 32,768: max-abs <= tol x max |want| and a relative
+    Frobenius error of at most 2^-7 (one bf16 ulp), in place of the
+    per-element atol = rtol = tol, which those roundings exceed where a
+    large LoRA term and the base term cancel to a small output.  Returns
+    (max abs err, relative Frobenius error, elements past atol = rtol =
+    tol)."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err, scale = float(diff.max()), float(w.abs().max())
+    rel = float((g - w).norm() / w.norm())
+    past = int((diff > tol + tol * w.abs()).sum())
+    if err > tol * scale or rel > 2.0 ** -7:
+        raise AssertionError(f"max abs err {err:.3e} vs {tol} x max |want| "
+                             f"{scale:.3e}; relative Frobenius {rel:.3e}")
+    return err, rel, past
 
 
 def nbytes(*ts) -> int:
@@ -1054,12 +1091,14 @@ def grouped_ffn_yardstick(torch, x, index, wts, lora16, scale, act="silu"):
 
 
 def _grouped_case(torch, gen, dtn, *, b, s, d, f, g, ga, r, capf, act,
-                  gated, lens=None, choice=None, reverse=False):
+                  gated, lens=None, choice=None, reverse=False,
+                  scaled=False):
     """One kernel-9 case from seeded random inputs (r = 0: no LoRA):
     launched twice (bit-identical), every row finite, the kept slots
-    within tolerance of the plain version.  reverse: each row's slots in
-    reverse order, so the kept slots come last and a tile may start on
-    an empty slot and still keep some.  Returns the case's tensors."""
+    within tolerance of the plain version (scaled: close_scaled's rule).
+    reverse: each row's slots in reverse order, so the kept slots come
+    last and a tile may start on an empty slot and still keep some.
+    Returns the case's tensors."""
     from repro_torch.core import dispatch
     from repro_torch.core import routed_ffn as rf
     from repro_torch.kernels.routed_ffn import ops, ref
@@ -1088,9 +1127,10 @@ def _grouped_case(torch, gen, dtn, *, b, s, d, f, g, ga, r, capf, act,
         raise AssertionError("grouped_ffn: a non-finite row")
     want = ref.grouped_ffn_ref(*args, act=act)
     ok = slot_ok[..., None]                     # empty slots are dropped
-    err = close(torch.where(ok, y.float(), 0.0),
-                torch.where(ok, want.float(), 0.0),
-                BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+    pair = (torch.where(ok, y.float(), 0.0), torch.where(ok, want.float(), 0.0),
+            BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+    stats = close_scaled(*pair) if scaled else None
+    err = stats[0] if scaled else close(*pair)
     kept_rows = slot_ok.sum(-1)
     # 64-slot tiles that start on an empty slot and keep some slot
     c = index.shape[-1]
@@ -1100,7 +1140,7 @@ def _grouped_case(torch, gen, dtn, *, b, s, d, f, g, ga, r, capf, act,
     split_tiles = int((kept_in & (index[..., tiles] == s)).sum())
     return dict(err=err, args=args, plan=plan, y=y, wts=wts, lora=lora,
                 x=x, dropped=float(plan.dropped), split_tiles=split_tiles,
-                empty_rows=int((kept_rows == 0).sum()), c=c)
+                empty_rows=int((kept_rows == 0).sum()), c=c, stats=stats)
 
 
 def _grouped_bound(torch, case, d, f, r, dt, gated=True):
@@ -1317,11 +1357,11 @@ PAPER_FFN = [("OPT-1024", 1024, 512, "relu", False),
              ("LLaMA-4096", 4096, 1376, "silu", True)]
 
 
-def _paper_row(out, name, case, ms, bnd, err, yard=None):
+def _paper_row(out, name, case, ms, bnd, err, yard=None, tag="paper"):
     """yard: a torch yardstick's ms for the same function (kernels 1, 9,
     10), else None."""
     beside = "" if yard is None else f", torch yardstick {yard:.4f} ms"
-    print(f"  [paper] {name} {case}: {ms:.4f} ms, bound {bnd[0]:.4f} ms by "
+    print(f"  [{tag}] {name} {case}: {ms:.4f} ms, bound {bnd[0]:.4f} ms by "
           f"{bnd[1]}{beside}, max_abs_err {err:.3e}; bit-identical twice",
           flush=True)
     row = {"case": case, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -1477,6 +1517,111 @@ def check_paper_shapes(torch, gen):
     return out
 
 
+# The MoE widths (phase 3 rows and phase 14): (arch, d, F, act), 8
+# experts, top 2, LoRA r = 16.
+MOE_FFN = [("mixtral-8x22b", 6144, 16384, "silu"),
+           ("grok-1-314b", 6144, 32768, "gelu")]
+
+
+def check_moe_shapes(torch, gen):
+    """Kernels 9 and 10 at expert granularity, at the MoE configs' widths
+    (d 6144, F 16,384 SwiGLU and 32,768 GeGLU, 8 experts, top 2, LoRA r =
+    16): kernel 10 at 8 decode slots routed by the softmax top-2 router,
+    kernel 9 (its bf16 wide form) at the 4 x 1024 training rows with
+    capacity factor 1.25; each launched twice bit-identically, against
+    its plain version (kernel 9 by close_scaled's rule), timed beside its
+    bound and the bf16 torch yardstick.  Kernel 10 in f32 also at d 1024 with F 16,384 (its output
+    pass takes h in chunks there), and its f32 refusal at d 6144 (the
+    limit ops.decode_ffn_max_d states).  Returns {wrapper name: [case
+    rows]}."""
+    from repro_torch import configs
+    from repro_torch.kernels.routed_ffn import ops as ffn_ops
+    from repro_torch.kernels.routed_ffn import ref as ffn_ref
+    from repro_torch.models import moe
+    bf16 = torch.bfloat16
+    out = {}
+    for arch, d, f, act in MOE_FFN:
+        cfg = configs.get_config(arch)
+        e, k, r = cfg.num_experts, cfg.experts_per_token, 16
+        wts, lora = _ffn_weights(torch, gen, e, d, f, r, bf16)
+        b = 8
+        x = torch.randn(b, d, device="cuda", generator=gen).to(bf16)
+        router = torch.randn(d, e, device="cuda", generator=gen) / d ** 0.5
+        choice, gate, _ = moe._route_experts({"router": router}, x[:, None],
+                                             cfg)
+        choice, gate = choice[:, 0].contiguous(), gate[:, 0].contiguous()
+        args = (x, choice, gate, wts["w_inner"], wts["w_outer"],
+                wts["w_gate"], lora, 1.0)
+        blocks = int(torch.unique(choice).numel())
+        case = (f"{arch} decode (x ({b}, {d}), top-{k} of {e} experts, "
+                f"{blocks} touched, F={f}, {act} gated, LoRA r={r})")
+        y = _twice(torch, lambda: ffn_ops.decode_ffn(*args, act=act),
+                   f"decode_ffn {case}")
+        err = close(y, ffn_ref.decode_ffn_ref(*args, act=act), BF16_TOL)
+        ms = time_ms(lambda: ffn_ops.decode_ffn(*args, act=act), 20)
+        plain = time_ms(lambda: ffn_ref.decode_ffn_ref(*args, act=act), 2)
+        yard = time_ms(lambda: decode_ffn_yardstick(
+            torch, x, choice, gate, wts, _bf16_lora(torch, lora), 1.0,
+            act=act), 20)
+        moved = (blocks * 3 * d * f * x.element_size()
+                 + sum(nbytes(*t.values()) for t in lora.values())
+                 + nbytes(x, choice, gate) + b * d * x.element_size())
+        _paper_row(out, "decode_ffn", case, ms,
+                   bound(moved, b * k * 2 * d * f * 3, bf16), err, yard,
+                   tag="moe")
+        out["decode_ffn"][-1]["plain_ms"] = plain
+        del y, args
+        cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=d, f=f, g=e,
+                           ga=k, r=r, capf=cfg.moe_capacity_factor, act=act,
+                           gated=True, scaled=True)
+        _, rel, past = cs["stats"]
+        print(f"  [moe] grouped_ffn {arch}: relative Frobenius error "
+              f"{rel:.3e}; {past} of {int(cs['plan'].slot_ok.sum()) * d} "
+              f"kept outputs past atol = rtol = {BF16_TOL}", flush=True)
+        gargs = cs["args"]
+        ms = time_ms(lambda: ffn_ops.grouped_ffn(*gargs, act=act), 10)
+        plain = time_ms(lambda: ffn_ref.grouped_ffn_ref(*gargs, act=act), 2)
+        yard = time_ms(lambda: grouped_ffn_yardstick(
+            torch, cs["x"], cs["plan"].index, cs["wts"],
+            _bf16_lora(torch, cs["lora"]), 1.0, act=act), 10)
+        bnd = _grouped_bound(torch, cs, d, f, r, bf16)
+        _paper_row(out, "grouped_ffn", f"{arch} train (x ({TB}, {TS}, {d}), "
+                   f"F={f}, {act} gated, {e} experts top-{k}, C={cs['c']}, "
+                   f"{int(cs['plan'].slot_ok.sum())} kept slots, LoRA "
+                   f"r={r})", ms, bnd, cs["err"], yard, tag="moe")
+        out["grouped_ffn"][-1].update(
+            plain_ms=plain, rel_frobenius_err=rel, past_elementwise=past,
+            rule=f"max-abs <= {BF16_TOL} x max |plain|, relative Frobenius "
+                 "<= 2^-7")
+        del cs, gargs, wts, lora
+        _free(torch)
+    # f32: h chunked in the output pass (F = 16,384 at d = 1024), and the
+    # hidden pass's refusal past its shared memory (d = 6144)
+    d, f, e = 1024, 16384, 8
+    wts, lora = _ffn_weights(torch, gen, e, d, f, 16, torch.float32)
+    x = torch.randn(8, d, device="cuda", generator=gen)
+    choice = torch.stack([torch.randperm(e, device="cuda", generator=gen)[:2]
+                          for _ in range(8)]).to(torch.int32)
+    gate = torch.softmax(torch.randn(8, 2, device="cuda", generator=gen), -1)
+    args = (x, choice, gate, wts["w_inner"], wts["w_outer"], wts["w_gate"],
+            lora, 1.0)
+    y = _twice(torch, lambda: ffn_ops.decode_ffn(*args, act="silu"),
+               "decode_ffn f32 F=16384")
+    err = close(y, ffn_ref.decode_ffn_ref(*args, act="silu"), F32_TOL)
+    print(f"  [moe] decode_ffn f32 (x (8, {d}), F={f}: h in chunks): "
+          f"max_abs_err {err:.3e}, bit-identical twice", flush=True)
+    wide = torch.zeros(8, 6144, device="cuda")
+    w6 = torch.zeros(2, 6144, 8, device="cuda")
+    try:
+        ffn_ops.decode_ffn(wide, choice % 2, gate, w6, w6.transpose(1, 2)
+                           .contiguous(), act="relu")
+    except ValueError as exc:
+        print(f"  [moe] decode_ffn f32 at d=6144 refused: {exc}", flush=True)
+    else:
+        raise AssertionError("decode_ffn f32 at d=6144 was not refused")
+    return out
+
+
 # ------------------------------------------------------------ phases 4-6
 def _perturbed_model(torch, cfg, seed):
     """Random full-width weights from a seed; LoRA c leaves (zero at
@@ -1526,6 +1671,10 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
     eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1))     # warm-up
     reqs = _requests(work["n"], work["lo"], work["hi"], work["gen"],
                      cfg.vocab_size, seed=2)
+    if work.get("long"):              # the last prompt replaced by a long one
+        reqs[-1] = _requests(1, work["long"], work["long"], work["gen"],
+                             cfg.vocab_size, seed=3)[0]
+        reqs[-1].uid = work["n"] - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = kernels.wrappers()
@@ -1572,8 +1721,9 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
 
 def _want_serve_launches(cfg, launches, steps, prefill_batches):
     """The launches a serve must make: each executed decode step runs its
-    tier's decode kernels and the decode FFN once per layer; each prefill
-    batch (resume re-prefills included) the grouped FFN once per layer.
+    tier's decode kernels and the decode FFN (routed or MoE) once per
+    layer; each prefill batch (resume re-prefills included) the grouped
+    FFN once per layer.
     The ragged prefill takes the oracle attention (as in JAX), so the
     train-path attention kernels stay idle."""
     from repro_torch.core import dispatch
@@ -1651,6 +1801,10 @@ def decode_step_split(torch, model, cfg, paged=False):
         pt = None
         valid = torch.arange(4096, device="cuda")[None, :] <= pos[:, None]
         label = "decode step (8 slots, S=4096)"
+        if cfg.window is not None:  # a ring derives validity from slot_pos
+            sp = caches["units"]["b0_attn"]["slot_pos"]
+            sp.copy_(torch.where(valid, torch.arange(4096, device="cuda"),
+                                 -1).expand_as(sp))
 
     def step():
         transformer.lm_decode_step(model, cfg, caches, tok, pos,
@@ -1821,14 +1975,14 @@ def _c_leaves(state):
 def _want_train_launches(cfg, names, steps):
     """Launches of a train run: per layer per step, kernels 1, 2, 4 four,
     two and two times with sparse MHA (the checkpointed forward runs
-    twice), kernel 9 twice with the routed FFN; nothing else."""
+    twice), kernel 9 twice with the routed FFN or MoE; nothing else."""
     per_step = cfg.num_layers * steps
     want = {name: 0 for name in names}
     if cfg.spt.sparse_mha:
         want.update({"pq_assign": 4 * per_step,
                      "topl_thresholds": 2 * per_step,
                      "sparse_attention": 2 * per_step})
-    if cfg.spt.routed_ffn:
+    if cfg.spt.routed_ffn or cfg.num_experts > 0:
         want["grouped_ffn"] = 2 * per_step
     return want
 
@@ -2542,6 +2696,104 @@ def server_agree_f32(torch):
           f"runs ({flips} replayed near-tie flips)", flush=True)
 
 
+# ------------------------------------------------------------ phases 14-15
+# phase 14: each MoE config at full width, its depth cut to fit the card
+# (mixtral 56 -> 4 layers, ~21 GB of weights; grok 64 -> 2, ~23 GB);
+# serving 8 requests (prompts 128-2048 from numpy seed 2, 32 new tokens,
+# 8 slots, max_len 8192, chunks of 16) — mixtral's last prompt replaced by
+# one of 4608 tokens so its 4096 window wraps — and grok paged on a pool
+# of 96 pages of 128, under its 512-page footprint.
+MOE_DEPTH = {"mixtral-8x22b": 4, "grok-1-314b": 2}
+MOE_WORK = dict(n=8, lo=128, hi=2048, gen=32, max_len=8192)
+MOE_LONG = 4608
+MOE_POOL = 96
+
+
+def moe_full_width(torch):
+    """Phase 14: mixtral-8x22b (4 layers) and grok-1-314b (2 layers) at
+    full width in bf16: a burst Engine.run (kernels 6, 9, 10; grok also
+    paged, kernel 7) with its decode step split, then Trainer.run at 4 x
+    1024 under "spt" (kernels 1, 2, 4, 9), 2 steps each and a profiled
+    step for mixtral; counters zeroed just before each and read just
+    after, launch counts exact.  Each model is freed before the next.
+    Returns the launches by path."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    paths = {p: {} for p in ("moe_serve", "moe_serve_paged", "moe_train")}
+    _free(torch)                  # what earlier phases left in the cache
+    for name, layers in MOE_DEPTH.items():
+        cfg = dataclasses.replace(configs.get_config(name),
+                                  num_layers=layers).with_spt(**SERVE_CFG)
+        model = _perturbed_model(torch, cfg, seed=0)
+        work = dict(MOE_WORK, long=MOE_LONG) if cfg.window else MOE_WORK
+        launches, _ = _serve(torch, model, cfg, f"{name} serve", work=work)
+        paths["moe_serve"] = _add(paths["moe_serve"], launches)
+        decode_step_split(torch, model, cfg)
+        if transformer.paged_applicable(cfg):
+            paged = cfg.with_spt(**PAGED)
+            launches, _ = _serve(torch, model, paged, f"{name} paged serve",
+                                 kv_pages=MOE_POOL, work=work)
+            paths["moe_serve_paged"] = _add(paths["moe_serve_paged"],
+                                            launches)
+        del model
+        _free(torch)
+        launches, _, _, trainer = _train_run(
+            torch, cfg, 2, f"{name} train", profile=cfg.window is not None)
+        paths["moe_train"] = _add(paths["moe_train"], launches)
+        del trainer
+        _free(torch)
+    return paths
+
+
+def _moe_small(torch, name):
+    """An MoE config at a cut width in f32: d 1024, F 2048, 8 heads of
+    128 over 2 kv heads, 8 experts top 2, 2 layers, mixtral's window 64
+    (so that its ring wraps)."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(
+        configs.get_config(name), num_layers=2, d_model=1024, num_heads=8,
+        num_kv_heads=2, d_ff=2048, dtype=torch.float32,
+        window=64 if configs.get_config(name).window else None)
+    return cfg.with_spt(**SERVE_CFG)
+
+
+def moe_agree_f32(torch):
+    """Phase 15: both MoE configs at the cut width of _moe_small, kernels
+    on against REPRO_DISABLE_KERNELS=1: greedy streams of 8 requests
+    (prompts 64-512, 16 new tokens, 4 slots) equal up to the near-tie
+    replay rule, the kernel run launching kernels 6, 9 and 10 and the
+    oracle none; one train step (2 x 512) by phase 8's step rule."""
+    from repro_torch import kernels
+    from repro_torch.train.state import init_state
+    for name in MOE_DEPTH:
+        cfg = _moe_small(torch, name)
+        reqs = _requests(8, 64, 512, 16, cfg.vocab_size, seed=4)
+        model = _perturbed_model(torch, cfg, seed=3)
+        model.to(torch.float32)
+        before = {w.__name__: w.launches for w in kernels.wrappers()}
+        oracle, ran = _streams(torch, model, cfg, reqs, False)
+        got, ran_k = _streams(torch, model, cfg, reqs, True)
+        moved = {w.__name__ for w in kernels.wrappers()
+                 if w.launches != before[w.__name__]}
+        if ran or ran_k != {"fused_sparse_decode_attention"} or not {
+                "grouped_ffn", "decode_ffn"} <= moved:
+            raise AssertionError(f"{name}: oracle ran {ran}, kernels "
+                                 f"{sorted(moved)}")
+        _compare_streams(torch, model, cfg, reqs, f"{name} f32", got, oracle)
+        del model
+        state = init_state(cfg, seed=5, device="cuda")
+        state["frozen"] = _map_tree(lambda t: t.float(), state["frozen"])
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        for _, v in _c_leaves(state):
+            v.copy_(torch.randn(v.shape, device="cuda", generator=gen) * 0.01)
+        batch = next(_batches(cfg, 2, 512, 1, seed=7))
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+        _step_agreement(torch, cfg, state, batch, gen,
+                        f"2-layer f32 {name} train step")
+        del state
+        _free(torch)
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -2551,13 +2803,13 @@ def _map_tree(fn, tree):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
-                                       "server"),
+                                       "server", "moe"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
                          "phases (1-3, 7-8), the paper's models (1-3, "
-                         "9-11) or the long-lived server (1-3, 12-13) "
-                         "alone")
+                         "9-11), the long-lived server (1-3, 12-13) or the "
+                         "MoE family (1-3, 14-15) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2605,8 +2857,11 @@ def main() -> int:
         raise AssertionError("phase 3 does not cover every kernel wrapper")
     for name, cases in check_paper_shapes(torch, gen).items():
         paper.setdefault(name, []).extend(cases)
-    for row in rows:                    # the paper's shapes, each kernel
+    moe_shapes = check_moe_shapes(torch, gen)
+    for row in rows:                    # the paper's and MoE shapes
         row["paper_shapes"] = paper[row["name"]]
+        if row["name"] in moe_shapes:
+            row["moe_shapes"] = moe_shapes[row["name"]]
     for row in rows[:2]:                # the bodies of kernels 1 and 2
         row["ptxas"] = [f"{fn}: {regs} registers, {smem} B static smem, "
                         f"{spill} B spilled"
@@ -2624,7 +2879,8 @@ def main() -> int:
              for p in ("serve", "serve_paged", "serve_paged_two_pass",
                        "serve_paged_dense", "train", "paper_blocks",
                        "paper_train", "paper_prefill", "paper_serve",
-                       "server", "server_paged")}
+                       "server", "server_paged", "moe_serve",
+                       "moe_serve_paged", "moe_train")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -2686,6 +2942,18 @@ def main() -> int:
               f"{t1 - t0:.1f} s)", flush=True)
         server_agree_f32(torch)
         print(f"[13] took {time.perf_counter() - t1:.1f} s", flush=True)
+    if args.only in (None, "moe"):
+        # 14. the MoE family at full width, depth cut: serve and train
+        t0 = time.perf_counter()
+        print("[14] mixtral-8x22b (4 layers) and grok-1-314b (2 layers) at "
+              "full width, bf16: serve and train", flush=True)
+        paths.update(moe_full_width(torch))
+        # 15. card-side agreement at a cut width
+        t1 = time.perf_counter()
+        print(f"[15] 2-layer f32 MoE agreement at d 1024 (phase 14 took "
+              f"{t1 - t0:.1f} s)", flush=True)
+        moe_agree_f32(torch)
+        print(f"[15] took {time.perf_counter() - t1:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

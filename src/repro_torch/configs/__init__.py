@@ -1,13 +1,22 @@
-"""Config registry of the port: the assigned architectures it serves so
+"""Config registry of the port: the assigned architectures it covers so
 far, and the paper's own blocks and end-to-end models."""
 from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs import paper_blocks, qwen3_0_6b
+from repro_torch.configs import (gemma_7b, grok_1_314b, h2o_danube_1_8b,
+                                 h2o_danube_3_4b, mixtral_8x22b,
+                                 paper_blocks, qwen3_0_6b)
 from repro_torch.configs.base import ModelConfig, SPTConfig
 
-_MODULES = {"qwen3-0.6b": qwen3_0_6b}
+_MODULES = {
+    "grok-1-314b": grok_1_314b,
+    "mixtral-8x22b": mixtral_8x22b,
+    "qwen3-0.6b": qwen3_0_6b,
+    "h2o-danube-1.8b": h2o_danube_1_8b,
+    "gemma-7b": gemma_7b,
+    "h2o-danube-3-4b": h2o_danube_3_4b,
+}
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
 
@@ -29,3 +38,16 @@ def get_smoke(name: str) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return _MODULES[name].smoke()
+
+
+# (arch, shape) applicability: long_500k needs a sub-quadratic path —
+# SSM state, RG-LRU+local window, or SWA-bounded KV.
+_LONG_OK = {"mamba2-780m", "recurrentgemma-9b", "mixtral-8x22b",
+            "h2o-danube-1.8b", "h2o-danube-3-4b"}
+
+
+def cell_supported(arch: str, shape: str) -> Tuple[bool, str]:
+    if shape == "long_500k" and arch not in _LONG_OK:
+        return False, ("pure full-attention arch: 500k dense KV decode is "
+                       "architecturally unsupported (no window/state)")
+    return True, ""

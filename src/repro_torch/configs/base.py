@@ -31,7 +31,7 @@ class SPTConfig:
     pq_update_interval: int = 20
     select_granularity: str = "qhead"   # "kvgroup" = GQA-shared selection
     chunk_q: int = 256
-    attn_impl: str = "sparse_jnp"   # sparse_jnp | dense | pallas
+    attn_impl: str = "sparse_jnp"   # sparse_jnp | sparse_masked | pallas
     # decode attention: "kernel" = fused CUDA decode kernel, "jnp" = the
     # core/ oracle, "auto" = kernel iff attn_impl == "pallas".
     decode_attn_impl: str = "auto"  # auto | kernel | jnp
@@ -65,6 +65,9 @@ class SPTConfig:
     # pages grown, sampled tokens) and drains them at the chunk's one host
     # sync; "trace" adds the host-side request/scheduler event timeline
     telemetry: str = "off"          # off | counters | trace
+
+    def disabled(self) -> "SPTConfig":
+        return dataclasses.replace(self, sparse_mha=False, routed_ffn=False)
 
 
 @dataclasses.dataclass(frozen=True)

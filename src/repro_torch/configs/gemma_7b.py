@@ -1,0 +1,23 @@
+"""gemma-7b [dense]: 28L d_model=3072 16H (GQA kv=16) d_ff=24576
+vocab=256000 — GeGLU, head_dim=256.  [arXiv:2403.08295; hf]"""
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="gemma-7b", family="dense",
+        num_layers=28, d_model=3072, num_heads=16, num_kv_heads=16,
+        head_dim=256, d_ff=24576, vocab_size=256000,
+        pattern=("attn",), activation="gelu", gated_ffn=True,
+        norm="rmsnorm", rope_theta=10000.0,
+        tie_embeddings=True, scale_embed=True,
+    )
+
+
+def smoke() -> ModelConfig:
+    return dataclasses.replace(
+        config(), num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+        head_dim=16, d_ff=128, vocab_size=256,
+    )

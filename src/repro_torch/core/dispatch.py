@@ -60,7 +60,10 @@ def make_plan(choice: torch.Tensor, gate: torch.Tensor, num_groups: int,
     limit = (cap if cap_dyn is None
              else torch.clamp(cap_dyn.long(), max=cap)[:, None])
     keep = rank < limit
-    dropped = 1.0 - keep.float().mean()
+    # XLA's mean: the sum times the f32 reciprocal of the count (a true
+    # division rounds differently, so ``dropped`` would miss JAX's bits)
+    dropped = 1.0 - keep.float().sum() * torch.tensor(
+        1.0 / keep.numel(), dtype=torch.float32, device=dev)
     token_id = torch.arange(s, dtype=torch.int32, device=dev)
     token_id = token_id.repeat_interleave(k)[None].expand(b, s * k)
     # dropped pairs land in one trash column past G*C, cut off below

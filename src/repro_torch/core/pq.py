@@ -92,3 +92,42 @@ def match_scores(codes_q: torch.Tensor, codes_k: torch.Tensor,
     oh_q = oh_q.flatten(-2)                                 # (..., nq, M*E)
     oh_k = oh_k.flatten(-2)                                 # (..., nk, M*E)
     return torch.matmul(oh_q, oh_k.transpose(-1, -2)).float()
+
+
+def ema_update(codebooks: torch.Tensor, x: torch.Tensor,
+               codes: Optional[torch.Tensor] = None,
+               ema: float = 0.05) -> torch.Tensor:
+    """One EMA k-means step: each codeword moves toward the mean of its
+    assigned sub-vectors (codewords nobody chose stay put).  The caller
+    applies it every ``update_interval`` steps (paper §5.1)."""
+    m, e, dp = codebooks.shape
+    xs = x.reshape(-1, m, dp).float()                       # (N, M, d')
+    if codes is None:
+        codes = assign(x.reshape(-1, m * dp), codebooks)
+    oh = torch.nn.functional.one_hot(codes.reshape(-1, m).long(),
+                                     e).float()             # (N, M, E)
+    counts = oh.sum(0)                                      # (M, E)
+    sums = torch.einsum("nme,nmd->med", oh, xs)
+    means = sums / torch.clamp(counts[..., None], min=1.0)
+    upd = torch.where(counts[..., None] > 0, means, codebooks)
+    return (1.0 - ema) * codebooks + ema * upd
+
+
+def _sample_rows(n: int, e: int, generator: torch.Generator) -> torch.Tensor:
+    """e row indices of n: without replacement when n >= e (JAX's
+    ``random.choice(replace=n < e)``), drawn from ``generator``."""
+    dev = generator.device
+    if n < e:
+        return torch.randint(0, n, (e,), generator=generator, device=dev)
+    return torch.randperm(n, generator=generator, device=dev)[:e]
+
+
+def init_codebooks_from_data(x: torch.Tensor, cfg: PQConfig,
+                             generator: torch.Generator) -> torch.Tensor:
+    """k-means++-lite init: a random sample of x's sub-vectors as the
+    codewords, (M, E, d') f32.  The draw comes from a torch Generator, so
+    it picks other rows than JAX's key does; the contract is the same."""
+    m, e, dp = cfg.num_books, cfg.num_codewords, cfg.code_dim
+    xs = x.reshape(-1, m, dp).float()
+    idx = _sample_rows(xs.shape[0], e, generator).to(xs.device)
+    return xs[idx].transpose(0, 1).contiguous()

@@ -9,6 +9,9 @@ per token; only those blocks are computed:
 The grouped path batches the tokens of each activated group through the
 capacity plan of core/dispatch.py (one dense product per group, then a
 scatter-add combine).  It is the oracle the CUDA kernels are held to.
+The dense path (``impl="dense"``) runs the whole FFN and masks the hidden
+columns of the groups a token did not choose: the per-token oracle, with
+no capacity and so no drops.
 """
 from __future__ import annotations
 
@@ -103,6 +106,34 @@ def plan_for(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
                               cap_dyn=cap_dyn)
 
 
+def _dense_forward(x: torch.Tensor, p, cfg: RoutedFFNConfig,
+                   lora_cfg: lora.LoRAConfig,
+                   hidden_mask: torch.Tensor) -> torch.Tensor:
+    """The full dense FFN with the (B, S, D) hidden group mask applied."""
+    g, d, f = p["w_inner"].shape[0], cfg.d_model, cfg.group_dim
+    dt = x.dtype
+    act = ACTIVATIONS[cfg.activation]
+
+    def inner(w_key, lora_key):
+        w = p[w_key].detach().transpose(0, 1).reshape(d, g * f)
+        up = x @ w.to(dt)
+        if lora_cfg.enabled and lora_key in p:
+            li = p[lora_key]
+            c = li["c"].transpose(0, 1).reshape(-1, g * f)
+            up = up + lora_cfg.scale * ((x @ li["b"].to(dt)) @ c.to(dt))
+        return up
+
+    up = inner("w_inner", "lora_inner")
+    h = act(inner("w_gate", "lora_gate")) * up if cfg.gated else act(up)
+    h = h * hidden_mask.to(h.dtype)
+    y = h @ p["w_outer"].detach().reshape(g * f, d).to(dt)
+    if lora_cfg.enabled and "lora_outer" in p:
+        lo = p["lora_outer"]
+        hb = h @ lo["b"].reshape(g * f, -1).to(dt)
+        y = y + lora_cfg.scale * (hb @ lo["c"].to(dt))
+    return y
+
+
 def _grouped_forward(x: torch.Tensor, p, cfg: RoutedFFNConfig,
                      lora_cfg: lora.LoRAConfig, choice: torch.Tensor,
                      gate_w: torch.Tensor,
@@ -141,17 +172,25 @@ def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
                seq_lengths: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Apply the routed FFN.  x: (B, S, d) (2-D inputs get a batch dim).
-    need_aux=False (inference) skips the router softmax and the
-    load-balance loss; aux["lb_loss"] is then zero."""
-    if impl != "grouped":
-        raise ValueError(f"impl {impl!r} is not ported (only 'grouped')")
+    impl: "grouped" (the capacity path) or "dense" (the per-token oracle,
+    which needs no seq_lengths and drops nothing).  need_aux=False
+    (inference) skips the router softmax and the load-balance loss;
+    aux["lb_loss"] is then zero."""
+    if impl not in ("grouped", "dense"):
+        raise ValueError(f"unknown impl {impl!r}")
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
     choice, gate_w, probs = route(x, p["router"], cfg, need_aux=need_aux)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    y, dropped = _grouped_forward(x, p, cfg, lora_cfg, choice, gate_w,
-                                  seq_lengths=seq_lengths)
+    if impl == "dense":
+        oh = torch.nn.functional.one_hot(choice.long(), cfg.num_groups)
+        group_mask = (oh.float() * gate_w[..., None]).amax(2)   # (B, S, G)
+        hidden_mask = group_mask.repeat_interleave(cfg.group_dim, dim=-1)
+        y, dropped = _dense_forward(x, p, cfg, lora_cfg, hidden_mask), zero
+    else:
+        y, dropped = _grouped_forward(x, p, cfg, lora_cfg, choice, gate_w,
+                                      seq_lengths=seq_lengths)
     aux = {"lb_loss": (dispatch.load_balance_loss(probs, choice,
                                                   cfg.num_groups)
                        if need_aux else zero),

@@ -9,7 +9,10 @@ recent key (higher index).
 
 These are the oracle paths: the ragged prefill always runs ``sparse_mha``
 here, and ``REPRO_DISABLE_KERNELS=1`` sends decode to
-``sparse_mha_decode`` instead of the fused CUDA kernel.
+``sparse_mha_decode`` instead of the fused CUDA kernel.  The masked forms
+(``sparse_mha_masked``, ``attn_impl="sparse_masked"``, and
+``sparse_mha_decode_masked``) apply the same selection as a mask on dense
+logits.
 """
 from __future__ import annotations
 
@@ -55,20 +58,15 @@ def top_l_dyn(horizon: torch.Tensor, cfg: SparseAttentionConfig,
     return torch.minimum(l, h)
 
 
-def bucket_select(scores: torch.Tensor, valid: torch.Tensor, l: int,
-                  max_score: int, l_dyn: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-free top-L (the paper's bucket sort, Algorithm 3).
-
+def _eligibility(scores: torch.Tensor, valid: torch.Tensor, budget,
+                 max_score: int) -> torch.Tensor:
+    """The top-L set as a boolean mask: every key above the threshold
+    bucket t plus the ``need`` most recent keys at t (ties newest first).
     scores: (..., nk) integer-valued in [0, max_score]; valid broadcastable
-    to it.  Takes every key above the threshold bucket t plus the ``need``
-    most recent keys at t.  l_dyn: optional per-row budgets (<= l)
-    broadcastable to scores.shape[:-1].  Returns (idx (..., L) int32 in
-    ascending key order, sel_valid (..., L) bool)."""
+    to it; budget: L, or per-row budgets broadcastable to
+    scores.shape[:-1]."""
     s = torch.where(valid, scores.to(torch.int32), -1)
-    nk = s.shape[-1]
-    budget = torch.as_tensor(l if l_dyn is None else l_dyn,
-                             dtype=torch.int64, device=s.device)
+    budget = torch.as_tensor(budget, dtype=torch.int64, device=s.device)
     counts = torch.stack([(s == v).sum(-1) for v in range(max_score + 1)],
                          dim=-1)
     ge = counts.flip(-1).cumsum(-1).flip(-1)                # #(s >= v)
@@ -80,13 +78,28 @@ def bucket_select(scores: torch.Tensor, valid: torch.Tensor, l: int,
     above = s > t[..., None]
     at_t = s == t[..., None]
     rev_rank = at_t.int().flip(-1).cumsum(-1).flip(-1)      # 1 = newest tie
-    eligible = above | (at_t & (rev_rank <= need[..., None]))
+    return above | (at_t & (rev_rank <= need[..., None]))
+
+
+def bucket_select(scores: torch.Tensor, valid: torch.Tensor, l: int,
+                  max_score: int, l_dyn: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-free top-L (the paper's bucket sort, Algorithm 3).
+
+    scores: (..., nk) integer-valued in [0, max_score]; valid broadcastable
+    to it.  Takes every key above the threshold bucket t plus the ``need``
+    most recent keys at t.  l_dyn: optional per-row budgets (<= l)
+    broadcastable to scores.shape[:-1].  Returns (idx (..., L) int32 in
+    ascending key order, sel_valid (..., L) bool)."""
+    nk = scores.shape[-1]
+    eligible = _eligibility(scores, valid, l if l_dyn is None else l_dyn,
+                            max_score)
     n_sel = eligible.sum(-1)
-    pos = torch.arange(nk, dtype=torch.int32, device=s.device)
+    pos = torch.arange(nk, dtype=torch.int32, device=scores.device)
     key = torch.where(eligible, pos, nk)
     idx = torch.topk(key, l, dim=-1, largest=False, sorted=True).values
     idx = torch.clamp(idx, max=nk - 1).to(torch.int32)
-    targets = torch.arange(1, l + 1, device=s.device)
+    targets = torch.arange(1, l + 1, device=scores.device)
     return idx, targets <= n_sel[..., None]
 
 
@@ -198,6 +211,54 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=2), aux
 
 
+def sparse_mha_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      codebooks: torch.Tensor, cfg: SparseAttentionConfig,
+                      scale: float, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0
+                      ) -> Tuple[torch.Tensor, Dict[str, object]]:
+    """The top-L set applied as a mask on dense per-chunk logits (no (n,
+    L) index matrix, no gathered K/V): the fused kernel's compute graph,
+    with sparse_mha's selection.  Selection is per query head, as in JAX's
+    masked form, whatever ``select_granularity`` says."""
+    b, hq, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    r = hq // hk
+    l = top_l(nk, cfg, window)
+    codes_q = pq.assign(q, codebooks)
+    codes_k = pq.assign(k, codebooks)
+    ckq = codes_k.repeat_interleave(r, dim=1)               # (B, Hq, nk, M)
+    k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
+    chunk = min(cfg.chunk_q, nq)
+    if nq % chunk:
+        chunk = nq
+
+    def chunk_fn(start, q, k, v):
+        q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
+                                                device=q.device)
+        mask = attention_mask(q_pos, k_pos, causal, window)
+        s = pq.match_scores(codes_q[:, :, start:start + chunk], ckq,
+                            cfg.pq.num_codewords)
+        eligible = _eligibility(s, mask[None, None], l, cfg.pq.num_books)
+        k_rep = k.repeat_interleave(r, dim=1)
+        v_rep = v.repeat_interleave(r, dim=1)
+        logits = torch.einsum("bhnd,bhmd->bhnm",
+                              q[:, :, start:start + chunk].float(),
+                              k_rep.float())
+        w = _masked_softmax(logits * scale, eligible)
+        return torch.einsum("bhnm,bhmd->bhnd", w.to(v.dtype), v_rep)
+
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    outs = [checkpoint(chunk_fn, start, q, k, v, use_reentrant=False,
+                       preserve_rng_state=False) if remat
+            else chunk_fn(start, q, k, v) for start in range(0, nq, chunk)]
+    aux: Dict[str, object] = {"l": l}
+    if cfg.qerr_loss_weight > 0:
+        aux["qerr"] = (pq.quantization_error(q, codebooks, codes_q)
+                       + pq.quantization_error(k, codebooks, codes_k))
+    return torch.cat(outs, dim=2), aux
+
+
 def _decode_attention_from_indices(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, indices: torch.Tensor,
                                    valid: torch.Tensor, scale: float
@@ -250,6 +311,35 @@ def sparse_mha_decode(q: torch.Tensor, k_cache: torch.Tensor,
     idx, vld = bucket_select(scores, kv_valid[:, None, None, :], l, max_s)
     return _decode_attention_from_indices(q, k_cache, v_cache, idx, vld,
                                           scale)
+
+
+def sparse_mha_decode_masked(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, codes_cache: torch.Tensor,
+                             codebooks: torch.Tensor,
+                             cfg: SparseAttentionConfig, scale: float,
+                             kv_valid: torch.Tensor) -> torch.Tensor:
+    """``sparse_mha_decode`` with the top-L set applied as a mask on the
+    grouped dense logits: no index row, no gathered K/V (the decode
+    kernels' compute graph).  Same selection, same shapes."""
+    b, hq, _, d = q.shape
+    _, hk, s, _ = k_cache.shape
+    r = hq // hk
+    l = top_l(s, cfg, None)
+    codes_q = pq.assign(q, codebooks)
+    cq = codes_q.reshape(b, hk, r, 1, -1)
+    scores = pq.match_scores(cq, codes_cache[:, :, None],
+                             cfg.pq.num_codewords)          # (B,Hk,R,1,S)
+    valid = kv_valid[:, None, None, None, :]
+    if cfg.select_granularity == "kvgroup":
+        eligible = _eligibility(scores.sum(2, keepdim=True), valid, l,
+                                cfg.pq.num_books * r)
+    else:
+        eligible = _eligibility(scores, valid, l, cfg.pq.num_books)
+    logits = torch.einsum("bgrnd,bgsd->bgrns",
+                          q.reshape(b, hk, r, 1, d).float(), k_cache.float())
+    w = _masked_softmax(logits * scale, eligible)
+    out = torch.einsum("bgrns,bgsd->bgrnd", w.to(v_cache.dtype), v_cache)
+    return out.reshape(b, hq, 1, d)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

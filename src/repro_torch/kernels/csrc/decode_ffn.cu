@@ -23,19 +23,29 @@
 // column blocks, then choices a = 0..G'-1), and nothing uses atomics:
 //   1. h, one block per (g, 32 hidden columns), the whole d contraction:
 //      x W_I and x W_gate for the group's pairs (half the threads on each
-//      matrix), x B_I and x B_gate (16-byte loads of the 64 KB B rows,
+//      matrix; the pairs' x staged in shared memory as f32 where that
+//      fits, else bf16 x as stored — exact, and half the room, so d =
+//      6144 fits), x B_I and x B_gate (16-byte loads of the 64 KB B rows,
 //      which L2 holds after the first block; each column block forms them
 //      for its pairs, which costs less than a pass of their own), the
 //      LoRA term s (x B) C[g] and act -> h (B*G', F), f32 scratch;
 //   2. h_a W_O[g], one block per (g, 64 output columns), all F rows; each
 //      block also sums h_a B_O[g] over its share of the F rows (coalesced
-//      reads of B_O rows), so that term is formed once per (slot, choice);
+//      reads of B_O rows), so that term is formed once per (slot, choice).
+//      h is staged in f32: whole rows where PMAX of them fit, else chunks
+//      of FCH columns (F = 16,384 and 32,768 at the MoE widths), each
+//      thread's accumulators carried across the chunks, whose length is a
+//      multiple of its row stride, so every sum keeps its order; the
+//      block's B_O rows then take their h rows staged anew, FCH at a time;
 //   3. y, one block per (slot, 128 output columns): the blocks' shares of
 //      h_a B_O summed, s (h_a B_O) C_O added, and the G' choices summed in
 //      order with their gates.
 // One body for f32 and bf16 data (16-byte weight loads of 4 or 8
 // elements).  Needs d and F to be multiples of 8 and the LoRA rank a
-// multiple of 4.
+// multiple of 4; f32 x must fit pass 1's shared memory (d up to ~6,100:
+// routed_ffn/ops.py states the limit).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -52,6 +62,8 @@ constexpr int HC = 32;                     // pass 1: hidden columns/block
 constexpr int OC = 64;                     // pass 2: output columns/block
 constexpr int OFS = THREADS / (OC / VEC);  // pass 2: 32 f-slices
 constexpr int LB = 16;                     // LoRA rows in flight
+constexpr int FCH = 2048;                  // pass 2: h columns a chunk
+constexpr int SMEM_MAX = 232448;           // a block's shared memory
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -119,21 +131,29 @@ template <> struct Row8<float> {
   }
 };
 
-// vals[p][0, n) = src[ids[p] / div * ld_src + 0, n) as f32, 8 at a time
-// (n % 8 == 0, 16-byte aligned rows).
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* vals, int ld, const T* src,
+// vals[p][0, n) = src[ids[p] / div * ld_src + 0, n) in XS (f32, or T as
+// stored), 16 bytes of src at a time (n * sizeof(T) % 16 == 0, 16-byte
+// aligned rows).
+template <typename XS, typename T>
+__device__ __forceinline__ void stage_rows(XS* vals, int ld, const T* src,
                                            size_t ld_src, const int* ids,
                                            int div, int np, int n) {
-  const int chunks = n / VEC;
+  constexpr int E = 16 / sizeof(T);
+  const int chunks = n / E;
   for (int e = threadIdx.x; e < np * chunks; e += blockDim.x) {
     const int p = e / chunks, c = e - p * chunks;
-    Row8<T> v;
-    v.load(src + (size_t)(ids[p] / div) * ld_src + c * VEC);
-    float f8[VEC];
-    v.get(f8);
+    const T* row = src + (size_t)(ids[p] / div) * ld_src + c * E;
+    XS* out = vals + (size_t)p * ld + c * E;
+    if constexpr (std::is_same<XS, T>::value) {
+      *reinterpret_cast<int4*>(out) = __ldg(reinterpret_cast<const int4*>(row));
+    } else {
+      Row8<T> v;                                // bf16 -> f32, 8 at a time
+      v.load(row);
+      float f8[VEC];
+      v.get(f8);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) vals[p * ld + c * VEC + j] = f8[j];
+      for (int j = 0; j < VEC; ++j) out[j] = f8[j];
+    }
   }
 }
 
@@ -142,11 +162,12 @@ __device__ __forceinline__ void stage_rows(float* vals, int ld, const T* src,
 // slice, + THREADS / r, ... (LB loads in flight, coalesced over q), and
 // the slices are summed in order.  vals: the pairs' inputs in shared
 // memory, row p at p * ld.  red: PMAX * THREADS floats of shared memory.
+// add: add the sums to out (a later chunk of the rows) instead of storing.
 __device__ __forceinline__ void lora_down(const float* vals, int ld, int np,
                                           const float* __restrict__ lo,
                                           int r, int k0, int k1, float* red,
                                           const int* ids, float* out,
-                                          size_t ostride) {
+                                          size_t ostride, bool add) {
   const int tid = threadIdx.x, q = tid % r, sl = tid / r, nsl = THREADS / r;
   if (sl < nsl) {
     float acc[PMAX];
@@ -176,7 +197,8 @@ __device__ __forceinline__ void lora_down(const float* vals, int ld, int np,
     const int p = e / r, qq = e - p * r;
     float s = 0.f;
     for (int j = 0; j < nsl; ++j) s += red[(j * PMAX + p) * r + qq];
-    out[ids[p] * ostride + qq] = s;
+    float* o = out + ids[p] * ostride + qq;
+    *o = add ? *o + s : s;
   }
   __syncthreads();
 }
@@ -186,7 +208,7 @@ __device__ __forceinline__ void lora_down(const float* vals, int ld, int np,
 // each half 4 column lanes x 32 row slices (ungated: all threads on W_I,
 // 64 slices); then x B_I and x B_gate of the group's pairs (the B rows
 // are 64 KB each, read from L2) and h of the block's columns.
-template <typename T>
+template <typename T, typename XS>
 __global__ void __launch_bounds__(THREADS, 1) decode_ffn_hidden(
     const T* __restrict__ x, const int32_t* __restrict__ choice,
     const T* __restrict__ w_inner, const T* __restrict__ w_gate,
@@ -197,8 +219,8 @@ __global__ void __launch_bounds__(THREADS, 1) decode_ffn_hidden(
   extern __shared__ float smem[];
   const int g = blockIdx.y, cb = blockIdx.x, f0 = cb * HC;
   int* list = reinterpret_cast<int*>(smem);
-  float* xs = smem + ((BGA + 4) & ~3);       // (PMAX, d)
-  float* red = xs + PMAX * d;                // (WARPS, PMAX, HC)
+  XS* xs = reinterpret_cast<XS*>(smem + ((BGA + 4) & ~3));  // (PMAX, d)
+  float* red = reinterpret_cast<float*>(xs + PMAX * d);     // (WARPS, PMAX, HC)
   float* redx = red + WARPS * PMAX * HC;     // (WARPS, PMAX, 2, 16)
   float* xbs = redx + WARPS * PMAX * 32;     // (PMAX, 2, R_MAX)
   float* cst = xbs + PMAX * 2 * R_MAX;       // (2, R_MAX, HC) C rows
@@ -249,7 +271,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_ffn_hidden(
 #pragma unroll
           for (int p = 0; p < PMAX; ++p) {
             if (p >= np) break;
-            const float xv = xs[p * d + kk];
+            const float xv = to_f(xs[p * d + kk]);
 #pragma unroll
             for (int e = 0; e < VEC; ++e) acc[p][e] += xv * w8[e];
           }
@@ -301,7 +323,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_ffn_hidden(
 #pragma unroll
             for (int p = 0; p < PMAX; ++p) {
               if (p >= np) break;
-              const float xv = xs[p * d + kk];
+              const float xv = to_f(xs[p * d + kk]);
               ax[p][0][0] += xv * bi[u].x; ax[p][0][1] += xv * bi[u].y;
               ax[p][0][2] += xv * bi[u].z; ax[p][0][3] += xv * bi[u].w;
               ax[p][1][0] += xv * bg[u].x; ax[p][1][1] += xv * bg[u].y;
@@ -361,17 +383,21 @@ __global__ void __launch_bounds__(THREADS, 1) decode_ffn_hidden(
   }
 }
 
-// Pass 2: block (64 output columns cb, group g).
-template <typename T>
+// Pass 2: block (64 output columns cb, group g); h staged whole or, with
+// CHUNKED, FCH columns at a time (a multiple of U * OFS for both element
+// types).  The unchunked instance is the one loop over F it always was.
+template <typename T, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, 2) decode_ffn_out_part(
     const int32_t* __restrict__ choice, const T* __restrict__ w_outer,
     const float* __restrict__ lo_b, float* __restrict__ scratch, int BGA,
     int d, int F, int r) {
+  constexpr bool C = CHUNKED;
+  const int FC = C ? FCH : F;
   extern __shared__ float smem[];
   const int g = blockIdx.y, cb = blockIdx.x, n0 = cb * OC;
   int* list = reinterpret_cast<int*>(smem);
-  float* hs = smem + ((BGA + 4) & ~3);       // (PMAX, F)
-  float* red = hs + PMAX * F;                // (WARPS, PMAX, OC)
+  float* hs = smem + ((BGA + 4) & ~3);       // (PMAX, FC)
+  float* red = hs + PMAX * FC;               // (WARPS, PMAX, OC)
   __shared__ int count;
   const int np_all = group_pairs(choice, BGA, g, list, &count);
   if (np_all == 0) return;
@@ -393,28 +419,33 @@ __global__ void __launch_bounds__(THREADS, 2) decode_ffn_out_part(
 
   for (int p0 = 0; p0 < np_all; p0 += PMAX) {
     const int np = min(PMAX, np_all - p0);
-    stage_rows(hs, F, sc.h, F, list + p0, 1, np, F);
-    __syncthreads();
     float acc[PMAX][VEC];
 #pragma unroll
     for (int p = 0; p < PMAX; ++p)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[p][e] = 0.f;
-    if (nv < d) {
-      for (int f = fsl; f < F; f += U * OFS) {
-        if (p0 > 0 || f > fsl) load_rows(f);
+    const int chunks = C ? cdiv(F, FCH) : 1;
+    for (int ci = 0; ci < chunks; ++ci) {
+      const int f0 = C ? ci * FCH : 0, f1 = C ? min(F, f0 + FCH) : F;
+      if (ci > 0) __syncthreads();           // the last chunk is consumed
+      stage_rows(hs, FC, sc.h + f0, F, list + p0, 1, np, f1 - f0);
+      __syncthreads();
+      if (nv < d) {
+        for (int f = f0 + fsl; f < f1; f += U * OFS) {
+          if (p0 > 0 || f > fsl) load_rows(f);
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int ff = f + u * OFS;
-          if (ff >= F) break;
-          float w8[VEC];
-          w[u].get(w8);
+          for (int u = 0; u < U; ++u) {
+            const int ff = f + u * OFS;
+            if (ff >= F) break;
+            float w8[VEC];
+            w[u].get(w8);
 #pragma unroll
-          for (int p = 0; p < PMAX; ++p) {
-            if (p >= np) break;
-            const float hv = hs[p * F + ff];
+            for (int p = 0; p < PMAX; ++p) {
+              if (p >= np) break;
+              const float hv = hs[p * FC + ff - f0];
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[p][e] += hv * w8[e];
+              for (int e = 0; e < VEC; ++e) acc[p][e] += hv * w8[e];
+            }
           }
         }
       }
@@ -443,9 +474,28 @@ __global__ void __launch_bounds__(THREADS, 2) decode_ffn_out_part(
       sc.p2[(size_t)list[p0 + p] * d + n0 + c] = s;
     }
     __syncthreads();
-    if (lo_b != nullptr && r > 0)        // h_a B_O[g] over this block's rows
-      lora_down(hs + xf0, F, np, lo_b + (size_t)g * F * r, r, xf0, xf1, red,
-                list + p0, sc.p2h + (size_t)cb * BGA * r, r);
+    if (lo_b == nullptr || r == 0) continue;
+    // h_a B_O[g] over this block's rows [xf0, xf1): from the staged rows,
+    // or (h in chunks) from those rows staged anew, FC at a time
+    const float* lb = lo_b + (size_t)g * F * r;
+    float* out = sc.p2h + (size_t)cb * BGA * r;
+    if constexpr (!C) {
+      lora_down(hs + xf0, F, np, lb, r, xf0, xf1, red, list + p0, out, r,
+                false);
+    } else {
+      int k0 = xf0;
+      do {                                // at least once: an empty range
+        const int k1 = min(xf1, k0 + FC), n = k1 - k0;  // writes zeros
+        for (int e = tid; e < np * n; e += THREADS) {
+          const int p = e / n, i = e - p * n;
+          hs[p * n + i] = sc.h[(size_t)list[p0 + p] * F + k0 + i];
+        }
+        __syncthreads();
+        lora_down(hs, n, np, lb, r, k0, k1, red, list + p0, out, r,
+                  k0 > xf0);
+        k0 = k1;
+      } while (k0 < xf1);
+    }
   }
 }
 
@@ -508,19 +558,27 @@ int launch(const void* x, const int32_t* choice, const float* gate,
            cudaStream_t st) {
   const int BGA = B * GA;
   const size_t list = sizeof(float) * ((BGA + 4) & ~3);
-  const size_t b1 = list + sizeof(float) *
-      ((size_t)PMAX * d + WARPS * PMAX * HC + WARPS * PMAX * 32 +
-       PMAX * 2 * R_MAX + 2 * R_MAX * HC);
-  const size_t b3 = list + sizeof(float) * ((size_t)PMAX * F + WARPS * PMAX * OC);
+  const size_t rest = sizeof(float) * (WARPS * PMAX * HC + WARPS * PMAX * 32 +
+                                       PMAX * 2 * R_MAX + 2 * R_MAX * HC);
+  // x staged as f32 where it fits, else as stored (bf16 past d ~6,100)
+  const bool x_f32 = list + sizeof(float) * (size_t)PMAX * d + rest <= SMEM_MAX;
+  const size_t b1 = list + (x_f32 ? sizeof(float) : sizeof(T)) * (size_t)PMAX * d + rest;
+  auto hidden = x_f32 ? decode_ffn_hidden<T, float> : decode_ffn_hidden<T, T>;
+  auto part_bytes = [&](int fc) {
+    return list + sizeof(float) * ((size_t)PMAX * fc + WARPS * PMAX * OC);
+  };
+  const bool chunked = part_bytes(F) > SMEM_MAX;
+  const size_t b3 = part_bytes(chunked ? FCH : F);
+  auto part = chunked ? decode_ffn_out_part<T, true>
+                      : decode_ffn_out_part<T, false>;
   const size_t b4 =
       sizeof(float) * ((size_t)GA * r * (1 + cdiv(d, OC)) + r * SMALL);
-  if (b1 > 232448 || b3 > 232448 || b4 > 232448)
+  if (b1 > SMEM_MAX || b3 > SMEM_MAX || b4 > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_ffn_hidden<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)b1);
+      hidden, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(decode_ffn_out_part<T>,
+    err = cudaFuncSetAttribute(part,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)b3);
   if (err == cudaSuccess)
@@ -528,12 +586,12 @@ int launch(const void* x, const int32_t* choice, const float* gate,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)b4);
   if (err != cudaSuccess) return (int)err;
-  decode_ffn_hidden<T><<<dim3(cdiv(F, HC), G), THREADS, b1, st>>>(
+  hidden<<<dim3(cdiv(F, HC), G), THREADS, b1, st>>>(
       static_cast<const T*>(x), choice, static_cast<const T*>(wi),
       static_cast<const T*>(wg), lo[0], lo[1], lo[2], lo[3], scratch, BGA,
       GA, d, F, r, scale, act);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  decode_ffn_out_part<T><<<dim3(cdiv(d, OC), G), THREADS, b3, st>>>(
+  part<<<dim3(cdiv(d, OC), G), THREADS, b3, st>>>(
       choice, static_cast<const T*>(wo), lo[4], scratch, BGA, d, F, r);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   decode_ffn_out<T><<<dim3(B, cdiv(d, SMALL)), SMALL, b4, st>>>(

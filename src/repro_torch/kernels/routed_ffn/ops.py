@@ -142,6 +142,17 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
 grouped_ffn.launches = 0
 
 
+def decode_ffn_max_d(slots: int, elem_bytes: int) -> int:
+    """The widest d kernel 10 takes for ``slots`` (slot, choice) pairs and
+    x of ``elem_bytes``: its hidden pass stages 8 pairs' x rows (as f32
+    where that fits, else as stored) beside 36,864 bytes of sums and LoRA
+    rows in a block's 232,448 bytes of shared memory (csrc/decode_ffn.cu,
+    launch).  bf16 takes d up to ~12,200, f32 up to ~6,100; the output
+    pass chunks h, so F is free."""
+    room = 232448 - 36864 - 4 * ((slots + 4) & ~3)
+    return room // (8 * elem_bytes) // 8 * 8
+
+
 def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
                w_inner: torch.Tensor, w_outer: torch.Tensor,
                w_gate: Optional[torch.Tensor] = None,
@@ -150,7 +161,8 @@ def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
     """x: (B, d); choice: (B, G') int32; gate: (B, G') f32.  Returns y
     (B, d) in x's dtype.  CPU tensors take the plain version; CUDA tensors
     launch the kernel (csrc/decode_ffn.cu: group-major, each chosen
-    group's weights read once, every sum in a fixed order)."""
+    group's weights read once, every sum in a fixed order; d up to
+    ``decode_ffn_max_d``)."""
     if x.device.type == "cpu":
         return decode_ffn_ref(x, choice, gate, w_inner, w_outer, w_gate,
                               lora_params, lora_scale, act)
@@ -166,6 +178,10 @@ def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
     if d % 8 or f % 8:
         raise ValueError(f"{name}: d={d} and F={f} must be multiples of 8 "
                          "(16-byte weight rows)")
+    limit = decode_ffn_max_d(b * ga, x.element_size())
+    if d > limit:
+        raise ValueError(f"{name}: {x.dtype} x takes d up to {limit} at "
+                         f"{b * ga} (slot, choice) pairs, got d={d}")
     x, w_inner, w_outer, w_gate = map(_aligned, (x, w_inner, w_outer, w_gate))
     lo, r = _lora_leaves(lora_params, w_gate is not None, multiple=4)
     if r > 64:
@@ -219,41 +235,49 @@ def _forward(x: torch.Tensor, p, cfg: RoutedFFNConfig,
     return out, lb, plan.dropped
 
 
-class _RoutedFFN(torch.autograd.Function):
-    """Kernel forward, reference backward (JAX: ``_op`` / ``_bwd``).  The
-    leaves of ``p`` are separate tensor arguments so that autograd sees
-    each; ``dropped`` is not differentiable."""
+class _KernelForward(torch.autograd.Function):
+    """Kernel forward, reference backward (JAX: the custom_vjp of the
+    routed FFN and of MoE).  ``fwd(x, p)`` -> (out, lb_loss, dropped)
+    runs the kernel; ``ref(x, p)`` -> (out, lb_loss) is the reference
+    that computes the same function on the same routing plan, and the
+    backward differentiates it.  The leaves of ``p`` are separate tensor
+    arguments so that autograd sees each; ``dropped`` is not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, x, cfg, lora_cfg, need_aux, paths, *values):
-        out, lb, dropped = _forward(x, unflatten(paths, values), cfg,
-                                    lora_cfg, need_aux)
+    def forward(ctx, x, fwd, ref, paths, *values):
+        out, lb, dropped = fwd(x, unflatten(paths, values))
         ctx.save_for_backward(x, *values)
-        ctx.args = (cfg, lora_cfg, need_aux, paths)
+        ctx.args = (ref, paths)
         ctx.mark_non_differentiable(dropped)
         return out, lb, dropped
 
     @staticmethod
     def backward(ctx, g_out, g_lb, _g_dropped):
         x, *values = ctx.saved_tensors
-        cfg, lora_cfg, need_aux, paths = ctx.args
-        want = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
+        ref, paths = ctx.args
+        want = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[4:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(w)
                       for t, w in zip([x, *values], want)]
-            out, aux = routed_ffn_core(
-                inputs[0], unflatten(paths, inputs[1:]), cfg, lora_cfg,
-                impl="grouped", need_aux=need_aux)
+            out, lb = ref(inputs[0], unflatten(paths, inputs[1:]))
             outs, cts = [out], [g_out]
-            if need_aux and aux["lb_loss"].requires_grad:
-                outs.append(aux["lb_loss"])
+            if lb.requires_grad:
+                outs.append(lb)
                 cts.append(g_lb)
             wrt = [t for t, w in zip(inputs, want) if w]
             got = iter(torch.autograd.grad(outs, wrt, cts, allow_unused=True))
         grads = [next(got) if w else None for w in want]
         grads = [torch.zeros_like(t) if w and gr is None else gr
                  for t, w, gr in zip([x, *values], want, grads)]
-        return (grads[0], None, None, None, None, *grads[1:])
+        return (grads[0], None, None, None, *grads[1:])
+
+
+def kernel_forward(x: torch.Tensor, p, fwd, ref):
+    """(out, lb_loss, dropped) of ``fwd`` with ``ref``'s gradients
+    (``_KernelForward``)."""
+    paths, values = zip(*leaves(p))
+    return _KernelForward.apply(x, fwd, ref, paths, *values)
 
 
 def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
@@ -275,9 +299,13 @@ def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
         out, lb, dropped = _forward(x, p, cfg, lora_cfg, need_aux,
                                     seq_lengths)
     else:
-        paths, values = zip(*leaves(p))
-        out, lb, dropped = _RoutedFFN.apply(x, cfg, lora_cfg, need_aux,
-                                            paths, *values)
+        def ref(x_, p_):
+            out_, aux_ = routed_ffn_core(x_, p_, cfg, lora_cfg,
+                                         impl="grouped", need_aux=need_aux)
+            return out_, aux_["lb_loss"]
+        out, lb, dropped = kernel_forward(
+            x, p, lambda x_, p_: _forward(x_, p_, cfg, lora_cfg, need_aux),
+            ref)
     aux = {"lb_loss": lb, "dropped": dropped}
     return (out[0] if squeeze else out), aux
 

@@ -180,7 +180,8 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     (out, aux).  Sparse MHA takes the fused CUDA kernels when
     ``dispatch.use_sparse_attn_kernel`` says so and the rows are not
     ragged; ragged prefill (``seq_lengths``: per-row top-L budgets) always
-    takes the core/ gather path, as in the JAX package."""
+    takes the core/ gather path, as in the JAX package;
+    ``attn_impl="sparse_masked"`` takes the masked oracle."""
     scale = cfg.resolved_head_dim ** -0.5
     if not sparse_applicable(cfg):
         return sa.dense_attention(q, k, v, scale, causal=causal,
@@ -193,6 +194,8 @@ def attend(p, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     if dispatch.use_sparse_attn_kernel(cfg):
         from repro_torch.kernels.sparse_attention import ops as sa_ops
         return sa_ops.sparse_mha(*args, **kw)
+    if cfg.spt.attn_impl == "sparse_masked":
+        return sa.sparse_mha_masked(*args, **kw)
     return sa.sparse_mha(*args, **kw)
 
 

@@ -1,0 +1,216 @@
+"""Mixture-of-Experts FFN (grok-1 / mixtral style: softmax top-k of E).
+
+The capacity-bucketed dispatch of core/dispatch.py that carries the
+paper's routed FFN carries MoE too, at expert granularity: experts are the
+groups, ``experts_per_token`` the active count.  So the routed-FFN CUDA
+kernels serve MoE unchanged: ``spt.ffn_impl="pallas"`` sends train and
+prefill through the grouped-FFN kernel (the token gather in the kernel on
+the plan index, softmax top-k gates in place of the |logit| router) with
+the plain capacity path as the differentiated reference, and decode at
+(B, 1, d) through the decode-FFN kernel (the top-k expert ids index the
+weight blocks: no plan, no dispatch buffer).  ``REPRO_DISABLE_KERNELS=1``
+sends every path to the plain one.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dispatch
+from repro_torch.core.params import ParamDef, leaves
+from repro_torch.core.routed_ffn import ACTIVATIONS
+
+
+def moe_defs(cfg: ModelConfig) -> dict:
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    lc = cfg.spt.lora
+    bf16, f32 = torch.bfloat16, torch.float32
+    defs = {
+        "router": ParamDef((d, e), f32, init="fan_in"),
+        "wi": ParamDef((e, d, f), bf16, init="fan_in", trainable=False),
+        "wo": ParamDef((e, f, d), bf16, init="fan_in", trainable=False),
+    }
+    if cfg.gated_ffn:
+        defs["wg"] = ParamDef((e, d, f), bf16, init="fan_in",
+                              trainable=False)
+    if lc.enabled:
+        r = lc.rank
+        defs["lora_wi"] = {"b": ParamDef((d, r), f32, init="fan_in"),
+                           "c": ParamDef((e, r, f), f32, init="zeros")}
+        defs["lora_wo"] = {"b": ParamDef((e, f, r), f32, init="fan_in"),
+                           "c": ParamDef((r, d), f32, init="zeros")}
+        if cfg.gated_ffn:
+            defs["lora_wg"] = {"b": ParamDef((d, r), f32, init="fan_in"),
+                               "c": ParamDef((e, r, f), f32, init="zeros")}
+    return defs
+
+
+def _route_experts(p, x: torch.Tensor, cfg: ModelConfig):
+    """Softmax router: (choice (B,S,k) int32, gate (B,S,k) f32
+    renormalised over the top-k, probs (B,S,E) f32).  The top-k is a
+    stable descending sort, so a tie goes to the lower expert index, as
+    ``jax.lax.top_k`` breaks it."""
+    k = cfg.experts_per_token
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, choice = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, choice = gate[..., :k], choice[..., :k]
+    gate = gate / gate.sum(-1, keepdim=True)          # renormalise top-k
+    return choice.to(torch.int32), gate, probs
+
+
+def _moe_lora_tree(p) -> Optional[dict]:
+    """The MoE LoRA leaves under the routed-FFN kernels' names (the same
+    shapes: experts are the group axis)."""
+    if "lora_wi" not in p:
+        return None
+    t = {"lora_inner": p["lora_wi"], "lora_outer": p["lora_wo"]}
+    if "lora_wg" in p:
+        t["lora_gate"] = p["lora_wg"]
+    return t
+
+
+def _moe_cap_dyn(cfg: ModelConfig, seq_lengths):
+    if seq_lengths is None:
+        return None
+    return dispatch.capacity_dyn(seq_lengths, cfg.num_experts,
+                                 cfg.experts_per_token,
+                                 cfg.moe_capacity_factor,
+                                 pad=cfg.spt.dispatch_pad)
+
+
+def _plan(x: torch.Tensor, choice, gate, cfg: ModelConfig, seq_lengths):
+    cap = dispatch.capacity(x.shape[1], cfg.num_experts,
+                            cfg.experts_per_token, cfg.moe_capacity_factor,
+                            pad=cfg.spt.dispatch_pad)
+    return dispatch.make_plan(choice, gate, cfg.num_experts, cap,
+                              cap_dyn=_moe_cap_dyn(cfg, seq_lengths))
+
+
+def _aux(probs, choice, cfg: ModelConfig, need_aux: bool, dropped, device):
+    lb = (dispatch.load_balance_loss(probs, choice, cfg.num_experts)
+          if need_aux else torch.zeros((), dtype=torch.float32,
+                                       device=device))
+    return {"lb_loss": lb, "dropped": dropped}
+
+
+def _moe_reference(x: torch.Tensor, p, cfg: ModelConfig, need_aux: bool,
+                   seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+    """The plain capacity-dispatch path: the oracle of the kernels and the
+    differentiated reference of the kernel forward."""
+    lc = cfg.spt.lora
+    dt = x.dtype
+    choice, gate, probs = _route_experts(p, x, cfg)
+    plan = _plan(x, choice, gate, cfg, seq_lengths)
+    xg = dispatch.gather(x, plan)                        # (B, E, C, d)
+
+    def proj_in(w_key, lora_key):
+        up = torch.einsum("becd,edf->becf", xg, p[w_key].detach().to(dt))
+        if lc.enabled and lora_key in p:
+            li = p[lora_key]
+            xb = torch.einsum("becd,dr->becr", xg, li["b"].to(dt))
+            up = up + lc.scale * torch.einsum("becr,erf->becf", xb,
+                                              li["c"].to(dt))
+        return up
+
+    act = ACTIVATIONS[cfg.activation]
+    up = proj_in("wi", "lora_wi")
+    h = act(proj_in("wg", "lora_wg")) * up if cfg.gated_ffn else act(up)
+    y = torch.einsum("becf,efd->becd", h, p["wo"].detach().to(dt))
+    if lc.enabled and "lora_wo" in p:
+        lo = p["lora_wo"]
+        hb = torch.einsum("becf,efr->becr", h, lo["b"].to(dt))
+        y = y + lc.scale * torch.einsum("becr,rd->becd", hb, lo["c"].to(dt))
+    out = dispatch.combine(y, plan, x.shape[1]).to(dt)
+    return out, _aux(probs, choice, cfg, need_aux, plan.dropped, x.device)
+
+
+def _moe_kernel_forward(x: torch.Tensor, p, cfg: ModelConfig,
+                        need_aux: bool, seq_lengths=None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """Route and plan in torch, the expert products in the grouped-FFN
+    kernel (kernel 9, the token gather inside it on the plan index), the
+    combine scatter in torch."""
+    from repro_torch.kernels.routed_ffn import ops as rffn_ops
+    choice, gate, probs = _route_experts(p, x, cfg)
+    plan = _plan(x, choice, gate, cfg, seq_lengths)
+    y = rffn_ops.grouped_ffn(
+        x.contiguous(), plan.index, p["wi"].detach(), p["wo"].detach(),
+        p["wg"].detach() if cfg.gated_ffn else None, _moe_lora_tree(p),
+        cfg.spt.lora.scale, act=cfg.activation)
+    out = dispatch.combine(y.to(x.dtype), plan, x.shape[1])
+    return out, _aux(probs, choice, cfg, need_aux, plan.dropped, x.device)
+
+
+def _moe_kernel_op(x: torch.Tensor, p, cfg: ModelConfig, need_aux: bool):
+    """The kernel forward with the reference's gradients (JAX's
+    ``_moe_kernel_op`` custom_vjp): the same routing plan, so the same
+    function."""
+    from repro_torch.kernels.routed_ffn import ops as rffn_ops
+
+    def fwd(x_, p_):
+        out, aux = _moe_kernel_forward(x_, p_, cfg, need_aux)
+        return out, aux["lb_loss"], aux["dropped"]
+
+    def ref(x_, p_):
+        out, aux = _moe_reference(x_, p_, cfg, need_aux)
+        return out, aux["lb_loss"]
+
+    out, lb, dropped = rffn_ops.kernel_forward(x, p, fwd, ref)
+    return out, {"lb_loss": lb, "dropped": dropped}
+
+
+def _moe_decode_kernel(x: torch.Tensor, p, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, dict]:
+    """Decode at (B, 1, d): the top-k expert ids index the expert weight
+    blocks inside the decode-FFN kernel (kernel 10).  Inference-only."""
+    from repro_torch.kernels.routed_ffn import ops as rffn_ops
+    choice, gate, _ = _route_experts(p, x, cfg)
+    y = rffn_ops.decode_ffn(
+        x[:, 0].contiguous(), choice[:, 0].contiguous(),
+        gate[:, 0].contiguous(), p["wi"], p["wo"],
+        p["wg"] if cfg.gated_ffn else None, _moe_lora_tree(p),
+        cfg.spt.lora.scale, act=cfg.activation)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y.to(x.dtype)[:, None], {"lb_loss": zero, "dropped": zero}
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
+              seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, d) -> (y, aux).  Inference modes skip the load-balance
+    loss (the router softmax stays: it feeds the gates).  seq_lengths:
+    per-row real lengths (B,) of a right-padded ragged prefill batch (each
+    row keeps its exact-length expert capacity); that form is
+    forward-only, as in JAX."""
+    need_aux = mode == "train"
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    if (mode == "decode" and x.shape[1] == 1
+            and dispatch.use_decode_ffn_kernel(cfg)):
+        out, aux = _moe_decode_kernel(x, p, cfg)
+    elif dispatch.use_routed_ffn_kernel(cfg):
+        if seq_lengths is not None:
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or any(t.requires_grad
+                                           for _, t in leaves(p))):
+                raise RuntimeError("moe_apply: the ragged seq_lengths "
+                                   "kernel path is forward-only (serving)")
+            out, aux = _moe_kernel_forward(x, p, cfg, need_aux, seq_lengths)
+        else:
+            out, aux = _moe_kernel_op(x, p, cfg, need_aux)
+    else:
+        out, aux = _moe_reference(x, p, cfg, need_aux, seq_lengths)
+    if dispatch.use_telemetry_counters(cfg) and mode in ("prefill", "decode"):
+        # telemetry counters: re-run the small router product so the
+        # kernel and plain paths report the same loads
+        from repro_torch.models.ffn import _tel_expert_load
+        choice, _, _ = _route_experts(p, x, cfg)
+        aux = dict(aux)
+        aux["tel_expert_load"] = _tel_expert_load(choice, cfg.num_experts,
+                                                  x, seq_lengths)
+        aux["tel_expert_drop"] = torch.as_tensor(
+            aux.get("dropped", 0.0), dtype=torch.float32, device=x.device)
+    return (out[0] if squeeze else out), aux

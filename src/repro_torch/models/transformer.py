@@ -11,8 +11,8 @@ or with ``kv_pages`` page pools shared by the slots (serving/kv_pages.py)
 — and are written in place.  Training runs on the param tree itself
 (``lm_hidden``: per-unit views of the stacked leaves, so gradients land
 on the stacked leaves as JAX's scan gives them).  The port covers the
-dense attention stack (pattern ("attn",)), with RoPE or learned
-positions.
+attention stack (pattern ("attn",)), with RoPE or learned positions and
+a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
                                      stack_defs)
-from repro_torch.models import attention, ffn, layers
+from repro_torch.models import attention, ffn, layers, moe
 from repro_torch.serving import kv_pages as kvp
 
 
@@ -48,7 +48,10 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     defs = {"norm_mix": layers.norm_defs(cfg.d_model, cfg.norm),
             "mixer": attention.attn_defs(cfg)}
-    if cfg.d_ff > 0:
+    if cfg.num_experts > 0:
+        defs["norm_ffn"] = layers.norm_defs(cfg.d_model, cfg.norm)
+        defs["ffn"] = moe.moe_defs(cfg)
+    elif cfg.d_ff > 0:
         defs["norm_ffn"] = layers.norm_defs(cfg.d_model, cfg.norm)
         defs["ffn"] = ffn.ffn_defs(cfg)
     return defs
@@ -69,11 +72,12 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     f_aux: dict = {}
     if "ffn" in p:
         h2 = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
-        y2, f_aux = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
-                                  seq_lengths=seq_lengths)
+        apply = moe.moe_apply if cfg.num_experts > 0 else ffn.ffn_apply
+        y2, f_aux = apply(p["ffn"], h2, cfg, mode=mode,
+                          seq_lengths=seq_lengths)
         x = x + y2.to(x.dtype)
-    # attention reports qerr (and tel_attn_*), the FFN lb_loss and dropped
-    # (and tel_expert_*): no key in both
+    # attention reports qerr (and tel_attn_*), the FFN or MoE lb_loss and
+    # dropped (and tel_expert_*): no key in both
     aux = {k: v for a in (a_aux, f_aux) for k, v in a.items()
            if k in AUX_KEYS or k.startswith("tel_")}
     return x, cache, aux
@@ -89,11 +93,10 @@ def num_units(cfg: ModelConfig) -> int:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.pattern != ("attn",) or cfg.num_experts or cfg.frontend
-            or cfg.family == "audio"):
+    if cfg.pattern != ("attn",) or cfg.frontend or cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoder-only attention stacks are "
-            "ported so far")
+            f"{cfg.name}: only decoder-only attention stacks (dense or "
+            "MoE FFN) are ported so far")
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -331,11 +334,19 @@ def lm_prefill(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return caches, logits_of(model, cfg, x)
 
 
+def supports_ragged_prefill(cfg: ModelConfig) -> bool:
+    """Right-padded ragged prefill is exact only for pure-attention
+    stacks: padding past a row's length is causally invisible to
+    attention, but it would corrupt recurrent states."""
+    return all(k == "attn" for k in cfg.pattern)
+
+
 def length_sensitive(cfg: ModelConfig) -> bool:
     """Right-padding changes real-token outputs unless per-row lengths
-    reach the layers: sparse MHA's top-L budget and routed-FFN capacity
-    scale with the sequence length."""
-    return attention.sparse_applicable(cfg) or ffn.routed_applicable(cfg)
+    reach the layers: sparse MHA's top-L budget and routed-FFN / MoE
+    dispatch capacity scale with the sequence length."""
+    return (attention.sparse_applicable(cfg) or ffn.routed_applicable(cfg)
+            or cfg.num_experts > 0)
 
 
 def _mask_invalid_slots(caches: dict, lengths: torch.Tensor) -> dict:

@@ -564,9 +564,35 @@ class Engine:
         self._decode = build_decode_step(cfg)
 
     # ------------------------------------------------------------ prefill
+    def _pad_invariant(self) -> bool:
+        """True when right-padding alone (no per-row lengths reaching the
+        layers) cannot change real-token outputs: a pure-attention stack,
+        no sliding-window ring (padding displaces real KV), dense
+        attention (sparse MHA's top-L budget counts the padded keys) and
+        a dense FFN (routed-FFN / MoE capacity lets pad tokens take
+        slots)."""
+        cfg = self.cfg
+        return (transformer.supports_ragged_prefill(cfg)
+                and cfg.window is None
+                and not transformer.length_sensitive(cfg))
+
+    def _ragged_batchable(self) -> bool:
+        """True when ragged rows may be right-padded to a common bucket:
+        pure-attention stacks without a SWA ring, whose ring keeps the
+        last ``window`` padded positions and so would lose real KV.
+        Length-sensitive configs stay exact because lm_prefill_ragged
+        threads the per-row lengths into the selection budgets and
+        dispatch capacities.  Other stacks batch equal-length rows only."""
+        return (transformer.supports_ragged_prefill(self.cfg)
+                and self.cfg.window is None)
+
     def _pad_len(self, n: int) -> int:
-        """Prompt-length bucket: right-pad to a power of two (>= 8, capped
-        at max_len); cache slots past the real length are invalidated."""
+        """Prompt-length bucket: ragged-batchable configs pad right to a
+        power of two (>= 8, capped at max_len; cache slots past the real
+        length are invalidated); the others prefill at the exact length."""
+        n = max(1, n)
+        if not self._ragged_batchable():
+            return n
         p = 8
         while p < n:
             p <<= 1
@@ -920,9 +946,10 @@ class Engine:
         admission group: up to prefill_batch requests that have a free slot
         and (paged) a worst-case page reservation.  A request that does not
         fit the pool is counted as a stall once per scheduling iteration
-        and skipped, so it does not block later ones that fit.  With
-        overlap on and decodes in flight, the group is bounded by the
-        prefill token budget (always >= 1 request)."""
+        and skipped, so it does not block later ones that fit.  Stacks
+        that are not ragged-batchable (SWA rings) group equal-length rows
+        only.  With overlap on and decodes in flight, the group is bounded
+        by the prefill token budget (always >= 1 request)."""
         st = self._live
         free = sum(1 for s in st.slot_item if s is None)
         if not free or not st.queue:
@@ -932,6 +959,7 @@ class Engine:
             budget = max(1, int(self.prefill_decode_ratio
                                 * self.decode_chunk
                                 * int(st.active.sum())))
+        ragged_ok = self._ragged_batchable()
         group: List[_QItem] = []
         picked: List[int] = []
         group_ws = group_tokens = 0
@@ -942,6 +970,9 @@ class Engine:
             if (budget is not None and group
                     and group_tokens + ptoks > budget):
                 break
+            if (not ragged_ok and group
+                    and ptoks != len(group[0].prefill_tokens())):
+                continue
             if (self._paged
                     and self._pages_ws(it.req) > self.kv_pages
                     - st.reserved - group_ws):

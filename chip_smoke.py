@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only paper     # phases 1-3, 9-11
     python3 chip_smoke.py --only server    # phases 1-3, 12-13
     python3 chip_smoke.py --only moe       # phases 1-3, 14-15
+    python3 chip_smoke.py --only hybrid    # phases 1-3, 16-18
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -43,7 +44,14 @@ Phases (each raises on failure; nothing is caught):
      bf16 compared in f32 to atol=rtol 2e-2, thresholds exactly equal, PQ
      codes equal up to the margin rule; the paged kernel bit-identical to
      the contiguous one over gathered views and the two-pass pair to the
-     fused kernel; times by CUDA events (L2 flushed between launches)
+     fused kernel; the decode kernels (3, 5-8) also at R = 16 query heads
+     on one kv head of 256, M = 32, over a full 2,048-slot ring, under
+     "qhead" and "kvgroup" (the 16-row instances), and at R = 12, timed
+     at recurrentgemma-9b's serving width; kernels 1, 2 and 4 at its
+     training step (M = 32, max_score 32, rep 16, kernel 4 in bf16 at dh
+     256 with window 2048, and where the window binds in bf16 and f32),
+     kernels 9 and 10 at its FFN widths (d 4096, F 1,536 GeGLU); times by
+     CUDA events (L2 flushed between launches)
      beside the least time the card could take (bytes over 3.35 TB/s or
      operations over the peak rate), and for kernels 9 and 10 a torch
      yardstick of the same function in bf16, for kernel 1 one in f32
@@ -112,8 +120,25 @@ Phases (each raises on failure; nothing is caught):
   15. both MoE configs at d 1024, F 2048, 2 layers (mixtral's window
      64), in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy
      streams up to near-ties, one train step's loss and gradient cosine;
+  16. gemma-7b, h2o-danube-1.8b and h2o-danube-3-4b at full width, depth
+     cut to 2 layers, bf16: a burst Engine.run of 8 requests (32 new
+     tokens; the danube configs' last prompt 4,608 tokens, past their
+     4,096 window; kernels 6, 9, 10) and one "spt" train step at 2 x
+     1024 (kernels 1, 2, 4, 9), launch counts exact;
+  17. recurrentgemma-9b at full width and depth (38 layers), bf16:
+     Engine.serve of a burst of 8 requests (prompts 128-2048, the last
+     3,072, 32 new tokens, max_len 4096; kernel 6 once per attention
+     layer — 12 of 38 — per decode step, kernels 9 and 10 once per layer),
+     a decode step's split, 2 "spt" train steps at 4 x 1024 (the 36 unit
+     layers' kernels twice a step, the 2 tail layers' once) and a
+     profiled step, then 2 "lora" steps (no kernel);
+  18. recurrentgemma-9b cut to 5 layers (one unit and the tail) at d
+     1024, 16 query heads of 256 on 1 kv head kept (R = 16), window 64,
+     in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy streams
+     up to near-ties, one train step's loss and gradient cosine;
   then one JSON line of the ten kernels (launches per path; each with its
-  times at the paper's shapes), then the result line.
+  times at the paper's, the MoE and the hybrid shapes), then the result
+  line.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
@@ -602,11 +627,12 @@ def _list_rows(torch, valid, g):
 
 
 # Edge cases of the decode attention pass (name, b, hk, R, dh, gran, l_all,
-# dead, M): 2048 live slots of a 32 x 128 paged view over a shuffled pool.
-# l_all: l = the view length, so every valid slot is selected and kernel
-# 7 must equal kernel 8 bit for bit; dead: the last slot has no valid key.
-# The dh = 80, R = 1 cases are OPT-2.7B's heads (M = 10 books of d' = 8);
-# the last, at its serving width (8 slots x 32 heads), is timed.
+# dead, M[, (MP, live)]): 2048 live slots of a 32 x 128 paged view over a
+# shuffled pool unless (MP, live) says otherwise.  l_all: l = the view
+# length, so every valid slot is selected and kernel 7 must equal kernel
+# 8 bit for bit; dead: the last slot has no valid key.  The dh = 80,
+# R = 1 cases are OPT-2.7B's heads (M = 10 books of d' = 8); the last,
+# at its serving width (8 slots x 32 heads), is timed.
 DECODE_EDGES = [
     ("G=8 (1 slot, 32 splits a group)", 1, 8, 2, 128, "qhead", False, False,
      SM),
@@ -620,25 +646,43 @@ DECODE_EDGES = [
     ("dh=80 R=1 M=10 (OPT-2.7B: 8 slots x 32 heads)", 8, 32, 1, 80, "qhead",
      False, False, 10),
 ]
-TIMED_EDGE = DECODE_EDGES[-1][0]
+# The 16-row instances (R = 9-16): recurrentgemma-9b's local attention (16
+# query heads on 1 kv head of 256, M = 32) over its full 2048-slot ring (a
+# 16 x 128 view, every slot live, as once the ring has wrapped), under
+# both granularities (16 x 33 and 1 x 513 histogram buckets); the first,
+# at its serving width (8 slots), is timed.  R = 12 pads to 16 rows.
+HYBRID_RING = (16, 2048)
+HYBRID_EDGES = [
+    ("R=16 dh=256 M=32 (recurrentgemma-9b: 8 slots x 1 kv head)", 8, 1, 16,
+     256, "qhead", False, False, 32, HYBRID_RING),
+    ("R=16 dh=256 M=32 kvgroup", 8, 1, 16, 256, "kvgroup", False, True, 32,
+     HYBRID_RING),
+    ("R=16 dh=256 M=32 l >= live", 2, 1, 16, 256, "qhead", True, True, 32,
+     HYBRID_RING),
+    ("R=12 dh=128 M=16 kvgroup, half the view live", 2, 2, 12, 128,
+     "kvgroup", False, True, 16),
+]
 
 
-def check_decode_edges(torch, gen):
-    """Kernels 3, 5, 6, 7 and 8 on DECODE_EDGES, bf16 and f32: each within
+def check_decode_edges(torch, gen, edges=DECODE_EDGES,
+                       timed_edge=DECODE_EDGES[-1][0], tag="paper"):
+    """Kernels 3, 5, 6, 7 and 8 on ``edges``, bf16 and f32: each within
     tolerance of its plain version and bit-identical across two launches,
     [t, need] exact, kernel 7 bit-identical to kernel 6 over gathered
     views, kernels 3 + 5 bit-identical to kernel 6, a dead slot's rows 0,
     and with l >= live kernel 7 bit-identical to kernel 8.  The bf16
-    run of TIMED_EDGE times each of the five kernels beside its bound;
-    returns {wrapper name: [case row]} of those."""
+    run of ``timed_edge`` times each of the five kernels beside its bound;
+    returns {wrapper name: [case row]} of those, tagged ``tag``."""
     from repro_torch import kernels
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select import ops as topl_ops
     from repro_torch.serving import kv_pages
-    mp, ps, live, e = SMP, SPS, SLIVE, SE
-    view = mp * ps
+    ps, e = SPS, SE
     timed = {}
-    for name, b, hk, r, dh, gran, l_all, dead, m in DECODE_EDGES:
+    for edge in edges:
+        name, b, hk, r, dh, gran, l_all, dead, m = edge[:9]
+        mp, live = edge[9] if len(edge) > 9 else (SMP, SLIVE)
+        view = mp * ps
         for dtn in ("bfloat16", "float32"):
             dt = getattr(torch, dtn)
             tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
@@ -706,7 +750,7 @@ def check_decode_edges(torch, gen):
                   "bit-identical"
                   f"{'; 7 == 8' if l_all else ''}"
                   f"{'; dead slot 0' if dead else ''}; each twice", flush=True)
-            if name != TIMED_EDGE or dt != torch.bfloat16:
+            if name != timed_edge or dt != torch.bfloat16:
                 continue
             read, pairs = _rows_read(ref, cq, kv[2], valid, sel)
             codes = int(valid.sum()) * hk * m         # live code bytes
@@ -743,7 +787,7 @@ def check_decode_edges(torch, gen):
                      + 2 * int(valid.sum()) * hk * dh * q.element_size(),
                      4 * dh * r * int(valid.sum()) * hk, dt, err8)):
                 _paper_row(timed, wname, case, time_ms(fn, 30),
-                           bound(moved, n_ops, ot), err)
+                           bound(moved, n_ops, ot), err, tag=tag)
     return timed
 
 
@@ -1622,6 +1666,138 @@ def check_moe_shapes(torch, gen):
     return out
 
 
+# recurrentgemma-9b's training step (batch 4 x 1024) through its local
+# attention: 16 query heads of 256 on 1 kv head (rep 16), M = 32 books,
+# max_score 32 (kernel 2's SCORE_MAX), window 2048; and its FFN widths
+# (d 4096, F = 12,288 / 8 groups = 1,536, GeGLU, LoRA r = 16).
+HYB_HEADS, HYB_DH, HYB_M, HYB_WINDOW = 16, 256, 32, 2048
+HYB_D, HYB_F = 4096, 1536
+
+
+def check_hybrid_shapes(torch, gen):
+    """Kernels 1, 2 and 4 at recurrentgemma-9b's training step (kernel 1
+    on q and k, M = 32; kernel 2 at max_score 32 and rep 16; kernel 4 in
+    bf16 at dh 256, rep 16, window 2048), kernel 4 also where the window
+    binds (one row of 2,560 queries and keys, bf16 and f32), and kernels
+    9 and 10 at its FFN widths (4 x 1024 training rows; 8 decode slots):
+    each launched twice bit-identically, against its plain version
+    (codes by the margin rule, [t, need] exactly), and timed by CUDA
+    events beside its bound.  Returns {wrapper name: [case rows]}."""
+    from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels.pq_quantize import ops as pq_ops
+    from repro_torch.kernels.routed_ffn import ops as ffn_ops
+    from repro_torch.kernels.routed_ffn import ref as ffn_ref
+    from repro_torch.kernels.sparse_attention import ops as sa_ops
+    from repro_torch.kernels.sparse_attention import ref as sa_ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.kernels.topl_select.ref import (masked_scores,
+                                                     thresholds_ref)
+    bf16 = torch.bfloat16
+    out = {}
+    hq, dh, m = HYB_HEADS, HYB_DH, HYB_M
+    g, gk = TB * hq, TB
+    cb = _codebooks(torch, gen, m, E_WORDS, 8)
+    for what, groups in (("q", g), ("k", gk)):
+        case = (f"recurrentgemma-9b train {what} (x ({groups}, {TS}, {dh}), "
+                f"M={m})")
+        x = torch.randn(groups, TS, dh, device="cuda", generator=gen).to(bf16)
+        codes = _twice(torch, lambda: pq_ops.pq_assign(x, cb),
+                       f"pq_assign {case}")
+        flips, _ = _margin_flips(torch, codes, x, cb, case)
+        ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
+        yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
+        bnd = bound(nbytes(x, cb, codes), groups * TS * m * E_WORDS * 18,
+                    bf16)
+        _paper_row(out, "pq_assign", case, ms, bnd, float(flips), yard,
+                   tag="hybrid")
+    for label, b, n, dts in (("train", TB, TS, ("bfloat16",)),
+                             ("window binds", 1, 2560,
+                              ("bfloat16", "float32"))):
+        gq, gkv = b * hq, b
+        cq, ck = _train_codes(torch, gen, n, n, gq, gkv, m)
+        sel = dict(causal=True, window=HYB_WINDOW, q_offset=0,
+                   heads_per_batch=hq, rep=hq)
+        kw = dict(l=_top_l(n, HYB_WINDOW), max_score=m, **sel)
+        case = (f"recurrentgemma-9b {label} (G={gq}, n={n}, dh={dh}, M={m}, "
+                f"R={hq}, window {HYB_WINDOW})")
+        thr = _twice(torch, lambda: topl_ops.topl_thresholds(cq, ck, **kw),
+                     f"topl_thresholds {case}")
+        if not torch.equal(thr, thresholds_ref(cq, ck, **kw)):
+            raise AssertionError(f"topl_thresholds {case}: [t, need] differ")
+        sm = masked_scores(cq, ck, **sel)
+        if label == "train":
+            ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
+            pairs = int((sm >= 0).sum())                # admitted pairs
+            _paper_row(out, "topl_thresholds", case, ms,
+                       bound(nbytes(cq, ck, thr), pairs * m, torch.float32),
+                       0.0, tag="hybrid")
+        kept = sa_ref.newest_ties(sm, thr)
+        del sm
+        for dtn in dts:
+            dt = getattr(torch, dtn)
+            q = torch.randn(gq, n, dh, device="cuda", generator=gen).to(dt)
+            k, v = (torch.randn(gkv, n, dh, device="cuda",
+                                generator=gen).to(dt) for _ in range(2))
+            akw = dict(scale=dh ** -0.5, **sel)
+            got = _twice(torch, lambda: sa_ops.sparse_attention(
+                q, k, v, cq, ck, thr, **akw), f"sparse_attention {dtn} {case}")
+            err = close(got, sa_ref.sparse_attention_ref(
+                q, k, v, cq, ck, thr, **akw),
+                BF16_TOL if dt == bf16 else F32_TOL)
+            if dt != bf16:
+                print(f"  [hybrid] sparse_attention {dtn} {case}: max_abs_err "
+                      f"{err:.3e}; bit-identical twice", flush=True)
+                continue
+            ms = time_ms(lambda: sa_ops.sparse_attention(
+                q, k, v, cq, ck, thr, **akw), 20)
+            rows = kept.reshape(gkv, hq * n, n).any(1)
+            moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
+                     + 2 * int(rows.sum()) * dh * k.element_size())
+            _paper_row(out, "sparse_attention", f"{case} {dtn}", ms,
+                       bound(moved, 4 * dh * int(kept.sum()), bf16), err,
+                       tag="hybrid")
+        del kept
+    cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=HYB_D, f=HYB_F,
+                       g=8, ga=4, r=16, capf=1.25, act="gelu", gated=True)
+    args = cs["args"]
+    ms = time_ms(lambda: ffn_ops.grouped_ffn(*args, act="gelu"), 10)
+    lora16 = _bf16_lora(torch, cs["lora"])
+    yard = time_ms(lambda: grouped_ffn_yardstick(
+        torch, cs["x"], cs["plan"].index, cs["wts"], lora16, 1.0,
+        act="gelu"), 10)
+    _paper_row(out, "grouped_ffn", f"recurrentgemma-9b train (x (4, 1024, "
+               f"{HYB_D}), F={HYB_F}, GeGLU, C={cs['c']}, LoRA r=16)", ms,
+               _grouped_bound(torch, cs, HYB_D, HYB_F, 16, bf16), cs["err"],
+               yard, tag="hybrid")
+    b, d, f, ga, r = 8, HYB_D, HYB_F, 4, 16
+    rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=8 * f, num_groups=8,
+                              active_groups=ga, activation="gelu",
+                              gated=True)
+    wts, lora = _ffn_weights(torch, gen, 8, d, f, r, bf16)
+    x = torch.randn(b, d, device="cuda", generator=gen).to(bf16)
+    router = torch.randn(d, 8, device="cuda", generator=gen) / d ** 0.5
+    choice, gate, _ = rf.route(x[:, None], router, rcfg, need_aux=False)
+    choice, gate = choice[:, 0].contiguous(), gate[:, 0].contiguous()
+    args = (x, choice, gate, wts["w_inner"], wts["w_outer"], wts["w_gate"],
+            lora, 1.0)
+    case = f"recurrentgemma-9b decode (x ({b}, {d}), F={f}, GeGLU, LoRA r={r})"
+    y = _twice(torch, lambda: ffn_ops.decode_ffn(*args, act="gelu"),
+               f"decode_ffn {case}")
+    err = close(y, ffn_ref.decode_ffn_ref(*args, act="gelu"), BF16_TOL)
+    ms = time_ms(lambda: ffn_ops.decode_ffn(*args, act="gelu"), 30)
+    lora16 = _bf16_lora(torch, lora)
+    yard = time_ms(lambda: decode_ffn_yardstick(
+        torch, x, choice, gate, wts, lora16, 1.0, act="gelu"), 30)
+    blocks = int(torch.unique(choice).numel())
+    moved = (blocks * 3 * d * f * x.element_size()
+             + sum(nbytes(*t.values()) for t in lora.values())
+             + nbytes(x, choice, gate) + b * d * x.element_size())
+    _paper_row(out, "decode_ffn", case, ms,
+               bound(moved, b * ga * 2 * d * f * 3, bf16), err, yard,
+               tag="hybrid")
+    return out
+
+
 # ------------------------------------------------------------ phases 4-6
 def _perturbed_model(torch, cfg, seed):
     """Random full-width weights from a seed; LoRA c leaves (zero at
@@ -1655,17 +1831,19 @@ PHASE4_WORK = dict(n=16, lo=128, hi=2048, gen=64, max_len=4096)
 PAPER_WORK = dict(n=8, lo=128, hi=1024, gen=32, max_len=2048)
 
 
-def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
+def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK,
+           serve_api=False):
     """Engine.run of a workload (phase 4's by default: 16 requests,
     prompts 128-2048, 64 new tokens, 8 slots, max_len 4096) after a
-    warm-up run, the launch counters zeroed just before and read just
-    after.  Checks that every request completes and that the decode and
-    prefill kernels of the path launched once per layer per step /
-    prefill group; returns the launch counts and the stats."""
+    warm-up run — with ``serve_api``, Engine.serve of the same burst —
+    the launch counters zeroed just before and read just after.  Checks
+    that every request completes and that the decode and prefill kernels
+    of the path launched as _want_serve_launches says; returns the
+    launch counts and the stats."""
     from repro_torch import kernels
     from repro_torch.core.params import count_params
     from repro_torch.models.transformer import lm_defs
-    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.engine import ArrivalSchedule, Engine
     eng = Engine(cfg, model, max_len=work["max_len"], num_slots=8,
                  decode_chunk=16, kv_pages=kv_pages)
     eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1))     # warm-up
@@ -1681,7 +1859,8 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
     for w in wrappers:
         w.launches = 0
     t0 = time.perf_counter()
-    outs = eng.run(reqs)
+    outs = (eng.serve(ArrivalSchedule.burst(reqs)) if serve_api
+            else eng.run(reqs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in wrappers}
@@ -1719,15 +1898,25 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK):
     return launches, stats
 
 
+def _layer_kinds(cfg):
+    """The block kind of every layer: the pattern units', then the
+    tail's."""
+    from repro_torch.models import transformer
+    return (cfg.pattern * transformer.num_units(cfg)
+            + transformer._tail_kinds(cfg))
+
+
 def _want_serve_launches(cfg, launches, steps, prefill_batches):
     """The launches a serve must make: each executed decode step runs its
-    tier's decode kernels and the decode FFN (routed or MoE) once per
-    layer; each prefill batch (resume re-prefills included) the grouped
-    FFN once per layer.
+    tier's decode kernels once per attention layer and the decode FFN
+    (routed or MoE) once per layer (every block kind has an FFN); each
+    prefill batch (resume re-prefills included) the grouped FFN once per
+    layer.
     The ragged prefill takes the oracle attention (as in JAX), so the
     train-path attention kernels stay idle."""
     from repro_torch.core import dispatch
     layers = cfg.num_layers
+    attn_layers = _layer_kinds(cfg).count("attn")
     if dispatch.use_paged_kv(cfg) and dispatch.use_paged_native_decode(cfg):
         decode_attn = (["fused_sparse_decode_attention_paged"]
                        if cfg.spt.sparse_mha
@@ -1737,7 +1926,7 @@ def _want_serve_launches(cfg, launches, steps, prefill_batches):
     else:
         decode_attn = ["decode_topl_thresholds", "sparse_decode_attention"]
     want = {name: 0 for name in launches}
-    want.update({name: layers * steps for name in decode_attn})
+    want.update({name: attn_layers * steps for name in decode_attn})
     want.update({"grouped_ffn": layers * prefill_batches,
                  "decode_ffn": layers * steps})
     return want
@@ -1776,8 +1965,9 @@ def serve_paged(torch, model):
 
 def decode_step_split(torch, model, cfg, paged=False):
     """Device vs wall time of one full-width decode step (8 slots, 2048 of
-    4096 cache slots live; paged: the live pages shuffled over a
-    256-page pool): how far the host holds the card back.  Device time is
+    4096 cache slots live, or a full SWA ring where the window is
+    shorter; paged: the live pages shuffled over a 256-page pool): how
+    far the host holds the card back.  Device time is
     the profiler's sum of kernel times (CUDA events cannot hide the host
     here: a step issues more launches than the launch queue holds)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1797,14 +1987,18 @@ def decode_step_split(torch, model, cfg, paged=False):
                  & kv_pages.occupancy(pt, ps))
         label = "paged decode step (8 slots, view 32 x 128)"
     else:
+        s = min(4096, cfg.window or 4096)
         caches = transformer.init_caches(cfg, 8, 4096, "cuda")
         pt = None
-        valid = torch.arange(4096, device="cuda")[None, :] <= pos[:, None]
-        label = "decode step (8 slots, S=4096)"
+        valid = torch.arange(s, device="cuda")[None, :] <= pos[:, None]
+        label = f"decode step (8 slots, S={s})"
         if cfg.window is not None:  # a ring derives validity from slot_pos
-            sp = caches["units"]["b0_attn"]["slot_pos"]
-            sp.copy_(torch.where(valid, torch.arange(4096, device="cuda"),
-                                 -1).expand_as(sp))
+            for part in caches.values():
+                for blk in part.values():
+                    if "slot_pos" in blk:
+                        sp = blk["slot_pos"]
+                        sp.copy_(torch.where(valid, torch.arange(
+                            s, device="cuda"), -1).expand_as(sp))
 
     def step():
         transformer.lm_decode_step(model, cfg, caches, tok, pos,
@@ -1973,23 +2167,28 @@ def _c_leaves(state):
 
 
 def _want_train_launches(cfg, names, steps):
-    """Launches of a train run: per layer per step, kernels 1, 2, 4 four,
-    two and two times with sparse MHA (the checkpointed forward runs
-    twice), kernel 9 twice with the routed FFN or MoE; nothing else."""
-    per_step = cfg.num_layers * steps
+    """Launches of a train run: a layer of a pattern unit runs its
+    forward twice a step (the checkpointed unit is recomputed in
+    backward), a tail layer once; each forward of an attention layer
+    launches kernel 1 twice (q and k) and kernels 2 and 4 once with
+    sparse MHA, each forward of a layer kernel 9 once with the routed FFN
+    or MoE; nothing else."""
+    from repro_torch.models import transformer
+    unit = cfg.pattern * transformer.num_units(cfg)
+    tail = transformer._tail_kinds(cfg)
+    attn = (2 * unit.count("attn") + tail.count("attn")) * steps
     want = {name: 0 for name in names}
     if cfg.spt.sparse_mha:
-        want.update({"pq_assign": 4 * per_step,
-                     "topl_thresholds": 2 * per_step,
-                     "sparse_attention": 2 * per_step})
+        want.update({"pq_assign": 2 * attn, "topl_thresholds": attn,
+                     "sparse_attention": attn})
     if cfg.spt.routed_ffn or cfg.num_experts > 0:
-        want["grouped_ffn"] = 2 * per_step
+        want["grouped_ffn"] = (2 * len(unit) + len(tail)) * steps
     return want
 
 
-def _train_run(torch, cfg, steps, label, profile=True, seed=0):
-    """``steps`` steps of Trainer.run in bf16, batch 4 x 1024 from the
-    seeded random stream, the launch counters zeroed just before and read
+def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB):
+    """``steps`` steps of Trainer.run in bf16, batch ``batch`` x 1024 from
+    the seeded random stream, the launch counters zeroed just before and read
     just after (checked against _want_train_launches); then, with
     ``profile``, one more step under the profiler for the device-busy
     share.  Returns (launches, per-step rows, peak GiB, trainer)."""
@@ -2008,7 +2207,8 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0):
     def hook(step, m):                 # metrics are host floats: synced
         now = time.perf_counter()
         rows.append({"step": step, "wall_s": now - clock[0],
-                     "tok_s": TB * TS / (now - clock[0]), "loss": m["loss"],
+                     "tok_s": batch * TS / (now - clock[0]),
+                     "loss": m["loss"],
                      "lm_loss": m["lm_loss"], "grad_norm": m["grad_norm"],
                      "lr": m["lr"], "lb_loss": m["lb_loss"],
                      "dropped": m["dropped"]})
@@ -2026,7 +2226,7 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0):
     for w in wrappers:
         w.launches = 0
     clock[0] = time.perf_counter()
-    trainer.run(_batches(cfg, TB, TS, steps, seed=0), step_hook=hook)
+    trainer.run(_batches(cfg, batch, TS, steps, seed=0), step_hook=hook)
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2043,12 +2243,12 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0):
     if not profile:
         return launches, rows, peak, trainer
 
-    batch = next(_batches(cfg, TB, TS, 1, seed=1))
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    data = next(_batches(cfg, batch, TS, 1, seed=1))
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.state, _ = trainer._step(trainer.state, batch)
+        trainer.state, _ = trainer._step(trainer.state, data)
         torch.cuda.synchronize()
     wall_prof = (time.perf_counter() - t0) * 1e3
     top = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
@@ -2056,7 +2256,7 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0):
     top = sorted((r for r in top if r[0] > 0), reverse=True)
     device = sum(r[0] for r in top)
     wall = rows[-1]["wall_s"] * 1e3
-    print(f"  {label} step (4 x 1024, bf16): device {device:.1f} ms in "
+    print(f"  {label} step ({batch} x {TS}, bf16): device {device:.1f} ms in "
           f"{sum(r[1] for r in top)} kernels; wall {wall:.1f} ms (step "
           f"{steps}), {wall_prof:.1f} ms (profiled step); device busy "
           f"{device / wall:.0%} of step {steps}", flush=True)
@@ -2145,7 +2345,7 @@ def train_agree_f32(torch):
         h = [transformer._embed_inputs(params, cfg, batch["tokens"])]
         for unit in units[:-1]:
             h.append(transformer.block_apply(unit["b0_attn"], h[-1], cfg,
-                                             mode="train")[0])
+                                             "attn", mode="train")[0])
     del os.environ["REPRO_DISABLE_KERNELS"]
     worst = [0.0, 0.0]
     for u, unit in enumerate(units):
@@ -2155,7 +2355,7 @@ def train_agree_f32(torch):
             x = h[u].clone().requires_grad_(True)
             with torch.enable_grad():
                 y, _, aux = transformer.block_apply(unit["b0_attn"], x, cfg,
-                                                    mode="train")
+                                                    "attn", mode="train")
                 obj = (y * cot).sum() + aux["lb_loss"]
                 g = torch.autograd.grad(obj, [x, *train_vals],
                                         allow_unused=True)
@@ -2794,6 +2994,143 @@ def moe_agree_f32(torch):
         _free(torch)
 
 
+# ------------------------------------------------------------ phases 16-18
+# phase 16: the dense configs that had not run on the card, at full width
+# with depth cut to 2 layers (depth adds no shape: their per-layer shapes
+# are the point): gemma-7b (kernel 4's bf16 body at dh 256, M = 32 in
+# kernels 1, 2 and 6, the 256,000-row tied and scaled embedding),
+# h2o-danube-1.8b (dh 80, M = 10) and h2o-danube-3-4b (dh 120, M = 15),
+# both with the 4,096 window: their last prompt is 4,608 tokens, so the
+# ring wraps in prefill, and max_len 8192 takes decode past it.
+DENSE_ARCHS = ("gemma-7b", "h2o-danube-1.8b", "h2o-danube-3-4b")
+DENSE_DEPTH = 2
+DENSE_WORK = dict(n=8, lo=128, hi=2048, gen=32, max_len=8192)
+
+
+def dense_registry_full_width(torch):
+    """Phase 16: each of DENSE_ARCHS at full width, 2 layers, bf16,
+    random weights from a seed: a burst serve of 8 requests (32 new
+    tokens; kernels 6, 9, 10) and one "spt" train step at 2 x 1024
+    (kernels 1, 2, 4, 9) and a profiled step, counters zeroed just
+    before each and read just after, launch counts exact.  Returns the
+    launches by path."""
+    from repro_torch import configs
+    paths = {"dense_serve": {}, "dense_train": {}}
+    _free(torch)
+    for name in DENSE_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(name),
+                                  num_layers=DENSE_DEPTH).with_spt(**SERVE_CFG)
+        model = _perturbed_model(torch, cfg, seed=0)
+        work = dict(DENSE_WORK, long=MOE_LONG) if cfg.window else DENSE_WORK
+        launches, _ = _serve(torch, model, cfg, f"{name} serve", work=work)
+        paths["dense_serve"] = _add(paths["dense_serve"], launches)
+        del model
+        _free(torch)
+        launches, _, _, trainer = _train_run(torch, cfg, 1, f"{name} train",
+                                             batch=2)
+        paths["dense_train"] = _add(paths["dense_train"], launches)
+        del trainer
+        _free(torch)
+    return paths
+
+
+# phase 17: recurrentgemma-9b at full width and full depth (38 layers: 12
+# units of (rec, rec, attn) and a tail of 2 rec blocks, ~8.5 B
+# parameters): a burst of 8 requests through Engine.serve (prompts
+# 128-2048 from numpy seed 2, the last one 3,072 tokens so that the 2,048
+# window wraps in prefill; 32 new tokens, 8 slots, max_len 4096, chunks
+# of 16), then "spt" and "lora" training at 4 x 1024.
+HYBRID_WORK = dict(n=8, lo=128, hi=2048, gen=32, max_len=4096, long=3072)
+
+
+def hybrid_full_width(torch):
+    """Phase 17: recurrentgemma-9b (38 layers, bf16, random weights from
+    a seed): Engine.serve of HYBRID_WORK (kernel 6 once per attention
+    layer per decode step, 12 of 38; kernel 10 once per layer per step;
+    kernel 9 once per layer per prefill group) and a decode step's split;
+    then 2 steps of Trainer.run at 4 x 1024 under "spt" (kernels 1, 2, 4
+    per attention-layer forward, kernel 9 per layer forward: the 36 unit
+    layers twice a step, the 2 tail layers once) and a profiled step,
+    and 2 under "lora" (no kernel).  Counters zeroed just before each
+    and read just after, launch counts exact.  Returns the launches by
+    path."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import apply_variant
+    paths = {}
+    _free(torch)
+    cfg = configs.get_config("recurrentgemma-9b").with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, cfg, seed=0)
+    paths["hybrid_serve"], _ = _serve(torch, model, cfg,
+                                      "recurrentgemma-9b serve",
+                                      work=HYBRID_WORK, serve_api=True)
+    decode_step_split(torch, model, cfg)
+    del model
+    _free(torch)
+    paths["hybrid_train"], _, _, trainer = _train_run(
+        torch, cfg, 2, "recurrentgemma-9b spt train")
+    del trainer
+    _free(torch)
+    launches, _, _, trainer = _train_run(
+        torch, apply_variant(cfg, "lora"), 2, "recurrentgemma-9b lora train",
+        profile=False)
+    if any(launches.values()):
+        raise AssertionError(f"lora train launched {launches}")
+    del trainer
+    _free(torch)
+    return paths
+
+
+def _hybrid_small(torch):
+    """recurrentgemma-9b cut to one unit plus the tail (5 layers) and
+    d 1024 (lru width 1024: 16 gate blocks; F 2048), in f32, its 16
+    query heads of 256 on 1 kv head kept (R = 16, M = 32), window 64 so
+    that the ring wraps."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(
+        configs.get_config("recurrentgemma-9b"), num_layers=5, d_model=1024,
+        lru_width=1024, d_ff=2048, window=64, dtype=torch.float32)
+    return cfg.with_spt(**SERVE_CFG)
+
+
+def hybrid_agree_f32(torch):
+    """Phase 18: the _hybrid_small model, kernels on against
+    REPRO_DISABLE_KERNELS=1: greedy streams of 8 requests (prompts
+    64-512, 16 new tokens, 4 slots) equal up to the near-tie replay
+    rule, the kernel run launching kernels 6, 9 and 10 and the oracle
+    none; one train step (2 x 512) by phase 8's step rule (loss rel
+    1e-4, gradient cosine >= 0.99)."""
+    from repro_torch import kernels
+    from repro_torch.train.state import init_state
+    cfg = _hybrid_small(torch)
+    reqs = _requests(8, 64, 512, 16, cfg.vocab_size, seed=4)
+    model = _perturbed_model(torch, cfg, seed=3)
+    model.to(torch.float32)
+    before = {w.__name__: w.launches for w in kernels.wrappers()}
+    oracle, ran = _streams(torch, model, cfg, reqs, False)
+    got, ran_k = _streams(torch, model, cfg, reqs, True)
+    moved = {w.__name__ for w in kernels.wrappers()
+             if w.launches != before[w.__name__]}
+    if ran or ran_k != {"fused_sparse_decode_attention"} or not {
+            "grouped_ffn", "decode_ffn"} <= moved:
+        raise AssertionError(f"recurrentgemma: oracle ran {ran}, kernels "
+                             f"{sorted(moved)}")
+    _compare_streams(torch, model, cfg, reqs, "5-layer recurrentgemma f32",
+                     got, oracle)
+    del model
+    _free(torch)
+    state = init_state(cfg, seed=5, device="cuda")
+    state["frozen"] = _map_tree(lambda t: t.float(), state["frozen"])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for _, v in _c_leaves(state):
+        v.copy_(torch.randn(v.shape, device="cuda", generator=gen) * 0.01)
+    batch = next(_batches(cfg, 2, 512, 1, seed=7))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    _step_agreement(torch, cfg, state, batch, gen,
+                    "5-layer f32 recurrentgemma train step")
+    del state
+    _free(torch)
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -2803,13 +3140,14 @@ def _map_tree(fn, tree):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
-                                       "server", "moe"),
+                                       "server", "moe", "hybrid"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
                          "phases (1-3, 7-8), the paper's models (1-3, "
-                         "9-11), the long-lived server (1-3, 12-13) or the "
-                         "MoE family (1-3, 14-15) alone")
+                         "9-11), the long-lived server (1-3, 12-13), the "
+                         "MoE family (1-3, 14-15) or the dense registry and "
+                         "the hybrid family (1-3, 16-18) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2858,10 +3196,18 @@ def main() -> int:
     for name, cases in check_paper_shapes(torch, gen).items():
         paper.setdefault(name, []).extend(cases)
     moe_shapes = check_moe_shapes(torch, gen)
-    for row in rows:                    # the paper's and MoE shapes
+    # the hybrid shapes draw from a generator of their own, so the
+    # earlier checks keep their inputs
+    hgen = torch.Generator(device="cuda").manual_seed(21)
+    hybrid = check_decode_edges(torch, hgen, HYBRID_EDGES,
+                                HYBRID_EDGES[0][0], tag="hybrid")
+    for name, cases in check_hybrid_shapes(torch, hgen).items():
+        hybrid.setdefault(name, []).extend(cases)
+    for row in rows:                    # the paper's, MoE and hybrid shapes
         row["paper_shapes"] = paper[row["name"]]
         if row["name"] in moe_shapes:
             row["moe_shapes"] = moe_shapes[row["name"]]
+        row["hybrid_shapes"] = hybrid.get(row["name"], [])
     for row in rows[:2]:                # the bodies of kernels 1 and 2
         row["ptxas"] = [f"{fn}: {regs} registers, {smem} B static smem, "
                         f"{spill} B spilled"
@@ -2880,7 +3226,8 @@ def main() -> int:
                        "serve_paged_dense", "train", "paper_blocks",
                        "paper_train", "paper_prefill", "paper_serve",
                        "server", "server_paged", "moe_serve",
-                       "moe_serve_paged", "moe_train")}
+                       "moe_serve_paged", "moe_train", "dense_serve",
+                       "dense_train", "hybrid_serve", "hybrid_train")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -2954,6 +3301,25 @@ def main() -> int:
               f"{t1 - t0:.1f} s)", flush=True)
         moe_agree_f32(torch)
         print(f"[15] took {time.perf_counter() - t1:.1f} s", flush=True)
+    if args.only in (None, "hybrid"):
+        # 16. the dense registry at full width, depth cut: serve and train
+        t0 = time.perf_counter()
+        print(f"[16] gemma-7b, h2o-danube-1.8b, h2o-danube-3-4b at full "
+              f"width, {DENSE_DEPTH} layers, bf16: serve and train",
+              flush=True)
+        paths.update(dense_registry_full_width(torch))
+        # 17. recurrentgemma-9b at full width and depth: serve and train
+        t1 = time.perf_counter()
+        print(f"[17] recurrentgemma-9b (38 layers) at full width, bf16: "
+              f"Engine.serve, spt and lora train (phase 16 took "
+              f"{t1 - t0:.1f} s)", flush=True)
+        paths.update(hybrid_full_width(torch))
+        # 18. card-side agreement at a cut width
+        t2 = time.perf_counter()
+        print(f"[18] 5-layer f32 recurrentgemma agreement at d 1024, R 16 "
+              f"(phase 17 took {t2 - t1:.1f} s)", flush=True)
+        hybrid_agree_f32(torch)
+        print(f"[18] took {time.perf_counter() - t2:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -6,7 +6,8 @@ from typing import Tuple
 
 from repro_torch.configs import (gemma_7b, grok_1_314b, h2o_danube_1_8b,
                                  h2o_danube_3_4b, mixtral_8x22b,
-                                 paper_blocks, qwen3_0_6b)
+                                 paper_blocks, qwen3_0_6b,
+                                 recurrentgemma_9b)
 from repro_torch.configs.base import ModelConfig, SPTConfig
 
 _MODULES = {
@@ -16,6 +17,7 @@ _MODULES = {
     "h2o-danube-1.8b": h2o_danube_1_8b,
     "gemma-7b": gemma_7b,
     "h2o-danube-3-4b": h2o_danube_3_4b,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)

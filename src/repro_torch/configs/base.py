@@ -121,6 +121,10 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256 (the JAX param layout)."""
         return -(-self.vocab_size // 256) * 256

@@ -175,6 +175,39 @@ DECODE_CHUNK = 32            # list rows a ring stage of the attention pass
 DECODE_RING_BYTES = 49152    # a 3-stage ring when it fits, else 2 stages
 
 
+DECODE_R_MAX = 16            # query heads per kv head of the decode kernels
+DECODE_M_MAX = 32            # PQ books they score
+DECODE_D_MAX = 256           # head dim (a multiple of 8)
+
+
+def decode_hist_room(r: int) -> int:
+    """Histogram buckets, R_out x (max_score + 1), that the decode passes
+    hold for r query rows per kv head: 8 x 33 in the R <= 8 instances,
+    16 x 33 in the 16-row ones (csrc/decode_attention.cuh, hist_room)."""
+    return 264 if r <= 8 else DECODE_R_MAX * (DECODE_M_MAX + 1)
+
+
+def check_decode_args(name: str, r: int, *, dh: Optional[int] = None,
+                      m: Optional[int] = None, buckets: int = 0) -> None:
+    """The decode kernels' (3, 5-8) contract on R query rows per kv head,
+    the head dim, the PQ books and the histogram buckets, checked before
+    anything is built or launched (the launchers refuse the same shapes
+    with cudaErrorInvalidValue)."""
+    if not 1 <= r <= DECODE_R_MAX:
+        raise ValueError(f"{name}: takes 1 to {DECODE_R_MAX} query heads "
+                         f"per kv head, got R = {r}")
+    if dh is not None and (dh % 8 or not 8 <= dh <= DECODE_D_MAX):
+        raise ValueError(f"{name}: head dim {dh} is not a multiple of 8 in "
+                         f"[8, {DECODE_D_MAX}]")
+    if m is not None and not 1 <= m <= DECODE_M_MAX:
+        raise ValueError(f"{name}: takes 1 to {DECODE_M_MAX} PQ books, got "
+                         f"M = {m}")
+    if buckets > decode_hist_room(r):
+        raise ValueError(f"{name}: {buckets} histogram buckets (R_out x "
+                         f"(max_score + 1)) past the {decode_hist_room(r)} "
+                         f"the kernels hold at R = {r}")
+
+
 def decode_splits(g: int, s: int):
     """(ns, sp): the decode kernels cut the S-slot cache of each of the g
     kv groups into ns splits of sp slots (a tile multiple) so that g * ns

@@ -58,13 +58,23 @@
 //     lanes per row (a quarter of dh each, two shuffles), the softmax over
 //     the warp's 8 rows by shuffles, PV with each lane owning 4-column
 //     quads of every query row and summing the warp's rows in list order.
-//     The query rows are a template parameter RT (R padded to 1, 2, 4 or
-//     8 with zero rows), so these loops unroll without branches.  At the
-//     end the 4 warps' states merge in warp order.
+//     The query rows are a template parameter RT (R padded to 1, 2, 4, 8
+//     or 16 with zero rows), so these loops unroll without branches.  At
+//     the end the 4 warps' states merge in warp order.
+// Query rows: R <= 16 per kv group (MQA stacks such as RecurrentGemma's
+// 16 heads on one kv head).  Each pass's shared arrays are sized from its
+// row room (8 for R <= 8, else 16; attend_kernel's from RT): the R <= 8
+// instances keep the arrays and code they had when 8 was the limit, and
+// only the 16-row instances hold 16 x (M_MAX + 1) = 528 histogram
+// buckets ("qhead" at M = 32; "kvgroup" needs 16 x 32 + 1).  At RT = 16 a
+// row's query bits take 16 bits, so the list keeps them as uint16_t and
+// a slot's flags (above, at, live) as 64 bits.
 // The sum order depends on the list alone, so contiguous and paged runs
 // over the same splits, and a run and the next, are bit-identical.
 // Everything here is internal to the including source.
 #pragma once
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -73,9 +83,19 @@ using namespace repro;
 
 constexpr int THREADS = 128;          // threads a block; slots a tile
 constexpr int WARPS = THREADS / 32;
-constexpr int R_MAX = 8;              // query heads per kv head
+constexpr int R_MAX = 16;             // query heads per kv head
+constexpr int R_NARROW = 8;           // the row room of R <= 8 instances
 constexpr int M_MAX = 32;             // PQ books
-constexpr int HIST_MAX = 264;         // >= R_out * (max_score + 1)
+constexpr int HIST_NARROW = 264;      // their histogram buckets
+
+// Row room and histogram buckets (>= R_out * (max_score + 1)) of an
+// instance for RT query rows.
+__host__ __device__ constexpr int row_room(int rt) {
+  return rt <= R_NARROW ? R_NARROW : R_MAX;
+}
+__host__ __device__ constexpr int hist_room(int rt) {
+  return rt <= R_NARROW ? HIST_NARROW : R_MAX * (M_MAX + 1);
+}
 constexpr int D_MAX = 256;            // head dim
 constexpr int LIST_MAX = 512;         // slots a selection window
 constexpr int WIN_TILES = LIST_MAX / THREADS;
@@ -110,7 +130,7 @@ inline bool decode_args_ok(int G, int S, int R, int dh, int M, int hk,
                            int hist_buckets, int ns, int sp) {
   return G >= 1 && S >= 1 && R >= 1 && R <= R_MAX && M >= 1 &&
          M <= M_MAX && dh >= 8 && dh % 8 == 0 && dh <= D_MAX && hk >= 1 &&
-         hist_buckets <= HIST_MAX && ns >= 1 && sp >= THREADS &&
+         hist_buckets <= hist_room(R) && ns >= 1 && sp >= THREADS &&
          sp % THREADS == 0 && (long long)(ns - 1) * sp < S &&
          (long long)ns * sp >= S;
 }
@@ -296,11 +316,12 @@ __device__ __forceinline__ void warp_reduce_thr(const int* h, int nb, int l,
   need = l - ge1;
 }
 
-// grid (G, ns): per-split score histograms (M+1 buckets per row for "qhead",
-// R*M+1 for "kvgroup") into hist_part (G, ns, R_out, nb).  Each thread scores
-// two slots a round: their validity, then the 16-byte code rows of the valid
-// ones, are loaded first, each of the R query rows is compared four books a
-// word, and each score is one shared atomic (tried and slower on this card:
+// grid (G, ns), RM = row_room(R): per-split score histograms (M+1 buckets
+// per row for "qhead", R*M+1 for "kvgroup") into hist_part (G, ns, R_out,
+// nb).  Each thread scores two slots a round: their validity, then the
+// 16-byte code rows of the valid ones, are loaded first, each of the R
+// query rows is compared four books a word, and each score is one shared
+// atomic (tried and slower on this card:
 // one atomic per distinct score of a warp by __match_any_sync or by ballots,
 // 512-thread blocks, and a thread-block cluster reduction in place of the
 // last block).  Kernels 6 and 7 launch it with thr = null: their attention
@@ -312,16 +333,16 @@ __device__ __forceinline__ void warp_reduce_thr(const int* h, int nb, int l,
 // each row with one warp (warp_reduce_thr) and sets arrive[g] back to
 // zero.  arrive (G,) int32 is zero before the launch and after it, so
 // launches in stream order (and a captured graph's replays) reuse it.
-template <typename Addr>
+template <typename Addr, int RM>
 __global__ void __launch_bounds__(THREADS) hist_kernel(
     const int32_t* __restrict__ codes_q, const int8_t* __restrict__ codes_k,
     const uint8_t* __restrict__ kv_valid, Addr addr,
     int32_t* __restrict__ hist_part, int32_t* __restrict__ thr,
     int32_t* __restrict__ arrive, int S, int R, int M, int hk, int max_score,
     int sum_rows, int l, int SP, int vec) {
-  __shared__ uint32_t qw[R_MAX][CW_MAX];      // query codes as bytes
-  __shared__ uint32_t qn[R_MAX][CW_MAX];      // books they never match
-  __shared__ int hist[HIST_MAX];
+  __shared__ uint32_t qw[RM][CW_MAX];         // query codes as bytes
+  __shared__ uint32_t qn[RM][CW_MAX];         // books they never match
+  __shared__ int hist[hist_room(RM)];
   __shared__ int last;
   const int g = blockIdx.x, j = blockIdx.y, ns = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -379,9 +400,9 @@ __global__ void __launch_bounds__(THREADS) hist_kernel(
   for (int base = lo;;) {                                    // uniform trips
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      int sc[R_MAX];
+      int sc[RM];
 #pragma unroll
-      for (int r = 0; r < R_MAX; ++r) {
+      for (int r = 0; r < RM; ++r) {
         int miss = 0;
         if (r < R)
 #pragma unroll
@@ -392,11 +413,11 @@ __global__ void __launch_bounds__(THREADS) hist_kernel(
       if (sum_rows) {
         int t = 0;
 #pragma unroll
-        for (int r = 0; r < R_MAX; ++r) t += r < R ? sc[r] : 0;
+        for (int r = 0; r < RM; ++r) t += r < R ? sc[r] : 0;
         sc[0] = t;
       }
 #pragma unroll
-      for (int r = 0; r < R_MAX; ++r)
+      for (int r = 0; r < RM; ++r)
         if (r < r_out && live[u]) atomicAdd(&hist[r * nb + sc[r]], 1);
     }
     base += 2 * THREADS;
@@ -448,17 +469,36 @@ __global__ void __launch_bounds__(THREADS) hist_kernel(
   if (tid == 0) arrive[g] = 0;
 }
 
+// hist_kernel at the row room of R on stream st.
+template <typename Addr>
+cudaError_t launch_hist(const int32_t* cq, const int8_t* ck,
+                        const uint8_t* vp, Addr addr, int32_t* hist_part,
+                        int32_t* thr, int32_t* arrive, int G, int S, int R,
+                        int M, int hk, int max_score, int sum_rows, int l,
+                        int ns, int sp, cudaStream_t st) {
+  const int vec = code_vec(ck, M);
+  if (R <= R_NARROW)
+    hist_kernel<Addr, R_NARROW><<<dim3(G, ns), THREADS, 0, st>>>(
+        cq, ck, vp, addr, hist_part, thr, arrive, S, R, M, hk, max_score,
+        sum_rows, l, sp, vec);
+  else
+    hist_kernel<Addr, R_MAX><<<dim3(G, ns), THREADS, 0, st>>>(
+        cq, ck, vp, addr, hist_part, thr, arrive, S, R, M, hk, max_score,
+        sum_rows, l, sp, vec);
+  return cudaGetLastError();
+}
+
 // grid (G, ns): tie_part (G, ns, R_out) = #(valid slots of the split
 // with score == t), the newer-tie counts the attention pass needs.
-template <typename Addr>
+template <typename Addr, int RM>
 __global__ void __launch_bounds__(THREADS) tie_kernel(
     const int32_t* __restrict__ codes_q, const int8_t* __restrict__ codes_k,
     const uint8_t* __restrict__ kv_valid, Addr addr,
     const int32_t* __restrict__ thr, int32_t* __restrict__ tie_part, int S,
     int R, int M, int hk, int sum_rows, int SP) {
-  __shared__ int cq[R_MAX * M_MAX];
-  __shared__ int ts[R_MAX];
-  __shared__ int cnt[R_MAX];
+  __shared__ int cq[RM * M_MAX];
+  __shared__ int ts[RM];
+  __shared__ int cnt[RM];
   const int g = blockIdx.x, j = blockIdx.y, ns = gridDim.y;
   const int r_out = sum_rows ? 1 : R;
   const int lo = j * SP, hi = min(S, lo + SP);
@@ -471,15 +511,30 @@ __global__ void __launch_bounds__(THREADS) tie_kernel(
   __syncthreads();
   for (int s = lo + threadIdx.x; s < hi; s += THREADS) {
     if (!valid_row[s]) continue;
-    int sc[R_MAX];
+    int sc[RM];
     slot_scores(codes_k + addr.row(g, s) * M, cq, R, M, sum_rows, sc);
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r)
+    for (int r = 0; r < RM; ++r)
       if (r < r_out && sc[r] == ts[r]) atomicAdd(&cnt[r], 1);
   }
   __syncthreads();
   if (threadIdx.x < r_out)
     tie_part[((size_t)g * ns + j) * r_out + threadIdx.x] = cnt[threadIdx.x];
+}
+
+// tie_kernel at the row room of R on stream st.
+template <typename Addr>
+cudaError_t launch_ties(const int32_t* cq, const int8_t* ck,
+                        const uint8_t* vp, Addr addr, const int32_t* thr,
+                        int32_t* ties, int G, int S, int R, int M, int hk,
+                        int sum_rows, int ns, int sp, cudaStream_t st) {
+  if (R <= R_NARROW)
+    tie_kernel<Addr, R_NARROW><<<dim3(G, ns), THREADS, 0, st>>>(
+        cq, ck, vp, addr, thr, ties, S, R, M, hk, sum_rows, sp);
+  else
+    tie_kernel<Addr, R_MAX><<<dim3(G, ns), THREADS, 0, st>>>(
+        cq, ck, vp, addr, thr, ties, S, R, M, hk, sum_rows, sp);
+  return cudaGetLastError();
 }
 
 // grid (G, ns), THREADS threads, attend_smem_bytes<T, RT>(stages, dh) of
@@ -504,14 +559,21 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
     const int32_t* __restrict__ ties, float* __restrict__ part,
     int32_t* __restrict__ thr_out, int S, int R, int dh, int M, int hk,
     int l, int max_score, int sum_rows, float scale, int SP, int stages) {
+  // a slot's flags: LIVE | above bits | at bits << AT; a list row's bits
+  using Flags = typename std::conditional<(RT > R_NARROW),
+                                          unsigned long long, unsigned>::type;
+  using Bits = typename std::conditional<(RT > R_NARROW), uint16_t,
+                                         uint8_t>::type;
+  constexpr int AT = RT > R_NARROW ? 16 : 8;
+  constexpr Flags LIVE = Flags(1) << (2 * AT);
   extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ int cq[R_MAX * M_MAX];
-  __shared__ int hsum[HIST_MAX];                  // SEL_FUSED: all splits
+  __shared__ int cq[row_room(RT) * M_MAX];
+  __shared__ int hsum[hist_room(RT)];             // SEL_FUSED: all splits
   __shared__ int thr[RT * 3];                     // t, need, ties taken
   // K/V row of each list entry: 32 bits hold it, since 2^32 rows of K and
   // V at >= 16 bytes each would not fit a card
   __shared__ uint32_t list_row[LIST_MAX];
-  __shared__ uint8_t list_bits[LIST_MAX];         // its query-row bits
+  __shared__ Bits list_bits[LIST_MAX];            // its query-row bits
   __shared__ int tie_cnt[2][RT * WARPS];          // by tile parity
   __shared__ int elig_cnt[2][WARPS];
   __shared__ float warp_ml[WARPS][2][RT];         // each warp's max, sum
@@ -588,7 +650,6 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
   const int pieces = row_bytes / 16;
   const int ci0 = tid / pieces, cp0 = tid - ci0 * pieces;
   const int cdi = THREADS / pieces, cdp = THREADS - cdi * pieces;
-  constexpr unsigned LIVE = 1u << 16;
 
   int parity = 0;
   for (int w_end = hi; w_end > lo; w_end -= LIST_MAX) {
@@ -596,7 +657,7 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
     const int w_lo = max(lo, w_end - LIST_MAX);
     const int n_tiles = (w_end - w_lo + THREADS - 1) / THREADS;
     uint32_t rows[WIN_TILES];
-    unsigned flags[WIN_TILES];        // LIVE | above bits | at bits << 8
+    Flags flags[WIN_TILES];
 #pragma unroll
     for (int tl = 0; tl < WIN_TILES; ++tl) {
       const int slot = w_end - 1 - tl * THREADS - tid;   // tid 0 = newest
@@ -617,8 +678,8 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
           for (int r = 0; r < RT; ++r) {
             if (r < r_out) {
               const int t = thr[3 * r];
-              flags[tl] |= (unsigned)(sc[r] > t) << r;
-              flags[tl] |= (unsigned)(sc[r] == t) << (8 + r);
+              flags[tl] |= (Flags)(sc[r] > t) << r;
+              flags[tl] |= (Flags)(sc[r] == t) << (AT + r);
             }
           }
         }
@@ -638,7 +699,7 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
           pre[r] = 0;
           if (r < r_out) {
             const unsigned mask =
-                __ballot_sync(FULL_MASK, (flags[tl] >> (8 + r)) & 1u);
+                __ballot_sync(FULL_MASK, (int)((flags[tl] >> (AT + r)) & 1u));
             pre[r] = __popc(mask & lane_lt);
             if (lane == 0) tie_cnt[parity][r * WARPS + warp] = __popc(mask);
           }
@@ -655,7 +716,7 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
             }
             const int need = thr[3 * r + 1];
             const bool above = (flags[tl] >> r) & 1u;
-            const bool at = (flags[tl] >> (8 + r)) & 1u;
+            const bool at = (flags[tl] >> (AT + r)) & 1u;
             if (above || (at && taken[r] + before + pre[r] < need))
               bits |= 1u << r;
             taken[r] += min(total, max(need - taken[r], 0));
@@ -674,7 +735,7 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
       if (bits) {
         const int e = n + base + __popc(em & lane_lt);
         list_row[e] = rows[tl];
-        list_bits[e] = (uint8_t)bits;
+        list_bits[e] = (Bits)bits;
       }
       n += tile_n;
       parity ^= 1;
@@ -881,8 +942,8 @@ cudaError_t launch_attend(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The attention pass (R padded to RT = 1, 2, 4 or 8 query rows), then the
-// combine, on stream st.
+// The attention pass (R padded to RT = 1, 2, 4, 8 or 16 query rows), then
+// the combine, on stream st.
 template <typename T, typename Addr, int SEL>
 int attend_and_combine(const void* q, const void* k, const void* v,
                        const int32_t* cq, const int8_t* ck,
@@ -900,7 +961,8 @@ int attend_and_combine(const void* q, const void* k, const void* v,
   cudaError_t err = R <= 1   ? REPRO_ATTEND(1)
                     : R <= 2 ? REPRO_ATTEND(2)
                     : R <= 4 ? REPRO_ATTEND(4)
-                             : REPRO_ATTEND(8);
+                    : R <= 8 ? REPRO_ATTEND(8)
+                             : REPRO_ATTEND(16);
 #undef REPRO_ATTEND
   if (err != cudaSuccess) return (int)err;
   combine_kernel<T><<<dim3(G, R), THREADS, 0, st>>>(

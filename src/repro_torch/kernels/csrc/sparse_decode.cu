@@ -55,10 +55,9 @@ int launch_fused(const void* q, const void* k, const void* v,
                  float* part, int G, int S, int R, int dh, int M, int hk,
                  int l, int max_score, int sum_rows, float scale, int ns,
                  int sp, int stages, cudaStream_t st) {
-  hist_kernel<Addr><<<dim3(G, ns), THREADS, 0, st>>>(
-      cq, ck, vp, addr, hist_part, nullptr, nullptr, S, R, M, hk, max_score,
-      sum_rows, l, sp, code_vec(ck, M));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_hist(cq, ck, vp, addr, hist_part, nullptr,
+                                nullptr, G, S, R, M, hk, max_score,
+                                sum_rows, l, ns, sp, st);
   if (err != cudaSuccess) return (int)err;
   return attend_and_combine<T, Addr, SEL_FUSED>(
       q, k, v, cq, ck, vp, addr, hist_part, nullptr, part, tp, out, G, S, R,

@@ -43,15 +43,13 @@ extern "C" int repro_decode_thresholds(
   const int r_out = sum_rows ? 1 : R;
   if (!decode_args_ok(G, S, R, 8, M, hk, r_out * (max_score + 1), ns, sp))
     return (int)cudaErrorInvalidValue;
-  hist_kernel<Contig><<<dim3(G, ns), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  return (int)launch_hist(
       static_cast<const int32_t*>(codes_q),
       static_cast<const int8_t*>(codes_k),
       static_cast<const uint8_t*>(kv_valid), Contig{S},
       static_cast<int32_t*>(hist_part), static_cast<int32_t*>(thr),
-      static_cast<int32_t*>(arrive), S, R, M, hk, max_score, sum_rows, l, sp,
-      code_vec(codes_k, M));
-  return (int)cudaGetLastError();
+      static_cast<int32_t*>(arrive), G, S, R, M, hk, max_score, sum_rows, l,
+      ns, sp, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 5.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  q
@@ -74,9 +72,8 @@ extern "C" int repro_sparse_decode_attention(
   int32_t* ties = static_cast<int32_t*>(tie_part);
   float* pp = static_cast<float*>(part);
   const Contig addr{S};
-  tie_kernel<Contig><<<dim3(G, ns), THREADS, 0, st>>>(
-      cqp, ckp, vp, addr, tp, ties, S, R, M, hk, sum_rows, sp);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_ties(cqp, ckp, vp, addr, tp, ties, G, S, R, M,
+                                hk, sum_rows, ns, sp, st);
   if (err != cudaSuccess) return (int)err;
   if (dtype == 0)
     return attend_and_combine<float, Contig, SEL_GIVEN>(

@@ -45,12 +45,14 @@ from repro_torch.kernels.topl_select.ops import (decode_topl_thresholds,
 
 
 def _check_decode(name, q, k, v, codes_q, codes_k, kv_valid, s,
-                  heads_per_batch):
+                  heads_per_batch, buckets=0):
     """The decode kernels' input contract: q (G, R, dh); k, v with dh
     wide rows; codes_q (G, R, M) int32; codes_k int8 with M wide rows;
-    kv_valid (G / heads_per_batch, s) bool."""
+    kv_valid (G / heads_per_batch, s) bool; R, dh, M and the histogram
+    buckets within ``kernels.check_decode_args``."""
     g, r, dh = q.shape
     m = codes_q.shape[-1]
+    kernels.check_decode_args(name, r, dh=dh, m=m, buckets=buckets)
     if (k.shape[-1] != dh or v.shape != k.shape or codes_q.shape[:2] != (g, r)
             or (codes_k is not None and codes_k.shape[-1] != m)
             or kv_valid.shape != (g // heads_per_batch, s)):
@@ -96,11 +98,11 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
     g, r, dh = q.shape
     s = k.shape[1]
     m = codes_q.shape[-1]
+    r_out = 1 if sum_rows else r
     _check_decode(name, q, k, v, codes_q, codes_k, kv_valid, s,
-                  heads_per_batch)
+                  heads_per_batch, r_out * (max_score + 1))
     if k.shape != (g, s, dh) or codes_k.shape != (g, s, m):
         raise ValueError(f"{name}: inconsistent shapes")
-    r_out = 1 if sum_rows else r
     ns, sp = kernels.decode_splits(g, s)
     dev = q.device
     out = torch.empty_like(q)
@@ -197,12 +199,12 @@ def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
     npool, hk, ps, _ = k_pool.shape
     b, mp = page_table.shape
     m = codes_q.shape[-1]
+    r_out = 1 if sum_rows else r
     _check_decode(name, q, k_pool, v_pool, codes_q, codes_pool, kv_valid,
-                  mp * ps, heads_per_batch)
+                  mp * ps, heads_per_batch, r_out * (max_score + 1))
     if (hk != heads_per_batch or g != b * hk
             or codes_pool.shape != (npool, hk, ps, m)):
         raise ValueError(f"{name}: inconsistent shapes")
-    r_out = 1 if sum_rows else r
     ns, sp = kernels.decode_splits(g, mp * ps)
     dev = q.device
     pt = _pt_ids(page_table, npool)
@@ -246,6 +248,7 @@ def dense_decode_attention_paged(page_table, q, k_pool, v_pool, kv_valid,
     g, r, dh = q.shape
     npool, hk, ps, _ = k_pool.shape
     b, mp = page_table.shape
+    kernels.check_decode_args(name, r, dh=dh)
     if (k_pool.shape[-1] != dh or v_pool.shape != k_pool.shape
             or hk != heads_per_batch or g != b * hk
             or kv_valid.shape != (b, mp * ps)):

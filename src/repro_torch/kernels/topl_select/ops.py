@@ -102,6 +102,7 @@ def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
         raise TypeError(f"{name}: takes int32 query codes, int8 cached "
                         "codes and a bool mask")
     r_out = 1 if sum_rows else r
+    kernels.check_decode_args(name, r, m=m, buckets=r_out * (max_score + 1))
     ns, sp = kernels.decode_splits(g, s)
     dev = codes_q.device
     thr = torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)

@@ -96,10 +96,11 @@ def main(argv=None) -> int:
                     help="sparse-MHA decode path: CUDA kernel vs the plain "
                          "torch path (auto follows the kernel config; "
                          "REPRO_DISABLE_KERNELS=1 forces the plain path)")
-    ap.add_argument("--ffn-impl", default=None, choices=("pallas", "grouped"),
+    ap.add_argument("--ffn-impl", default=None,
+                    choices=("pallas", "grouped", "dense"),
                     help="routed-FFN prefill path: 'pallas' = the grouped-FFN "
                          "CUDA kernel (the default), 'grouped' = the plain "
-                         "capacity path")
+                         "capacity path, 'dense' = the per-token oracle")
     ap.add_argument("--decode-ffn-impl", default="auto",
                     choices=("auto", "kernel", "jnp"),
                     help="routed-FFN decode path at (B, 1, d): block-gather "

@@ -5,7 +5,8 @@ Routed-FFN execution paths (selected by core/dispatch.py, JAX semantics):
     gather in the kernel; REPRO_DISABLE_KERNELS=1 demotes it to "grouped";
   * ``mode="decode"`` at (B, 1, d) — the block-gather decode CUDA kernel
     when ``dispatch.use_decode_ffn_kernel(cfg)`` says so;
-  * ``"grouped"`` — the core/ capacity path (the oracle).
+  * ``"grouped"`` — the core/ capacity path (the oracle);
+    ``"grouped_shmap"`` runs it too, as JAX does without a mesh.
 Inference modes skip the router softmax and the load-balance loss.
 """
 from __future__ import annotations
@@ -77,6 +78,10 @@ def _routed_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
             return rffn_ops.routed_ffn(x, p, rcfg, lc, need_aux=need_aux,
                                        seq_lengths=seq_lengths)
         impl = "grouped"                             # REPRO_DISABLE_KERNELS=1
+    if impl == "grouped_shmap":
+        # the sharded path (core/ffn_shmap.py) is not ported: one card has
+        # no mesh, where JAX falls back to "grouped" as well
+        impl = "grouped"
     return routed_ffn.routed_ffn(x, p, rcfg, lc, impl=impl,
                                  need_aux=need_aux, seq_lengths=seq_lengths)
 

@@ -1,0 +1,166 @@
+"""Griffin/RecurrentGemma recurrent block: temporal conv + RG-LRU.
+
+    r_t = sigmoid(x_t W_a)                 (recurrence gate)
+    i_t = sigmoid(x_t W_i)                 (input gate)
+    log a_t = -c * softplus(Lambda) * r_t  (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Training and prefill run the linear recurrence as a scan over time with
+JAX's combine ``(al * ar, ar * bl + br)``, written as a log-depth
+doubling (Hillis-Steele) in torch ops: ceil(log2 S) elementwise rounds,
+no Python loop over the sequence.  Its float order differs from XLA's
+``associative_scan``, so the two agree to rounding, not bit for bit.
+Decode is a single step.  The r/i gate weights are block-diagonal as in
+Griffin.  The paper's sparse MHA applies to Griffin's local attention
+layers, not here; LoRA applies to every projection of this block.  The
+decode step writes its cache view (``h``, ``conv``) in place, as the
+attention layers write theirs.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import lora
+from repro_torch.core.params import ParamDef
+
+_C = 8.0
+
+
+def _gate_blocks(cfg: ModelConfig) -> int:
+    """Block-diagonal gate count (Griffin's design): 16 when the width
+    divides into blocks of a multiple of 8, else 1 (the full matrix)."""
+    w = cfg.resolved_lru_width
+    return 16 if w % (16 * 8) == 0 else 1
+
+
+def rglru_defs(cfg: ModelConfig) -> dict:
+    d, w = cfg.d_model, cfg.resolved_lru_width
+    nb = _gate_blocks(cfg)
+    wb = w // nb
+    lc = cfg.spt.lora
+    return {
+        "w_gate": lora.linear_defs(d, w, lc),
+        "w_branch": lora.linear_defs(d, w, lc),
+        "w_out": lora.linear_defs(w, d, lc),
+        "conv": ParamDef((cfg.conv_width, w), torch.float32,
+                         init="normal:0.1", trainable=False),
+        "w_a": ParamDef((nb, wb, wb), torch.float32, init="fan_in",
+                        trainable=False),
+        "w_i": ParamDef((nb, wb, wb), torch.float32, init="fan_in",
+                        trainable=False),
+        "lam": ParamDef((w,), torch.float32, init="uniform:1.0",
+                        trainable=False),
+    }
+
+
+def init_rec_cache(cfg: ModelConfig, batch: int, device
+                   ) -> Dict[str, torch.Tensor]:
+    w = cfg.resolved_lru_width
+    return {
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w),
+                            dtype=torch.float32, device=device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
+                 state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along time.  x: (B, S, W); kernel: (K, W).
+    Returns (y, new_state) where the state carries the last K-1 inputs;
+    a stored (f32) state is cast to x's dtype at use."""
+    k = kernel.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s] * kernel[0].to(x.dtype)
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * kernel[i].to(x.dtype)
+    return y, xp[:, -(k - 1):]
+
+
+def _gates(p, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, in f32."""
+    xf = xc.float()
+    nb, wb, _ = p["w_a"].shape
+    lead = xf.shape[:-1]
+    xb = xf.reshape(*lead, nb, wb)
+    r = torch.sigmoid(torch.einsum("...nw,nwv->...nv", xb, p["w_a"])
+                      ).reshape(*lead, nb * wb)
+    i = torch.sigmoid(torch.einsum("...nw,nwv->...nv", xb, p["w_i"])
+                      ).reshape(*lead, nb * wb)
+    log_a = -_C * F.softplus(p["lam"]) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    return a, b
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t with h_{-1} = 0, over axis 1: round k
+    combines each step with the one 2^k earlier, (a, b)[t] <-
+    (a[t - o] a[t], a[t] b[t - o] + b[t]), JAX's combine with the earlier
+    element on the left."""
+    s = a.shape[1]
+    o = 1
+    while o < s:
+        a_prev, b_prev = a[:, :-o], b[:, :-o]
+        a_cur, b_cur = a[:, o:], b[:, o:]
+        b = torch.cat([b[:, :o], a_cur * b_prev + b_cur], dim=1)
+        a = torch.cat([a[:, :o], a_prev * a_cur], dim=1)
+        o *= 2
+    return b
+
+
+def rglru_scan(p, xc: torch.Tensor, h0: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The linear recurrence over xc (B, S, W), the post-conv branch
+    input, from state h0 (B, W) or zeros.  Returns (h_seq, h_last), f32."""
+    a, b = _gates(p, xc)
+    if h0 is not None:          # fold the initial state into step 0
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    h = _linear_scan(a, b)
+    return h, h[:, -1]
+
+
+def rglru_step(p, xc: torch.Tensor, h: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  xc: (B, W); h: (B, W)."""
+    a, b = _gates(p, xc[:, None, :])
+    h_new = a[:, 0] * h + b[:, 0]
+    return h_new, h_new
+
+
+def rec_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
+              cache: Optional[dict] = None):
+    """Griffin recurrent block.  x: (B, S, d).  Returns (y, cache, aux):
+    prefill writes the final state and conv window into ``cache`` (the
+    caller's view of the block's cache), decode advances them by one
+    step, both in place."""
+    lc = cfg.spt.lora
+    gate = F.gelu(lora.linear(x, p["w_gate"], lc), approximate="tanh")
+    branch = lora.linear(x, p["w_branch"], lc)
+    conv_state = None if cache is None else cache["conv"]
+    xc, new_conv = _causal_conv(branch, p["conv"], conv_state)
+    if mode in ("train", "prefill"):
+        h_seq, h_last = rglru_scan(p, xc, None if cache is None
+                                   else cache["h"])
+        if mode == "prefill" and cache is not None:
+            cache["h"].copy_(h_last)
+            cache["conv"].copy_(new_conv)
+        out = h_seq.to(x.dtype)
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("rec_apply: decode needs a cache")
+        h_new, _ = rglru_step(p, xc[:, 0], cache["h"])
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(new_conv)
+        out = h_new[:, None, :].to(x.dtype)
+    else:
+        raise ValueError(mode)
+    y = lora.linear(out * gate, p["w_out"], lc)
+    return y, cache, {}

@@ -1,9 +1,17 @@
 """Decoder-only LM: embeddings (plus learned positions, OPT) -> blocks (a
-Python loop over layers) -> final norm -> (tied or separate) LM head.
+Python loop over pattern units, then the tail) -> final norm -> (tied or
+separate) LM head.
+
+Layer patterns (``ModelConfig.pattern``) cycle block kinds over layers:
+("attn",) for the dense and MoE stacks, ("rec", "rec", "attn") for
+RecurrentGemma (models/rglru.py).  The layers form pattern *units*; the
+remainder layers (num_layers % len(pattern)) are the *tail*, blocks of
+their own that run after the units and, in training, outside the
+checkpoint, as in JAX.
 
 The parameter tree keeps the JAX layout — ``{"embed", "final_norm",
-"units": {"b0_attn": ...} stacked on a leading unit axis U, ["head"],
-["pos"]}`` —
+"units": {"b0_attn": ...} stacked on a leading unit axis U, ["tail":
+{"t0_rec": ...}], ["head"], ["pos"]}`` —
 so the JAX package's params load unchanged (core/params.from_numpy_tree);
 :class:`LM` holds each unit as its own ``ParamTree`` (views of the stacked
 tensors).  Caches keep the JAX tree too, stacked on U — per-slot strips,
@@ -12,7 +20,8 @@ or with ``kv_pages`` page pools shared by the slots (serving/kv_pages.py)
 (``lm_hidden``: per-unit views of the stacked leaves, so gradients land
 on the stacked leaves as JAX's scan gives them).  The port covers the
 attention stack (pattern ("attn",)), with RoPE or learned positions and
-a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN.
+a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN, and the
+hybrid ("rec", "rec", "attn") stack.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
                                      stack_defs)
-from repro_torch.models import attention, ffn, layers, moe
+from repro_torch.models import attention, ffn, layers, moe, rglru
 from repro_torch.serving import kv_pages as kvp
 
 
@@ -44,10 +53,13 @@ def resolve_device(device) -> torch.device:
 
 # ---------------------------------------------------------------- blocks
 def block_defs(cfg: ModelConfig, kind: str) -> dict:
-    if kind != "attn":
+    defs = {"norm_mix": layers.norm_defs(cfg.d_model, cfg.norm)}
+    if kind == "attn":
+        defs["mixer"] = attention.attn_defs(cfg)
+    elif kind == "rec":
+        defs["mixer"] = rglru.rglru_defs(cfg)
+    else:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    defs = {"norm_mix": layers.norm_defs(cfg.d_model, cfg.norm),
-            "mixer": attention.attn_defs(cfg)}
     if cfg.num_experts > 0:
         defs["norm_ffn"] = layers.norm_defs(cfg.d_model, cfg.norm)
         defs["ffn"] = moe.moe_defs(cfg)
@@ -57,17 +69,33 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
     return defs
 
 
-def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                cache=None, pos=None, kv_valid=None, page_table=None,
-                seq_lengths=None):
+def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                device) -> dict:
+    if kind == "attn":
+        return attention.init_cache(cfg, batch, max_len, device, cfg.window)
+    if kind == "rec":
+        return rglru.init_rec_cache(cfg, batch, device)
+    raise NotImplementedError(f"block kind {kind!r} is not ported")
+
+
+def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                mode: str, cache=None, pos=None, kv_valid=None,
+                page_table=None, seq_lengths=None):
     """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
     its layers report (scalars, f32) and, with telemetry counters on, its
-    ``tel_*`` counters."""
+    ``tel_*`` counters.  A ``rec`` block's mixer takes no positions,
+    validity or lengths: its state is the whole history."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
-    y, cache, a_aux = attention.attn_apply(
-        p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
-        cache=cache, pos=pos, kv_valid=kv_valid, page_table=page_table,
-        seq_lengths=seq_lengths)
+    if kind == "attn":
+        y, cache, a_aux = attention.attn_apply(
+            p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
+            cache=cache, pos=pos, kv_valid=kv_valid, page_table=page_table,
+            seq_lengths=seq_lengths)
+    elif kind == "rec":
+        y, cache, a_aux = rglru.rec_apply(p["mixer"], h, cfg, mode=mode,
+                                          cache=cache)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     x = x + y.to(x.dtype)
     f_aux: dict = {}
     if "ffn" in p:
@@ -88,15 +116,23 @@ def _unit_defs(cfg: ModelConfig) -> dict:
             for i, kind in enumerate(cfg.pattern)}
 
 
+def _tail_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    return cfg.pattern[:cfg.num_layers % len(cfg.pattern)]
+
+
 def num_units(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(cfg.pattern)
 
 
+_PATTERNS = (("attn",), ("rec", "rec", "attn"))
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.pattern != ("attn",) or cfg.frontend or cfg.family == "audio":
+    if (cfg.pattern not in _PATTERNS or cfg.frontend
+            or cfg.family == "audio"):
         raise NotImplementedError(
             f"{cfg.name}: only decoder-only attention stacks (dense or "
-            "MoE FFN) are ported so far")
+            "MoE FFN) and the (rec, rec, attn) hybrid are ported so far")
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -106,6 +142,10 @@ def lm_defs(cfg: ModelConfig) -> dict:
         "final_norm": layers.norm_defs(cfg.d_model, cfg.norm),
         "units": stack_defs(_unit_defs(cfg), num_units(cfg)),
     }
+    tail = _tail_kinds(cfg)
+    if tail:
+        defs["tail"] = {f"t{i}_{kind}": block_defs(cfg, kind)
+                        for i, kind in enumerate(tail)}
     if not cfg.tie_embeddings:
         defs["head"] = {"w": ParamDef((cfg.d_model, cfg.padded_vocab),
                                       torch.bfloat16, init="fan_in",
@@ -122,8 +162,9 @@ def _unit_slice(tree, u: int):
 
 class LM(nn.Module):
     """The language model as modules: ``embed``, ``final_norm``, one
-    ``ParamTree`` per unit in ``units``, ``head`` when untied and ``pos``
-    with learned positions.
+    ``ParamTree`` per unit in ``units``, the ``tail`` blocks (None when
+    the layers fill whole units), ``head`` when untied and ``pos`` with
+    learned positions.
 
     params: the JAX-layout tree of tensors (``init_tree`` or
     ``from_numpy_tree``); it is moved to ``device`` (CUDA by default)."""
@@ -140,6 +181,8 @@ class LM(nn.Module):
         self.units = nn.ModuleList(
             ParamTree(_unit_slice(params["units"], u), unit_defs)
             for u in range(num_units(cfg)))
+        self.tail = (ParamTree(params["tail"], defs["tail"])
+                     if "tail" in defs else None)
         for key in ("head", "pos"):
             if key in defs:
                 setattr(self, key, ParamTree(params[key], defs[key]))
@@ -181,16 +224,26 @@ def paged_applicable(cfg: ModelConfig) -> bool:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                 kv_pages: Optional[int] = None) -> dict:
-    """kv_pages: when set, the attention caches are (kv_pages, page_size,
-    ...) pools shared across slots instead of per-slot (batch, max_len,
-    ...) strips."""
-    if _kind_paged(cfg, "attn", kv_pages):
-        one = attention.init_paged_cache(cfg, kv_pages, device)
-    else:
-        one = attention.init_cache(cfg, batch, max_len, device, cfg.window)
+    """Every block's cache: stacked (U, ...) under ``units``, the tail's
+    unstacked under ``tail``.  kv_pages: when set, the attention caches
+    without a SWA ring are (kv_pages, page_size, ...) pools shared across
+    slots instead of per-slot (batch, max_len, ...) strips; recurrent
+    states and ring caches keep the per-slot layout."""
+    def one_cache(kind):
+        if _kind_paged(cfg, kind, kv_pages):
+            return attention.init_paged_cache(cfg, kv_pages, device)
+        return block_cache(cfg, kind, batch, max_len, device)
+
     u = num_units(cfg)
-    return {"units": {"b0_attn": {
-        k: v[None].expand(u, *v.shape).contiguous() for k, v in one.items()}}}
+    caches = {"units": {
+        f"b{i}_{kind}": {k: v[None].expand(u, *v.shape).contiguous()
+                         for k, v in one_cache(kind).items()}
+        for i, kind in enumerate(cfg.pattern)}}
+    tail = _tail_kinds(cfg)
+    if tail:
+        caches["tail"] = {f"t{i}_{kind}": one_cache(kind)
+                          for i, kind in enumerate(tail)}
+    return caches
 
 
 # ---------------------------------------------------------------- forward
@@ -214,20 +267,23 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0
 
 def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                 caches=None, pos=None, remat: bool = True, kv_valid=None,
-                page_table=None, seq_lengths=None):
-    """Run the pattern units (``LM.units`` or per-unit param dicts) over
-    x.  Returns (x, aux): in train mode aux sums AUX_KEYS over every
+                page_table=None, seq_lengths=None, tail=None):
+    """Run the pattern units (``LM.units`` or per-unit param dicts), then
+    the tail blocks (``tail``: ``LM.tail`` or the ``"tail"`` param dict)
+    over x.  Returns (x, aux): in train mode aux sums AUX_KEYS over every
     block, and with ``remat`` each unit runs under a non-reentrant
     checkpoint (its activations are recomputed in backward, kernels
-    included, as JAX's jax.checkpoint of the scan body does).  Inference
-    modes skip the aux sums (no extra launches on the decode path); the
-    telemetry counters (``tel_*``, present only when the config turns
-    them on) are summed over a unit's blocks and stacked per unit,
-    (U, ...), as JAX's scan stacks them."""
+    included, as JAX's jax.checkpoint of the scan body does); the tail
+    runs outside it, once.  Inference modes skip the aux sums (no extra
+    launches on the decode path); the telemetry counters (``tel_*``,
+    present only when the config turns them on) are summed over a unit's
+    blocks and stacked per unit, (U, ...), as JAX's scan stacks them, and
+    each tail block appends a row of the counters it reports."""
     train = mode == "train"
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in AUX_KEYS} if train else {})
     tel: Dict[str, list] = {}
+    rows = []                   # each unit's, then each tail block's, aux
 
     def unit_body(h, unit, u):
         aux_u = {}
@@ -235,8 +291,8 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
             name = f"b{i}_{kind}"
             c = (None if caches is None else
                  {k: v[u] for k, v in caches["units"][name].items()})
-            h, _, aux = block_apply(unit[name], h, cfg, mode=mode, cache=c,
-                                    pos=pos, kv_valid=kv_valid,
+            h, _, aux = block_apply(unit[name], h, cfg, kind, mode=mode,
+                                    cache=c, pos=pos, kv_valid=kv_valid,
                                     page_table=page_table,
                                     seq_lengths=seq_lengths)
             for k, val in aux.items():
@@ -249,7 +305,17 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                                   preserve_rng_state=False)
         else:
             x, aux_u = unit_body(x, unit, u)
-        for k, val in aux_u.items():
+        rows.append(aux_u)
+    for i, kind in enumerate(_tail_kinds(cfg)):
+        name = f"t{i}_{kind}"
+        c = None if caches is None else caches["tail"][name]
+        x, _, aux = block_apply(tail[name], x, cfg, kind, mode=mode, cache=c,
+                                pos=pos, kv_valid=kv_valid,
+                                page_table=page_table,
+                                seq_lengths=seq_lengths)
+        rows.append(aux)
+    for aux in rows:
+        for k, val in aux.items():
             if k.startswith("tel_"):
                 tel.setdefault(k, []).append(val)
             elif train:
@@ -271,7 +337,7 @@ def lm_hidden(params: dict, cfg: ModelConfig,
     leaves through the per-unit views."""
     x = _embed_inputs(params, cfg, batch["tokens"])
     x, aux = _run_blocks(_unit_trees(params, cfg), cfg, x, mode="train",
-                         remat=remat)
+                         remat=remat, tail=params.get("tail"))
     return layers.apply_norm(params["final_norm"], x, cfg.norm), aux
 
 
@@ -311,7 +377,8 @@ def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
     ``spt.telemetry`` != "off")."""
     x = _embed_inputs(model, cfg, token[:, None], pos0=pos)
     x, aux = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
-                         pos=pos, kv_valid=kv_valid, page_table=page_table)
+                         pos=pos, kv_valid=kv_valid, page_table=page_table,
+                         tail=model.tail)
     x = layers.apply_norm(model.final_norm, x, cfg.norm)
     logits = logits_of(model, cfg, x)
     return (logits, _counters(aux)) if return_counters else logits
@@ -329,7 +396,7 @@ def lm_prefill(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
     x = _embed_inputs(model, cfg, tokens)
     x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
-                       pos=0, remat=False)
+                       pos=0, remat=False, tail=model.tail)
     x = layers.apply_norm(model.final_norm, x[:, -1:], cfg.norm)
     return caches, logits_of(model, cfg, x)
 
@@ -350,11 +417,14 @@ def length_sensitive(cfg: ModelConfig) -> bool:
 
 
 def _mask_invalid_slots(caches: dict, lengths: torch.Tensor) -> dict:
-    """Mark cache slots holding positions >= lengths[b] as empty (slot_pos
-    -1) so a right-padded prefill leaves no phantom KV."""
-    for blk in caches["units"].values():
-        sp = blk["slot_pos"]                              # (U, B, S)
-        sp.masked_fill_(sp >= lengths.reshape(1, -1, 1), -1)
+    """Mark attention-cache slots holding positions >= lengths[b] as
+    empty (slot_pos -1) so a right-padded prefill leaves no phantom KV;
+    recurrent states have no slots."""
+    for part, _, blk in _named_blocks(caches):
+        if "slot_pos" in blk:
+            sp = blk["slot_pos"]                          # ([U,] B, S)
+            ln = lengths.reshape((1,) * (part == "units") + (-1, 1))
+            sp.masked_fill_(sp >= ln, -1)
     return caches
 
 
@@ -374,7 +444,8 @@ def lm_prefill_ragged(model: LM, cfg: ModelConfig,
     x = _embed_inputs(model, cfg, tokens)
     sl = lengths if length_sensitive(cfg) else None
     x, aux = _run_blocks(model.units, cfg, x, mode="prefill",
-                         caches=caches, pos=0, seq_lengths=sl)
+                         caches=caches, pos=0, seq_lengths=sl,
+                         tail=model.tail)
     idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
     x_last = x.gather(1, idx[:, None, None].expand(bsz, 1, x.shape[-1]))
     x_last = layers.apply_norm(model.final_norm, x_last, cfg.norm)
@@ -393,10 +464,24 @@ def write_slot_caches_rows(dst: dict, rows: dict, slots: torch.Tensor
     row, which is dropped."""
     keep = torch.nonzero(slots >= 0).flatten()
     dest = slots[keep].long()
-    for name, blk in dst["units"].items():
-        for k, v in blk.items():                          # (U, B, ...)
-            v[:, dest] = rows["units"][name][k][:, keep].to(v.dtype)
+    for part, name, blk in _named_blocks(dst):
+        _write_rows(blk, rows[part][name], keep, dest, part == "units")
     return dst
+
+
+def _named_blocks(caches: dict):
+    """(part, name, block cache) of every block, units then tail."""
+    for part in ("units", "tail"):
+        for name, blk in caches.get(part, {}).items():
+            yield part, name, blk
+
+
+def _write_rows(blk: dict, rows: dict, keep, dest, stacked: bool) -> None:
+    for k, v in blk.items():
+        if stacked:                                       # (U, B, ...)
+            v[:, dest] = rows[k][:, keep].to(v.dtype)
+        else:                                             # (B, ...)
+            v[dest] = rows[k][keep].to(v.dtype)
 
 
 def write_slot_caches_paged_rows(dst: dict, rows: dict, slots: torch.Tensor,
@@ -416,12 +501,18 @@ def write_slot_caches_paged_rows(dst: dict, rows: dict, slots: torch.Tensor,
     pt_rows = torch.where(slots[:, None] >= 0,
                           page_table[slots.clamp(0, ns - 1).long()],
                           -1)                             # (Bp, MP)
-    for name, blk in dst["units"].items():
+    keep = torch.nonzero(slots >= 0).flatten()
+    dest = slots[keep].long()
+    for part, name, blk in _named_blocks(dst):
+        if not _kind_paged(cfg, name.split("_", 1)[1], True):
+            # recurrent states (the tail's too): per-slot rows
+            _write_rows(blk, rows[part][name], keep, dest, part == "units")
+            continue
         for key, pool in blk.items():                     # (U, P, ...)
+            seqs = rows[part][name][key]                  # (U, Bp, ...)
             u, p = pool.shape[:2]
             off = torch.arange(u, device=pool.device)[:, None, None] * p
             pts = torch.where(pt_rows[None] >= 0, pt_rows[None] + off, -1)
-            seqs = rows["units"][name][key]               # (U, Bp, ...)
             kvp.scatter_prefill_rows(
                 pool.view(u * p, *pool.shape[2:]),
                 pts.reshape(-1, pts.shape[-1]),
@@ -437,7 +528,9 @@ def reset_page_slots(caches: dict, cfg: ModelConfig, pid: torch.Tensor,
     previous tenant's slot_pos rows, which would look valid to the
     self-derived kv_valid of the gathered-view tier.  K/V/code rows need
     no reset — validity masks them until they are overwritten."""
-    for blk in caches["units"].values():
+    for name, blk in caches["units"].items():
+        if not _kind_paged(cfg, name.split("_", 1)[1], True):
+            continue                    # a recurrent state has no pages
         sp = blk["slot_pos"]                              # (U, P, ps)
         kvp.put_masked(sp, (slice(None), pid),
                        sp.new_full((sp.shape[0], pid.shape[0], sp.shape[2]),

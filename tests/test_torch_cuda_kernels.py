@@ -58,3 +58,39 @@ def test_grouped_ffn_takes_the_paper_widths(card, d, f, act, gated):
     torch.testing.assert_close(torch.where(ok, got.float(), 0.0),
                                torch.where(ok, want.float(), 0.0),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gran", ["qhead", "kvgroup"])
+def test_decode_kernels_take_sixteen_query_heads(card, gran):
+    """recurrentgemma-9b's MQA (16 query heads on 1 kv head of 256, M =
+    32) once failed to launch: the decode kernels held at most 8 query
+    rows and 264 histogram buckets.  Kernel 6 and the two-pass pair at R
+    = 16 against the plain version."""
+    from repro_torch.kernels.sparse_attention import ops, ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    b, r, dh, m, s = 4, 16, 256, 32, 2048
+    q = torch.randn(b, r, dh, device="cuda", generator=card).to(torch.bfloat16)
+    k, v = (torch.randn(b, s, dh, device="cuda", generator=card)
+            .to(torch.bfloat16) for _ in range(2))
+    cq = torch.randint(0, 16, (b, r, m), device="cuda", generator=card,
+                       dtype=torch.int32)
+    ck = torch.randint(0, 16, (b, s, m), device="cuda", generator=card,
+                       dtype=torch.int8)
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    sum_rows = gran == "kvgroup"
+    kw = dict(scale=dh ** -0.5, l=256, max_score=m * (r if sum_rows else 1),
+              sum_rows=sum_rows, heads_per_batch=1)
+    got, thr = ops.fused_sparse_decode_attention(
+        q, k, v, cq, ck, valid, return_thresholds=True, **kw)
+    want, thr_ref = ref.fused_decode_ref(q, k, v, cq, ck, valid, **kw)
+    assert torch.equal(thr, thr_ref)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    sel = {x: kw[x] for x in ("l", "max_score", "sum_rows",
+                              "heads_per_batch")}
+    thr3 = topl_ops.decode_topl_thresholds(cq, ck, valid, **sel)
+    two = ops.sparse_decode_attention(q, k, v, cq, ck, thr3, valid,
+                                      scale=kw["scale"], sum_rows=sum_rows,
+                                      heads_per_batch=1)
+    assert torch.equal(thr3, thr) and torch.equal(two, got)

@@ -257,3 +257,90 @@ def test_decode_stages_fit_the_ring(elem):
         assert (stages == 3) == (3 * stage <= kernels.DECODE_RING_BYTES)
         assert stages * stage <= 128 * 1024
     assert kernels.decode_stages(128, 2) == 3
+
+
+# ------------------------------------------------------------ R <= 16
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+def _meta_decode(r, m, dh=256, g=2, s=256):
+    return (_meta(g, r, dh, dtype=torch.bfloat16),
+            _meta(g, s, dh, dtype=torch.bfloat16),
+            _meta(g, s, dh, dtype=torch.bfloat16),
+            _meta(g, r, m, dtype=torch.int32),
+            _meta(g, s, m, dtype=torch.int8), _meta(g, s, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("r,m,max_score,sum_rows,ok", [
+    (16, 32, 32, False, True),          # recurrentgemma, "qhead": 16 x 33
+    (16, 32, 512, True, True),          # "kvgroup": 1 x (16 x 32 + 1)
+    (8, 32, 32, False, True),           # the narrow instances' 8 x 33
+    (17, 32, 32, False, False),         # past 16 query heads a kv head
+    (16, 32, 33, False, False),         # 16 x 34 buckets past 528
+    (8, 32, 33, False, False),          # 8 x 34 past the narrow 264
+    (4, 33, 33, False, False),          # more books than the kernels score
+])
+def test_decode_args_contract(r, m, max_score, sum_rows, ok):
+    """Kernels 3, 5-8 take R <= 16 query heads a kv head, M <= 32 books
+    and the histogram room of their instance; the wrappers refuse the
+    rest with a ValueError before anything is built or launched (meta
+    tensors stand in for CUDA ones)."""
+    q, k, v, cq, ck, valid = _meta_decode(r, m)
+    r_out = 1 if sum_rows else r
+    sel = dict(l=32, max_score=max_score, sum_rows=sum_rows,
+               heads_per_batch=1)
+    wrappers = [sa_ops.fused_sparse_decode_attention,
+                topl_ops.decode_topl_thresholds]
+    before = [w.launches for w in wrappers]
+    if ok:
+        kernels.check_decode_args("decode", r, dh=256, m=m,
+                                  buckets=r_out * (max_score + 1))
+    else:
+        with pytest.raises(ValueError):
+            sa_ops.fused_sparse_decode_attention(q, k, v, cq, ck, valid,
+                                                 scale=1.0, **sel)
+        with pytest.raises(ValueError):
+            topl_ops.decode_topl_thresholds(cq, ck, valid, **sel)
+    if r > kernels.DECODE_R_MAX:
+        thr = _meta(2, r_out, 2, dtype=torch.int32)
+        pages = _meta(1, 1, 256, 256, dtype=torch.bfloat16)
+        pt = _meta(2, 1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="query heads"):
+            sa_ops.sparse_decode_attention(
+                q, k, v, cq, ck, thr, valid, scale=1.0, sum_rows=sum_rows,
+                heads_per_batch=1)
+        with pytest.raises(ValueError, match="query heads"):
+            sa_ops.dense_decode_attention_paged(pt, q, pages, pages, valid,
+                                                scale=1.0, heads_per_batch=1)
+    assert [w.launches for w in wrappers] == before
+    assert kernels._lib is None                  # nothing was built
+
+
+@pytest.mark.parametrize("gran", ["qhead", "kvgroup"])
+def test_sixteen_query_heads_plain_matches_jax_kernel(gran):
+    """R = 16 on one kv head (recurrentgemma's MQA): the fused kernel's
+    and the two-pass tier's plain versions against the JAX kernels, [t,
+    need] exactly and outputs to 1e-5; the two tiers equal bit for bit."""
+    q, k, v, cq, ck, valid, kw = _contig_case(gran, 16, 1, 16)
+    r_out = 1 if kw["sum_rows"] else 16
+    kernels.check_decode_args("decode", 16, dh=D, m=M,
+                              buckets=r_out * (kw["max_score"] + 1))
+    scale = D ** -0.5
+    args = [jnp.asarray(x) for x in (q, k, v, cq, ck)]
+    jvalid = jnp.asarray(valid, jnp.int32)
+    want = fused_sparse_decode_attention_kernel(
+        *args, jvalid, scale=scale, tile_k=24, interpret=True, **kw)
+    thr_want = decode_topl_thresholds_kernel(
+        args[3], args[4], jvalid, tile_k=24, interpret=True, **kw)
+    pq_, pk, pv, pcq, pck, pvalid = _port(q, k, v, cq, ck, valid)
+    got, thr = sa_ops.fused_sparse_decode_attention(
+        pq_, pk, pv, pcq, pck, pvalid, scale=scale, return_thresholds=True,
+        **kw)
+    assert np.array_equal(thr.numpy(), np.asarray(thr_want))
+    close(got, want)
+    thr3 = topl_ops.decode_topl_thresholds(pcq, pck, pvalid, **kw)
+    two = sa_ops.sparse_decode_attention(
+        pq_, pk, pv, pcq, pck, thr3, pvalid, scale=scale,
+        sum_rows=kw["sum_rows"], heads_per_batch=1)
+    assert torch.equal(thr3, thr) and torch.equal(two, got)

@@ -2,9 +2,10 @@
 configs (grok-1-314b: GeGLU, no window; mixtral-8x22b: SwiGLU, window 32)
 in f32, 2 layers, 4 experts top 2:
 
-  * the registry: mixtral, grok, gemma-7b and the two h2o-danube configs
-    equal JAX's ``config()`` and ``smoke()`` field for field, and
-    ``cell_supported`` agrees;
+  * the registry: every arch the port registers (mixtral, grok, qwen3,
+    gemma-7b, the two h2o-danube configs, recurrentgemma-9b) equals JAX's
+    ``config()`` and ``smoke()`` field for field, and ``cell_supported``
+    agrees;
   * ``moe_apply`` in train, prefill, decode and ragged ``seq_lengths``
     modes, against JAX's grouped path and its Pallas path (interpret
     mode), through the port's plain path and its kernel path (whose
@@ -86,9 +87,7 @@ def _rel_close(got, want, rel):
 
 
 # ------------------------------------------------------------ registry
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "grok-1-314b",
-                                  "gemma-7b", "h2o-danube-1.8b",
-                                  "h2o-danube-3-4b"])
+@pytest.mark.parametrize("name", configs.ARCH_NAMES)
 def test_registry_configs_match_jax(name):
     assert name in configs.ARCH_NAMES
     assert configs.get_config(name) == port_cfg(jconfigs.get_config(name))

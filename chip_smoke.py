@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only server    # phases 1-3, 12-13
     python3 chip_smoke.py --only moe       # phases 1-3, 14-15
     python3 chip_smoke.py --only hybrid    # phases 1-3, 16-18
+    python3 chip_smoke.py --only families  # phases 1-3, 19-22
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -50,7 +51,15 @@ Phases (each raises on failure; nothing is caught):
      at recurrentgemma-9b's serving width; kernels 1, 2 and 4 at its
      training step (M = 32, max_score 32, rep 16, kernel 4 in bf16 at dh
      256 with window 2048, and where the window binds in bf16 and f32),
-     kernels 9 and 10 at its FFN widths (d 4096, F 1,536 GeGLU); times by
+     kernels 9 and 10 at its FFN widths (d 4096, F 1,536 GeGLU); kernels
+     1, 2 and 4 non-causal at whisper-base's encoder (4 x 8 heads, 1500 x
+     1500, dh 64, M 8) and cross-attention (448 x 1500), kernel 4 in bf16
+     and f32, and at phi-3-vision's training step (4 x 1024, 32 heads of
+     96, M 12); the decode kernels (3, 5-8) at dh 96 / M 12 / R = 1, timed
+     at phi-3-vision's serving width (8 slots x 32 kv heads), and at
+     whisper-base's decoder (dh 64, 68 live slots); kernels 9 and 10 at
+     phi-3-vision's FFN (d 3072, F 1,024 SwiGLU) and whisper-base's (d
+     512, F 256 GELU ungated); times by
      CUDA events (L2 flushed between launches)
      beside the least time the card could take (bytes over 3.35 TB/s or
      operations over the peak rate), and for kernels 9 and 10 a torch
@@ -136,9 +145,32 @@ Phases (each raises on failure; nothing is caught):
      1024, 16 query heads of 256 on 1 kv head kept (R = 16), window 64,
      in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy streams
      up to near-ties, one train step's loss and gradient cosine;
-  then one JSON line of the ten kernels (launches per path; each with its
-  times at the paper's, the MoE and the hybrid shapes), then the result
-  line.
+  19. phi-3-vision-4.2b at full width and depth (32 layers), bf16: a
+     burst Engine.run of 8 requests, each 576 frontend rows before a
+     prompt of 128-1024 tokens, 32 new tokens, max_len 2048 (kernels 6,
+     9, 10), a decode step's split, the same on the paged layout with a
+     pool of 80 pages (kernel 7); 2 "spt" train steps at 4 x (576 + 448)
+     positions (kernels 1, 2, 4, 9) and a profiled step, 2 "lora" steps
+     (no kernel);
+  20. mamba2-780m at full width and depth (48 layers), bf16: a burst
+     Engine.run of 8 requests (prompts 128-2048, 32 new tokens, exact-
+     length prefill groups), a decode step's split, 2 "spt" and 2 "lora"
+     train steps at 4 x 1024: no SPT kernel launches on any of them;
+  21. whisper-base (6 + 6 layers), bf16: Engine.generate of 8 rows of 1500
+     frames, 4-token prompts, 64 new tokens on the per-token path
+     (kernels 1, 2, 4, 9 in the prefill, 6 and 10 per decode call), the
+     prefill's wall time and a decode step's split, the launcher's
+     legacy-audio blob, 2 "spt" train steps at 4 x 448 decoder tokens
+     over 1500 frames and a profiled step;
+  22. f32 agreement, kernels on against REPRO_DISABLE_KERNELS=1:
+     phi-3-vision at 4 layers (d 1536, dh 96, M 12, 576 frontend rows),
+     mamba2-780m at 4 layers, whisper-base at 2 + 2 layers: greedy
+     streams up to near-ties (mamba2: identical, no launch), one train
+     step's loss (rel 1e-4) and gradient cosine (>= 0.999);
+  counters are zeroed just before each counted run and read just after,
+  launch counts exact; then one JSON line of the ten kernels (launches
+  per path; each with its times at the paper's, the MoE, the hybrid and
+  the three families' shapes), then the result line.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
@@ -1798,12 +1830,166 @@ def check_hybrid_shapes(torch, gen):
     return out
 
 
+# The three families' new contract points: whisper-base's encoder (4 x 8
+# heads, 1500 x 1500 frames, dh 64, M 8, non-causal) and its
+# cross-attention (448 decoder rows over the 1500 frames, non-causal, nq
+# != nk); phi-3-vision-4.2b's training step (4 x 1024 positions, 32 heads
+# of 96, M 12, causal); their FFN widths (label, d, F = d_ff / 8, act,
+# gated, training rows a batch row): phi-3 d 3072, F 1024 SwiGLU (kernel
+# 9's wide form) at 1024 positions, whisper d 512, F 256 GELU ungated
+# (its resident body) at the encoder's 1500 frames; and the decode
+# kernels at phi-3's serving width (8 slots x 32 kv heads, R = 1, dh 96,
+# M 12, a 32 x 128 view with 2048 live slots) and at whisper's decoder
+# self-attention (8 slots x 8 heads, dh 64, M 8, 68 live slots of one
+# page).
+WH_HEADS, WH_DH, WH_FRAMES, WH_DEC = 8, 64, 1500, 448
+PHI_HEADS, PHI_DH = 32, 96
+FAMILY_ATTN = [  # (label, heads, dh, nq, nk, causal, dtypes)
+    ("whisper-base encoder", WH_HEADS, WH_DH, WH_FRAMES, WH_FRAMES, False,
+     ("bfloat16", "float32")),
+    ("whisper-base cross", WH_HEADS, WH_DH, WH_DEC, WH_FRAMES, False,
+     ("bfloat16", "float32")),
+    ("phi-3-vision-4.2b train", PHI_HEADS, PHI_DH, TS, TS, True,
+     ("bfloat16",)),
+]
+FAMILY_FFN = [("phi-3-vision-4.2b", 3072, 1024, "silu", True, TS),
+              ("whisper-base", 512, 256, "gelu", False, WH_FRAMES)]
+FAMILY_EDGES = [
+    ("R=1 dh=96 M=12 (phi-3-vision-4.2b: 8 slots x 32 kv heads)", 8, 32, 1,
+     96, "qhead", False, False, 12),
+    ("R=1 dh=96 M=12 l >= live", 2, 8, 1, 96, "qhead", True, True, 12),
+    ("R=1 dh=64 M=8, 68 live of one page (whisper-base decoder: 8 slots x "
+     "8 heads)", 8, 8, 1, 64, "qhead", False, True, 8, (1, 68)),
+]
+
+
+def check_family_shapes(torch, gen):
+    """Kernels 1, 2 and 4 on FAMILY_ATTN (kernel 1 on the queries, and on
+    the keys where nq != nk; kernel 4 in each dtype listed), kernels 9
+    and 10 at FAMILY_FFN (4 x rows training batches; 8 decode slots):
+    each launched twice bit-identically, against its plain version
+    (codes by the margin rule, [t, need] exactly), and timed by CUDA
+    events beside its bound (kernels 1, 9 and 10 also beside their torch
+    yardsticks).  Returns {wrapper name: [case rows]}."""
+    from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels.pq_quantize import ops as pq_ops
+    from repro_torch.kernels.routed_ffn import ops as ffn_ops
+    from repro_torch.kernels.routed_ffn import ref as ffn_ref
+    from repro_torch.kernels.sparse_attention import ops as sa_ops
+    from repro_torch.kernels.sparse_attention import ref as sa_ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.kernels.topl_select.ref import (masked_scores,
+                                                     thresholds_ref)
+    bf16, tag = torch.bfloat16, "families"
+    out = {}
+    for label, heads, dh, nq, nk, causal, dts in FAMILY_ATTN:
+        g, m = TB * heads, dh // 8
+        cb = _codebooks(torch, gen, m, E_WORDS, 8)
+        for what, n in (("q", nq), ("k", nk))[:1 if nq == nk else 2]:
+            case = f"{label} {what} (x ({g}, {n}, {dh}), M={m})"
+            x = torch.randn(g, n, dh, device="cuda", generator=gen).to(bf16)
+            codes = _twice(torch, lambda: pq_ops.pq_assign(x, cb),
+                           f"pq_assign {case}")
+            flips, _ = _margin_flips(torch, codes, x, cb, case)
+            ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
+            yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
+            _paper_row(out, "pq_assign", case, ms,
+                       bound(nbytes(x, cb, codes), g * n * m * E_WORDS * 18,
+                             bf16), float(flips), yard, tag=tag)
+        cq, ck = _train_codes(torch, gen, nq, nk, g, g, m)
+        sel = dict(causal=causal, window=None, q_offset=0,
+                   heads_per_batch=heads, rep=1)
+        kw = dict(l=_top_l(nk), max_score=m, **sel)
+        case = (f"{label} (G={g}, nq={nq}, nk={nk}, dh={dh}, M={m}, R=1, "
+                f"{'causal' if causal else 'non-causal'})")
+        thr = _twice(torch, lambda: topl_ops.topl_thresholds(cq, ck, **kw),
+                     f"topl_thresholds {case}")
+        if not torch.equal(thr, thresholds_ref(cq, ck, **kw)):
+            raise AssertionError(f"topl_thresholds {case}: [t, need] differ")
+        sm = masked_scores(cq, ck, **sel)
+        ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
+        _paper_row(out, "topl_thresholds", case, ms,
+                   bound(nbytes(cq, ck, thr), int((sm >= 0).sum()) * m,
+                         torch.float32), 0.0, tag=tag)
+        kept = sa_ref.newest_ties(sm, thr)
+        del sm
+        for dtn in dts:
+            dt = getattr(torch, dtn)
+            q = torch.randn(g, nq, dh, device="cuda", generator=gen).to(dt)
+            k, v = (torch.randn(g, nk, dh, device="cuda",
+                                generator=gen).to(dt) for _ in range(2))
+            akw = dict(scale=dh ** -0.5, **sel)
+            got = _twice(torch, lambda: sa_ops.sparse_attention(
+                q, k, v, cq, ck, thr, **akw), f"sparse_attention {dtn} {case}")
+            err = close(got, sa_ref.sparse_attention_ref(
+                q, k, v, cq, ck, thr, **akw),
+                BF16_TOL if dt == bf16 else F32_TOL)
+            if dt != bf16:
+                print(f"  [{tag}] sparse_attention {dtn} {case}: max_abs_err "
+                      f"{err:.3e}; bit-identical twice", flush=True)
+                continue
+            ms = time_ms(lambda: sa_ops.sparse_attention(
+                q, k, v, cq, ck, thr, **akw), 20)
+            moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
+                     + 2 * int(kept.any(1).sum()) * dh * k.element_size())
+            _paper_row(out, "sparse_attention", f"{case} {dtn}", ms,
+                       bound(moved, 4 * dh * int(kept.sum()), bf16), err,
+                       tag=tag)
+        del kept
+    for label, d, f, act, gated, rows in FAMILY_FFN:
+        cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=rows, d=d, f=f,
+                           g=8, ga=4, r=16, capf=1.25, act=act, gated=gated)
+        args = cs["args"]
+        ms = time_ms(lambda: ffn_ops.grouped_ffn(*args, act=act), 10)
+        lora16 = _bf16_lora(torch, cs["lora"])
+        yard = time_ms(lambda: grouped_ffn_yardstick(
+            torch, cs["x"], cs["plan"].index, cs["wts"], lora16, 1.0,
+            act=act), 10)
+        form = "gated" if gated else "ungated"
+        _paper_row(out, "grouped_ffn", f"{label} train (x ({TB}, {rows}, "
+                   f"{d}), F={f}, {act} {form}, C={cs['c']}, LoRA r=16)", ms,
+                   _grouped_bound(torch, cs, d, f, 16, bf16, gated),
+                   cs["err"], yard, tag=tag)
+        b, ga, r = 8, 4, 16
+        rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=8 * f, num_groups=8,
+                                  active_groups=ga, activation=act,
+                                  gated=gated)
+        wts, lora = _ffn_weights(torch, gen, 8, d, f, r, bf16)
+        if not gated:
+            del wts["w_gate"], lora["lora_gate"]
+        x = torch.randn(b, d, device="cuda", generator=gen).to(bf16)
+        router = torch.randn(d, 8, device="cuda", generator=gen) / d ** 0.5
+        choice, gate, _ = rf.route(x[:, None], router, rcfg, need_aux=False)
+        choice, gate = choice[:, 0].contiguous(), gate[:, 0].contiguous()
+        args = (x, choice, gate, wts["w_inner"], wts["w_outer"],
+                wts.get("w_gate"), lora, 1.0)
+        case = f"{label} decode (x ({b}, {d}), F={f}, {act} {form}, LoRA r={r})"
+        y = _twice(torch, lambda: ffn_ops.decode_ffn(*args, act=act),
+                   f"decode_ffn {case}")
+        err = close(y, ffn_ref.decode_ffn_ref(*args, act=act), BF16_TOL)
+        ms = time_ms(lambda: ffn_ops.decode_ffn(*args, act=act), 30)
+        lora16 = _bf16_lora(torch, lora)
+        yard = time_ms(lambda: decode_ffn_yardstick(
+            torch, x, choice, gate, wts, lora16, 1.0, act=act), 30)
+        mats = 3 if gated else 2
+        moved = (int(torch.unique(choice).numel()) * mats * d * f
+                 * x.element_size()
+                 + sum(nbytes(*t.values()) for t in lora.values())
+                 + nbytes(x, choice, gate) + b * d * x.element_size())
+        _paper_row(out, "decode_ffn", case, ms,
+                   bound(moved, b * ga * 2 * d * f * mats, bf16), err, yard,
+                   tag=tag)
+    return out
+
+
 # ------------------------------------------------------------ phases 4-6
 def _perturbed_model(torch, cfg, seed):
-    """Random full-width weights from a seed; LoRA c leaves (zero at
-    init) get small values so the LoRA halves of the kernels do work."""
-    from repro_torch.models import transformer
-    model = transformer.LM.init(cfg, seed=seed, device="cuda")
+    """Random full-width weights from a seed (an EncDecLM for the audio
+    family); LoRA c leaves (zero at init) get small values so the LoRA
+    halves of the kernels do work."""
+    from repro_torch.models import encdec, transformer
+    cls = encdec.EncDecLM if cfg.family == "audio" else transformer.LM
+    model = cls.init(cfg, seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1812,13 +1998,30 @@ def _perturbed_model(torch, cfg, seed):
     return model
 
 
-def _requests(n, lo, hi, gen_tokens, vocab, seed):
+def _requests(n, lo, hi, gen_tokens, vocab, seed, frontend=None):
+    """n requests with prompts of lo-hi tokens from numpy ``seed``; with
+    ``frontend`` = (F, d), each also carries F standard-normal frontend
+    rows from a second seeded stream (the prompts stay those of the
+    seed)."""
     import numpy as np
     from repro_torch.serving.engine import Request
     rng = np.random.default_rng(seed)
-    return [Request(uid=i, tokens=rng.integers(0, vocab, size=int(
+    reqs = [Request(uid=i, tokens=rng.integers(0, vocab, size=int(
         rng.integers(lo, hi + 1))).tolist(), max_new_tokens=gen_tokens)
         for i in range(n)]
+    if frontend is not None:
+        frng = np.random.default_rng(seed + 1000)
+        for r in reqs:
+            r.frontend_embeds = frng.standard_normal(frontend).astype(
+                np.float32)
+    return reqs
+
+
+def _frontend(cfg):
+    """(F, d) of a VLM's frontend rows, or None."""
+    if not cfg.frontend or cfg.family == "audio":
+        return None
+    return (cfg.frontend_tokens, cfg.d_model)
 
 
 SERVE_CFG = dict(attn_impl="pallas", ffn_impl="pallas")
@@ -1846,12 +2049,14 @@ def _serve(torch, model, cfg, label, kv_pages=None, work=PHASE4_WORK,
     from repro_torch.serving.engine import ArrivalSchedule, Engine
     eng = Engine(cfg, model, max_len=work["max_len"], num_slots=8,
                  decode_chunk=16, kv_pages=kv_pages)
-    eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1))     # warm-up
+    fe = _frontend(cfg)
+    eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1,
+                      frontend=fe))                              # warm-up
     reqs = _requests(work["n"], work["lo"], work["hi"], work["gen"],
-                     cfg.vocab_size, seed=2)
+                     cfg.vocab_size, seed=2, frontend=fe)
     if work.get("long"):              # the last prompt replaced by a long one
         reqs[-1] = _requests(1, work["long"], work["long"], work["gen"],
-                             cfg.vocab_size, seed=3)[0]
+                             cfg.vocab_size, seed=3, frontend=fe)[0]
         reqs[-1].uid = work["n"] - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1913,10 +2118,12 @@ def _want_serve_launches(cfg, launches, steps, prefill_batches):
     prefill batch (resume re-prefills included) the grouped FFN once per
     layer.
     The ragged prefill takes the oracle attention (as in JAX), so the
-    train-path attention kernels stay idle."""
+    train-path attention kernels stay idle.  An ``ssd`` block has neither
+    attention nor an FFN: it launches nothing."""
     from repro_torch.core import dispatch
-    layers = cfg.num_layers
-    attn_layers = _layer_kinds(cfg).count("attn")
+    kinds = _layer_kinds(cfg)
+    layers = sum(k != "ssd" for k in kinds)          # layers with an FFN
+    attn_layers = kinds.count("attn")
     if dispatch.use_paged_kv(cfg) and dispatch.use_paged_native_decode(cfg):
         decode_attn = (["fused_sparse_decode_attention_paged"]
                        if cfg.spt.sparse_mha
@@ -1970,7 +2177,6 @@ def decode_step_split(torch, model, cfg, paged=False):
     far the host holds the card back.  Device time is
     the profiler's sum of kernel times (CUDA events cannot hide the host
     here: a step issues more launches than the launch queue holds)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer
     from repro_torch.serving import kv_pages
     pos = torch.full((8,), 2047, device="cuda")
@@ -2003,6 +2209,13 @@ def decode_step_split(torch, model, cfg, paged=False):
     def step():
         transformer.lm_decode_step(model, cfg, caches, tok, pos,
                                    kv_valid=valid, page_table=pt)
+    _step_split(torch, label, step)
+
+
+def _step_split(torch, label, step):
+    """Wall time of step() (5 synced runs) beside the profiler's sum of
+    its kernel times (3 runs), and its top kernels."""
+    from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2078,10 +2291,16 @@ def _compare_streams(torch, model, cfg, reqs, name, got, want, max_len=1024):
                 continue
             t = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
             ctx = list(req.tokens) + w[:t]
+            batch = {"tokens": torch.tensor([ctx], device="cuda")}
+            n = len(ctx)
+            if req.frontend_embeds is not None:       # a VLM's rows first
+                batch["frontend_embeds"] = torch.as_tensor(
+                    req.frontend_embeds, device="cuda")[None]
+                n += req.frontend_embeds.shape[0]
             with torch.no_grad():
                 _, logits = transformer.lm_prefill_ragged(
-                    model, cfg, {"tokens": torch.tensor([ctx], device="cuda")},
-                    torch.tensor([len(ctx)], device="cuda"), max_len)
+                    model, cfg, batch, torch.tensor([n], device="cuda"),
+                    max_len)
             lg = logits[0, -1].float().cpu().numpy()
             gap = float(lg.max()) - min(float(lg[g[t]]), float(lg[w[t]]))
             if gap > 1e-3:
@@ -2171,29 +2390,41 @@ def _want_train_launches(cfg, names, steps):
     forward twice a step (the checkpointed unit is recomputed in
     backward), a tail layer once; each forward of an attention layer
     launches kernel 1 twice (q and k) and kernels 2 and 4 once with
-    sparse MHA, each forward of a layer kernel 9 once with the routed FFN
-    or MoE; nothing else."""
+    sparse MHA, each forward of a layer with an FFN (every kind but
+    ``ssd``) kernel 9 once with the routed FFN or MoE; nothing else.  The
+    encoder-decoder checkpoints every layer: an encoder layer's forward
+    (one attention, one FFN) and a decoder layer's (self- and
+    cross-attention, one FFN) run twice a step."""
     from repro_torch.models import transformer
-    unit = cfg.pattern * transformer.num_units(cfg)
-    tail = transformer._tail_kinds(cfg)
-    attn = (2 * unit.count("attn") + tail.count("attn")) * steps
+    if cfg.family == "audio":
+        attn = 2 * (cfg.encoder_layers + 2 * cfg.num_layers) * steps
+        ffn_fwd = 2 * (cfg.encoder_layers + cfg.num_layers) * steps
+    else:
+        unit = cfg.pattern * transformer.num_units(cfg)
+        tail = transformer._tail_kinds(cfg)
+        attn = (2 * unit.count("attn") + tail.count("attn")) * steps
+        ffn_fwd = (2 * sum(k != "ssd" for k in unit)
+                   + sum(k != "ssd" for k in tail)) * steps
     want = {name: 0 for name in names}
     if cfg.spt.sparse_mha:
         want.update({"pq_assign": 2 * attn, "topl_thresholds": attn,
                      "sparse_attention": attn})
     if cfg.spt.routed_ffn or cfg.num_experts > 0:
-        want["grouped_ffn"] = (2 * len(unit) + len(tail)) * steps
+        want["grouped_ffn"] = ffn_fwd
     return want
 
 
-def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB):
-    """``steps`` steps of Trainer.run in bf16, batch ``batch`` x 1024 from
-    the seeded random stream, the launch counters zeroed just before and read
-    just after (checked against _want_train_launches); then, with
+def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB,
+               seq=TS):
+    """``steps`` steps of Trainer.run in bf16, batch ``batch`` x ``seq``
+    tokens from the seeded random stream (with a frontend, after its
+    seeded rows), the launch counters zeroed just before and read just
+    after (checked against _want_train_launches); then, with
     ``profile``, one more step under the profiler for the device-busy
     share.  Returns (launches, per-step rows, peak GiB, trainer)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch import kernels
+    from repro_torch.launch.train import with_frontend
     from repro_torch.optim.adamw import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
     trainer = Trainer(cfg, OptimizerConfig(lr=1e-3, total_steps=steps),
@@ -2204,10 +2435,13 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB):
     rows = []
     clock = [0.0]
 
+    # positions a step runs: a VLM's frontend rows run the decoder too
+    pos = seq + (cfg.frontend_tokens if _frontend(cfg) else 0)
+
     def hook(step, m):                 # metrics are host floats: synced
         now = time.perf_counter()
         rows.append({"step": step, "wall_s": now - clock[0],
-                     "tok_s": batch * TS / (now - clock[0]),
+                     "tok_s": batch * pos / (now - clock[0]),
                      "loss": m["loss"],
                      "lm_loss": m["lm_loss"], "grad_norm": m["grad_norm"],
                      "lr": m["lr"], "lb_loss": m["lb_loss"],
@@ -2226,7 +2460,8 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB):
     for w in wrappers:
         w.launches = 0
     clock[0] = time.perf_counter()
-    trainer.run(_batches(cfg, batch, TS, steps, seed=0), step_hook=hook)
+    trainer.run(with_frontend(_batches(cfg, batch, seq, steps, seed=0), cfg,
+                              seed=10), step_hook=hook)
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2243,7 +2478,8 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB):
     if not profile:
         return launches, rows, peak, trainer
 
-    data = next(_batches(cfg, batch, TS, 1, seed=1))
+    data = next(with_frontend(_batches(cfg, batch, seq, 1, seed=1), cfg,
+                              seed=11))
     data = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2256,7 +2492,7 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB):
     top = sorted((r for r in top if r[0] > 0), reverse=True)
     device = sum(r[0] for r in top)
     wall = rows[-1]["wall_s"] * 1e3
-    print(f"  {label} step ({batch} x {TS}, bf16): device {device:.1f} ms in "
+    print(f"  {label} step ({batch} x {pos}, bf16): device {device:.1f} ms in "
           f"{sum(r[1] for r in top)} kernels; wall {wall:.1f} ms (step "
           f"{steps}), {wall_prof:.1f} ms (profiled step); device busy "
           f"{device / wall:.0%} of step {steps}", flush=True)
@@ -2378,11 +2614,12 @@ def train_agree_f32(torch):
     _step_agreement(torch, cfg, state, batch, gen, "4-layer f32 train step")
 
 
-def _step_agreement(torch, cfg, state, batch, gen, label):
+def _step_agreement(torch, cfg, state, batch, gen, label, min_cos=0.99):
     """The loss and whole gradient of one train step with kernels on
     against REPRO_DISABLE_KERNELS=1: loss to rel 1e-4, cosine of the two
-    gradients (every trainable leaf, flattened) >= 0.99, printed beside
-    the oracle's own move under 1e-6 (relative) noise on the embedding."""
+    gradients (every trainable leaf, flattened) >= min_cos, printed
+    beside the oracle's own move under 1e-6 (relative) noise on the
+    embedding."""
     from repro_torch.core.params import leaves
     from repro_torch.launch.steps import loss_and_grads
     (lk, _, gk), (lo, _, go) = _both_modes(
@@ -2401,8 +2638,9 @@ def _step_agreement(torch, cfg, state, batch, gen, label):
     flat = lambda g: torch.cat([a.flatten() for _, a in leaves(g)])
     fk, fo, fn = flat(gk), flat(go), flat(gn)
     cos = float(torch.dot(fk, fo) / (fk.norm() * fo.norm()))
-    if cos < 0.99:
-        raise AssertionError(f"{label}: gradient cosine {cos:.6f} < 0.99")
+    if cos < min_cos:
+        raise AssertionError(f"{label}: gradient cosine {cos:.6f} < "
+                             f"{min_cos}")
     d_k = float((fk - fo).norm() / fo.norm())
     d_n = float((fn - fo).norm() / fo.norm())
     print(f"  {label}: loss {float(lk):.6f} (kernels) vs "
@@ -3131,6 +3369,382 @@ def hybrid_agree_f32(torch):
     _free(torch)
 
 
+# ------------------------------------------------------------ phases 19-22
+# phase 19: phi-3-vision-4.2b at full width and depth (32 layers, ~3.8 B
+# parameters): 8 requests, each with 576 frontend rows (numpy seed) before
+# a prompt of 128-1024 tokens (numpy seed 2), 32 new tokens, 8 slots,
+# max_len 2048, chunks of 16; contiguous, then paged on a pool of 80
+# pages of 128 (the worst case of the 8 is 104 pages, so the image
+# prefixes' pages make requests wait); then "spt" training at 4 x (576 +
+# 448) positions and "lora".
+PHI_WORK = dict(n=8, lo=128, hi=1024, gen=32, max_len=2048)
+PHI_POOL = 80
+# phase 20: mamba2-780m at full width and depth (48 layers): 8 requests of
+# 128-2048 tokens, 32 new tokens, through exact-length prefill groups.
+MAMBA_WORK = dict(n=8, lo=128, hi=2048, gen=32, max_len=4096)
+# phase 21: whisper-base (6 + 6 layers): 8 rows of 1500 frames, 4-token
+# decoder prompts, 64 new tokens through generate's per-token loop.
+WH_ROWS, WH_PROMPT, WH_GEN = 8, 4, 64
+
+
+def _no_launches(label, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched {launches}")
+
+
+def vlm_full_width(torch):
+    """Phase 19: phi-3-vision-4.2b (32 layers, bf16, random weights from a
+    seed): Engine.run of PHI_WORK with frontend rows, contiguous (kernel
+    6 once per layer per decode step, kernel 10 once per layer per step,
+    kernel 9 once per layer per prefill group) and a decode step's split,
+    then paged on PHI_POOL pages (kernel 7); 2 steps of Trainer.run at 4
+    x (576 + 448) under "spt" (kernels 1, 2, 4 and 9, twice per layer a
+    step) and a profiled step, then 2 under "lora" (no kernel).
+    Counters zeroed just before each and read just after, launch counts
+    exact.  Returns the launches by path."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import apply_variant
+    paths = {}
+    _free(torch)
+    cfg = configs.get_config("phi-3-vision-4.2b").with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, cfg, seed=0)
+    paths["vlm_serve"], _ = _serve(torch, model, cfg,
+                                   "phi-3-vision-4.2b serve", work=PHI_WORK)
+    decode_step_split(torch, model, cfg)
+    pcfg = cfg.with_spt(**PAGED)
+    paths["vlm_serve_paged"], _ = _serve(
+        torch, model, pcfg, "phi-3-vision-4.2b paged serve",
+        kv_pages=PHI_POOL, work=PHI_WORK)
+    del model
+    _free(torch)
+    seq = TS - cfg.frontend_tokens
+    paths["vlm_train"], _, _, trainer = _train_run(
+        torch, cfg, 2, "phi-3-vision-4.2b spt train", seq=seq)
+    del trainer
+    _free(torch)
+    launches, _, _, trainer = _train_run(
+        torch, apply_variant(cfg, "lora"), 2,
+        "phi-3-vision-4.2b lora train", profile=False, seq=seq)
+    _no_launches("phi-3-vision-4.2b lora train", launches)
+    del trainer
+    _free(torch)
+    return paths
+
+
+def ssm_full_width(torch):
+    """Phase 20: mamba2-780m (48 layers, bf16, random weights from a
+    seed): Engine.run of MAMBA_WORK (exact-length prefill groups) and a
+    decode step's split, 2 "spt" train steps at 4 x 1024 and a profiled
+    step, 2 "lora" steps: no SPT kernel launches on any of them (no
+    attention, no FFN).  Returns the launches by path."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import apply_variant
+    paths = {}
+    _free(torch)
+    cfg = configs.get_config("mamba2-780m").with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, cfg, seed=0)
+    paths["ssm_serve"], stats = _serve(torch, model, cfg,
+                                       "mamba2-780m serve", work=MAMBA_WORK)
+    _no_launches("mamba2-780m serve", paths["ssm_serve"])
+    decode_step_split(torch, model, cfg)
+    del model
+    _free(torch)
+    for variant in ("spt", "lora"):
+        launches, _, _, trainer = _train_run(
+            torch, apply_variant(cfg, variant), 2,
+            f"mamba2-780m {variant} train", profile=variant == "spt")
+        _no_launches(f"mamba2-780m {variant} train", launches)
+        paths["ssm_train"] = _add(paths.get("ssm_train", {}), launches)
+        del trainer
+        _free(torch)
+    return paths
+
+
+def _want_generate_launches(cfg, names, decode_calls):
+    """Launches of one enc-dec generate: the prefill encodes the frames
+    (each encoder layer: kernel 1 twice, kernels 2 and 4 once, kernel 9
+    once) and prefills the decoder (each layer: self- and
+    cross-attention, kernels 1, 2, 4 each; kernel 9 once); each of the
+    decode calls runs the self-attention's decode kernel and kernel 10
+    once per decoder layer.  Cross-attention decode and the cross cache's
+    codes take the plain core/ paths, as in JAX: no launch."""
+    from repro_torch.core import dispatch
+    enc, dec = cfg.encoder_layers, cfg.num_layers
+    attn = enc + 2 * dec
+    want = {name: 0 for name in names}
+    if cfg.spt.sparse_mha:
+        decode = (["fused_sparse_decode_attention"]
+                  if dispatch.use_fused_decode_attn(cfg)
+                  else ["decode_topl_thresholds", "sparse_decode_attention"])
+        want.update({"pq_assign": 2 * attn, "topl_thresholds": attn,
+                     "sparse_attention": attn})
+        want.update({name: dec * decode_calls for name in decode})
+    if cfg.spt.routed_ffn:
+        want.update({"grouped_ffn": enc + dec, "decode_ffn": dec * decode_calls})
+    return want
+
+
+def _audio_batch(torch, cfg, rows, prompt, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (rows, prompt),
+                                    generator=gen, device="cuda"),
+            "frontend_embeds": torch.randn(
+                (rows, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                device="cuda").to(cfg.dtype)}
+
+
+def audio_full_width(torch):
+    """Phase 21: whisper-base (6 + 6 layers, bf16, random weights from a
+    seed): Engine.generate of WH_ROWS rows of 1500 frames, WH_PROMPT-token
+    prompts and WH_GEN new tokens on the per-token path (counters zeroed
+    just before and read just after, held to _want_generate_launches), a
+    decode step's split, the launcher's legacy-audio blob, then 2 "spt"
+    train steps at 4 x 448 decoder tokens over 1500 frames and a profiled
+    step.  Returns the launches by path."""
+    import contextlib
+    import io
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.serving.engine import Engine
+    paths = {}
+    _free(torch)
+    cfg = configs.get_config("whisper-base").with_spt(**SERVE_CFG)
+    model = _perturbed_model(torch, cfg, seed=0)
+    max_len = WH_PROMPT + WH_GEN + 8
+    eng = Engine(cfg, model, max_len=max_len)
+    eng.generate(_audio_batch(torch, cfg, 2, WH_PROMPT, 1), 4)   # warm-up
+    batch = _audio_batch(torch, cfg, WH_ROWS, WH_PROMPT, 2)
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(batch, WH_GEN).tokens
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    want = _want_generate_launches(cfg, launches, WH_GEN - 1)
+    if launches != want:
+        raise AssertionError(f"whisper-base generate launches {launches} != "
+                             f"expected {want}")
+    if not (len(toks) == WH_ROWS and all(
+            len(r) == WH_GEN and all(0 <= x < cfg.padded_vocab for x in r)
+            for r in toks)):
+        raise AssertionError("whisper-base generate: bad token rows")
+    paths["audio_generate"] = launches
+    print("  whisper-base generate " + json.dumps(
+        {"rows": WH_ROWS, "frames": cfg.frontend_tokens,
+         "new_tokens": WH_GEN, "wall_s": wall,
+         "tok_s": WH_ROWS * WH_GEN / wall,
+         "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+         / 2 ** 30}), flush=True)
+    print("  whisper-base generate launches " + json.dumps(launches),
+          flush=True)
+    # prefill alone, and one decode step at the prefill's caches
+    t0 = time.perf_counter()
+    caches, logits = encdec.encdec_prefill(model, cfg, batch, max_len)
+    torch.cuda.synchronize()
+    print(f"  whisper-base encdec_prefill ({WH_ROWS} x {cfg.frontend_tokens} "
+          f"frames, {WH_PROMPT} tokens): wall {(time.perf_counter() - t0) * 1e3:.2f} ms",
+          flush=True)
+    tok = logits[:, -1].argmax(-1)
+    pos = torch.tensor(WH_PROMPT, device="cuda")
+    _step_split(torch, f"whisper-base decode step ({WH_ROWS} rows, cross "
+                f"over {cfg.frontend_tokens} frames)",
+                lambda: encdec.encdec_decode_step(model, cfg, caches, tok,
+                                                  pos))
+    del caches, model, eng
+    _free(torch)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "whisper-base", "--requests", str(WH_ROWS),
+                    "--prompt-len", str(WH_PROMPT), "--gen", str(WH_GEN)])
+    blob = json.loads(out.getvalue())
+    keys = {"arch", "mode", "requests", "generated_tokens", "steady_wall_s",
+            "tokens_per_s", "sample", "device", "device_name"}
+    if set(blob) != keys or blob["mode"] != "legacy-audio":
+        raise AssertionError(f"launcher blob {sorted(blob)}")
+    print("  whisper-base launcher " + json.dumps(blob), flush=True)
+    _free(torch)
+    paths["audio_train"], _, _, trainer = _train_run(
+        torch, cfg, 2, "whisper-base spt train", seq=WH_DEC)
+    del trainer
+    _free(torch)
+    return paths
+
+
+def _families_small(torch, name):
+    """Phase 22's f32 configs: phi-3-vision cut to 4 layers at d 1536 (16
+    heads of 96 kept at M 12, F 4096, the 576 frontend rows kept),
+    mamba2-780m cut to 4 layers, whisper-base to 2 + 2 layers (full
+    width)."""
+    from repro_torch import configs
+    cfg = configs.get_config(name)
+    kw = {"phi-3-vision-4.2b": dict(num_layers=4, d_model=1536,
+                                    num_heads=16, num_kv_heads=16,
+                                    d_ff=4096),
+          "mamba2-780m": dict(num_layers=4),
+          "whisper-base": dict(num_layers=2, encoder_layers=2)}[name]
+    return dataclasses.replace(cfg, dtype=torch.float32,
+                               **kw).with_spt(**SERVE_CFG)
+
+
+def _f32_model(torch, cfg):
+    model = _perturbed_model(torch, cfg, seed=3)
+    return model.to(torch.float32)
+
+
+def _f32_state(torch, cfg):
+    from repro_torch.train.state import init_state
+    state = init_state(cfg, seed=5, device="cuda")
+    state["frozen"] = _map_tree(lambda t: t.float(), state["frozen"])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for _, v in _c_leaves(state):
+        v.copy_(torch.randn(v.shape, device="cuda", generator=gen) * 0.01)
+    return state, gen
+
+
+def _f32_batch(torch, cfg, seq):
+    from repro_torch.launch.train import with_frontend
+    batch = next(with_frontend(_batches(cfg, 2, seq, 1, seed=7), cfg,
+                               seed=8))
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def _audio_streams(torch, model, cfg, batch, steps):
+    """generate() greedy tokens with the kernels and under
+    REPRO_DISABLE_KERNELS=1 (checked by _both_modes)."""
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, model, max_len=batch["tokens"].shape[1] + steps + 8)
+    return _both_modes(lambda: eng.generate(batch, steps).tokens)
+
+
+def _compare_audio(torch, model, cfg, batch, got, want, label):
+    """got == want per row except past a logit near-tie (<= 1e-3) at the
+    first divergence, replayed through encdec_prefill with the kernels
+    off."""
+    from repro_torch.models import encdec
+    os.environ["REPRO_DISABLE_KERNELS"] = "1"
+    flips = 0
+    try:
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g == w:
+                continue
+            t = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+            ctx = batch["tokens"][i].tolist() + w[:t]
+            _, logits = encdec.encdec_prefill(
+                model, cfg, {"tokens": torch.tensor([ctx], device="cuda"),
+                             "frontend_embeds":
+                                 batch["frontend_embeds"][i:i + 1]},
+                len(ctx) + 8)
+            lg = logits[0, -1].float().cpu().numpy()
+            gap = float(lg.max()) - min(float(lg[g[t]]), float(lg[w[t]]))
+            if gap > 1e-3:
+                raise AssertionError(f"{label}: row {i} diverged at step {t} "
+                                     f"with a logit gap {gap:.3e}")
+            flips += 1
+    finally:
+        os.environ.pop("REPRO_DISABLE_KERNELS", None)
+    print(f"  f32 greedy streams, {label} == REPRO_DISABLE_KERNELS=1 for "
+          f"{len(got) - flips}/{len(got)} rows, {flips} replayed near-tie "
+          "flips (<= 1e-3)", flush=True)
+
+
+def families_agree_f32(torch):
+    """Phase 22, kernels on against REPRO_DISABLE_KERNELS=1 in f32:
+    phi-3-vision (4 layers, d 1536): greedy streams of 8 requests
+    (frontend rows, prompts 64-512, 16 new tokens, 4 slots) up to the
+    near-tie replay rule (kernels 6, 9, 10 launch, the oracle none), one
+    train step at 2 x (576 + 256) by the step rule with gradient cosine
+    >= 0.999; mamba2-780m (4 layers): the same rules with and without
+    the switch (it has nothing to turn off), no launch in either;
+    whisper-base (2 +
+    2 layers): generate of 4 rows over 1500 frames, 16 new tokens, up to
+    the near-tie rule, and a train step at 2 x 256 by the step rule
+    (cosine >= 0.999)."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import loss_and_grads
+    # phi-3-vision
+    cfg = _families_small(torch, "phi-3-vision-4.2b")
+    reqs = _requests(8, 64, 512, 16, cfg.vocab_size, seed=4,
+                     frontend=_frontend(cfg))
+    model = _f32_model(torch, cfg)
+    before = {w.__name__: w.launches for w in kernels.wrappers()}
+    oracle, ran = _streams(torch, model, cfg, reqs, False, max_len=2048)
+    got, ran_k = _streams(torch, model, cfg, reqs, True, max_len=2048)
+    moved = {w.__name__ for w in kernels.wrappers()
+             if w.launches != before[w.__name__]}
+    if ran or ran_k != {"fused_sparse_decode_attention"} or not {
+            "grouped_ffn", "decode_ffn"} <= moved:
+        raise AssertionError(f"phi-3-vision: oracle ran {ran}, kernels "
+                             f"{sorted(moved)}")
+    _compare_streams(torch, model, cfg, reqs, "4-layer phi-3-vision f32",
+                     got, oracle, max_len=2048)
+    del model
+    _free(torch)
+    state, gen = _f32_state(torch, cfg)
+    _step_agreement(torch, cfg, state, _f32_batch(torch, cfg, 256), gen,
+                    "4-layer f32 phi-3-vision train step", min_cos=0.999)
+    del state
+    _free(torch)
+    # mamba2: the switch has nothing to turn off; no launch either way
+    cfg = _families_small(torch, "mamba2-780m")
+    reqs = _requests(8, 64, 512, 16, cfg.vocab_size, seed=4)
+    model = _f32_model(torch, cfg)
+    before = [w.launches for w in kernels.wrappers()]
+    oracle, _ = _streams(torch, model, cfg, reqs, False)
+    got, _ = _streams(torch, model, cfg, reqs, True)
+    _compare_streams(torch, model, cfg, reqs, "4-layer mamba2-780m f32", got,
+                     oracle)
+    del model
+    _free(torch)
+    state, _ = _f32_state(torch, cfg)
+    batch = _f32_batch(torch, cfg, 512)
+    lk, _, gk = loss_and_grads(state, cfg, batch)
+    os.environ["REPRO_DISABLE_KERNELS"] = "1"
+    try:
+        lo, _, go = loss_and_grads(state, cfg, batch)
+    finally:
+        del os.environ["REPRO_DISABLE_KERNELS"]
+    if [w.launches for w in kernels.wrappers()] != before:
+        raise AssertionError("mamba2-780m: a kernel launched")
+    from repro_torch.core.params import leaves
+    fk, fo = (torch.cat([a.flatten() for _, a in leaves(g)]) for g in (gk, go))
+    rel = abs(float(lk) - float(lo)) / abs(float(lo))
+    cos = float(torch.dot(fk, fo) / (fk.norm() * fo.norm()))
+    if rel > 1e-4 or cos < 0.999:
+        raise AssertionError(f"mamba2-780m train step: loss rel {rel:.2e}, "
+                             f"gradient cosine {cos:.6f}")
+    print(f"  4-layer f32 mamba2-780m train step: loss {float(lk):.6f}, rel "
+          f"{rel:.2e}, gradient cosine {cos:.6f} with and without "
+          f"REPRO_DISABLE_KERNELS=1 (bit-identical: "
+          f"{bool(torch.equal(fk, fo))}); no kernel launched", flush=True)
+    del state
+    _free(torch)
+    # whisper-base
+    cfg = _families_small(torch, "whisper-base")
+    model = _f32_model(torch, cfg)
+    batch = _audio_batch(torch, cfg, 4, WH_PROMPT, 9)
+    before = {w.__name__: w.launches for w in kernels.wrappers()}
+    got, oracle = _audio_streams(torch, model, cfg, batch, 16)
+    moved = {w.__name__ for w in kernels.wrappers()
+             if w.launches != before[w.__name__]}
+    if not {"fused_sparse_decode_attention", "decode_ffn", "grouped_ffn",
+            "sparse_attention"} <= moved:
+        raise AssertionError(f"whisper-base: kernels {sorted(moved)}")
+    _compare_audio(torch, model, cfg, batch, got, oracle,
+                   "2 + 2-layer whisper-base f32")
+    del model
+    _free(torch)
+    state, gen = _f32_state(torch, cfg)
+    _step_agreement(torch, cfg, state, _f32_batch(torch, cfg, 256), gen,
+                    "2 + 2-layer f32 whisper-base train step", min_cos=0.999)
+    del state
+    _free(torch)
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -3140,14 +3754,16 @@ def _map_tree(fn, tree):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
-                                       "server", "moe", "hybrid"),
+                                       "server", "moe", "hybrid",
+                                       "families"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
                          "phases (1-3, 7-8), the paper's models (1-3, "
                          "9-11), the long-lived server (1-3, 12-13), the "
-                         "MoE family (1-3, 14-15) or the dense registry and "
-                         "the hybrid family (1-3, 16-18) alone")
+                         "MoE family (1-3, 14-15), the dense registry and "
+                         "the hybrid family (1-3, 16-18) or the VLM, SSM "
+                         "and audio families (1-3, 19-22) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3203,11 +3819,17 @@ def main() -> int:
                                 HYBRID_EDGES[0][0], tag="hybrid")
     for name, cases in check_hybrid_shapes(torch, hgen).items():
         hybrid.setdefault(name, []).extend(cases)
-    for row in rows:                    # the paper's, MoE and hybrid shapes
+    fgen = torch.Generator(device="cuda").manual_seed(22)
+    families = check_decode_edges(torch, fgen, FAMILY_EDGES,
+                                  FAMILY_EDGES[0][0], tag="families")
+    for name, cases in check_family_shapes(torch, fgen).items():
+        families.setdefault(name, []).extend(cases)
+    for row in rows:   # the paper's, MoE, hybrid and the families' shapes
         row["paper_shapes"] = paper[row["name"]]
         if row["name"] in moe_shapes:
             row["moe_shapes"] = moe_shapes[row["name"]]
         row["hybrid_shapes"] = hybrid.get(row["name"], [])
+        row["family_shapes"] = families.get(row["name"], [])
     for row in rows[:2]:                # the bodies of kernels 1 and 2
         row["ptxas"] = [f"{fn}: {regs} registers, {smem} B static smem, "
                         f"{spill} B spilled"
@@ -3227,7 +3849,10 @@ def main() -> int:
                        "paper_train", "paper_prefill", "paper_serve",
                        "server", "server_paged", "moe_serve",
                        "moe_serve_paged", "moe_train", "dense_serve",
-                       "dense_train", "hybrid_serve", "hybrid_train")}
+                       "dense_train", "hybrid_serve", "hybrid_train",
+                       "vlm_serve", "vlm_serve_paged", "vlm_train",
+                       "ssm_serve", "ssm_train", "audio_generate",
+                       "audio_train")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -3320,6 +3945,32 @@ def main() -> int:
               f"(phase 17 took {t2 - t1:.1f} s)", flush=True)
         hybrid_agree_f32(torch)
         print(f"[18] took {time.perf_counter() - t2:.1f} s", flush=True)
+    if args.only in (None, "families"):
+        # 19. phi-3-vision-4.2b at full width and depth: serve and train
+        t0 = time.perf_counter()
+        print("[19] phi-3-vision-4.2b (32 layers) at full width, bf16: "
+              "576 frontend rows a request; serve, paged serve, spt and "
+              "lora train", flush=True)
+        paths.update(vlm_full_width(torch))
+        # 20. mamba2-780m at full width and depth: serve and train
+        t1 = time.perf_counter()
+        print(f"[20] mamba2-780m (48 layers) at full width, bf16: serve, "
+              f"spt and lora train (phase 19 took {t1 - t0:.1f} s)",
+              flush=True)
+        paths.update(ssm_full_width(torch))
+        # 21. whisper-base: generate, the launcher, train
+        t2 = time.perf_counter()
+        print(f"[21] whisper-base (6 + 6 layers), bf16: generate over 1500 "
+              f"frames, the launcher, spt train (phase 20 took "
+              f"{t2 - t1:.1f} s)", flush=True)
+        paths.update(audio_full_width(torch))
+        # 22. card-side agreement of the three families
+        t3 = time.perf_counter()
+        print(f"[22] f32 agreement: phi-3-vision 4 layers, mamba2 4 layers, "
+              f"whisper-base 2 + 2 (phase 21 took {t3 - t2:.1f} s)",
+              flush=True)
+        families_agree_f32(torch)
+        print(f"[22] took {time.perf_counter() - t3:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

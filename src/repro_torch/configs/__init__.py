@@ -1,23 +1,28 @@
-"""Config registry of the port: the assigned architectures it covers so
-far, and the paper's own blocks and end-to-end models."""
+"""Config registry of the port: the ten assigned architectures, and the
+paper's own blocks and end-to-end models."""
 from __future__ import annotations
 
 from typing import Tuple
 
 from repro_torch.configs import (gemma_7b, grok_1_314b, h2o_danube_1_8b,
-                                 h2o_danube_3_4b, mixtral_8x22b,
-                                 paper_blocks, qwen3_0_6b,
-                                 recurrentgemma_9b)
-from repro_torch.configs.base import ModelConfig, SPTConfig
+                                 h2o_danube_3_4b, mamba2_780m,
+                                 mixtral_8x22b, paper_blocks,
+                                 phi_3_vision_4_2b, qwen3_0_6b,
+                                 recurrentgemma_9b, whisper_base)
+from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ModelConfig,
+                                      ShapeSpec, SPTConfig)
 
 _MODULES = {
     "grok-1-314b": grok_1_314b,
     "mixtral-8x22b": mixtral_8x22b,
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "phi-3-vision-4.2b": phi_3_vision_4_2b,
+    "mamba2-780m": mamba2_780m,
     "qwen3-0.6b": qwen3_0_6b,
     "h2o-danube-1.8b": h2o_danube_1_8b,
     "gemma-7b": gemma_7b,
     "h2o-danube-3-4b": h2o_danube_3_4b,
-    "recurrentgemma-9b": recurrentgemma_9b,
+    "whisper-base": whisper_base,
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)

@@ -121,6 +121,14 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def d_inner(self) -> int:      # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def resolved_lru_width(self) -> int:
         return self.lru_width or self.d_model
 
@@ -131,3 +139,22 @@ class ModelConfig:
 
     def with_spt(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, spt=dataclasses.replace(self.spt, **kw))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape regime of an arch (a cell of the JAX dry run)."""
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                      # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", "train", 4096, 256),
+    ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    ShapeSpec("decode_32k", "decode", 32768, 128),
+    ShapeSpec("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}

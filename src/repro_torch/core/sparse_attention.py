@@ -151,6 +151,15 @@ def attention_from_indices(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnl,bhnld->bhnd", w.to(v.dtype), v_sel)
 
 
+def _chunks(nq: int, chunk_q: int):
+    """(start, rows) of the query chunks: chunk_q rows each, the last one
+    shorter.  (JAX takes one chunk of nq when chunk_q does not divide it,
+    for static shapes; each row's result is the same either way, and a
+    576-row frontend ahead of a power-of-two prompt would otherwise make
+    the whole (nq, L, d) gather live at once.)"""
+    return [(s, min(chunk_q, nq - s)) for s in range(0, nq, chunk_q)]
+
+
 def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                codebooks: torch.Tensor, cfg: SparseAttentionConfig,
                scale: float, causal: bool = True,
@@ -163,8 +172,8 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     real lengths of a right-padded ragged batch; each row then selects with
     the budget top_l(seq_lengths[b]) its exact-length prefill would have
     (the causal mask already hides the pad keys from real queries).
-    Selection and gather run per query chunk, so the live gather buffer is
-    (B, H, chunk, L, d).  Returns (out (B, Hq, nq, d), aux {"l": L, and
+    Selection and gather run per query chunk (``_chunks``), so the live
+    gather buffer is (B, H, chunk, L, d).  Returns (out (B, Hq, nq, d), aux {"l": L, and
     "qerr" when cfg.qerr_loss_weight > 0})."""
     b, hq, nq, d = q.shape
     _, hk, nk, _ = k.shape
@@ -178,11 +187,8 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
     kvgroup = cfg.select_granularity == "kvgroup"
     max_s = cfg.pq.num_books * (r if kvgroup else 1)
-    chunk = min(cfg.chunk_q, nq)
-    if nq % chunk:
-        chunk = nq
 
-    def chunk_fn(start, q, k, v):
+    def chunk_fn(start, chunk, q, k, v):
         q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
                                                 device=q.device)
         mask = attention_mask(q_pos, k_pos, causal, window)
@@ -201,9 +207,10 @@ def sparse_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # stays live chunk-wise (JAX: jax.checkpoint(chunk_fn)).
     remat = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
-    outs = [checkpoint(chunk_fn, start, q, k, v, use_reentrant=False,
+    outs = [checkpoint(chunk_fn, start, n, q, k, v, use_reentrant=False,
                        preserve_rng_state=False) if remat
-            else chunk_fn(start, q, k, v) for start in range(0, nq, chunk)]
+            else chunk_fn(start, n, q, k, v)
+            for start, n in _chunks(nq, cfg.chunk_q)]
     aux: Dict[str, object] = {"l": l}
     if cfg.qerr_loss_weight > 0:
         aux["qerr"] = (pq.quantization_error(q, codebooks, codes_q)
@@ -228,11 +235,8 @@ def sparse_mha_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     codes_k = pq.assign(k, codebooks)
     ckq = codes_k.repeat_interleave(r, dim=1)               # (B, Hq, nk, M)
     k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
-    chunk = min(cfg.chunk_q, nq)
-    if nq % chunk:
-        chunk = nq
 
-    def chunk_fn(start, q, k, v):
+    def chunk_fn(start, chunk, q, k, v):
         q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
                                                 device=q.device)
         mask = attention_mask(q_pos, k_pos, causal, window)
@@ -249,9 +253,10 @@ def sparse_mha_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     remat = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
-    outs = [checkpoint(chunk_fn, start, q, k, v, use_reentrant=False,
+    outs = [checkpoint(chunk_fn, start, n, q, k, v, use_reentrant=False,
                        preserve_rng_state=False) if remat
-            else chunk_fn(start, q, k, v) for start in range(0, nq, chunk)]
+            else chunk_fn(start, n, q, k, v)
+            for start, n in _chunks(nq, cfg.chunk_q)]
     aux: Dict[str, object] = {"l": l}
     if cfg.qerr_loss_weight > 0:
         aux["qerr"] = (pq.quantization_error(q, codebooks, codes_q)
@@ -354,11 +359,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r = hq // hk
     qf = q.reshape(b, hk, r, nq, d)
     k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
-    chunk = min(chunk_q, nq)
-    if nq % chunk:
-        chunk = nq
     outs = []
-    for start in range(0, nq, chunk):
+    for start, chunk in _chunks(nq, chunk_q):
         q_pos = q_offset + start + torch.arange(chunk, dtype=torch.int32,
                                                 device=q.device)
         mask = attention_mask(q_pos, k_pos, causal, window)

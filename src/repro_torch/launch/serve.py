@@ -13,8 +13,12 @@ unless ``--temperature`` > 0 (then seeded by ``--sample-seed``, with
 ``--top-k`` / ``--top-p`` truncation).  ``--arrival-qps`` serves through
 the long-lived loop (``Engine.serve``) with seeded Poisson arrivals
 instead of one burst.  A short warm-up run comes first; the timed run
-prints one JSON blob with the JAX launcher's keys.  Runs on the card
-unless ``--device cpu``.
+prints one JSON blob with the JAX launcher's keys.  A frontend config
+(phi-3-vision) gives every request seeded frontend rows; the enc-dec
+audio family (whisper-base) is served through ``Engine.generate``'s
+per-token loop over a fixed batch with seeded frame embeddings, and its
+blob has ``"mode": "legacy-audio"``, as in JAX.  Runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -28,23 +32,28 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.serving.engine import ArrivalSchedule, Engine, Request
 
 
 def build_requests(vocab: int, num: int, prompt_len: int, gen: int,
                    ragged: bool, seed: int = 1, top_k: int = 0,
-                   top_p: float = 0.0):
+                   top_p: float = 0.0, frontend_tokens: int = 0,
+                   d_model: int = 0):
     """``num`` prompts of ``prompt_len`` tokens, or of ragged lengths in
-    [max(4, prompt_len/2), prompt_len] with ``ragged``."""
+    [max(4, prompt_len/2), prompt_len] with ``ragged``; with
+    ``frontend_tokens``, each request also carries (frontend_tokens,
+    d_model) standard-normal frontend rows."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(num):
         ln = (int(rng.integers(max(4, prompt_len // 2), prompt_len + 1))
               if ragged else prompt_len)
-        reqs.append(Request(uid=i, tokens=rng.integers(
-            0, vocab, size=ln).tolist(), max_new_tokens=gen,
-            top_k=top_k, top_p=top_p))
+        toks = rng.integers(0, vocab, size=ln).tolist()
+        fe = (rng.standard_normal((frontend_tokens, d_model)).astype(
+            np.float32) if frontend_tokens else None)
+        reqs.append(Request(uid=i, tokens=toks, max_new_tokens=gen,
+                            frontend_embeds=fe, top_k=top_k, top_p=top_p))
     return reqs
 
 
@@ -74,7 +83,8 @@ def main(argv=None) -> int:
                     help="decode slots (batch width); requests beyond this "
                          "queue and stream in as slots free up")
     ap.add_argument("--max-len", type=int, default=None,
-                    help="cache length per slot (default prompt-len + gen)")
+                    help="cache length per slot (default: a frontend's rows "
+                         "+ prompt-len + gen)")
     ap.add_argument("--decode-chunk", type=int, default=16,
                     help="decode steps per chunk (one host sync each)")
     ap.add_argument("--eos-id", type=int, default=None,
@@ -166,8 +176,11 @@ def main(argv=None) -> int:
                        kv_layout=args.kv_layout,
                        kv_page_size=args.page_size, telemetry=telemetry)
     device = transformer.resolve_device(args.device)
-    model = transformer.LM.init(cfg, seed=0, device=device)
-    max_len = args.max_len or args.prompt_len + args.gen
+    audio = cfg.family == "audio"
+    model = (encdec.EncDecLM if audio else transformer.LM).init(
+        cfg, seed=0, device=device)
+    frontend = cfg.frontend_tokens if cfg.frontend and not audio else 0
+    max_len = args.max_len or frontend + args.prompt_len + args.gen
     engine = Engine(cfg, model, max_len=max_len, num_slots=args.slots,
                     eos_id=args.eos_id, decode_chunk=args.decode_chunk,
                     kv_pages=args.kv_pages,
@@ -175,9 +188,12 @@ def main(argv=None) -> int:
                     prefill_decode_ratio=args.prefill_decode_ratio,
                     device=device)
     seed = args.sample_seed if args.temperature > 0 else None
+    if audio:
+        return _serve_audio_legacy(cfg, engine, args, seed, device)
     reqs = build_requests(cfg.vocab_size, args.requests, args.prompt_len,
                           args.gen, args.ragged, top_k=args.top_k,
-                          top_p=args.top_p)
+                          top_p=args.top_p, frontend_tokens=frontend,
+                          d_model=cfg.d_model)
     # warm-up (deadlines and priorities come after it, as in JAX)
     t0 = time.perf_counter()
     engine.run(reqs[:1], temperature=args.temperature, seed=seed)
@@ -193,9 +209,7 @@ def main(argv=None) -> int:
         outs = engine.run(reqs, temperature=args.temperature, seed=seed)
     wall = time.perf_counter() - t0
     stats = engine.last_stats
-    out = {"arch": cfg.name, "device": str(device),
-           "device_name": (torch.cuda.get_device_name(device)
-                           if device.type == "cuda" else "cpu"),
+    out = {"arch": cfg.name, **_device_keys(device),
            "requests": args.requests, "slots": args.slots,
            "generated_tokens": sum(len(c.tokens) for c in outs),
            "warmup_wall_s": round(warmup_wall_s, 2),
@@ -213,6 +227,41 @@ def main(argv=None) -> int:
             json.dump(stats.snapshot().as_dict(), f, indent=1)
         out["metrics_out"] = args.metrics_out
     print(json.dumps(out, indent=1))
+    return 0
+
+
+def _device_keys(device) -> dict:
+    return {"device": str(device),
+            "device_name": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu")}
+
+
+def _serve_audio_legacy(cfg, engine, args, seed, device) -> int:
+    """The enc-dec audio family: continuous batching does not cover it, so
+    the fixed batch of ``--requests`` prompts (seeded tokens and frame
+    embeddings) goes through ``generate``'s per-token loop, once to warm
+    up and once timed (generate syncs on its host-side token lists)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (args.requests, args.prompt_len),
+                                     generator=gen, device=device),
+             "frontend_embeds": torch.randn(
+                 (args.requests, cfg.frontend_tokens, cfg.d_model),
+                 generator=gen, device=device).to(torch.bfloat16)}
+    engine.generate(batch, steps=args.gen, temperature=args.temperature,
+                    seed=seed)                                    # warm-up
+    t0 = time.perf_counter()
+    result = engine.generate(batch, steps=args.gen,
+                             temperature=args.temperature, seed=seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    toks = args.requests * args.gen
+    print(json.dumps({
+        "arch": cfg.name, "mode": "legacy-audio", **_device_keys(device),
+        "requests": args.requests, "generated_tokens": toks,
+        "steady_wall_s": round(dt, 2), "tokens_per_s": round(toks / dt, 1),
+        "sample": result.tokens[0][:8]}, indent=1))
     return 0
 
 

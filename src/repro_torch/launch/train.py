@@ -8,7 +8,10 @@ MHA and routed FFN on one device.
 
 --arch takes any name ``configs.get_config`` takes (the assigned
 architectures, the paper's blocks, opt-2.7b, llama-2.7b); --variant picks
-the paper's baseline (``launch/dryrun.apply_variant``).
+the paper's baseline (``launch/dryrun.apply_variant``).  A frontend
+config gets seeded standard-normal frontend rows in every batch: a VLM
+prepends them to the --seq text tokens, the enc-dec audio family encodes
+them (--seq is then the decoder's length).
 
 Random weights from a seed (no checkpoint ships with the repo), synthetic
 data from the port's pipeline, the config's kernels (attn_impl / ffn_impl
@@ -22,6 +25,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -30,6 +34,20 @@ from repro_torch.launch.dryrun import VARIANTS, apply_variant
 from repro_torch.models import transformer
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def with_frontend(data, cfg, seed: int):
+    """The batches of ``data``, each with (B, frontend_tokens, d_model)
+    float32 standard-normal ``frontend_embeds`` from a numpy seed when
+    the config has a frontend (a VLM's patches, the audio family's
+    frames); unchanged otherwise."""
+    rng = np.random.default_rng(seed)
+    for batch in data:
+        if cfg.frontend:
+            b = np.asarray(batch["tokens"]).shape[0]
+            batch = {**batch, "frontend_embeds": rng.standard_normal(
+                (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+        yield batch
 
 
 def main(argv=None) -> int:
@@ -55,6 +73,7 @@ def main(argv=None) -> int:
     data = synthetic_dataset(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                    global_batch=args.batch), steps=args.steps)
+    data = with_frontend(data, cfg, seed=2)
     trainer = Trainer(cfg, ocfg, tcfg, device=device)
     t0 = time.perf_counter()
     report = trainer.run(data)

@@ -238,12 +238,16 @@ def _tel_decode_counters(cfg: ModelConfig, valid: torch.Tensor) -> dict:
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                causal: bool = True, window: Optional[int] = None,
                cache: Optional[dict] = None, pos=None,
+               kv_x: Optional[torch.Tensor] = None, rope: bool = True,
                kv_valid: Optional[torch.Tensor] = None,
                page_table: Optional[torch.Tensor] = None,
                seq_lengths: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (y, cache, aux).  x: (B, S, d_model).  pos: absolute
     position of x[:, 0], an int or a (B,) tensor (ragged decode slots).
+    kv_x: the source of K and V (cross-attention; x by default), whose
+    keys take positions 0..F-1 while the queries keep theirs.  rope:
+    False skips RoPE even where ``rope_theta`` is set.
     kv_valid: decode only, the engine's (B, S_cache) slot validity (with
     a page table, (B, MP * page_size) in view coordinates); without it
     the mask is derived from the cache's slot_pos.  page_table: decode
@@ -258,22 +262,25 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                             device=x.device)
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     pos_q = start[:, None] + ar if start.dim() == 1 else start + ar
+    kv_src = x if kv_x is None else kv_x
+    pos_k = (pos_q if kv_x is None else
+             torch.arange(kv_x.shape[1], dtype=torch.int32, device=x.device))
     q = _project(p["wq"], x, lc, cfg.num_heads, hd)
-    k = _project(p["wk"], x, lc, cfg.num_kv_heads, hd)
-    v = _project(p["wv"], x, lc, cfg.num_kv_heads, hd)
+    k = _project(p["wk"], kv_src, lc, cfg.num_kv_heads, hd)
+    v = _project(p["wv"], kv_src, lc, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = layers.apply_norm(p["q_norm"], q, "rmsnorm")
         k = layers.apply_norm(p["k_norm"], k, "rmsnorm")
-    if cfg.rope_theta is not None:
+    if rope and cfg.rope_theta is not None:
         q = layers.apply_rope(q, pos_q, cfg.rope_theta)
-        k = layers.apply_rope(k, pos_q, cfg.rope_theta)
+        k = layers.apply_rope(k, pos_k, cfg.rope_theta)
 
     aux: dict = {}
     if mode in ("train", "prefill"):
         out, aux = attend(p, cfg, q, k, v, causal, window,
                           seq_lengths=seq_lengths)
         if mode == "prefill":
-            cache = write_cache(cache, cfg, p, k, v, pos_q)
+            cache = write_cache(cache, cfg, p, k, v, pos_k)
     elif mode == "decode" and page_table is not None and window is None:
         pos_b = start.expand(b) if start.dim() == 0 else start
         s_view = page_table.shape[1] * cfg.spt.kv_page_size

@@ -3,8 +3,9 @@ Python loop over pattern units, then the tail) -> final norm -> (tied or
 separate) LM head.
 
 Layer patterns (``ModelConfig.pattern``) cycle block kinds over layers:
-("attn",) for the dense and MoE stacks, ("rec", "rec", "attn") for
-RecurrentGemma (models/rglru.py).  The layers form pattern *units*; the
+("attn",) for the dense, MoE and VLM stacks, ("rec", "rec", "attn") for
+RecurrentGemma (models/rglru.py), ("ssd",) for Mamba-2 (models/ssd.py,
+a block without an FFN sub-layer).  The layers form pattern *units*; the
 remainder layers (num_layers % len(pattern)) are the *tail*, blocks of
 their own that run after the units and, in training, outside the
 checkpoint, as in JAX.
@@ -20,8 +21,13 @@ or with ``kv_pages`` page pools shared by the slots (serving/kv_pages.py)
 (``lm_hidden``: per-unit views of the stacked leaves, so gradients land
 on the stacked leaves as JAX's scan gives them).  The port covers the
 attention stack (pattern ("attn",)), with RoPE or learned positions and
-a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN, and the
-hybrid ("rec", "rec", "attn") stack.
+a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN, the
+hybrid ("rec", "rec", "attn") stack and the SSD stack.
+
+Frontends are stubs, as in JAX: a VLM's ``batch["frontend_embeds"]``
+(B, F, d) carries precomputed patch embeddings, prepended to the token
+embeddings.  The encoder-decoder (audio) family has its own module,
+models/encdec.py.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
                                      stack_defs)
-from repro_torch.models import attention, ffn, layers, moe, rglru
+from repro_torch.models import attention, ffn, layers, moe, rglru, ssd
 from repro_torch.serving import kv_pages as kvp
 
 
@@ -58,6 +64,9 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
         defs["mixer"] = attention.attn_defs(cfg)
     elif kind == "rec":
         defs["mixer"] = rglru.rglru_defs(cfg)
+    elif kind == "ssd":
+        defs["mixer"] = ssd.ssd_defs(cfg)
+        return defs                 # ssd blocks have no FFN sub-layer
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     if cfg.num_experts > 0:
@@ -75,6 +84,8 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return attention.init_cache(cfg, batch, max_len, device, cfg.window)
     if kind == "rec":
         return rglru.init_rec_cache(cfg, batch, device)
+    if kind == "ssd":
+        return ssd.init_ssm_cache(cfg, batch, device)
     raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
@@ -83,8 +94,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 page_table=None, seq_lengths=None):
     """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
     its layers report (scalars, f32) and, with telemetry counters on, its
-    ``tel_*`` counters.  A ``rec`` block's mixer takes no positions,
-    validity or lengths: its state is the whole history."""
+    ``tel_*`` counters.  A ``rec`` or ``ssd`` block's mixer takes no
+    positions, validity or lengths: its state is the whole history."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
     if kind == "attn":
         y, cache, a_aux = attention.attn_apply(
@@ -94,6 +105,9 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     elif kind == "rec":
         y, cache, a_aux = rglru.rec_apply(p["mixer"], h, cfg, mode=mode,
                                           cache=cache)
+    elif kind == "ssd":
+        y, cache, a_aux = ssd.ssd_apply(p["mixer"], h, cfg, mode=mode,
+                                        cache=cache)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     x = x + y.to(x.dtype)
@@ -124,19 +138,29 @@ def num_units(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(cfg.pattern)
 
 
-_PATTERNS = (("attn",), ("rec", "rec", "attn"))
+_PATTERNS = (("attn",), ("rec", "rec", "attn"), ("ssd",))
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.pattern not in _PATTERNS or cfg.frontend
-            or cfg.family == "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: only decoder-only attention stacks (dense or "
-            "MoE FFN) and the (rec, rec, attn) hybrid are ported so far")
+    """Every family the JAX package builds: the block patterns above,
+    with or without a stub frontend; the audio family as the
+    encoder-decoder of models/encdec.py (attention blocks, an encoder
+    and cross-attention)."""
+    if cfg.pattern not in _PATTERNS:
+        raise NotImplementedError(f"{cfg.name}: block pattern "
+                                  f"{cfg.pattern} is not ported")
+    if cfg.family == "audio" and not (cfg.pattern == ("attn",)
+                                      and cfg.encoder_layers > 0
+                                      and cfg.cross_attention):
+        raise NotImplementedError(f"{cfg.name}: the audio family is an "
+                                  "encoder-decoder with cross-attention")
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its params "
+                         "are models/encdec.encdec_defs")
     defs: dict = {
         "embed": layers.embed_defs(cfg.padded_vocab, cfg.d_model),
         "final_norm": layers.norm_defs(cfg.d_model, cfg.norm),
@@ -247,14 +271,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 # ---------------------------------------------------------------- forward
-def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0,
+                  frontend_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    """Token embeddings (B, s, d), plus the learned position rows when
-    ``cfg.positional == "learned"``: a scalar ``pos0`` gives positions
-    pos0 + [0, s), a per-slot (B,) ``pos0`` gives (B, s) of them; each is
-    clamped to [0, max_position - 1], as JAX's ``take(mode="clip")``."""
+    """Token embeddings (B, s, d) — with ``frontend_embeds`` (B, F, d) of
+    a frontend config prepended, (B, F + s, d) — plus the learned
+    position rows when ``cfg.positional == "learned"``: a scalar ``pos0``
+    gives positions pos0 + [0, s), a per-slot (B,) ``pos0`` gives (B, s)
+    of them; each is clamped to [0, max_position - 1], as JAX's
+    ``take(mode="clip")``."""
     x = layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
                             cfg.d_model)
+    if cfg.frontend_tokens and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     if cfg.positional == "learned":
         s = x.shape[1]
         p0 = torch.as_tensor(pos0, dtype=torch.long, device=x.device)
@@ -333,9 +362,11 @@ def lm_hidden(params: dict, cfg: ModelConfig,
               batch: Dict[str, torch.Tensor], remat: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Train-mode forward of a JAX-layout param tree to the final hidden
-    states (B, S, d) and the summed aux.  Gradients reach the stacked
-    leaves through the per-unit views."""
-    x = _embed_inputs(params, cfg, batch["tokens"])
+    states (B, S_total, d) (S_total counts the frontend rows) and the
+    summed aux.  Gradients reach the stacked leaves through the per-unit
+    views."""
+    x = _embed_inputs(params, cfg, batch["tokens"],
+                      frontend_embeds=batch.get("frontend_embeds"))
     x, aux = _run_blocks(_unit_trees(params, cfg), cfg, x, mode="train",
                          remat=remat, tail=params.get("tail"))
     return layers.apply_norm(params["final_norm"], x, cfg.norm), aux
@@ -387,14 +418,16 @@ def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
 @torch.no_grad()
 def lm_prefill(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                max_len: int):
-    """Prefill a (B, S) batch of full-length prompts.  Returns (caches,
+    """Prefill a (B, S) batch of full-length prompts (after the
+    ``frontend_embeds`` rows of a frontend config).  Returns (caches,
     logits (B, 1, V) at the last position).  The attention takes the
     train-path kernels (PQ assignment, top-L thresholds, sparse
     attention) when the config selects them: no per-row lengths, so no
     ragged oracle."""
     tokens = batch["tokens"]
     caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-    x = _embed_inputs(model, cfg, tokens)
+    x = _embed_inputs(model, cfg, tokens,
+                      frontend_embeds=batch.get("frontend_embeds"))
     x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
                        pos=0, remat=False, tail=model.tail)
     x = layers.apply_norm(model.final_norm, x[:, -1:], cfg.norm)
@@ -404,16 +437,17 @@ def lm_prefill(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def supports_ragged_prefill(cfg: ModelConfig) -> bool:
     """Right-padded ragged prefill is exact only for pure-attention
     stacks: padding past a row's length is causally invisible to
-    attention, but it would corrupt recurrent states."""
+    attention, but it would corrupt recurrent (rec / ssd) states."""
     return all(k == "attn" for k in cfg.pattern)
 
 
 def length_sensitive(cfg: ModelConfig) -> bool:
     """Right-padding changes real-token outputs unless per-row lengths
     reach the layers: sparse MHA's top-L budget and routed-FFN / MoE
-    dispatch capacity scale with the sequence length."""
-    return (attention.sparse_applicable(cfg) or ffn.routed_applicable(cfg)
-            or cfg.num_experts > 0)
+    dispatch capacity scale with the sequence length.  An attention-free
+    stack (num_heads 0) has no top-L budget."""
+    return ((cfg.num_heads > 0 and attention.sparse_applicable(cfg))
+            or ffn.routed_applicable(cfg) or cfg.num_experts > 0)
 
 
 def _mask_invalid_slots(caches: dict, lengths: torch.Tensor) -> dict:
@@ -433,15 +467,17 @@ def lm_prefill_ragged(model: LM, cfg: ModelConfig,
                       batch: Dict[str, torch.Tensor], lengths: torch.Tensor,
                       max_len: int, return_counters: bool = False):
     """Prefill a (B, S) batch of right-padded prompts of per-row
-    ``lengths``.  Returns (caches, logits (B, 1, V) at each row's last
-    real position), and with ``return_counters`` also the telemetry
+    ``lengths`` (model positions: the frontend rows of a frontend config
+    count, as in JAX).  Returns (caches, logits (B, 1, V) at each row's
+    last real position), and with ``return_counters`` also the telemetry
     counter tree.  Each row's outputs equal an exact-length batch-1
     prefill: the causal mask hides pad keys, and the lengths reach the
     sparse-MHA budgets and routed-FFN capacities."""
     tokens = batch["tokens"]
     bsz = tokens.shape[0]
     caches = init_caches(cfg, bsz, max_len, tokens.device)
-    x = _embed_inputs(model, cfg, tokens)
+    x = _embed_inputs(model, cfg, tokens,
+                      frontend_embeds=batch.get("frontend_embeds"))
     sl = lengths if length_sensitive(cfg) else None
     x, aux = _run_blocks(model.units, cfg, x, mode="prefill",
                          caches=caches, pos=0, seq_lengths=sl,

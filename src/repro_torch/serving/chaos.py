@@ -212,7 +212,7 @@ class ChaosMonkey:
                                max_new_tokens=eng.max_len + 1), now=now)
             self.counts["oversized_submit"] += 1
         if self.rng.random() < self.hog_p:
-            budget = max(1, eng.max_len - 2)
+            budget = max(1, eng.max_len - eng.frontend - 2)
             eng.submit(Request(uid=self._fresh_uid(), tokens=[1, 2],
                                max_new_tokens=budget, priority=-1),
                        now=now)

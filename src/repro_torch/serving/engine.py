@@ -56,6 +56,11 @@ over decode slots (port of the JAX package's ``serving/engine.py``).
     or two-pass; paged: read through the page table, sparse or dense) and
     the block-gather routed FFN; the prefill's routed FFN runs the
     grouped-FFN kernel.
+  * A frontend config (VLM) takes each request's ``frontend_embeds``
+    (F, d): its F rows are prepended to the prompt, so positions, the
+    prefill lengths, the cache rows and the page reservation all count
+    them.  The encoder-decoder (audio) family is served by
+    ``generate``'s per-token loop over models/encdec.py, as in JAX.
 Timing is split into prefill and decode, each ended by a host sync.
 """
 from __future__ import annotations
@@ -69,7 +74,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import dispatch
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.serving import kv_pages as kvp
 from repro_torch.serving.telemetry import (MetricsSnapshot, Reservoir,
                                            TelemetryRecorder)
@@ -77,18 +82,24 @@ from repro_torch.serving.telemetry import (MetricsSnapshot, Reservoir,
 
 def build_prefill_step(cfg: ModelConfig, max_len: int):
     """prefill(model, batch) -> (caches, last-position logits): the
-    non-ragged prefill of full-length prompts (``transformer.lm_prefill``)."""
+    non-ragged prefill of full-length prompts (``transformer.lm_prefill``,
+    or ``encdec.encdec_prefill`` for the audio family)."""
+    fn = (encdec.encdec_prefill if cfg.family == "audio"
+          else transformer.lm_prefill)
+
     def prefill(model, batch):
-        return transformer.lm_prefill(model, cfg, batch, max_len)
+        return fn(model, cfg, batch, max_len)
     return prefill
 
 
 def build_decode_step(cfg: ModelConfig):
     """decode(model, caches, token, pos) -> (caches, logits): one token a
     row; the caches are written in place and returned."""
+    fn = (encdec.encdec_decode_step if cfg.family == "audio"
+          else transformer.lm_decode_step)
+
     def decode(model, caches, token, pos):
-        return caches, transformer.lm_decode_step(model, cfg, caches, token,
-                                                  pos)
+        return caches, fn(model, cfg, caches, token, pos)
     return decode
 
 
@@ -280,6 +291,7 @@ class Request:
     uid: int
     tokens: Sequence[int]                  # prompt token ids
     max_new_tokens: int = 16
+    frontend_embeds: Optional[Any] = None  # (F, d) for a VLM's frontend
     temperature: Optional[float] = None
     top_k: int = 0
     top_p: float = 0.0
@@ -507,7 +519,8 @@ class Engine:
     """Continuous-batching engine over ``num_slots`` decode slots.
 
     model: a ``transformer.LM`` on ``device`` (CUDA unless the caller
-    asks for the CPU; without a card that request raises).  kv_pages:
+    asks for the CPU; without a card that request raises), or for the
+    audio family an ``encdec.EncDecLM``, which only ``generate`` serves.  kv_pages:
     the page pool of the paged layout, by default the contiguous
     footprint (``num_slots * ceil(max_len / page_size)``); pass fewer to
     serve under a fixed cache budget.  prefill_batch: most requests per
@@ -550,6 +563,8 @@ class Engine:
                                         if prefill_batch is None
                                         else prefill_batch))
         self.prefill_decode_ratio = max(0.0, prefill_decode_ratio)
+        # rows a VLM's frontend prepends to every prompt
+        self.frontend = cfg.frontend_tokens if cfg.frontend else 0
         self._paged = (dispatch.use_paged_kv(cfg)
                        and transformer.paged_applicable(cfg))
         self.page_size = cfg.spt.kv_page_size if self._paged else 0
@@ -588,15 +603,16 @@ class Engine:
 
     def _pad_len(self, n: int) -> int:
         """Prompt-length bucket: ragged-batchable configs pad right to a
-        power of two (>= 8, capped at max_len; cache slots past the real
-        length are invalidated); the others prefill at the exact length."""
+        power of two (>= 8, capped at max_len less a frontend's rows;
+        cache slots past the real length are invalidated); the others
+        prefill at the exact length."""
         n = max(1, n)
         if not self._ragged_batchable():
             return n
         p = 8
         while p < n:
             p <<= 1
-        return max(n, min(p, self.max_len))
+        return max(n, min(p, self.max_len - self.frontend))
 
     @staticmethod
     def _pad_rows(n: int) -> int:
@@ -609,8 +625,10 @@ class Engine:
     def _prefill_group(self, group: Sequence[_QItem]):
         """ONE ragged prefill over an admission group; dummy rows fill the
         Bp bucket and are dropped by the slot copy.  Resumed rows prefill
-        prompt + regenerated tokens.  Returns (cache rows, logits (Bp, 1,
-        V), Bp, counter tree or None)."""
+        prompt + regenerated tokens, after their frontend rows (the
+        lengths count those).  Returns (cache rows, logits (Bp, 1, V),
+        Bp, counter tree or None)."""
+        cfg = self.cfg
         rows_toks = [it.prefill_tokens() for it in group]
         p = self._pad_len(max(len(t) for t in rows_toks))
         bpb = self._pad_rows(len(group))
@@ -620,9 +638,17 @@ class Engine:
             toks[i, :len(t)] = t
             lens[i] = len(t)
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
-        lengths = torch.as_tensor(lens, device=self.device)
+        if self.frontend:
+            fe = np.zeros((bpb, self.frontend, cfg.d_model), np.float32)
+            for i, it in enumerate(group):
+                fe[i] = np.asarray(it.req.frontend_embeds,
+                                   np.float32).reshape(self.frontend,
+                                                       cfg.d_model)
+            batch["frontend_embeds"] = torch.as_tensor(fe,
+                                                       device=self.device)
+        lengths = torch.as_tensor(self.frontend + lens, device=self.device)
         out = transformer.lm_prefill_ragged(
-            self.model, self.cfg, batch, lengths, self.max_len,
+            self.model, cfg, batch, lengths, self.max_len,
             return_counters=self._tel_counters)
         if self._tel_counters:
             rows, logits, tel = out
@@ -670,9 +696,10 @@ class Engine:
     # ---------------------------------------------------------- scheduler
     def _pages_ws(self, req: Request) -> int:
         """Worst-case pages ``req`` can hold: one per page of rows
-        [0, prompt + max_new - 1) (the last decode write lands at
-        position prompt + max_new - 2); the same for a resumed item."""
-        rows = len(req.tokens) + req.max_new_tokens - 1
+        [0, frontend + prompt + max_new - 1) (the last decode write lands
+        at position frontend + prompt + max_new - 2); the same for a
+        resumed item."""
+        rows = self.frontend + len(req.tokens) + req.max_new_tokens - 1
         return kvp.num_pages(max(1, rows), self.page_size)
 
     def _validate(self, req: Request, seen: set) -> Optional[str]:
@@ -684,7 +711,10 @@ class Engine:
             return "max_new_tokens < 1"
         if not req.tokens:
             return "empty prompt"
-        need = len(req.tokens) + req.max_new_tokens
+        if self.frontend and req.frontend_embeds is None:
+            return (f"{self.cfg.name} has a {self.cfg.frontend} frontend; "
+                    "frontend_embeds is required")
+        need = self.frontend + len(req.tokens) + req.max_new_tokens
         if need > self.max_len:
             return f"needs {need} positions > max_len={self.max_len}"
         if self._paged and self._pages_ws(req) > self.kv_pages:
@@ -1019,7 +1049,8 @@ class Engine:
                 ws = self._pages_ws(it.req)
                 st.reserved += ws
                 st.slot_ws[assigned[i]] = ws
-                npages[i] = kvp.num_pages(len(it.prefill_tokens()), ps)
+                npages[i] = kvp.num_pages(
+                    self.frontend + len(it.prefill_tokens()), ps)
             st.astate, st.page_table = kvp.alloc_rows_pages(
                 st.astate, st.page_table, slots,
                 torch.as_tensor(npages, device=self.device))
@@ -1069,7 +1100,7 @@ class Engine:
                 nd = len(it.done)
                 st.buf[b, :nd] = it.done
                 st.tok[b] = it.done[-1]
-                st.pos[b] = len(it.prefill_tokens())
+                st.pos[b] = self.frontend + len(it.prefill_tokens())
                 st.n_gen[b] = nd
                 if rec is not None:
                     rec.event(r.uid, "resumed", now_wall, slot=b,
@@ -1097,7 +1128,7 @@ class Engine:
                 rec.event(r.uid, "first_token", now_wall,
                           ttft_s=round(ttft, 6))
             st.tok[b] = first
-            st.pos[b] = len(r.tokens)
+            st.pos[b] = self.frontend + len(r.tokens)
             st.n_gen[b] = 1
             st.buf[b, 0] = first
             done_now = (r.max_new_tokens <= 1
@@ -1238,6 +1269,10 @@ class Engine:
     # -------------------------------------------------------- serve loop
     def _start(self, *, temperature, seed, eos_id, clock, greedy,
                max_gen) -> _SchedState:
+        if self.cfg.family == "audio":
+            raise NotImplementedError(
+                "continuous batching covers decoder-only LMs; use "
+                "generate() for the enc-dec audio family")
         if self._live is not None:
             raise RuntimeError("engine already has a live serve()/run()")
         if eos_id == "engine-default":
@@ -1396,15 +1431,23 @@ class Engine:
                  temperature: float = 0.0,
                  seed: Optional[int] = None) -> GenerationResult:
         """Fixed-batch generation (legacy API).  Greedy decoding runs on
-        the continuous-batching engine; temperature sampling and rolling
-        workloads where prompt + steps exceed max_len take the per-token
-        loop (``_generate_per_token``)."""
+        the continuous-batching engine; the enc-dec audio family,
+        temperature sampling and rolling workloads where (frontend +)
+        prompt + steps exceed max_len take the per-token loop
+        (``_generate_per_token``).  batch: {"tokens" (B, S)[,
+        "frontend_embeds" (B, F, d)]}."""
         tokens = torch.as_tensor(batch["tokens"])
-        need = tokens.shape[1] + steps
-        if (temperature > 0.0 and seed is not None) or need > self.max_len:
+        audio = self.cfg.family == "audio"
+        need = (0 if audio else self.frontend) + tokens.shape[1] + steps
+        if (audio or (temperature > 0.0 and seed is not None)
+                or need > self.max_len):
             return self._generate_per_token(batch, steps, temperature, seed)
         rows = tokens.cpu().numpy()
-        reqs = [Request(uid=i, tokens=rows[i].tolist(), max_new_tokens=steps)
+        fes = batch.get("frontend_embeds")
+        reqs = [Request(uid=i, tokens=rows[i].tolist(), max_new_tokens=steps,
+                        frontend_embeds=(None if fes is None else
+                                         torch.as_tensor(fes[i]).float()
+                                         .cpu().numpy()))
                 for i in range(rows.shape[0])]
         outs = self.run(reqs, temperature=0.0, eos_id=None)
         return GenerationResult(tokens=[c.tokens for c in outs], steps=steps)
@@ -1412,8 +1455,14 @@ class Engine:
     @torch.no_grad()
     def _generate_per_token(self, batch, steps, temperature, seed):
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        caches, logits = self._prefill(self.model, {"tokens": tokens})
+        inputs = {"tokens": tokens}
+        if batch.get("frontend_embeds") is not None:
+            inputs["frontend_embeds"] = torch.as_tensor(
+                batch["frontend_embeds"], device=self.device)
+        caches, logits = self._prefill(self.model, inputs)
         pos0 = tokens.shape[1]
+        if self.cfg.family != "audio":
+            pos0 += self.frontend
         outs = []
         tok = self._sample(logits[:, -1], temperature, seed, 0)
         outs.append(tok)

@@ -22,7 +22,8 @@ def lm_cross_entropy(params, cfg: ModelConfig, hidden: torch.Tensor,
                      labels: torch.Tensor, chunk: int = 512
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """hidden: (B, S_h, d); labels: (B, S_lab) with -1 = ignore.  The last
-    S_lab hidden positions predict the labels.  Returns (loss, {nll_sum,
+    S_lab hidden positions predict the labels (a VLM's prepended frontend
+    rows predict nothing).  Returns (loss, {nll_sum,
     tokens, accuracy})."""
     s_lab = labels.shape[1]
     h = hidden[:, -s_lab:, :]

@@ -13,17 +13,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import params as P
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.optim.adamw import adamw_init
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    """The param defs of a model (dense decoder LMs so far)."""
+    """The param defs of a model: the encoder-decoder for the audio
+    family, the decoder-only LM otherwise."""
+    if cfg.family == "audio":
+        return encdec.encdec_defs(cfg)
     return transformer.lm_defs(cfg)
 
 
 def model_hidden(params: dict, cfg: ModelConfig, batch: Dict[str, Any],
                  remat: bool = True):
+    if cfg.family == "audio":
+        return encdec.encdec_hidden(params, cfg, batch, remat=remat)
     return transformer.lm_hidden(params, cfg, batch, remat=remat)
 
 

@@ -76,6 +76,31 @@ def test_sparse_mha_masked_matches_jax_and_the_gather_oracle(
     close(got, gather)
 
 
+@pytest.mark.parametrize("form", ["gather", "ragged", "masked", "dense"])
+def test_short_last_query_chunk_matches_jax(form):
+    """chunk_q 16 over 40 queries: the port runs chunks of 16, 16 and 8
+    where JAX runs one chunk of 40; every row is the same (a 576-row
+    frontend before a power-of-two prompt makes such lengths)."""
+    rng = np.random.default_rng(5)
+    q, k, v, cb = _qkv(rng)
+    jcfg, pcfg = _sa_cfgs(chunk_q=16)
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    targs = (t(q), t(k), t(v))
+    if form == "dense":
+        want = jsa.dense_attention(*jargs, 0.25, chunk_q=16)
+        close(sa.dense_attention(*targs, 0.25, chunk_q=16), want)
+        return
+    kw = {}
+    if form == "ragged":
+        kw["seq_lengths"] = np.array([40, 23], np.int32)
+    fn = "sparse_mha_masked" if form == "masked" else "sparse_mha"
+    want, _ = getattr(jsa, fn)(*jargs, jnp.asarray(cb), jcfg, 0.25, **{
+        k_: jnp.asarray(v_) for k_, v_ in kw.items()})
+    got, _ = getattr(sa, fn)(*targs, t(cb), pcfg, 0.25, **{
+        k_: t(v_) for k_, v_ in kw.items()})
+    close(got, want)
+
+
 def test_attend_runs_the_masked_oracle_for_sparse_masked(monkeypatch):
     jcfg = smoke_cfg(attn_impl="sparse_masked")
     cfg = port_cfg(jcfg)

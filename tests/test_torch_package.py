@@ -17,17 +17,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import base as jbase
+from repro.configs import shapes as jshapes
 from repro.core import lora as jlora
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
+from repro.train.state import model_defs as jmodel_defs
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch import configs, kernels
-from repro_torch.configs import base
+from repro_torch.configs import base, shapes
 from repro_torch.core import lora
 from repro_torch.core.params import from_numpy_tree
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.optim.adamw import OptimizerConfig
+from repro_torch.train.state import model_defs
 from repro_torch.train.trainer import TrainerConfig
 from repro_torch.models import transformer
 from repro_torch.serving.engine import Engine
@@ -173,3 +177,46 @@ def test_from_numpy_tree_loads_bf16_and_sets_frozen_flags():
         tree["units"]["b0_attn"]["mixer"]["wq"]["lora"]["b"][1])
     f32 = from_numpy_tree(tree, "cpu", {"bfloat16": torch.float32})
     assert f32["embed"]["embedding"].dtype == torch.float32
+
+
+# ------------------------------------------------------------ registry
+def test_registry_holds_the_jax_packages_ten_archs():
+    assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    assert len(configs.ARCH_NAMES) == 10
+    assert configs.SHAPES == tuple(base.ShapeSpec(*dataclasses.astuple(s))
+                                   for s in jconfigs.SHAPES)
+
+
+@pytest.mark.parametrize("name", configs.ARCH_NAMES)
+def test_every_arch_is_admitted_and_has_defs(name):
+    """_check_supported admits every assigned arch; its param defs (the
+    encoder-decoder's for audio) hold the JAX package's leaf shapes."""
+    cfg = configs.get_smoke(name)
+    transformer._check_supported(cfg)
+    got = {p: tuple(d.shape) for p, d in _def_leaves(model_defs(cfg))}
+    want = {p: tuple(d.shape) for p, d in _def_leaves(
+        jmodel_defs(jconfigs.get_smoke(name)))}
+    assert got == want
+
+
+def _def_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _def_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("name", configs.ARCH_NAMES)
+def test_input_specs_match_jax(name):
+    """(shape, dtype) of every input of every shape cell equals JAX's
+    ShapeDtypeStruct, the family rules included (audio: decoder tokens
+    and separate frames; vlm: text = seq - frontend rows)."""
+    cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
+    for spec, jspec in zip(configs.SHAPES, jconfigs.SHAPES):
+        got = shapes.input_specs(cfg, spec, batch_override=2)
+        want = jshapes.input_specs(jcfg, jspec, batch_override=2)
+        assert set(got) == set(want)
+        for k, s in got.items():
+            assert s.shape == tuple(want[k].shape), (k, s.shape)
+            assert str(s.dtype).split(".")[-1] == str(want[k].dtype), k

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only moe       # phases 1-3, 14-15
     python3 chip_smoke.py --only hybrid    # phases 1-3, 16-18
     python3 chip_smoke.py --only families  # phases 1-3, 19-22
+    python3 chip_smoke.py --only infra     # phases 1-3, 23
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -167,6 +168,17 @@ Phases (each raises on failure; nothing is caught):
      mamba2-780m at 4 layers, whisper-base at 2 + 2 layers: greedy
      streams up to near-ties (mamba2: identical, no launch), one train
      step's loss (rel 1e-4) and gradient cosine (>= 0.999);
+  23. checkpoint/restart of full-width qwen3-0.6b (bf16, spt, 4 x 1024):
+     run A trains 6 steps uninterrupted (checkpoints every 2); run B, a
+     child process of this script, the same run, sends itself SIGTERM
+     after step 3 and must report interrupted with its step-3
+     checkpoint (sha256 verified); run C, a fresh Trainer here, resumes
+     from it: the restored state equals B's final state bit for bit,
+     start_step is 3, C's launches of kernels 1, 2, 4 and 9 are exact for
+     its 3 steps, the monitor counts them, and B's and C's losses agree
+     with A's within 2e-2, under torch's deterministic algorithms
+     (checkpoint bytes, save and restore times and step times before and
+     after resume printed);
   counters are zeroed just before each counted run and read just after,
   launch counts exact; then one JSON line of the ten kernels (launches
   per path; each with its times at the paper's, the MoE, the hybrid and
@@ -187,8 +199,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, tensor / CUDA cores
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
 
@@ -315,9 +325,14 @@ def nbytes(*ts) -> int:
 
 
 def bound(nbytes_moved: float, flops: float, dtype) -> tuple:
-    name = str(dtype).split(".")[-1]
-    t_bytes = nbytes_moved / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    """The least ms the card could take: bytes over its memory rate or
+    operations over the peak rate of their type (launch/roofline.py's
+    datasheet figures), whichever is larger."""
+    from repro_torch.launch import roofline
+    peak = {"bfloat16": roofline.PEAK_FLOPS,
+            "float32": roofline.PEAK_FLOPS_F32}[str(dtype).split(".")[-1]]
+    t_bytes = nbytes_moved / roofline.HBM_BW * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3751,19 +3766,212 @@ def _map_tree(fn, tree):
     return None if tree is None else fn(tree)
 
 
+# ------------------------------------------------------------ phase 23
+# Checkpoint/restart of the full-width qwen3-0.6b fine-tune: run A trains
+# INFRA_STEPS steps; run B, a child process, the same run, signals itself
+# SIGTERM after step INFRA_STOP and leaves its final checkpoint; run C, a
+# fresh Trainer here, resumes from B's directory to INFRA_STEPS.  The
+# three runs use torch's deterministic algorithms (the oracle backward's
+# index adds otherwise accumulate with atomics, and AdamW's first steps,
+# lr x sign(g), turn their last-bit differences into loss differences of
+# ~1e-2), so B's and C's losses can be held to A's: within
+# INFRA_LOSS_TOL, the largest difference printed.
+INFRA_STEPS, INFRA_STOP, INFRA_LOSS_TOL = 6, 3, 2e-2
+INFRA_DIR = ROOT / "build" / "infra"
+
+
+def _infra_trainer(torch, ckpt_dir, **kw):
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(_train_cfg(torch),
+                   OptimizerConfig(lr=1e-3, total_steps=INFRA_STEPS),
+                   TrainerConfig(total_steps=INFRA_STEPS,
+                                 ckpt_dir=str(ckpt_dir), ckpt_interval=2,
+                                 keep_checkpoints=2, log_interval=1),
+                   device="cuda", **kw)
+
+
+def _infra_batches(torch, start=0):
+    import itertools
+    return itertools.islice(_batches(_train_cfg(torch), TB, TS,
+                                     INFRA_STEPS, seed=0), start, None)
+
+
+def _state_digest(state) -> dict:
+    """sha256 of each leaf's bytes as the checkpoint stores them (None
+    holes as None), by leaf path."""
+    import hashlib
+    from repro_torch.train import checkpoint
+    out = {}
+    for path, v in checkpoint._walk(state):
+        out[path] = (None if v is None else hashlib.sha256(
+            checkpoint._to_numpy(v)[0].tobytes()).hexdigest())
+    return out
+
+
+def _timed_saves(trainer) -> list:
+    """Wall seconds of each checkpoint the trainer writes (a step already
+    published is skipped and not timed)."""
+    import torch
+    from repro_torch.train import checkpoint
+    times, save = [], trainer._save
+
+    def timed(step):
+        published = checkpoint.latest_step(trainer.tcfg.ckpt_dir) == step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(step)
+        if not published:
+            times.append(time.perf_counter() - t0)
+    trainer._save = timed
+    return times
+
+
+def _loss_hook(rows, label, stop_at=None):
+    def hook(step, m):
+        rows.append({"step": step, "loss": m["loss"],
+                     "grad_norm": m["grad_norm"]})
+        print(f"  {label} step {json.dumps(rows[-1])}", flush=True)
+        if step == stop_at:
+            import signal
+            os.kill(os.getpid(), signal.SIGTERM)    # this process only
+    return hook
+
+
+def infra_child(torch, ckpt_dir) -> int:
+    """Run B of phase 23, in a child process: the fine-tune of run A,
+    which sends itself SIGTERM after step INFRA_STOP; writes its report,
+    losses and the digest of its final state beside ``ckpt_dir``."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    trainer = _infra_trainer(torch, ckpt_dir, seed=0)
+    saves = _timed_saves(trainer)
+    rows = []
+    report = trainer.run(_infra_batches(torch),
+                         step_hook=_loss_hook(rows, "B", INFRA_STOP))
+    torch.cuda.synchronize()
+    Path(str(ckpt_dir) + ".json").write_text(json.dumps({
+        "final_step": report["final_step"],
+        "interrupted": report["interrupted"],
+        "straggler": report["straggler"], "rows": rows, "saves_s": saves,
+        "digest": _state_digest(trainer.state)}))
+    return 0
+
+
+def infra_resume(torch):
+    """Phase 23: runs A, B (a child, SIGTERM after step INFRA_STOP) and
+    C (resumed from B's checkpoint); C's launches of kernels 1, 2, 4 and 9
+    are counted and held to _want_train_launches for the steps C ran."""
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.train import checkpoint
+    shutil.rmtree(INFRA_DIR, ignore_errors=True)
+    a_dir, b_dir = INFRA_DIR / "a", INFRA_DIR / "b"
+    cfg = _train_cfg(torch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # A: uninterrupted
+    trainer = _infra_trainer(torch, a_dir, seed=0)
+    saves_a, rows_a = _timed_saves(trainer), []
+    rep_a = trainer.run(_infra_batches(torch),
+                        step_hook=_loss_hook(rows_a, "A"))
+    if rep_a["final_step"] != INFRA_STEPS or rep_a["interrupted"]:
+        raise AssertionError(f"run A: {rep_a['final_step']} steps, "
+                             f"interrupted {rep_a['interrupted']}")
+    # the monitor's step times: from before the step to its metrics on
+    # the host (checkpoint writes excluded)
+    steps_a = list(trainer.monitor.times)
+    del trainer
+    _free(torch)
+    # B: a child process, interrupted by its own SIGTERM
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--infra-child", str(b_dir)], capture_output=True,
+                         text=True, timeout=900)
+    print(out.stdout, end="", flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"run B exited {out.returncode}: "
+                             f"{out.stderr[-4000:]}")
+    b_wall = time.perf_counter() - t0
+    b = json.loads(Path(str(b_dir) + ".json").read_text())
+    if not b["interrupted"] or b["final_step"] != INFRA_STOP:
+        raise AssertionError(f"run B: interrupted {b['interrupted']} at "
+                             f"step {b['final_step']}, want {INFRA_STOP}")
+    if checkpoint.latest_step(str(b_dir)) != INFRA_STOP:
+        raise AssertionError("run B left no checkpoint of its last step")
+    step_dir = b_dir / f"step_{INFRA_STOP:08d}"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    if checkpoint._sha256(step_dir / "arrays.npz") != manifest["sha256"]:
+        raise AssertionError("run B's checkpoint fails its sha256")
+    ckpt_bytes = (step_dir / "arrays.npz").stat().st_size
+    # C: resumed here from B's checkpoint
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = _infra_trainer(torch, b_dir)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if trainer.start_step != INFRA_STOP:
+        raise AssertionError(f"run C starts at {trainer.start_step}, "
+                             f"want {INFRA_STOP}")
+    digest = _state_digest(trainer.state)
+    if digest != b["digest"]:
+        bad = [p for p in digest if digest[p] != b["digest"].get(p)]
+        raise AssertionError(f"run C restored {len(bad)} leaves that differ "
+                             f"from run B's state, e.g. {bad[:3]}")
+    saves_c, rows_c = _timed_saves(trainer), []
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    rep_c = trainer.run(_infra_batches(torch, INFRA_STOP),
+                        step_hook=_loss_hook(rows_c, "C"))
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    ran = INFRA_STEPS - INFRA_STOP
+    want = _want_train_launches(cfg, launches, ran)
+    if launches != want:
+        raise AssertionError(f"run C launches {launches} != expected {want}")
+    if (rep_c["final_step"] != INFRA_STEPS
+            or rep_c["straggler"]["steps"] != ran):
+        raise AssertionError(f"run C: final step {rep_c['final_step']}, "
+                             f"straggler steps {rep_c['straggler']['steps']}")
+    loss_a = [r["loss"] for r in rows_a]
+    resumed = [r["loss"] for r in b["rows"]] + [r["loss"] for r in rows_c]
+    diff = max(abs(x - y) for x, y in zip(resumed, loss_a))
+    gn_a = [r["grad_norm"] for r in rows_a]
+    gn = [r["grad_norm"] for r in b["rows"] + rows_c]
+    print(f"  infra: B + C losses equal A's bit for bit: {resumed == loss_a}; "
+          f"grad norms: {gn == gn_a}", flush=True)
+    if len(resumed) != INFRA_STEPS or not diff <= INFRA_LOSS_TOL:
+        raise AssertionError(f"B + C losses {resumed} vs A's {loss_a}: max "
+                             f"diff {diff} beyond {INFRA_LOSS_TOL}")
+    steps_c = list(trainer.monitor.times)
+    print(f"  infra: checkpoint {ckpt_bytes} bytes; saves "
+          f"{json.dumps(saves_a + b['saves_s'] + saves_c)} s; restore "
+          f"{restore_s:.3f} s; run B {b_wall:.1f} s as a child; step time "
+          f"A {json.dumps(steps_a)} s, C after resume {json.dumps(steps_c)}"
+          f" s; max loss diff B + C vs A {diff:.3e}; launches "
+          f"{json.dumps(launches)}; {card_line()}", flush=True)
+    del trainer
+    _free(torch)
+    torch.use_deterministic_algorithms(False)
+    shutil.rmtree(INFRA_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
-                                       "families"),
+                                       "families", "infra"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
                          "phases (1-3, 7-8), the paper's models (1-3, "
                          "9-11), the long-lived server (1-3, 12-13), the "
                          "MoE family (1-3, 14-15), the dense registry and "
-                         "the hybrid family (1-3, 16-18) or the VLM, SSM "
-                         "and audio families (1-3, 19-22) alone")
+                         "the hybrid family (1-3, 16-18), the VLM, SSM "
+                         "and audio families (1-3, 19-22) or checkpoint/"
+                         "restart (1-3, 23) alone")
+    ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3771,6 +3979,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels
+    if args.infra_child:                 # run B of phase 23
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return infra_child(torch, args.infra_child)
 
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3852,7 +4064,7 @@ def main() -> int:
                        "dense_train", "hybrid_serve", "hybrid_train",
                        "vlm_serve", "vlm_serve_paged", "vlm_train",
                        "ssm_serve", "ssm_train", "audio_generate",
-                       "audio_train")}
+                       "audio_train", "infra_train")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -3971,6 +4183,15 @@ def main() -> int:
               flush=True)
         families_agree_f32(torch)
         print(f"[22] took {time.perf_counter() - t3:.1f} s", flush=True)
+    if args.only in (None, "infra"):
+        # 23. checkpoint/restart: SIGTERM in a child, resumed here
+        t0 = time.perf_counter()
+        print(f"[23] full-width qwen3-0.6b bf16 fine-tune, {INFRA_STEPS} "
+              f"steps of {TB} x {TS}: A uninterrupted, B a child stopped "
+              f"by SIGTERM after step {INFRA_STOP}, C resumed from B's "
+              f"checkpoint", flush=True)
+        paths["infra_train"] = infra_resume(torch)
+        print(f"[23] took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -137,6 +137,12 @@ class ModelConfig:
         """Vocab padded to a multiple of 256 (the JAX param layout)."""
         return -(-self.vocab_size // 256) * 256
 
+    def layer_types(self) -> Tuple[str, ...]:
+        """The block kind of each layer: the pattern repeated, cut to
+        num_layers."""
+        reps = -(-self.num_layers // len(self.pattern))
+        return tuple((self.pattern * reps)[: self.num_layers])
+
     def with_spt(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, spt=dataclasses.replace(self.spt, **kw))
 

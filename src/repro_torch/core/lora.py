@@ -54,3 +54,12 @@ def linear(x: torch.Tensor, p, cfg: LoRAConfig) -> torch.Tensor:
     if cfg.enabled and "lora" in p:
         y = y + apply_lora(x, p["lora"], cfg.scale)
     return y
+
+
+def merge(p, cfg: LoRAConfig) -> torch.Tensor:
+    """W' = W + s B C, in f32 and stored back in W's dtype: the
+    inference-time merge (paper §2.2)."""
+    w = p["w"].float()
+    if cfg.enabled and "lora" in p:
+        w = w + cfg.scale * (p["lora"]["b"].float() @ p["lora"]["c"].float())
+    return w.to(p["w"].dtype)

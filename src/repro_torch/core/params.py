@@ -96,6 +96,35 @@ def count_params(tree: Tree, only_trainable: Optional[bool] = None) -> int:
     return total
 
 
+def param_bytes(tree: Tree, only_trainable: Optional[bool] = None) -> int:
+    """Bytes of a def tree's tensors (of its trainable or frozen ones
+    only, when asked)."""
+    total = 0
+
+    def one(d: ParamDef):
+        nonlocal total
+        if only_trainable is None or d.trainable == only_trainable:
+            total += math.prod(d.shape) * d.dtype.itemsize
+
+    _map_defs(one, tree)
+    return total
+
+
+def tree_paths(tree: Tree) -> list:
+    """Key paths (tuples) of a def or value tree's leaves, sorted."""
+    out = []
+
+    def walk(t, path):
+        if is_def(t) or not isinstance(t, Mapping):
+            out.append(path)
+            return
+        for k in sorted(t.keys()):
+            walk(t[k], path + (k,))
+
+    walk(tree, ())
+    return out
+
+
 def _to_torch(a: np.ndarray) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":     # ml_dtypes bf16 from a JAX array

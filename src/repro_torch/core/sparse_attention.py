@@ -58,6 +58,36 @@ def top_l_dyn(horizon: torch.Tensor, cfg: SparseAttentionConfig,
     return torch.minimum(l, h)
 
 
+def _combined_score(scores: torch.Tensor, key_pos: torch.Tensor,
+                    mask: torch.Tensor, nk: int) -> torch.Tensor:
+    """Fold the tie-break into one sortable f32: score*nk + key_index
+    (exact for score*nk + j < 2^24); masked entries -1."""
+    comb = scores.float() * float(nk) + key_pos.float()
+    return torch.where(mask, comb, -1.0)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, ties to
+    the lower index as ``jax.lax.top_k`` breaks them (``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def select_topl(scores: torch.Tensor, l: int, mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-L selection with the canonical tie-break, by sorting (the
+    reference; ``bucket_select`` selects the same set without a sort).
+
+    scores: (..., nq, nk) integer-valued; mask: (..., nq, nk) bool.
+    Returns indices (..., nq, L) int32 by descending combined score,
+    valid (..., nq, L) bool."""
+    nk = scores.shape[-1]
+    key_pos = torch.arange(nk, dtype=torch.int32, device=scores.device)
+    top, idx = _top_k(_combined_score(scores, key_pos, mask, nk), l)
+    return idx.to(torch.int32), top >= 0.0
+
+
 def _eligibility(scores: torch.Tensor, valid: torch.Tensor, budget,
                  max_score: int) -> torch.Tensor:
     """The top-L set as a boolean mask: every key above the threshold
@@ -374,3 +404,43 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         w = torch.where(torch.isfinite(logits).any(-1, keepdim=True), w, 0.0)
         outs.append(torch.einsum("bgrnm,bgmd->bgrnd", w.to(v.dtype), v))
     return torch.cat(outs, dim=3).reshape(b, hq, nq, d)
+
+
+def _index_sets(idx: torch.Tensor, ok: torch.Tensor, nk: int
+                ) -> torch.Tensor:
+    """(..., nk) f32 membership of the top-k index rows whose entry is ok."""
+    out = torch.zeros((*idx.shape[:-1], nk), dtype=torch.float32,
+                      device=idx.device)
+    return out.scatter_(-1, idx, ok.expand(idx.shape).float())
+
+
+def selection_recall(q: torch.Tensor, k: torch.Tensor,
+                     codebooks: torch.Tensor, cfg: SparseAttentionConfig,
+                     causal: bool = True,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Diagnostic (paper §4.1 reports ~90%): the fraction of the true
+    top-L q.k pairs that PQ selection recovers, as a 0-d f32 tensor.
+    O(n^2): small shapes only."""
+    b, hq, nq, d = q.shape
+    _, hk, nk, _ = k.shape
+    r = hq // hk
+    l = top_l(nk, cfg, window)
+    q_pos = torch.arange(nq, dtype=torch.int32, device=q.device)
+    k_pos = torch.arange(nk, dtype=torch.int32, device=q.device)
+    mask = attention_mask(q_pos, k_pos, causal, window)
+    k_rep = k.repeat_interleave(r, dim=1)                 # (B, Hq, nk, d)
+    exact = torch.einsum("bhnd,bhmd->bhnm", q.float(), k_rep.float())
+    exact = torch.where(mask, exact, float("-inf"))
+    true_top, true_idx = _top_k(exact, l)
+    codes_q = pq.assign(q, codebooks)
+    codes_k = pq.assign(k, codebooks)
+    s = pq.match_scores(codes_q.reshape(b, hk, r, nq, -1),
+                        codes_k[:, :, None], cfg.pq.num_codewords)
+    s = s.reshape(b, hq, nq, nk)
+    sel_top, sel_idx = _top_k(_combined_score(s, k_pos, mask, nk), l)
+    true_sets = _index_sets(true_idx, torch.isfinite(true_top), nk)
+    sel_sets = _index_sets(sel_idx, sel_top >= 0.0, nk)
+    inter = (true_sets * sel_sets).sum(-1)
+    denom = torch.clamp(mask.sum(-1), max=l).float().expand(inter.shape)
+    return torch.where(denom > 0, inter / torch.clamp(denom, min=1.0),
+                       1.0).mean()

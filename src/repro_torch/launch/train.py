@@ -5,6 +5,9 @@ MHA and routed FFN on one device.
         --steps 20 --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --arch opt-2560 \\
         --variant lora --steps 3 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --steps 200 --ckpt runs/qwen3     # resumes from runs/qwen3 if it
+                                          # holds a checkpoint
 
 --arch takes any name ``configs.get_config`` takes (the assigned
 architectures, the paper's blocks, opt-2.7b, llama-2.7b); --variant picks
@@ -15,12 +18,17 @@ them (--seq is then the decoder's length).
 
 Random weights from a seed (no checkpoint ships with the repo), synthetic
 data from the port's pipeline, the config's kernels (attn_impl / ffn_impl
-"pallas" = the CUDA kernels).  Prints one JSON blob.  Runs on the card
-unless ``--device cpu``.
+"pallas" = the CUDA kernels).  ``--ckpt DIR`` checkpoints every 50 steps
+(``TrainerConfig.ckpt_interval``) and at the end, in JAX's layout (either
+package restores it); a run resumes from the newest step in DIR and
+takes the batches from there on (JAX's launcher starts its stream over),
+and SIGTERM ends it cleanly after the step in flight.  Prints one JSON
+blob.  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -60,6 +68,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--variant", default="spt", choices=VARIANTS)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory: resume from it, save to it")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -69,26 +79,32 @@ def main(argv=None) -> int:
                                                     ffn_impl="pallas")
     device = transformer.resolve_device(args.device)
     ocfg = OptimizerConfig(lr=args.lr, total_steps=args.steps)
-    tcfg = TrainerConfig(total_steps=args.steps, log_interval=1)
+    tcfg = TrainerConfig(total_steps=args.steps, log_interval=1,
+                         ckpt_dir=args.ckpt)
+    trainer = Trainer(cfg, ocfg, tcfg, device=device)
+    # a resumed run takes the batches the uninterrupted run would have
     data = synthetic_dataset(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                    global_batch=args.batch), steps=args.steps)
-    data = with_frontend(data, cfg, seed=2)
-    trainer = Trainer(cfg, ocfg, tcfg, device=device)
+    data = itertools.islice(with_frontend(data, cfg, seed=2),
+                            trainer.start_step, None)
     t0 = time.perf_counter()
     report = trainer.run(data)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    steps_run = report["final_step"] - trainer.start_step
     print(json.dumps({
         "arch": cfg.name, "variant": args.variant, "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
+        "start_step": trainer.start_step,
         "final_step": report["final_step"], "wall_s": wall,
-        "tokens_per_s": report["final_step"] * args.batch * args.seq / wall,
+        "tokens_per_s": steps_run * args.batch * args.seq / wall,
         "first_metrics": report["metrics"][0] if report["metrics"] else None,
-        "last_metrics": report["metrics"][-1] if report["metrics"] else None},
-        indent=1))
+        "last_metrics": report["metrics"][-1] if report["metrics"] else None,
+        "straggler": report["straggler"],
+        "interrupted": report["interrupted"]}, indent=1))
     return 0
 
 

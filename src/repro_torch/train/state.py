@@ -43,3 +43,9 @@ def init_state(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     train, frozen = P.partition(params, P.trainable_mask(defs))
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "train": train, "frozen": frozen, "opt": adamw_init(train)}
+
+
+def full_params(state: dict) -> dict:
+    """The model's whole parameter tree: the trainable and frozen halves
+    of ``state`` put back together."""
+    return P.combine(state["train"], state["frozen"])

@@ -20,13 +20,12 @@ import torch
 
 from repro import configs as jconfigs
 from repro.core import adapter as jadapter
-from repro.core.params import init_tree as jinit_tree
 from repro.launch.dryrun import apply_variant as japply_variant
 from repro.models import transformer as jtransformer
 from repro_torch.core import adapter
 from repro_torch.core.params import from_numpy_tree, leaves
 from repro_torch.models import transformer
-from test_torch_model import port_cfg
+from test_torch_model import np_init_tree, port_cfg
 
 
 @pytest.fixture(autouse=True)
@@ -48,7 +47,7 @@ def _cfgs(dtype=jnp.bfloat16):
 
 
 def _dense_tree(jdense):
-    return jinit_tree(jtransformer.lm_defs(jdense), jax.random.PRNGKey(0))
+    return np_init_tree(jtransformer.lm_defs(jdense), 0)
 
 
 def _paths(tree):

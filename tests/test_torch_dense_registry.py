@@ -2,7 +2,7 @@
 gemma-7b (GeGLU, head_dim 256 at full width, tied embeddings scaled by
 sqrt(d_model)) and the two h2o-danube configs (sliding window) — and the
 routed FFN's ``grouped_shmap`` switch, against the JAX package in f32 on
-their smoke configs, params from JAX's ``init_tree``:
+their smoke configs, params drawn from JAX's defs (``np_init_tree``):
 
   * ``lm_prefill_ragged`` logits of a right-padded batch, then one
     ``lm_decode_step`` from the same caches, on the kernel path and on

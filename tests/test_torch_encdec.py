@@ -1,7 +1,7 @@
 """The port's encoder-decoder family (whisper-base: a bidirectional
 encoder over stub frame embeddings, a decoder with causal self-attention
 and cross-attention) against the JAX package, in f32 on the CPU, with
-params from JAX's ``init_tree`` carried over through numpy:
+params drawn from JAX's defs (``np_init_tree``) through numpy:
 
   * ``encode`` and ``encdec_hidden``'s logits, on the kernel and the
     oracle paths, to max-abs <= 1e-5 x max |JAX|;
@@ -28,8 +28,6 @@ from repro import configs as jconfigs
 from repro.models import encdec as jencdec
 from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
 from repro.serving.engine import Engine as JEngine
-from repro.train import state as JS
-from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch import configs
 from repro_torch.configs import shapes
@@ -41,6 +39,8 @@ from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from test_torch_model import jax_params, perturb_lora, port_cfg, t
+from test_torch_model import (jax_trainer, keep_sigterm,  # noqa: F401
+                              np_train_state)
 
 ARCH = "whisper-base"
 KERNEL = dict(attn_impl="pallas", ffn_impl="pallas")
@@ -172,10 +172,7 @@ def test_train_step_matches_jax():
     loss, grad norm and every trainable leaf's gradient (the AdamW first
     moment), encoder and decoder leaves alike."""
     jcfg = _jcfg(**KERNEL)
-    st = JS.init_state(jcfg, jax.random.PRNGKey(0))
-    st = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32), st)
+    st = np_train_state(jcfg)
     st["train"] = perturb_lora(st["train"], np.random.default_rng(1))
     rng = np.random.default_rng(2)
     toks = rng.integers(0, 256, (2, 17))
@@ -184,9 +181,8 @@ def test_train_step_matches_jax():
              "frontend_embeds": rng.standard_normal(
                  (2, FRAMES, 64)).astype(np.float32)}
     ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-    jtr = JTrainer(jcfg, JOptimizerConfig(**ocfg),
-                   JTrainerConfig(total_steps=1, log_interval=1))
-    jtr.state = jax.tree_util.tree_map(jnp.asarray, st)
+    jtr = jax_trainer(jcfg, JOptimizerConfig(**ocfg),
+                      JTrainerConfig(total_steps=1, log_interval=1), st)
     jm = jtr.run(iter([batch]))["metrics"][-1]
     tr = Trainer(port_cfg(jcfg), OptimizerConfig(**ocfg),
                  TrainerConfig(total_steps=1, log_interval=1),

@@ -24,7 +24,7 @@ from test_torch_model import (jax_params, one_torch_thread,  # noqa: F401
                               port_model, smoke_cfg)
 
 PROMPTS = [9, 14, 5, 11, 7]       # 5 ragged requests over 2 slots
-EOS = 222                         # occurs mid-stream in this workload
+EOS = 160                         # occurs mid-stream in this workload
 MAX_LEN = 32
 
 

@@ -1,7 +1,7 @@
 """The port's hybrid family (recurrentgemma-9b: RG-LRU blocks and local
 MQA attention in ("rec", "rec", "attn") units) against the JAX package,
-in f32 on the CPU, with params from JAX's ``init_tree`` carried over
-through numpy:
+in f32 on the CPU, with params drawn from JAX's defs
+(``np_init_tree``) through numpy:
 
   * the RG-LRU block (models/rglru.py): ``_causal_conv`` with and without
     a carried state and ``_gates`` to 1e-5; ``rglru_scan`` (the port's
@@ -36,15 +36,12 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.core.params import init_tree as jinit_tree
 from repro.data import pipeline as jpipeline
 from repro.models import rglru as jrglru
 from repro.models import transformer as jtransformer
 from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
-from repro.train import state as JS
-from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch.core.params import (from_numpy_state, from_numpy_tree,
                                      leaves)
@@ -53,8 +50,10 @@ from repro_torch.models import rglru, transformer
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.train.trainer import Trainer, TrainerConfig
-from test_torch_model import (close, jax_params, perturb_lora, port_cfg,
-                              port_model, t)
+from test_torch_model import (close, jax_params, np_init_tree,
+                              perturb_lora, port_cfg, port_model, t)
+from test_torch_model import (jax_trainer, keep_sigterm,  # noqa: F401
+                              np_train_state)
 
 ARCH = "recurrentgemma-9b"
 LOGIT_TOL = 1e-4
@@ -79,7 +78,7 @@ def _jcfg(**kw):
 
 def _rec_params(jcfg, seed=0):
     """(JAX, port) params of one RG-LRU mixer, f32, LoRA c perturbed."""
-    tree = jinit_tree(jrglru.rglru_defs(jcfg), jax.random.PRNGKey(seed))
+    tree = np_init_tree(jrglru.rglru_defs(jcfg), seed)
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
     tree = perturb_lora(tree, np.random.default_rng(seed + 1))
     return (jax.tree_util.tree_map(jnp.asarray, tree),
@@ -374,19 +373,15 @@ def test_train_step_matches_jax():
     40 (past the window): loss, grad norm and every trainable leaf's
     gradient, read as the AdamW first moment (1 - b1) g of both."""
     jcfg = _jcfg(spt=KERNEL)
-    st = JS.init_state(jcfg, jax.random.PRNGKey(0))
-    st = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32), st)
+    st = np_train_state(jcfg)
     st["train"] = perturb_lora(st["train"], np.random.default_rng(1))
     ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4)
     dcfg = dict(vocab_size=256, seq_len=40, global_batch=2, kind="random",
                 seed=3)
     jbatches = list(jpipeline.synthetic_dataset(
         jpipeline.DataConfig(**dcfg), 1))
-    jtr = JTrainer(jcfg, JOptimizerConfig(**ocfg),
-                   JTrainerConfig(total_steps=1, log_interval=1))
-    jtr.state = jax.tree_util.tree_map(jnp.asarray, st)
+    jtr = jax_trainer(jcfg, JOptimizerConfig(**ocfg),
+                      JTrainerConfig(total_steps=1, log_interval=1), st)
     jrep = jtr.run(iter(jbatches))
     batches = list(pipeline.synthetic_dataset(pipeline.DataConfig(**dcfg),
                                               1))

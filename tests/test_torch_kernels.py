@@ -23,7 +23,6 @@ from repro.core import lora as jlora
 from repro.core import pq as jpq
 from repro.core import routed_ffn as jrf
 from repro.core import sparse_attention as jsa
-from repro.core.params import init_tree as jinit_tree
 from repro.kernels.routed_ffn.routed_ffn import (decode_ffn_kernel,
                                                  grouped_ffn_kernel)
 from repro.kernels.sparse_attention.ops import sparse_mha_decode
@@ -31,7 +30,8 @@ from repro.kernels.topl_select.topl_select import \
     decode_topl_thresholds_kernel
 from repro_torch.kernels.routed_ffn import ops as rffn_ops
 from repro_torch.kernels.sparse_attention import ops as sa_ops
-from test_torch_model import close, one_torch_thread, perturb_lora, t  # noqa: F401
+from test_torch_model import (close, np_init_tree,  # noqa: F401
+                              one_torch_thread, perturb_lora, t)
 
 
 # ------------------------------------------------ kernel 6: decode attention
@@ -80,7 +80,7 @@ def _ffn_setup(gated, lora_on, capf, act, gate_out=False, seed=0):
                                active_groups=2, capacity_factor=capf,
                                activation=act, gated=gated,
                                gate_outputs=gate_out)
-    p = jinit_tree(jrf.param_defs(rcfg, lcfg), jax.random.PRNGKey(seed))
+    p = np_init_tree(jrf.param_defs(rcfg, lcfg), seed)
     p = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), p)
     p = perturb_lora(p, np.random.default_rng(seed))
     lora_tree = ({k: p[k] for k in ("lora_inner", "lora_gate", "lora_outer")

@@ -10,6 +10,7 @@ on CPU tensors.  Helpers here are shared by the other test_torch_* files.
 """
 import dataclasses
 import functools
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +22,13 @@ from repro import configs as jconfigs
 from repro.core import dispatch as jdispatch
 from repro.core import pq as jpq
 from repro.core import sparse_attention as jsa
-from repro.core.params import init_tree as jinit_tree
+from repro.core import params as jparams
 from repro.models import attention as jattention
 from repro.models import ffn as jffn
 from repro.models import transformer as jtransformer
+from repro.train import state as JS
 from repro.train.state import model_defs
+from repro.train.trainer import Trainer as JTrainer
 from repro_torch.configs.base import ModelConfig, SPTConfig
 from repro_torch.core import dispatch, pq
 from repro_torch.core import sparse_attention as sa
@@ -47,6 +50,17 @@ def one_torch_thread():
     with torch.no_grad():
         yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def keep_sigterm():
+    """Put back, when a module's tests are done, the SIGTERM handler that
+    a Trainer (either package's) installs, module-scoped fixtures' ones
+    included; the files that build trainers import this autouse
+    fixture."""
+    handler = signal.getsignal(signal.SIGTERM)
+    yield
+    signal.signal(signal.SIGTERM, handler)
 
 
 # ------------------------------------------------------------ helpers
@@ -84,11 +98,67 @@ def perturb_lora(tree, rng):
     return out
 
 
+def np_init_tree(defs, seed):
+    """A JAX def tree materialized with numpy: each leaf drawn by its def's
+    init (zeros, ones, normal:<std>, uniform:<s>, fan_in) from one
+    generator seeded ``seed``, in sorted-path order, in the def's dtype.
+    The distributions of JAX's ``init_tree`` without its per-shape
+    compiles of eager random ops (other draws; both packages get this
+    same tree)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(d):
+        kind, _, arg = d.init.partition(":")
+        if kind in ("zeros", "ones"):
+            x = (np.zeros if kind == "zeros" else np.ones)(d.shape,
+                                                           np.float32)
+        elif kind == "uniform":
+            s = float(arg or 1.0)
+            x = rng.uniform(-s, s, d.shape).astype(np.float32)
+        else:
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+            std = (float(arg or 0.02) if kind == "normal"
+                   else 1.0 / np.sqrt(max(1, fan_in)))
+            x = (std * rng.standard_normal(d.shape)).astype(np.float32)
+        return x.astype(jnp.dtype(d.dtype))
+
+    def build(t):
+        if isinstance(t, jparams.ParamDef):
+            return leaf(t)
+        return {k: build(t[k]) for k in sorted(t)}
+    return build(defs)
+
+
+def np_train_state(jcfg, seed=0):
+    """A JAX train state in ``init_state``'s layout as numpy: the params
+    of ``np_init_tree`` in f32 (frozen leaves too, as the f32 configs
+    compute), JAX's partition with its None holes, zero f32 AdamW moments
+    and an int32 step 0."""
+    defs = model_defs(jcfg)
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                  np_init_tree(defs, seed))
+    train, frozen = jparams.partition(tree, jparams.trainable_mask(defs))
+    zeros = lambda a: np.zeros(a.shape, np.float32)       # noqa: E731
+    return {"step": np.zeros((), np.int32), "train": train, "frozen": frozen,
+            "opt": {"m": jax.tree_util.tree_map(zeros, train),
+                    "v": jax.tree_util.tree_map(zeros, train)}}
+
+
+def jax_trainer(jcfg, ocfg, tcfg, state):
+    """JAX's Trainer started from ``state`` (numpy, JAX's layout).  Its
+    own ``init_state``, whose result the state replaces, is skipped."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "init_state", lambda cfg, key: None)
+        trainer = JTrainer(jcfg, ocfg, tcfg)
+    trainer.state = jax.tree_util.tree_map(jnp.asarray, state)
+    return trainer
+
+
 @functools.lru_cache(maxsize=None)
 def jax_params(jcfg, seed=0):
-    """f32 numpy param tree of a JAX config, LoRA c perturbed (cached per
-    config: callers only read it)."""
-    tree = jinit_tree(model_defs(jcfg), jax.random.PRNGKey(seed))
+    """f32 numpy param tree of a JAX config (``np_init_tree`` of its
+    defs), LoRA c perturbed (cached per config: callers only read it)."""
+    tree = np_init_tree(model_defs(jcfg), seed)
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
     return perturb_lora(tree, np.random.default_rng(seed + 100))
 

@@ -35,13 +35,10 @@ import torch
 
 from repro import configs as jconfigs
 from repro.core import dispatch as jdispatch
-from repro.core.params import init_tree as jinit_tree
 from repro.models import moe as jmoe
 from repro.models import transformer as jtransformer
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
-from repro.train import state as JS
-from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
 from repro.data import pipeline as jpipeline
@@ -55,8 +52,10 @@ from repro_torch.models import moe, transformer
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.train.trainer import Trainer, TrainerConfig
-from test_torch_model import (close, jax_params, perturb_lora, port_cfg,
-                              port_model, t)
+from test_torch_model import (close, jax_params, np_init_tree,
+                              perturb_lora, port_cfg, port_model, t)
+from test_torch_model import (jax_trainer, keep_sigterm,  # noqa: F401
+                              np_train_state)
 
 MOE = ("grok-1-314b", "mixtral-8x22b")
 REL = 1e-5          # y: max-abs <= REL x max |y|
@@ -115,7 +114,7 @@ def test_length_sensitive_holds_for_moe():
 
 # ------------------------------------------------------------ the layer
 def _moe_tree(jcfg):
-    tree = jinit_tree(jmoe.moe_defs(jcfg), jax.random.PRNGKey(0))
+    tree = np_init_tree(jmoe.moe_defs(jcfg), 0)
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
     return perturb_lora(tree, np.random.default_rng(1))
 
@@ -487,19 +486,15 @@ def test_moe_train_step_matches_jax():
     sequences of 40 so it binds), kernel config: loss, grad norm and the
     updated train leaves against JAX's Trainer."""
     jcfg = _jcfg("mixtral-8x22b", attn_impl="pallas", ffn_impl="pallas")
-    st = JS.init_state(jcfg, jax.random.PRNGKey(0))
-    st = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32), st)
+    st = np_train_state(jcfg)
     st["train"] = perturb_lora(st["train"], np.random.default_rng(1))
     ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4)
     dcfg = dict(vocab_size=256, seq_len=40, global_batch=2, kind="random",
                 seed=3)
     jbatches = list(jpipeline.synthetic_dataset(
         jpipeline.DataConfig(**dcfg), 1))
-    jtr = JTrainer(jcfg, JOptimizerConfig(**ocfg),
-                   JTrainerConfig(total_steps=1, log_interval=1))
-    jtr.state = jax.tree_util.tree_map(jnp.asarray, st)
+    jtr = jax_trainer(jcfg, JOptimizerConfig(**ocfg),
+                      JTrainerConfig(total_steps=1, log_interval=1), st)
     jrep = jtr.run(iter(jbatches))
     batches = list(pipeline.synthetic_dataset(pipeline.DataConfig(**dcfg), 1))
     tr = Trainer(port_cfg(jcfg), OptimizerConfig(**ocfg),

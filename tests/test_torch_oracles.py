@@ -24,14 +24,14 @@ import torch
 from repro.core import pq as jpq
 from repro.core import routed_ffn as jrf
 from repro.core import sparse_attention as jsa
-from repro.core.params import init_tree as jinit_tree
 from repro.models import attention as jattention
 from repro.models import ffn as jffn
 from repro_torch.core import pq, routed_ffn
 from repro_torch.core import sparse_attention as sa
 from repro_torch.core.params import from_numpy_tree
 from repro_torch.models import attention, ffn
-from test_torch_model import close, perturb_lora, port_cfg, smoke_cfg, t
+from test_torch_model import (close, np_init_tree, perturb_lora, port_cfg,
+                              smoke_cfg, t)
 
 
 @pytest.fixture(autouse=True)
@@ -151,7 +151,7 @@ def _rcfgs(gate_outputs, groups=8, active=4):
 def test_routed_ffn_dense_oracle_matches_jax_and_grouped(gate_outputs):
     jc, pc = _rcfgs(gate_outputs)
     lc = smoke_cfg().spt.lora
-    tree = jinit_tree(jrf.param_defs(jc, lc), jax.random.PRNGKey(0))
+    tree = np_init_tree(jrf.param_defs(jc, lc), 0)
     tree = perturb_lora(jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32), tree), np.random.default_rng(3))
     p = from_numpy_tree(tree, "cpu")
@@ -175,7 +175,7 @@ def test_routed_ffn_dense_oracle_matches_jax_and_grouped(gate_outputs):
 def test_ffn_impl_dense_layer_matches_jax():
     jcfg = smoke_cfg(ffn_impl="dense")
     pcfg = port_cfg(jcfg)
-    tree = jinit_tree(jffn.ffn_defs(jcfg), jax.random.PRNGKey(5))
+    tree = np_init_tree(jffn.ffn_defs(jcfg), 5)
     tree = perturb_lora(jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32), tree), np.random.default_rng(6))
     x = np.random.default_rng(7).standard_normal((2, 10, 64)).astype(

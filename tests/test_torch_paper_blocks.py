@@ -57,7 +57,6 @@ from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
 from repro.train import state as JS
 from repro.train.loss import lm_cross_entropy as jlm_cross_entropy
-from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch import configs
 from repro_torch.core.params import (combine, from_numpy_state,
@@ -71,6 +70,8 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from test_torch_model import (LOGIT_TOL, close, jax_params,
                               perturb_lora, port_cfg, port_model, t)
+from test_torch_model import (jax_trainer, keep_sigterm,  # noqa: F401
+                              np_train_state)
 
 PAPER = ("opt-1024", "opt-2048", "opt-2560", "llama-2560", "llama-4096",
          "opt-2.7b", "llama-2.7b")
@@ -220,11 +221,9 @@ def test_learned_positions_clip_as_jax():
 
 # ------------------------------------------------------------ training
 def _np_state(jcfg):
-    """JAX init_state as numpy: frozen leaves in f32, LoRA c perturbed."""
-    st = JS.init_state(jcfg, jax.random.PRNGKey(0))
-    st = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32), st)
+    """A JAX train state as numpy (``np_train_state``), LoRA c
+    perturbed."""
+    st = np_train_state(jcfg)
     st["train"] = perturb_lora(st["train"], np.random.default_rng(1))
     return st
 
@@ -333,15 +332,12 @@ def test_full_variant_trains_nothing_in_either_package():
     jcfg = _japply_variant(opt_like(), "full")
     cfg = apply_variant(port_cfg(opt_like()), "full")
     assert cfg == port_cfg(jcfg)
-    state = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32),
-        JS.init_state(jcfg, jax.random.PRNGKey(0)))
+    state = np_train_state(jcfg)
     assert not jax.tree_util.tree_leaves(state["train"])
     batches = [_batch(s) for s in (4, 5)]
     tcfg = dict(total_steps=2, log_interval=1, loss_chunk=CHUNK)
-    jtr = JTrainer(jcfg, JOptimizerConfig(**OCFG), JTrainerConfig(**tcfg))
-    jtr.state = jax.tree_util.tree_map(jnp.asarray, state)
+    jtr = jax_trainer(jcfg, JOptimizerConfig(**OCFG), JTrainerConfig(**tcfg),
+                      state)
     want = jtr.run(iter(batches))["metrics"]
     tr = Trainer(cfg, OptimizerConfig(**OCFG), TrainerConfig(**tcfg),
                  state=from_numpy_state(state, "cpu"))

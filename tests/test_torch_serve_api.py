@@ -40,12 +40,28 @@ def serial_streams():
     return [c.tokens for c in eng.run(_reqs(engine, LENS))]
 
 
+@pytest.fixture(scope="module")
+def jax_engine():
+    """One JAX engine for every case: the scheduler knobs are host-side
+    attributes, so its compiled prefill buckets and decode chunk serve
+    all six cases."""
+    return engines("contiguous", max_len=MAX_LEN, num_slots=SLOTS,
+                   decode_chunk=CHUNK)[0]
+
+
 @pytest.mark.parametrize("batch", [1, 2, SLOTS])
 @pytest.mark.parametrize("ratio", [0.0, 0.5])
-def test_prefill_scheduler_matches_jax(batch, ratio, serial_streams):
-    jeng, eng = engines("contiguous", max_len=MAX_LEN, num_slots=SLOTS,
-                        decode_chunk=CHUNK, prefill_batch=batch,
-                        prefill_decode_ratio=ratio)
+def test_prefill_scheduler_matches_jax(batch, ratio, serial_streams,
+                                       jax_engine):
+    _, eng = engines("contiguous", max_len=MAX_LEN, num_slots=SLOTS,
+                     decode_chunk=CHUNK, prefill_batch=batch,
+                     prefill_decode_ratio=ratio)
+    jeng = jax_engine            # with this case's knobs, as JAX sets them
+    knobs = jengine.Engine(jeng.cfg, jeng.params, max_len=MAX_LEN,
+                           num_slots=SLOTS, prefill_batch=batch,
+                           prefill_decode_ratio=ratio)
+    jeng.prefill_batch = knobs.prefill_batch
+    jeng.prefill_decode_ratio = knobs.prefill_decode_ratio
     want = jeng.run(_reqs(jengine, LENS))
     got = eng.run(_reqs(engine, LENS))
     assert [c.tokens for c in got] == [c.tokens for c in want]

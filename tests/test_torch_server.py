@@ -202,8 +202,9 @@ def test_eos_heavy_serve_stats_match_jax(layout):
     jeng, eng = engines(layout, **kw)
     lens = [9, 14, 6, 11, 8]
     greedy = [c.tokens for c in eng.run(_reqs(engine, lens, gen=12))]
-    eos = collections.Counter(t for g in greedy for t in g[1:]).most_common(
-        1)[0][0]
+    # the token that ends the most rows before their last step
+    eos = collections.Counter(t for g in greedy for t in set(g[1:-1])
+                              ).most_common(1)[0][0]
     want = jeng.run(_reqs(jengine, lens, gen=12), eos_id=eos)
     got = eng.run(_reqs(engine, lens, gen=12), eos_id=eos)
     assert ([(c.tokens, c.finish_reason) for c in got]

@@ -1,6 +1,6 @@
 """The port's SSD family (mamba2-780m: attention-free, FFN-free Mamba-2
 blocks) against the JAX package, in f32 on the CPU, with params from
-JAX's ``init_tree`` carried over through numpy:
+JAX's defs (``np_init_tree``) through numpy:
 
   * the SSD pieces (models/ssd.py): the chunked ``ssd_scan`` with and
     without h0 and at a length that is not a multiple of the chunk (one
@@ -27,15 +27,12 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.core.params import init_tree as jinit_tree
 from repro.data import pipeline as jpipeline
 from repro.models import ssd as jssd
 from repro.models import transformer as jtransformer
 from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
-from repro.train import state as JS
-from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch.core.params import (from_numpy_state, from_numpy_tree,
                                      leaves)
@@ -44,8 +41,10 @@ from repro_torch.models import ssd, transformer
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.train.trainer import Trainer, TrainerConfig
-from test_torch_model import (close, jax_params, perturb_lora, port_cfg,
-                              port_model, t)
+from test_torch_model import (close, jax_params, np_init_tree,
+                              perturb_lora, port_cfg, port_model, t)
+from test_torch_model import (jax_trainer, keep_sigterm,  # noqa: F401
+                              np_train_state)
 
 ARCH = "mamba2-780m"
 RTOL, ATOL = 1e-5, 1e-6
@@ -124,7 +123,7 @@ def test_ssd_step_chain_equals_scan():
 def _ssd_params(jcfg, seed=0):
     """(JAX, port) params of one SSD mixer, f32, with nonzero decays and
     LoRA c perturbed."""
-    tree = jinit_tree(jssd.ssd_defs(jcfg), jax.random.PRNGKey(seed))
+    tree = np_init_tree(jssd.ssd_defs(jcfg), seed)
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
     tree = perturb_lora(tree, np.random.default_rng(seed + 1))
     rng = np.random.default_rng(seed + 2)
@@ -216,17 +215,13 @@ def test_train_step_matches_jax():
     grad norm and every trainable leaf's gradient, read as the AdamW
     first moment (1 - b1) g of both."""
     jcfg = _jcfg()
-    st = JS.init_state(jcfg, jax.random.PRNGKey(0))
-    st = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32), st)
+    st = np_train_state(jcfg)
     st["train"] = perturb_lora(st["train"], np.random.default_rng(1))
     ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4)
     dcfg = dict(vocab_size=256, seq_len=48, global_batch=2, kind="random",
                 seed=3)
-    jtr = JTrainer(jcfg, JOptimizerConfig(**ocfg),
-                   JTrainerConfig(total_steps=1, log_interval=1))
-    jtr.state = jax.tree_util.tree_map(jnp.asarray, st)
+    jtr = jax_trainer(jcfg, JOptimizerConfig(**ocfg),
+                      JTrainerConfig(total_steps=1, log_interval=1), st)
     jrep = jtr.run(iter(list(jpipeline.synthetic_dataset(
         jpipeline.DataConfig(**dcfg), 1))))
     tr = Trainer(port_cfg(jcfg), OptimizerConfig(**ocfg),

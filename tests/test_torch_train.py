@@ -45,6 +45,7 @@ from repro_torch.launch import steps
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from test_torch_model import perturb_lora, port_cfg, smoke_cfg
+from test_torch_model import keep_sigterm  # noqa: F401
 
 STEPS, BATCH, SEQ, CHUNK = 5, 2, 32, 16
 OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)

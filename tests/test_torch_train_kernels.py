@@ -31,7 +31,6 @@ from repro.core import lora as jlora
 from repro.core import pq as jpq
 from repro.core import routed_ffn as jrf
 from repro.core import sparse_attention as jsa
-from repro.core.params import init_tree as jinit_tree
 from repro.kernels.pq_quantize.ops import pq_assign as jpq_assign
 from repro.kernels.routed_ffn.ops import routed_ffn as jrouted_ffn
 from repro.kernels.sparse_attention.ops import sparse_mha as jsparse_mha
@@ -47,7 +46,7 @@ from repro_torch.kernels.pq_quantize import ops as pq_ops
 from repro_torch.kernels.routed_ffn import ops as rffn_ops
 from repro_torch.kernels.sparse_attention import ops as sa_ops
 from repro_torch.kernels.topl_select import ops as topl_ops
-from test_torch_model import close, perturb_lora, t
+from test_torch_model import close, np_init_tree, perturb_lora, t
 
 GRAD_TOL = 1e-4
 
@@ -342,7 +341,7 @@ def test_routed_ffn_function_matches_jax_grad(gated, act):
                                activation=act, gated=gated)
     pcfg = rf.RoutedFFNConfig(**jcfg.__dict__)
     plcfg = lora.LoRAConfig(**lcfg.__dict__)
-    p = jinit_tree(jrf.param_defs(jcfg, lcfg), jax.random.PRNGKey(1))
+    p = np_init_tree(jrf.param_defs(jcfg, lcfg), 1)
     p = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), p)
     p = perturb_lora(p, np.random.default_rng(2))
     rng = np.random.default_rng(3)

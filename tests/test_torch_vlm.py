@@ -1,7 +1,7 @@
 """The port's VLM family (phi-3-vision-4.2b: a decoder-only attention
 stack with a stub vision frontend whose precomputed patch embeddings are
 prepended to the text) against the JAX package, in f32 on the CPU, with
-params from JAX's ``init_tree`` carried over through numpy:
+params drawn from JAX's defs (``np_init_tree``) through numpy:
 
   * the 2-layer smoke LM with ``frontend_embeds``, on the kernel and the
     oracle paths: ``lm_hidden``'s hidden states and logits, and
@@ -29,8 +29,6 @@ from repro.models import transformer as jtransformer
 from repro.optim.adamw import OptimizerConfig as JOptimizerConfig
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
-from repro.train import state as JS
-from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch.configs import shapes
 from repro_torch.core.params import (from_numpy_state, from_numpy_tree,
@@ -40,6 +38,8 @@ from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from test_torch_model import jax_params, perturb_lora, port_cfg, port_model, t
+from test_torch_model import (jax_trainer, keep_sigterm,  # noqa: F401
+                              np_train_state)
 
 ARCH = "phi-3-vision-4.2b"
 KERNEL = dict(attn_impl="pallas", ffn_impl="pallas")
@@ -122,10 +122,7 @@ def test_train_step_matches_jax():
     """One kernel-config step at 2 x (8 frontend + 32 text) positions:
     labels cover the text, the loss reads the last 32 hidden rows."""
     jcfg = _jcfg(**KERNEL)
-    st = JS.init_state(jcfg, jax.random.PRNGKey(0))
-    st = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32 if a.dtype != jnp.int32
-                             else np.int32), st)
+    st = np_train_state(jcfg)
     st["train"] = perturb_lora(st["train"], np.random.default_rng(1))
     rng = np.random.default_rng(2)
     toks = rng.integers(0, 256, (2, 33))
@@ -133,9 +130,8 @@ def test_train_step_matches_jax():
              "labels": toks[:, 1:].astype(np.int32),
              "frontend_embeds": _frontend(rng, 2)}
     ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-    jtr = JTrainer(jcfg, JOptimizerConfig(**ocfg),
-                   JTrainerConfig(total_steps=1, log_interval=1))
-    jtr.state = jax.tree_util.tree_map(jnp.asarray, st)
+    jtr = jax_trainer(jcfg, JOptimizerConfig(**ocfg),
+                      JTrainerConfig(total_steps=1, log_interval=1), st)
     jm = jtr.run(iter([batch]))["metrics"][-1]
     tr = Trainer(port_cfg(jcfg), OptimizerConfig(**ocfg),
                  TrainerConfig(total_steps=1, log_interval=1),

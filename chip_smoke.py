@@ -69,8 +69,9 @@ Phases (each raises on failure; nothing is caught):
   4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
      prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
-  5. the same serve on the paged KV layout (pages of 128, a pool of 64
-     pages: a quarter of the contiguous footprint): sparse MHA through
+  5. the same serve, depth cut to 7 layers, on the paged KV layout
+     (pages of 128, a pool of 64 pages: a quarter of the contiguous
+     footprint): sparse MHA through
      the page table (kernel 7), the two-pass tier over gathered views
      (kernels 3 and 5) and sparse MHA off (kernel 8, the dense
      baseline), counters zeroed just before each and read just after;
@@ -90,7 +91,8 @@ Phases (each raises on failure; nothing is caught):
      4096) at full width, one layer, bf16: 3 steps of Trainer.run at 4 x
      1024 under apply_variant "spt" (kernels 1, 2, 4 and 9 exactly 4, 2,
      2 and 2 times per layer per step), then "lora" (no kernel);
-  10. opt-2.7b and llama-2.7b (32 layers, bf16): 2 steps of Trainer.run
+  10. opt-2.7b and llama-2.7b (full width, 16 of 32 layers, bf16): 2
+     steps of Trainer.run
      at 4 x 1024 and a profiled step each; opt-2.7b's lm_prefill at 4 x
      1024 (kernels 1, 2, 4, 9) and a serve of 8 requests (prompts
      128-1024, 32 new tokens, 8 slots, max_len 2048; kernels 6, 9, 10);
@@ -98,7 +100,8 @@ Phases (each raises on failure; nothing is caught):
   11. an OPT-2560-width model cut to 2 layers, in f32, kernels on against
      REPRO_DISABLE_KERNELS=1: greedy streams (kernels 6 and 7),
      lm_prefill's logits and caches, one train step;
-  12. full-width qwen3-0.6b in bf16 through the long-lived server,
+  12. full-width qwen3-0.6b (7 of 28 layers) in bf16 through the
+     long-lived server,
      Engine.serve with telemetry "trace": 32 requests (prompts 128-2048,
      64 new tokens) arriving as a seeded Poisson process at 2 requests/s
      on the wall clock, half sampled (temperature 0.8 with top_k 50 or
@@ -146,7 +149,7 @@ Phases (each raises on failure; nothing is caught):
      1024, 16 query heads of 256 on 1 kv head kept (R = 16), window 64,
      in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy streams
      up to near-ties, one train step's loss and gradient cosine;
-  19. phi-3-vision-4.2b at full width and depth (32 layers), bf16: a
+  19. phi-3-vision-4.2b at full width, 16 of 32 layers, bf16: a
      burst Engine.run of 8 requests, each 576 frontend rows before a
      prompt of 128-1024 tokens, 32 new tokens, max_len 2048 (kernels 6,
      9, 10), a decode step's split, the same on the paged layout with a
@@ -2042,6 +2045,14 @@ def _frontend(cfg):
 SERVE_CFG = dict(attn_impl="pallas", ffn_impl="pallas")
 PAGED = dict(kv_layout="paged", kv_page_size=128)
 PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
+# The serve loop is host-bound (a decode step's wall time grows with its
+# launches, ~200 a layer), so the script's longest paths cut depth, at
+# full width, to keep the whole run well inside its time limit: qwen3-0.6b
+# 28 -> 7 layers in phases 5 and 12 (phase 4 keeps all 28), opt-2.7b and
+# llama-2.7b 32 -> 16 in phase 10, phi-3-vision-4.2b 32 -> 16 in phase 19
+CUT_DEPTH = 7
+PAPER_DEPTH = 16
+PHI_DEPTH = 16
 # serve workloads (requests, prompt lengths lo-hi from numpy seed 2, new
 # tokens, max_len) on 8 slots, decode chunks of 16: phases 4-5, and the
 # paper's OPT-2.7B in phase 10
@@ -2160,16 +2171,21 @@ def serve_full_width(torch):
     model = _perturbed_model(torch, cfg, seed=0)
     launches, _ = _serve(torch, model, cfg, "serve")
     decode_step_split(torch, model, cfg)
-    return launches, model
+    return launches
 
 
-def serve_paged(torch, model):
-    """Phase 5: the phase-4 serve on the paged layout with a 64-page pool:
-    sparse MHA on through the page table (kernel 7, the phase-4 model);
-    the two-pass tier over gathered views (kernels 3 and 5); sparse MHA
-    off (kernel 8, a model without PQ codebooks from the same seed)."""
+def serve_paged(torch):
+    """Phase 5: the phase-4 serve, depth cut to CUT_DEPTH layers, on the
+    paged layout with a 64-page pool: sparse MHA on through the page
+    table (kernel 7); the two-pass tier over gathered views (kernels 3
+    and 5); sparse MHA off (kernel 8, a model without PQ codebooks from
+    the same seed)."""
     from repro_torch import configs
-    base = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG, **PAGED)
+    _free(torch)
+    base = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                               num_layers=CUT_DEPTH)
+    base = base.with_spt(**SERVE_CFG, **PAGED)
+    model = _perturbed_model(torch, base, seed=0)
     launches = {"serve_paged": _serve(torch, model, base, "paged serve",
                                       kv_pages=PAGED_POOL)[0]}
     decode_step_split(torch, model, base, paged=True)
@@ -2182,6 +2198,8 @@ def serve_paged(torch, model):
     launches["serve_paged_dense"] = _serve(torch, dense, dense_cfg,
                                            "paged dense serve",
                                            kv_pages=PAGED_POOL)[0]
+    del model, dense
+    _free(torch)
     return launches
 
 
@@ -2429,6 +2447,17 @@ def _want_train_launches(cfg, names, steps):
     return want
 
 
+def _trainer_here(make):
+    """make()'s Trainer, with the SIGTERM handler that its constructor
+    installs taken out again: this script stays stoppable by SIGTERM
+    (phase 23's run B, a child, keeps the Trainer's handler)."""
+    import signal
+    prev = signal.getsignal(signal.SIGTERM)
+    trainer = make()
+    signal.signal(signal.SIGTERM, prev)
+    return trainer
+
+
 def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB,
                seq=TS):
     """``steps`` steps of Trainer.run in bf16, batch ``batch`` x ``seq``
@@ -2442,9 +2471,10 @@ def _train_run(torch, cfg, steps, label, profile=True, seed=0, batch=TB,
     from repro_torch.launch.train import with_frontend
     from repro_torch.optim.adamw import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    trainer = Trainer(cfg, OptimizerConfig(lr=1e-3, total_steps=steps),
-                      TrainerConfig(total_steps=steps, log_interval=1),
-                      seed=seed, device="cuda")
+    trainer = _trainer_here(lambda: Trainer(
+        cfg, OptimizerConfig(lr=1e-3, total_steps=steps),
+        TrainerConfig(total_steps=steps, log_interval=1), seed=seed,
+        device="cuda"))
     if any(bool(v.any()) for _, v in _c_leaves(trainer.state)):
         raise AssertionError("LoRA c leaves are not zero at init")
     rows = []
@@ -2749,9 +2779,10 @@ def prefill_paper(torch, model, cfg):
 
 
 def paper_models(torch):
-    """Phase 10: opt-2.7b and llama-2.7b (32 layers, bf16) each take 2
-    steps of Trainer.run at 4 x 1024 (launches 128 / 64 / 64 / 64 of
-    kernels 1 / 2 / 4 / 9 per step) and one profiled step; opt-2.7b's
+    """Phase 10: opt-2.7b and llama-2.7b (full width, depth cut to
+    PAPER_DEPTH of 32 layers, bf16) each take 2 steps of Trainer.run at 4
+    x 1024 (launches 4 / 2 / 2 / 2 of kernels 1 / 2 / 4 / 9 per layer
+    per step) and one profiled step; opt-2.7b's
     trained weights then run lm_prefill at 4 x 1024 and serve 8 requests
     (prompts 128-1024, 32 new tokens, 8 slots, max_len 2048, chunks of 16)
     on the contiguous layout (kernels 6 and 10 once per layer per decode
@@ -2761,7 +2792,11 @@ def paper_models(torch):
     from repro_torch.core.params import combine
     from repro_torch.models import transformer
     paths = {}
-    cfg = configs.get_config("opt-2.7b").with_spt(**SERVE_CFG)
+
+    def cut(name):
+        return dataclasses.replace(configs.get_config(name),
+                                   num_layers=PAPER_DEPTH).with_spt(**SERVE_CFG)
+    cfg = cut("opt-2.7b")
     paths["paper_train"], _, _, trainer = _train_run(torch, cfg, 2,
                                                      "opt-2.7b train")
     model = transformer.LM(cfg, combine(trainer.state["train"],
@@ -2773,7 +2808,7 @@ def paper_models(torch):
                                      work=PAPER_WORK)
     del model
     _free(torch)
-    cfg = configs.get_config("llama-2.7b").with_spt(**SERVE_CFG)
+    cfg = cut("llama-2.7b")
     launches, _, _, trainer = _train_run(torch, cfg, 2, "llama-2.7b train")
     paths["paper_train"] = _add(paths["paper_train"], launches)
     del trainer
@@ -2944,7 +2979,8 @@ def _server_run(torch, model, cfg, label, telemetry, kv_pages=None):
 
 
 def server_full_width(torch):
-    """Phase 12: full-width qwen3-0.6b in bf16 through Engine.serve with
+    """Phase 12: full-width qwen3-0.6b, depth cut to CUT_DEPTH layers, in
+    bf16 through Engine.serve with
     telemetry "trace", contiguous (kernels 6, 9, 10), then the same
     schedule with telemetry "off" and "counters" (decode tok/s of the
     three, and decode ms per executed step: the wall-clock schedules
@@ -2953,7 +2989,9 @@ def server_full_width(torch):
     pool (kernels 7, 9, 10)."""
     from repro_torch import configs
     _free(torch)
-    cfg = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG)
+    base = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                               num_layers=CUT_DEPTH)
+    cfg = base.with_spt(**SERVE_CFG)
     model = _perturbed_model(torch, cfg, seed=0)
     keys = ("decode_tok_s", "decode_ms_per_step")
     launches, stats = _server_run(torch, model, cfg, "server", "trace")
@@ -2962,9 +3000,11 @@ def server_full_width(torch):
     for mode in ("off", "counters"):
         stats = _server_run(torch, model, cfg, f"server ({mode})", mode)[1]
         rates[mode] = {k: stats[k] for k in keys}
-    paged = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG, **PAGED)
+    paged = base.with_spt(**SERVE_CFG, **PAGED)
     launches["server_paged"] = _server_run(
         torch, model, paged, "paged server", "trace", kv_pages=PAGED_POOL)[0]
+    del model
+    _free(torch)
     return launches, rates
 
 
@@ -3385,8 +3425,8 @@ def hybrid_agree_f32(torch):
 
 
 # ------------------------------------------------------------ phases 19-22
-# phase 19: phi-3-vision-4.2b at full width and depth (32 layers, ~3.8 B
-# parameters): 8 requests, each with 576 frontend rows (numpy seed) before
+# phase 19: phi-3-vision-4.2b at full width, depth cut to PHI_DEPTH of its
+# 32 layers: 8 requests, each with 576 frontend rows (numpy seed) before
 # a prompt of 128-1024 tokens (numpy seed 2), 32 new tokens, 8 slots,
 # max_len 2048, chunks of 16; contiguous, then paged on a pool of 80
 # pages of 128 (the worst case of the 8 is 104 pages, so the image
@@ -3408,8 +3448,8 @@ def _no_launches(label, launches):
 
 
 def vlm_full_width(torch):
-    """Phase 19: phi-3-vision-4.2b (32 layers, bf16, random weights from a
-    seed): Engine.run of PHI_WORK with frontend rows, contiguous (kernel
+    """Phase 19: phi-3-vision-4.2b (full width, PHI_DEPTH of 32 layers,
+    bf16, random weights from a seed): Engine.run of PHI_WORK with frontend rows, contiguous (kernel
     6 once per layer per decode step, kernel 10 once per layer per step,
     kernel 9 once per layer per prefill group) and a decode step's split,
     then paged on PHI_POOL pages (kernel 7); 2 steps of Trainer.run at 4
@@ -3421,7 +3461,8 @@ def vlm_full_width(torch):
     from repro_torch.launch.dryrun import apply_variant
     paths = {}
     _free(torch)
-    cfg = configs.get_config("phi-3-vision-4.2b").with_spt(**SERVE_CFG)
+    cfg = dataclasses.replace(configs.get_config("phi-3-vision-4.2b"),
+                              num_layers=PHI_DEPTH).with_spt(**SERVE_CFG)
     model = _perturbed_model(torch, cfg, seed=0)
     paths["vlm_serve"], _ = _serve(torch, model, cfg,
                                    "phi-3-vision-4.2b serve", work=PHI_WORK)
@@ -3869,7 +3910,7 @@ def infra_resume(torch):
     cfg = _train_cfg(torch)
     torch.use_deterministic_algorithms(True, warn_only=True)
     # A: uninterrupted
-    trainer = _infra_trainer(torch, a_dir, seed=0)
+    trainer = _trainer_here(lambda: _infra_trainer(torch, a_dir, seed=0))
     saves_a, rows_a = _timed_saves(trainer), []
     rep_a = trainer.run(_infra_batches(torch),
                         step_hook=_loss_hook(rows_a, "A"))
@@ -3905,7 +3946,7 @@ def infra_resume(torch):
     # C: resumed here from B's checkpoint
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer = _infra_trainer(torch, b_dir)
+    trainer = _trainer_here(lambda: _infra_trainer(torch, b_dir))
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     if trainer.start_step != INFRA_STOP:
@@ -4069,13 +4110,12 @@ def main() -> int:
         # 4. full-width serve
         t0 = time.perf_counter()
         print("[4] full-width qwen3-0.6b bf16 serve", flush=True)
-        paths["serve"], model = serve_full_width(torch)
-        # 5. the same on the paged layout, sparse and dense
+        paths["serve"] = serve_full_width(torch)
+        # 5. the same on the paged layout, sparse and dense, depth cut
         t1 = time.perf_counter()
-        print(f"[5] paged serves, pool {PAGED_POOL} pages of 128 (phase 4 "
-              f"took {t1 - t0:.1f} s)", flush=True)
-        paths.update(serve_paged(torch, model))
-        del model
+        print(f"[5] paged serves at {CUT_DEPTH} layers, pool {PAGED_POOL} "
+              f"pages of 128 (phase 4 took {t1 - t0:.1f} s)", flush=True)
+        paths.update(serve_paged(torch))
         # 6. card-side agreement of every decode tier
         t2 = time.perf_counter()
         print(f"[6] 4-layer f32 serve agreement (phase 5 took {t2 - t1:.1f} s)",
@@ -4100,10 +4140,10 @@ def main() -> int:
         print("[9] paper blocks at full width, 1 layer, 3 steps of 4 x 1024, "
               "spt then lora", flush=True)
         paths["paper_blocks"] = train_paper_blocks(torch)
-        # 10. opt-2.7b and llama-2.7b at full depth: train, prefill, serve
+        # 10. opt-2.7b and llama-2.7b, depth cut: train, prefill, serve
         t1 = time.perf_counter()
-        print(f"[10] opt-2.7b and llama-2.7b (phase 9 took {t1 - t0:.1f} s)",
-              flush=True)
+        print(f"[10] opt-2.7b and llama-2.7b at full width, {PAPER_DEPTH} "
+              f"layers (phase 9 took {t1 - t0:.1f} s)", flush=True)
         paths.update(paper_models(torch))
         # 11. card-side agreement at the OPT-2560 width
         t2 = time.perf_counter()
@@ -4114,8 +4154,9 @@ def main() -> int:
     if args.only in (None, "server"):
         # 12. the long-lived server at full width, contiguous and paged
         t0 = time.perf_counter()
-        print("[12] full-width qwen3-0.6b bf16 Engine.serve: 32 requests, "
-              "Poisson arrivals at 2/s, chaos and watchdog", flush=True)
+        print(f"[12] full-width qwen3-0.6b ({CUT_DEPTH} layers) bf16 "
+              f"Engine.serve: 32 requests, Poisson arrivals at 2/s, chaos "
+              f"and watchdog", flush=True)
         server_paths, rates = server_full_width(torch)
         paths.update(server_paths)
         # 13. card-side agreement of the server schedule
@@ -4158,11 +4199,11 @@ def main() -> int:
         hybrid_agree_f32(torch)
         print(f"[18] took {time.perf_counter() - t2:.1f} s", flush=True)
     if args.only in (None, "families"):
-        # 19. phi-3-vision-4.2b at full width and depth: serve and train
+        # 19. phi-3-vision-4.2b at full width, depth cut: serve and train
         t0 = time.perf_counter()
-        print("[19] phi-3-vision-4.2b (32 layers) at full width, bf16: "
-              "576 frontend rows a request; serve, paged serve, spt and "
-              "lora train", flush=True)
+        print(f"[19] phi-3-vision-4.2b ({PHI_DEPTH} layers) at full width, "
+              f"bf16: 576 frontend rows a request; serve, paged serve, spt "
+              f"and lora train", flush=True)
         paths.update(vlm_full_width(torch))
         # 20. mamba2-780m at full width and depth: serve and train
         t1 = time.perf_counter()

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only hybrid    # phases 1-3, 16-18
     python3 chip_smoke.py --only families  # phases 1-3, 19-22
     python3 chip_smoke.py --only infra     # phases 1-3, 23
+    python3 chip_smoke.py --only mesh      # phases 1-3, 24
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -171,7 +172,8 @@ Phases (each raises on failure; nothing is caught):
      mamba2-780m at 4 layers, whisper-base at 2 + 2 layers: greedy
      streams up to near-ties (mamba2: identical, no launch), one train
      step's loss (rel 1e-4) and gradient cosine (>= 0.999);
-  23. checkpoint/restart of full-width qwen3-0.6b (bf16, spt, 4 x 1024):
+  23. checkpoint/restart of full-width qwen3-0.6b (14 of 28 layers;
+     bf16, spt, 4 x 1024):
      run A trains 6 steps uninterrupted (checkpoints every 2); run B, a
      child process of this script, the same run, sends itself SIGTERM
      after step 3 and must report interrupted with its step-3
@@ -182,6 +184,15 @@ Phases (each raises on failure; nothing is caught):
      with A's within 2e-2, under torch's deterministic algorithms
      (checkpoint bytes, save and restore times and step times before and
      after resume printed);
+  24. multi-GPU fine-tuning on one card: kernels 1, 2 and 4 at
+     qwen3-0.6b's local heads for model 2 and 4 (8/4 and 4/2 heads of
+     128, 4 x 1024) and kernel 9 at each group's 192 and 96 columns,
+     against their plain versions, timed beside bound and yardstick; an
+     NCCL world of one (the launchers' init_distributed), mesh (1, 1),
+     full-width qwen3-0.6b (28 layers) bf16 spt, 3 steps of 4 x 1024
+     under deterministic algorithms without the mesh, through the mesh
+     path (losses equal bit for bit) and with grouped_shmap (within
+     1e-3), launch counts exact; the process group destroyed at the end;
   counters are zeroed just before each counted run and read just after,
   launch counts exact; then one JSON line of the ten kernels (launches
   per path; each with its times at the paper's, the MoE, the hybrid and
@@ -3801,6 +3812,181 @@ def families_agree_f32(torch):
     _free(torch)
 
 
+# ------------------------------------------------------------ phase 24
+# Multi-GPU fine-tuning on one card.  NCCL refuses two ranks on one
+# device, so the card runs a world of one: the kernels at the shapes
+# qwen3-0.6b's shards give them under model = 2 and 4 (each rank's 8/4
+# and 4/2 heads of 128; each group's 192 and 96 hidden columns), then
+# the mesh path (the launcher's process group, a (1, 1) mesh, the rules)
+# at full width and depth, against the no-mesh Trainer.  Worlds of 2 and
+# 4 run on the CPU over gloo (tests/test_torch_multigpu.py).
+MESH_TP = (2, 4)
+MESH_STEPS = 3
+MESH_LOSS_TOL = 1e-3
+
+
+def check_mesh_shapes(torch, gen):
+    """Kernels 1, 2 and 4 at qwen3-0.6b's local heads for model 2 and 4
+    (16/8 heads over n ranks, dh 128, M 16, the 4 x 1024 training step,
+    causal, rep 2), kernel 9 at each group's F / n columns (d 1024, 8
+    groups, top 4, SwiGLU, LoRA r 16, 4 x 1024 rows): launched twice
+    bit-identically, against the plain versions as phase 3 holds them,
+    timed beside the bound and the yardstick (kernel 1: baddbmm + argmin;
+    kernel 4: SDPA over the same selection as a mask; kernel 9: torch
+    bf16).  Returns {wrapper name: [case rows]}."""
+    from repro_torch.kernels.pq_quantize import ops as pq_ops
+    from repro_torch.kernels.routed_ffn import ops as ffn_ops
+    from repro_torch.kernels.sparse_attention import ops as sa_ops
+    from repro_torch.kernels.sparse_attention import ref as sa_ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.kernels.topl_select.ref import (masked_scores,
+                                                     thresholds_ref)
+    bf16, tag, out = torch.bfloat16, "mesh", {}
+    cb = _codebooks(torch, gen)
+    for n in MESH_TP:
+        hq, hk = HQ // n, HK // n
+        label = f"model={n} ({hq}/{hk} heads)"
+        for what, heads in (("q", hq), ("k", hk)):
+            case = f"{label} {what} (x ({TB * heads}, {TS}, {DH}), M={M_BOOKS})"
+            x = torch.randn(TB * heads, TS, DH, device="cuda",
+                            generator=gen).to(bf16)
+            codes = _twice(torch, lambda: pq_ops.pq_assign(x, cb),
+                           f"pq_assign {case}")
+            flips, _ = _margin_flips(torch, codes, x, cb, case)
+            ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
+            yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
+            _paper_row(out, "pq_assign", case, ms, bound(
+                nbytes(x, cb, codes), x.numel() // DH * M_BOOKS * E_WORDS
+                * (2 * (DH // M_BOOKS) + 2), bf16), float(flips), yard,
+                tag=tag)
+        cq, ck = _train_codes(torch, gen, TS, TS, TB * hq, TB * hk)
+        sel = dict(causal=True, window=None, q_offset=0, heads_per_batch=hq,
+                   rep=hq // hk)
+        kw = dict(l=_top_l(TS), max_score=M_BOOKS, **sel)
+        case = f"{label} (G={TB * hq}, nq=nk={TS}, M={M_BOOKS}, causal)"
+        thr = _twice(torch, lambda: topl_ops.topl_thresholds(cq, ck, **kw),
+                     f"topl_thresholds {case}")
+        if not torch.equal(thr, thresholds_ref(cq, ck, **kw)):
+            raise AssertionError(f"topl_thresholds {case}: [t, need] differ")
+        sm = masked_scores(cq, ck, **sel)
+        ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
+        _paper_row(out, "topl_thresholds", case, ms,
+                   bound(nbytes(cq, ck, thr), int((sm >= 0).sum()) * M_BOOKS,
+                         torch.float32), 0.0, tag=tag)
+        kept = sa_ref.newest_ties(sm, thr)                  # (G, nq, nk)
+        del sm
+        q = torch.randn(TB * hq, TS, DH, device="cuda", generator=gen).to(bf16)
+        k, v = (torch.randn(TB * hk, TS, DH, device="cuda",
+                            generator=gen).to(bf16) for _ in range(2))
+        akw = dict(scale=DH ** -0.5, **sel)
+        got = _twice(torch, lambda: sa_ops.sparse_attention(
+            q, k, v, cq, ck, thr, **akw), f"sparse_attention {case}")
+        err = close(got, sa_ref.sparse_attention_ref(q, k, v, cq, ck, thr,
+                                                     **akw), BF16_TOL)
+        ms = time_ms(lambda: sa_ops.sparse_attention(q, k, v, cq, ck, thr,
+                                                     **akw), 20)
+        rows = kept.reshape(TB * hk, hq // hk * TS, TS).any(1)
+        moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
+                 + 2 * int(rows.sum()) * DH * k.element_size())
+        kv = torch.arange(TB * hq, device="cuda") // (hq // hk)
+        q4, k4, v4 = (t.reshape(TB, hq, TS, DH) for t in (q, k[kv], v[kv]))
+        mask = kept.reshape(TB, hq, TS, TS)
+        sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, scale=DH ** -0.5), 20)
+        _paper_row(out, "sparse_attention", f"{case} bf16", ms,
+                   bound(moved, 4 * DH * int(kept.sum()), bf16), err, sdpa,
+                   tag=tag)
+        del kept, mask, q4, k4, v4
+        f = 3072 // 8 // n
+        cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=1024, f=f,
+                           g=8, ga=4, r=16, capf=1.25, act="silu",
+                           gated=True)
+        args = cs["args"]
+        ms = time_ms(lambda: ffn_ops.grouped_ffn(*args, act="silu"), 10)
+        lora16 = _bf16_lora(torch, cs["lora"])
+        yard = time_ms(lambda: grouped_ffn_yardstick(
+            torch, cs["x"], cs["plan"].index, cs["wts"], lora16, 1.0), 10)
+        _paper_row(out, "grouped_ffn", f"model={n} train (x ({TB}, {TS}, "
+                   f"1024), F={f} of 384, silu gated, C={cs['c']}, LoRA "
+                   "r=16)", ms, _grouped_bound(torch, cs, 1024, f, 16, bf16),
+                   cs["err"], yard, tag=tag)
+    return out
+
+
+def _mesh_run(torch, cfg, mesh, label):
+    """MESH_STEPS steps of Trainer.run (under ``mesh`` when given) on the
+    seeded 4 x 1024 stream, counters zeroed just before and read just
+    after.  Returns (losses, launches, step seconds)."""
+    from repro_torch import kernels
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    trainer = _trainer_here(lambda: Trainer(
+        cfg, OptimizerConfig(lr=1e-3, total_steps=MESH_STEPS),
+        TrainerConfig(total_steps=MESH_STEPS, log_interval=1), seed=0,
+        device="cuda", mesh=mesh))
+    losses = []
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    trainer.run(_batches(cfg, TB, TS, MESH_STEPS, seed=0),
+                step_hook=lambda step, m: losses.append(m["loss"]))
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    times = list(trainer.monitor.times)
+    print(f"  {label}: losses {json.dumps(losses)}; step s "
+          f"{json.dumps(times)}; launches {json.dumps(launches)}", flush=True)
+    del trainer
+    _free(torch)
+    return losses, launches, times
+
+
+def mesh_train(torch):
+    """Phase 24's world of one: an NCCL process group of one rank (the
+    launchers' init_distributed), a (1, 1) mesh, full-width qwen3-0.6b at
+    28 layers, spt, bf16, 4 x 1024, under deterministic algorithms:
+    MESH_STEPS steps without the mesh, then through the mesh path with the
+    default ffn_impl (losses bit for bit those of the run without it) and
+    with "grouped_shmap" (core/ffn_shmap.py; losses within
+    MESH_LOSS_TOL), launches exact (_want_train_launches).  The process
+    group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    cfg = _train_cfg(torch)
+    shmap_cfg = cfg.with_spt(ffn_impl="grouped_shmap")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rank, world, dev = init_distributed("cuda")
+    try:
+        if (rank, world) != (0, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"rank {rank} of {world} on "
+                                 f"{dist.get_backend()}, want NCCL 0 of 1")
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        base, _, t_base = _mesh_run(torch, cfg, None, "no mesh")
+        got, launches, t_mesh = _mesh_run(torch, cfg, mesh, "mesh (1, 1)")
+        shm, launches_shm, t_shm = _mesh_run(torch, shmap_cfg, mesh,
+                                             "mesh (1, 1) grouped_shmap")
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+    if got != base:
+        raise AssertionError(f"mesh losses {got} != no-mesh {base}")
+    diff = max(abs(a - b) for a, b in zip(shm, base))
+    if len(shm) != MESH_STEPS or not diff <= MESH_LOSS_TOL:
+        raise AssertionError(f"grouped_shmap losses {shm} vs {base}: max "
+                             f"diff {diff} beyond {MESH_LOSS_TOL}")
+    for label, c, n in (("mesh", cfg, launches),
+                        ("grouped_shmap", shmap_cfg, launches_shm)):
+        want = _want_train_launches(c, n, MESH_STEPS)
+        if n != want:
+            raise AssertionError(f"{label} launches {n} != expected {want}")
+    print(f"  mesh: the (1, 1) mesh's losses equal the no-mesh run's bit for "
+          f"bit; grouped_shmap within {diff:.3e}; mean step s no mesh "
+          f"{statistics.fmean(t_base):.4f}, mesh {statistics.fmean(t_mesh):.4f}"
+          f", grouped_shmap {statistics.fmean(t_shm):.4f}; {card_line()}",
+          flush=True)
+    return {"mesh_train": launches, "mesh_train_shmap": launches_shm}
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -3816,15 +4002,22 @@ def _map_tree(fn, tree):
 # index adds otherwise accumulate with atomics, and AdamW's first steps,
 # lr x sign(g), turn their last-bit differences into loss differences of
 # ~1e-2), so B's and C's losses can be held to A's: within
-# INFRA_LOSS_TOL, the largest difference printed.
+# INFRA_LOSS_TOL, the largest difference printed.  Depth cut to
+# INFRA_DEPTH of 28 layers at full width since phase 24 (the checks
+# do not depend on depth; the launch counts follow the layers).
 INFRA_STEPS, INFRA_STOP, INFRA_LOSS_TOL = 6, 3, 2e-2
+INFRA_DEPTH = 14
 INFRA_DIR = ROOT / "build" / "infra"
+
+
+def _infra_cfg(torch):
+    return _train_cfg(torch, num_layers=INFRA_DEPTH)
 
 
 def _infra_trainer(torch, ckpt_dir, **kw):
     from repro_torch.optim.adamw import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    return Trainer(_train_cfg(torch),
+    return Trainer(_infra_cfg(torch),
                    OptimizerConfig(lr=1e-3, total_steps=INFRA_STEPS),
                    TrainerConfig(total_steps=INFRA_STEPS,
                                  ckpt_dir=str(ckpt_dir), ckpt_interval=2,
@@ -3834,7 +4027,7 @@ def _infra_trainer(torch, ckpt_dir, **kw):
 
 def _infra_batches(torch, start=0):
     import itertools
-    return itertools.islice(_batches(_train_cfg(torch), TB, TS,
+    return itertools.islice(_batches(_infra_cfg(torch), TB, TS,
                                      INFRA_STEPS, seed=0), start, None)
 
 
@@ -3907,7 +4100,7 @@ def infra_resume(torch):
     from repro_torch.train import checkpoint
     shutil.rmtree(INFRA_DIR, ignore_errors=True)
     a_dir, b_dir = INFRA_DIR / "a", INFRA_DIR / "b"
-    cfg = _train_cfg(torch)
+    cfg = _infra_cfg(torch)
     torch.use_deterministic_algorithms(True, warn_only=True)
     # A: uninterrupted
     trainer = _trainer_here(lambda: _infra_trainer(torch, a_dir, seed=0))
@@ -4002,7 +4195,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
-                                       "families", "infra"),
+                                       "families", "infra", "mesh"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -4010,8 +4203,9 @@ def main() -> int:
                          "9-11), the long-lived server (1-3, 12-13), the "
                          "MoE family (1-3, 14-15), the dense registry and "
                          "the hybrid family (1-3, 16-18), the VLM, SSM "
-                         "and audio families (1-3, 19-22) or checkpoint/"
-                         "restart (1-3, 23) alone")
+                         "and audio families (1-3, 19-22), checkpoint/"
+                         "restart (1-3, 23) or multi-GPU fine-tuning "
+                         "(1-3, 24) alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -4105,7 +4299,8 @@ def main() -> int:
                        "dense_train", "hybrid_serve", "hybrid_train",
                        "vlm_serve", "vlm_serve_paged", "vlm_train",
                        "ssm_serve", "ssm_train", "audio_generate",
-                       "audio_train", "infra_train")}
+                       "audio_train", "infra_train", "mesh_train",
+                       "mesh_train_shmap")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -4227,12 +4422,27 @@ def main() -> int:
     if args.only in (None, "infra"):
         # 23. checkpoint/restart: SIGTERM in a child, resumed here
         t0 = time.perf_counter()
-        print(f"[23] full-width qwen3-0.6b bf16 fine-tune, {INFRA_STEPS} "
+        print(f"[23] full-width qwen3-0.6b ({INFRA_DEPTH} layers) bf16 "
+              f"fine-tune, {INFRA_STEPS} "
               f"steps of {TB} x {TS}: A uninterrupted, B a child stopped "
               f"by SIGTERM after step {INFRA_STOP}, C resumed from B's "
               f"checkpoint", flush=True)
         paths["infra_train"] = infra_resume(torch)
         print(f"[23] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "mesh"):
+        # 24. multi-GPU fine-tuning on one card: shard shapes, a world of one
+        t0 = time.perf_counter()
+        print(f"[24] kernels at qwen3-0.6b's shard shapes (model "
+              f"{' and '.join(map(str, MESH_TP))}); an NCCL world of one, "
+              f"mesh (1, 1), full-width qwen3-0.6b bf16, {MESH_STEPS} steps "
+              f"of {TB} x {TS}: no mesh, mesh, mesh with grouped_shmap",
+              flush=True)
+        mesh_shapes = check_mesh_shapes(
+            torch, torch.Generator(device="cuda").manual_seed(24))
+        for row in rows:
+            row["mesh_shapes"] = mesh_shapes.get(row["name"], [])
+        paths.update(mesh_train(torch))
+        print(f"[24] took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -206,10 +206,23 @@ def use_decode_ffn_kernel(cfg) -> bool:
 
 
 def load_balance_loss(router_probs: torch.Tensor, choice: torch.Tensor,
-                      num_groups: int) -> torch.Tensor:
-    """Switch-style auxiliary loss: G * sum_g f_g p_g (== 1 when balanced)."""
+                      num_groups: int, global_batch: bool = True
+                      ) -> torch.Tensor:
+    """Switch-style auxiliary loss: G * sum_g f_g p_g (== 1 when balanced).
+
+    f and p are means over the batch: under a mesh whose data axes split
+    the rows (``sharding.axis_rules``), each is averaged over those axes
+    before the product, as JAX's GSPMD computes them on the global batch
+    (a product of means does not split by rows).  ``global_batch=False``
+    keeps this shard's own term (core/ffn_shmap.py pmeans it, as JAX's
+    does)."""
+    from repro_torch.core import collectives as C
     k = choice.shape[-1]
     oh = torch.nn.functional.one_hot(choice.long(), num_groups).float()
     f = oh.sum(2).mean((0, 1)) / k
     p = router_probs.float().mean((0, 1))
+    dp = C.batch_axis() if global_batch else None
+    if dp is not None:
+        f = C.all_reduce_(f.clone(), dp) / dp.size
+        p = C.reduce_sum(p, dp) / dp.size
     return num_groups * (f * p).sum()

@@ -8,6 +8,7 @@ pre-trained function exactly (s = alpha / r).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -25,20 +26,30 @@ class LoRAConfig:
         return self.alpha / max(1, self.rank)
 
 
-def param_defs(d_in: int, d_out: int, cfg: LoRAConfig) -> dict:
+def param_defs(d_in: int, d_out: int, cfg: LoRAConfig,
+               in_axis: Optional[str] = None,
+               out_axis: Optional[str] = None) -> dict:
+    """LoRA adapter defs for a (d_in, d_out) projection.  The B side
+    carries the input's logical axis, the C side the output's, so tensor
+    parallelism places them as the frozen weight they adapt."""
     return {
-        "b": ParamDef((d_in, cfg.rank), torch.float32, init="fan_in"),
-        "c": ParamDef((cfg.rank, d_out), torch.float32, init="zeros"),
+        "b": ParamDef((d_in, cfg.rank), torch.float32,
+                      (in_axis, "lora_rank"), init="fan_in"),
+        "c": ParamDef((cfg.rank, d_out), torch.float32,
+                      ("lora_rank", out_axis), init="zeros"),
     }
 
 
 def linear_defs(d_in: int, d_out: int, cfg: LoRAConfig,
+                in_axis: Optional[str] = None,
+                out_axis: Optional[str] = None,
                 base_init: str = "fan_in", dtype=torch.bfloat16) -> dict:
     """A frozen base projection + its LoRA adapter."""
-    out = {"w": ParamDef((d_in, d_out), dtype, init=base_init,
+    out = {"w": ParamDef((d_in, d_out), dtype, (in_axis, out_axis),
+                         init=base_init,
                          trainable=False)}
     if cfg.enabled:
-        out["lora"] = param_defs(d_in, d_out, cfg)
+        out["lora"] = param_defs(d_in, d_out, cfg, in_axis, out_axis)
     return out
 
 

@@ -1,7 +1,9 @@
 """Parameter definition machinery (port of the JAX ``core/params.py``).
 
 Every layer declares its parameters as a nested dict of :class:`ParamDef`
-(shape + dtype + initializer + trainable flag).  ``init_tree`` materializes
+(shape + dtype + *logical* partition axes + initializer + trainable flag).
+``spec_tree`` maps the logical axes onto mesh axes through a rule table
+(sharding/rules.py), as the JAX package does; ``init_tree`` materializes
 one on a device from an explicit ``torch.Generator``; ``from_numpy_tree``
 loads the JAX package's parameter tree (nested dicts of numpy arrays, the
 same layout: stacked units on a leading axis U) so both packages compute
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,8 +29,14 @@ class ParamDef:
 
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
+    axes: Tuple[Optional[str], ...] = ()
     init: str = "normal:0.02"  # zeros | ones | normal:<std> | uniform:<s> | fan_in
     trainable: bool = True     # False => frozen (pre-trained base weights)
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(
+                f"axes {self.axes} rank mismatch with shape {self.shape}")
 
 
 def is_def(x: Any) -> bool:
@@ -79,9 +87,51 @@ def init_tree(tree: Tree, generator: torch.Generator) -> Tree:
 
 
 def stack_defs(tree: Tree, n: int) -> Tree:
-    """Prepend a leading unit axis of size n to every def."""
-    return _map_defs(lambda d: dataclasses.replace(d, shape=(n, *d.shape)),
-                     tree)
+    """Prepend a leading unit axis of size n (logical axis ``layer``) to
+    every def."""
+    def one(d: ParamDef) -> ParamDef:
+        axes = d.axes if d.axes else (None,) * len(d.shape)
+        return dataclasses.replace(d, shape=(n, *d.shape),
+                                   axes=("layer", *axes))
+    return _map_defs(one, tree)
+
+
+Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+
+
+def spec_tree(tree: Tree, rules: Mapping[str, Any]) -> Tree:
+    """Map logical axes -> mesh axes: one placement tuple per def, an
+    entry per dimension (a mesh-axis name, a tuple of them, or None for
+    replicated), as JAX's ``PartitionSpec`` tree read as tuples.
+
+    ``rules[name]`` may be a mesh-axis name, a tuple of mesh axes, or None;
+    a logical axis missing from the rules is replicated.  A rule applies
+    only if the dimension divides by the mesh-axis extent recorded in
+    ``rules['__sizes__']`` (small models degrade to replication instead
+    of failing to shard), and a mesh axis is used at most once per spec.
+    A def without axes gives ``()``."""
+    sizes = rules.get("__sizes__", {})
+
+    def one(d: ParamDef) -> Spec:
+        if not d.axes:
+            return ()
+        out, used = [], set()
+        for dim, name in zip(d.shape, d.axes):
+            mesh_axes = rules.get(name) if name is not None else None
+            if mesh_axes is None:
+                out.append(None)
+                continue
+            flat = ((mesh_axes,) if isinstance(mesh_axes, str)
+                    else tuple(mesh_axes))
+            total = math.prod(int(sizes.get(a, 1)) for a in flat)
+            if total <= 0 or dim % total or any(a in used for a in flat):
+                out.append(None)
+                continue
+            used.update(flat)
+            out.append(mesh_axes if isinstance(mesh_axes, str) else flat)
+        return tuple(out)
+
+    return _map_defs(one, tree)
 
 
 def count_params(tree: Tree, only_trainable: Optional[bool] = None) -> int:

@@ -33,7 +33,8 @@ def param_defs(cfg: PQConfig) -> dict:
     """Codebooks shared by Q and K of one attention layer: (M, E, d')."""
     return {"codebooks": ParamDef(
         (cfg.num_books, cfg.num_codewords, cfg.code_dim), torch.float32,
-        init="normal:1.0", trainable=True)}
+        ("codebook", "codeword", "code_dim"), init="normal:1.0",
+        trainable=True)}
 
 
 def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:

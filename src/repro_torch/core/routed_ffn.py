@@ -55,20 +55,28 @@ def param_defs(cfg: RoutedFFNConfig, lora_cfg: lora.LoRAConfig) -> dict:
     g, d, f = cfg.num_groups, cfg.d_model, cfg.group_dim
     bf16, f32 = torch.bfloat16, torch.float32
     defs = {
-        "router": ParamDef((d, g), f32, init="fan_in"),
-        "w_inner": ParamDef((g, d, f), bf16, init="fan_in", trainable=False),
-        "w_outer": ParamDef((g, f, d), bf16, init="fan_in", trainable=False),
+        "router": ParamDef((d, g), f32, ("embed", "group"), init="fan_in"),
+        "w_inner": ParamDef((g, d, f), bf16, ("group", "embed", "ffn"),
+                            init="fan_in", trainable=False),
+        "w_outer": ParamDef((g, f, d), bf16, ("group", "ffn", "embed"),
+                            init="fan_in", trainable=False),
     }
     if cfg.gated:
-        defs["w_gate"] = ParamDef((g, d, f), bf16, init="fan_in",
+        defs["w_gate"] = ParamDef((g, d, f), bf16, ("group", "embed", "ffn"),
+                                  init="fan_in",
                                   trainable=False)
     if lora_cfg.enabled:
         r = lora_cfg.rank
-        inner = {"b": ParamDef((d, r), f32, init="fan_in"),
-                 "c": ParamDef((g, r, f), f32, init="zeros")}
+        inner = {"b": ParamDef((d, r), f32, ("embed", "lora_rank"),
+                               init="fan_in"),
+                 "c": ParamDef((g, r, f), f32, ("group", "lora_rank", "ffn"),
+                               init="zeros")}
         defs["lora_inner"] = inner
-        defs["lora_outer"] = {"b": ParamDef((g, f, r), f32, init="fan_in"),
-                              "c": ParamDef((r, d), f32, init="zeros")}
+        defs["lora_outer"] = {
+            "b": ParamDef((g, f, r), f32, ("group", "ffn", "lora_rank"),
+                          init="fan_in"),
+            "c": ParamDef((r, d), f32, ("lora_rank", "embed"),
+                          init="zeros")}
         if cfg.gated:
             defs["lora_gate"] = dict(inner)
     return defs

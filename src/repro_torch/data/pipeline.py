@@ -6,7 +6,9 @@ sources, deterministic by seed:
   * ``markov_stream`` — a low-entropy token Markov chain that models can
     learn (the stand-in for Wikitext-103);
   * ``random_stream`` — i.i.d. uniform tokens (the paper's "Random" set).
-Packing yields {tokens, labels} with labels[t] = tokens[t+1].
+Packing yields {tokens, labels} with labels[t] = tokens[t+1].  Under
+data parallelism every rank draws the same seeded stream and takes its
+rows of each global batch (``rank_rows``).
 """
 from __future__ import annotations
 
@@ -64,3 +66,18 @@ def synthetic_dataset(cfg: DataConfig, steps: int
                       ) -> Iterator[Dict[str, np.ndarray]]:
     src = markov_stream if cfg.kind == "markov" else random_stream
     return pack_batches(src(cfg, steps))
+
+
+def rank_rows(batch: Dict[str, np.ndarray], rank: int, size: int
+              ) -> Dict[str, np.ndarray]:
+    """Data rank ``rank``'s rows of a global batch: the row block
+    [rank * B / size, (rank + 1) * B / size) of every input, as JAX's
+    batch spec ("batch", None) places them over the data axes."""
+    out = {}
+    for k, v in batch.items():
+        b = np.shape(v)[0]
+        if b % size:
+            raise ValueError(f"a global batch of {b} rows does not split "
+                             f"over {size} data ranks")
+        out[k] = v[rank * (b // size):(rank + 1) * (b // size)]
+    return out

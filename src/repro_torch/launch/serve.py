@@ -163,8 +163,14 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-out", default=None,
                     help="write the final metrics snapshot (counters/"
                          "gauges/histograms) as JSON here")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL; serving takes 1x1 only")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh != "1x1":
+        ap.error(f"--mesh {args.mesh}: serving under a mesh (slots over "
+                 "data, KV over kv_heads, the decode kernels on local "
+                 "heads) is not ported; --mesh takes 1x1")
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))

@@ -1,16 +1,29 @@
-"""Step builders (single device; the JAX package's without their
-sharding): the train step — forward, chunked cross-entropy, backward into
-the trainable leaves, AdamW — and the serving prefill and decode steps."""
+"""Step builders and placement trees.
+
+  * ``build_train_step`` — forward, chunked cross-entropy, backward into
+    the trainable leaves, AdamW; under a mesh (``sharding.axis_rules``)
+    each data rank takes its rows, the loss's sums and the aux
+    statistics are reduced over the data axes before division, and the
+    trainable gradients are summed over them before the global-norm clip;
+  * the serving prefill and decode steps;
+  * ``batch_specs`` / ``cache_specs`` / ``train_shardings`` /
+    ``decode_shardings`` — the JAX package's placement trees, each
+    ``PartitionSpec`` read as a tuple (the port keeps arrays whole or
+    local and places nothing by them).
+"""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core import params as P
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
+from repro_torch.models import transformer
 from repro_torch.serving import engine
+from repro_torch.sharding.context import spec_for
 from repro_torch.train import state as S
 from repro_torch.train.loss import lm_cross_entropy
 
@@ -20,16 +33,28 @@ def loss_and_grads(state: dict, cfg: ModelConfig,
     """(total loss, metrics, grads) of one batch; grads has the train
     tree's structure (zeros where no path from the loss reaches a leaf;
     empty when nothing is trainable, as under the "full" variant).
-    total = lm + lb_w * lb / num_layers (+ qerr_w * qerr / num_layers)."""
+    total = lm + lb_w * lb / num_layers (+ qerr_w * qerr / num_layers).
+    Under a mesh ``batch`` holds this data rank's rows: the loss's sums,
+    ``qerr`` and ``dropped`` are reduced over the data axes (``lb_loss``
+    already is, in dispatch.load_balance_loss or core/ffn_shmap.py), and
+    the gradients are summed over them, so every rank returns the global
+    batch's loss, metrics and gradients."""
     pairs = list(P.leaves(state["train"]))
     paths = [p for p, _ in pairs]
     train_vals = [v.detach().requires_grad_(True) for _, v in pairs]
     train = P.unflatten(paths, train_vals)
     params = P.combine(train, state["frozen"])
+    dp = C.batch_axis()
+    tp = transformer.seq_parallel(cfg, batch)
     with torch.enable_grad():
         hidden, aux = S.model_hidden(params, cfg, batch, remat=True)
         lm_loss, stats = lm_cross_entropy(params, cfg, hidden,
-                                          batch["labels"], loss_chunk)
+                                          batch["labels"], loss_chunk,
+                                          tp=tp, dp=dp)
+        if dp is not None:
+            aux = {**aux, "qerr": C.pmean(aux["qerr"], dp),
+                   "dropped": C.all_reduce_(aux["dropped"].detach().clone(),
+                                            dp) / dp.size}
         nl = max(1, cfg.num_layers)
         total = lm_loss + cfg.spt.lb_loss_weight * aux["lb_loss"] / nl
         if cfg.spt.qerr_loss_weight:
@@ -37,7 +62,7 @@ def loss_and_grads(state: dict, cfg: ModelConfig,
         grads = (torch.autograd.grad(total, train_vals, allow_unused=True)
                  if train_vals else [])
     # a leaf no path reaches has a zero gradient, as jax.grad gives it
-    grads = [torch.zeros_like(v) if g is None else g
+    grads = [torch.zeros_like(v) if g is None else C.all_reduce_(g, dp)
              for v, g in zip(train_vals, grads)]
     metrics = {"lm_loss": lm_loss, **stats, "lb_loss": aux["lb_loss"],
                "dropped": aux["dropped"]}
@@ -68,3 +93,47 @@ def build_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
 
 def build_decode_step(cfg: ModelConfig) -> Callable:
     return engine.build_decode_step(cfg)
+
+
+# ------------------------------------------------------------- placements
+def batch_specs(cfg: ModelConfig, specs: Dict[str, Any], rules) -> dict:
+    """Placement per batch input (train/prefill); ``specs`` maps a name to
+    anything with a ``shape`` (configs/shapes.TensorSpec, a tensor)."""
+    out = {}
+    for name, sds in specs.items():
+        if name in ("tokens", "labels"):
+            out[name] = spec_for(sds.shape, ("batch", None), rules)
+        elif name == "frontend_embeds":
+            out[name] = spec_for(sds.shape, ("batch", None, None), rules)
+        elif name == "token":
+            out[name] = spec_for(sds.shape, ("batch",), rules)
+        elif name == "pos":
+            out[name] = ()
+        else:
+            raise KeyError(name)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, abstract_caches, rules):
+    """Placements of a decode cache tree (tensors, e.g. on the meta
+    device, or anything with a ``shape``)."""
+    def walk(c, ax):
+        if isinstance(c, dict):
+            return {k: walk(c[k], ax[k]) for k in c}
+        return spec_for(c.shape, ax, rules)
+    return walk(abstract_caches, engine.decode_cache_axes(cfg))
+
+
+def train_shardings(cfg: ModelConfig, mesh, rules, specs):
+    """(state, batch, new state, metrics) placements of a train step."""
+    st = S.state_specs(cfg, rules)
+    return st, batch_specs(cfg, specs, rules), st, ()
+
+
+def decode_shardings(cfg: ModelConfig, mesh, rules, abstract_caches, specs):
+    """(params, caches, batch, logits) placements of a decode step."""
+    logits = spec_for((1, 1, cfg.padded_vocab), ("batch", None, "vocab"),
+                      rules)
+    return (S.param_specs(cfg, rules),
+            cache_specs(cfg, abstract_caches, rules),
+            batch_specs(cfg, specs, rules), logits)

@@ -1,5 +1,5 @@
 """Training launcher of the port: LoRA fine-tuning with the paper's sparse
-MHA and routed FFN on one device.
+MHA and routed FFN, on one device or over a (data, model) mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 20 --batch 4 --seq 1024
@@ -8,6 +8,8 @@ MHA and routed FFN on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 200 --ckpt runs/qwen3     # resumes from runs/qwen3 if it
                                           # holds a checkpoint
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train \
+        --arch qwen3-0.6b --mesh 2x2 --batch 8 --seq 1024
 
 --arch takes any name ``configs.get_config`` takes (the assigned
 architectures, the paper's blocks, opt-2.7b, llama-2.7b); --variant picks
@@ -23,7 +25,15 @@ data from the port's pipeline, the config's kernels (attn_impl / ffn_impl
 package restores it); a run resumes from the newest step in DIR and
 takes the batches from there on (JAX's launcher starts its stream over),
 and SIGTERM ends it cleanly after the step in flight.  Prints one JSON
-blob.  Runs on the card unless ``--device cpu``.
+blob (rank 0 alone).  Runs on the card unless ``--device cpu``.
+
+``--mesh DATAxMODEL`` (default 1x1) lays the world out as a (data, model)
+mesh (launch/mesh.py): data parallelism over ``data`` (each rank takes its
+rows of --batch), and for stacks of attention blocks tensor and sequence
+parallelism over ``model`` (models/transformer.py).  Under torchrun the
+world is its processes (one card each, NCCL; gloo with --device cpu),
+without it a world of one; a mesh whose product is not the world size is
+refused.
 """
 from __future__ import annotations
 
@@ -35,11 +45,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig, synthetic_dataset
 from repro_torch.launch.dryrun import VARIANTS, apply_variant
-from repro_torch.models import transformer
+from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -70,18 +81,38 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="spt", choices=VARIANTS)
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory: resume from it, save to it")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL, e.g. 2x2")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    try:
+        dp, tp = (int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        ap.error(f"--mesh takes DATAxMODEL, got {args.mesh!r}")
+    if args.batch % dp:
+        ap.error(f"--batch {args.batch} does not split over {dp} data ranks")
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     cfg = apply_variant(cfg, args.variant).with_spt(attn_impl="pallas",
                                                     ffn_impl="pallas")
-    device = transformer.resolve_device(args.device)
+    started = not dist.is_initialized()
+    rank, world, device = init_distributed(args.device)
+    try:
+        if dp * tp != world:
+            ap.error(f"--mesh {args.mesh} needs {dp * tp} processes, the "
+                     f"world has {world}")
+        return _run(args, cfg, make_mesh((dp, tp), ("data", "model"),
+                                         device=device), rank, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, mesh, rank: int, device) -> int:
     ocfg = OptimizerConfig(lr=args.lr, total_steps=args.steps)
     tcfg = TrainerConfig(total_steps=args.steps, log_interval=1,
                          ckpt_dir=args.ckpt)
-    trainer = Trainer(cfg, ocfg, tcfg, device=device)
+    trainer = Trainer(cfg, ocfg, tcfg, device=device, mesh=mesh)
     # a resumed run takes the batches the uninterrupted run would have
     data = synthetic_dataset(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -94,8 +125,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps_run = report["final_step"] - trainer.start_step
+    if rank:
+        return 0
     print(json.dumps({
-        "arch": cfg.name, "variant": args.variant, "device": str(device),
+        "arch": cfg.name, "variant": args.variant, "mesh": args.mesh,
+        "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "start_step": trainer.start_step,

@@ -10,15 +10,26 @@ keys as pools of (P, Hk, page_size, .) pages addressed through the
 engine's (B, MP) page table.  Both are updated IN PLACE (the JAX
 functions return new arrays; here the returned dict is the same, mutated
 one).
+
+Under the sequence-parallel layout of a mesh (``tp``, train mode) the
+layer is a tensor-parallel region: it gathers the sequence, runs this
+rank's Hq/n query and Hk/n kv heads (a kv group stays whole on one rank,
+so ``select_granularity="kvgroup"`` selects as without a mesh) and
+reduce-scatters the o-projection's partial output back over the
+sequence (core/collectives.py).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core import dispatch, lora, pq
+from repro_torch.core.params import spec_tree
+from repro_torch.sharding.context import current_rules
 from repro_torch.core import sparse_attention as sa
 from repro_torch.models import layers, paged_fallback
 from repro_torch.serving import kv_pages
@@ -50,14 +61,14 @@ def attn_defs(cfg: ModelConfig) -> dict:
     hd = cfg.resolved_head_dim
     lc = cfg.spt.lora
     defs = {
-        "wq": lora.linear_defs(d, hq * hd, lc),
-        "wk": lora.linear_defs(d, hk * hd, lc),
-        "wv": lora.linear_defs(d, hk * hd, lc),
-        "wo": lora.linear_defs(hq * hd, d, lc),
+        "wq": lora.linear_defs(d, hq * hd, lc, "embed", "heads"),
+        "wk": lora.linear_defs(d, hk * hd, lc, "embed", "kv_heads"),
+        "wv": lora.linear_defs(d, hk * hd, lc, "embed", "kv_heads"),
+        "wo": lora.linear_defs(hq * hd, d, lc, "heads", "embed"),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = layers.norm_defs(hd, "rmsnorm")
-        defs["k_norm"] = layers.norm_defs(hd, "rmsnorm")
+        defs["q_norm"] = layers.norm_defs(hd, "rmsnorm", None)
+        defs["k_norm"] = layers.norm_defs(hd, "rmsnorm", None)
     if sparse_applicable(cfg):
         defs["pq"] = pq.param_defs(_pq_config(cfg))
     return defs
@@ -235,13 +246,39 @@ def _tel_decode_counters(cfg: ModelConfig, valid: torch.Tensor) -> dict:
             "tel_attn_elig": n_valid}
 
 
+def _attn_region(p, x: torch.Tensor, cfg: ModelConfig, tp: C.Axis,
+                 **kw) -> Tuple[torch.Tensor, None, dict]:
+    """Train-mode attention on this rank's sequence chunk x (B, S/n, d):
+    the whole sequence in, this rank's heads where Hq and Hk both divide
+    by n (else every head, replicated, as the rules fall back), the
+    output's chunk out.  ``qerr`` leaves as the mean over the heads."""
+    n = tp.size
+    if cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0:
+        xf, p = C.enter_region(x, p, spec_tree(attn_defs(cfg),
+                                               current_rules()), tp)
+        local = dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // n,
+            num_kv_heads=cfg.num_kv_heads // n,
+            head_dim=cfg.resolved_head_dim)
+        y, _, aux = attn_apply(p, xf, local, mode="train", **kw)
+        y, mean = C.scatter_seq(y, tp), C.pmean
+    else:
+        xf, p = C.enter_region(x, p, None, tp)
+        y, _, aux = attn_apply(p, xf, cfg, mode="train", **kw)
+        y, mean = C.split_seq(y, tp), C.mean_exit
+    if "qerr" in aux:
+        aux = {**aux, "qerr": mean(aux["qerr"], tp)}
+    return y, None, aux
+
+
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
                causal: bool = True, window: Optional[int] = None,
                cache: Optional[dict] = None, pos=None,
                kv_x: Optional[torch.Tensor] = None, rope: bool = True,
                kv_valid: Optional[torch.Tensor] = None,
                page_table: Optional[torch.Tensor] = None,
-               seq_lengths: Optional[torch.Tensor] = None
+               seq_lengths: Optional[torch.Tensor] = None,
+               tp: Optional[C.Axis] = None
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Returns (y, cache, aux).  x: (B, S, d_model).  pos: absolute
     position of x[:, 0], an int or a (B,) tensor (ragged decode slots).
@@ -254,7 +291,15 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
     only, the (B, MP) slot->page map that marks ``cache`` as a paged pool
     (ring-buffer SWA caches ignore it).  With telemetry counters on
     (``dispatch.use_telemetry_counters``), a sparse decode step reports
-    ``tel_attn_kept`` / ``tel_attn_elig`` (B,) in aux."""
+    ``tel_attn_kept`` / ``tel_attn_elig`` (B,) in aux.
+    tp: the model axis of the sequence-parallel layout (train mode, self-
+    attention); x is then this rank's sequence chunk, and so is y."""
+    if tp is not None:
+        if mode != "train" or kv_x is not None:
+            raise NotImplementedError("tensor-parallel attention is ported "
+                                      "for train-mode self-attention only")
+        return _attn_region(p, x, cfg, tp, causal=causal, window=window,
+                            rope=rope)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     lc = cfg.spt.lora

@@ -300,6 +300,17 @@ def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int,
     return {"self": self_c, "cross": cross}
 
 
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical partition axes mirroring ``init_dec_caches``' tree."""
+    kv = ("layer", "batch", "kv_heads", "seq_shard", None)
+    self_ax = {"k": kv, "v": kv, "slot_pos": ("layer", "batch", None)}
+    cross = {"k": kv, "v": kv}
+    if attention.sparse_applicable(cfg):
+        self_ax["codes"] = kv
+        cross["codes"] = kv
+    return {"self": self_ax, "cross": cross}
+
+
 @torch.no_grad()
 def encdec_prefill(model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                    max_len: int):

@@ -6,17 +6,31 @@ Routed-FFN execution paths (selected by core/dispatch.py, JAX semantics):
   * ``mode="decode"`` at (B, 1, d) — the block-gather decode CUDA kernel
     when ``dispatch.use_decode_ffn_kernel(cfg)`` says so;
   * ``"grouped"`` — the core/ capacity path (the oracle);
-    ``"grouped_shmap"`` runs it too, as JAX does without a mesh.
+  * ``"grouped_shmap"`` — under a mesh, the explicit sequence-parallel
+    schedule of core/ffn_shmap.py where ``ffn_shmap.applicable`` holds
+    and the residual is sequence-sharded (or the model axis has extent
+    1); ``"grouped"`` otherwise, as in JAX.
 Inference modes skip the router softmax and the load-balance loss.
+
+Under the sequence-parallel layout (``tp``, train mode) the default
+paths form a tensor-parallel region: the sequence is gathered, this
+rank's F/n hidden columns run (of each group, for the routed FFN: kernel
+9 at the shard's widths on the default path) and the partial output is
+reduce-scattered back over the sequence; a width that does not divide
+runs replicated, as the rules fall back.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import dispatch, lora, routed_ffn
+from repro_torch.core import collectives as C
+from repro_torch.core import dispatch, ffn_shmap, lora, routed_ffn
+from repro_torch.core.params import spec_tree
+from repro_torch.sharding.context import current_rules
 
 
 def _routed_cfg(cfg: ModelConfig) -> routed_ffn.RoutedFFNConfig:
@@ -40,9 +54,10 @@ def ffn_defs(cfg: ModelConfig) -> dict:
     if routed_applicable(cfg):
         return routed_ffn.param_defs(_routed_cfg(cfg), lc)
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"wi": lora.linear_defs(d, f, lc), "wo": lora.linear_defs(f, d, lc)}
+    defs = {"wi": lora.linear_defs(d, f, lc, "embed", "ffn"),
+            "wo": lora.linear_defs(f, d, lc, "ffn", "embed")}
     if cfg.gated_ffn:
-        defs["wg"] = lora.linear_defs(d, f, lc)
+        defs["wg"] = lora.linear_defs(d, f, lc, "embed", "ffn")
     return defs
 
 
@@ -57,6 +72,24 @@ def _tel_expert_load(choice: torch.Tensor, num_groups: int, x: torch.Tensor,
                  < seq_lengths[:, None]).float()
         oh = oh * valid[:, :, None, None]
     return oh.sum((1, 2))
+
+
+def _shmap_mesh(cfg: ModelConfig, x: torch.Tensor, seq_lengths,
+                tp: Optional[C.Axis]):
+    """The mesh of the rules when ``grouped_shmap`` takes core/ffn_shmap
+    for x (this rank's rows, and with ``tp`` its sequence chunk): the
+    residual must be sequence-sharded on the model axis, so a model axis
+    of extent > 1 needs the sequence-parallel layout; else None."""
+    mesh = (current_rules() or {}).get("__mesh__")
+    if mesh is None or x.dim() != 3 or seq_lengths is not None:
+        return None
+    if tp is None and C.model_axis() is not None:
+        return None
+    dp = C.batch_axis()
+    seq = x.shape[1] * (tp.size if tp else 1)
+    batch = x.shape[0] * (dp.size if dp else 1)
+    return (mesh if ffn_shmap.applicable(mesh, _routed_cfg(cfg), cfg.d_ff,
+                                         seq, batch) else None)
 
 
 def _routed_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
@@ -79,9 +112,11 @@ def _routed_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
                                        seq_lengths=seq_lengths)
         impl = "grouped"                             # REPRO_DISABLE_KERNELS=1
     if impl == "grouped_shmap":
-        # the sharded path (core/ffn_shmap.py) is not ported: one card has
-        # no mesh, where JAX falls back to "grouped" as well
-        impl = "grouped"
+        mesh = _shmap_mesh(cfg, x, seq_lengths, None)
+        if mesh is not None:
+            return ffn_shmap.routed_ffn_shmap(x, p, rcfg, lc, mesh,
+                                              need_aux=need_aux)
+        impl = "grouped"                 # no mesh, or not applicable
     return routed_ffn.routed_ffn(x, p, rcfg, lc, impl=impl,
                                  need_aux=need_aux, seq_lengths=seq_lengths)
 
@@ -104,10 +139,48 @@ def _routed_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
     return y, aux
 
 
+def _ffn_region(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                tp: C.Axis) -> Tuple[torch.Tensor, dict]:
+    """Train-mode FFN on this rank's sequence chunk x (B, S/n, d): the
+    whole sequence in, this rank's F/n hidden columns (of each routed
+    group) where they divide by n (else every column, replicated), the
+    output's chunk out.  The routing and ``lb_loss`` are computed alike
+    on every rank; ``lb_loss`` leaves the region by ``mean_exit``."""
+    if mode != "train":
+        raise NotImplementedError("the tensor-parallel FFN is ported for "
+                                  "train mode only")
+    routed = routed_applicable(cfg)
+    if routed and cfg.spt.ffn_impl == "grouped_shmap":
+        mesh = _shmap_mesh(cfg, x, None, tp)
+        if mesh is not None:
+            return ffn_shmap.routed_ffn_shmap(x, p, _routed_cfg(cfg),
+                                              cfg.spt.lora, mesh)
+    n = tp.size
+    width = _routed_cfg(cfg).group_dim if routed else cfg.d_ff
+    if width % n == 0:
+        xf, p = C.enter_region(x, p, spec_tree(ffn_defs(cfg),
+                                               current_rules()), tp)
+        y, aux = ffn_apply(p, xf, dataclasses.replace(cfg, d_ff=cfg.d_ff // n),
+                           mode)
+        y = C.scatter_seq(y, tp)
+    else:
+        xf, p = C.enter_region(x, p, None, tp)
+        y, aux = ffn_apply(p, xf, cfg, mode)
+        y = C.split_seq(y, tp)
+    if "lb_loss" in aux:
+        aux = {**aux, "lb_loss": C.mean_exit(aux["lb_loss"], tp)}
+    return y, aux
+
+
 def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
-              seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+              seq_lengths=None, tp: Optional[C.Axis] = None
+              ) -> Tuple[torch.Tensor, dict]:
     """seq_lengths: per-row real lengths (B,) of a ragged prefill batch —
-    the routed paths give each row its exact-length dispatch capacity."""
+    the routed paths give each row its exact-length dispatch capacity.
+    tp: the model axis of the sequence-parallel layout (train mode); x is
+    then this rank's sequence chunk, and so is y."""
+    if tp is not None:
+        return _ffn_region(p, x, cfg, mode, tp)
     lc = cfg.spt.lora
     if routed_applicable(cfg):
         return _routed_apply(p, x, cfg, mode, seq_lengths=seq_lengths)

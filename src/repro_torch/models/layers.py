@@ -2,16 +2,18 @@
 learned-position)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.params import ParamDef
 
 
-def norm_defs(dim: int, kind: str) -> dict:
-    defs = {"scale": ParamDef((dim,), torch.float32, init="ones",
+def norm_defs(dim: int, kind: str, axis: Optional[str] = "embed") -> dict:
+    defs = {"scale": ParamDef((dim,), torch.float32, (axis,), init="ones",
                               trainable=False)}
     if kind == "layernorm":
-        defs["bias"] = ParamDef((dim,), torch.float32, init="zeros",
+        defs["bias"] = ParamDef((dim,), torch.float32, (axis,), init="zeros",
                                 trainable=False)
     return defs
 
@@ -54,6 +56,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
 
 def embed_defs(vocab: int, dim: int) -> dict:
     return {"embedding": ParamDef((vocab, dim), torch.bfloat16,
+                                  ("vocab", "embed"),
                                   init="normal:0.02", trainable=False)}
 
 
@@ -68,4 +71,5 @@ def embed_lookup(p, tokens: torch.Tensor, scale: bool,
 def pos_embed_defs(max_pos: int, dim: int) -> dict:
     """The learned-position table (OPT): frozen, bf16, (max_pos, dim)."""
     return {"pos_embedding": ParamDef((max_pos, dim), torch.bfloat16,
+                                      (None, "embed"),
                                       init="normal:0.02", trainable=False)}

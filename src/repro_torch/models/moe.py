@@ -28,22 +28,35 @@ def moe_defs(cfg: ModelConfig) -> dict:
     lc = cfg.spt.lora
     bf16, f32 = torch.bfloat16, torch.float32
     defs = {
-        "router": ParamDef((d, e), f32, init="fan_in"),
-        "wi": ParamDef((e, d, f), bf16, init="fan_in", trainable=False),
-        "wo": ParamDef((e, f, d), bf16, init="fan_in", trainable=False),
+        "router": ParamDef((d, e), f32, ("embed", "expert"), init="fan_in"),
+        "wi": ParamDef((e, d, f), bf16, ("expert", "embed", "expert_ffn"),
+                       init="fan_in", trainable=False),
+        "wo": ParamDef((e, f, d), bf16, ("expert", "expert_ffn", "embed"),
+                       init="fan_in", trainable=False),
     }
     if cfg.gated_ffn:
-        defs["wg"] = ParamDef((e, d, f), bf16, init="fan_in",
+        defs["wg"] = ParamDef((e, d, f), bf16,
+                              ("expert", "embed", "expert_ffn"), init="fan_in",
                               trainable=False)
     if lc.enabled:
         r = lc.rank
-        defs["lora_wi"] = {"b": ParamDef((d, r), f32, init="fan_in"),
-                           "c": ParamDef((e, r, f), f32, init="zeros")}
-        defs["lora_wo"] = {"b": ParamDef((e, f, r), f32, init="fan_in"),
-                           "c": ParamDef((r, d), f32, init="zeros")}
+        defs["lora_wi"] = {
+            "b": ParamDef((d, r), f32, ("embed", "lora_rank"), init="fan_in"),
+            "c": ParamDef((e, r, f), f32,
+                          ("expert", "lora_rank", "expert_ffn"),
+                          init="zeros")}
+        defs["lora_wo"] = {
+            "b": ParamDef((e, f, r), f32,
+                          ("expert", "expert_ffn", "lora_rank"),
+                          init="fan_in"),
+            "c": ParamDef((r, d), f32, ("lora_rank", "embed"), init="zeros")}
         if cfg.gated_ffn:
-            defs["lora_wg"] = {"b": ParamDef((d, r), f32, init="fan_in"),
-                               "c": ParamDef((e, r, f), f32, init="zeros")}
+            # JAX names this C's last axis "ffn" (not "expert_ffn")
+            defs["lora_wg"] = {
+                "b": ParamDef((d, r), f32, ("embed", "lora_rank"),
+                              init="fan_in"),
+                "c": ParamDef((e, r, f), f32, ("expert", "lora_rank", "ffn"),
+                              init="zeros")}
     return defs
 
 

@@ -43,16 +43,18 @@ def rglru_defs(cfg: ModelConfig) -> dict:
     wb = w // nb
     lc = cfg.spt.lora
     return {
-        "w_gate": lora.linear_defs(d, w, lc),
-        "w_branch": lora.linear_defs(d, w, lc),
-        "w_out": lora.linear_defs(w, d, lc),
+        "w_gate": lora.linear_defs(d, w, lc, "embed", "lru"),
+        "w_branch": lora.linear_defs(d, w, lc, "embed", "lru"),
+        "w_out": lora.linear_defs(w, d, lc, "lru", "embed"),
         "conv": ParamDef((cfg.conv_width, w), torch.float32,
-                         init="normal:0.1", trainable=False),
-        "w_a": ParamDef((nb, wb, wb), torch.float32, init="fan_in",
+                         ("conv", "lru"), init="normal:0.1", trainable=False),
+        "w_a": ParamDef((nb, wb, wb), torch.float32,
+                        ("lru_blocks", None, None), init="fan_in",
                         trainable=False),
-        "w_i": ParamDef((nb, wb, wb), torch.float32, init="fan_in",
+        "w_i": ParamDef((nb, wb, wb), torch.float32,
+                        ("lru_blocks", None, None), init="fan_in",
                         trainable=False),
-        "lam": ParamDef((w,), torch.float32, init="uniform:1.0",
+        "lam": ParamDef((w,), torch.float32, ("lru",), init="uniform:1.0",
                         trainable=False),
     }
 

@@ -42,17 +42,17 @@ def ssd_defs(cfg: ModelConfig) -> dict:
     di, h, n, conv_dim, proj_out = _dims(cfg)
     lc = cfg.spt.lora
     return {
-        "in_proj": lora.linear_defs(d, proj_out, lc),
-        "out_proj": lora.linear_defs(di, d, lc),
+        "in_proj": lora.linear_defs(d, proj_out, lc, "embed", "ssm_inner"),
+        "out_proj": lora.linear_defs(di, d, lc, "ssm_inner", "embed"),
         "conv": ParamDef((cfg.conv_width, conv_dim), torch.float32,
-                         init="normal:0.1", trainable=False),
-        "a_log": ParamDef((h,), torch.float32, init="zeros",
+                         ("conv", None), init="normal:0.1", trainable=False),
+        "a_log": ParamDef((h,), torch.float32, (None,), init="zeros",
                           trainable=False),
-        "d_skip": ParamDef((h,), torch.float32, init="ones",
+        "d_skip": ParamDef((h,), torch.float32, (None,), init="ones",
                            trainable=False),
-        "dt_bias": ParamDef((h,), torch.float32, init="zeros",
+        "dt_bias": ParamDef((h,), torch.float32, (None,), init="zeros",
                             trainable=False),
-        "norm": norm_defs(di, "rmsnorm"),
+        "norm": norm_defs(di, "rmsnorm", None),
     }
 
 

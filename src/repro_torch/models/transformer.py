@@ -24,6 +24,16 @@ attention stack (pattern ("attn",)), with RoPE or learned positions and
 a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN, the
 hybrid ("rec", "rec", "attn") stack and the SSD stack.
 
+Under a mesh whose model axis has extent n > 1 (``sharding.axis_rules``),
+a train step over a stack of attention blocks (the dense registry, the
+paper's models, a VLM) runs the Megatron sequence-parallel layout of
+JAX's ``seq_sp`` rule (``seq_parallel``): the residual between blocks is
+this rank's S/n chunk of the sequence, each attention and FFN sub-layer
+is a tensor-parallel region over its local heads or hidden columns
+(models/attention.py, models/ffn.py), and the embedding lookup and the
+loss (train/loss.py) split the vocabulary.  Every other stack computes
+replicated over the model axis.
+
 Frontends are stubs, as in JAX: a VLM's ``batch["frontend_embeds"]``
 (B, F, d) carries precomputed patch embeddings, prepended to the token
 embeddings.  The encoder-decoder (audio) family has its own module,
@@ -38,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
                                      stack_defs)
 from repro_torch.models import attention, ffn, layers, moe, rglru, ssd
@@ -91,17 +102,19 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 mode: str, cache=None, pos=None, kv_valid=None,
-                page_table=None, seq_lengths=None):
+                page_table=None, seq_lengths=None, tp=None):
     """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
     its layers report (scalars, f32) and, with telemetry counters on, its
     ``tel_*`` counters.  A ``rec`` or ``ssd`` block's mixer takes no
-    positions, validity or lengths: its state is the whole history."""
+    positions, validity or lengths: its state is the whole history.
+    tp: the model axis of the sequence-parallel layout (``seq_parallel``;
+    x is this rank's sequence chunk)."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
     if kind == "attn":
         y, cache, a_aux = attention.attn_apply(
             p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
             cache=cache, pos=pos, kv_valid=kv_valid, page_table=page_table,
-            seq_lengths=seq_lengths)
+            seq_lengths=seq_lengths, tp=tp)
     elif kind == "rec":
         y, cache, a_aux = rglru.rec_apply(p["mixer"], h, cfg, mode=mode,
                                           cache=cache)
@@ -114,9 +127,12 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     f_aux: dict = {}
     if "ffn" in p:
         h2 = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
-        apply = moe.moe_apply if cfg.num_experts > 0 else ffn.ffn_apply
-        y2, f_aux = apply(p["ffn"], h2, cfg, mode=mode,
-                          seq_lengths=seq_lengths)
+        if cfg.num_experts > 0:
+            y2, f_aux = moe.moe_apply(p["ffn"], h2, cfg, mode=mode,
+                                      seq_lengths=seq_lengths)
+        else:
+            y2, f_aux = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
+                                      seq_lengths=seq_lengths, tp=tp)
         x = x + y2.to(x.dtype)
     # attention reports qerr (and tel_attn_*), the FFN or MoE lb_loss and
     # dropped (and tel_expert_*): no key in both
@@ -156,6 +172,41 @@ def _check_supported(cfg: ModelConfig) -> None:
                                   "encoder-decoder with cross-attention")
 
 
+def block_cache_axes(cfg: ModelConfig, kind: str,
+                     kv_paged: bool = False) -> dict:
+    """Logical partition axes mirroring ``block_cache``'s structure (the
+    paged pools' page axis replaces the batch and stays replicated)."""
+    if kind == "attn":
+        if kv_paged and cfg.window is None:
+            kv, sp = (None, "kv_heads", None, None), (None, None)
+        else:
+            kv = ("batch", "kv_heads", "seq_shard", None)
+            sp = ("batch", None)
+        ax = {"k": kv, "v": kv, "slot_pos": sp}
+        if attention.sparse_applicable(cfg):
+            ax["codes"] = kv
+        return ax
+    if kind == "rec":
+        return {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
+    if kind == "ssd":
+        return {"h": ("batch", "ssm_heads", None, None),
+                "conv": ("batch", None, None)}
+    raise NotImplementedError(f"block kind {kind!r} is not ported")
+
+
+def cache_axes(cfg: ModelConfig, kv_paged: bool = False) -> dict:
+    """Logical partition axes mirroring ``init_caches``' tree."""
+    out = {"units": {
+        f"b{i}_{kind}": {k: ("layer", *t) for k, t in
+                         block_cache_axes(cfg, kind, kv_paged).items()}
+        for i, kind in enumerate(cfg.pattern)}}
+    tail = _tail_kinds(cfg)
+    if tail:
+        out["tail"] = {f"t{i}_{kind}": block_cache_axes(cfg, kind, kv_paged)
+                       for i, kind in enumerate(tail)}
+    return out
+
+
 def lm_defs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
     if cfg.family == "audio":
@@ -172,7 +223,8 @@ def lm_defs(cfg: ModelConfig) -> dict:
                         for i, kind in enumerate(tail)}
     if not cfg.tie_embeddings:
         defs["head"] = {"w": ParamDef((cfg.d_model, cfg.padded_vocab),
-                                      torch.bfloat16, init="fan_in",
+                                      torch.bfloat16, ("embed", "vocab"),
+                                      init="fan_in",
                                       trainable=False)}
     if cfg.positional == "learned":
         defs["pos"] = layers.pos_embed_defs(cfg.max_position, cfg.d_model)
@@ -271,6 +323,61 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 # ---------------------------------------------------------------- forward
+def seq_parallel(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                 ) -> Optional[C.Axis]:
+    """The model axis when a train step on ``batch`` runs the sequence-
+    parallel layout: a stack of attention blocks without experts, under a
+    mesh whose model axis has extent n > 1 and divides the positions
+    (frontend rows included); None otherwise."""
+    ax = C.model_axis()
+    if (ax is None or cfg.family == "audio" or cfg.num_experts > 0
+            or any(k != "attn" for k in cfg.pattern)):
+        return None
+    s = batch["tokens"].shape[1]
+    if cfg.frontend_tokens and batch.get("frontend_embeds") is not None:
+        s += batch["frontend_embeds"].shape[1]
+    return ax if s % ax.size == 0 else None
+
+
+def _embed_seq_parallel(params, cfg: ModelConfig, tokens: torch.Tensor,
+                        frontend_embeds, tp: C.Axis) -> torch.Tensor:
+    """This rank's chunk of the input rows (B, S/n, d) of a train step.
+    With the vocabulary split over the model axis, each rank looks up the
+    tokens in its rows of the embedding (zeros for the others; a
+    frontend's rows ride on rank 0) and one reduce-scatter sums the parts
+    and keeps the rank's chunk: every row is its one nonzero part, so the
+    sum is exact.  Else the whole lookup, split."""
+    emb = params["embed"]["embedding"]
+    v, n = emb.shape[0], tp.size
+    fe = (frontend_embeds if cfg.frontend_tokens
+          and frontend_embeds is not None else None)
+    if v % n == 0:
+        vl, lo = v // n, tp.rank * (v // n)
+        local = tokens.long() - lo
+        ok = (local >= 0) & (local < vl)
+        x = layers.embed_lookup({"embedding": emb[lo:lo + vl]},
+                                local.clamp(0, vl - 1), cfg.scale_embed,
+                                cfg.d_model)
+        x = x * ok[..., None].to(x.dtype)
+        if fe is not None:
+            fe = fe.to(x.dtype)
+            x = torch.cat([fe if tp.rank == 0 else torch.zeros_like(fe), x],
+                          dim=1)
+        x = C.scatter_seq(x, tp)
+    else:
+        x = layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
+                                cfg.d_model)
+        if fe is not None:
+            x = torch.cat([fe.to(x.dtype), x], dim=1)
+        x = C.split_seq(x, tp)
+    if cfg.positional == "learned":
+        s = x.shape[1]
+        pos = tp.rank * s + torch.arange(s, dtype=torch.long, device=x.device)
+        x = x + params["pos"]["pos_embedding"][
+            pos.clamp(0, cfg.max_position - 1)]
+    return x
+
+
 def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0,
                   frontend_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
@@ -296,7 +403,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0,
 
 def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                 caches=None, pos=None, remat: bool = True, kv_valid=None,
-                page_table=None, seq_lengths=None, tail=None):
+                page_table=None, seq_lengths=None, tail=None, tp=None):
     """Run the pattern units (``LM.units`` or per-unit param dicts), then
     the tail blocks (``tail``: ``LM.tail`` or the ``"tail"`` param dict)
     over x.  Returns (x, aux): in train mode aux sums AUX_KEYS over every
@@ -307,7 +414,8 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     launches on the decode path); the telemetry counters (``tel_*``,
     present only when the config turns them on) are summed over a unit's
     blocks and stacked per unit, (U, ...), as JAX's scan stacks them, and
-    each tail block appends a row of the counters it reports."""
+    each tail block appends a row of the counters it reports.  tp: the
+    model axis of the sequence-parallel layout (x is this rank's chunk)."""
     train = mode == "train"
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in AUX_KEYS} if train else {})
@@ -323,7 +431,7 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
             h, _, aux = block_apply(unit[name], h, cfg, kind, mode=mode,
                                     cache=c, pos=pos, kv_valid=kv_valid,
                                     page_table=page_table,
-                                    seq_lengths=seq_lengths)
+                                    seq_lengths=seq_lengths, tp=tp)
             for k, val in aux.items():
                 aux_u[k] = aux_u[k] + val if k in aux_u else val
         return h, aux_u
@@ -341,7 +449,7 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
         x, _, aux = block_apply(tail[name], x, cfg, kind, mode=mode, cache=c,
                                 pos=pos, kv_valid=kv_valid,
                                 page_table=page_table,
-                                seq_lengths=seq_lengths)
+                                seq_lengths=seq_lengths, tp=tp)
         rows.append(aux)
     for aux in rows:
         for k, val in aux.items():
@@ -364,11 +472,17 @@ def lm_hidden(params: dict, cfg: ModelConfig,
     """Train-mode forward of a JAX-layout param tree to the final hidden
     states (B, S_total, d) (S_total counts the frontend rows) and the
     summed aux.  Gradients reach the stacked leaves through the per-unit
-    views."""
-    x = _embed_inputs(params, cfg, batch["tokens"],
-                      frontend_embeds=batch.get("frontend_embeds"))
+    views.  Under the sequence-parallel layout (``seq_parallel``) the
+    hidden states are this rank's chunk of the positions."""
+    tp = seq_parallel(cfg, batch)
+    if tp is not None:
+        x = _embed_seq_parallel(params, cfg, batch["tokens"],
+                                batch.get("frontend_embeds"), tp)
+    else:
+        x = _embed_inputs(params, cfg, batch["tokens"],
+                          frontend_embeds=batch.get("frontend_embeds"))
     x, aux = _run_blocks(_unit_trees(params, cfg), cfg, x, mode="train",
-                         remat=remat, tail=params.get("tail"))
+                         remat=remat, tail=params.get("tail"), tp=tp)
     return layers.apply_norm(params["final_norm"], x, cfg.norm), aux
 
 

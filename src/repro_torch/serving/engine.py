@@ -107,6 +107,13 @@ def build_decode_step(cfg: ModelConfig):
 _M32 = 0xFFFFFFFF
 
 
+def decode_cache_axes(cfg: ModelConfig, kv_paged: bool = False):
+    """Logical partition axes of the decode caches' tree."""
+    if cfg.family == "audio":
+        return encdec.cache_axes(cfg)
+    return transformer.cache_axes(cfg, kv_paged=kv_paged)
+
+
 def _mix32(x):
     """A 32-bit integer hash (xorshift-multiply rounds) of ints, numpy
     arrays or int64 tensors holding values in [0, 2**32).  Multipliers

@@ -1,0 +1,79 @@
+"""Sharding context: logical-axis annotations of activations.
+
+Model code may annotate an activation with *logical* axis names through
+``shard``.  In the JAX package the annotation becomes a sharding
+constraint when a rules context is active.  In the port every tensor is
+this rank's local tensor and the collectives are explicit (the region
+functions of core/collectives.py), so ``shard`` only checks the
+annotation (one name per dimension) and returns the tensor unchanged;
+``spec_for`` gives the placement JAX would constrain it to, as a tuple.
+``axis_rules`` sets the rules (``sharding.rules_for_mesh``) for the code
+it wraps: the Trainer runs each step under them, and the collectives read
+the mesh from them.  The rules are one process-wide value, not a context
+variable as in JAX: on a CUDA device autograd runs the backward (a
+checkpointed unit's recompute, a kernel op's reference backward) on a
+thread of its own, which must see the rules of the step that waits for
+it.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+_RULES: Optional[Mapping[str, Any]] = None
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Mapping[str, Any]):
+    global _RULES
+    prev, _RULES = _RULES, rules
+    try:
+        yield
+    finally:
+        _RULES = prev
+
+
+def current_rules() -> Optional[Mapping[str, Any]]:
+    return _RULES
+
+
+def _resolve(dim: int, name: Optional[str], rules: Mapping[str, Any],
+             used: set) -> Optional[Union[str, tuple]]:
+    if name is None:
+        return None
+    mesh_axes = rules.get(name)
+    if mesh_axes is None:
+        return None
+    flat = (mesh_axes,) if isinstance(mesh_axes, str) else tuple(mesh_axes)
+    sizes = rules.get("__sizes__", {})
+    total = math.prod(int(sizes.get(a, 1)) for a in flat)
+    if total <= 0 or dim % total != 0 or any(a in used for a in flat):
+        return None
+    used.update(flat)
+    return mesh_axes
+
+
+def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
+             rules: Mapping[str, Any]) -> Tuple:
+    """The placement of an array of ``shape`` with logical ``axes``: one
+    entry per dimension, a mesh axis, a tuple of them or None (JAX's
+    ``PartitionSpec`` as a tuple).  A rule that does not divide the
+    dimension, or reuses a mesh axis, leaves the dimension replicated."""
+    used: set = set()
+    return tuple(_resolve(d, n, rules, used) for d, n in zip(shape, axes))
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Annotate ``x`` with logical axes, e.g. shard(h, 'batch', None,
+    'embed'); checks the rank under active rules, returns ``x``."""
+    rules = _RULES
+    if rules is None:
+        return x
+    if len(axes) != x.dim():
+        raise ValueError(f"shard(): {len(axes)} axes for rank-{x.dim()} "
+                         "tensor")
+    spec_for(x.shape, axes, rules)
+    return x

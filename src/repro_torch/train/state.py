@@ -45,6 +45,22 @@ def init_state(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
             "train": train, "frozen": frozen, "opt": adamw_init(train)}
 
 
+def state_specs(cfg: ModelConfig, rules) -> dict:
+    """The state's placement tree under ``rules`` (JAX's ``PartitionSpec``
+    tree read as tuples; core/params.spec_tree).  The port keeps every
+    leaf whole on every rank and slices its shard where it is used, as
+    the JAX Trainer jits its step on whole arrays."""
+    defs = model_defs(cfg)
+    train_s, frozen_s = P.partition(P.spec_tree(defs, rules),
+                                    P.trainable_mask(defs))
+    return {"step": (), "train": train_s, "frozen": frozen_s,
+            "opt": {"m": train_s, "v": train_s}}
+
+
+def param_specs(cfg: ModelConfig, rules) -> dict:
+    return P.spec_tree(model_defs(cfg), rules)
+
+
 def full_params(state: dict) -> dict:
     """The model's whole parameter tree: the trainable and frozen halves
     of ``state`` put back together."""

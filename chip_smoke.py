@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only families  # phases 1-3, 19-22
     python3 chip_smoke.py --only infra     # phases 1-3, 23
     python3 chip_smoke.py --only mesh      # phases 1-3, 24
+    python3 chip_smoke.py --only meshserve # phases 1-3, 25
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -92,7 +93,7 @@ Phases (each raises on failure; nothing is caught):
      4096) at full width, one layer, bf16: 3 steps of Trainer.run at 4 x
      1024 under apply_variant "spt" (kernels 1, 2, 4 and 9 exactly 4, 2,
      2 and 2 times per layer per step), then "lora" (no kernel);
-  10. opt-2.7b and llama-2.7b (full width, 16 of 32 layers, bf16): 2
+  10. opt-2.7b and llama-2.7b (full width, 4 of 32 layers, bf16): 2
      steps of Trainer.run
      at 4 x 1024 and a profiled step each; opt-2.7b's lm_prefill at 4 x
      1024 (kernels 1, 2, 4, 9) and a serve of 8 requests (prompts
@@ -150,7 +151,7 @@ Phases (each raises on failure; nothing is caught):
      1024, 16 query heads of 256 on 1 kv head kept (R = 16), window 64,
      in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy streams
      up to near-ties, one train step's loss and gradient cosine;
-  19. phi-3-vision-4.2b at full width, 16 of 32 layers, bf16: a
+  19. phi-3-vision-4.2b at full width, 4 of 32 layers, bf16: a
      burst Engine.run of 8 requests, each 576 frontend rows before a
      prompt of 128-1024 tokens, 32 new tokens, max_len 2048 (kernels 6,
      9, 10), a decode step's split, the same on the paged layout with a
@@ -172,7 +173,7 @@ Phases (each raises on failure; nothing is caught):
      mamba2-780m at 4 layers, whisper-base at 2 + 2 layers: greedy
      streams up to near-ties (mamba2: identical, no launch), one train
      step's loss (rel 1e-4) and gradient cosine (>= 0.999);
-  23. checkpoint/restart of full-width qwen3-0.6b (14 of 28 layers;
+  23. checkpoint/restart of full-width qwen3-0.6b (4 of 28 layers;
      bf16, spt, 4 x 1024):
      run A trains 6 steps uninterrupted (checkpoints every 2); run B, a
      child process of this script, the same run, sends itself SIGTERM
@@ -193,6 +194,30 @@ Phases (each raises on failure; nothing is caught):
      under deterministic algorithms without the mesh, through the mesh
      path (losses equal bit for bit) and with grouped_shmap (within
      1e-3), launch counts exact; the process group destroyed at the end;
+  25. serving under a mesh on one card: the decode kernels 3, 5, 6, 7 and
+     8 at the shard shapes of model 2 and 4 (qwen3-0.6b's 8/4 and 4/2
+     heads of 128, recurrentgemma-9b's 8/1 and 4/1 heads of 256 over its
+     2,048-slot ring), bf16 and f32, and kernel 10 at each group's F / n
+     columns (qwen3's 192 and 96, recurrentgemma's 768 and 384), each
+     launched twice bit-identically, against its plain version, timed
+     beside its bound; an NCCL world of one, mesh (1, 1): qwen3-0.6b at
+     full width (7 of 28 layers, contiguous and paged on the 64-page
+     pool) and recurrentgemma-9b (8 of 38 layers: two units and the
+     tail) served through Engine.run (8 requests, prompts 128-1024, 32
+     new tokens, 8 slots) without the mesh and through it — the
+     streams, the launch counts and ServeStats' counters equal bit for
+     bit, launch counts exact; then each of those models split over
+     model 2 and 4 (paged: 2), every rank of the (1, n) mesh a thread on
+     the card taking turns at the model-axis collectives, which sum the
+     ranks' partial outputs: each rank's local head, kv head, column
+     and channel counts; 4 requests served on every rank at once (bf16:
+     the ranks' streams alike, launches n times one rank's exact count,
+     ServeStats' counters equal to the unsharded serve's); in f32 with
+     every key selected (contiguous cases), the logits of one ragged
+     prefill and 8 decode steps equal the unsharded model's to a
+     relative error of 1e-3, every rank's alike, and the same run
+     summing rank 0's part alone is off by over 0.1 (at the served
+     top-L fraction the error is shown);
   counters are zeroed just before each counted run and read just after,
   launch counts exact; then one JSON line of the ten kernels (launches
   per path; each with its times at the paper's, the MoE, the hybrid and
@@ -2060,10 +2085,11 @@ PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
 # launches, ~200 a layer), so the script's longest paths cut depth, at
 # full width, to keep the whole run well inside its time limit: qwen3-0.6b
 # 28 -> 7 layers in phases 5 and 12 (phase 4 keeps all 28), opt-2.7b and
-# llama-2.7b 32 -> 16 in phase 10, phi-3-vision-4.2b 32 -> 16 in phase 19
+# llama-2.7b 32 -> 4 in phase 10, phi-3-vision-4.2b 32 -> 4 in phase 19
+# (16 each until phase 25 came, 8 until its model shards came)
 CUT_DEPTH = 7
-PAPER_DEPTH = 16
-PHI_DEPTH = 16
+PAPER_DEPTH = 4
+PHI_DEPTH = 4
 # serve workloads (requests, prompt lengths lo-hi from numpy seed 2, new
 # tokens, max_len) on 8 slots, decode chunks of 16: phases 4-5, and the
 # paper's OPT-2.7B in phase 10
@@ -3987,6 +4013,462 @@ def mesh_train(torch):
     return {"mesh_train": launches, "mesh_train_shmap": launches_shm}
 
 
+# Phase 25: the decode kernels at the shard shapes of serving under model
+# 2 and 4 — qwen3-0.6b's 16/8 heads of 128 (M 16) over n ranks, and
+# recurrentgemma-9b's 16 heads on its one kv head of 256 (M 32; the kv
+# head stays whole on every rank) over its full 2,048-slot ring — at 8
+# slots; kernel 10 at each group's F / n columns.
+MESH_SERVE_EDGES = [
+    ("qwen3-0.6b model=2: 8/4 heads", 8, 4, 2, 128, "qhead", False, False,
+     SM),
+    ("qwen3-0.6b model=4: 4/2 heads", 8, 2, 2, 128, "qhead", False, False,
+     SM),
+    ("recurrentgemma-9b model=2: 8/1 heads", 8, 1, 8, 256, "qhead", False,
+     False, 32, HYBRID_RING),
+    ("recurrentgemma-9b model=4: 4/1 heads", 8, 1, 4, 256, "qhead", False,
+     False, 32, HYBRID_RING),
+]
+MESH_SERVE_FFN = [("qwen3-0.6b", 1024, 384, "silu"),
+                  ("recurrentgemma-9b", 4096, 1536, "gelu")]
+MESH_SERVE_WORK = dict(n=8, lo=128, hi=1024, gen=32, max_len=2048)
+# depth of the world-of-one serves: phase 5's for qwen3-0.6b (7 of 28
+# layers), and recurrentgemma-9b's first 8 of 38 (two units and the
+# two-layer tail; 14 until the model shards came)
+MESH_QWEN_DEPTH = CUT_DEPTH
+MESH_HYBRID_DEPTH = 8
+# The model shards of each served case, every rank a thread on the one
+# card (``_Ring``): the extents, a short bf16 serve (4 slots, chunks of
+# 8) and, in f32 (contiguous cases), the teacher-forced logits of its 4
+# prompts (one ragged prefill and SHARD_STEPS decode steps) against the
+# unsharded model.  The logits' rule is f32's (bf16's rounding of the
+# partial sums grows through a random model's layers, the hybrid's most)
+# with top-L = every key: the per-head projections' GEMMs round
+# differently at the local widths, and a PQ code or top-L choice that
+# flips on that rounding moves a logit by far more than the rounding
+# (the served fraction's error is printed beside).  A relative Frobenius
+# error of at most SHARD_TOL, every rank's logits equal bit for bit, and
+# the same run with the sums replaced by rank 0's part alone (a sharding
+# fault) off by more than 100 x SHARD_TOL, so that the rule can see one.
+SHARD_TP = {"mesh_serve": (2, 4), "mesh_serve_paged": (2,),
+            "mesh_serve_hybrid": (2, 4)}
+SHARD_WORK = dict(n=4, lo=64, hi=512, gen=12, max_len=1024)
+SHARD_STEPS = 8
+SHARD_TOL = 1e-3
+RING_TIMEOUT_S = 300
+
+
+def check_mesh_serve_shapes(torch, gen):
+    """Kernels 3, 5, 6, 7 and 8 on MESH_SERVE_EDGES (check_decode_edges:
+    bf16 and f32, twice bit-identically, against their plain versions,
+    each edge timed in bf16), and kernel 10 at MESH_SERVE_FFN's F / n for
+    n in MESH_TP (8 slots, 8 groups top 4, gated, LoRA r 16; bf16 and
+    f32, twice bit-identically, the bf16 case timed beside its bound and
+    the bf16 torch yardstick).  Returns {wrapper name: [case rows]}."""
+    from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels.routed_ffn import ops, ref
+    out = {}
+    for edge in MESH_SERVE_EDGES:
+        for name, cases in check_decode_edges(torch, gen, [edge], edge[0],
+                                              tag="meshserve").items():
+            out.setdefault(name, []).extend(cases)
+    b, g, ga, r = 8, 8, 4, 16
+    for label, d, f_group, act in MESH_SERVE_FFN:
+        for n in MESH_TP:
+            f = f_group // n
+            for dtn in ("bfloat16", "float32"):
+                dt = getattr(torch, dtn)
+                rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=f * g, num_groups=g,
+                                          active_groups=ga, activation=act,
+                                          gated=True)
+                wts, lora = _ffn_weights(torch, gen, g, d, f, r, dt)
+                x = torch.randn(b, d, device="cuda", generator=gen).to(dt)
+                router = (torch.randn(d, g, device="cuda", generator=gen)
+                          / d ** 0.5)
+                choice, gate, _ = rf.route(x[:, None], router, rcfg,
+                                           need_aux=False)
+                choice, gate = choice[:, 0].contiguous(), gate[:, 0].contiguous()
+                args = (x, choice, gate, wts["w_inner"], wts["w_outer"],
+                        wts["w_gate"], lora, 1.0)
+                case = (f"{label} model={n} (x ({b}, {d}), F={f} of "
+                        f"{f_group}, G'={ga} of {g}, {act} gated, LoRA r={r})")
+                y = _twice(torch, lambda: ops.decode_ffn(*args, act=act),
+                           f"decode_ffn {case} {dtn}")
+                err = close(y, ref.decode_ffn_ref(*args, act=act),
+                            BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+                print(f"  decode_ffn {case} {dtn}: max_abs_err {err:.3e}, "
+                      "bit-identical", flush=True)
+                if dt != torch.bfloat16:
+                    continue
+                ms = time_ms(lambda: ops.decode_ffn(*args, act=act), 30)
+                yard = time_ms(lambda: decode_ffn_yardstick(
+                    torch, x, choice, gate, wts, _bf16_lora(torch, lora), 1.0,
+                    act=act), 30)
+                blocks = int(torch.unique(choice).numel())
+                moved = (blocks * 3 * d * f * x.element_size()
+                         + sum(nbytes(*t.values()) for t in lora.values())
+                         + nbytes(x, choice, gate) + b * d * x.element_size())
+                _paper_row(out, "decode_ffn", case, ms,
+                           bound(moved, b * ga * 2 * d * f * 3, dt), err,
+                           yard, tag="meshserve")
+    return out
+
+
+_STAT_COUNTS = ("prefill_tokens", "decode_tokens", "decode_steps",
+                "admitted", "completed", "prefill_batches", "preemptions",
+                "rejections", "cancelled", "shed", "page_size",
+                "kv_pages_total", "kv_pages_peak", "admission_stalls")
+
+
+def _mesh_serve_run(torch, model, cfg, label, mesh, kv_pages=None):
+    """Engine.run of MESH_SERVE_WORK on 8 slots (under ``mesh`` when
+    given) after a warm-up, counters zeroed just before and read just
+    after.  Returns (streams, launches, ServeStats' counters, wall s);
+    launch counts exact."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import Engine
+    work = MESH_SERVE_WORK
+    eng = Engine(cfg, model, max_len=work["max_len"], num_slots=8,
+                 decode_chunk=16, kv_pages=kv_pages, mesh=mesh)
+    eng.run(_requests(2, 16, 32, 4, cfg.vocab_size, seed=1))     # warm-up
+    reqs = _requests(work["n"], work["lo"], work["hi"], work["gen"],
+                     cfg.vocab_size, seed=2)
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    st = eng.last_stats
+    want = _want_serve_launches(cfg, launches, eng.last_steps_run,
+                                st.prefill_batches)
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches} != expected {want}")
+    counts = {k: getattr(st, k) for k in _STAT_COUNTS}
+    print(f"  {label}: {wall:.2f} s, decode {st.decode_tok_s:.1f} tok/s, "
+          f"prefill {st.prefill_tok_s:.1f} tok/s; ServeStats counters "
+          f"{json.dumps(counts)}; launches {json.dumps(launches)}",
+          flush=True)
+    return [(c.tokens, c.finish_reason) for c in outs], launches, counts, wall
+
+
+class _Ring:
+    """The model axis of ``n`` serving ranks on one card: each rank is a
+    thread, and one runs at a time.  The turn passes in rank order at
+    each collective, whose result the last rank takes once (the parts
+    summed, or joined, in rank order) and every rank shares; so each
+    rank's kernels see the shard shapes of a (1, n) mesh and the launch
+    counters count every rank exactly.  ``fault``: a sum returns rank
+    0's part alone (the negative control of the logits rule)."""
+
+    def __init__(self, n):
+        import threading
+        self.n, self.turn, self.parts, self.out = n, 0, [None] * n, None
+        self.cv, self.error, self.fault = threading.Condition(), None, False
+
+    def wait(self, r):
+        with self.cv:
+            if not self.cv.wait_for(lambda: self.turn == r or self.error,
+                                    timeout=RING_TIMEOUT_S):
+                self.error = f"rank {r} waited {RING_TIMEOUT_S} s"
+                self.cv.notify_all()
+            if self.error:
+                raise RuntimeError(f"model shard {r}: {self.error}")
+
+    def done(self, r, error=None):
+        with self.cv:
+            if error is not None and self.error is None:
+                self.error = f"rank {r} failed: {error!r}"
+            self.turn = (r + 1) % self.n
+            self.cv.notify_all()
+
+    def exchange(self, r, x, combine):
+        self.parts[r] = x
+        if r == self.n - 1:
+            self.out, self.parts = combine(self.parts), [None] * self.n
+        self.done(r)
+        self.wait(r)
+        return self.out.clone()              # each rank its own tensor
+
+    def sum(self, parts):
+        out = parts[0].clone()
+        if not self.fault:
+            for x in parts[1:]:
+                out += x
+        return out
+
+
+def _on_shards(torch, shards, work):
+    """``work(r, shard)`` on every rank of the ShardedLMs ``shards`` (one
+    _Ring), each in its thread, with the serving path's model-axis
+    collectives (``model_sum``, ``region_sum``, ``gather``) taken over
+    the ring.  Returns the ranks' results; re-raises a rank's error."""
+    import threading
+    from repro_torch.core import collectives as C
+    ring = shards[0].shard.ax.group
+    out = [None] * ring.n
+
+    def body(r):
+        err = None
+        try:
+            ring.wait(r)
+            with torch.no_grad():
+                out[r] = work(r, shards[r])
+        except BaseException as e:          # noqa: BLE001 (re-raised)
+            err = out[r] = e
+        finally:
+            ring.done(r, err)
+
+    def total(x, ax):
+        return x if ax is None else ax.group.exchange(ax.rank, x, ring.sum)
+
+    def joined(x, dim, ax):
+        return x if ax is None else ax.group.exchange(
+            ax.rank, x, lambda parts: torch.cat(parts, dim))
+
+    names = ("model_sum", "region_sum", "gather")
+    orig = {k: getattr(C, k) for k in names}
+    C.model_sum, C.region_sum, C.gather = total, total, joined
+    try:
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(ring.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(RING_TIMEOUT_S * 2)
+            if t.is_alive():
+                raise AssertionError("a model shard's thread hangs")
+    finally:
+        for k in names:
+            setattr(C, k, orig[k])
+    for o in out:
+        if isinstance(o, BaseException):
+            raise o
+    return out
+
+
+def _teacher_logits(torch, model, cfg, prompts, feed, max_len):
+    """f32 logits (1 + steps, B, V) of one ragged prefill of ``prompts``
+    and a decode step for each column of ``feed`` (B, steps), fed its
+    tokens; with ``feed`` an int, that many steps fed their own argmax.
+    Returns (logits, feed)."""
+    from repro_torch.models import transformer
+    dev = model.device
+    b, p = len(prompts), max(map(len, prompts))
+    toks = torch.zeros((b, p), dtype=torch.long, device=dev)
+    for i, t in enumerate(prompts):
+        toks[i, :len(t)] = torch.tensor(t, device=dev)
+    pos = torch.tensor([len(t) for t in prompts], device=dev)
+    caches, logits = transformer.lm_prefill_ragged(
+        model, cfg, {"tokens": toks}, pos, max_len)
+    out = [logits[:, -1].float()]
+    greedy = isinstance(feed, int)
+    steps = feed if greedy else feed.shape[1]
+    fed = []
+    slot_ids = torch.arange(max_len, device=dev)[None]
+    for t in range(steps):
+        tok = out[-1].argmax(-1) if greedy else feed[:, t]
+        fed.append(tok)
+        lg = transformer.lm_decode_step(model, cfg, caches, tok, pos,
+                                        kv_valid=slot_ids <= pos[:, None])
+        out.append(lg[:, -1].float())
+        pos = pos + 1
+    return torch.stack(out), torch.stack(fed, 1)
+
+
+def _logit_errors(got, want):
+    d = (got - want).float()
+    return float(d.abs().max()), float(d.norm() / want.float().norm())
+
+
+def _shard_checks(torch, model, cfg, label, kv_pages):
+    """The model shards of one served case at each extent of
+    SHARD_TP[label].  bf16: each rank's local counts; SHARD_WORK served
+    through Engine.run on every rank at once, counters zeroed just
+    before and read just after: every rank's streams alike, the launches
+    n times one rank's exact count, ServeStats' counters equal to the
+    unsharded serve's.  Then (contiguous cases), with ``model`` cast to
+    f32 in place, the teacher-forced logits against the unsharded
+    model's, launches n times exact: with every key selected under the
+    SHARD_TOL rule and its fault control, at the served top-L fraction
+    shown.  Returns the serves' launches summed over the extents."""
+    from repro_torch import kernels
+    from repro_torch.core import collectives as C
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine
+    w = SHARD_WORK
+    reqs = _requests(w["n"], w["lo"], w["hi"], w["gen"], cfg.vocab_size,
+                     seed=3)
+
+    def shards_of(m, c, n):
+        ring = _Ring(n)
+        return [transformer.ShardedLM(m, c, C.Axis(ring, n, r))
+                for r in range(n)]
+
+    def serve(m):
+        eng = Engine(cfg, m, max_len=w["max_len"], num_slots=4,
+                     decode_chunk=8, kv_pages=kv_pages)
+        outs = eng.run(reqs)
+        st = eng.last_stats
+        return ([c.tokens for c in outs], eng.last_steps_run,
+                {k: getattr(st, k) for k in _STAT_COUNTS})
+
+    base = serve(model)
+    wrappers = kernels.wrappers()
+    total = {wr.__name__: 0 for wr in wrappers}
+    for n in SHARD_TP[label]:
+        shards = shards_of(model, cfg, n)
+        lc = shards[0].cfg
+        counts = (lc.num_heads, lc.num_kv_heads, lc.d_ff, lc.lru_width)
+        want = (cfg.num_heads // n,
+                cfg.num_kv_heads // n if cfg.num_kv_heads % n == 0
+                else cfg.num_kv_heads, cfg.d_ff // n,
+                cfg.lru_width // n if "rec" in cfg.pattern else
+                cfg.lru_width)
+        if counts != want:
+            raise AssertionError(f"{label} model={n}: local (heads, kv "
+                                 f"heads, d_ff, lru) {counts} != {want}")
+        torch.cuda.synchronize()
+        for wr in wrappers:
+            wr.launches = 0
+        got = _on_shards(torch, shards, lambda r, sh: serve(sh))
+        torch.cuda.synchronize()
+        launches = {wr.__name__: wr.launches for wr in wrappers}
+        streams, steps, stats = got[0]
+        if any(g != got[0] for g in got[1:]):
+            raise AssertionError(f"{label} model={n}: the ranks' serves "
+                                 "differ")
+        one = _want_serve_launches(cfg, launches, steps,
+                                   stats["prefill_batches"])
+        if launches != {k: n * v for k, v in one.items()}:
+            raise AssertionError(f"{label} model={n}: launches {launches} "
+                                 f"!= {n} x {one}")
+        if stats != base[2]:
+            raise AssertionError(f"{label} model={n}: ServeStats counters "
+                                 f"{stats} != unsharded {base[2]}")
+        same = sum(a == b for a, b in zip(streams, base[0]))
+        print(f"  {label} model={n}, bf16: local (heads, kv heads, d_ff, "
+              f"lru) {counts}; serve of {len(streams)} requests on every "
+              f"rank alike, {same} streams = unsharded, ServeStats "
+              f"counters equal, launches {n} x exact", flush=True)
+        for k, v in launches.items():
+            total[k] += v
+        del shards
+        _free(torch)
+    if kv_pages is not None:         # the contiguous case's arithmetic
+        return total
+    model.to(torch.float32)
+    prompts = [r.tokens for r in reqs]
+    for frac in (1.0, cfg.spt.attn_top_fraction):
+        # checked with every key selected; at the served fraction shown
+        c32 = dataclasses.replace(cfg, dtype=torch.float32).with_spt(
+            attn_top_fraction=frac)
+        with torch.no_grad():
+            ref, feed = _teacher_logits(torch, model, c32, prompts,
+                                        SHARD_STEPS, w["max_len"])
+        for n in SHARD_TP[label]:
+            shards = shards_of(model, c32, n)
+            ring = shards[0].shard.ax.group
+
+            def logits(r, sh):
+                return _teacher_logits(torch, sh, sh.cfg, prompts, feed,
+                                       w["max_len"])[0]
+            torch.cuda.synchronize()
+            for wr in wrappers:
+                wr.launches = 0
+            lg = _on_shards(torch, shards, logits)
+            torch.cuda.synchronize()
+            launches = {wr.__name__: wr.launches for wr in wrappers}
+            one = _want_serve_launches(c32, launches, SHARD_STEPS, 1)
+            if launches != {k: n * v for k, v in one.items()}:
+                raise AssertionError(f"{label} model={n} f32: launches "
+                                     f"{launches} != {n} x {one}")
+            if not all(torch.equal(x, lg[0]) for x in lg[1:]):
+                raise AssertionError(f"{label} model={n}: the ranks' "
+                                     "logits differ")
+            err, rel = _logit_errors(lg[0], ref)
+            rel0 = _logit_errors(lg[0][0], ref[0])[1]
+            what = (f"{label} model={n}, f32, top-L {frac:g} of the keys: "
+                    f"logits of 4 prompts (one ragged prefill + "
+                    f"{SHARD_STEPS} decode steps, launches {n} x exact) vs "
+                    f"unsharded: max abs err {err:.3e}, relative {rel:.3e} "
+                    f"(prefill {rel0:.3e}), every rank's alike")
+            if frac == 1.0:
+                ring.fault = True
+                bad = _logit_errors(_on_shards(torch, shards, logits)[0],
+                                    ref)[1]
+                if rel > SHARD_TOL or bad <= 100 * SHARD_TOL:
+                    raise AssertionError(
+                        f"{what}; rule <= {SHARD_TOL}, and with rank 0's "
+                        f"partial sums alone {bad:.3e} must exceed "
+                        f"{100 * SHARD_TOL}")
+                what += (f" (rule <= {SHARD_TOL}); rank 0's partial sums "
+                         f"alone {bad:.3e}")
+            else:
+                what += " (shown: discrete top-L selection, not held)"
+            print("  " + what, flush=True)
+            del shards, lg
+            _free(torch)
+    return total
+
+
+def mesh_serve(torch):
+    """Phase 25's world of one: an NCCL process group of one rank, a
+    (1, 1) mesh; qwen3-0.6b (MESH_QWEN_DEPTH layers) contiguous and paged on
+    PAGED_POOL pages, recurrentgemma-9b (MESH_HYBRID_DEPTH layers), each
+    served without the mesh and through it: streams, launches and the
+    ServeStats counters equal bit for bit; then each case's model shards
+    (``_shard_checks``).  The process group is destroyed at the end.
+    Returns the mesh runs' launches by path, the shards' under
+    "mesh_serve_shards"."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    qwen = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                               num_layers=MESH_QWEN_DEPTH).with_spt(
+                                   **SERVE_CFG)
+    hyb = dataclasses.replace(configs.get_config("recurrentgemma-9b"),
+                              num_layers=MESH_HYBRID_DEPTH).with_spt(
+                                  **SERVE_CFG)
+    cases = [("mesh_serve", qwen, None), ("mesh_serve_paged",
+              qwen.with_spt(**PAGED), PAGED_POOL),
+             ("mesh_serve_hybrid", hyb, None)]
+    rank, world, _ = init_distributed("cuda")
+    paths, walls, shard_launches = {}, {}, []
+    try:
+        if (rank, world) != (0, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"rank {rank} of {world} on "
+                                 f"{dist.get_backend()}, want NCCL 0 of 1")
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        for path, cfg, pages in cases:
+            _free(torch)
+            model = _perturbed_model(torch, cfg, seed=0)
+            base = _mesh_serve_run(torch, model, cfg, f"{path} no mesh",
+                                   None, pages)
+            got = _mesh_serve_run(torch, model, cfg, f"{path} mesh (1, 1)",
+                                  mesh, pages)
+            for what, a, b in zip(("streams", "launches", "ServeStats"),
+                                  got[:3], base[:3]):
+                if a != b:
+                    raise AssertionError(f"{path}: the mesh run's {what} "
+                                         "differ from the run without it")
+            paths[path], walls[path] = got[1], (base[3], got[3])
+            shard_launches.append(_shard_checks(torch, model, cfg, path,
+                                                pages))
+            del model
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    print("  mesh serve: streams, launches and ServeStats counters equal the "
+          "runs without the mesh bit for bit; wall s (no mesh, mesh) "
+          f"{json.dumps(walls)}; {card_line()}", flush=True)
+    paths["mesh_serve_shards"] = {k: sum(t[k] for t in shard_launches)
+                                  for k in shard_launches[0]}
+    return paths
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -4003,10 +4485,11 @@ def _map_tree(fn, tree):
 # lr x sign(g), turn their last-bit differences into loss differences of
 # ~1e-2), so B's and C's losses can be held to A's: within
 # INFRA_LOSS_TOL, the largest difference printed.  Depth cut to
-# INFRA_DEPTH of 28 layers at full width since phase 24 (the checks
-# do not depend on depth; the launch counts follow the layers).
+# INFRA_DEPTH of 28 layers at full width since phase 24, 7 since phase
+# 25, 4 since its model shards (the checks do not depend on depth; the
+# launch counts follow the layers).
 INFRA_STEPS, INFRA_STOP, INFRA_LOSS_TOL = 6, 3, 2e-2
-INFRA_DEPTH = 14
+INFRA_DEPTH = 4
 INFRA_DIR = ROOT / "build" / "infra"
 
 
@@ -4195,7 +4678,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
-                                       "families", "infra", "mesh"),
+                                       "families", "infra", "mesh",
+                                       "meshserve"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -4204,8 +4688,9 @@ def main() -> int:
                          "MoE family (1-3, 14-15), the dense registry and "
                          "the hybrid family (1-3, 16-18), the VLM, SSM "
                          "and audio families (1-3, 19-22), checkpoint/"
-                         "restart (1-3, 23) or multi-GPU fine-tuning "
-                         "(1-3, 24) alone")
+                         "restart (1-3, 23), multi-GPU fine-tuning "
+                         "(1-3, 24) or serving under a mesh (1-3, 25) "
+                         "alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -4300,7 +4785,9 @@ def main() -> int:
                        "vlm_serve", "vlm_serve_paged", "vlm_train",
                        "ssm_serve", "ssm_train", "audio_generate",
                        "audio_train", "infra_train", "mesh_train",
-                       "mesh_train_shmap")}
+                       "mesh_train_shmap", "mesh_serve",
+                       "mesh_serve_paged", "mesh_serve_hybrid",
+                       "mesh_serve_shards")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -4443,6 +4930,23 @@ def main() -> int:
             row["mesh_shapes"] = mesh_shapes.get(row["name"], [])
         paths.update(mesh_train(torch))
         print(f"[24] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "meshserve"):
+        # 25. serving under a mesh on one card: shard shapes, a world of one
+        t0 = time.perf_counter()
+        print(f"[25] decode kernels at the shard shapes of model "
+              f"{' and '.join(map(str, MESH_TP))} (qwen3-0.6b, "
+              f"recurrentgemma-9b); an NCCL world of one, mesh (1, 1): "
+              f"qwen3-0.6b ({MESH_QWEN_DEPTH} layers, contiguous and paged) and "
+              f"recurrentgemma-9b ({MESH_HYBRID_DEPTH} layers) served "
+              f"without and through the mesh, then split over model "
+              f"{' and '.join(map(str, MESH_TP))}, a thread a rank",
+              flush=True)
+        serve_shapes = check_mesh_serve_shapes(
+            torch, torch.Generator(device="cuda").manual_seed(25))
+        for row in rows:
+            row["mesh_serve_shapes"] = serve_shapes.get(row["name"], [])
+        paths.update(mesh_serve(torch))
+        print(f"[25] took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -31,6 +31,8 @@ so, and hand whole gradients back at the region's edges:
   ``pmean``           all-reduce / n            gradient / n
   ``mean_exit``       identity (value equal     gradient / n
                       on every rank)
+  ``region_sum``      all-reduce                all-reduce
+  ``gather``          all-gather along a dim    reduce-scatter
   ==================  ========================  =========================
 
 A region's trainable leaves enter with its activations, in one autograd
@@ -46,6 +48,12 @@ rows in place of the sequence: a sum over the batch goes through
 ``reduce_sum`` (each rank's backward reaches its own rows only), and the
 trainable gradients are summed over the data axes after backward
 (``all_reduce_``).
+
+Serving runs forward only, on parameters sliced once (``local_tree``):
+``model_sum`` adds a sub-layer's partial outputs over the model axis in
+place, and ``all_gather_flat`` brings one flat vector per rank of the
+data axis to every rank (the engine's one host transfer per chunk).
+Both cost nothing at extent 1.
 """
 from __future__ import annotations
 
@@ -228,6 +236,16 @@ class _MeanExit(torch.autograd.Function):
         return g / ctx.ax.size, None
 
 
+def train_layout(mode: str) -> None:
+    """A layer's ``tp`` argument marks train mode's sequence-parallel
+    layout; serving under a mesh runs transformer.ShardedLM's params,
+    sliced once, instead."""
+    if mode != "train":
+        raise ValueError(f"tp in {mode} mode: tp is train mode's sequence-"
+                         "parallel layout; serving under a mesh runs "
+                         "transformer.ShardedLM")
+
+
 def gather_seq(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     """Enter a region: this rank's sequence chunk -> the whole sequence."""
     return x if ax is None else _GatherSeq.apply(x, SEQ, ax)
@@ -268,8 +286,10 @@ class _EnterRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ax, how, x, *leaves):
         ctx.args = (ax, how)
+        ctx.whole = [t.shape[d.dim] if isinstance(d, Pick) else None
+                     for t, d in zip(leaves, how)]
         return (_all_gather(x, SEQ, ax),
-                *(t.view_as(t) if d is None else _chunk(t, d, ax)
+                *(t.view_as(t) if d is None else _slice(t, d, ax)
                   for t, d in zip(leaves, how)))
 
     @staticmethod
@@ -281,12 +301,49 @@ class _EnterRegion(torch.autograd.Function):
                 g = g.contiguous().clone()
                 dist.all_reduce(g, group=ax.group)
                 out.append(g)
+            elif isinstance(d, Pick):
+                parts = [torch.empty_like(g) for _ in range(ax.size)]
+                dist.all_gather(parts, g.contiguous(), group=ax.group)
+                shape = list(g.shape)
+                shape[d.dim] = ctx.whole[len(out) - 1]
+                whole = g.new_zeros(shape)
+                for r, part in enumerate(parts):
+                    whole.index_add_(d.dim, torch.as_tensor(
+                        d.index[r], dtype=torch.long, device=g.device), part)
+                out.append(whole)
             else:
                 out.append(_all_gather(g, d, ax))
         return (None, None, *out)
 
 
-def _slice_dim(spec) -> Optional[int]:
+@dataclasses.dataclass(frozen=True)
+class Pick:
+    """A leaf spec (in place of a placement tuple) for a leaf that each
+    rank uses by an index set of one dimension, e.g. the columns of a
+    fused projection whose parts split differently: rank r uses
+    ``index[r]`` of dim ``dim``.  Indices shared by several ranks take
+    the sum of their partial gradients."""
+    dim: int
+    index: Tuple[Tuple[int, ...], ...]
+
+
+def _slice(t: torch.Tensor, how, ax: Axis) -> torch.Tensor:
+    """This rank's part of a leaf: whole (None), its contiguous chunk of
+    a dim (int), or its index set (Pick)."""
+    if how is None:
+        return t
+    if isinstance(how, Pick):
+        idx = torch.as_tensor(how.index[ax.rank], dtype=torch.long,
+                              device=t.device)
+        return t.index_select(how.dim, idx)
+    return _chunk(t, how, ax)
+
+
+def _slice_dim(spec):
+    """The dim a placement puts "model" on (None: replicated); a Pick is
+    its own answer."""
+    if isinstance(spec, Pick):
+        return spec
     for dim, entry in enumerate(spec or ()):
         flat = (entry,) if isinstance(entry, str) else tuple(entry or ())
         if "model" in flat:
@@ -299,7 +356,8 @@ def enter_region(x: torch.Tensor, p, specs, ax: Optional[Axis]):
     with its sequence all-gathered, the param (sub)tree ``p`` as the
     region uses it).  A leaf whose spec (``core/params.spec_tree``;
     ``specs`` None: every leaf replicated) places "model" on a dimension
-    is sliced there (contiguous); every other leaf is used whole.  The
+    is sliced there (contiguous), one whose spec is a :class:`Pick` is
+    taken by its index set; every other leaf is used whole.  The
     trainable leaves pass through the entry's autograd node (module
     docstring)."""
     if ax is None:
@@ -312,7 +370,7 @@ def enter_region(x: torch.Tensor, p, specs, ax: Optional[Axis]):
             if t.requires_grad:
                 trainable.append((path, t, d))
             else:
-                pairs.append((path, t if d is None else _chunk(t, d, ax)))
+                pairs.append((path, _slice(t, d, ax)))
             return
         for k in sorted(t.keys()):      # one order on every rank
             walk(t[k], None if spec is None else spec[k], path + (k,))
@@ -322,3 +380,78 @@ def enter_region(x: torch.Tensor, p, specs, ax: Optional[Axis]):
                               *(t for _, t, _ in trainable))
     pairs += [(path, o) for (path, _, _), o in zip(trainable, outs[1:])]
     return outs[0], unflatten([k for k, _ in pairs], [v for _, v in pairs])
+
+
+class _RegionSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=ax.group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.ax.group)
+        return g, None
+
+
+def region_sum(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Inside a region: the sum over ``ax`` of each rank's part, a value
+    the region then uses alike on every rank (e.g. a norm's sum of
+    squares over a split width).  Its gradient there is each rank's
+    partial share, so the backward sums it too."""
+    return x if ax is None else _RegionSum.apply(x, ax)
+
+
+def gather(x: torch.Tensor, dim: int, ax: Optional[Axis]) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` (a split width made whole inside a
+    region; backward: reduce-scatter of the partial gradients)."""
+    return x if ax is None else _GatherSeq.apply(x, dim, ax)
+
+
+# --------------------------------------------------- serving (forward only)
+def local_tree(p, specs, ax: Optional[Axis]):
+    """This rank's copy of a param (sub)tree ``p`` (dicts or ParamTrees)
+    under ``specs`` (placement tuples or :class:`Pick` leaves, as
+    ``enter_region`` reads them): each leaf sliced once, contiguous,
+    without autograd; at extent 1 the tree itself."""
+    if ax is None:
+        return p
+
+    def walk(t, spec):
+        if isinstance(t, torch.Tensor):
+            return _slice(t.detach(), _slice_dim(spec), ax).contiguous()
+        return {k: walk(t[k], None if spec is None else spec[k])
+                for k in t.keys()}
+    return walk(p, specs)
+
+
+def model_sum(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Serving: the sum over the model axis of a sub-layer's partial
+    output (its row-split output projection, LoRA included), in place;
+    the identity at extent 1."""
+    if ax is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=ax.group)
+    return x
+
+
+def all_gather_flat(v: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """(n, L): the flat vector ``v`` (L,) of every rank of ``ax`` in rank
+    order, in one all-gather ((1, L) at extent 1)."""
+    if ax is None:
+        return v[None]
+    parts = [torch.empty_like(v) for _ in range(ax.size)]
+    dist.all_gather(parts, v.contiguous(), group=ax.group)
+    return torch.stack(parts)
+
+
+def all_reduce_flat(v: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The sum over ``ax`` of the flat vector ``v`` (a copy)."""
+    v = v.clone()
+    if ax is not None:
+        dist.all_reduce(v, group=ax.group)
+    return v

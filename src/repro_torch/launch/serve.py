@@ -19,6 +19,16 @@ audio family (whisper-base) is served through ``Engine.generate``'s
 per-token loop over a fixed batch with seeded frame embeddings, and its
 blob has ``"mode": "legacy-audio"``, as in JAX.  Runs on the card unless
 ``--device cpu``.
+
+``--mesh DATAxMODEL`` serves under a (data, model) mesh of the world
+(launch/mesh.py; torchrun's environment, one process per rank, or a
+world of one): the slots split over ``data``, the heads and hidden
+columns over ``model`` (serving/engine.py); every rank serves the same
+requests and rank 0 prints the blob.
+
+    PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.serve \
+        --arch qwen3-0.6b --smoke --device cpu --requests 4 --slots 2 \
+        --prompt-len 16 --gen 4 --mesh 1x2
 """
 from __future__ import annotations
 
@@ -30,8 +40,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
+from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.models import encdec, transformer
 from repro_torch.serving.engine import ArrivalSchedule, Engine, Request
 
@@ -164,14 +176,33 @@ def main(argv=None) -> int:
                     help="write the final metrics snapshot (counters/"
                          "gauges/histograms) as JSON here")
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAxMODEL; serving takes 1x1 only")
+                    help="DATAxMODEL: slots over data, heads and hidden "
+                         "columns over model; the world (torchrun) must "
+                         "have DATA*MODEL processes; 1x1 runs without a "
+                         "process group")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: serving under a mesh (slots over "
-                 "data, KV over kv_heads, the decode kernels on local "
-                 "heads) is not ported; --mesh takes 1x1")
+    try:
+        dp, tp = (int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        ap.error(f"--mesh takes DATAxMODEL, got {args.mesh!r}")
+    if (dp, tp) == (1, 1):
+        return _serve(args, None, 0)
+    started = not dist.is_initialized()
+    rank, world, device = init_distributed(args.device)
+    try:
+        if dp * tp != world:
+            ap.error(f"--mesh {args.mesh} needs {dp * tp} processes, the "
+                     f"world has {world}")
+        args.device = str(device)
+        return _serve(args, make_mesh((dp, tp), ("data", "model"),
+                                      device=device), rank)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _serve(args, mesh, rank: int) -> int:
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     telemetry = "trace" if args.trace_out else args.telemetry
@@ -192,10 +223,10 @@ def main(argv=None) -> int:
                     kv_pages=args.kv_pages,
                     prefill_batch=args.prefill_batch,
                     prefill_decode_ratio=args.prefill_decode_ratio,
-                    device=device)
+                    device=device, mesh=mesh)
     seed = args.sample_seed if args.temperature > 0 else None
     if audio:
-        return _serve_audio_legacy(cfg, engine, args, seed, device)
+        return _serve_audio_legacy(cfg, engine, args, seed, device, rank)
     reqs = build_requests(cfg.vocab_size, args.requests, args.prompt_len,
                           args.gen, args.ragged, top_k=args.top_k,
                           top_p=args.top_p, frontend_tokens=frontend,
@@ -222,16 +253,20 @@ def main(argv=None) -> int:
            "steady_wall_s": round(wall, 2), **stats.as_dict(),
            "finish_reasons": sorted({c.finish_reason for c in outs}),
            "sample": outs[0].tokens[:8]}
-    if args.trace_out:
+    if args.trace_out and not rank:
         from repro_torch.serving import trace_export
         trace = trace_export.write_trace(engine.last_recorder,
                                          args.trace_out)
         out["trace_out"] = args.trace_out
         out["trace_events"] = len(trace["traceEvents"])
+    if rank:
+        return 0
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(stats.snapshot().as_dict(), f, indent=1)
         out["metrics_out"] = args.metrics_out
+    if mesh is not None:
+        out["mesh"] = args.mesh
     print(json.dumps(out, indent=1))
     return 0
 
@@ -242,7 +277,7 @@ def _device_keys(device) -> dict:
                             if device.type == "cuda" else "cpu")}
 
 
-def _serve_audio_legacy(cfg, engine, args, seed, device) -> int:
+def _serve_audio_legacy(cfg, engine, args, seed, device, rank=0) -> int:
     """The enc-dec audio family: continuous batching does not cover it, so
     the fixed batch of ``--requests`` prompts (seeded tokens and frame
     embeddings) goes through ``generate``'s per-token loop, once to warm
@@ -263,6 +298,8 @@ def _serve_audio_legacy(cfg, engine, args, seed, device) -> int:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     toks = args.requests * args.gen
+    if rank:
+        return 0
     print(json.dumps({
         "arch": cfg.name, "mode": "legacy-audio", **_device_keys(device),
         "requests": args.requests, "generated_tokens": toks,

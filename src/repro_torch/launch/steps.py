@@ -9,7 +9,8 @@
   * ``batch_specs`` / ``cache_specs`` / ``train_shardings`` /
     ``decode_shardings`` — the JAX package's placement trees, each
     ``PartitionSpec`` read as a tuple (the port keeps arrays whole or
-    local and places nothing by them).
+    local and places nothing by them); ``cache_local_shapes``, the
+    decode caches a rank of a serving mesh holds.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.core import params as P
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.models import transformer
 from repro_torch.serving import engine
-from repro_torch.sharding.context import spec_for
+from repro_torch.sharding.context import local_shape, spec_for
 from repro_torch.train import state as S
 from repro_torch.train.loss import lm_cross_entropy
 
@@ -122,6 +123,28 @@ def cache_specs(cfg: ModelConfig, abstract_caches, rules):
             return {k: walk(c[k], ax[k]) for k in c}
         return spec_for(c.shape, ax, rules)
     return walk(abstract_caches, engine.decode_cache_axes(cfg))
+
+
+def cache_local_shapes(cfg: ModelConfig, abstract_caches, rules,
+                       kv_paged: bool = False) -> dict:
+    """The shape of every decode cache one rank holds when the engine
+    serves under the mesh of ``rules`` (``abstract_caches``: the tree of
+    ``init_caches`` / ``init_dec_caches`` for all the slots, e.g. on the
+    meta device): slots over the data axes, kv heads, RG-LRU channels and
+    SSM heads over ``model`` where they divide; the sequence whole (the
+    port's serving layout; JAX shards it where the kv heads do not
+    divide).  An SSD block's conv window is left out: the port splits its
+    x channels and keeps B and C whole, which no spec expresses."""
+    sizes = rules.get("__sizes__", {})
+
+    def walk(c, ax, path):
+        if isinstance(c, dict):
+            return {k: walk(c[k], ax[k], path + (k,)) for k in c
+                    if not (path and path[-1].endswith("_ssd")
+                            and k == "conv")}
+        return local_shape(c.shape, spec_for(c.shape, ax, rules), sizes)
+    return walk(abstract_caches, engine.decode_cache_axes(
+        cfg, kv_paged=kv_paged, seq_shard=False), ())
 
 
 def train_shardings(cfg: ModelConfig, mesh, rules, specs):

@@ -11,12 +11,18 @@ engine's (B, MP) page table.  Both are updated IN PLACE (the JAX
 functions return new arrays; here the returned dict is the same, mutated
 one).
 
-Under the sequence-parallel layout of a mesh (``tp``, train mode) the
-layer is a tensor-parallel region: it gathers the sequence, runs this
-rank's Hq/n query and Hk/n kv heads (a kv group stays whole on one rank,
-so ``select_granularity="kvgroup"`` selects as without a mesh) and
-reduce-scatters the o-projection's partial output back over the
-sequence (core/collectives.py).
+Under a mesh with a model axis of extent n the layer runs this rank's
+Hq/n query heads (``tp_plan``): with them its Hk/n kv heads where n
+divides Hk (a kv group stays whole on one rank, so
+``select_granularity="kvgroup"`` selects as without a mesh), or, for a
+single kv head, that head whole on every rank (JAX shards the cache's
+sequence there instead; the result is the same).  In train mode under
+the sequence-parallel layout (``tp``) it is a tensor-parallel region: it
+gathers the sequence and reduce-scatters the o-projection's partial
+output back over it (core/collectives.py).  Serving under a mesh
+(``transformer.ShardedLM``) slices the params once (``tp_specs``), keeps
+the local heads' KV and codes in its caches, and sums the
+o-projection's partial output (LoRA included) over the model axis.
 """
 from __future__ import annotations
 
@@ -29,7 +35,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
 from repro_torch.core import dispatch, lora, pq
 from repro_torch.core.params import spec_tree
-from repro_torch.sharding.context import current_rules
 from repro_torch.core import sparse_attention as sa
 from repro_torch.models import layers, paged_fallback
 from repro_torch.serving import kv_pages
@@ -246,29 +251,52 @@ def _tel_decode_counters(cfg: ModelConfig, valid: torch.Tensor) -> dict:
             "tel_attn_elig": n_valid}
 
 
+def tp_plan(cfg: ModelConfig, n: int) -> Optional[ModelConfig]:
+    """The config of this rank's heads at model extent n: Hq/n query heads
+    on Hk/n kv heads, or on the one kv head whole; None when the heads do
+    not split (every rank computes them all, as the rules fall back) —
+    also for a whole kv head under ``select_granularity="kvgroup"``,
+    whose selection sums over all of the head's queries."""
+    hq, hk = cfg.num_heads, cfg.num_kv_heads
+    if hq == 0 or hq % n or (hk % n and hk != 1):
+        return None
+    if hk % n and cfg.spt.select_granularity == "kvgroup":
+        return None
+    return dataclasses.replace(cfg, num_heads=hq // n,
+                               num_kv_heads=hk // n if hk % n == 0 else hk,
+                               head_dim=cfg.resolved_head_dim)
+
+
+def tp_specs(cfg: ModelConfig, n: int) -> dict:
+    """Placements of ``attn_defs(cfg)`` under ``tp_plan``: q and o over the
+    heads, k and v over the kv heads where those split."""
+    split_kv = cfg.num_kv_heads % n == 0
+    rules = {"heads": "model", "kv_heads": "model" if split_kv else None,
+             "__sizes__": {"model": n}}
+    return spec_tree(attn_defs(cfg), rules)
+
+
 def _attn_region(p, x: torch.Tensor, cfg: ModelConfig, tp: C.Axis,
+                 kv_x: Optional[torch.Tensor] = None,
                  **kw) -> Tuple[torch.Tensor, None, dict]:
     """Train-mode attention on this rank's sequence chunk x (B, S/n, d):
-    the whole sequence in, this rank's heads where Hq and Hk both divide
-    by n (else every head, replicated, as the rules fall back), the
-    output's chunk out.  ``qerr`` leaves as the mean over the heads."""
-    n = tp.size
-    if cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0:
-        xf, p = C.enter_region(x, p, spec_tree(attn_defs(cfg),
-                                               current_rules()), tp)
-        local = dataclasses.replace(
-            cfg, num_heads=cfg.num_heads // n,
-            num_kv_heads=cfg.num_kv_heads // n,
-            head_dim=cfg.resolved_head_dim)
-        y, _, aux = attn_apply(p, xf, local, mode="train", **kw)
+    the whole sequence in, this rank's heads (``tp_plan``; else every
+    head, replicated, as the rules fall back), the output's chunk out.
+    kv_x: cross-attention's source, whole on every rank (gathered by the
+    caller).  ``qerr`` leaves as the mean over the heads."""
+    local = tp_plan(cfg, tp.size)
+    if local is not None:
+        xf, p = C.enter_region(x, p, tp_specs(cfg, tp.size), tp)
+        y, _, aux = attn_apply(p, xf, local, mode="train", kv_x=kv_x, **kw)
         y, mean = C.scatter_seq(y, tp), C.pmean
     else:
         xf, p = C.enter_region(x, p, None, tp)
-        y, _, aux = attn_apply(p, xf, cfg, mode="train", **kw)
+        y, _, aux = attn_apply(p, xf, cfg, mode="train", kv_x=kv_x, **kw)
         y, mean = C.split_seq(y, tp), C.mean_exit
     if "qerr" in aux:
         aux = {**aux, "qerr": mean(aux["qerr"], tp)}
     return y, None, aux
+
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
@@ -292,14 +320,14 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
     (ring-buffer SWA caches ignore it).  With telemetry counters on
     (``dispatch.use_telemetry_counters``), a sparse decode step reports
     ``tel_attn_kept`` / ``tel_attn_elig`` (B,) in aux.
-    tp: the model axis of the sequence-parallel layout (train mode, self-
-    attention); x is then this rank's sequence chunk, and so is y."""
+    tp: the model axis of the sequence-parallel layout (train mode): x is
+    this rank's sequence chunk, and so is y (kv_x, if given, is whole).
+    Prefill and decode under a mesh take this rank's params and config
+    from ``transformer.ShardedLM`` instead."""
     if tp is not None:
-        if mode != "train" or kv_x is not None:
-            raise NotImplementedError("tensor-parallel attention is ported "
-                                      "for train-mode self-attention only")
-        return _attn_region(p, x, cfg, tp, causal=causal, window=window,
-                            rope=rope)
+        C.train_layout(mode)
+        return _attn_region(p, x, cfg, tp, kv_x=kv_x, causal=causal,
+                            window=window, rope=rope)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     lc = cfg.spt.lora

@@ -23,11 +23,20 @@ and cached.  Params keep the JAX tree (``enc_blocks`` / ``dec_blocks``
 stacked on a leading layer axis); :class:`EncDecLM` holds each layer as
 its own ``ParamTree`` (views of the stacked tensors).  Caches keep the
 JAX tree too — ``{"self": attention caches, "cross": {k, v[, codes]}}``
-stacked on the decoder layers — and are written in place.  The JAX
-module's ``cache_axes`` (logical sharding axes) has no counterpart: the
-port runs on one device.  Training checkpoints each encoder and decoder
-layer, as JAX's ``jax.checkpoint`` of its scan bodies, so a layer's
-forward (its kernels included) runs twice a step.
+stacked on the decoder layers — and are written in place.  Training
+checkpoints each encoder and decoder layer, as JAX's ``jax.checkpoint``
+of its scan bodies, so a layer's forward (its kernels included) runs
+twice a step.
+
+Under a model axis of extent n: a train step whose frames and decoder
+tokens both divide by n runs the sequence-parallel layout
+(``transformer.seq_parallel``): the encoder's and the decoder's residual
+streams are this rank's chunks, every attention (self and cross) and FFN
+a tensor-parallel region over its local heads or columns, the cross-
+attention reading the encoder output gathered once.  Serving runs
+:class:`ShardedEncDec`: this rank's heads and columns sliced once, the
+self and cross caches over the local kv heads, each split sub-layer's
+partial output summed over the model axis.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core import lora, pq
 from repro_torch.core import sparse_attention as sa
 from repro_torch.core.params import ParamTree, init_tree, stack_defs
@@ -119,11 +129,52 @@ class EncDecLM(nn.Module):
         return self.embed["embedding"].device
 
 
+class ShardedEncDec:
+    """This rank's part of an :class:`EncDecLM` for serving under a model
+    axis ``ax`` (extent > 1): ``shard`` (``transformer.ServeShard``),
+    ``cfg`` the local config, each layer's attention and FFN params
+    sliced once, the embeddings and norms shared whole."""
+
+    def __init__(self, model: EncDecLM, cfg: ModelConfig, ax: C.Axis):
+        self.shard = transformer.serve_shard(cfg, ax)
+        self.cfg = self.shard.cfg
+        n = ax.size
+        specs = {"attn": attention.tp_specs(cfg, n) if self.shard.attn
+                 else None,
+                 "ffn": ffn.tp_specs(cfg, n) if self.shard.ffn else None}
+        kind = {"attn": "attn", "self_attn": "attn", "cross_attn": "attn",
+                "ffn": "ffn"}
+        for key in ("embed", "pos_enc", "pos_dec", "enc_norm", "dec_norm"):
+            setattr(self, key, C.local_tree(getattr(model, key), None, ax))
+
+        def layer(p):
+            return {k: C.local_tree(p[k], specs.get(kind.get(k)), ax)
+                    for k in p.keys()}
+        self.enc_blocks = [layer(p) for p in model.enc_blocks]
+        self.dec_blocks = [layer(p) for p in model.dec_blocks]
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["embedding"].device
+
+
+def _sums(params):
+    """The model axes over which a sharded model's attention and FFN
+    outputs are summed (None, None without a serving shard)."""
+    shard = getattr(params, "shard", None)
+    if shard is None:
+        return None, None
+    return shard.mixer_ax("attn"), shard.ffn_ax
+
+
 def _layers(params, key: str, n: int) -> list:
-    """Per-layer trees of ``params[key]``: an EncDecLM's modules, or views
-    of a stacked param tree's leaves (gradients reach the stacked
-    leaves)."""
-    if isinstance(params, EncDecLM):
+    """Per-layer trees of ``params[key]``: an EncDecLM's modules (or a
+    ShardedEncDec's dicts), or views of a stacked param tree's leaves
+    (gradients reach the stacked leaves)."""
+    if isinstance(params, (EncDecLM, ShardedEncDec)):
         return list(getattr(params, key))
     return [transformer._unit_slice(params[key], i) for i in range(n)]
 
@@ -137,23 +188,27 @@ def _remat(fn, remat: bool, *args):
 
 # ------------------------------------------------------------- encoder
 def encode(params, cfg: ModelConfig, audio_embeds: torch.Tensor,
-           remat: bool = True) -> torch.Tensor:
+           remat: bool = True, tp: Optional[C.Axis] = None
+           ) -> torch.Tensor:
     """audio_embeds: (B, F, d) stub frame embeddings -> (B, F, d): the
-    bidirectional stack (each layer checkpointed in training)."""
+    bidirectional stack (each layer checkpointed in training).  tp: the
+    sequence-parallel layout (the output is this rank's F/n chunk)."""
     f = audio_embeds.shape[1]
     pos = torch.arange(f, device=audio_embeds.device).clamp(
         max=cfg.max_position - 1)
     x = (audio_embeds.to(cfg.dtype)
          + params["pos_enc"]["pos_embedding"][pos])
+    x = C.split_seq(x, tp)
+    sa_ax, sf_ax = _sums(params)
 
     def body(h, p):
         hh = layers.apply_norm(p["norm_attn"], h, cfg.norm)
         y, _, _ = attention.attn_apply(p["attn"], hh, cfg, mode="train",
-                                       causal=False, rope=False)
-        h = h + y
+                                       causal=False, rope=False, tp=tp)
+        h = h + C.model_sum(y, sa_ax)
         hh = layers.apply_norm(p["norm_ffn"], h, cfg.norm)
-        y, _ = ffn.ffn_apply(p["ffn"], hh, cfg, mode="train")
-        return h + y
+        y, _ = ffn.ffn_apply(p["ffn"], hh, cfg, mode="train", tp=tp)
+        return h + C.model_sum(y, sf_ax)
 
     for p in _layers(params, "enc_blocks", cfg.encoder_layers):
         x = _remat(body, remat, x, p)
@@ -175,7 +230,8 @@ def _build_cross_cache(p, cfg: ModelConfig, enc_out: torch.Tensor) -> dict:
 def _cross_decode(p, x: torch.Tensor, cfg: ModelConfig,
                   cross: dict) -> torch.Tensor:
     """One query row per sequence over the cached encoder frames (all
-    valid), through the plain decode oracles, as in JAX."""
+    valid), through the plain decode oracles, as in JAX (under a serving
+    shard: this rank's heads, a partial sum)."""
     lc = cfg.spt.lora
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
@@ -195,16 +251,19 @@ def _cross_decode(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _dec_block(p, x: torch.Tensor, cfg: ModelConfig, enc_out, *, mode: str,
-               cache=None, pos=None, seq_lengths=None):
+               cache=None, pos=None, seq_lengths=None, tp=None,
+               sums=(None, None)):
     """Returns (x, aux): the FFN's aux.  With a cache (prefill, decode)
     its ``self`` view is written in place, and prefill fills its
-    ``cross`` view."""
+    ``cross`` view.  tp: the sequence-parallel layout (train; enc_out is
+    then whole); sums: a serving shard's axes (``_sums``)."""
+    sa_ax, sf_ax = sums
     h = layers.apply_norm(p["norm_self"], x, cfg.norm)
     y, _, _ = attention.attn_apply(
         p["self_attn"], h, cfg, mode=mode, causal=True,
         cache=None if cache is None else cache["self"], pos=pos, rope=False,
-        seq_lengths=seq_lengths)
-    x = x + y
+        seq_lengths=seq_lengths, tp=tp)
+    x = x + C.model_sum(y, sa_ax)
     h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
     if mode == "decode":
         y = _cross_decode(p["cross_attn"], h, cfg, cache["cross"])
@@ -212,24 +271,28 @@ def _dec_block(p, x: torch.Tensor, cfg: ModelConfig, enc_out, *, mode: str,
         # the cross keys are the encoder frames (all real); a ragged
         # right-padded batch pads only queries, whose outputs are dropped
         y, _, _ = attention.attn_apply(p["cross_attn"], h, cfg, mode="train",
-                                       causal=False, kv_x=enc_out, rope=False)
+                                       causal=False, kv_x=enc_out, rope=False,
+                                       tp=tp)
         if mode == "prefill":
             for k, v in _build_cross_cache(p["cross_attn"], cfg,
                                            enc_out).items():
                 cache["cross"][k].copy_(v)
-    x = x + y
+    x = x + C.model_sum(y, sa_ax)
     h = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
     y, aux = ffn.ffn_apply(p["ffn"], h, cfg, mode=mode,
-                           seq_lengths=seq_lengths)
-    return x + y, aux
+                           seq_lengths=seq_lengths, tp=tp)
+    return x + C.model_sum(y, sf_ax), aux
 
 
 def _decode_stack(params, cfg: ModelConfig, x: torch.Tensor, enc_out, *,
                   mode: str, caches=None, pos=None, remat: bool = True,
-                  seq_lengths=None):
+                  seq_lengths=None, tp=None):
     """The decoder layers over x; in train mode each layer runs under a
-    checkpoint (with ``remat``) and aux sums AUX_KEYS over the layers."""
+    checkpoint (with ``remat``) and aux sums AUX_KEYS over the layers.
+    tp: the sequence-parallel layout (x this rank's chunk, enc_out
+    whole)."""
     train = mode == "train"
+    sums = _sums(params)
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in transformer.AUX_KEYS} if train else {})
 
@@ -239,7 +302,7 @@ def _decode_stack(params, cfg: ModelConfig, x: torch.Tensor, enc_out, *,
             c = {part: {k: v[layer] for k, v in caches[part].items()}
                  for part in ("self", "cross")}
         return _dec_block(p, h, cfg, enc_out, mode=mode, cache=c, pos=pos,
-                          seq_lengths=seq_lengths)
+                          seq_lengths=seq_lengths, tp=tp, sums=sums)
 
     for i, p in enumerate(_layers(params, "dec_blocks", cfg.num_layers)):
         x, aux = _remat(body, remat and train, x, p, i)
@@ -271,11 +334,15 @@ def encdec_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Train forward.  batch: {frontend_embeds (B, F, d), tokens (B, S)}.
     Returns the decoder's final hidden states (B, S, d) and the summed
     aux (the FFNs' lb_loss and dropped; qerr stays 0, as the attention
-    aux is not collected in JAX either)."""
-    enc_out = encode(params, cfg, batch["frontend_embeds"], remat=remat)
-    x = _embed_dec(params, cfg, batch["tokens"], 0)
-    x, aux = _decode_stack(params, cfg, x, enc_out, mode="train",
-                           remat=remat)
+    aux is not collected in JAX either).  Under the sequence-parallel
+    layout (``transformer.seq_parallel``) the hidden states are this
+    rank's chunk of the decoder positions."""
+    tp = transformer.seq_parallel(cfg, batch)
+    enc_out = encode(params, cfg, batch["frontend_embeds"], remat=remat,
+                     tp=tp)
+    x = C.split_seq(_embed_dec(params, cfg, batch["tokens"], 0), tp)
+    x, aux = _decode_stack(params, cfg, x, C.gather_seq(enc_out, tp),
+                           mode="train", remat=remat, tp=tp)
     return layers.apply_norm(params["dec_norm"], x, cfg.norm), aux
 
 
@@ -300,9 +367,11 @@ def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int,
     return {"self": self_c, "cross": cross}
 
 
-def cache_axes(cfg: ModelConfig) -> dict:
-    """Logical partition axes mirroring ``init_dec_caches``' tree."""
-    kv = ("layer", "batch", "kv_heads", "seq_shard", None)
+def cache_axes(cfg: ModelConfig, seq_shard: bool = True) -> dict:
+    """Logical partition axes mirroring ``init_dec_caches``' tree
+    (``seq_shard`` as in ``transformer.block_cache_axes``)."""
+    kv = ("layer", "batch", "kv_heads", "seq_shard" if seq_shard else None,
+          None)
     self_ax = {"k": kv, "v": kv, "slot_pos": ("layer", "batch", None)}
     cross = {"k": kv, "v": kv}
     if attention.sparse_applicable(cfg):

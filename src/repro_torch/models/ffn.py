@@ -17,7 +17,10 @@ paths form a tensor-parallel region: the sequence is gathered, this
 rank's F/n hidden columns run (of each group, for the routed FFN: kernel
 9 at the shard's widths on the default path) and the partial output is
 reduce-scattered back over the sequence; a width that does not divide
-runs replicated, as the rules fall back.
+runs replicated, as the rules fall back.  Serving under a mesh
+(``transformer.ShardedLM``) runs the same split (``tp_specs``, sliced
+once) with x whole: kernel 9 (prefill) or 10 (decode) at F/n, the
+partial output summed over the model axis.
 """
 from __future__ import annotations
 
@@ -139,6 +142,22 @@ def _routed_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
     return y, aux
 
 
+def tp_plan(cfg: ModelConfig, n: int) -> Optional[ModelConfig]:
+    """The config of this rank's F/n hidden columns (of each routed
+    group); None when the width does not divide by n."""
+    width = (_routed_cfg(cfg).group_dim if routed_applicable(cfg)
+             else cfg.d_ff)
+    if width == 0 or width % n:
+        return None
+    return dataclasses.replace(cfg, d_ff=cfg.d_ff // n)
+
+
+def tp_specs(cfg: ModelConfig, n: int) -> dict:
+    """Placements of ``ffn_defs(cfg)`` under ``tp_plan``."""
+    return spec_tree(ffn_defs(cfg), {"ffn": "model",
+                                     "__sizes__": {"model": n}})
+
+
 def _ffn_region(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 tp: C.Axis) -> Tuple[torch.Tensor, dict]:
     """Train-mode FFN on this rank's sequence chunk x (B, S/n, d): the
@@ -146,22 +165,17 @@ def _ffn_region(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
     group) where they divide by n (else every column, replicated), the
     output's chunk out.  The routing and ``lb_loss`` are computed alike
     on every rank; ``lb_loss`` leaves the region by ``mean_exit``."""
-    if mode != "train":
-        raise NotImplementedError("the tensor-parallel FFN is ported for "
-                                  "train mode only")
+    C.train_layout(mode)
     routed = routed_applicable(cfg)
     if routed and cfg.spt.ffn_impl == "grouped_shmap":
         mesh = _shmap_mesh(cfg, x, None, tp)
         if mesh is not None:
             return ffn_shmap.routed_ffn_shmap(x, p, _routed_cfg(cfg),
                                               cfg.spt.lora, mesh)
-    n = tp.size
-    width = _routed_cfg(cfg).group_dim if routed else cfg.d_ff
-    if width % n == 0:
-        xf, p = C.enter_region(x, p, spec_tree(ffn_defs(cfg),
-                                               current_rules()), tp)
-        y, aux = ffn_apply(p, xf, dataclasses.replace(cfg, d_ff=cfg.d_ff // n),
-                           mode)
+    local = tp_plan(cfg, tp.size)
+    if local is not None:
+        xf, p = C.enter_region(x, p, tp_specs(cfg, tp.size), tp)
+        y, aux = ffn_apply(p, xf, local, mode)
         y = C.scatter_seq(y, tp)
     else:
         xf, p = C.enter_region(x, p, None, tp)

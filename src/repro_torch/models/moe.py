@@ -10,16 +10,25 @@ the plain capacity path as the differentiated reference, and decode at
 (B, 1, d) through the decode-FFN kernel (the top-k expert ids index the
 weight blocks: no plan, no dispatch buffer).  ``REPRO_DISABLE_KERNELS=1``
 sends every path to the plain one.
+
+Under a model axis of extent n each expert's hidden columns split over
+it (``tp_plan``; the router runs alike on every rank, so the choices,
+plans, ``lb_loss`` and ``dropped`` are the unsharded ones): kernels 9
+and 10 run at F/n, and the partial output is reduce-scattered over the
+sequence (train, the sequence-parallel layout) or, serving
+(``transformer.ShardedLM``), summed over the model axis.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core import dispatch
-from repro_torch.core.params import ParamDef, leaves
+from repro_torch.core.params import ParamDef, leaves, spec_tree
 from repro_torch.core.routed_ffn import ACTIVATIONS
 
 
@@ -190,13 +199,51 @@ def _moe_decode_kernel(x: torch.Tensor, p, cfg: ModelConfig
     return y.to(x.dtype)[:, None], {"lb_loss": zero, "dropped": zero}
 
 
+def tp_plan(cfg: ModelConfig, n: int) -> Optional[ModelConfig]:
+    """The config of this rank's F/n columns of every expert; None when F
+    does not divide by n."""
+    if cfg.d_ff % n:
+        return None
+    return dataclasses.replace(cfg, d_ff=cfg.d_ff // n)
+
+
+def tp_specs(cfg: ModelConfig, n: int) -> dict:
+    """Placements of ``moe_defs(cfg)`` under ``tp_plan``: the experts'
+    hidden columns over the model axis (the rules' ``expert_ffn`` also
+    places them over data, for storage; the compute splits over model)."""
+    return spec_tree(moe_defs(cfg), {"expert_ffn": "model", "ffn": "model",
+                                     "__sizes__": {"model": n}})
+
+
+def _moe_region(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                tp: C.Axis) -> Tuple[torch.Tensor, dict]:
+    """Train-mode moe_apply on this rank's columns: x is this rank's
+    sequence chunk, gathered in, the output's chunk out, ``lb_loss``
+    leaving by ``mean_exit``."""
+    C.train_layout(mode)
+    local = tp_plan(cfg, tp.size)
+    if local is not None:
+        xf, p = C.enter_region(x, p, tp_specs(cfg, tp.size), tp)
+        y, aux = moe_apply(p, xf, local, mode)
+        y = C.scatter_seq(y, tp)
+    else:
+        xf, p = C.enter_region(x, p, None, tp)
+        y, aux = moe_apply(p, xf, cfg, mode)
+        y = C.split_seq(y, tp)
+    return y, {**aux, "lb_loss": C.mean_exit(aux["lb_loss"], tp)}
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
-              seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+              seq_lengths=None, tp: Optional[C.Axis] = None
+              ) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (y, aux).  Inference modes skip the load-balance
     loss (the router softmax stays: it feeds the gates).  seq_lengths:
     per-row real lengths (B,) of a right-padded ragged prefill batch (each
     row keeps its exact-length expert capacity); that form is
-    forward-only, as in JAX."""
+    forward-only, as in JAX.  tp: the model axis of the sequence-parallel
+    layout (train mode, ``_moe_region``)."""
+    if tp is not None:
+        return _moe_region(p, x, cfg, mode, tp)
     need_aux = mode == "train"
     squeeze = x.dim() == 2
     if squeeze:

@@ -14,6 +14,13 @@ SPT: mamba2 is attention-free and has no FFN (d_ff = 0), so sparse MHA
 and the routed FFN do not apply — SPT reduces to LoRA on the in/out
 projections.  Prefill and decode write the block's cache view (``h``,
 ``conv``) in place, as the attention layers write theirs.
+
+Under a model axis of extent n the SSM heads split (``tp_plan``): each
+rank takes its H/n heads' columns of z, x and dt from the fused input
+projection and B, C whole (``tp_specs``: index sets, a ``Pick`` per
+leaf), its conv channels, its part of the state cache, and the output
+projection's partial sum.  The gated RMSNorm over the inner width sums
+its squares over the model axis.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core import lora
 from repro_torch.core.params import ParamDef
 from repro_torch.models.layers import apply_norm, norm_defs
@@ -56,12 +64,52 @@ def ssd_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, device
+def tp_plan(cfg: ModelConfig, n: int) -> bool:
+    """The heads split over a model axis of extent n."""
+    return cfg.ssm_heads > 0 and cfg.ssm_heads % n == 0
+
+
+def _local_dims(cfg: ModelConfig, n: int):
+    di, h, nst, _, _ = _dims(cfg)
+    return di // n, h // n, nst
+
+
+def tp_specs(cfg: ModelConfig, n: int) -> dict:
+    """Placements of ``ssd_defs(cfg)`` under ``tp_plan``: rank r's columns
+    of the fused [z | x | B | C | dt] projection and of the [x | B | C]
+    conv (B and C on every rank), its heads' rows of the output
+    projection, of the norm and of the per-head vectors."""
+    di, h, nst, _, _ = _dims(cfg)
+    dl, hl, _ = _local_dims(cfg, n)
+
+    def part(start, size, r):
+        return list(range(start + r * size, start + (r + 1) * size))
+
+    bc_in = list(range(2 * di, 2 * di + 2 * nst))
+    bc_conv = list(range(di, di + 2 * nst))
+    proj = C.Pick(1, tuple(tuple(part(0, dl, r) + part(di, dl, r) + bc_in
+                                 + part(2 * di + 2 * nst, hl, r))
+                           for r in range(n)))
+    conv = C.Pick(1, tuple(tuple(part(0, dl, r) + bc_conv)
+                           for r in range(n)))
+    rows, heads = ("model", None), ("model",)
+    specs = {"in_proj": {"w": proj}, "out_proj": {"w": rows},
+             "conv": conv, "a_log": heads, "d_skip": heads,
+             "dt_bias": heads, "norm": {"scale": heads}}
+    if cfg.spt.lora.enabled:
+        specs["in_proj"]["lora"] = {"b": None, "c": proj}
+        specs["out_proj"]["lora"] = {"b": rows, "c": None}
+    return specs
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, device, n: int = 1
                    ) -> Dict[str, torch.Tensor]:
-    _, h, n, conv_dim, _ = _dims(cfg)
+    """The block's state; n: the model extent the heads split over."""
+    _, h, nst, conv_dim, _ = _dims(cfg)
+    h, conv_dim = h // n, conv_dim - (n - 1) * (cfg.d_inner // n)
     return {
-        "h": torch.zeros((batch, h, cfg.ssm_headdim, n), dtype=torch.float32,
-                         device=device),
+        "h": torch.zeros((batch, h, cfg.ssm_headdim, nst),
+                         dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
                             dtype=torch.float32, device=device),
     }
@@ -156,13 +204,39 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def ssd_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
-              cache: Optional[dict] = None):
+              cache: Optional[dict] = None, tp: Optional[C.Axis] = None):
     """Mamba-2 block.  x: (B, S, d_model).  Returns (y, cache, aux):
     prefill writes the final state and conv window into ``cache`` (the
     caller's view of the block's cache), decode advances them by one
-    step, both in place."""
+    step, both in place.  tp: the model axis of the sequence-parallel
+    layout (train mode; x and y this rank's sequence chunk): a tensor-
+    parallel region over this rank's heads (``tp_plan``)."""
+    if tp is None:
+        return ssd_forward(p, x, cfg, mode=mode, cache=cache)
+    C.train_layout(mode)
+    split = tp_plan(cfg, tp.size)
+    xf, p = C.enter_region(x, p, tp_specs(cfg, tp.size) if split else None,
+                           tp)
+    y, _, aux = ssd_forward(p, xf, cfg, mode=mode, ax=tp if split else None)
+    return (C.scatter_seq(y, tp) if split else C.split_seq(y, tp), None,
+            aux)
+
+
+def _split_rmsnorm(p, x: torch.Tensor, width: int, ax: C.Axis,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over a width split over ``ax``: this rank's columns x,
+    normalised by the mean square of the whole width."""
+    xf = x.float()
+    ss = C.region_sum((xf * xf).sum(-1, keepdim=True), ax)
+    return (xf * torch.rsqrt(ss / width + eps) * p["scale"]).to(x.dtype)
+
+
+def ssd_forward(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                cache: Optional[dict] = None, ax: Optional[C.Axis] = None):
+    """The block on the heads ``p`` holds: all of them, or with ``ax``
+    this rank's (``tp_specs``), y then this rank's partial sum."""
     lc = cfg.spt.lora
-    di, h, n, _, _ = _dims(cfg)
+    di, h, n = _local_dims(cfg, 1 if ax is None else ax.size)
     phead = cfg.ssm_headdim
     bsz, s, _ = x.shape
     zxbcdt = lora.linear(x, p["in_proj"], lc)
@@ -192,5 +266,8 @@ def ssd_apply(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
         raise ValueError(mode)
     y = y + xh * p["d_skip"][None, None, :, None].to(x.dtype)
     y = y.reshape(bsz, s, di)
-    y = apply_norm(p["norm"], y * F.silu(z), "rmsnorm")
+    if ax is None:
+        y = apply_norm(p["norm"], y * F.silu(z), "rmsnorm")
+    else:
+        y = _split_rmsnorm(p["norm"], y * F.silu(z), cfg.d_inner, ax)
     return lora.linear(y, p["out_proj"], lc), cache, {}

@@ -25,14 +25,22 @@ a dense, routed or MoE (models/moe.py, ``num_experts`` > 0) FFN, the
 hybrid ("rec", "rec", "attn") stack and the SSD stack.
 
 Under a mesh whose model axis has extent n > 1 (``sharding.axis_rules``),
-a train step over a stack of attention blocks (the dense registry, the
-paper's models, a VLM) runs the Megatron sequence-parallel layout of
-JAX's ``seq_sp`` rule (``seq_parallel``): the residual between blocks is
-this rank's S/n chunk of the sequence, each attention and FFN sub-layer
-is a tensor-parallel region over its local heads or hidden columns
-(models/attention.py, models/ffn.py), and the embedding lookup and the
-loss (train/loss.py) split the vocabulary.  Every other stack computes
-replicated over the model axis.
+a train step runs the Megatron sequence-parallel layout of JAX's
+``seq_sp`` rule wherever n divides the positions (``seq_parallel``): the
+residual between blocks is this rank's S/n chunk of the sequence, each
+mixer (attention heads, RG-LRU channels, SSM heads) and FFN (hidden
+columns, of each routed group or expert) is a tensor-parallel region
+over its local part (models/attention.py, ffn.py, moe.py, rglru.py,
+ssd.py), and the embedding lookup and the loss (train/loss.py) split the
+vocabulary.  A sub-layer whose width does not divide computes replicated
+inside its region.
+
+Serving under a model axis runs :class:`ShardedLM`: this rank's slice of
+every block's params, taken once (``ServeShard``: the same splits), its
+caches at the local head / channel counts (``init_caches(...,
+shard=)``), and one all-reduce of each split sub-layer's partial output
+over the model axis (``core/collectives.model_sum``).  The embedding and
+the LM head stay whole on every rank.
 
 Frontends are stubs, as in JAX: a VLM's ``batch["frontend_embeds"]``
 (B, F, d) carries precomputed patch embeddings, prepended to the token
@@ -41,6 +49,7 @@ models/encdec.py.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -90,49 +99,128 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                device) -> dict:
+                device, shard: Optional["ServeShard"] = None) -> dict:
+    """One block's cache; under ``shard`` (cfg its local config) at this
+    rank's kv head / channel / SSM head counts."""
     if kind == "attn":
         return attention.init_cache(cfg, batch, max_len, device, cfg.window)
     if kind == "rec":
         return rglru.init_rec_cache(cfg, batch, device)
     if kind == "ssd":
-        return ssd.init_ssm_cache(cfg, batch, device)
+        n = shard.ax.size if shard is not None and shard.ssd else 1
+        return ssd.init_ssm_cache(cfg, batch, device, n)
     raise NotImplementedError(f"block kind {kind!r} is not ported")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeShard:
+    """How one rank's part of a model splits over the model axis ``ax``
+    for serving: ``cfg`` is the rank's config (local heads, hidden
+    columns, RG-LRU width), and each flag says that sub-layer splits (its
+    partial outputs are summed over ``ax``; else it runs whole)."""
+    ax: C.Axis
+    cfg: ModelConfig
+    attn: bool
+    ffn: bool
+    rec: bool
+    ssd: bool
+
+    def mixer_ax(self, kind: str) -> Optional[C.Axis]:
+        return self.ax if getattr(self, kind) else None
+
+    @property
+    def ffn_ax(self) -> Optional[C.Axis]:
+        return self.ax if self.ffn else None
+
+
+def serve_shard(cfg: ModelConfig, ax: C.Axis) -> ServeShard:
+    """The splits of ``cfg`` at the model extent ``ax.size``: the query
+    heads (with their kv heads, or on one whole kv head), the FFN's or
+    each expert's hidden columns, the RG-LRU channels and the SSM heads,
+    each where it divides (``tp_plan`` of each module)."""
+    n = ax.size
+    local = cfg
+    la = attention.tp_plan(cfg, n) if cfg.num_heads else None
+    if la is not None:
+        local = dataclasses.replace(local, num_heads=la.num_heads,
+                                    num_kv_heads=la.num_kv_heads,
+                                    head_dim=la.head_dim)
+    lf = None
+    if cfg.d_ff > 0:
+        lf = (moe if cfg.num_experts > 0 else ffn).tp_plan(cfg, n)
+    if lf is not None:
+        local = dataclasses.replace(local, d_ff=lf.d_ff)
+    lr = rglru.tp_plan(cfg, n) if "rec" in cfg.pattern else None
+    if lr is not None:
+        local = dataclasses.replace(local, lru_width=lr.lru_width)
+    return ServeShard(ax=ax, cfg=local, attn=la is not None,
+                      ffn=lf is not None, rec=lr is not None,
+                      ssd="ssd" in cfg.pattern and ssd.tp_plan(cfg, n))
+
+
+def shard_block(p, cfg: ModelConfig, kind: str, shard: ServeShard) -> dict:
+    """This rank's copy of one block's params (a dict; the split leaves
+    sliced once, the others shared)."""
+    n, ax = shard.ax.size, shard.ax
+    mixer = {"attn": attention.tp_specs, "rec": rglru.tp_specs,
+             "ssd": ssd.tp_specs}[kind]
+    out = {"norm_mix": C.local_tree(p["norm_mix"], None, ax),
+           "mixer": C.local_tree(p["mixer"], mixer(cfg, n)
+                                 if getattr(shard, kind) else None, ax)}
+    if "ffn" in p:
+        specs = None
+        if shard.ffn:
+            specs = (moe if cfg.num_experts > 0 else ffn).tp_specs(cfg, n)
+        out["norm_ffn"] = C.local_tree(p["norm_ffn"], None, ax)
+        out["ffn"] = C.local_tree(p["ffn"], specs, ax)
+    return out
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 mode: str, cache=None, pos=None, kv_valid=None,
-                page_table=None, seq_lengths=None, tp=None):
+                page_table=None, seq_lengths=None, tp=None, shard=None):
     """Returns (x, cache, aux) with aux the block's AUX_KEYS entries that
     its layers report (scalars, f32) and, with telemetry counters on, its
     ``tel_*`` counters.  A ``rec`` or ``ssd`` block's mixer takes no
     positions, validity or lengths: its state is the whole history.
     tp: the model axis of the sequence-parallel layout (``seq_parallel``;
-    x is this rank's sequence chunk)."""
+    x is this rank's sequence chunk).  shard: serving under a model axis
+    (``ServeShard``): p is this rank's slice (``shard_block``), cfg the
+    local config, and each split sub-layer's output is summed over the
+    axis."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
+    ax = None if shard is None else shard.mixer_ax(kind)
     if kind == "attn":
         y, cache, a_aux = attention.attn_apply(
             p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
             cache=cache, pos=pos, kv_valid=kv_valid, page_table=page_table,
             seq_lengths=seq_lengths, tp=tp)
+    elif kind == "rec" and shard is not None:
+        y, cache, a_aux = rglru.rec_forward(p["mixer"], h, cfg, mode=mode,
+                                            cache=cache, ax=ax)
     elif kind == "rec":
         y, cache, a_aux = rglru.rec_apply(p["mixer"], h, cfg, mode=mode,
-                                          cache=cache)
+                                          cache=cache, tp=tp)
+    elif kind == "ssd" and shard is not None:
+        y, cache, a_aux = ssd.ssd_forward(p["mixer"], h, cfg, mode=mode,
+                                          cache=cache, ax=ax)
     elif kind == "ssd":
         y, cache, a_aux = ssd.ssd_apply(p["mixer"], h, cfg, mode=mode,
-                                        cache=cache)
+                                        cache=cache, tp=tp)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    x = x + y.to(x.dtype)
+    x = x + C.model_sum(y, ax).to(x.dtype)
     f_aux: dict = {}
     if "ffn" in p:
         h2 = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
         if cfg.num_experts > 0:
             y2, f_aux = moe.moe_apply(p["ffn"], h2, cfg, mode=mode,
-                                      seq_lengths=seq_lengths)
+                                      seq_lengths=seq_lengths, tp=tp)
         else:
             y2, f_aux = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
                                       seq_lengths=seq_lengths, tp=tp)
+        if shard is not None:
+            y2 = C.model_sum(y2, shard.ffn_ax)
         x = x + y2.to(x.dtype)
     # attention reports qerr (and tel_attn_*), the FFN or MoE lb_loss and
     # dropped (and tel_expert_*): no key in both
@@ -173,14 +261,17 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def block_cache_axes(cfg: ModelConfig, kind: str,
-                     kv_paged: bool = False) -> dict:
+                     kv_paged: bool = False, seq_shard: bool = True) -> dict:
     """Logical partition axes mirroring ``block_cache``'s structure (the
-    paged pools' page axis replaces the batch and stays replicated)."""
+    paged pools' page axis replaces the batch and stays replicated).
+    seq_shard False: the port's serving layout, which keeps a cache's
+    sequence whole where JAX shards it (kv heads that do not divide)."""
     if kind == "attn":
         if kv_paged and cfg.window is None:
             kv, sp = (None, "kv_heads", None, None), (None, None)
         else:
-            kv = ("batch", "kv_heads", "seq_shard", None)
+            kv = ("batch", "kv_heads", "seq_shard" if seq_shard else None,
+                  None)
             sp = ("batch", None)
         ax = {"k": kv, "v": kv, "slot_pos": sp}
         if attention.sparse_applicable(cfg):
@@ -194,15 +285,18 @@ def block_cache_axes(cfg: ModelConfig, kind: str,
     raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
-def cache_axes(cfg: ModelConfig, kv_paged: bool = False) -> dict:
+def cache_axes(cfg: ModelConfig, kv_paged: bool = False,
+               seq_shard: bool = True) -> dict:
     """Logical partition axes mirroring ``init_caches``' tree."""
     out = {"units": {
         f"b{i}_{kind}": {k: ("layer", *t) for k, t in
-                         block_cache_axes(cfg, kind, kv_paged).items()}
+                         block_cache_axes(cfg, kind, kv_paged,
+                                          seq_shard).items()}
         for i, kind in enumerate(cfg.pattern)}}
     tail = _tail_kinds(cfg)
     if tail:
-        out["tail"] = {f"t{i}_{kind}": block_cache_axes(cfg, kind, kv_paged)
+        out["tail"] = {f"t{i}_{kind}": block_cache_axes(cfg, kind, kv_paged,
+                                                        seq_shard)
                        for i, kind in enumerate(tail)}
     return out
 
@@ -279,6 +373,41 @@ class LM(nn.Module):
         return self.embed["embedding"].device
 
 
+class ShardedLM:
+    """This rank's part of an :class:`LM` for serving under a model axis
+    ``ax`` (extent > 1): ``shard`` (``ServeShard``), ``cfg`` the local
+    config, every block's params sliced once (``shard_block``), the
+    embedding, final norm, head and positions shared whole.  The decode
+    and prefill functions of this module take it as they take an LM."""
+
+    def __init__(self, model: LM, cfg: ModelConfig, ax: C.Axis):
+        self.shard = serve_shard(cfg, ax)
+        self.cfg = self.shard.cfg
+        for key in ("embed", "final_norm", "head", "pos"):
+            if hasattr(model, key):
+                setattr(self, key, C.local_tree(getattr(model, key), None,
+                                                ax))
+        self.units = [{f"b{i}_{k}": shard_block(unit[f"b{i}_{k}"], cfg, k,
+                                                self.shard)
+                       for i, k in enumerate(cfg.pattern)}
+                      for unit in model.units]
+        self.tail = (None if model.tail is None else
+                     {name: shard_block(model.tail[name], cfg,
+                                        name.split("_", 1)[1], self.shard)
+                      for name in model.tail.keys()})
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["embedding"].device
+
+
+def _shard_of(model) -> Optional[ServeShard]:
+    return getattr(model, "shard", None)
+
+
 def _to(t, dev):
     if isinstance(t, dict):
         return {k: _to(v, dev) for k, v in t.items()}
@@ -299,16 +428,19 @@ def paged_applicable(cfg: ModelConfig) -> bool:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
-                kv_pages: Optional[int] = None) -> dict:
+                kv_pages: Optional[int] = None,
+                shard: Optional[ServeShard] = None) -> dict:
     """Every block's cache: stacked (U, ...) under ``units``, the tail's
     unstacked under ``tail``.  kv_pages: when set, the attention caches
     without a SWA ring are (kv_pages, page_size, ...) pools shared across
     slots instead of per-slot (batch, max_len, ...) strips; recurrent
-    states and ring caches keep the per-slot layout."""
+    states and ring caches keep the per-slot layout.  shard: serving under
+    a model axis (cfg is then ``shard.cfg``): this rank's kv heads,
+    channels and SSM heads."""
     def one_cache(kind):
         if _kind_paged(cfg, kind, kv_pages):
             return attention.init_paged_cache(cfg, kv_pages, device)
-        return block_cache(cfg, kind, batch, max_len, device)
+        return block_cache(cfg, kind, batch, max_len, device, shard)
 
     u = num_units(cfg)
     caches = {"units": {
@@ -326,16 +458,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 def seq_parallel(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                  ) -> Optional[C.Axis]:
     """The model axis when a train step on ``batch`` runs the sequence-
-    parallel layout: a stack of attention blocks without experts, under a
-    mesh whose model axis has extent n > 1 and divides the positions
-    (frontend rows included); None otherwise."""
+    parallel layout: a mesh whose model axis has extent n > 1 and divides
+    the positions (a decoder's frontend rows included; the encoder-
+    decoder's frames and decoder tokens each); None otherwise."""
     ax = C.model_axis()
-    if (ax is None or cfg.family == "audio" or cfg.num_experts > 0
-            or any(k != "attn" for k in cfg.pattern)):
+    if ax is None:
         return None
     s = batch["tokens"].shape[1]
-    if cfg.frontend_tokens and batch.get("frontend_embeds") is not None:
-        s += batch["frontend_embeds"].shape[1]
+    fe = batch.get("frontend_embeds")
+    if cfg.family == "audio":
+        return (ax if s % ax.size == 0 and fe is not None
+                and fe.shape[1] % ax.size == 0 else None)
+    if cfg.frontend_tokens and fe is not None:
+        s += fe.shape[1]
     return ax if s % ax.size == 0 else None
 
 
@@ -403,7 +538,8 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0,
 
 def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                 caches=None, pos=None, remat: bool = True, kv_valid=None,
-                page_table=None, seq_lengths=None, tail=None, tp=None):
+                page_table=None, seq_lengths=None, tail=None, tp=None,
+                shard=None):
     """Run the pattern units (``LM.units`` or per-unit param dicts), then
     the tail blocks (``tail``: ``LM.tail`` or the ``"tail"`` param dict)
     over x.  Returns (x, aux): in train mode aux sums AUX_KEYS over every
@@ -415,7 +551,8 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     present only when the config turns them on) are summed over a unit's
     blocks and stacked per unit, (U, ...), as JAX's scan stacks them, and
     each tail block appends a row of the counters it reports.  tp: the
-    model axis of the sequence-parallel layout (x is this rank's chunk)."""
+    model axis of the sequence-parallel layout (x is this rank's chunk);
+    shard: serving under a model axis (``block_apply``)."""
     train = mode == "train"
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in AUX_KEYS} if train else {})
@@ -431,7 +568,8 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
             h, _, aux = block_apply(unit[name], h, cfg, kind, mode=mode,
                                     cache=c, pos=pos, kv_valid=kv_valid,
                                     page_table=page_table,
-                                    seq_lengths=seq_lengths, tp=tp)
+                                    seq_lengths=seq_lengths, tp=tp,
+                                    shard=shard)
             for k, val in aux.items():
                 aux_u[k] = aux_u[k] + val if k in aux_u else val
         return h, aux_u
@@ -449,7 +587,7 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
         x, _, aux = block_apply(tail[name], x, cfg, kind, mode=mode, cache=c,
                                 pos=pos, kv_valid=kv_valid,
                                 page_table=page_table,
-                                seq_lengths=seq_lengths, tp=tp)
+                                seq_lengths=seq_lengths, tp=tp, shard=shard)
         rows.append(aux)
     for aux in rows:
         for k, val in aux.items():
@@ -523,7 +661,7 @@ def lm_decode_step(model: LM, cfg: ModelConfig, caches: dict,
     x = _embed_inputs(model, cfg, token[:, None], pos0=pos)
     x, aux = _run_blocks(model.units, cfg, x, mode="decode", caches=caches,
                          pos=pos, kv_valid=kv_valid, page_table=page_table,
-                         tail=model.tail)
+                         tail=model.tail, shard=_shard_of(model))
     x = layers.apply_norm(model.final_norm, x, cfg.norm)
     logits = logits_of(model, cfg, x)
     return (logits, _counters(aux)) if return_counters else logits
@@ -539,11 +677,13 @@ def lm_prefill(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     attention) when the config selects them: no per-row lengths, so no
     ragged oracle."""
     tokens = batch["tokens"]
-    caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
+    shard = _shard_of(model)
+    caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device,
+                         shard=shard)
     x = _embed_inputs(model, cfg, tokens,
                       frontend_embeds=batch.get("frontend_embeds"))
     x, _ = _run_blocks(model.units, cfg, x, mode="prefill", caches=caches,
-                       pos=0, remat=False, tail=model.tail)
+                       pos=0, remat=False, tail=model.tail, shard=shard)
     x = layers.apply_norm(model.final_norm, x[:, -1:], cfg.norm)
     return caches, logits_of(model, cfg, x)
 
@@ -589,13 +729,14 @@ def lm_prefill_ragged(model: LM, cfg: ModelConfig,
     sparse-MHA budgets and routed-FFN capacities."""
     tokens = batch["tokens"]
     bsz = tokens.shape[0]
-    caches = init_caches(cfg, bsz, max_len, tokens.device)
+    shard = _shard_of(model)
+    caches = init_caches(cfg, bsz, max_len, tokens.device, shard=shard)
     x = _embed_inputs(model, cfg, tokens,
                       frontend_embeds=batch.get("frontend_embeds"))
     sl = lengths if length_sensitive(cfg) else None
     x, aux = _run_blocks(model.units, cfg, x, mode="prefill",
                          caches=caches, pos=0, seq_lengths=sl,
-                         tail=model.tail)
+                         tail=model.tail, shard=shard)
     idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
     x_last = x.gather(1, idx[:, None, None].expand(bsz, 1, x.shape[-1]))
     x_last = layers.apply_norm(model.final_norm, x_last, cfg.norm)

@@ -61,6 +61,19 @@ over decode slots (port of the JAX package's ``serving/engine.py``).
     prefill lengths, the cache rows and the page reservation all count
     them.  The encoder-decoder (audio) family is served by
     ``generate``'s per-token loop over models/encdec.py, as in JAX.
+  * Under a mesh (``mesh=``: launch/mesh.py; every rank of the world
+    runs the engine on the same requests) the slots split over the data
+    axes and each sub-layer's heads or columns over ``model``
+    (``transformer.ShardedLM``).  Each data rank keeps the caches (and,
+    paged, a page pool of the whole size with its own allocator) of its
+    own slots and computes their rows of every prefill and decode chunk;
+    the scheduler is host code taken alike on every rank from the same
+    inputs, so the host state stays the world-of-one state: what a chunk
+    brings back (tokens, positions, flags, counters, pages in use) comes
+    in ONE all-gather over data per chunk, and an admission's first
+    tokens in one all-reduce.  A wall serve clock is agreed by an
+    all-reduce (max) per scheduling iteration.  Slots that do not divide
+    over data are replicated, as the rules fall back.
 Timing is split into prefill and decode, each ended by a host sync.
 """
 from __future__ import annotations
@@ -71,8 +84,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.core import dispatch
 from repro_torch.models import encdec, transformer
 from repro_torch.serving import kv_pages as kvp
@@ -107,11 +122,14 @@ def build_decode_step(cfg: ModelConfig):
 _M32 = 0xFFFFFFFF
 
 
-def decode_cache_axes(cfg: ModelConfig, kv_paged: bool = False):
-    """Logical partition axes of the decode caches' tree."""
+def decode_cache_axes(cfg: ModelConfig, kv_paged: bool = False,
+                      seq_shard: bool = True):
+    """Logical partition axes of the decode caches' tree (``seq_shard``
+    False: the port's serving layout, ``transformer.block_cache_axes``)."""
     if cfg.family == "audio":
-        return encdec.cache_axes(cfg)
-    return transformer.cache_axes(cfg, kv_paged=kv_paged)
+        return encdec.cache_axes(cfg, seq_shard)
+    return transformer.cache_axes(cfg, kv_paged=kv_paged,
+                                  seq_shard=seq_shard)
 
 
 def _mix32(x):
@@ -198,18 +216,22 @@ def sample_rows(lg: torch.Tensor, keys: torch.Tensor, n: torch.Tensor,
                        keys, n)
 
 
-def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Copy tensors to host numpy in ONE transfer (and so one sync): each
-    is cast to float64 (exact for the ints and f32 counters the engine
-    moves), flattened and concatenated on the device."""
-    if not tensors:
-        return []
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
+def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One float64 vector of ``tensors`` (exact for the ints and f32
+    counters the engine moves), on their device."""
+    return torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+
+
+def _unflat(host: np.ndarray, tensors: Sequence[torch.Tensor],
+            shapes=None) -> List[np.ndarray]:
+    """Split a host copy of ``_flat(tensors)`` back into arrays of their
+    shapes (or ``shapes``) and kinds."""
     out, i = [], 0
-    for t in tensors:
-        a = host[i:i + t.numel()].reshape(t.shape)
-        i += t.numel()
+    for j, t in enumerate(tensors):
+        shape = t.shape if shapes is None else shapes[j]
+        size = int(np.prod(shape))
+        a = host[i:i + size].reshape(shape)
+        i += size
         out.append(a.astype(bool) if t.dtype == torch.bool
                    else a.astype(np.int64) if not t.is_floating_point()
                    else a)
@@ -512,6 +534,7 @@ class _SchedState:
     iteration: int = 0
     steps_run: int = 0                     # decode steps executed
     t0_wall: float = 0.0
+    now: Optional[float] = None            # this iteration's serve time
 
 
 def _queue_key(it: _QItem) -> Tuple[int, int]:
@@ -541,19 +564,37 @@ class Engine:
     wrapper and ``generate(batch, steps)`` the legacy fixed-batch API.
     ``last_steps_run`` is the decode steps the last run's chunks executed
     (retired slots' dead air included): each runs the decode kernels once
-    per layer, which is what a launch count is held to."""
+    per layer, which is what a launch count is held to (on every rank
+    under a mesh).  mesh: a (data, model) DeviceMesh over the started
+    process group (launch/mesh.py); every rank builds the engine from the
+    same whole model and serves the same requests (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, model: transformer.LM,
                  max_len: int = 512, *, num_slots: int = 8,
                  eos_id: Optional[int] = None, decode_chunk: int = 16,
                  kv_pages: Optional[int] = None,
                  prefill_batch: Optional[int] = None,
-                 prefill_decode_ratio: float = 0.0, device="cuda"):
+                 prefill_decode_ratio: float = 0.0, device="cuda",
+                 mesh=None):
         self.device = transformer.resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
         self.cfg = cfg
+        # the mesh: heads and columns over model, slots over data
+        tp = C.mesh_axis(mesh, "model")
+        dp = C.mesh_axis(mesh, C.BATCH_AXES)
+        if tp is not None:
+            model = (encdec.ShardedEncDec if cfg.family == "audio"
+                     else transformer.ShardedLM)(model, cfg, tp)
+        self.mesh = mesh
+        self._world = dist.get_world_size() if mesh is not None else 1
+        self._data = dp
+        self._dp = dp if dp is not None and num_slots % dp.size == 0 else None
+        self._ns = num_slots // (self._dp.size if self._dp else 1)
+        self._lo = self._dp.rank * self._ns if self._dp else 0
+        self._shard = getattr(model, "shard", None)
+        self._mcfg = model.cfg if self._shard is not None else cfg
         self.model = model
         self.max_len = max_len
         self.num_slots = num_slots
@@ -582,8 +623,25 @@ class Engine:
         else:
             self.kv_pages = 0
         # legacy per-token step functions (sampled generate())
-        self._prefill = build_prefill_step(cfg, max_len)
-        self._decode = build_decode_step(cfg)
+        self._prefill = build_prefill_step(self._mcfg, max_len)
+        self._decode = build_decode_step(self._mcfg)
+
+    # ----------------------------------------------------------- the mesh
+    def _owns(self, b: int) -> bool:
+        """Slot b's caches live on this rank (its data rank's slots)."""
+        return self._lo <= b < self._lo + self._ns
+
+    def _now(self) -> float:
+        """This iteration's serve time, the same on every rank: a wall
+        clock is agreed by an all-reduce (max) over the world."""
+        st = self._live
+        now = st.clock()
+        if self._world > 1 and not hasattr(st.clock, "advance"):
+            t = torch.tensor([now], dtype=torch.float64, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            now = float(t.item())
+        st.now = now
+        return now
 
     # ------------------------------------------------------------ prefill
     def _pad_invariant(self) -> bool:
@@ -629,16 +687,28 @@ class Engine:
             p <<= 1
         return p
 
-    def _prefill_group(self, group: Sequence[_QItem]):
-        """ONE ragged prefill over an admission group; dummy rows fill the
-        Bp bucket and are dropped by the slot copy.  Resumed rows prefill
-        prompt + regenerated tokens, after their frontend rows (the
-        lengths count those).  Returns (cache rows, logits (Bp, 1, V),
-        Bp, counter tree or None)."""
+    def _bucket_share(self, assigned: Sequence[int]) -> int:
+        """The rows of an admission group's bucket (``_pad_rows``) that
+        this rank prefills: its own slots' rows, and the bucket's dummy
+        rows dealt one at a time to the data rank that holds the fewest
+        rows so far.  So the data ranks' prefills together hold the world
+        of one's bucket, row for row (without a data axis: all of it)."""
+        held = [0] * (self._dp.size if self._dp else 1)
+        for b in assigned:
+            held[b // self._ns] += 1
+        for _ in range(self._pad_rows(len(assigned)) - len(assigned)):
+            held[held.index(min(held))] += 1
+        return held[self._dp.rank if self._dp else 0]
+
+    def _prefill_group(self, group: Sequence[_QItem], p: int, bpb: int):
+        """ONE ragged prefill over an admission group (under a data axis,
+        this rank's rows of it) padded to length ``p``; dummy rows fill
+        the ``bpb`` rows (at least one) and are dropped by the slot copy.
+        Resumed rows prefill prompt + regenerated tokens, after their
+        frontend rows (the lengths count those).  Returns (cache rows,
+        logits (bpb, 1, V), bpb, counter tree or None)."""
         cfg = self.cfg
         rows_toks = [it.prefill_tokens() for it in group]
-        p = self._pad_len(max(len(t) for t in rows_toks))
-        bpb = self._pad_rows(len(group))
         toks = np.zeros((bpb, p), np.int64)            # pad id 0
         lens = np.ones(bpb, np.int64)                  # dummies: length 1
         for i, t in enumerate(rows_toks):
@@ -655,7 +725,7 @@ class Engine:
                                                        device=self.device)
         lengths = torch.as_tensor(self.frontend + lens, device=self.device)
         out = transformer.lm_prefill_ragged(
-            self.model, cfg, batch, lengths, self.max_len,
+            self.model, self._mcfg, batch, lengths, self.max_len,
             return_counters=self._tel_counters)
         if self._tel_counters:
             rows, logits, tel = out
@@ -738,8 +808,9 @@ class Engine:
         st = self._live
         if st is None:
             raise RuntimeError("submit() requires a live serve()/run()")
-        if now is None:
-            now = st.clock()
+        if now is None:      # under a mesh, the iteration's agreed time
+            now = (st.now if self._world > 1 and st.now is not None
+                   else st.clock())
         order = st.order
         st.order += 1
         st.stats.submitted += 1
@@ -849,8 +920,9 @@ class Engine:
         st.slot_item[b] = None
         st.active[b] = False
         if self._paged:
-            st.astate, st.page_table = kvp.free_slot_pages(
-                st.astate, st.page_table, b)
+            if self._owns(b):
+                st.astate, st.page_table = kvp.free_slot_pages(
+                    st.astate, st.page_table, b - self._lo)
             st.reserved -= st.slot_ws[b]
             st.slot_ws[b] = 0
 
@@ -873,11 +945,15 @@ class Engine:
         st.stats.completed += 1
         self._release_slot(b)
 
-    def _track_peak(self) -> None:
-        """Peak pages in use (one read of the allocator's stack top)."""
+    def _track_peak(self, used: Optional[int] = None) -> None:
+        """Peak pages in use: ``used`` (a decode chunk brings it back), or
+        one read of the allocator's stack top (summed over the data
+        ranks' pools)."""
         st = self._live
         if self._paged:
-            used = self.kv_pages - int(st.astate["top"])
+            if used is None:
+                used = self.kv_pages - st.astate["top"].to(torch.float64)
+                used = int(C.all_reduce_flat(used.reshape(1), self._dp)[0])
             st.stats.kv_pages_peak = max(st.stats.kv_pages_peak, used)
             if self.recorder is not None:
                 self.recorder.gauge("kv_pages_used", time.perf_counter(),
@@ -1041,14 +1117,23 @@ class Engine:
         st = self._live
         ps = self.page_size
         t0 = time.perf_counter()
-        rows, logits, bpb, tel = self._prefill_group(group)
-        slot_vec = np.full(bpb, -1, np.int64)        # -1 rows: dummies
         assigned: List[int] = []
-        for i, it in enumerate(group):
+        for it in group:
             b = next(j for j, s in enumerate(st.slot_item) if s is None)
             st.slot_item[b] = it
             assigned.append(b)
-            slot_vec[i] = b
+        # this rank's rows (all of them without a data axis) and its share
+        # of the bucket, at the group's length bucket; a rank with no share
+        # prefills one dummy row all the same
+        local = [i for i, b in enumerate(assigned) if self._owns(b)]
+        share = self._bucket_share(assigned)
+        rows, logits, bpb, tel = self._prefill_group(
+            [group[i] for i in local],
+            self._pad_len(max(len(it.prefill_tokens()) for it in group)),
+            max(1, share))
+        slot_vec = np.full(bpb, -1, np.int64)        # -1 rows: dummies
+        for j, i in enumerate(local):
+            slot_vec[j] = assigned[i] - self._lo
         slots = torch.as_tensor(slot_vec, device=self.device)
         if self._paged:
             npages = np.zeros(bpb, np.int64)
@@ -1056,13 +1141,14 @@ class Engine:
                 ws = self._pages_ws(it.req)
                 st.reserved += ws
                 st.slot_ws[assigned[i]] = ws
-                npages[i] = kvp.num_pages(
-                    self.frontend + len(it.prefill_tokens()), ps)
+            for j, i in enumerate(local):
+                npages[j] = kvp.num_pages(
+                    self.frontend + len(group[i].prefill_tokens()), ps)
             st.astate, st.page_table = kvp.alloc_rows_pages(
                 st.astate, st.page_table, slots,
                 torch.as_tensor(npages, device=self.device))
             transformer.write_slot_caches_paged_rows(
-                st.caches, rows, slots, st.page_table, self.cfg)
+                st.caches, rows, slots, st.page_table, self._mcfg)
         else:
             transformer.write_slot_caches_rows(st.caches, rows, slots)
         for i, it in enumerate(group):            # sampling state per slot
@@ -1073,23 +1159,19 @@ class Engine:
             st.topps[b] = r.top_p
         # first tokens: the prefill's last logits, drawn where the request
         # samples (token index 0); resumed rows need none
-        drawn = [i for i, it in enumerate(group)
-                 if not it.done and it.temp > 0.0]
-        plan = self._sample_plan(drawn, [assigned[i] for i in drawn])
-        firsts_d = self._draw(logits[:len(group), -1].float(), plan,
-                              torch.zeros(len(group), dtype=torch.long,
+        drawn = [j for j, i in enumerate(local)
+                 if not group[i].done and group[i].temp > 0.0]
+        plan = self._sample_plan(drawn, [assigned[local[j]] for j in drawn])
+        firsts_d = self._draw(logits[:len(local), -1].float(), plan,
+                              torch.zeros(len(local), dtype=torch.long,
                                           device=self.device))
         keys = sorted(tel) if tel else []
-        host = _to_host(firsts_d, *(tel[k] for k in keys))   # the sync
-        firsts = host[0].tolist()
+        firsts, ctr = self._admit_sync(group, local, share, bpb, firsts_d,
+                                       [tel[k] for k in keys], keys)
         now_wall = time.perf_counter()
         rec = self.recorder
         if rec is not None and tel is not None:
-            # trim dummy bucket rows: real rows are the first len(group)
-            ng = len(group)
-            rec.drain_counters({
-                k: (v[:, :ng] if v.ndim >= 2 and v.shape[1] == bpb else v)
-                for k, v in zip(keys, host[1:])})
+            rec.drain_counters(ctr)
         if rec is not None:
             rec.span("prefill_batch", t0, now_wall, st.iteration,
                      group=len(group), bucket_rows=bpb)
@@ -1145,6 +1227,30 @@ class Engine:
             if done_now:
                 self._retire(b)
 
+    def _admit_sync(self, group, local, share, bpb, firsts_d, tels, keys):
+        """The group's first tokens and prefill counters, from every data
+        rank's rows, in one all-reduce (sum) over data and one transfer
+        to the host.  Each rank puts its rows' tokens at their group
+        index; a per-row counter (dim 1 the ``bpb`` prefill rows) is
+        summed over the rank's real rows; a share of the batch (the
+        expert drop fraction, over the pairs of every row of the bucket)
+        is weighted by the rank's ``share`` of the bucket's rows, so the
+        sum is the world of one's share."""
+        ng, nl = len(group), len(local)
+        pos = torch.as_tensor(local, dtype=torch.long, device=self.device)
+        firsts = torch.zeros(ng, dtype=torch.float64, device=self.device)
+        firsts[pos] = firsts_d.to(torch.float64)
+        weight = share / self._pad_rows(ng)
+        parts = []
+        for v in tels:
+            v = v.to(torch.float64)
+            parts.append(v[:, :nl].sum(1) if v.dim() >= 2
+                         and v.shape[1] == bpb else v * weight)
+        host = C.all_reduce_flat(_flat([firsts, *parts]),
+                                 self._dp).cpu().numpy()
+        out = _unflat(host, [firsts, *parts])
+        return out[0].astype(np.int64).tolist(), dict(zip(keys, out[1:]))
+
     def _chunk(self, steps: int, plan: Optional[dict]):
         """``steps`` decode steps on the device with no host sync: the
         per-slot state advances in device tensors, paged slots grow a page
@@ -1153,13 +1259,14 @@ class Engine:
         still active.  Returns the state tensors and the counter dict."""
         st = self._live
         dev = self.device
-        slots = self.num_slots
-        tok = torch.as_tensor(st.tok, device=dev)
-        pos = torch.as_tensor(st.pos, device=dev)
-        active = torch.as_tensor(st.active, device=dev)
-        n = torch.as_tensor(st.n_gen, device=dev)
-        limit = torch.as_tensor(st.limit, device=dev)
-        buf = torch.as_tensor(st.buf, device=dev)
+        slots = self._ns                    # this rank's slots
+        mine = slice(self._lo, self._lo + slots)
+        tok = torch.as_tensor(st.tok[mine], device=dev)
+        pos = torch.as_tensor(st.pos[mine], device=dev)
+        active = torch.as_tensor(st.active[mine], device=dev)
+        n = torch.as_tensor(st.n_gen[mine], device=dev)
+        limit = torch.as_tensor(st.limit[mine], device=dev)
+        buf = torch.as_tensor(np.ascontiguousarray(st.buf[mine]), device=dev)
         bidx = torch.arange(slots, device=dev)
         ps = self.page_size
         view = (self.max_pages_per_slot * ps if self._paged
@@ -1195,7 +1302,8 @@ class Engine:
             if self._paged:
                 kv_valid = kv_valid & kvp.occupancy(page_table, ps)
             out = transformer.lm_decode_step(
-                self.model, self.cfg, st.caches, tok, pos, kv_valid=kv_valid,
+                self.model, self._mcfg, st.caches, tok, pos,
+                kv_valid=kv_valid,
                 page_table=page_table if self._paged else None,
                 return_counters=tel_on)
             logits, stel = out if tel_on else (out, None)
@@ -1241,23 +1349,25 @@ class Engine:
         n_prev = st.n_gen.copy()
         was_active = st.active.copy()
         samp = np.flatnonzero(act & (st.temps > 0.0))
+        samp = samp[(samp >= self._lo) & (samp < self._lo + self._ns)]
         t0 = time.perf_counter()
-        state, ctr = self._chunk(steps, self._sample_plan(samp, samp))
+        state, ctr = self._chunk(steps,
+                                 self._sample_plan(samp - self._lo, samp))
         keys = sorted(ctr)
-        host = _to_host(*state, *(ctr[k] for k in keys))    # the one sync
+        host, counters, used = self._chunk_sync(state, ctr, keys)
         t1 = time.perf_counter()
         st.stats.decode_s += t1 - t0
         st.tok, st.pos, act_new, st.n_gen, st.buf = host[:5]
         live = int((st.n_gen - n_prev).max())
         rec = self.recorder
         if rec is not None and self._tel_counters:
-            rec.drain_counters(dict(zip(keys, host[5:])))
+            rec.drain_counters(counters)
             t2 = time.perf_counter()
             rec.span("drain", t1, t2, st.iteration)
         if rec is not None:
             rec.span("decode_chunk", t0, t1, st.iteration, steps=live,
                      active=int(act_new.sum()))
-        self._track_peak()
+        self._track_peak(used)
         st.steps_run += steps
         st.stats.decode_steps += live
         st.stats.decode_tokens += int(st.n_gen.sum() - n_prev.sum())
@@ -1272,6 +1382,26 @@ class Engine:
                 self._stream(it, fresh.tolist(), finished)
             if finished:
                 self._retire(b)
+
+    def _chunk_sync(self, state, ctr, keys):
+        """A chunk's host state in ONE all-gather over data (none without
+        a data axis) and one transfer to the host: each rank's slot rows
+        of (tok, pos, active, n_gen, buf), its counters and (paged) its
+        pages in use.  The slot rows come back in rank order (the
+        world-of-one arrays), the counters merged as the world of one
+        drains them (``TelemetryRecorder.merge_ranks``), the pages summed.
+        Returns (state arrays, counter dict, pages in use or None)."""
+        st, dp = self._live, self._dp
+        tensors = [*state, *(ctr[k] for k in keys)]
+        if self._paged:
+            tensors.append(self.kv_pages - st.astate["top"].reshape(1))
+        allp = C.all_gather_flat(_flat(tensors), dp).cpu().numpy()
+        per = [_unflat(row, tensors) for row in allp]      # by rank
+        host = [np.concatenate([r[j] for r in per]) for j in range(5)]
+        counters = TelemetryRecorder.merge_ranks(
+            [dict(zip(keys, r[5:5 + len(keys)])) for r in per], self._ns)
+        used = (int(sum(r[-1][0] for r in per)) if self._paged else None)
+        return host, counters, used
 
     # -------------------------------------------------------- serve loop
     def _start(self, *, temperature, seed, eos_id, clock, greedy,
@@ -1296,10 +1426,12 @@ class Engine:
             eos_id=eos_id, greedy=greedy,
             seed=0 if seed is None else int(seed), max_gen=max_gen,
             caches=transformer.init_caches(
-                self.cfg, slots, self.max_len, dev,
-                kv_pages=self.kv_pages if paged else None),
-            page_table=(kvp.init_page_table(slots, self.max_pages_per_slot,
-                                            dev) if paged else None),
+                self._mcfg, self._ns, self.max_len, dev,
+                kv_pages=self.kv_pages if paged else None,
+                shard=self._shard),
+            page_table=(kvp.init_page_table(self._ns,
+                                            self.max_pages_per_slot, dev)
+                        if paged else None),
             astate=kvp.init_state(self.kv_pages, dev) if paged else None,
             reserved=0, slot_ws=[0] * slots,
             tok=np.zeros(slots, np.int64), pos=np.zeros(slots, np.int64),
@@ -1330,7 +1462,7 @@ class Engine:
         Returns True when a decode chunk ran."""
         st = self._live
         rec = self.recorder
-        now = st.clock()
+        now = self._now()
         if schedule is not None:
             for r in schedule.due(now):
                 self.submit(r, now=now)
@@ -1461,34 +1593,44 @@ class Engine:
 
     @torch.no_grad()
     def _generate_per_token(self, batch, steps, temperature, seed):
+        """Under a data axis that divides the batch each data rank runs
+        its rows, and the tokens come back in one all-gather."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        inputs = {"tokens": tokens}
+        b = tokens.shape[0]
+        dp = (self._data if self._data is not None
+              and b % self._data.size == 0 else None)
+        nb = b // (dp.size if dp else 1)
+        lo = dp.rank * nb if dp else 0
+        inputs = {"tokens": tokens[lo:lo + nb]}
         if batch.get("frontend_embeds") is not None:
             inputs["frontend_embeds"] = torch.as_tensor(
-                batch["frontend_embeds"], device=self.device)
+                batch["frontend_embeds"], device=self.device)[lo:lo + nb]
         caches, logits = self._prefill(self.model, inputs)
         pos0 = tokens.shape[1]
         if self.cfg.family != "audio":
             pos0 += self.frontend
         outs = []
-        tok = self._sample(logits[:, -1], temperature, seed, 0)
+        tok = self._sample(logits[:, -1], temperature, seed, 0, lo)
         outs.append(tok)
         for t in range(1, steps):
             caches, logits = self._decode(
                 self.model, caches, tok,
                 torch.tensor(pos0 + t - 1, device=self.device))
-            tok = self._sample(logits[:, -1], temperature, seed, t)
+            tok = self._sample(logits[:, -1], temperature, seed, t, lo)
             outs.append(tok)
         toks = torch.stack(outs, dim=1)
+        if dp is not None:
+            toks = C.all_gather_flat(toks.reshape(-1), dp).reshape(b, steps)
         return GenerationResult(tokens=toks.tolist(), steps=steps)
 
-    def _sample(self, logits, temperature, seed, t):
+    def _sample(self, logits, temperature, seed, t, row0: int = 0):
         """Greedy, or one draw per row from softmax(logits / temperature)
-        keyed by (seed, row) at token index t."""
+        keyed by (seed, row) at token index t (rows numbered from
+        ``row0``)."""
         if temperature <= 0.0 or seed is None:
             return logits.float().argmax(-1)
         b = logits.shape[0]
-        keys = torch.as_tensor([request_key(seed, i) for i in range(b)],
-                               device=logits.device)
+        keys = torch.as_tensor([request_key(seed, row0 + i)
+                                for i in range(b)], device=logits.device)
         n = torch.full((b,), t, dtype=torch.long, device=logits.device)
         return categorical(logits.float() / temperature, keys, n)

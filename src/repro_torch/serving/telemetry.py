@@ -239,6 +239,28 @@ class TelemetryRecorder:
             elif k == "decode_tokens":
                 self.counted_decode_tokens += float(a.sum())
 
+    @staticmethod
+    def merge_ranks(parts: List[Dict[str, Any]], slots: int
+                    ) -> Dict[str, np.ndarray]:
+        """One counter tree from every data rank's (``parts``, in rank
+        order, each over its ``slots`` slots), as the world of one would
+        have drained it: a per-slot leaf (its dim 1 the slots) is
+        concatenated over the ranks, every count summed, and the expert
+        drop fraction averaged: each rank's is over the (token, choice)
+        pairs of its ``slots`` rows, as many on every rank, so the mean is
+        the dropped pairs summed over the ranks divided by all of theirs.
+        So every counter equals the world of one's."""
+        out: Dict[str, np.ndarray] = {}
+        for k in parts[0]:
+            vals = [np.asarray(p[k]) for p in parts]
+            if vals[0].ndim >= 2 and vals[0].shape[1] == slots:
+                out[k] = np.concatenate(vals, axis=1)
+            elif k == "tel_expert_drop":
+                out[k] = sum(vals) / len(vals)
+            else:
+                out[k] = sum(vals)
+        return out
+
     def device_aggregates(self) -> Dict[str, float]:
         """Run-level aggregates of the drained device counters — merged
         into ``ServeStats.as_dict`` (only when telemetry is on, so the

@@ -6,7 +6,8 @@ constraint when a rules context is active.  In the port every tensor is
 this rank's local tensor and the collectives are explicit (the region
 functions of core/collectives.py), so ``shard`` only checks the
 annotation (one name per dimension) and returns the tensor unchanged;
-``spec_for`` gives the placement JAX would constrain it to, as a tuple.
+``spec_for`` gives the placement JAX would constrain it to, as a tuple,
+and ``local_shape`` the part of it one rank holds.
 ``axis_rules`` sets the rules (``sharding.rules_for_mesh``) for the code
 it wraps: the Trainer runs each step under them, and the collectives read
 the mesh from them.  The rules are one process-wide value, not a context
@@ -64,6 +65,18 @@ def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
     dimension, or reuses a mesh axis, leaves the dimension replicated."""
     used: set = set()
     return tuple(_resolve(d, n, rules, used) for d, n in zip(shape, axes))
+
+
+def local_shape(shape: Sequence[int], spec: Sequence,
+                sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape one rank holds of an array of ``shape`` placed by
+    ``spec`` (``spec_for``'s tuple): each dimension divided by the extents
+    of the mesh axes placed on it."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        flat = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        out.append(dim // math.prod(int(sizes.get(a, 1)) for a in flat))
+    return tuple(out)
 
 
 def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:

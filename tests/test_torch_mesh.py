@@ -177,12 +177,15 @@ def test_train_launcher_refuses_a_mesh_larger_than_the_world(capsys):
 
 
 def test_serve_launcher_takes_1x1_only(capsys):
+    """In a world of one the serve launcher takes a 1x1 mesh only: a
+    larger one is refused, as the train launcher refuses it (a world of
+    two serving --mesh 1x2: tests/test_torch_multigpu_serve.py)."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as err:
         serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
                     "--mesh", "1x2"])
     assert err.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert "needs 2 processes, the world has 1" in capsys.readouterr().err
 
 
 def test_rules_reach_another_thread():

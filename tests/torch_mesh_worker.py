@@ -25,6 +25,15 @@ import numpy as np
 TIMEOUT_S = 120.0
 
 
+def _worker(fn_name):
+    """A worker by name: one of this module's, or "module:name"."""
+    if ":" not in fn_name:
+        return globals()[fn_name]
+    import importlib
+    mod, name = fn_name.split(":")
+    return getattr(importlib.import_module(mod), name)
+
+
 def _entry(rank, world, init_file, fn_name, kw, out_path):
     import torch
     import torch.distributed as dist
@@ -33,7 +42,7 @@ def _entry(rank, world, init_file, fn_name, kw, out_path):
         dist.init_process_group(
             "gloo", init_method=f"file://{init_file}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=60))
-        result = {"ok": globals()[fn_name](rank, world, **kw)}
+        result = {"ok": _worker(fn_name)(rank, world, **kw)}
         dist.destroy_process_group()
     except BaseException:          # the parent reports it
         result = {"error": traceback.format_exc()}
@@ -41,18 +50,21 @@ def _entry(rank, world, init_file, fn_name, kw, out_path):
         pickle.dump(result, f)
 
 
-def start_worlds(specs, tmp_path):
+def start_worlds(specs, tmp_path, preload=()):
     """Start every world of ``specs`` — [(world size, worker name,
     kwargs), ...] — at once, each rank in its own process running
-    ``worker(rank, world, **kwargs)``; ``join_worlds`` collects them."""
+    ``worker(rank, world, **kwargs)`` (a name of this module's, or
+    "module:name"; ``preload`` adds modules the fork server imports);
+    ``join_worlds`` collects them."""
     ctx = mp.get_context("forkserver")
     # the server imports these once; each rank forks from it, warm
     ctx.set_forkserver_preload(["torch", "torch._dynamo", "torch_mesh_worker",
                                 "repro_torch.launch.steps",
-                                "repro_torch.launch.train"])
+                                "repro_torch.launch.train", *preload])
     runs = []
     for w, (world, fn_name, kw) in enumerate(specs):
-        tag = os.path.join(str(tmp_path), f"w{w}_{fn_name}")
+        tag = os.path.join(str(tmp_path),
+                           f"w{w}_{fn_name.split(':')[-1]}")
         outs = [f"{tag}.r{r}.pkl" for r in range(world)]
         procs = [ctx.Process(target=_entry, args=(r, world, f"{tag}.init",
                                                   fn_name, kw, outs[r]))

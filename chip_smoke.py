@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only infra     # phases 1-3, 23
     python3 chip_smoke.py --only mesh      # phases 1-3, 24
     python3 chip_smoke.py --only meshserve # phases 1-3, 25
+    python3 chip_smoke.py --only dryrun    # phases 1-3, 26
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -218,6 +219,17 @@ Phases (each raises on failure; nothing is caught):
      relative error of 1e-3, every rank's alike, and the same run
      summing rank 0's part alone is off by over 0.1 (at the served
      top-L fraction the error is shown);
+  26. the dry run against the card: full-width qwen3-0.6b (CUT_DEPTH
+     layers, bf16, the kernels on) — one train step at 4 x 1024 and one
+     decode step at 8 slots x 4096 — traced on the meta device
+     (launch/dryrun.py, target "cuda"), then run on the card under the
+     same roofline counter after a warm-up: FLOPs, HBM bytes and kernel
+     calls by name equal the trace's, the calls equal the launch
+     counters, and the trace's predicted peak lies within 10 % of
+     max_memory_allocated (both printed); the train step's profiled
+     device time beside the count's t_bound (printed); kernel 9's h
+     scratch rule as kernels/cost.py restates it equal to the built
+     library's at every (dtype, d, F) kernel 9 launched at in the run;
   counters are zeroed just before each counted run and read just after,
   launch counts exact; then one JSON line of the ten kernels (launches
   per path; each with its times at the paper's, the MoE, the hybrid and
@@ -359,25 +371,10 @@ def close_scaled(got, want, tol):
     return err, rel, past
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def bound(nbytes_moved: float, flops: float, dtype) -> tuple:
-    """The least ms the card could take: bytes over its memory rate or
-    operations over the peak rate of their type (launch/roofline.py's
-    datasheet figures), whichever is larger."""
-    from repro_torch.launch import roofline
-    peak = {"bfloat16": roofline.PEAK_FLOPS,
-            "float32": roofline.PEAK_FLOPS_F32}[str(dtype).split(".")[-1]]
-    t_bytes = nbytes_moved / roofline.HBM_BW * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ------------------------------------------------------------ phase 3
 def check_decode_attention(torch, gen):
     """Kernel 6 at 8 slots x 8 kv heads x S=4096 (R=2, dh=128, M=16)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.sparse_attention import ops, ref
     b, hk, r, dh, m, e = 8, 8, 2, 128, 16, 16
     rows = []
@@ -428,11 +425,9 @@ def check_decode_attention(torch, gen):
     elig, _ = ref.select(cq, ck, valid, l=kw["l"], max_score=kw["max_score"],
                          sum_rows=False, heads_per_batch=hk)
     rows_read = int(elig.any(1).sum())          # K/V rows any head selected
-    sel_pairs = int(elig.sum())
-    moved = (nbytes(q, cq, ck, valid) + q.numel() * q.element_size()
-             + 2 * rows_read * dh * k.element_size())
-    flops = 4 * dh * sel_pairs                  # q.k and p.v per pair
-    bms, by = bound(moved, flops, q.dtype)
+    bms, by = cost.fused_sparse_decode_attention(
+        q, k, v, cq, ck, valid, **kw, rows_read=rows_read,
+        pairs=int(elig.sum())).bound_ms()
     return {"name": "fused_sparse_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_decode.cu",
             "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:400",
@@ -468,6 +463,7 @@ def check_two_pass(torch, gen):
     and to kernel 6's, kernel 5's output within tolerance of its plain
     version and bit-identical to kernel 6's (bf16 and f32, "qhead" and
     "kvgroup")."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select import ops as topl_ops
     from repro_torch.kernels.topl_select import ref as topl_ref
@@ -529,9 +525,8 @@ def check_two_pass(torch, gen):
         p3 = time_ms(lambda: topl_ref.decode_topl_thresholds_ref(
             cq, ck, valid, **kw), 5)
         live = int(valid.sum()) * SHK                 # valid (group, slot)s
-        codes_read = live * SM
-        bms, by = bound(nbytes(cq, valid, thr) + codes_read,
-                        live * SR * SM, torch.float32)
+        bms, by = cost.decode_topl_thresholds(cq, ck, valid, **kw,
+                                              live=live).bound_ms()
         rows["decode_topl_thresholds"] = {
             "name": "decode_topl_thresholds", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_decode_two_pass.cu",
@@ -547,9 +542,9 @@ def check_two_pass(torch, gen):
         p5 = time_ms(lambda: ref.sparse_decode_attention_ref(
             q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, **sel), 5)
         read, pairs = _rows_read(ref, cq, ck, valid, kw)
-        moved = (nbytes(q, cq, thr, valid) + codes_read + nbytes(out)
-                 + 2 * read * SDH * k.element_size())
-        bms, by = bound(moved, 4 * SDH * pairs, dt)
+        bms, by = cost.sparse_decode_attention(
+            q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, **sel, live=live,
+            pairs=pairs, rows_read=read).bound_ms()
         rows["sparse_decode_attention"] = {
             "name": "sparse_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sparse_decode_two_pass.cu",
@@ -600,6 +595,7 @@ def check_paged(torch, gen):
     gathered view with a boolean mask beside the gather's own time (the
     two together compute kernel 8's function)."""
     from repro_torch import kernels
+    from repro_torch.kernels import cost
     from repro_torch.kernels.sparse_attention import ops, ref
     g, view = SB * SHK, SMP * SPS
     out_rows = {}
@@ -637,10 +633,9 @@ def check_paged(torch, gen):
             read, pairs = _rows_read(ref, cq, kv[2], valid,
                                      {k: v for k, v in kw.items()
                                       if k != "scale"})
-            live = int(valid.sum()) * SHK
-            moved = (nbytes(q, cq, pt, valid, out) + live * SM
-                     + 2 * read * SDH * k_pool.element_size())
-            bms, by = bound(moved, 4 * SDH * pairs, dt)
+            bms, by = cost.fused_sparse_decode_attention_paged(
+                *args, **kw, live=int(valid.sum()) * SHK, pairs=pairs,
+                rows_read=read).bound_ms()
             out_rows["sparse"] = {
                 "name": "fused_sparse_decode_attention_paged", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/sparse_decode.cu",
@@ -682,10 +677,8 @@ def check_paged(torch, gen):
         mask = valid[:, None, None, :]
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, scale=SDH ** -0.5), 30)
-        live = int(valid.sum()) * SHK
-        moved = (nbytes(q, pt, valid, out)
-                 + 2 * live * SDH * k_pool.element_size())
-        bms, by = bound(moved, 4 * SDH * SR * live, dt)
+        bms, by = cost.dense_decode_attention_paged(
+            *args, **kw, live=int(valid.sum()) * SHK).bound_ms()
         out_rows["dense"] = {
             "name": "dense_decode_attention_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dense_decode_paged.cu",
@@ -760,6 +753,7 @@ def check_decode_edges(torch, gen, edges=DECODE_EDGES,
     run of ``timed_edge`` times each of the five kernels beside its bound;
     returns {wrapper name: [case row]} of those, tagged ``tag``."""
     from repro_torch import kernels
+    from repro_torch.kernels import cost
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select import ops as topl_ops
     from repro_torch.serving import kv_pages
@@ -839,41 +833,40 @@ def check_decode_edges(torch, gen, edges=DECODE_EDGES,
             if name != timed_edge or dt != torch.bfloat16:
                 continue
             read, pairs = _rows_read(ref, cq, kv[2], valid, sel)
-            codes = int(valid.sum()) * hk * m         # live code bytes
-            kv_bytes = 2 * read * dh * q.element_size()
-            ops4 = 4 * dh * pairs
+            slots = int(valid.sum()) * hk             # live (group, slot)s
+            data = dict(live=slots, pairs=pairs, rows_read=read)
+            kv5 = (q, kv[0], kv[1], cq, kv[2], thr3, valid)
+            kw5 = dict(scale=kw["scale"], sum_rows=sum_rows,
+                       heads_per_batch=hk)
             case = (f"{name} (G={g}, R={r}, view {mp} x {ps}, {live} live, "
                     f"dh={dh}, M={m})")
-            for wname, fn, moved, n_ops, ot, err in (
+            for wname, fn, c, err in (
                     ("fused_sparse_decode_attention_paged",
                      lambda: ops.fused_sparse_decode_attention_paged(
                          *args, **kw),
-                     nbytes(q, cq, pt, valid, out7) + codes + kv_bytes, ops4,
-                     dt, err7),
+                     cost.fused_sparse_decode_attention_paged(
+                         *args, **kw, **data), err7),
                     ("fused_sparse_decode_attention",
                      lambda: ops.fused_sparse_decode_attention(
                          q, kv[0], kv[1], cq, kv[2], valid, **kw),
-                     nbytes(q, cq, valid, out6) + codes + kv_bytes, ops4, dt,
+                     cost.fused_sparse_decode_attention(
+                         q, kv[0], kv[1], cq, kv[2], valid, **kw, **data),
                      err7),
                     ("decode_topl_thresholds",
                      lambda: topl_ops.decode_topl_thresholds(
                          cq, kv[2], valid, **sel),
-                     nbytes(cq, valid, thr3) + codes,
-                     int(valid.sum()) * hk * r * m, torch.float32, 0.0),
+                     cost.decode_topl_thresholds(cq, kv[2], valid, **sel,
+                                                 live=slots), 0.0),
                     ("sparse_decode_attention",
-                     lambda: ops.sparse_decode_attention(
-                         q, kv[0], kv[1], cq, kv[2], thr3, valid,
-                         scale=kw["scale"], sum_rows=sum_rows,
-                         heads_per_batch=hk),
-                     nbytes(q, cq, thr3, valid, out5) + codes + kv_bytes,
-                     ops4, dt, err7),
+                     lambda: ops.sparse_decode_attention(*kv5, **kw5),
+                     cost.sparse_decode_attention(*kv5, **kw5, **data),
+                     err7),
                     ("dense_decode_attention_paged",
                      lambda: ops.dense_decode_attention_paged(*dargs, **dkw),
-                     nbytes(q, pt, valid, out8)
-                     + 2 * int(valid.sum()) * hk * dh * q.element_size(),
-                     4 * dh * r * int(valid.sum()) * hk, dt, err8)):
-                _paper_row(timed, wname, case, time_ms(fn, 30),
-                           bound(moved, n_ops, ot), err, tag=tag)
+                     cost.dense_decode_attention_paged(*dargs, **dkw,
+                                                       live=slots), err8)):
+                _paper_row(timed, wname, case, time_ms(fn, 30), c.bound_ms(),
+                           err, tag=tag)
     return timed
 
 
@@ -943,6 +936,7 @@ def check_pq_assign(torch, gen):
     bit-identical codes, equal to the plain version up to the margin rule;
     timed in bf16 at the q shape for M = 8, 10 and 16 (d_head 64, 80,
     128), beside the plain version and a torch yardstick."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pq_quantize import ops, ref
     out, ms_books = None, {}
     for name, dtn, groups, n, dh, e in _pq_cases():
@@ -961,10 +955,7 @@ def check_pq_assign(torch, gen):
             continue
         plain = time_ms(lambda: ref.pq_assign_ref(x, cb), 5)
         yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
-        m, e, dp = cb.shape
-        moved = nbytes(x, cb, got)
-        flops = x.numel() // dh * m * e * (2 * dp + 2)
-        bms, by = bound(moved, flops, dt)
+        bms, by = cost.pq_assign(x, cb).bound_ms()
         out = {"name": "pq_assign", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/pq_assign.cu",
                "replaces": "src/repro/kernels/pq_quantize/pq_quantize.py:38",
@@ -1040,6 +1031,7 @@ def check_topl_thresholds(torch, gen):
     """Kernel 2: [t, need] exactly equal to the plain version on every
     case, each launched twice with bit-identical outputs; timed at the
     training shape for M = 16, 8 and 10."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.topl_select import ops, ref
     cases = [c + (M_BOOKS, "e16", HQ // HK) for c in _topl_cases()]
     out, ms_books = None, {}
@@ -1061,8 +1053,7 @@ def check_topl_thresholds(torch, gen):
         if name != "train":
             continue
         plain = time_ms(lambda: ref.thresholds_ref(cq, ck, **kw), 3)
-        pairs = cq.shape[0] * nq * (nq + 1) // 2        # causal, nq = nk
-        bms, by = bound(nbytes(cq, ck, thr), pairs * M_BOOKS, torch.float32)
+        bms, by = cost.topl_thresholds(cq, ck, **kw).bound_ms()
         out = {"name": "topl_thresholds", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/topl_thresholds.cu",
                "replaces": "src/repro/kernels/topl_select/topl_select.py:69",
@@ -1095,6 +1086,7 @@ def check_sparse_attention(torch, gen):
     f32, on every case of _attn_cases, each launched twice with
     bit-identical outputs; timed in bf16 at the training shape (every dh)
     beside SDPA over the same selection given as a mask (dh 128)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select.ref import masked_scores, thresholds_ref
     out, worst, ms_dh = None, {}, {}
@@ -1131,10 +1123,10 @@ def check_sparse_attention(torch, gen):
                 sm = masked_scores(cq, ck, **sel)
                 kept = ref.newest_ties(sm, thr)              # (G, nq, nk)
                 rows = kept.reshape(TB * HK, HQ // HK * nq, nk).any(1)
-                moved = (nbytes(q, cq, ck, thr) + q.numel() * q.element_size()
-                         + 2 * int(rows.sum()) * dh * k.element_size())
                 pairs = int(kept.sum())
-                bms, by = bound(moved, 4 * dh * pairs, dt)
+                bms, by = cost.sparse_attention(
+                    q, k, v, cq, ck, thr, **kw, pairs=pairs,
+                    rows_read=int(rows.sum())).bound_ms()
                 # yardstick only (the port never calls it): SDPA over the
                 # same selection given as a precomputed boolean mask
                 kv = torch.arange(TB * HQ, device="cuda") // (HQ // HK)
@@ -1273,14 +1265,12 @@ def _grouped_case(torch, gen, dtn, *, b, s, d, f, g, ga, r, capf, act,
                 empty_rows=int((kept_rows == 0).sum()), c=c, stats=stats)
 
 
-def _grouped_bound(torch, case, d, f, r, dt, gated=True):
-    kept = int(case["plan"].slot_ok.sum())
-    flops = kept * (2 * d * f * 3 + 2 * r * (3 * d + 2 * f + d) if gated
-                    else 2 * d * f * 2 + 2 * r * (2 * d + 2 * f))
-    moved = (nbytes(case["x"], case["plan"].index, case["y"],
-                    *case["wts"].values())
-             + sum(nbytes(*t.values()) for t in case["lora"].values()))
-    return bound(moved, flops, dt)
+def _grouped_bound(case):
+    """Kernel 9's bound on a case's inputs (kernels/cost.py) for the
+    capacity slots its plan keeps."""
+    from repro_torch.kernels import cost
+    return cost.grouped_ffn(*case["args"], kept=int(
+        case["plan"].slot_ok.sum())).bound_ms()
 
 
 def check_grouped_ffn(torch, gen):
@@ -1352,13 +1342,13 @@ def check_grouped_ffn(torch, gen):
         lora16 = _bf16_lora(torch, bucket["lora"])
         yard = time_ms(lambda: grouped_ffn_yardstick(
             torch, args[0], args[1], bucket["wts"], lora16, 1.0), 10)
-        bms, by = _grouped_bound(torch, bucket, d, f, r, dt)
+        bms, by = _grouped_bound(bucket)
         targs = train["args"]
         tms = time_ms(lambda: ops.grouped_ffn(*targs, act="silu"), 10)
         tyard = time_ms(lambda: grouped_ffn_yardstick(
             torch, targs[0], targs[1], train["wts"],
             _bf16_lora(torch, train["lora"]), 1.0), 10)
-        tbms, _ = _grouped_bound(torch, train, d, f, r, dt)
+        tbms, _ = _grouped_bound(train)
         out = {"name": "grouped_ffn", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/grouped_ffn.cu",
                "replaces": "src/repro/kernels/routed_ffn/routed_ffn.py:187",
@@ -1406,6 +1396,7 @@ def check_decode_ffn(torch, gen):
     groups, ungated ReLU without LoRA, and LoRA rank 6 with x off 16 bytes;
     each launched twice with bit-identical outputs."""
     from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels import cost
     from repro_torch.kernels.routed_ffn import ops, ref
     d, dff, g, ga, r = 1024, 3072, 8, 4, 16
     f = dff // g
@@ -1456,12 +1447,7 @@ def check_decode_ffn(torch, gen):
         yard = time_ms(lambda: decode_ffn_yardstick(
             torch, x, choice, gate, wts, lora16, 1.0), 30)
         blocks = int(torch.unique(choice).numel())   # touched groups
-        per_block = 3 * d * f * x.element_size()
-        lora_bytes = sum(nbytes(*t.values()) for t in lora.values())
-        moved = (blocks * per_block + lora_bytes
-                 + nbytes(x, choice, gate) + b * d * x.element_size())
-        flops = b * ga * 2 * d * f * 3
-        bms, by = bound(moved, flops, dt)
+        bms, by = cost.decode_ffn(*args, act=act, blocks=blocks).bound_ms()
         out = {"name": "decode_ffn", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/decode_ffn.cu",
                "replaces": "src/repro/kernels/routed_ffn/routed_ffn.py:344",
@@ -1511,6 +1497,7 @@ def check_paper_shapes(torch, gen):
     timed by CUDA events beside its bound.  Returns {wrapper name: [case
     rows]}."""
     from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pq_quantize import ops as pq_ops
     from repro_torch.kernels.routed_ffn import ops as ffn_ops
     from repro_torch.kernels.routed_ffn import ref as ffn_ref
@@ -1531,7 +1518,7 @@ def check_paper_shapes(torch, gen):
         flips, _ = _margin_flips(torch, codes, x, cb, case)
         ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
         yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
-        bnd = bound(nbytes(x, cb, codes), g * TS * m * E_WORDS * 18, bf16)
+        bnd = cost.pq_assign(x, cb).bound_ms()
         _paper_row(out, "pq_assign", case, ms, bnd, float(flips), yard)
         cq, ck = _train_codes(torch, gen, TS, TS, g, g, m)
         kw = dict(l=_top_l(TS), max_score=m, causal=True, window=None,
@@ -1541,8 +1528,7 @@ def check_paper_shapes(torch, gen):
         if not torch.equal(thr, thresholds_ref(cq, ck, **kw)):
             raise AssertionError(f"topl_thresholds {case}: [t, need] differ")
         ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
-        pairs = g * TS * (TS + 1) // 2
-        bnd = bound(nbytes(cq, ck, thr), pairs * m, torch.float32)
+        bnd = cost.topl_thresholds(cq, ck, **kw).bound_ms()
         _paper_row(out, "topl_thresholds", case, ms, bnd, 0.0)
         q, k, v = (torch.randn(g, TS, dh, device="cuda", generator=gen).to(bf16)
                    for _ in range(3))
@@ -1556,9 +1542,9 @@ def check_paper_shapes(torch, gen):
         ms = time_ms(lambda: sa_ops.sparse_attention(
             q, k, v, cq, ck, thr, **akw), 20)
         kept = sa_ref.newest_ties(masked_scores(cq, ck, **sel), thr)
-        moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
-                 + 2 * int(kept.any(1).sum()) * dh * k.element_size())
-        bnd = bound(moved, 4 * dh * int(kept.sum()), bf16)
+        bnd = cost.sparse_attention(
+            q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
+            rows_read=int(kept.any(1).sum())).bound_ms()
         _paper_row(out, "sparse_attention", case, ms, bnd, err)
         del kept
     for label, d, f, act, gated in PAPER_FFN:
@@ -1570,7 +1556,7 @@ def check_paper_shapes(torch, gen):
         yard = time_ms(lambda: grouped_ffn_yardstick(
             torch, cs["x"], cs["plan"].index, cs["wts"], lora16, 1.0,
             act=act), 10)
-        bnd = _grouped_bound(torch, cs, d, f, 16, bf16, gated)
+        bnd = _grouped_bound(cs)
         _paper_row(out, "grouped_ffn", f"{label} train (x (4, 1024, {d}), "
                    f"F={f}, {act}{' gated' if gated else ''}, C={cs['c']}, "
                    "LoRA r=16)", ms, bnd, cs["err"], yard)
@@ -1614,11 +1600,10 @@ def check_paper_shapes(torch, gen):
         q, k, v, cq, ck, valid, **kw), 30)
     read, pairs = _rows_read(sa_ref, cq, ck, valid,
                              {x: kw[x] for x in kw if x != "scale"})
-    live = int(valid.sum()) * hk
-    moved = (2 * nbytes(q) + nbytes(cq, valid) + live * m
-             + 2 * read * dh * k.element_size())
-    _paper_row(out, "fused_sparse_decode_attention", case, ms,
-               bound(moved, 4 * dh * pairs, bf16), err)
+    bnd = cost.fused_sparse_decode_attention(
+        q, k, v, cq, ck, valid, **kw, live=int(valid.sum()) * hk,
+        pairs=pairs, rows_read=read).bound_ms()
+    _paper_row(out, "fused_sparse_decode_attention", case, ms, bnd, err)
     d, f, ga, r = 2560, 1280, 4, 16
     rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=8 * f, num_groups=8,
                               active_groups=ga, activation="relu",
@@ -1638,12 +1623,9 @@ def check_paper_shapes(torch, gen):
     lora16 = _bf16_lora(torch, lora)
     yard = time_ms(lambda: decode_ffn_yardstick(
         torch, x, choice, gate, wts, lora16, 1.0, act="relu"), 30)
-    blocks = int(torch.unique(choice).numel())
-    moved = (blocks * 2 * d * f * x.element_size()
-             + sum(nbytes(*t.values()) for t in lora.values())
-             + nbytes(x, choice, gate) + b * d * x.element_size())
-    _paper_row(out, "decode_ffn", case, ms,
-               bound(moved, b * ga * 2 * d * f * 2, bf16), err, yard)
+    bnd = cost.decode_ffn(*args, act="relu", blocks=int(
+        torch.unique(choice).numel())).bound_ms()
+    _paper_row(out, "decode_ffn", case, ms, bnd, err, yard)
     return out
 
 
@@ -1665,6 +1647,7 @@ def check_moe_shapes(torch, gen):
     limit ops.decode_ffn_max_d states).  Returns {wrapper name: [case
     rows]}."""
     from repro_torch import configs
+    from repro_torch.kernels import cost
     from repro_torch.kernels.routed_ffn import ops as ffn_ops
     from repro_torch.kernels.routed_ffn import ref as ffn_ref
     from repro_torch.models import moe
@@ -1693,12 +1676,9 @@ def check_moe_shapes(torch, gen):
         yard = time_ms(lambda: decode_ffn_yardstick(
             torch, x, choice, gate, wts, _bf16_lora(torch, lora), 1.0,
             act=act), 20)
-        moved = (blocks * 3 * d * f * x.element_size()
-                 + sum(nbytes(*t.values()) for t in lora.values())
-                 + nbytes(x, choice, gate) + b * d * x.element_size())
         _paper_row(out, "decode_ffn", case, ms,
-                   bound(moved, b * k * 2 * d * f * 3, bf16), err, yard,
-                   tag="moe")
+                   cost.decode_ffn(*args, act=act, blocks=blocks).bound_ms(),
+                   err, yard, tag="moe")
         out["decode_ffn"][-1]["plain_ms"] = plain
         del y, args
         cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=d, f=f, g=e,
@@ -1714,7 +1694,7 @@ def check_moe_shapes(torch, gen):
         yard = time_ms(lambda: grouped_ffn_yardstick(
             torch, cs["x"], cs["plan"].index, cs["wts"],
             _bf16_lora(torch, cs["lora"]), 1.0, act=act), 10)
-        bnd = _grouped_bound(torch, cs, d, f, r, bf16)
+        bnd = _grouped_bound(cs)
         _paper_row(out, "grouped_ffn", f"{arch} train (x ({TB}, {TS}, {d}), "
                    f"F={f}, {act} gated, {e} experts top-{k}, C={cs['c']}, "
                    f"{int(cs['plan'].slot_ok.sum())} kept slots, LoRA "
@@ -1770,6 +1750,7 @@ def check_hybrid_shapes(torch, gen):
     (codes by the margin rule, [t, need] exactly), and timed by CUDA
     events beside its bound.  Returns {wrapper name: [case rows]}."""
     from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pq_quantize import ops as pq_ops
     from repro_torch.kernels.routed_ffn import ops as ffn_ops
     from repro_torch.kernels.routed_ffn import ref as ffn_ref
@@ -1792,10 +1773,8 @@ def check_hybrid_shapes(torch, gen):
         flips, _ = _margin_flips(torch, codes, x, cb, case)
         ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
         yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
-        bnd = bound(nbytes(x, cb, codes), groups * TS * m * E_WORDS * 18,
-                    bf16)
-        _paper_row(out, "pq_assign", case, ms, bnd, float(flips), yard,
-                   tag="hybrid")
+        _paper_row(out, "pq_assign", case, ms, cost.pq_assign(x, cb).bound_ms(),
+                   float(flips), yard, tag="hybrid")
     for label, b, n, dts in (("train", TB, TS, ("bfloat16",)),
                              ("window binds", 1, 2560,
                               ("bfloat16", "float32"))):
@@ -1813,10 +1792,9 @@ def check_hybrid_shapes(torch, gen):
         sm = masked_scores(cq, ck, **sel)
         if label == "train":
             ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
-            pairs = int((sm >= 0).sum())                # admitted pairs
             _paper_row(out, "topl_thresholds", case, ms,
-                       bound(nbytes(cq, ck, thr), pairs * m, torch.float32),
-                       0.0, tag="hybrid")
+                       cost.topl_thresholds(cq, ck, **kw).bound_ms(), 0.0,
+                       tag="hybrid")
         kept = sa_ref.newest_ties(sm, thr)
         del sm
         for dtn in dts:
@@ -1837,11 +1815,11 @@ def check_hybrid_shapes(torch, gen):
             ms = time_ms(lambda: sa_ops.sparse_attention(
                 q, k, v, cq, ck, thr, **akw), 20)
             rows = kept.reshape(gkv, hq * n, n).any(1)
-            moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
-                     + 2 * int(rows.sum()) * dh * k.element_size())
-            _paper_row(out, "sparse_attention", f"{case} {dtn}", ms,
-                       bound(moved, 4 * dh * int(kept.sum()), bf16), err,
-                       tag="hybrid")
+            bnd = cost.sparse_attention(
+                q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
+                rows_read=int(rows.sum())).bound_ms()
+            _paper_row(out, "sparse_attention", f"{case} {dtn}", ms, bnd,
+                       err, tag="hybrid")
         del kept
     cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=HYB_D, f=HYB_F,
                        g=8, ga=4, r=16, capf=1.25, act="gelu", gated=True)
@@ -1853,7 +1831,7 @@ def check_hybrid_shapes(torch, gen):
         act="gelu"), 10)
     _paper_row(out, "grouped_ffn", f"recurrentgemma-9b train (x (4, 1024, "
                f"{HYB_D}), F={HYB_F}, GeGLU, C={cs['c']}, LoRA r=16)", ms,
-               _grouped_bound(torch, cs, HYB_D, HYB_F, 16, bf16), cs["err"],
+               _grouped_bound(cs), cs["err"],
                yard, tag="hybrid")
     b, d, f, ga, r = 8, HYB_D, HYB_F, 4, 16
     rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=8 * f, num_groups=8,
@@ -1874,13 +1852,9 @@ def check_hybrid_shapes(torch, gen):
     lora16 = _bf16_lora(torch, lora)
     yard = time_ms(lambda: decode_ffn_yardstick(
         torch, x, choice, gate, wts, lora16, 1.0, act="gelu"), 30)
-    blocks = int(torch.unique(choice).numel())
-    moved = (blocks * 3 * d * f * x.element_size()
-             + sum(nbytes(*t.values()) for t in lora.values())
-             + nbytes(x, choice, gate) + b * d * x.element_size())
-    _paper_row(out, "decode_ffn", case, ms,
-               bound(moved, b * ga * 2 * d * f * 3, bf16), err, yard,
-               tag="hybrid")
+    bnd = cost.decode_ffn(*args, act="gelu", blocks=int(
+        torch.unique(choice).numel())).bound_ms()
+    _paper_row(out, "decode_ffn", case, ms, bnd, err, yard, tag="hybrid")
     return out
 
 
@@ -1926,6 +1900,7 @@ def check_family_shapes(torch, gen):
     events beside its bound (kernels 1, 9 and 10 also beside their torch
     yardsticks).  Returns {wrapper name: [case rows]}."""
     from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pq_quantize import ops as pq_ops
     from repro_torch.kernels.routed_ffn import ops as ffn_ops
     from repro_torch.kernels.routed_ffn import ref as ffn_ref
@@ -1948,8 +1923,8 @@ def check_family_shapes(torch, gen):
             ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
             yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
             _paper_row(out, "pq_assign", case, ms,
-                       bound(nbytes(x, cb, codes), g * n * m * E_WORDS * 18,
-                             bf16), float(flips), yard, tag=tag)
+                       cost.pq_assign(x, cb).bound_ms(), float(flips), yard,
+                       tag=tag)
         cq, ck = _train_codes(torch, gen, nq, nk, g, g, m)
         sel = dict(causal=causal, window=None, q_offset=0,
                    heads_per_batch=heads, rep=1)
@@ -1963,8 +1938,8 @@ def check_family_shapes(torch, gen):
         sm = masked_scores(cq, ck, **sel)
         ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
         _paper_row(out, "topl_thresholds", case, ms,
-                   bound(nbytes(cq, ck, thr), int((sm >= 0).sum()) * m,
-                         torch.float32), 0.0, tag=tag)
+                   cost.topl_thresholds(cq, ck, **kw).bound_ms(), 0.0,
+                   tag=tag)
         kept = sa_ref.newest_ties(sm, thr)
         del sm
         for dtn in dts:
@@ -1984,11 +1959,11 @@ def check_family_shapes(torch, gen):
                 continue
             ms = time_ms(lambda: sa_ops.sparse_attention(
                 q, k, v, cq, ck, thr, **akw), 20)
-            moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
-                     + 2 * int(kept.any(1).sum()) * dh * k.element_size())
-            _paper_row(out, "sparse_attention", f"{case} {dtn}", ms,
-                       bound(moved, 4 * dh * int(kept.sum()), bf16), err,
-                       tag=tag)
+            bnd = cost.sparse_attention(
+                q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
+                rows_read=int(kept.any(1).sum())).bound_ms()
+            _paper_row(out, "sparse_attention", f"{case} {dtn}", ms, bnd,
+                       err, tag=tag)
         del kept
     for label, d, f, act, gated, rows in FAMILY_FFN:
         cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=rows, d=d, f=f,
@@ -2002,7 +1977,7 @@ def check_family_shapes(torch, gen):
         form = "gated" if gated else "ungated"
         _paper_row(out, "grouped_ffn", f"{label} train (x ({TB}, {rows}, "
                    f"{d}), F={f}, {act} {form}, C={cs['c']}, LoRA r=16)", ms,
-                   _grouped_bound(torch, cs, d, f, 16, bf16, gated),
+                   _grouped_bound(cs),
                    cs["err"], yard, tag=tag)
         b, ga, r = 8, 4, 16
         rcfg = rf.RoutedFFNConfig(d_model=d, d_ff=8 * f, num_groups=8,
@@ -2025,14 +2000,9 @@ def check_family_shapes(torch, gen):
         lora16 = _bf16_lora(torch, lora)
         yard = time_ms(lambda: decode_ffn_yardstick(
             torch, x, choice, gate, wts, lora16, 1.0, act=act), 30)
-        mats = 3 if gated else 2
-        moved = (int(torch.unique(choice).numel()) * mats * d * f
-                 * x.element_size()
-                 + sum(nbytes(*t.values()) for t in lora.values())
-                 + nbytes(x, choice, gate) + b * d * x.element_size())
-        _paper_row(out, "decode_ffn", case, ms,
-                   bound(moved, b * ga * 2 * d * f * mats, bf16), err, yard,
-                   tag=tag)
+        bnd = cost.decode_ffn(*args, act=act, blocks=int(
+            torch.unique(choice).numel())).bound_ms()
+        _paper_row(out, "decode_ffn", case, ms, bnd, err, yard, tag=tag)
     return out
 
 
@@ -3860,6 +3830,7 @@ def check_mesh_shapes(torch, gen):
     timed beside the bound and the yardstick (kernel 1: baddbmm + argmin;
     kernel 4: SDPA over the same selection as a mask; kernel 9: torch
     bf16).  Returns {wrapper name: [case rows]}."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.pq_quantize import ops as pq_ops
     from repro_torch.kernels.routed_ffn import ops as ffn_ops
     from repro_torch.kernels.sparse_attention import ops as sa_ops
@@ -3881,10 +3852,9 @@ def check_mesh_shapes(torch, gen):
             flips, _ = _margin_flips(torch, codes, x, cb, case)
             ms = time_ms(lambda: pq_ops.pq_assign(x, cb), 30)
             yard = time_ms(lambda: pq_yardstick(torch, x, cb), 10)
-            _paper_row(out, "pq_assign", case, ms, bound(
-                nbytes(x, cb, codes), x.numel() // DH * M_BOOKS * E_WORDS
-                * (2 * (DH // M_BOOKS) + 2), bf16), float(flips), yard,
-                tag=tag)
+            _paper_row(out, "pq_assign", case, ms,
+                       cost.pq_assign(x, cb).bound_ms(), float(flips), yard,
+                       tag=tag)
         cq, ck = _train_codes(torch, gen, TS, TS, TB * hq, TB * hk)
         sel = dict(causal=True, window=None, q_offset=0, heads_per_batch=hq,
                    rep=hq // hk)
@@ -3897,8 +3867,8 @@ def check_mesh_shapes(torch, gen):
         sm = masked_scores(cq, ck, **sel)
         ms = time_ms(lambda: topl_ops.topl_thresholds(cq, ck, **kw), 30)
         _paper_row(out, "topl_thresholds", case, ms,
-                   bound(nbytes(cq, ck, thr), int((sm >= 0).sum()) * M_BOOKS,
-                         torch.float32), 0.0, tag=tag)
+                   cost.topl_thresholds(cq, ck, **kw).bound_ms(), 0.0,
+                   tag=tag)
         kept = sa_ref.newest_ties(sm, thr)                  # (G, nq, nk)
         del sm
         q = torch.randn(TB * hq, TS, DH, device="cuda", generator=gen).to(bf16)
@@ -3912,16 +3882,16 @@ def check_mesh_shapes(torch, gen):
         ms = time_ms(lambda: sa_ops.sparse_attention(q, k, v, cq, ck, thr,
                                                      **akw), 20)
         rows = kept.reshape(TB * hk, hq // hk * TS, TS).any(1)
-        moved = (2 * nbytes(q) + nbytes(cq, ck, thr)
-                 + 2 * int(rows.sum()) * DH * k.element_size())
+        bnd = cost.sparse_attention(
+            q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
+            rows_read=int(rows.sum())).bound_ms()
         kv = torch.arange(TB * hq, device="cuda") // (hq // hk)
         q4, k4, v4 = (t.reshape(TB, hq, TS, DH) for t in (q, k[kv], v[kv]))
         mask = kept.reshape(TB, hq, TS, TS)
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, scale=DH ** -0.5), 20)
-        _paper_row(out, "sparse_attention", f"{case} bf16", ms,
-                   bound(moved, 4 * DH * int(kept.sum()), bf16), err, sdpa,
-                   tag=tag)
+        _paper_row(out, "sparse_attention", f"{case} bf16", ms, bnd, err,
+                   sdpa, tag=tag)
         del kept, mask, q4, k4, v4
         f = 3072 // 8 // n
         cs = _grouped_case(torch, gen, "bfloat16", b=TB, s=TS, d=1024, f=f,
@@ -3934,7 +3904,7 @@ def check_mesh_shapes(torch, gen):
             torch, cs["x"], cs["plan"].index, cs["wts"], lora16, 1.0), 10)
         _paper_row(out, "grouped_ffn", f"model={n} train (x ({TB}, {TS}, "
                    f"1024), F={f} of 384, silu gated, C={cs['c']}, LoRA "
-                   "r=16)", ms, _grouped_bound(torch, cs, 1024, f, 16, bf16),
+                   "r=16)", ms, _grouped_bound(cs),
                    cs["err"], yard, tag=tag)
     return out
 
@@ -4065,6 +4035,7 @@ def check_mesh_serve_shapes(torch, gen):
     f32, twice bit-identically, the bf16 case timed beside its bound and
     the bf16 torch yardstick).  Returns {wrapper name: [case rows]}."""
     from repro_torch.core import routed_ffn as rf
+    from repro_torch.kernels import cost
     from repro_torch.kernels.routed_ffn import ops, ref
     out = {}
     for edge in MESH_SERVE_EDGES:
@@ -4103,13 +4074,10 @@ def check_mesh_serve_shapes(torch, gen):
                 yard = time_ms(lambda: decode_ffn_yardstick(
                     torch, x, choice, gate, wts, _bf16_lora(torch, lora), 1.0,
                     act=act), 30)
-                blocks = int(torch.unique(choice).numel())
-                moved = (blocks * 3 * d * f * x.element_size()
-                         + sum(nbytes(*t.values()) for t in lora.values())
-                         + nbytes(x, choice, gate) + b * d * x.element_size())
-                _paper_row(out, "decode_ffn", case, ms,
-                           bound(moved, b * ga * 2 * d * f * 3, dt), err,
-                           yard, tag="meshserve")
+                bnd = cost.decode_ffn(*args, act=act, blocks=int(
+                    torch.unique(choice).numel())).bound_ms()
+                _paper_row(out, "decode_ffn", case, ms, bnd, err, yard,
+                           tag="meshserve")
     return out
 
 
@@ -4674,12 +4642,222 @@ def infra_resume(torch):
     return launches
 
 
+# ------------------------------------------------------------ phase 26
+DRY_TRAIN = (TB, TS)         # rows x tokens of phase 26's train step
+DRY_DECODE = (8, 4096)       # slots x max_len of its decode step
+DRY_PEAK_TOL = 0.10          # predicted peak vs max_memory_allocated
+# the step's own growth (max_memory_allocated less the bytes allocated at
+# its start) vs the trace's temporaries: the allocator rounds each block
+# up to 512 B, which put the growth 0 B (decode) and 5,588 B (train) past
+# the count on an H100; the warm-up step has made the stream's cuBLAS
+# workspace already, so no workspace term enters
+DRY_GROWTH_ABS = 256 * 1024
+DRY_GROWTH_REL = 1e-3
+_GROUPED_SHAPES = set()      # (dtype, d, F) of every kernel-9 launch
+
+
+def record_grouped_shapes():
+    """Wrap kernel 9's wrapper (in its module, where every caller looks it
+    up) to note each launch's (dtype, d, F): phase 26 holds the h scratch
+    rule kernels/cost.py restates to the built library's at every one.
+    The wrapper counts ``grouped_ffn.launches`` on the module's global,
+    which is then this wrapper, so launch counts stay exact."""
+    import functools
+    from repro_torch.kernels.routed_ffn import ops
+    inner = ops.grouped_ffn
+
+    @functools.wraps(inner)
+    def grouped_ffn(x, index, w_inner, *args, **kw):
+        if x.is_cuda:
+            _GROUPED_SHAPES.add((x.dtype, x.shape[-1], w_inner.shape[-1]))
+        return inner(x, index, w_inner, *args, **kw)
+    ops.grouped_ffn = grouped_ffn
+
+
+def _dry_free(torch):
+    """Free what earlier phases left: their tensors, and the cuBLAS
+    workspaces (32 MiB a stream that ran a GEMM; phase 25's threads leave
+    six), which the allocator counts but no step of this phase owns.  The
+    warm-up step allocates its stream's again."""
+    _free(torch)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    _free(torch)
+
+
+def _dry_counted(torch, step, args, profile=False):
+    """``step(*args)`` once on the card under a roofline counter
+    (launch/dryrun.count), launch counters zeroed just before and read
+    just after, the allocator's peak reset just before; with
+    ``profile`` under the profiler too.  Returns (counter, launches,
+    max_memory_allocated, bytes allocated at the start, device ms or
+    None)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for w in wrappers:
+        w.launches = 0
+    device = None
+    if profile:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            counter = dryrun.count(step, args)
+            torch.cuda.synchronize()
+        device = sum(getattr(e, "self_device_time_total", 0)
+                     for e in prof.key_averages()) / 1e3
+    else:
+        counter = dryrun.count(step, args)
+        torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers if w.launches}
+    return (counter, launches, torch.cuda.max_memory_allocated(), start,
+            device)
+
+
+def _dry_compare(label, meta, card, launches, peak, start, card_line_):
+    """The card's counts equal the meta trace's exactly (FLOPs, HBM
+    bytes in all and by op, kernel calls by name), the kernel calls equal
+    the launch counters, the trace's predicted peak is within
+    DRY_PEAK_TOL of the allocator's, and the step's own growth within
+    DRY_GROWTH_ABS or DRY_GROWTH_REL (the larger) of the trace's
+    temporaries."""
+    from repro_torch.launch import roofline
+    for what in ("flops", "hbm_bytes", "bytes_by_op"):
+        if getattr(meta, what) != getattr(card, what):
+            raise AssertionError(f"{label}: {what} on the card "
+                                 f"{getattr(card, what)} != trace "
+                                 f"{getattr(meta, what)}")
+    if meta.kernel_calls() != card.kernel_calls():
+        raise AssertionError(f"{label}: kernel calls on the card "
+                             f"{card.kernel_calls()} != trace "
+                             f"{meta.kernel_calls()}")
+    if card.kernel_calls() != launches:
+        raise AssertionError(f"{label}: kernel calls {card.kernel_calls()} "
+                             f"!= launches {launches}")
+    mem = meta.memory()
+    pred = mem["peak_bytes"]
+    gap = (pred - peak) / peak
+    temps, growth = mem["temp_size_in_bytes"], peak - start
+    print(f"  {label}: FLOPs {card.flops}, HBM bytes {card.hbm_bytes} "
+          f"({card.aten_ops} aten ops on the card, {meta.aten_ops} in the "
+          f"trace), kernel calls {json.dumps(card.kernel_calls())} = "
+          f"launches, equal to the meta trace; predicted peak {pred} B "
+          f"(arguments {mem['argument_size_in_bytes']}, temporaries "
+          f"{temps}) vs max_memory_allocated {peak} B "
+          f"({start} B allocated at the start, "
+          f"{start - mem['argument_size_in_bytes']} B of them not the "
+          f"step's arguments): {gap:+.2%}; the step's growth {growth} B vs "
+          f"the temporaries: {growth - temps:+d} B [{card_line_}]",
+          flush=True)
+    if abs(gap) > DRY_PEAK_TOL:
+        raise AssertionError(f"{label}: predicted peak {pred} B off the "
+                             f"card's {peak} B by {gap:+.2%}")
+    if abs(growth - temps) > max(DRY_GROWTH_ABS, DRY_GROWTH_REL * temps):
+        raise AssertionError(f"{label}: the step grew the allocator by "
+                             f"{growth} B, the trace's temporaries are "
+                             f"{temps} B")
+    return roofline.analyze(meta)
+
+
+def dryrun_check(torch):
+    """Phase 26: full-width qwen3-0.6b (CUT_DEPTH layers, bf16, the
+    kernels on) through one train step at DRY_TRAIN and one decode step
+    at DRY_DECODE, each traced on the meta device (launch/dryrun.py,
+    target "cuda"), then run on the card under the same counter after a
+    warm-up: FLOPs, HBM bytes and kernel calls equal, calls equal to the
+    launch counters, the predicted peak within DRY_PEAK_TOL of
+    max_memory_allocated and the step's growth near the trace's
+    temporaries; the train step's profiled device time beside
+    the count's t_bound (printed, not gated); kernel 9's h scratch rule
+    (kernels/cost.py) equal to the library's at every (dtype, d, F) it
+    launched at.  Returns the launches by path."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import cost
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.train import state as S
+    card = card_line()
+    cfg = _train_cfg(torch, num_layers=CUT_DEPTH)
+    out = {}
+    # the train step
+    rows, seq = DRY_TRAIN
+    shape = ShapeSpec("dry_train", "train", seq, rows)
+    t0 = time.perf_counter()
+    meta = dryrun.trace_cell(cfg, shape, None)
+    t_trace = time.perf_counter() - t0
+    step = dryrun.cell_step(cfg, shape)
+    _dry_free(torch)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+               for b in _batches(cfg, rows, seq, 2, seed=26)]
+    state = S.init_state(cfg, seed=0, device="cuda")
+    state, _ = step(state, batches[0])               # warm-up
+    counted, launches, peak, start, device_ms = _dry_counted(
+        torch, step, (state, batches[1]), profile=True)
+    rl = _dry_compare(f"train {rows} x {seq}", meta, counted, launches, peak,
+                      start, card)
+    print(f"  train step: the most HBM bytes by op (count) "
+          f"{json.dumps(meta.top_bytes(6))}", flush=True)
+    print(f"  train step: profiler device time {device_ms:.1f} ms vs the "
+          f"count's t_bound {rl.t_bound * 1e3:.1f} ms ({rl.bottleneck}; "
+          f"t_compute {rl.t_compute * 1e3:.1f} ms, t_memory "
+          f"{rl.t_memory * 1e3:.1f} ms; datasheet constants) [{card}]; "
+          f"trace took {t_trace:.1f} s", flush=True)
+    out["dryrun_train"] = launches
+    del state, batches, counted
+    _dry_free(torch)
+    # the decode step
+    slots, max_len = DRY_DECODE
+    shape = ShapeSpec("dry_decode", "decode", max_len, slots)
+    t0 = time.perf_counter()
+    meta = dryrun.trace_cell(cfg, shape, None)
+    t_trace = time.perf_counter() - t0
+    model = transformer.LM.init(cfg, seed=0, device="cuda")
+    caches = transformer.init_caches(cfg, slots, max_len, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    token = torch.randint(0, cfg.vocab_size, (slots,), device="cuda",
+                          generator=gen, dtype=torch.int32)
+    step = dryrun.cell_step(cfg, shape, model)
+    step(model, caches, token, torch.tensor(0, dtype=torch.int32,
+                                            device="cuda"))   # warm-up
+    counted, launches, peak, start, _ = _dry_counted(
+        torch, step, (model, caches, token,
+                      torch.tensor(1, dtype=torch.int32, device="cuda")))
+    rl = _dry_compare(f"decode {slots} slots x {max_len}", meta, counted,
+                      launches, peak, start, card)
+    print(f"  decode step: t_bound {rl.t_bound * 1e3:.3f} ms "
+          f"({rl.bottleneck}; datasheet constants); trace took "
+          f"{t_trace:.1f} s", flush=True)
+    out["dryrun_decode"] = launches
+    del model, caches, counted
+    _free(torch)
+    # kernel 9's h scratch: the restated rule against the library's
+    lib = kernels.library()
+    shapes = sorted(_GROUPED_SHAPES, key=str)
+    if not shapes:
+        raise AssertionError("no kernel-9 launch was recorded")
+    bad = [(str(dt), d, f) for dt, d, f in shapes
+           if cost.grouped_ffn_h_elems(dt, d, f) != lib.repro_grouped_ffn_h_elems(
+               {torch.float32: 0, torch.bfloat16: 1}[dt], d, f)]
+    if bad:
+        raise AssertionError(f"kernel 9's h scratch rule differs from the "
+                             f"library's at {bad}")
+    wide = sum(cost.grouped_ffn_h_elems(dt, d, f) > 0 for dt, d, f in shapes)
+    print(f"  kernel 9's h scratch rule equals the library's at the "
+          f"{len(shapes)} (dtype, d, F) launched ({wide} take the wide "
+          f"form)", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
                                        "families", "infra", "mesh",
-                                       "meshserve"),
+                                       "meshserve", "dryrun"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -4689,8 +4867,8 @@ def main() -> int:
                          "the hybrid family (1-3, 16-18), the VLM, SSM "
                          "and audio families (1-3, 19-22), checkpoint/"
                          "restart (1-3, 23), multi-GPU fine-tuning "
-                         "(1-3, 24) or serving under a mesh (1-3, 25) "
-                         "alone")
+                         "(1-3, 24), serving under a mesh (1-3, 25) or "
+                         "the dry run against the card (1-3, 26) alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -4728,6 +4906,8 @@ def main() -> int:
     if not bodies or not all(n["HMMA"] + n["HGMMA"] for n in bodies):
         raise AssertionError("sparse_attention's bf16 body has no HMMA or "
                              "HGMMA in its SASS")
+    if args.only in (None, "dryrun"):
+        record_grouped_shapes()
     # 3. kernels against their plain versions, in the order of the TPU
     # kernels they replace
     t0 = time.perf_counter()
@@ -4787,7 +4967,8 @@ def main() -> int:
                        "audio_train", "infra_train", "mesh_train",
                        "mesh_train_shmap", "mesh_serve",
                        "mesh_serve_paged", "mesh_serve_hybrid",
-                       "mesh_serve_shards")}
+                       "mesh_serve_shards", "dryrun_train",
+                       "dryrun_decode")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -4947,6 +5128,17 @@ def main() -> int:
             row["mesh_serve_shapes"] = serve_shapes.get(row["name"], [])
         paths.update(mesh_serve(torch))
         print(f"[25] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "dryrun"):
+        # 26. the dry run's counts against the card's
+        t0 = time.perf_counter()
+        print(f"[26] the dry run against the card: full-width qwen3-0.6b "
+              f"({CUT_DEPTH} layers) bf16, a train step at {DRY_TRAIN[0]} x "
+              f"{DRY_TRAIN[1]} and a decode step at {DRY_DECODE[0]} slots x "
+              f"{DRY_DECODE[1]}, traced on meta and run on the card",
+              flush=True)
+        for name, got in dryrun_check(torch).items():
+            paths[name].update(got)
+        print(f"[26] took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -8,6 +8,8 @@ Family rules: for ``audio`` (encoder-decoder) the sequence length is the
 decoder's and the encoder frames are separate; for a ``vlm`` the
 frontend rows and the text share the sequence length, so the text is
 max(1, seq_len - frontend_tokens) tokens.
+``abstract_inputs`` gives them as meta tensors at one rank's rows, for a
+dry run (launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -72,4 +74,26 @@ def materialize(specs: Dict[str, TensorSpec], generator: torch.Generator,
         else:
             out[name] = torch.randn(spec.shape, generator=generator,
                                     device=dev).to(spec.dtype)
+    return out
+
+
+def abstract_inputs(specs: Dict[str, TensorSpec], data: int = 1,
+                    replicate: bool = False) -> Dict[str, torch.Tensor]:
+    """The inputs of ``specs`` as meta tensors (shapes, no data) as one
+    rank of a mesh with ``data`` data ranks is given them: the rows (dim
+    0) of every batch input divided over the data ranks (train/prefill,
+    ``data/pipeline.rank_rows``; a decode batch's slots, the serving
+    engine's), ``pos`` whole.  Rows that do not divide raise, as
+    ``rank_rows`` does, unless ``replicate`` (the engine keeps slots that
+    do not divide on every rank)."""
+    out = {}
+    for name, spec in specs.items():
+        shape = tuple(spec.shape)
+        if shape and data > 1:
+            if shape[0] % data == 0:
+                shape = (shape[0] // data,) + shape[1:]
+            elif not replicate:
+                raise ValueError(f"{name}: {shape[0]} rows do not split "
+                                 f"over {data} data ranks")
+        out[name] = torch.empty(shape, dtype=spec.dtype, device="meta")
     return out

@@ -54,6 +54,11 @@ Serving runs forward only, on parameters sliced once (``local_tree``):
 place, and ``all_gather_flat`` brings one flat vector per rank of the
 data axis to every rank (the engine's one host transfer per chunk).
 Both cost nothing at extent 1.
+
+Every collective goes through :func:`_issue`, which records its kind and
+its result's bytes (JAX's ``collective_bytes`` convention) into an active
+roofline counter (``kernels/cost.record_collective``) before it calls
+torch.distributed.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.params import unflatten
+from repro_torch.kernels import cost
 from repro_torch.sharding.context import current_rules
 
 BATCH_AXES = ("pod", "data")
@@ -110,6 +116,12 @@ def mesh_axis(mesh, names: Union[str, Sequence[str]]) -> Optional[Axis]:
     return _FLAT_GROUPS[key]
 
 
+def forget_groups() -> None:
+    """Drop the flattened axes' groups (their process group is being
+    destroyed, and a later mesh may reuse its id)."""
+    _FLAT_GROUPS.clear()
+
+
 def axis(names: Union[str, Sequence[str]]) -> Optional[Axis]:
     """:func:`mesh_axis` of the mesh in the current rules."""
     rules = current_rules()
@@ -127,18 +139,43 @@ def batch_axis() -> Optional[Axis]:
 
 
 # ------------------------------------------------------ plain collectives
+def _issue(kind: str, result_bytes: int, call) -> None:
+    """Issue one collective, ``call()``, of ``kind`` (JAX's names:
+    all-reduce, all-gather, reduce-scatter) whose result holds
+    ``result_bytes``: the one place the port calls torch.distributed's
+    collectives, so a roofline counter sees each of them."""
+    cost.record_collective(kind, result_bytes)
+    call()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    _issue("all-reduce", _nbytes(t), lambda: dist.all_reduce(
+        t, op=op or dist.ReduceOp.SUM, group=group))
+    return t
+
+
+def _gather_parts(x: torch.Tensor, ax: Axis) -> list:
+    """Every rank's ``x`` (contiguous, same shape), in rank order."""
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    _issue("all-gather", _nbytes(x) * ax.size, lambda: dist.all_gather(
+        parts, x.contiguous(), group=ax.group))
+    return parts
+
+
 def all_reduce_(t: torch.Tensor, ax: Optional[Axis], op=None
                 ) -> torch.Tensor:
     """Sum (or ``op``) ``t`` over ``ax`` in place; no autograd."""
     if ax is not None:
-        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=ax.group)
+        _all_reduce(t, ax.group, op)
     return t
 
 
 def _all_gather(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
-    dist.all_gather(parts, x.contiguous(), group=ax.group)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(_gather_parts(x, ax), dim=dim)
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
@@ -147,7 +184,8 @@ def _reduce_scatter(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
                          f"over {ax.size} ranks")
     parts = [c.contiguous() for c in x.chunk(ax.size, dim=dim)]
     out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=ax.group)
+    _issue("reduce-scatter", _nbytes(out), lambda: dist.reduce_scatter(
+        out, parts, group=ax.group))
     return out
 
 
@@ -203,9 +241,7 @@ class _SplitSeq(torch.autograd.Function):
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=ax.group)
-        return x
+        return _all_reduce(x.contiguous().clone(), ax.group)
 
     @staticmethod
     def backward(ctx, g):
@@ -216,9 +252,7 @@ class _Pmean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
         ctx.ax = ax
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=ax.group)
-        return x / ax.size
+        return _all_reduce(x.contiguous().clone(), ax.group) / ax.size
 
     @staticmethod
     def backward(ctx, g):
@@ -298,12 +332,9 @@ class _EnterRegion(torch.autograd.Function):
         out = [_reduce_scatter(gx, SEQ, ax)]
         for g, d in zip(gl, how):
             if d is None:
-                g = g.contiguous().clone()
-                dist.all_reduce(g, group=ax.group)
-                out.append(g)
+                out.append(_all_reduce(g.contiguous().clone(), ax.group))
             elif isinstance(d, Pick):
-                parts = [torch.empty_like(g) for _ in range(ax.size)]
-                dist.all_gather(parts, g.contiguous(), group=ax.group)
+                parts = _gather_parts(g, ax)
                 shape = list(g.shape)
                 shape[d.dim] = ctx.whole[len(out) - 1]
                 whole = g.new_zeros(shape)
@@ -386,15 +417,11 @@ class _RegionSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
         ctx.ax = ax
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=ax.group)
-        return x
+        return _all_reduce(x.contiguous().clone(), ax.group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.ax.group)
-        return g, None
+        return _all_reduce(g.contiguous().clone(), ctx.ax.group), None
 
 
 def region_sum(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
@@ -434,9 +461,7 @@ def model_sum(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     the identity at extent 1."""
     if ax is None:
         return x
-    x = x.contiguous()
-    dist.all_reduce(x, group=ax.group)
-    return x
+    return _all_reduce(x.contiguous(), ax.group)
 
 
 def all_gather_flat(v: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
@@ -444,14 +469,12 @@ def all_gather_flat(v: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     order, in one all-gather ((1, L) at extent 1)."""
     if ax is None:
         return v[None]
-    parts = [torch.empty_like(v) for _ in range(ax.size)]
-    dist.all_gather(parts, v.contiguous(), group=ax.group)
-    return torch.stack(parts)
+    return torch.stack(_gather_parts(v, ax))
 
 
 def all_reduce_flat(v: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     """The sum over ``ax`` of the flat vector ``v`` (a copy)."""
     v = v.clone()
     if ax is not None:
-        dist.all_reduce(v, group=ax.group)
+        _all_reduce(v, ax.group)
     return v

@@ -25,6 +25,15 @@ class DispatchPlan:
     dropped: torch.Tensor    # () f32 — dropped share of (token, choice) pairs
 
 
+def one_hot(x: torch.Tensor, n: int, dtype=torch.int64) -> torch.Tensor:
+    """``F.one_hot(x, n)`` as ``dtype`` (values in [0, n)) through the same
+    ops on every device: torch's own takes a min/max check and a scatter
+    on the CPU, a scatter on a card and a compare on the meta device, so a
+    dry run (launch/dryrun.py) would count another path than it runs."""
+    ar = torch.arange(n, device=x.device, dtype=x.dtype)
+    return (x.unsqueeze(-1) == ar).to(dtype)
+
+
 def capacity(tokens_per_seq: int, num_groups: int, topk: int,
              capacity_factor: float, pad: int = 8) -> int:
     """Slots per (sequence, group), padded to a multiple of ``pad``."""
@@ -54,7 +63,7 @@ def make_plan(choice: torch.Tensor, gate: torch.Tensor, num_groups: int,
     dev = choice.device
     flat_choice = choice.reshape(b, s * k).long()
     flat_gate = gate.reshape(b, s * k).float()
-    oh = torch.nn.functional.one_hot(flat_choice, num_groups)  # (B,SK,G)
+    oh = one_hot(flat_choice, num_groups)           # (B, SK, G)
     ranks = oh.cumsum(1) - oh                       # exclusive, per seq
     rank = (ranks * oh).sum(-1)                     # (B, SK)
     limit = (cap if cap_dyn is None
@@ -218,7 +227,7 @@ def load_balance_loss(router_probs: torch.Tensor, choice: torch.Tensor,
     does)."""
     from repro_torch.core import collectives as C
     k = choice.shape[-1]
-    oh = torch.nn.functional.one_hot(choice.long(), num_groups).float()
+    oh = one_hot(choice, num_groups, torch.float32)
     f = oh.sum(2).mean((0, 1)) / k
     p = router_probs.float().mean((0, 1))
     dp = C.batch_axis() if global_batch else None

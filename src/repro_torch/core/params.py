@@ -99,6 +99,14 @@ def stack_defs(tree: Tree, n: int) -> Tree:
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 
+def abstract_tree(tree: Tree) -> Tree:
+    """Meta tensors of a def tree's shapes and dtypes: the parameters with
+    no storage and no data, for a dry run (JAX: ``ShapeDtypeStruct``
+    leaves)."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                           device="meta"), tree)
+
+
 def spec_tree(tree: Tree, rules: Mapping[str, Any]) -> Tree:
     """Map logical axes -> mesh axes: one placement tuple per def, an
     entry per dimension (a mesh-axis name, a tuple of them, or None for
@@ -262,7 +270,7 @@ def from_numpy_state(state: Mapping, device,
             return {k: conv(v) for k, v in t.items()}
         return from_numpy_tree({"x": t}, device, dtype_map)["x"]
     return {"step": torch.tensor(int(np.asarray(state["step"])),
-                                 dtype=torch.int32, device=device),
+                                 dtype=torch.int32),
             "train": conv(state["train"]), "frozen": conv(state["frozen"]),
             "opt": {"m": conv(state["opt"]["m"]),
                     "v": conv(state["opt"]["v"])}}

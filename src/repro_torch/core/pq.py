@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
+from repro_torch.core.dispatch import one_hot
 from repro_torch.core.params import ParamDef
 
 
@@ -86,10 +88,11 @@ def match_scores(codes_q: torch.Tensor, codes_k: torch.Tensor,
     summing to <= M).  codes_q (..., nq, M), codes_k (..., nk, M) ->
     (..., nq, nk) float32 counts.  On the card the one-hots are bf16, whose
     product with f32 accumulation is exact for these small integers."""
-    dt = torch.bfloat16 if codes_q.is_cuda else torch.float32
+    dt = (torch.bfloat16 if kernels.target(codes_q) == "cuda"
+          else torch.float32)
     e = num_codewords
-    oh_q = torch.nn.functional.one_hot(codes_q.long(), e).to(dt)
-    oh_k = torch.nn.functional.one_hot(codes_k.long(), e).to(dt)
+    oh_q = one_hot(codes_q, e, dt)
+    oh_k = one_hot(codes_k, e, dt)
     oh_q = oh_q.flatten(-2)                                 # (..., nq, M*E)
     oh_k = oh_k.flatten(-2)                                 # (..., nk, M*E)
     return torch.matmul(oh_q, oh_k.transpose(-1, -2)).float()
@@ -105,8 +108,7 @@ def ema_update(codebooks: torch.Tensor, x: torch.Tensor,
     xs = x.reshape(-1, m, dp).float()                       # (N, M, d')
     if codes is None:
         codes = assign(x.reshape(-1, m * dp), codebooks)
-    oh = torch.nn.functional.one_hot(codes.reshape(-1, m).long(),
-                                     e).float()             # (N, M, E)
+    oh = one_hot(codes.reshape(-1, m), e, torch.float32)    # (N, M, E)
     counts = oh.sum(0)                                      # (M, E)
     sums = torch.einsum("nme,nmd->med", oh, xs)
     means = sums / torch.clamp(counts[..., None], min=1.0)

@@ -192,7 +192,7 @@ def routed_ffn(x: torch.Tensor, p, cfg: RoutedFFNConfig,
     choice, gate_w, probs = route(x, p["router"], cfg, need_aux=need_aux)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if impl == "dense":
-        oh = torch.nn.functional.one_hot(choice.long(), cfg.num_groups)
+        oh = dispatch.one_hot(choice, cfg.num_groups)
         group_mask = (oh.float() * gate_w[..., None]).amax(2)   # (B, S, G)
         hidden_mask = group_mask.repeat_interleave(cfg.group_dim, dim=-1)
         y, dropped = _dense_forward(x, p, cfg, lora_cfg, hidden_mask), zero

@@ -5,8 +5,13 @@ Each kernel directory mirrors the JAX package's:
            use it, and ``chip_smoke.py`` holds the kernel against it)
   ops.py — the public wrapper: a CPU tensor takes the plain version, a
            CUDA tensor launches the CUDA kernel or raises (never a silent
-           fallback); each launching wrapper counts its launches in a
-           plain integer attribute ``launches``.
+           fallback), a meta tensor (a dry run) takes the path of the
+           device it stands for (``target``): the plain version, or
+           outputs and scratch of the CUDA branch's shapes with nothing
+           launched; each launching
+           wrapper counts its launches in a plain integer attribute
+           ``launches``, and records its cost (``cost.py``) into an active
+           roofline counter.
 The CUDA C++ sources live in ``csrc/``.  Nothing is built at import:
 ``library()`` compiles them on first use with nvcc (one object per source,
 all started together, then one shared library linked into
@@ -14,6 +19,7 @@ all started together, then one shared library linked into
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,6 +61,32 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+# The device a meta tensor stands for (a dry run's target, launch/
+# dryrun.py): "cuda" unless a trace asks for the CPU's path.
+_META_TARGET = "cuda"
+
+
+def target(t) -> str:
+    """The path a tensor takes where the port's code depends on the
+    device: "cpu" for a CPU tensor, "cuda" for a card's, and for a meta
+    tensor the device it stands for (``meta_target``), so that a dry run
+    traces the path that device really runs."""
+    kind = t.device.type
+    return _META_TARGET if kind == "meta" else kind
+
+
+@contextlib.contextmanager
+def meta_target(device: str):
+    """Meta tensors stand for ``device`` ("cuda" or "cpu") inside."""
+    global _META_TARGET
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"a dry run targets cuda or cpu, not {device!r}")
+    prev, _META_TARGET = _META_TARGET, device
+    try:
+        yield
+    finally:
+        _META_TARGET = prev
 
 
 def _nvcc() -> str:

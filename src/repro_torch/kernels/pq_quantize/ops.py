@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import cost
 from repro_torch.kernels.pq_quantize.ref import pq_assign_ref
 
 CODE_DIM_MAX = 32       # d' the kernel takes
@@ -31,14 +32,16 @@ def check_pq_args(x: torch.Tensor, codebooks: torch.Tensor) -> None:
                          f"{NORMS_MAX}, M * E * d' <= {CODEBOOK_MAX})")
 
 
+@cost.counted("pq_assign")
 def pq_assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """x: (..., n, d) float32 or bfloat16; codebooks: (M, E, d') float32.
     Returns (..., n, M) int32 codes.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/pq_assign.cu)."""
-    if x.device.type == "cpu":
+    CUDA tensors launch the kernel (csrc/pq_assign.cu); meta tensors get
+    the codes' shape."""
+    if kernels.target(x) == "cpu":
         lead = x.shape[:-2]
         out = pq_assign_ref(x.reshape(-1, *x.shape[-2:]), codebooks)
-        return out.reshape(*lead, *out.shape[-2:])
+        return out.reshape(*lead, *out.shape[-2:]).contiguous()
     name = "pq_assign"
     kernels.require_cuda(name, x, codebooks)
     check_pq_args(x, codebooks)
@@ -46,6 +49,8 @@ def pq_assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     rows = x.numel() // x.shape[-1]
     codes = torch.empty((*x.shape[:-1], m), dtype=torch.int32,
                         device=x.device)
+    if x.is_meta:
+        return codes
     err = kernels.library().repro_pq_assign(
         kernels.dtype_code(x), x.data_ptr(), codebooks.data_ptr(),
         codes.data_ptr(), rows, m, e, dp, kernels.stream_ptr())

@@ -25,6 +25,7 @@ from repro_torch.core import dispatch, lora
 from repro_torch.core.params import leaves, unflatten
 from repro_torch.core.routed_ffn import RoutedFFNConfig, plan_for, route
 from repro_torch.core.routed_ffn import routed_ffn as routed_ffn_core
+from repro_torch.kernels import cost
 from repro_torch.kernels.routed_ffn.ref import decode_ffn_ref, grouped_ffn_ref
 
 _LORA_KEYS = ("lora_inner", "lora_gate", "lora_outer")
@@ -84,6 +85,7 @@ def _check_weights(name, x, w_inner, w_outer, w_gate):
         raise TypeError(f"{name}: weights must have x's dtype {x.dtype}")
 
 
+@cost.counted("grouped_ffn")
 def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
                 w_outer: torch.Tensor, w_gate: Optional[torch.Tensor] = None,
                 lora_params: Optional[dict] = None, lora_scale: float = 1.0,
@@ -96,10 +98,11 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
     CUDA tensors launch the kernel (csrc/grouped_ffn.cu: bf16 on the
     tensor cores, d and F multiples of 8 and a LoRA rank of at most 32 —
     x and h resident in shared memory where they fit, else two passes
-    through an h scratch; f32 on the CUDA cores)."""
-    if x.device.type == "cpu":
+    through an h scratch; f32 on the CUDA cores); meta tensors get the
+    output's shape."""
+    if kernels.target(x) == "cpu":
         return grouped_ffn_ref(x, index, w_inner, w_outer, w_gate,
-                               lora_params, lora_scale, act)
+                               lora_params, lora_scale, act).contiguous()
     name = "grouped_ffn"
     _check_weights(name, x, w_inner, w_outer, w_gate)
     kernels.require_cuda(name, x, index)
@@ -122,12 +125,16 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
         raise ValueError(f"{name}: the bf16 kernel takes a LoRA rank of at "
                          f"most 32, got {r}")
     y = torch.empty((b, g, c, d), dtype=x.dtype, device=x.device)
-    lib = kernels.library()
+    lib = None if x.is_meta else kernels.library()
     # the bf16 body's wide form (x and h tiles past shared memory) keeps h
-    # (B, G, C, F) in device memory between its two kernels
-    h_elems = lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d, f)
+    # (B, G, C, F) in device memory between its two kernels; a dry run
+    # takes the library's rule from its restatement in kernels/cost.py
+    h_elems = (cost.grouped_ffn_h_elems(x.dtype, d, f) if lib is None else
+               lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d, f))
     h = (torch.empty(b * g * c * h_elems, dtype=x.dtype, device=x.device)
          if h_elems else None)
+    if lib is None:
+        return y
     err = lib.repro_grouped_ffn(
         kernels.dtype_code(x), x.data_ptr(), index.data_ptr(),
         w_inner.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
@@ -153,6 +160,7 @@ def decode_ffn_max_d(slots: int, elem_bytes: int) -> int:
     return room // (8 * elem_bytes) // 8 * 8
 
 
+@cost.counted("decode_ffn")
 def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
                w_inner: torch.Tensor, w_outer: torch.Tensor,
                w_gate: Optional[torch.Tensor] = None,
@@ -162,10 +170,10 @@ def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
     (B, d) in x's dtype.  CPU tensors take the plain version; CUDA tensors
     launch the kernel (csrc/decode_ffn.cu: group-major, each chosen
     group's weights read once, every sum in a fixed order; d up to
-    ``decode_ffn_max_d``)."""
-    if x.device.type == "cpu":
+    ``decode_ffn_max_d``); meta tensors get the output's shape."""
+    if kernels.target(x) == "cpu":
         return decode_ffn_ref(x, choice, gate, w_inner, w_outer, w_gate,
-                              lora_params, lora_scale, act)
+                              lora_params, lora_scale, act).contiguous()
     name = "decode_ffn"
     _check_weights(name, x, w_inner, w_outer, w_gate)
     kernels.require_cuda(name, x, choice, gate)
@@ -194,6 +202,8 @@ def decode_ffn(x: torch.Tensor, choice: torch.Tensor, gate: torch.Tensor,
     scratch = torch.empty(bga * (f + d) + -(-d // 64) * bga * r,
                           dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        return y
     err = kernels.library().repro_decode_ffn(
         kernels.dtype_code(x), x.data_ptr(), choice.data_ptr(),
         gate.data_ptr(), w_inner.data_ptr(),

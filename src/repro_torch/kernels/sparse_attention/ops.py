@@ -36,6 +36,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import pq
 from repro_torch.core import sparse_attention as sa
+from repro_torch.kernels import cost
 from repro_torch.kernels.pq_quantize.ops import pq_assign
 from repro_torch.kernels.sparse_attention.ref import (
     dense_decode_paged_ref, fused_decode_paged_ref, fused_decode_ref,
@@ -76,6 +77,7 @@ def _pt_ids(page_table: torch.Tensor, num_pages: int) -> torch.Tensor:
     return page_table.clamp(0, num_pages - 1).to(torch.int32).contiguous()
 
 
+@cost.counted("fused_sparse_decode_attention")
 def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
                                   scale: float, l: int, max_score: int,
                                   sum_rows: bool, heads_per_batch: int,
@@ -85,12 +87,14 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
     kv_valid: (B, S) bool.  Returns out (G, R, dh) in q's dtype, and with
     ``return_thresholds`` also the (G, R_out, 2) int32 [t, need] the
     selection used.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/sparse_decode.cu)."""
-    if q.device.type == "cpu":
+    launch the kernel (csrc/sparse_decode.cu); meta tensors get the
+    outputs' shapes."""
+    if kernels.target(q) == "cpu":
         out, thr = fused_decode_ref(
             q, k, v, codes_q, codes_k, kv_valid, scale=scale, l=l,
             max_score=max_score, sum_rows=sum_rows,
             heads_per_batch=heads_per_batch)
+        out, thr = out.contiguous(), thr.contiguous()
         return (out, thr) if return_thresholds else out
     name = "fused_sparse_decode_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, kv_valid)
@@ -111,6 +115,8 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
     hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
                        device=dev)
     part = _scratch(g, ns, r, dh, dev)
+    if q.is_meta:
+        return (out, thr) if return_thresholds else out
     err = kernels.library().repro_fused_sparse_decode(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         codes_q.data_ptr(), codes_k.data_ptr(), kv_valid.data_ptr(),
@@ -126,6 +132,7 @@ def fused_sparse_decode_attention(q, k, v, codes_q, codes_k, kv_valid, *,
 fused_sparse_decode_attention.launches = 0
 
 
+@cost.counted("sparse_decode_attention")
 def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
                             kv_valid, *, scale: float, sum_rows: bool,
                             heads_per_batch: int) -> torch.Tensor:
@@ -133,11 +140,13 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
     ``fused_sparse_decode_attention`` plus thresholds (G, R_out, 2) int32
     [t, need] (from ``decode_topl_thresholds``).  Returns (G, R, dh).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/sparse_decode_two_pass.cu)."""
+    (csrc/sparse_decode_two_pass.cu); meta tensors get the output's
+    shape."""
     kw = dict(scale=scale, sum_rows=sum_rows, heads_per_batch=heads_per_batch)
-    if q.device.type == "cpu":
+    if kernels.target(q) == "cpu":
         return sparse_decode_attention_ref(q, k, v, codes_q, codes_k,
-                                           thresholds, kv_valid, **kw)
+                                           thresholds, kv_valid,
+                                           **kw).contiguous()
     name = "sparse_decode_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, thresholds,
                          kv_valid)
@@ -157,6 +166,8 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
     out = torch.empty_like(q)
     ties = torch.empty((g, ns, r_out), dtype=torch.int32, device=dev)
     part = _scratch(g, ns, r, dh, dev)
+    if q.is_meta:
+        return out
     err = kernels.library().repro_sparse_decode_attention(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
@@ -172,6 +183,7 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
 sparse_decode_attention.launches = 0
 
 
+@cost.counted("fused_sparse_decode_attention_paged")
 def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
                                         codes_q, codes_pool, kv_valid, *,
                                         scale: float, l: int,
@@ -184,12 +196,13 @@ def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
     dh); codes_pool (P, Hk, ps, M) int8; kv_valid (B, MP*ps) bool in view
     coordinates.  Returns as ``fused_sparse_decode_attention``.  CPU
     tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/sparse_decode.cu)."""
+    (csrc/sparse_decode.cu); meta tensors get the outputs' shapes."""
     kw = dict(scale=scale, l=l, max_score=max_score, sum_rows=sum_rows,
               heads_per_batch=heads_per_batch)
-    if q.device.type == "cpu":
+    if kernels.target(q) == "cpu":
         out, thr = fused_decode_paged_ref(page_table, q, k_pool, v_pool,
                                           codes_q, codes_pool, kv_valid, **kw)
+        out, thr = out.contiguous(), thr.contiguous()
         return (out, thr) if return_thresholds else out
     name = "fused_sparse_decode_attention_paged"
     kernels.require_cuda(name, q, k_pool, v_pool, codes_q, codes_pool,
@@ -214,6 +227,8 @@ def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
     hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
                        device=dev)
     part = _scratch(g, ns, r, dh, dev)
+    if q.is_meta:
+        return (out, thr) if return_thresholds else out
     err = kernels.library().repro_fused_sparse_decode_paged(
         kernels.dtype_code(q), pt.data_ptr(), q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), codes_q.data_ptr(),
@@ -230,6 +245,7 @@ def fused_sparse_decode_attention_paged(page_table, q, k_pool, v_pool,
 fused_sparse_decode_attention_paged.launches = 0
 
 
+@cost.counted("dense_decode_attention_paged")
 def dense_decode_attention_paged(page_table, q, k_pool, v_pool, kv_valid,
                                  *, scale: float,
                                  heads_per_batch: int) -> torch.Tensor:
@@ -237,11 +253,12 @@ def dense_decode_attention_paged(page_table, q, k_pool, v_pool, kv_valid,
     paged view; shapes as ``fused_sparse_decode_attention_paged``.
     Returns (G, R, dh); a row with no valid slot gives 0.  CPU tensors
     take the plain version; CUDA tensors launch the kernel
-    (csrc/dense_decode_paged.cu)."""
-    if q.device.type == "cpu":
+    (csrc/dense_decode_paged.cu); meta tensors get the output's shape."""
+    if kernels.target(q) == "cpu":
         return dense_decode_paged_ref(page_table, q, k_pool, v_pool,
                                       kv_valid, scale=scale,
-                                      heads_per_batch=heads_per_batch)
+                                      heads_per_batch=heads_per_batch
+                                      ).contiguous()
     name = "dense_decode_attention_paged"
     kernels.require_cuda(name, q, k_pool, v_pool, kv_valid, page_table)
     kernels.require_aligned(name, k_pool, v_pool)
@@ -261,6 +278,8 @@ def dense_decode_attention_paged(page_table, q, k_pool, v_pool, kv_valid,
     pt = _pt_ids(page_table, npool)
     out = torch.empty_like(q)
     part = _scratch(g, ns, r, dh, q.device)
+    if q.is_meta:
+        return out
     err = kernels.library().repro_dense_decode_paged(
         kernels.dtype_code(q), pt.data_ptr(), q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), kv_valid.data_ptr(),
@@ -384,6 +403,7 @@ def check_sparse_attention_args(q, k, v, codes_q, codes_k, thresholds, *,
                         "codes and thresholds")
 
 
+@cost.counted("sparse_attention")
 def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      codes_q: torch.Tensor, codes_k: torch.Tensor,
                      thresholds: torch.Tensor, *, scale: float,
@@ -397,12 +417,13 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group b * Hk + h // rep.  dh: a multiple of 8 up to 256.  Returns
     (G, nq, dh) in q's dtype.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (csrc/sparse_attention.cu): bf16 on the
-    tensor cores, f32 on the CUDA cores."""
+    tensor cores, f32 on the CUDA cores; meta tensors get the output's
+    shape."""
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               heads_per_batch=heads_per_batch, rep=rep)
-    if q.device.type == "cpu":
+    if kernels.target(q) == "cpu":
         return sparse_attention_ref(q, k, v, codes_q, codes_k, thresholds,
-                                    **kw)
+                                    **kw).contiguous()
     name = "sparse_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, thresholds)
     kernels.require_aligned(name, q, k, v)
@@ -411,6 +432,8 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g, nq, dh = q.shape
     nk = k.shape[1]
     out = torch.empty_like(q)
+    if q.is_meta:
+        return out
     err = kernels.library().repro_sparse_attention(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
@@ -439,7 +462,7 @@ def _fused_forward(q, k, v, codebooks, cfg: sa.SparseAttentionConfig,
     kf = k.reshape(b * hk, nk, dh).contiguous()
     vf = v.reshape(b * hk, nk, dh).contiguous()
     cb = codebooks.float().contiguous()
-    if q.is_cuda and cb.shape[1] > 128:
+    if kernels.target(q) == "cuda" and cb.shape[1] > 128:
         raise ValueError("sparse_mha: kernel 4 takes codes in [0, 128), "
                          f"got {cb.shape[1]} codewords")
     codes_q = pq_assign(qf, cb)

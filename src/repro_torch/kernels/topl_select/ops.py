@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import cost
 from repro_torch.kernels.topl_select.ref import (decode_topl_thresholds_ref,
                                                  thresholds_ref)
 
@@ -42,6 +43,7 @@ def check_topl_args(codes_q: torch.Tensor, codes_k: torch.Tensor, *,
         raise ValueError(f"{name}: needs nq, nk, l >= 1 and q_offset >= 0")
 
 
+@cost.counted("topl_thresholds")
 def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
                     max_score: int, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
@@ -50,11 +52,12 @@ def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
     codes_k: (G / rep, nk, M) int32 (query head h of batch b reads kv
     group b * Hk + h // rep); codes may be any int32 values.  Returns
     (G, nq, 2) int32 [t, need].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (csrc/topl_thresholds.cu)."""
+    tensors launch the kernel (csrc/topl_thresholds.cu); meta tensors get
+    the output's shape."""
     kw = dict(l=l, max_score=max_score, causal=causal, window=window,
               q_offset=q_offset, heads_per_batch=heads_per_batch, rep=rep)
-    if codes_q.device.type == "cpu":
-        return thresholds_ref(codes_q, codes_k, **kw)
+    if kernels.target(codes_q) == "cpu":
+        return thresholds_ref(codes_q, codes_k, **kw).contiguous()
     name = "topl_thresholds"
     kernels.require_cuda(name, codes_q, codes_k)
     check_topl_args(codes_q, codes_k, l=l, max_score=max_score,
@@ -63,6 +66,8 @@ def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
     g, nq, m = codes_q.shape
     nk = codes_k.shape[1]
     thr = torch.empty((g, nq, 2), dtype=torch.int32, device=codes_q.device)
+    if codes_q.is_meta:
+        return thr
     err = kernels.library().repro_topl_thresholds(
         codes_q.data_ptr(), codes_k.data_ptr(), thr.data_ptr(), g, nq, nk, m,
         heads_per_batch, rep, l, max_score, int(causal),
@@ -75,6 +80,7 @@ def topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor, *, l: int,
 topl_thresholds.launches = 0
 
 
+@cost.counted("decode_topl_thresholds")
 def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
                            kv_valid: torch.Tensor, *, l: int,
                            max_score: int, sum_rows: bool,
@@ -85,11 +91,13 @@ def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
     (G, R_out, 2) int32 [t, need] (R_out = 1 when ``sum_rows``, the
     "kvgroup" selection).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (csrc/sparse_decode_two_pass.cu): one
-    launch, whose last block per kv group reduces the splits."""
+    launch, whose last block per kv group reduces the splits; meta
+    tensors get the output's shape."""
     kw = dict(l=l, max_score=max_score, sum_rows=sum_rows,
               heads_per_batch=heads_per_batch)
-    if codes_q.device.type == "cpu":
-        return decode_topl_thresholds_ref(codes_q, codes_k, kv_valid, **kw)
+    if kernels.target(codes_q) == "cpu":
+        return decode_topl_thresholds_ref(codes_q, codes_k, kv_valid,
+                                          **kw).contiguous()
     name = "decode_topl_thresholds"
     kernels.require_cuda(name, codes_q, codes_k, kv_valid)
     g, r, m = codes_q.shape
@@ -108,6 +116,8 @@ def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
     thr = torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)
     hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
                        device=dev)
+    if codes_q.is_meta:
+        return thr
     arrive = kernels.arrival_counters(g, dev)
     err = kernels.library().repro_decode_thresholds(
         codes_q.data_ptr(), codes_k.data_ptr(), kv_valid.data_ptr(),

@@ -12,14 +12,21 @@ touches no process group.
 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) when it is set,
 else as a world of one on a free localhost port.  NCCL on a CUDA device,
 gloo on the CPU (only when the caller asks for the CPU).
+
+``make_dry_mesh`` is a dry run's world (launch/dryrun.py, the counterpart of
+the JAX package's 512 host devices): a mesh of any shape over torch's
+``fake`` process-group backend, in which this process is rank 0 and the
+collectives move nothing; it refuses to start while a real process group
+runs and destroys its group when the cell ends.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
 import socket
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,3 +92,34 @@ def init_distributed(device="cuda") -> Tuple[int, int, torch.device]:
     elif dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     return dist.get_rank(), dist.get_world_size(), dev
+
+
+@contextlib.contextmanager
+def make_dry_mesh(shape, axes) -> Iterator:
+    """A mesh of ``shape`` named ``axes`` over the ``fake`` backend: a
+    world of prod(shape) ranks of which this process is rank 0, whose
+    collectives complete without moving data (a dry run traces on the
+    meta device).  Refuses to start while a process group runs; the group
+    is destroyed on exit."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.core import collectives
+    if dist.is_initialized():
+        raise RuntimeError("make_dry_mesh: a process group is running; a dry "
+                           "run starts its own fake world")
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    finally:
+        collectives.forget_groups()
+        dist.destroy_process_group()
+
+
+def make_dry_production_mesh(*, multi_pod: bool = False):
+    """``make_dry_mesh`` of the production shape: (data 16, model 16), or
+    (pod 2, data 16, model 16)."""
+    if multi_pod:
+        return make_dry_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_dry_mesh((16, 16), ("data", "model"))

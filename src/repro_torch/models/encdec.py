@@ -105,13 +105,11 @@ class EncDecLM(nn.Module):
         for key in ("embed", "pos_enc", "pos_dec", "enc_norm", "dec_norm"):
             setattr(self, key, ParamTree(params[key], defs[key]))
         self.enc_blocks = nn.ModuleList(
-            ParamTree(transformer._unit_slice(params["enc_blocks"], i),
-                      _enc_block_defs(cfg))
-            for i in range(cfg.encoder_layers))
+            ParamTree(t, _enc_block_defs(cfg)) for t in
+            transformer.unit_views(params["enc_blocks"], cfg.encoder_layers))
         self.dec_blocks = nn.ModuleList(
-            ParamTree(transformer._unit_slice(params["dec_blocks"], i),
-                      _dec_block_defs(cfg))
-            for i in range(cfg.num_layers))
+            ParamTree(t, _dec_block_defs(cfg)) for t in
+            transformer.unit_views(params["dec_blocks"], cfg.num_layers))
 
     @classmethod
     def init(cls, cfg: ModelConfig, seed: int = 0,
@@ -176,7 +174,7 @@ def _layers(params, key: str, n: int) -> list:
     (gradients reach the stacked leaves)."""
     if isinstance(params, (EncDecLM, ShardedEncDec)):
         return list(getattr(params, key))
-    return [transformer._unit_slice(params[key], i) for i in range(n)]
+    return transformer.unit_views(params[key], n)
 
 
 def _remat(fn, remat: bool, *args):
@@ -354,7 +352,7 @@ def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int,
     n = cfg.num_layers
     hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     one = attention.init_cache(cfg, batch, max_len, device, cfg.window)
-    self_c = {k: v[None].expand(n, *v.shape).contiguous()
+    self_c = {k: v[None].repeat(n, *(1,) * v.dim())
               for k, v in one.items()}
     cross = {"k": torch.zeros((n, batch, hk, enc_len, hd), dtype=cfg.dtype,
                               device=device),

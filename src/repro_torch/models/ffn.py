@@ -69,7 +69,7 @@ def _tel_expert_load(choice: torch.Tensor, num_groups: int, x: torch.Tensor,
     """(B, G) per-row token->group load from the router's top-G' choices
     (telemetry); right-pad rows of a ragged prefill batch are masked out,
     so loads count real tokens only."""
-    oh = torch.nn.functional.one_hot(choice.long(), num_groups).float()
+    oh = dispatch.one_hot(choice, num_groups, torch.float32)
     if seq_lengths is not None:                          # (B, S, G', G)
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  < seq_lengths[:, None]).float()
@@ -144,10 +144,16 @@ def _routed_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
 
 def tp_plan(cfg: ModelConfig, n: int) -> Optional[ModelConfig]:
     """The config of this rank's F/n hidden columns (of each routed
-    group); None when the width does not divide by n."""
-    width = (_routed_cfg(cfg).group_dim if routed_applicable(cfg)
-             else cfg.d_ff)
+    group); None when the width does not divide by n, or where the
+    routed kernels run (9 and 10 read 16-byte rows of F) when F/n is not
+    a multiple of 8 (h2o-danube-1.8b's 864 columns over 16 ranks)."""
+    routed = routed_applicable(cfg)
+    width = _routed_cfg(cfg).group_dim if routed else cfg.d_ff
     if width == 0 or width % n:
+        return None
+    if routed and (width // n) % 8 and (
+            dispatch.use_routed_ffn_kernel(cfg)
+            or dispatch.use_decode_ffn_kernel(cfg)):
         return None
     return dataclasses.replace(cfg, d_ff=cfg.d_ff // n)
 

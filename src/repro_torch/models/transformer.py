@@ -59,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
-                                     stack_defs)
+                                     leaves, stack_defs, unflatten)
 from repro_torch.models import attention, ffn, layers, moe, rglru, ssd
 from repro_torch.serving import kv_pages as kvp
 
@@ -325,11 +325,6 @@ def lm_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _unit_slice(tree, u: int):
-    return {k: _unit_slice(v, u) if isinstance(v, dict) else v[u]
-            for k, v in tree.items()}
-
-
 class LM(nn.Module):
     """The language model as modules: ``embed``, ``final_norm``, one
     ``ParamTree`` per unit in ``units``, the ``tail`` blocks (None when
@@ -349,8 +344,8 @@ class LM(nn.Module):
         self.final_norm = ParamTree(params["final_norm"], defs["final_norm"])
         unit_defs = _unit_defs(cfg)
         self.units = nn.ModuleList(
-            ParamTree(_unit_slice(params["units"], u), unit_defs)
-            for u in range(num_units(cfg)))
+            ParamTree(t, unit_defs)
+            for t in unit_views(params["units"], num_units(cfg)))
         self.tail = (ParamTree(params["tail"], defs["tail"])
                      if "tail" in defs else None)
         for key in ("head", "pos"):
@@ -444,7 +439,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 
     u = num_units(cfg)
     caches = {"units": {
-        f"b{i}_{kind}": {k: v[None].expand(u, *v.shape).contiguous()
+        f"b{i}_{kind}": {k: v[None].repeat(u, *(1,) * v.dim())
                          for k, v in one_cache(kind).items()}
         for i, kind in enumerate(cfg.pattern)}}
     tail = _tail_kinds(cfg)
@@ -599,9 +594,20 @@ def _run_blocks(units, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     return x, aux_total
 
 
+def unit_views(tree: dict, n: int) -> list:
+    """Per-unit views of a stacked (n, ...) param tree, each leaf unbound
+    once: its gradient is then one stack of the units' gradients (a view
+    ``t[u]`` a unit would give each unit's at the stacked size, and their
+    sum would grow with n squared)."""
+    pairs = list(leaves(tree))
+    parts = [t.unbind(0) for _, t in pairs]
+    return [unflatten([p for p, _ in pairs], [part[u] for part in parts])
+            for u in range(n)]
+
+
 def _unit_trees(params: dict, cfg: ModelConfig) -> list:
     """Per-unit views of the stacked ``params["units"]`` tree."""
-    return [_unit_slice(params["units"], u) for u in range(num_units(cfg))]
+    return unit_views(params["units"], num_units(cfg))
 
 
 def lm_hidden(params: dict, cfg: ModelConfig,

@@ -8,8 +8,9 @@ import torch
 
 
 def lr_at(cfg, step) -> torch.Tensor:
-    """The learning rate at ``step`` (an int or a scalar tensor): a 0-d
-    f32 tensor on the CPU."""
+    """The learning rate at ``step`` (an int or a scalar tensor; a
+    state's counter is already on the host): a 0-d f32 tensor on the
+    CPU."""
     s = torch.as_tensor(step, dtype=torch.float32).cpu()
     warm = torch.clamp((s + 1.0) / max(1, cfg.warmup_steps), max=1.0)
     frac = torch.clamp((s - cfg.warmup_steps)

@@ -122,6 +122,23 @@ def build_decode_step(cfg: ModelConfig):
 _M32 = 0xFFFFFFFF
 
 
+def abstract_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                           kv_pages: Optional[int] = None,
+                           shard: Optional[transformer.ServeShard] = None):
+    """The decode caches of ``batch`` slots of ``cache_len`` as meta
+    tensors (shapes, no data), for a dry run (JAX:
+    ``abstract_decode_caches``); under ``shard`` (``transformer.
+    serve_shard``; ``cfg`` then its local config) this rank's kv heads,
+    channels and SSM heads, as ``steps.cache_local_shapes`` places them.
+    The audio family's cross caches cover ``cfg.frontend_tokens``
+    frames."""
+    if cfg.family == "audio":
+        return encdec.init_dec_caches(cfg, batch, cache_len,
+                                      cfg.frontend_tokens, "meta")
+    return transformer.init_caches(cfg, batch, cache_len, "meta",
+                                   kv_pages=kv_pages, shard=shard)
+
+
 def decode_cache_axes(cfg: ModelConfig, kv_paged: bool = False,
                       seq_shard: bool = True):
     """Logical partition axes of the decode caches' tree (``seq_shard``

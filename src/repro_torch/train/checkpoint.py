@@ -144,4 +144,7 @@ def restore(ckpt_dir: str, step: Optional[int] = None, device="cuda",
                 continue
             items[leaf["path"]] = _to_torch(npz[leaf["key"]],
                                             leaf["dtype"]).to(device)
-    return _unwalk(items)
+    out = _unwalk(items)
+    if isinstance(out, dict) and isinstance(out.get("step"), torch.Tensor):
+        out["step"] = out["step"].cpu()     # a state's counter: on the host
+    return out

@@ -4,6 +4,9 @@ The trainable/frozen split is at the tree level (core.params.partition),
 so gradients are only ever taken over the small trainable subtree; the
 frozen base never gets gradient buffers.  The layout is the JAX
 package's, so a JAX state loads with ``core.params.from_numpy_state``.
+The step counter is a 0-d int32 tensor on the host whatever the device of
+the rest: the learning rate is computed there from it
+(``optim/schedule.lr_at``), with no device-to-host read in a step.
 """
 from __future__ import annotations
 
@@ -41,8 +44,29 @@ def init_state(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = P.init_tree(defs, gen)
     train, frozen = P.partition(params, P.trainable_mask(defs))
-    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+    return {"step": torch.zeros((), dtype=torch.int32),
             "train": train, "frozen": frozen, "opt": adamw_init(train)}
+
+
+def abstract_state(cfg: ModelConfig) -> dict:
+    """The state ``init_state`` gives, as meta tensors (no storage, no
+    data): what one rank holds, for a dry run (launch/dryrun.py).  The
+    step counter stays a 0-d CPU tensor, as in every state."""
+    defs = model_defs(cfg)
+    train, frozen = P.partition(P.abstract_tree(defs),
+                                P.trainable_mask(defs))
+    return {"step": torch.zeros((), dtype=torch.int32),
+            "train": train, "frozen": frozen, "opt": adamw_init(train)}
+
+
+def state_device(state: dict) -> torch.device:
+    """The device a state's parameters live on (the step counter is on
+    the host)."""
+    for part in ("frozen", "train"):
+        for _, t in P.leaves(state[part]):
+            if t is not None:
+                return t.device
+    return state["step"].device
 
 
 def state_specs(cfg: ModelConfig, rules) -> dict:

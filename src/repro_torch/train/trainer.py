@@ -67,7 +67,7 @@ class Trainer:
         self._stop = False
         self._step = steps_lib.build_train_step(cfg, ocfg,
                                                 loss_chunk=tcfg.loss_chunk)
-        dev = (state["step"].device if state is not None
+        dev = (S.state_device(state) if state is not None
                else transformer.resolve_device(device))
         start = (checkpoint.latest_step(tcfg.ckpt_dir) if tcfg.ckpt_dir
                  else None)
@@ -78,7 +78,7 @@ class Trainer:
             self.state = (state if state is not None
                           else S.init_state(cfg, seed=seed, device=dev))
             self.start_step = int(self.state["step"])
-        self.device = self.state["step"].device
+        self.device = S.state_device(self.state)
 
         # preemption-safe: SIGTERM ends the run after the step in flight,
         # and the run's final checkpoint is written

@@ -103,7 +103,7 @@ Phases (each raises on failure; nothing is caught):
   11. an OPT-2560-width model cut to 2 layers, in f32, kernels on against
      REPRO_DISABLE_KERNELS=1: greedy streams (kernels 6 and 7),
      lm_prefill's logits and caches, one train step;
-  12. full-width qwen3-0.6b (7 of 28 layers) in bf16 through the
+  12. full-width qwen3-0.6b (4 of 28 layers) in bf16 through the
      long-lived server,
      Engine.serve with telemetry "trace": 32 requests (prompts 128-2048,
      64 new tokens) arriving as a seeded Poisson process at 2 requests/s
@@ -121,9 +121,12 @@ Phases (each raises on failure; nothing is caught):
      schedule with priorities, deadlines, a queued and a mid-stream
      cancel, a forced preemption and seeded sampling — kernels on equal
      REPRO_DISABLE_KERNELS=1 (finish reasons, preemptions, stats; tokens
-     up to near-ties of the perturbed logits), the same seed twice
-     identical, and each preempted request's stream equal to its
-     unpreempted one;
+     up to near-ties of the perturbed logits, or past a request's first
+     PQ code or routed-group choice that differs, when that choice is a
+     near-tie, <= 1e-4, on the kernel run's inputs), kernels 6, 9, 10
+     held to their plain versions on every call's inputs, the same seed
+     twice identical, the same with every key selected (top fraction 1),
+     and each preempted request's stream equal to its unpreempted one;
   14. mixtral-8x22b (4 of 56 layers) and grok-1-314b (2 of 64) at full
      width in bf16, random weights from a seed: a burst Engine.run of 8
      requests (prompts 128-2048, mixtral's last one 4608 tokens so that
@@ -172,7 +175,10 @@ Phases (each raises on failure; nothing is caught):
   22. f32 agreement, kernels on against REPRO_DISABLE_KERNELS=1:
      phi-3-vision at 4 layers (d 1536, dh 96, M 12, 576 frontend rows),
      mamba2-780m at 4 layers, whisper-base at 2 + 2 layers: greedy
-     streams up to near-ties (mamba2: identical, no launch), one train
+     streams up to near-ties (phi-3: of the logits or of a choice, as
+     in 13, and again with every key selected; whisper: of the logits,
+     and again with every key selected; mamba2: identical, no launch),
+     kernels 6, 9, 10 held to their plain versions, one train
      step's loss (rel 1e-4) and gradient cosine (>= 0.999);
   23. checkpoint/restart of full-width qwen3-0.6b (4 of 28 layers;
      bf16, spt, 4 x 1024):
@@ -237,7 +243,9 @@ Phases (each raises on failure; nothing is caught):
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2054,10 +2062,12 @@ PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
 # The serve loop is host-bound (a decode step's wall time grows with its
 # launches, ~200 a layer), so the script's longest paths cut depth, at
 # full width, to keep the whole run well inside its time limit: qwen3-0.6b
-# 28 -> 7 layers in phases 5 and 12 (phase 4 keeps all 28), opt-2.7b and
-# llama-2.7b 32 -> 4 in phase 10, phi-3-vision-4.2b 32 -> 4 in phase 19
-# (16 each until phase 25 came, 8 until its model shards came)
+# 28 -> 7 layers in phase 5 (phase 4 keeps all 28) and -> 4 in phase 12
+# (7 until phase 27 came), opt-2.7b and llama-2.7b 32 -> 4 in phase 10,
+# phi-3-vision-4.2b 32 -> 4 in phase 19 (16 each until phase 25 came, 8
+# until its model shards came)
 CUT_DEPTH = 7
+SERVER_DEPTH = 4
 PAPER_DEPTH = 4
 PHI_DEPTH = 4
 # serve workloads (requests, prompt lengths lo-hi from numpy seed 2, new
@@ -2319,12 +2329,179 @@ def _streams(torch, model, cfg, reqs, kernels_on, max_len=1024):
     return out, ran & DECODE_KERNELS
 
 
-def _compare_streams(torch, model, cfg, reqs, name, got, want, max_len=1024):
-    """got == want per request, except past a logit near-tie (<= 1e-3) at
-    the first divergence, replayed through the oracle's ragged prefill."""
+# A discrete choice that float-order noise can flip: a PQ code (the nearest
+# of E codewords, core.pq.assign) or a routed FFN's groups (the top G' by
+# |logit|, routed_ffn.route).  A kernels-vs-oracle stream whose first
+# divergent token is no logit near-tie passes only past such a flip: the
+# first choice in which the request's row differs between the two runs,
+# made no later than in the forward of that token, whose two candidates'
+# scores on the kernel run's own inputs (squared distances, |logits|) lie
+# within SELECT_TIE: F32_TOL, the error each kernel call is held to.
+SELECT_TIE = F32_TOL
+_CHOICES = []                  # the active _ChoiceLog (at most one)
+
+
+class _ChoiceLog:
+    """The PQ codes and routed groups of one serve, call by call, rows
+    first (``calls``); the rows of the Engine forward under way (``rows``:
+    per row None or (uid, index of the first token the row's choices
+    feed), plus ``step`` inside a decode chunk); and, checked against the
+    oracle's log ``want``, each request's first differing choice
+    (``first``: uid -> (token index, margin on this run's inputs, kind)).
+    Calls outside a forward, or while ``paused``, are not logged."""
+
+    def __init__(self, want=None):
+        self.want, self.calls, self.first = want, [], {}
+        self.rows, self.step, self.paused = None, 0, 0
+
+    def note(self, kind, choices, margin):
+        """Log one call's choices; with ``want``, compare them with its
+        call there and keep each newly differing request's first flip,
+        ``margin(row, oracle's choices of the row, where they differ)``."""
+        import torch
+        if self.rows is None or self.paused:
+            return
+        ch = choices.reshape(choices.shape[0], -1).to(torch.int16)
+        i = len(self.calls)
+        self.calls.append((kind, tuple(ch.shape),
+                           ch if self.want is None else None))
+        if self.want is None:
+            return
+        if (i >= len(self.want.calls)
+                or self.want.calls[i][:2] != (kind, tuple(ch.shape))):
+            raise AssertionError(f"choice call {i} ({kind} {tuple(ch.shape)})"
+                                 " has no counterpart in the oracle's run")
+        other = self.want.calls[i][2]
+        diff = ch != other
+        for r in diff.any(-1).nonzero().flatten().tolist():
+            row = self.rows[r] if r < len(self.rows) else None
+            if row is None or row[0] in self.first:
+                continue
+            self.first[row[0]] = (row[1] + self.step,
+                                  margin(r, other[r].long(), diff[r]), kind)
+
+
+@contextlib.contextmanager
+def _choices(torch, want=None):
+    """While active, every PQ code assignment and routed-FFN group choice
+    made inside an Engine forward is logged (a prefill group's rows are
+    its requests, resumed ones from their next token on; a decode step's
+    rows are the slots' requests).  Without ``want`` (the oracle's run)
+    it yields the log; with it (the kernel run), a log checked against
+    ``want`` whose ``first`` is what _judge_flip reads."""
+    from repro_torch.core import pq, routed_ffn
+    from repro_torch.kernels.routed_ffn import ops as rffn_ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine
+    log = _ChoiceLog(want)
+    assign, route = pq.assign, routed_ffn.route
+    chunk, group = Engine._chunk, Engine._prefill_group
+    decode_step = transformer.lm_decode_step
+
+    def assign_(x, codebooks):
+        codes = assign(x, codebooks)
+
+        def margin(r, other, diff):
+            d = pq.distances(x[r], codebooks).reshape(
+                -1, codebooks.shape[1])
+            mine = codes[r].reshape(-1, 1).long()
+            gap = d.gather(1, other[:, None]) - d.gather(1, mine)
+            return float(gap[:, 0][diff].max())
+        log.note("PQ code", codes, margin)
+        return codes
+
+    def route_(x, router_w, *a, **k):
+        out = route(x, router_w, *a, **k)
+        mine = torch.sort(out[0].long(), dim=-1).values
+
+        def margin(r, other, diff):
+            score = (x[r].float() @ router_w.float()).abs()
+            score = score.reshape(-1, score.shape[-1])
+            own = mine[r].reshape(score.shape[0], -1)
+            theirs = other.reshape(own.shape)
+            gap = (score.gather(1, own).amin(1)
+                   - score.gather(1, theirs).amin(1))
+            return float(gap[diff.reshape(own.shape).any(1)].max())
+        log.note("routed groups", mine, margin)
+        return out
+
+    def chunk_(self, steps, plan):
+        st = self._live
+        log.rows = [(it.req.uid, int(st.n_gen[b]))
+                    if it is not None and st.active[b] else None
+                    for b, it in ((b, st.slot_item[b]) for b in
+                                  range(self._lo, self._lo + self._ns))]
+        log.step = -1
+        try:
+            return chunk(self, steps, plan)
+        finally:
+            log.rows = None
+
+    def group_(self, items, p, bpb):
+        log.rows = ([(it.req.uid, len(it.done)) for it in items]
+                    + [None] * (bpb - len(items)))
+        log.step = 0
+        try:
+            return group(self, items, p, bpb)
+        finally:
+            log.rows = None
+
+    def decode_step_(*a, **k):
+        log.step += 1
+        return decode_step(*a, **k)
+    patches = [(pq, "assign", assign_), (routed_ffn, "route", route_),
+               (rffn_ops, "route", route_), (Engine, "_chunk", chunk_),
+               (Engine, "_prefill_group", group_),
+               (transformer, "lm_decode_step", decode_step_)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    _CHOICES.append(log)
+    try:
+        yield log
+    finally:
+        _CHOICES.pop()
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def _judge_flip(gap, ties, uid, t, what):
+    """How request uid's first divergence (at token t, the oracle's
+    replayed logit gap ``gap``) is excused: "logit" when gap <= 1e-3;
+    else "choice" when ``ties`` (a kernel run's _ChoiceLog.first) holds
+    the request's first differing choice, fed into token t or an earlier
+    one and within SELECT_TIE.  Anything else raises."""
+    if gap <= 1e-3:
+        return "logit"
+    tie = (ties or {}).get(uid)
+    if tie is not None and tie[0] <= t and tie[1] <= SELECT_TIE:
+        return "choice"
+    raise AssertionError(f"{what} diverged at token {t} with a logit gap "
+                         f"{gap:.3e}; its first differing choice (token, "
+                         f"margin, kind): {tie}")
+
+
+def _flip_note(kinds, ties):
+    """The accepted flips of a comparison, for its printed line."""
+    n = sum(k == "choice" for k in kinds.values())
+    note = (f"{len(kinds) - n} replayed logit near-tie flips (<= 1e-3), "
+            f"{n} choice near-tie flips "
+            f"(<= {SELECT_TIE:g} on the kernel run's inputs)")
+    if ties is not None:
+        firsts = ", ".join(f"{u}: token {t}, {k} margin {m:.3e}"
+                           for u, (t, m, k) in sorted(ties.items()))
+        note += f"; each request's first differing choice: {{{firsts}}}"
+    return note
+
+
+def _compare_streams(torch, model, cfg, reqs, name, got, want, max_len=1024,
+                     ties=None):
+    """got == want per request, except past a near-tie at the first
+    divergence: of the logits (<= 1e-3), replayed through the oracle's
+    ragged prefill, or of a choice (``ties``: _judge_flip)."""
     from repro_torch.models import transformer
     os.environ["REPRO_DISABLE_KERNELS"] = "1"
-    flips = 0
+    kinds = {}
     try:
         for req, g, w in zip(reqs, got, want):
             if g == w:
@@ -2343,15 +2520,35 @@ def _compare_streams(torch, model, cfg, reqs, name, got, want, max_len=1024):
                     max_len)
             lg = logits[0, -1].float().cpu().numpy()
             gap = float(lg.max()) - min(float(lg[g[t]]), float(lg[w[t]]))
-            if gap > 1e-3:
-                raise AssertionError(f"{name}: request {req.uid} diverged "
-                                     f"at step {t} with a logit gap {gap:.3e}")
-            flips += 1
+            kinds[req.uid] = _judge_flip(gap, ties, req.uid, t,
+                                         f"{name}: request {req.uid}")
     finally:
         os.environ.pop("REPRO_DISABLE_KERNELS", None)
     print(f"  f32 greedy streams, {name} == REPRO_DISABLE_KERNELS=1 "
-          f"for {len(reqs) - flips}/{len(reqs)} requests, {flips} replayed "
-          "near-tie flips (<= 1e-3)", flush=True)
+          f"for {len(reqs) - len(kinds)}/{len(reqs)} requests, "
+          f"{_flip_note(kinds, ties)}", flush=True)
+
+
+def _gated_streams(torch, model, cfg, reqs, got, oracle, errs, ties,
+                   name, max_len=1024):
+    """A kernels-vs-oracle serve at the config's top-L: ``got`` (the
+    kernels, every call of theirs held to its plain version: ``errs``,
+    its choices checked against the oracle's: ``ties``) and ``oracle``
+    equal up to the near-tie rules (_compare_streams); then the same with
+    every key selected (top fraction 1), where no top-L choice can turn
+    the kernels' float-order differences upstream into a logit gap, up
+    to the logit rule alone."""
+    print(f"  {name}: kernels 6, 9, 10 = their plain versions on the inputs "
+          f"of each of their {len(errs)} calls (max abs err "
+          f"{max(errs):.3e}, rule {F32_TOL})", flush=True)
+    _compare_streams(torch, model, cfg, reqs,
+                     f"{name}, top-L {cfg.spt.attn_top_fraction:g}", got,
+                     oracle, max_len=max_len, ties=ties)
+    top1 = cfg.with_spt(attn_top_fraction=1.0)
+    got1, _ = _streams(torch, model, top1, reqs, True, max_len=max_len)
+    oracle1, _ = _streams(torch, model, top1, reqs, False, max_len=max_len)
+    _compare_streams(torch, model, top1, reqs, f"{name}, top-L 1", got1,
+                     oracle1, max_len=max_len)
 
 
 def _tier_agreement(torch, model, base, reqs, tiers):
@@ -2986,7 +3183,7 @@ def _server_run(torch, model, cfg, label, telemetry, kv_pages=None):
 
 
 def server_full_width(torch):
-    """Phase 12: full-width qwen3-0.6b, depth cut to CUT_DEPTH layers, in
+    """Phase 12: full-width qwen3-0.6b, depth cut to SERVER_DEPTH layers, in
     bf16 through Engine.serve with
     telemetry "trace", contiguous (kernels 6, 9, 10), then the same
     schedule with telemetry "off" and "counters" (decode tok/s of the
@@ -2997,7 +3194,7 @@ def server_full_width(torch):
     from repro_torch import configs
     _free(torch)
     base = dataclasses.replace(configs.get_config("qwen3-0.6b"),
-                               num_layers=CUT_DEPTH)
+                               num_layers=SERVER_DEPTH)
     cfg = base.with_spt(**SERVE_CFG)
     model = _perturbed_model(torch, cfg, seed=0)
     keys = ("decode_tok_s", "decode_ms_per_step")
@@ -3044,13 +3241,14 @@ def _replay_gap(torch, model, cfg, req, ctx, a, b, n, seed, max_len):
 
 
 def _compare_sampled(torch, model, cfg, reqs, got, want, name, seed,
-                     max_len=1024):
-    """got == want per uid, except past a near-tie (<= 1e-3) of the
-    perturbed logits at the first divergence, replayed under the kill
-    switch; returns the number of replayed flips."""
+                     max_len=1024, ties=None):
+    """got == want per uid, except past a near-tie at the first
+    divergence: of the perturbed logits (<= 1e-3), replayed under the
+    kill switch, or of a choice (``ties``: _judge_flip).  Returns the
+    accepted flips' kinds by uid."""
     by_uid = {r.uid: r for r in reqs}
     os.environ["REPRO_DISABLE_KERNELS"] = "1"
-    flips = 0
+    kinds = {}
     try:
         for uid in sorted(got):
             g, w = got[uid], want[uid]
@@ -3064,13 +3262,53 @@ def _compare_sampled(torch, model, cfg, reqs, got, want, name, seed,
             req = by_uid[uid]
             gap = _replay_gap(torch, model, cfg, req, list(req.tokens) + w[:t],
                               g[t], w[t], t, seed, max_len)
-            if gap > 1e-3:
-                raise AssertionError(f"{name}: uid {uid} diverged at token "
-                                     f"{t} with a gap {gap:.3e}")
-            flips += 1
+            kinds[uid] = _judge_flip(gap, ties, uid, t, f"{name}: uid {uid}")
     finally:
         os.environ.pop("REPRO_DISABLE_KERNELS", None)
-    return flips
+    return kinds
+
+
+@contextlib.contextmanager
+def _held_to_plain(torch):
+    """While it is active, every call of the decode attention op (kernel
+    6, or 3 + 5 / 7 by the config), of kernel 9 and of kernel 10 is held
+    to its plain version on the very same inputs (F32_TOL): a kernel's
+    own error, apart from what its inputs carry in from upstream.  Yields
+    the list of the calls' max abs errors.  The plain versions launch
+    nothing, so the launch counters move as without it."""
+    from repro_torch.core import sparse_attention as sa
+    from repro_torch.kernels.routed_ffn import ops as rffn_ops
+    from repro_torch.kernels.routed_ffn import ref as rffn_ref
+    from repro_torch.kernels.sparse_attention import ops as sa_ops
+    held = [(sa_ops, "sparse_mha_decode",
+             lambda *a, fuse=True: sa.sparse_mha_decode(*a)),
+            (rffn_ops, "grouped_ffn", rffn_ref.grouped_ffn_ref),
+            (rffn_ops, "decode_ffn", rffn_ref.decode_ffn_ref)]
+    errs, orig = [], [getattr(m, n) for m, n, _ in held]
+
+    def hold(fn, plain):
+        @functools.wraps(fn)     # the wrapper counts this global's launches
+        def run(*a, **k):
+            out = fn(*a, **k)
+            for log in _CHOICES:            # the plain version's own choices
+                log.paused += 1
+            try:
+                errs.append(close(out, plain(*a, **k), F32_TOL))
+            finally:
+                for log in _CHOICES:
+                    log.paused -= 1
+            return out
+        return run
+    for (mod, name, plain), fn in zip(held, orig):
+        setattr(mod, name, hold(fn, plain))
+    try:
+        yield errs
+    finally:
+        for (mod, name, _), fn in zip(held, orig):
+            launches = getattr(mod, name).__dict__.get("launches")
+            if launches is not None:
+                fn.launches = launches
+            setattr(mod, name, fn)
 
 
 def _agree_serve(torch, model, cfg, trace, kernels_on, seed):
@@ -3120,14 +3358,19 @@ def _agree_serve(torch, model, cfg, trace, kernels_on, seed):
 def server_agree_f32(torch):
     """Phase 13: qwen3 cut to 4 layers, f32, ManualClock: one schedule
     (10 requests, prompts 64-512, 24 new tokens, 4 slots, arrivals every
-    0.25 s, the clock 1 s an iteration; priorities, TTFT deadlines of 3 s, half sampled, a queued and
-    a mid-stream cancel and a forced preemption) with the kernels, again
-    with the kernels (identical), and under REPRO_DISABLE_KERNELS=1:
-    finish reasons, details, preemptions, the hook's log and the stats
-    equal, tokens equal up to the replay rule on the perturbed logits.
-    Then the schedule again with top fraction 1 and capacity factor 8
-    (so that the resume's prefill recomputes the KV decode wrote: every
-    valid key selected in both, no capacity drop), and each request
+    0.25 s, the clock 1 s an iteration; priorities, TTFT deadlines of 3
+    s, half sampled, a queued and a mid-stream cancel and a forced
+    preemption) under REPRO_DISABLE_KERNELS=1, with the kernels (kernels
+    6, 9 and 10 held to their plain versions on the inputs of every call,
+    the choices checked against the oracle's) and again with the kernels
+    (identical): finish reasons, details, preemptions, the hook's log and
+    the stats equal, tokens equal up to the near-tie rules (the perturbed
+    logits replayed, or a choice flip: _judge_flip).  Then the schedule
+    with top fraction 1 and capacity factor 8 (every valid key selected, no
+    capacity drop: the resume's prefill recomputes the KV decode wrote,
+    and a top-L choice cannot turn float-order noise into a logit gap),
+    with the kernels and under the kill switch: the stats equal, tokens
+    equal up to the replay rule on the perturbed logits; and each request
     preempted there served alone: its stream equals the preempted one
     (same rule)."""
     from repro_torch import configs
@@ -3140,11 +3383,14 @@ def server_agree_f32(torch):
                        deadline_s=3.0)
     trace = [(0.25 * i, r) for i, r in enumerate(reqs)]
     seed = SERVER_SEED
-    runs = [_agree_serve(torch, model, base, trace, on, seed)
-            for on in (True, True, False)]
+    with _choices(torch) as choices:
+        oracle = _agree_serve(torch, model, base, trace, False, seed)
+    with _held_to_plain(torch) as errs, _choices(torch, choices) as ties:
+        runs = [_agree_serve(torch, model, base, trace, True, seed)]
+    runs += [_agree_serve(torch, model, base, trace, True, seed), oracle]
     (got, log, ints, ran), again, (want, log_o, ints_o, ran_o) = runs
     if ran != {"fused_sparse_decode_attention", "grouped_ffn",
-               "decode_ffn"} or ran_o:
+               "decode_ffn"} or ran_o or not errs:
         raise AssertionError(f"kernels launched: {ran} (on), {ran_o} (off)")
     if ({u: (c.tokens, c.finish_reason, c.preemptions) for u, c in
          again[0].items()} != {u: (c.tokens, c.finish_reason, c.preemptions)
@@ -3162,24 +3408,42 @@ def server_agree_f32(torch):
             and all(x[-1] for x in log) and len(log) == 3):
         raise AssertionError(f"phase 13 schedule missed an event: {log} "
                              f"{ints}")
-    flips = _compare_sampled(torch, model, base, reqs,
+    kinds = _compare_sampled(torch, model, base, reqs,
                              {u: c.tokens for u, c in got.items()},
                              {u: c.tokens for u, c in want.items()},
-                             "kernels vs oracle", seed)
+                             "kernels vs oracle", seed, ties=ties.first)
     reasons = sorted({c.finish_reason for c in got.values()})
     print(f"  f32 server schedule: {json.dumps(ints)}; hook {log}; finish "
-          f"reasons {reasons}; streams == REPRO_DISABLE_KERNELS=1 for "
-          f"{len(got) - flips}/{len(got)} requests, {flips} replayed "
-          "near-tie flips (<= 1e-3 on the perturbed logits); the same seed "
-          "again identical", flush=True)
+          f"reasons {reasons}; the same seed again identical; kernels 6, "
+          f"9, 10 = their plain versions on the inputs of each of their "
+          f"{len(errs)} calls (max abs err {max(errs):.3e}, rule "
+          f"{F32_TOL}); streams == REPRO_DISABLE_KERNELS=1 at top-L "
+          f"{base.spt.attn_top_fraction:g} for {len(got) - len(kinds)}/"
+          f"{len(got)} requests, {_flip_note(kinds, ties.first)}",
+          flush=True)
     # recompute resume rebuilds a request's KV through the ragged prefill,
     # which equals what decode wrote only where both select the same keys
     # and no (token, group) pair overflows the routed FFN's capacity: top
     # fraction 1 keeps every valid key in both (a budget of 16 in both
     # also matches, but its selection turns float-order noise into 1e-2
-    # logit gaps), and capacity 8 drops nothing
+    # logit gaps), and capacity 8 drops nothing.  The same makes the
+    # kernels' streams comparable with the kill switch's: every valid key
+    # selected on both sides, the streams equal up to the replay rule.
     exact = base.with_spt(attn_top_fraction=1.0, ffn_capacity_factor=8.0)
-    got = _agree_serve(torch, model, exact, trace, True, seed)[0]
+    got, log, ints, _ = _agree_serve(torch, model, exact, trace, True, seed)
+    want, log_o, ints_o, _ = _agree_serve(torch, model, exact, trace, False,
+                                          seed)
+    if log != log_o or ints != ints_o:
+        raise AssertionError(f"kernels vs oracle schedules differ at top-L "
+                             f"1: {log} {ints} vs {log_o} {ints_o}")
+    kinds = _compare_sampled(torch, model, exact, reqs,
+                             {u: c.tokens for u, c in got.items()},
+                             {u: c.tokens for u, c in want.items()},
+                             "kernels vs oracle, top-L 1", seed)
+    print(f"  top-L 1, capacity 8: streams == REPRO_DISABLE_KERNELS=1 for "
+          f"{len(got) - len(kinds)}/{len(got)} requests, {len(kinds)} "
+          "replayed near-tie flips (<= 1e-3 on the perturbed logits)",
+          flush=True)
     by_uid = {r.uid: r for r in reqs}
     resumed = [u for u, c in got.items()
                if c.preemptions and c.finish_reason == "length"]
@@ -3189,11 +3453,11 @@ def server_agree_f32(torch):
     for u in resumed:
         eng = Engine(exact, model, max_len=1024, num_slots=4, decode_chunk=8)
         solo[u] = eng.run([by_uid[u]], seed=seed)[0].tokens
-    flips = _compare_sampled(torch, model, exact, reqs, solo,
+    kinds = _compare_sampled(torch, model, exact, reqs, solo,
                              {u: got[u].tokens for u in resumed},
                              "preempted vs alone", seed)
     print(f"  preempted requests {resumed}: streams equal their unpreempted "
-          f"runs ({flips} replayed near-tie flips)", flush=True)
+          f"runs ({len(kinds)} replayed near-tie flips)", flush=True)
 
 
 # ------------------------------------------------------------ phases 14-15
@@ -3735,16 +3999,18 @@ def families_agree_f32(torch):
                      frontend=_frontend(cfg))
     model = _f32_model(torch, cfg)
     before = {w.__name__: w.launches for w in kernels.wrappers()}
-    oracle, ran = _streams(torch, model, cfg, reqs, False, max_len=2048)
-    got, ran_k = _streams(torch, model, cfg, reqs, True, max_len=2048)
+    with _choices(torch) as log:
+        oracle, ran = _streams(torch, model, cfg, reqs, False, max_len=2048)
+    with _held_to_plain(torch) as errs, _choices(torch, log) as ties:
+        got, ran_k = _streams(torch, model, cfg, reqs, True, max_len=2048)
     moved = {w.__name__ for w in kernels.wrappers()
              if w.launches != before[w.__name__]}
     if ran or ran_k != {"fused_sparse_decode_attention"} or not {
             "grouped_ffn", "decode_ffn"} <= moved:
         raise AssertionError(f"phi-3-vision: oracle ran {ran}, kernels "
                              f"{sorted(moved)}")
-    _compare_streams(torch, model, cfg, reqs, "4-layer phi-3-vision f32",
-                     got, oracle, max_len=2048)
+    _gated_streams(torch, model, cfg, reqs, got, oracle, errs, ties.first,
+                   "4-layer phi-3-vision f32", max_len=2048)
     del model
     _free(torch)
     state, gen = _f32_state(torch, cfg)
@@ -3791,14 +4057,22 @@ def families_agree_f32(torch):
     model = _f32_model(torch, cfg)
     batch = _audio_batch(torch, cfg, 4, WH_PROMPT, 9)
     before = {w.__name__: w.launches for w in kernels.wrappers()}
-    got, oracle = _audio_streams(torch, model, cfg, batch, 16)
+    with _held_to_plain(torch) as errs:
+        got, oracle = _audio_streams(torch, model, cfg, batch, 16)
     moved = {w.__name__ for w in kernels.wrappers()
              if w.launches != before[w.__name__]}
     if not {"fused_sparse_decode_attention", "decode_ffn", "grouped_ffn",
             "sparse_attention"} <= moved:
         raise AssertionError(f"whisper-base: kernels {sorted(moved)}")
+    print(f"  whisper-base: kernels 6, 9, 10 = their plain versions on the "
+          f"inputs of each of their {len(errs)} calls (max abs err "
+          f"{max(errs):.3e}, rule {F32_TOL})", flush=True)
     _compare_audio(torch, model, cfg, batch, got, oracle,
                    "2 + 2-layer whisper-base f32")
+    top1 = cfg.with_spt(attn_top_fraction=1.0)
+    got, oracle = _audio_streams(torch, model, top1, batch, 16)
+    _compare_audio(torch, model, top1, batch, got, oracle,
+                   "2 + 2-layer whisper-base f32, top-L 1")
     del model
     _free(torch)
     state, gen = _f32_state(torch, cfg)
@@ -3909,29 +4183,32 @@ def check_mesh_shapes(torch, gen):
     return out
 
 
-def _mesh_run(torch, cfg, mesh, label):
-    """MESH_STEPS steps of Trainer.run (under ``mesh`` when given) on the
+def _mesh_run(torch, cfg, mesh, label, steps=MESH_STEPS, keep=False):
+    """``steps`` steps of Trainer.run (under ``mesh`` when given) on the
     seeded 4 x 1024 stream, counters zeroed just before and read just
-    after.  Returns (losses, launches, step seconds)."""
+    after.  Returns (losses, launches, step seconds), and the trainer
+    with ``keep``."""
     from repro_torch import kernels
     from repro_torch.optim.adamw import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
     trainer = _trainer_here(lambda: Trainer(
-        cfg, OptimizerConfig(lr=1e-3, total_steps=MESH_STEPS),
-        TrainerConfig(total_steps=MESH_STEPS, log_interval=1), seed=0,
+        cfg, OptimizerConfig(lr=1e-3, total_steps=steps),
+        TrainerConfig(total_steps=steps, log_interval=1), seed=0,
         device="cuda", mesh=mesh))
     losses = []
     wrappers = kernels.wrappers()
     torch.cuda.synchronize()
     for w in wrappers:
         w.launches = 0
-    trainer.run(_batches(cfg, TB, TS, MESH_STEPS, seed=0),
+    trainer.run(_batches(cfg, TB, TS, steps, seed=0),
                 step_hook=lambda step, m: losses.append(m["loss"]))
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
     times = list(trainer.monitor.times)
     print(f"  {label}: losses {json.dumps(losses)}; step s "
           f"{json.dumps(times)}; launches {json.dumps(launches)}", flush=True)
+    if keep:
+        return losses, launches, times, trainer
     del trainer
     _free(torch)
     return losses, launches, times
@@ -4852,12 +5129,199 @@ def dryrun_check(torch):
     return out
 
 
+# ------------------------------------------------------------ phase 27
+# Sharded storage of the state (train/state.storage_specs) on one card.
+# (a) An NCCL world of one under a (1, 1) mesh, bf16, spt, 4 x 1024, under
+# deterministic algorithms, for each model of SHARD_STATE (full width,
+# depth cut): init_state(mesh=) equal to init_state() bit for bit;
+# SHARD_STATE_STEPS Trainer steps through the sharded path with losses
+# bit for bit those without the mesh, launches exact; for qwen3-0.6b a
+# checkpoint of the trained state saved and restored through the sharded
+# path (checkpoint.save / restore with the storage specs and the mesh)
+# equal to it bit for bit.  (b) qwen3-0.6b's model shards of
+# SHARD_SERVE_TP, every rank a thread (phase 25's _Ring), each built on
+# the card from a whole model kept on the host: the card's allocated
+# bytes rise by the sum of the ranks' stored bytes within SHARD_MEM_TOL,
+# each rank's bytes equal the dry run's count (a dry (1, n) mesh), and
+# the serve of SHARD_WORK (streams alike on every rank, launches n x one
+# rank's exact count, ServeStats counters the unsharded serve's).
+SHARD_STATE = {"qwen3-0.6b": CUT_DEPTH, "mixtral-8x22b": 2}
+SHARD_STATE_STEPS = 2
+SHARD_SERVE_TP = 2
+SHARD_MEM_TOL = 0.01
+SHARD_DIR = ROOT / "build" / "shard_ckpt"
+
+
+def _same_state(torch, a, b) -> bool:
+    """Every leaf (and hole) of two states equal bit for bit."""
+    from repro_torch.train import checkpoint
+    la, lb = checkpoint._walk(a), checkpoint._walk(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and x.dtype == y.dtype
+                                      and torch.equal(x.cpu(), y.cpu()))
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def shard_state(torch):
+    """Phase 27(a) (module comment above).  Returns the sharded runs'
+    launches under "shard_train"."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.train import checkpoint
+    from repro_torch.train import state as S
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rank, world, _ = init_distributed("cuda")
+    total = {}
+    try:
+        if (rank, world) != (0, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"rank {rank} of {world} on "
+                                 f"{dist.get_backend()}, want NCCL 0 of 1")
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        for name, layers in SHARD_STATE.items():
+            cfg = dataclasses.replace(configs.get_config(name),
+                                      num_layers=layers).with_spt(
+                                          **SERVE_CFG)
+            _free(torch)
+            whole = S.init_state(cfg, 0, "cuda")
+            parts = S.init_state(cfg, 0, "cuda", mesh=mesh)
+            if not _same_state(torch, whole, parts):
+                raise AssertionError(f"{name}: init_state(mesh=) differs "
+                                     "from init_state()")
+            del whole, parts
+            _free(torch)
+            label = f"{name} ({layers} layers)"
+            base, _, t_base = _mesh_run(torch, cfg, None, f"{label} no mesh",
+                                        steps=SHARD_STATE_STEPS)
+            got, launches, t_mesh, trainer = _mesh_run(
+                torch, cfg, mesh, f"{label} sharded (1, 1)",
+                steps=SHARD_STATE_STEPS, keep=True)
+            if got != base:
+                raise AssertionError(f"{label}: sharded losses {got} != "
+                                     f"{base}")
+            want = _want_train_launches(cfg, launches, SHARD_STATE_STEPS)
+            if launches != want:
+                raise AssertionError(f"{label}: launches {launches} != "
+                                     f"expected {want}")
+            total = _add(total, launches)
+            what = ""
+            if name == "qwen3-0.6b":
+                shutil.rmtree(SHARD_DIR, ignore_errors=True)
+                t0 = time.perf_counter()
+                checkpoint.save(trainer.state, SHARD_STATE_STEPS,
+                                str(SHARD_DIR), specs=trainer.specs,
+                                mesh=mesh, stacked=trainer.stacked)
+                t1 = time.perf_counter()
+                back = checkpoint.restore(str(SHARD_DIR), device="cuda",
+                                          specs=trainer.specs, mesh=mesh,
+                                          stacked=trainer.stacked)
+                t2 = time.perf_counter()
+                if not _same_state(torch, back, trainer.state):
+                    raise AssertionError(f"{label}: the restored state "
+                                         "differs")
+                size = sum(f.stat().st_size for f in SHARD_DIR.rglob("*")
+                           if f.is_file())
+                what = (f"; checkpoint {size} B saved in {t1 - t0:.2f} s, "
+                        f"restored in {t2 - t1:.2f} s, bit for bit")
+                del back
+                shutil.rmtree(SHARD_DIR, ignore_errors=True)
+            print(f"  {label}: init_state(mesh=) = init_state() bit for "
+                  f"bit; sharded losses = unsharded bit for bit, launches "
+                  f"exact; mean step s no mesh "
+                  f"{statistics.fmean(t_base):.4f}, sharded "
+                  f"{statistics.fmean(t_mesh):.4f}{what}; {card_line()}",
+                  flush=True)
+            del trainer
+            _free(torch)
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+    return {"shard_train": total}
+
+
+def shard_serve(torch):
+    """Phase 27(b) (module comment above).  Returns the shards' launches
+    under "shard_serve"."""
+    from repro_torch import configs, kernels
+    from repro_torch.core import collectives as C
+    from repro_torch.core import params as P
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine
+    from repro_torch.train import state as S
+    n, w = SHARD_SERVE_TP, SHARD_WORK
+    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                              num_layers=CUT_DEPTH).with_spt(**SERVE_CFG)
+    reqs = _requests(w["n"], w["lo"], w["hi"], w["gen"], cfg.vocab_size,
+                     seed=3)
+
+    def serve(m):
+        eng = Engine(cfg, m, max_len=w["max_len"], num_slots=4,
+                     decode_chunk=8)
+        outs = eng.run(reqs)
+        st = eng.last_stats
+        return ([c.tokens for c in outs], eng.last_steps_run,
+                {k: getattr(st, k) for k in _STAT_COUNTS})
+
+    _free(torch)
+    model = _perturbed_model(torch, cfg, seed=0)
+    base = serve(model)
+    model = model.to("cpu")                  # the whole model on the host
+    _free(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ring = _Ring(n)
+    shards = [transformer.ShardedLM(model, cfg, C.Axis(ring, n, r),
+                                    device="cuda") for r in range(n)]
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    stored = [roofline.storage_bytes(sh) for sh in shards]
+    with make_dry_mesh((1, n), ("data", "model")) as mesh:
+        dry = roofline.storage_bytes(dryrun.abstract_model(cfg, mesh))
+    whole = P.param_bytes(S.model_defs(cfg))
+    if abs(rise - sum(stored)) > SHARD_MEM_TOL * sum(stored):
+        raise AssertionError(f"model={n}: the card's bytes rose {rise}, the "
+                             f"ranks store {stored}")
+    if any(b != dry for b in stored):
+        raise AssertionError(f"model={n}: ranks store {stored} B, the dry "
+                             f"run counts {dry} B a rank")
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    for wr in wrappers:
+        wr.launches = 0
+    got = _on_shards(torch, shards, lambda r, sh: serve(sh))
+    torch.cuda.synchronize()
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    streams, steps, stats = got[0]
+    if any(g != got[0] for g in got[1:]):
+        raise AssertionError(f"model={n}: the ranks' serves differ")
+    one = _want_serve_launches(cfg, launches, steps, stats["prefill_batches"])
+    if launches != {k: n * v for k, v in one.items()}:
+        raise AssertionError(f"model={n}: launches {launches} != {n} x {one}")
+    if stats != base[2]:
+        raise AssertionError(f"model={n}: ServeStats counters {stats} != "
+                             f"unsharded {base[2]}")
+    same = sum(a == b for a, b in zip(streams, base[0]))
+    print(f"  qwen3-0.6b ({CUT_DEPTH} layers) model={n} shards built on the "
+          f"card from the host: allocated +{rise} B against the ranks' "
+          f"{stored} B (whole model {whole} B), each = the dry run's {dry} "
+          f"B; serve of {len(streams)} requests alike on every rank, {same} "
+          f"streams = unsharded, ServeStats counters equal, launches {n} x "
+          f"exact; {card_line()}", flush=True)
+    del shards, model
+    _free(torch)
+    return {"shard_serve": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
                                        "families", "infra", "mesh",
-                                       "meshserve", "dryrun"),
+                                       "meshserve", "dryrun", "shard"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -4867,8 +5331,9 @@ def main() -> int:
                          "the hybrid family (1-3, 16-18), the VLM, SSM "
                          "and audio families (1-3, 19-22), checkpoint/"
                          "restart (1-3, 23), multi-GPU fine-tuning "
-                         "(1-3, 24), serving under a mesh (1-3, 25) or "
-                         "the dry run against the card (1-3, 26) alone")
+                         "(1-3, 24), serving under a mesh (1-3, 25), "
+                         "the dry run against the card (1-3, 26) or the "
+                         "sharded storage of the state (1-3, 27) alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -4968,7 +5433,7 @@ def main() -> int:
                        "mesh_train_shmap", "mesh_serve",
                        "mesh_serve_paged", "mesh_serve_hybrid",
                        "mesh_serve_shards", "dryrun_train",
-                       "dryrun_decode")}
+                       "dryrun_decode", "shard_train", "shard_serve")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -5017,7 +5482,7 @@ def main() -> int:
     if args.only in (None, "server"):
         # 12. the long-lived server at full width, contiguous and paged
         t0 = time.perf_counter()
-        print(f"[12] full-width qwen3-0.6b ({CUT_DEPTH} layers) bf16 "
+        print(f"[12] full-width qwen3-0.6b ({SERVER_DEPTH} layers) bf16 "
               f"Engine.serve: 32 requests, Poisson arrivals at 2/s, chaos "
               f"and watchdog", flush=True)
         server_paths, rates = server_full_width(torch)
@@ -5139,6 +5604,22 @@ def main() -> int:
         for name, got in dryrun_check(torch).items():
             paths[name].update(got)
         print(f"[26] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "shard"):
+        # 27. sharded storage of the state: a world of one, model shards
+        t0 = time.perf_counter()
+        models = " and ".join(f"{k} ({v} layers)"
+                              for k, v in SHARD_STATE.items())
+        print(f"[27] sharded storage of the state: an NCCL world of one, "
+              f"mesh (1, 1), bf16 {models}"
+              f": init, {SHARD_STATE_STEPS} steps and a checkpoint through "
+              f"the sharded path; qwen3-0.6b's model shards of "
+              f"{SHARD_SERVE_TP} built on the card from the host",
+              flush=True)
+        paths.update(shard_state(torch))
+        t1 = time.perf_counter()
+        print(f"[27] (a) took {t1 - t0:.1f} s", flush=True)
+        paths.update(shard_serve(torch))
+        print(f"[27] took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -12,18 +12,23 @@ local tensors, through two kinds of helper:
     path computes exactly what it computes without a mesh;
   * autograd-aware region functions (Megatron's conjugate pairs).
 
-Inside a tensor-parallel region every rank holds the whole sequence and
-its shard of the heads or of the FFN's hidden columns.  The gradient a
-rank computes there for a replicated value is its *partial* share: the
-sum over the ranks is the true gradient.  The region functions keep that
-so, and hand whole gradients back at the region's edges:
+Every rank stores only its part of each parameter (train/state.py's
+storage rule, the placements below).  Inside a tensor-parallel region
+every rank holds the whole sequence and its shard of the heads or of the
+FFN's hidden columns, which is the part it stores.  The gradient a rank
+computes there for a replicated value is its *partial* share: the sum
+over the ranks is the true gradient.  The region functions keep that so,
+and hand each rank its part of the whole gradient at the region's edges:
 
   ==================  ========================  =========================
   function            forward                   backward
   ==================  ========================  =========================
   ``enter_region``    all-gather the sequence;  reduce-scatter; leaves:
-                      the leaves as the region  all-reduce (replicated),
-                      uses them                 all-gather (sliced)
+                      leaves as stored, those   all-reduce (replicated),
+                      stored over data too      none (split over model),
+                      all-gathered over it      the shared columns summed
+                      (ZeRO-3)                  (Pick); reduce-scatter
+                                                over data (ZeRO-3)
   ``gather_seq``      all-gather the sequence   reduce-scatter
   ``scatter_seq``     reduce-scatter            all-gather
   ``split_seq``       this rank's chunk         zero-padded (partial)
@@ -33,27 +38,34 @@ so, and hand whole gradients back at the region's edges:
                       on every rank)
   ``region_sum``      all-reduce                all-reduce
   ``gather``          all-gather along a dim    reduce-scatter
+  ``gather_whole``    each leaf whole           this rank's part (model),
+                      (replicated compute)      reduce-scatter (data)
   ==================  ========================  =========================
 
 A region's trainable leaves enter with its activations, in one autograd
-node: a replicated leaf as it is (its gradient all-reduced), a leaf
-stored whole but used by its shard as this rank's slice (the slices'
-gradients all-gathered back to the whole), so every leaf's gradient comes
-out whole and equal on every rank of the model axis.  One node, because
-the backward must issue its collectives in the same order on every rank:
-the regions follow each other along the residual stream, while the
-branches inside a region (heads, LoRA products) run in an order that
-their data can change.  Over the data axes the same rule holds with the
-rows in place of the sequence: a sum over the batch goes through
-``reduce_sum`` (each rank's backward reaches its own rows only), and the
-trainable gradients are summed over the data axes after backward
-(``all_reduce_``).
+node: a replicated leaf as it is (its gradient all-reduced over the
+model axis), a leaf split over it as this rank's part (its gradient is
+already this rank's part of the whole), an expert leaf stored over the
+data axis as well gathered over data (its gradient reduce-scattered over
+data: the sum of the data ranks' rows, this rank's part).  One node,
+because the backward must issue its collectives in the same order on
+every rank: the regions follow each other along the residual stream,
+while the branches inside a region (heads, LoRA products) run in an
+order that their data can change.  The gathers sit inside the
+checkpointed unit, so the recompute gathers again and no gathered
+weight outlives its layer.  Over the data axes the same rule holds with
+the rows in place of the sequence: a sum over the batch goes through
+``reduce_sum`` (each rank's backward reaches its own rows only), and
+the gradients of the leaves replicated over data are summed over the
+data axes after backward (``all_reduce_``).
 
-Serving runs forward only, on parameters sliced once (``local_tree``):
-``model_sum`` adds a sub-layer's partial outputs over the model axis in
-place, and ``all_gather_flat`` brings one flat vector per rank of the
-data axis to every rank (the engine's one host transfer per chunk).
-Both cost nothing at extent 1.
+Serving runs forward only, on each rank's stored parts: ``zero_gather``
+gathers expert columns stored over data at use, ``model_sum`` adds a
+sub-layer's partial outputs over the model axis in place, and
+``all_gather_flat`` brings one flat vector per rank of the data axis to
+every rank (the engine's one host transfer per chunk).  They cost
+nothing at extent 1.  ``gather_stored`` makes a stored leaf whole (a
+checkpoint's save, one leaf at a time).
 
 Every collective goes through :func:`_issue`, which records its kind and
 its result's bytes (JAX's ``collective_bytes`` convention) into an active
@@ -62,6 +74,7 @@ torch.distributed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -71,7 +84,7 @@ import torch.distributed as dist
 
 from repro_torch.core.params import unflatten
 from repro_torch.kernels import cost
-from repro_torch.sharding.context import current_rules
+from repro_torch.sharding.context import Pick, current_rules, entry_axes
 
 BATCH_AXES = ("pod", "data")
 SEQ = 1                     # the sequence dim of a (B, S, d) activation
@@ -129,8 +142,27 @@ def axis(names: Union[str, Sequence[str]]) -> Optional[Axis]:
                      names)
 
 
+_REPLICATED = False
+
+
 def model_axis() -> Optional[Axis]:
-    return axis("model")
+    """The model axis of the current rules; None inside
+    :func:`replicated_compute`."""
+    return None if _REPLICATED else axis("model")
+
+
+@contextlib.contextmanager
+def replicated_compute():
+    """The code it wraps computes alike on every rank of the model axis,
+    on parameters made whole (:func:`gather_whole`): no model axis, no
+    ZeRO-3 gather.  A process-wide value, as the rules (the backward's
+    recompute may run on another thread)."""
+    global _REPLICATED
+    prev, _REPLICATED = _REPLICATED, True
+    try:
+        yield
+    finally:
+        _REPLICATED = prev
 
 
 def batch_axis() -> Optional[Axis]:
@@ -314,60 +346,47 @@ def mean_exit(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
 
 
 class _EnterRegion(torch.autograd.Function):
-    """(x, *leaves) -> (x gathered, *leaves as the region uses them);
-    ``how`` holds per leaf None (replicated) or the sliced dim."""
+    """(x, *leaves) -> (x with its sequence gathered over the model axis
+    ``ax`` (as it is without one), *leaves as the region uses them:
+    gathered over the data axis ``zero`` where they are stored over it,
+    else as stored).  ``how`` holds per leaf (its model placement: None
+    replicated, the split dim, or a :class:`Pick`; the dim it is stored
+    over data on, or None)."""
 
     @staticmethod
-    def forward(ctx, ax, how, x, *leaves):
-        ctx.args = (ax, how)
-        ctx.whole = [t.shape[d.dim] if isinstance(d, Pick) else None
-                     for t, d in zip(leaves, how)]
-        return (_all_gather(x, SEQ, ax),
-                *(t.view_as(t) if d is None else _slice(t, d, ax)
-                  for t, d in zip(leaves, how)))
+    def forward(ctx, ax, zero, how, x, *leaves):
+        ctx.args = (ax, zero, how)
+        return (x.view_as(x) if ax is None else _all_gather(x, SEQ, ax),
+                *(t.view_as(t) if zd is None else _all_gather(t, zd, zero)
+                  for t, (_, zd) in zip(leaves, how)))
 
     @staticmethod
     def backward(ctx, gx, *gl):
-        ax, how = ctx.args
-        out = [_reduce_scatter(gx, SEQ, ax)]
-        for g, d in zip(gl, how):
-            if d is None:
-                out.append(_all_reduce(g.contiguous().clone(), ax.group))
-            elif isinstance(d, Pick):
-                parts = _gather_parts(g, ax)
-                shape = list(g.shape)
-                shape[d.dim] = ctx.whole[len(out) - 1]
-                whole = g.new_zeros(shape)
-                for r, part in enumerate(parts):
-                    whole.index_add_(d.dim, torch.as_tensor(
-                        d.index[r], dtype=torch.long, device=g.device), part)
-                out.append(whole)
-            else:
-                out.append(_all_gather(g, d, ax))
-        return (None, None, *out)
+        ax, zero, how = ctx.args
+        out = [gx if ax is None else _reduce_scatter(gx, SEQ, ax)]
+        for g, (mh, zd) in zip(gl, how):
+            if ax is not None and mh is None:
+                g = _all_reduce(g.contiguous().clone(), ax.group)
+            elif ax is not None and isinstance(mh, Pick):
+                g = _pick_sum(g, mh, ax)
+            if zd is not None:
+                g = _reduce_scatter(g, zd, zero)
+            out.append(g)
+        return (None, None, None, *out)
 
 
-@dataclasses.dataclass(frozen=True)
-class Pick:
-    """A leaf spec (in place of a placement tuple) for a leaf that each
-    rank uses by an index set of one dimension, e.g. the columns of a
-    fused projection whose parts split differently: rank r uses
-    ``index[r]`` of dim ``dim``.  Indices shared by several ranks take
-    the sum of their partial gradients."""
-    dim: int
-    index: Tuple[Tuple[int, ...], ...]
+def _pick_sum(g: torch.Tensor, pick: Pick, ax: Axis) -> torch.Tensor:
+    """This rank's part of the sum of every rank's partial gradient of a
+    :class:`Pick` leaf: its own columns, the shared ones summed."""
+    shape = list(g.shape)
+    shape[pick.dim] = 1 + max(max(ix) for ix in pick.index)
+    idx = torch.as_tensor(pick.index[ax.rank], dtype=torch.long,
+                          device=g.device)
+    whole = g.new_zeros(shape).index_add_(pick.dim, idx, g)
+    return _all_reduce(whole, ax.group).index_select(pick.dim, idx)
 
 
-def _slice(t: torch.Tensor, how, ax: Axis) -> torch.Tensor:
-    """This rank's part of a leaf: whole (None), its contiguous chunk of
-    a dim (int), or its index set (Pick)."""
-    if how is None:
-        return t
-    if isinstance(how, Pick):
-        idx = torch.as_tensor(how.index[ax.rank], dtype=torch.long,
-                              device=t.device)
-        return t.index_select(how.dim, idx)
-    return _chunk(t, how, ax)
+ZERO_AXIS = "data"          # the axis the ZeRO-3 leaves are also stored over
 
 
 def _slice_dim(spec):
@@ -376,38 +395,61 @@ def _slice_dim(spec):
     if isinstance(spec, Pick):
         return spec
     for dim, entry in enumerate(spec or ()):
-        flat = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        if "model" in flat:
+        if "model" in entry_axes(entry):
             return dim
     return None
+
+
+def zero_dim(spec) -> Optional[int]:
+    """The dim a placement stores over the data axis as well (ZeRO-3:
+    gathered over data where it is used), or None."""
+    if isinstance(spec, Pick):
+        return None
+    for dim, entry in enumerate(spec or ()):
+        if ZERO_AXIS in entry_axes(entry):
+            return dim
+    return None
+
+
+def _has_zero(specs) -> bool:
+    if specs is None or isinstance(specs, (tuple, Pick)):
+        return zero_dim(specs) is not None
+    return any(_has_zero(v) for v in specs.values())
 
 
 def enter_region(x: torch.Tensor, p, specs, ax: Optional[Axis]):
     """Enter a tensor-parallel region on the model axis ``ax``: returns (x
     with its sequence all-gathered, the param (sub)tree ``p`` as the
-    region uses it).  A leaf whose spec (``core/params.spec_tree``;
-    ``specs`` None: every leaf replicated) places "model" on a dimension
-    is sliced there (contiguous), one whose spec is a :class:`Pick` is
-    taken by its index set; every other leaf is used whole.  The
-    trainable leaves pass through the entry's autograd node (module
-    docstring)."""
-    if ax is None:
+    region uses it).  ``p`` holds this rank's stored leaves under
+    ``specs`` (their storage placements, train/state.storage_specs;
+    None: every leaf replicated): a leaf split over "model" or taken by a
+    :class:`Pick` is used as it is, and so is a replicated one; a leaf
+    stored over the data axis as well is all-gathered over it (ZeRO-3),
+    here, inside the checkpointed unit, so the recompute gathers again.
+    Without a model axis (``ax`` None) only that gather is made, and x
+    passes.  The trainable leaves pass through the entry's autograd node
+    (module docstring)."""
+    zero = (axis(ZERO_AXIS) if _has_zero(specs) and not _REPLICATED
+            else None)
+    if ax is None and zero is None:
         return x, p
     pairs, trainable = [], []
 
     def walk(t, spec, path):
         if isinstance(t, torch.Tensor):
-            d = _slice_dim(spec)
+            how = (_slice_dim(spec), None if zero is None else zero_dim(spec))
             if t.requires_grad:
-                trainable.append((path, t, d))
-            else:
-                pairs.append((path, _slice(t, d, ax)))
+                trainable.append((path, t, how))
+            elif how[1] is None:
+                pairs.append((path, t))
+            else:                      # frozen: the forward's gather only
+                pairs.append((path, _all_gather(t, how[1], zero)))
             return
         for k in sorted(t.keys()):      # one order on every rank
             walk(t[k], None if spec is None else spec[k], path + (k,))
 
     walk(p, specs, ())
-    outs = _EnterRegion.apply(ax, tuple(d for _, _, d in trainable), x,
+    outs = _EnterRegion.apply(ax, zero, tuple(h for _, _, h in trainable), x,
                               *(t for _, t, _ in trainable))
     pairs += [(path, o) for (path, _, _), o in zip(trainable, outs[1:])]
     return outs[0], unflatten([k for k, _ in pairs], [v for _, v in pairs])
@@ -439,20 +481,111 @@ def gather(x: torch.Tensor, dim: int, ax: Optional[Axis]) -> torch.Tensor:
 
 
 # --------------------------------------------------- serving (forward only)
-def local_tree(p, specs, ax: Optional[Axis]):
-    """This rank's copy of a param (sub)tree ``p`` (dicts or ParamTrees)
-    under ``specs`` (placement tuples or :class:`Pick` leaves, as
-    ``enter_region`` reads them): each leaf sliced once, contiguous,
-    without autograd; at extent 1 the tree itself."""
-    if ax is None:
+def zero_gather(p: dict, dims, zero: Optional[Axis]) -> dict:
+    """Serving: a param (sub)tree with each leaf stored over the data axis
+    ``zero`` (``dims``: (path, dim) pairs) all-gathered along its dim, at
+    use, forward only (ZeRO-3); the tree itself without a data axis."""
+    if zero is None or not dims:
         return p
+    out = dict(p)
+    for path, dim in dims:
+        node = out
+        for k in path[:-1]:
+            node[k] = dict(node[k])
+            node = node[k]
+        node[path[-1]] = _all_gather(node[path[-1]], dim, zero)
+    return out
 
-    def walk(t, spec):
+
+def gather_stored(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole array of which ``t`` is this rank's stored part under
+    ``spec`` (``sharding.local_slice``'s layout) on ``mesh``: gathered
+    over each placed axis, the minor one first; a :class:`Pick` leaf's
+    parts put back at their index sets.  Every rank of the mesh calls it
+    (a checkpoint's save, one leaf at a time)."""
+    if isinstance(spec, Pick):
+        ax = mesh_axis(mesh, "model")
+        if ax is None:
+            return t
+        shape = list(t.shape)
+        shape[spec.dim] = 1 + max(max(ix) for ix in spec.index)
+        whole = t.new_empty(shape)
+        for r, part in enumerate(_gather_parts(t, ax)):
+            whole.index_copy_(spec.dim, torch.as_tensor(
+                spec.index[r], dtype=torch.long, device=t.device), part)
+        return whole
+    for dim, entry in enumerate(spec or ()):
+        for name in reversed(entry_axes(entry)):
+            ax = mesh_axis(mesh, name)
+            if ax is not None:
+                t = _all_gather(t, dim, ax)
+    return t
+
+
+class _GatherWhole(torch.autograd.Function):
+    """(*leaves) -> the whole leaves (``gather_stored``); backward: each
+    rank computed alike over the model axis, so a gradient's model part
+    is this rank's slice, its data part summed over the data axis and
+    scattered (its rows differ by data rank)."""
+
+    @staticmethod
+    def forward(ctx, mesh, specs, *leaves):
+        ctx.args = (mesh, specs)
+        outs = [gather_stored(t, sp, mesh) for t, sp in zip(leaves, specs)]
+        return tuple(o.view_as(o) if o is t else o
+                     for o, t in zip(outs, leaves))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, specs = ctx.args
+        out = []
+        for g, sp in zip(grads, specs):
+            if isinstance(sp, Pick):
+                ax = mesh_axis(mesh, "model")
+                if ax is not None:
+                    g = g.index_select(sp.dim, torch.as_tensor(
+                        sp.index[ax.rank], dtype=torch.long, device=g.device))
+                out.append(g)
+                continue
+            for dim, entry in enumerate(sp or ()):
+                for name in entry_axes(entry):
+                    ax = mesh_axis(mesh, name)
+                    if ax is None:
+                        continue
+                    g = (_reduce_scatter(g, dim, ax) if name == ZERO_AXIS
+                         else _chunk(g, dim, ax))
+            out.append(g)
+        return (None, None, *out)
+
+
+def gather_whole(p, specs):
+    """The whole param (sub)tree of this rank's stored parts ``p`` under
+    ``specs`` (storage placements) on the current rules' mesh, for a step
+    that computes alike on every rank of the model axis (under
+    :func:`replicated_compute`): the frozen leaves gathered as they are,
+    the trainable ones through one autograd node, in one order on every
+    rank."""
+    mesh = current_rules()["__mesh__"]
+    pairs, trainable = [], []
+
+    def walk(t, spec, path):
+        if t is None:
+            return
         if isinstance(t, torch.Tensor):
-            return _slice(t.detach(), _slice_dim(spec), ax).contiguous()
-        return {k: walk(t[k], None if spec is None else spec[k])
-                for k in t.keys()}
-    return walk(p, specs)
+            if t.requires_grad:
+                trainable.append((path, t, spec))
+            else:
+                pairs.append((path, gather_stored(t, spec, mesh)))
+            return
+        for k in sorted(t.keys()):
+            walk(t[k], spec[k], path + (k,))
+
+    walk(p, specs, ())
+    outs = (_GatherWhole.apply(mesh, tuple(sp for _, _, sp in trainable),
+                               *(t for _, t, _ in trainable))
+            if trainable else ())
+    pairs += [(path, o) for (path, _, _), o in zip(trainable, outs)]
+    return unflatten([k for k, _ in pairs], [v for _, v in pairs])
 
 
 def model_sum(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:

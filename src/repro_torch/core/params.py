@@ -4,7 +4,8 @@ Every layer declares its parameters as a nested dict of :class:`ParamDef`
 (shape + dtype + *logical* partition axes + initializer + trainable flag).
 ``spec_tree`` maps the logical axes onto mesh axes through a rule table
 (sharding/rules.py), as the JAX package does; ``init_tree`` materializes
-one on a device from an explicit ``torch.Generator``; ``from_numpy_tree``
+one on a device from an explicit ``torch.Generator`` (whole, or the part
+one rank of a mesh stores); ``from_numpy_tree``
 loads the JAX package's parameter tree (nested dicts of numpy arrays, the
 same layout: stacked units on a leading axis U) so both packages compute
 the same function.  :class:`ParamTree` turns either tree into an
@@ -19,6 +20,8 @@ from typing import Any, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.sharding.context import Pick, local_shape, local_slice
 
 Tree = Any  # nested dict of ParamDef / tensors
 
@@ -51,39 +54,82 @@ def _map_defs(fn, tree: Tree) -> Tree:
     raise TypeError(f"bad def tree node: {type(tree)}")
 
 
-def _materialize(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
+def _draw(d: ParamDef, shape, gen: torch.Generator) -> torch.Tensor:
+    """A draw of ``shape`` (the whole def, or one layer of a stacked one)
+    from ``d``'s random init; the scale is the whole def's."""
     kind, _, arg = d.init.partition(":")
     dev = gen.device
-    if kind == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype, device=dev)
-    if kind == "ones":
-        return torch.ones(d.shape, dtype=d.dtype, device=dev)
     if kind in ("normal", "fan_in"):
         if kind == "normal":
             std = float(arg or 0.02)
         else:
             fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
             std = 1.0 / math.sqrt(max(1, fan_in))
-        x = torch.randn(d.shape, generator=gen, device=dev,
+        x = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
         return (x * std).to(d.dtype)
     if kind == "uniform":
         s = float(arg or 1.0)
-        x = torch.rand(d.shape, generator=gen, device=dev,
+        x = torch.rand(shape, generator=gen, device=dev,
                        dtype=torch.float32)
         return ((2.0 * x - 1.0) * s).to(d.dtype)
     raise ValueError(f"unknown init {d.init!r}")
 
 
-def init_tree(tree: Tree, generator: torch.Generator) -> Tree:
+def layer_spec(spec):
+    """The spec of one layer of a stacked leaf (its leading layer entry,
+    which no rule places, dropped)."""
+    if isinstance(spec, Pick):
+        return Pick(spec.dim - 1, spec.index)
+    if spec and spec[0] is not None:
+        raise ValueError(f"a stacked leaf placed on its layer axis: {spec}")
+    return tuple(spec or ())[1:]
+
+
+def _materialize(d: ParamDef, gen: torch.Generator, spec=None,
+                 sizes=None, coords=None) -> torch.Tensor:
+    """The leaf of ``d``, or with ``spec`` the part of it the rank at
+    ``coords`` holds (``sharding.local_slice``).  A layer-stacked leaf is
+    drawn one layer at a time, so no more than one layer of it is ever
+    whole, and a part is exactly the slice of the whole draw."""
+    kind = d.init.partition(":")[0]
+    dev = gen.device
+    shape = (d.shape if spec is None
+             else local_shape(d.shape, spec, sizes or {}))
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=d.dtype, device=dev)
+    if kind == "ones":
+        return torch.ones(shape, dtype=d.dtype, device=dev)
+
+    def keep(t, sp):
+        return t if spec is None else local_slice(t, sp, sizes or {},
+                                                  coords or {})
+    if not stacked(d):
+        return keep(_draw(d, d.shape, gen), spec)
+    lspec = layer_spec(spec)
+    out = torch.empty(shape, dtype=d.dtype, device=dev)
+    for u in range(d.shape[0]):
+        out[u] = keep(_draw(d, d.shape[1:], gen), lspec)
+    return out
+
+
+def init_tree(tree: Tree, generator: torch.Generator, specs: Tree = None,
+              sizes: Optional[Mapping[str, int]] = None,
+              coords: Optional[Mapping[str, int]] = None) -> Tree:
     """Materialize parameters on ``generator.device``.  Leaves are drawn in
     sorted-path order, so a seed fixes the whole tree.  (The numbers differ
-    from JAX's PRNG; parity tests load JAX's tree with from_numpy_tree.)"""
-    def build(t):
+    from JAX's PRNG; parity tests load JAX's tree with from_numpy_tree.)
+    With ``specs`` (placements of a mesh of axis extents ``sizes``) each
+    leaf is the part the rank at ``coords`` holds: every rank draws every
+    leaf (one whole leaf, or one layer of a stacked one, at a time) and
+    keeps its slice, so the parts are exactly the slices of the tree a
+    world of one draws."""
+    def build(t, sp):
         if is_def(t):
-            return _materialize(t, generator)
-        return {k: build(t[k]) for k in sorted(t)}
-    return build(tree)
+            return _materialize(t, generator, sp, sizes, coords)
+        return {k: build(t[k], None if specs is None else sp[k])
+                for k in sorted(t)}
+    return build(tree, specs)
 
 
 def stack_defs(tree: Tree, n: int) -> Tree:
@@ -99,12 +145,18 @@ def stack_defs(tree: Tree, n: int) -> Tree:
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 
-def abstract_tree(tree: Tree) -> Tree:
+def abstract_tree(tree: Tree, specs: Tree = None,
+                  sizes: Optional[Mapping[str, int]] = None) -> Tree:
     """Meta tensors of a def tree's shapes and dtypes: the parameters with
     no storage and no data, for a dry run (JAX: ``ShapeDtypeStruct``
-    leaves)."""
-    return _map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
-                                           device="meta"), tree)
+    leaves); with ``specs``, the shapes one rank holds under them."""
+    def build(t, sp):
+        if is_def(t):
+            shape = (t.shape if specs is None
+                     else local_shape(t.shape, sp, sizes or {}))
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        return {k: build(t[k], None if specs is None else sp[k]) for k in t}
+    return build(tree, specs)
 
 
 def spec_tree(tree: Tree, rules: Mapping[str, Any]) -> Tree:
@@ -211,6 +263,16 @@ def from_numpy_tree(tree: Tree, device, dtype_map: Optional[Mapping] = None
 def trainable_mask(tree: Tree) -> Tree:
     """Boolean tree: True for trainable leaves (LoRA/router/codebooks)."""
     return _map_defs(lambda d: d.trainable, tree)
+
+
+def stacked(d: ParamDef) -> bool:
+    """A layer-stacked def: its leading axis is "layer"."""
+    return d.axes[:1] == ("layer",)
+
+
+def stacked_mask(tree: Tree) -> Tree:
+    """Boolean tree: True for layer-stacked leaves (``stacked``)."""
+    return _map_defs(stacked, tree)
 
 
 def partition(tree: Tree, mask: Tree) -> Tuple[Tree, Tree]:

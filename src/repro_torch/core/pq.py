@@ -39,6 +39,24 @@ def param_defs(cfg: PQConfig) -> dict:
         trainable=True)}
 
 
+def distances(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """``assign``'s distances ||c||^2 - 2 x.c of each sub-vector to each
+    codeword, (..., n, M, E) float32, summed in its order."""
+    m, e, dp = codebooks.shape
+    *lead, n, d = x.shape
+    if d != m * dp:
+        raise ValueError(f"x {tuple(x.shape)} vs codebooks "
+                         f"{tuple(codebooks.shape)}")
+    xs = x.reshape(*lead, n, m, dp).float()
+    cb = codebooks.float()
+    dots = xs[..., 0:1] * cb[..., 0]                       # (..., n, M, E)
+    c2 = cb[..., 0] * cb[..., 0]                           # (M, E)
+    for j in range(1, dp):
+        dots = dots + xs[..., j:j + 1] * cb[..., j]
+        c2 = c2 + cb[..., j] * cb[..., j]
+    return c2 - 2.0 * dots
+
+
 def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Nearest codeword per sub-vector, in the JAX form ||c||^2 - 2 x.c
     (||x||^2 is constant over the argmin) computed in float32.
@@ -52,20 +70,7 @@ def assign(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     x: (..., n, d) with d = M * d'; codebooks: (M, E, d')
     returns codes (..., n, M) int32 in [0, E)
     """
-    m, e, dp = codebooks.shape
-    *lead, n, d = x.shape
-    if d != m * dp:
-        raise ValueError(f"x {tuple(x.shape)} vs codebooks "
-                         f"{tuple(codebooks.shape)}")
-    xs = x.reshape(*lead, n, m, dp).float()
-    cb = codebooks.float()
-    dots = xs[..., 0:1] * cb[..., 0]                       # (..., n, M, E)
-    c2 = cb[..., 0] * cb[..., 0]                           # (M, E)
-    for j in range(1, dp):
-        dots = dots + xs[..., j:j + 1] * cb[..., j]
-        c2 = c2 + cb[..., j] * cb[..., j]
-    dist = c2 - 2.0 * dots
-    return dist.argmin(-1).to(torch.int32)
+    return distances(x, codebooks).argmin(-1).to(torch.int32)
 
 
 def quantization_error(x: torch.Tensor, codebooks: torch.Tensor,

@@ -9,9 +9,9 @@ kernels it calls (``kernels/cost.py``) against the H100's datasheet
 constants.  Nothing is allocated on any device, so it runs on a machine
 without a card; what it predicts is the card's path (``target``).
 
-The storage it reports is the port's own: every rank holds the whole
-train state, and a serving rank the whole model beside its slices
-(``transformer.ShardedLM``) and the caches of its slots.
+The storage it reports is the port's own: a rank's parts of the train
+state (train/state.storage_specs), and a serving rank its part of the
+model (``transformer.ShardedLM``) and the caches of its slots.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
@@ -76,20 +76,21 @@ def count(step: Callable, args: Sequence, target: str = "cuda"
     return counter.outputs(out)
 
 
-def _abstract_params(cfg: ModelConfig) -> dict:
-    return P.abstract_tree(S.model_defs(cfg))
-
-
-def abstract_model(cfg: ModelConfig, tp: Optional[C.Axis] = None):
+def abstract_model(cfg: ModelConfig, mesh=None):
     """The model on the meta device: an ``LM`` (``EncDecLM`` for the
-    audio family), and under a model axis ``tp`` this rank's part of it
-    (``ShardedLM`` / ``ShardedEncDec``, as the serving engine builds)."""
-    params = _abstract_params(cfg)
-    if cfg.family == "audio":
-        model = encdec.EncDecLM(cfg, params, device="meta")
-        return model if tp is None else encdec.ShardedEncDec(model, cfg, tp)
-    model = transformer.LM(cfg, params, device="meta")
-    return model if tp is None else transformer.ShardedLM(model, cfg, tp)
+    audio family), and under ``mesh`` where it splits this rank's part of
+    it (``ShardedLM`` / ``ShardedEncDec`` of the local meta tree, as
+    ``engine.init_model`` builds it)."""
+    audio = cfg.family == "audio"
+    axes = engine.serving_axes(cfg, mesh)
+    if axes is None:
+        return (encdec.EncDecLM if audio else transformer.LM)(
+            cfg, P.abstract_tree(S.model_defs(cfg)), device="meta")
+    shard = transformer.serve_shard(cfg, *axes)
+    params = P.abstract_tree(S.model_defs(cfg), S.model_storage_specs(
+        cfg, shard.sizes), shard.sizes)
+    return (encdec.ShardedEncDec if audio else
+            transformer.ShardedLM).from_local(params, cfg, *axes)
 
 
 def cell_step(cfg: ModelConfig, shape: ShapeSpec, model=None,
@@ -112,23 +113,24 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                loss_chunk: int = 512, target: str = "cuda"
                ) -> roofline.Counter:
     """Trace one step of the cell on the meta device at rank 0's shapes
-    (JAX: ``lower_cell``).  The train step takes the whole abstract state
-    (every rank holds it) and this rank's rows of the batch; prefill and
-    decode the model (this rank's slices of it under a model axis), the
-    decode caches of this rank's slots (``steps.cache_local_shapes``)
-    and its tokens.  mesh: a ``make_dry_mesh`` (or None: one device).
-    Returns the counter (``roofline.analyze``, ``Counter.memory``)."""
+    (JAX: ``lower_cell``).  The train step takes the abstract state rank
+    0 stores (``train/state.abstract_state(cfg, rules)``) and its rows of
+    the batch; prefill and decode the model rank 0 stores
+    (``abstract_model``), the decode caches of its slots
+    (``steps.cache_local_shapes``) and its tokens.  mesh: a
+    ``make_dry_mesh`` (or None: one device).  Returns the counter
+    (``roofline.analyze``, ``Counter.memory``)."""
     rules = rules_for_mesh(mesh) if mesh is not None else None
     with axis_rules(rules):
         dp = C.mesh_axis(mesh, C.BATCH_AXES)
-        tp = C.mesh_axis(mesh, "model")
         data = dp.size if dp is not None else 1
         specs = input_specs(cfg, shape)
         if shape.kind == "train":
-            args = (S.abstract_state(cfg), abstract_inputs(specs, data))
+            args = (S.abstract_state(cfg, rules), abstract_inputs(specs,
+                                                                  data))
             step = cell_step(cfg, shape, loss_chunk=loss_chunk)
         else:
-            model = abstract_model(cfg, tp)
+            model = abstract_model(cfg, mesh)
             step = cell_step(cfg, shape, model)
             if shape.kind == "prefill":
                 args = (model, abstract_inputs(specs, data))

@@ -22,9 +22,10 @@ blob has ``"mode": "legacy-audio"``, as in JAX.  Runs on the card unless
 
 ``--mesh DATAxMODEL`` serves under a (data, model) mesh of the world
 (launch/mesh.py; torchrun's environment, one process per rank, or a
-world of one): the slots split over ``data``, the heads and hidden
-columns over ``model`` (serving/engine.py); every rank serves the same
-requests and rank 0 prints the blob.
+world of one): the slots split over ``data``, the heads, hidden columns
+and vocabulary over ``model`` (serving/engine.py); each rank draws only
+its part of the seeded model (``engine.init_model``), every rank serves
+the same requests and rank 0 prints the blob.
 
     PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.serve \
         --arch qwen3-0.6b --smoke --device cpu --requests 4 --slots 2 \
@@ -44,8 +45,9 @@ import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.launch.mesh import init_distributed, make_mesh
-from repro_torch.models import encdec, transformer
-from repro_torch.serving.engine import ArrivalSchedule, Engine, Request
+from repro_torch.models import transformer
+from repro_torch.serving.engine import (ArrivalSchedule, Engine, Request,
+                                      init_model)
 
 
 def build_requests(vocab: int, num: int, prompt_len: int, gen: int,
@@ -214,8 +216,7 @@ def _serve(args, mesh, rank: int) -> int:
                        kv_page_size=args.page_size, telemetry=telemetry)
     device = transformer.resolve_device(args.device)
     audio = cfg.family == "audio"
-    model = (encdec.EncDecLM if audio else transformer.LM).init(
-        cfg, seed=0, device=device)
+    model = init_model(cfg, seed=0, device=device, mesh=mesh)
     frontend = cfg.frontend_tokens if cfg.frontend and not audio else 0
     max_len = args.max_len or frontend + args.prompt_len + args.gen
     engine = Engine(cfg, model, max_len=max_len, num_slots=args.slots,

@@ -2,18 +2,23 @@
 
   * ``build_train_step`` — forward, chunked cross-entropy, backward into
     the trainable leaves, AdamW; under a mesh (``sharding.axis_rules``)
-    each data rank takes its rows, the loss's sums and the aux
-    statistics are reduced over the data axes before division, and the
-    trainable gradients are summed over them before the global-norm clip;
+    each rank holds its stored parts of the state (train/state.py) and
+    takes its data rank's rows, the loss's sums and the aux statistics
+    are reduced over the data axes before division, each gradient is
+    this rank's part of the global batch's, and the global-norm clip
+    counts every element of the model once;
   * the serving prefill and decode steps;
-  * ``batch_specs`` / ``cache_specs`` / ``train_shardings`` /
-    ``decode_shardings`` — the JAX package's placement trees, each
-    ``PartitionSpec`` read as a tuple (the port keeps arrays whole or
-    local and places nothing by them); ``cache_local_shapes``, the
-    decode caches a rank of a serving mesh holds.
+  * ``batch_specs`` / ``cache_specs`` — the JAX package's placement
+    trees, each ``PartitionSpec`` read as a tuple; ``train_shardings`` /
+    ``decode_shardings`` — the placements the port's state and serving
+    params are stored under (train/state.storage_specs, which says
+    where they differ from JAX's), with JAX's batch and cache placements;
+    ``cache_local_shapes``, the decode caches a rank of a serving mesh
+    holds.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict
 
 import torch
@@ -24,9 +29,18 @@ from repro_torch.core import params as P
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.models import transformer
 from repro_torch.serving import engine
-from repro_torch.sharding.context import local_shape, spec_for
+from repro_torch.sharding.context import current_rules, local_shape, spec_for
 from repro_torch.train import state as S
 from repro_torch.train.loss import lm_cross_entropy
+
+
+def _storage(cfg: ModelConfig):
+    """The state's storage placements under the active rules (None
+    without a mesh)."""
+    rules = current_rules()
+    if rules is None or rules.get("__mesh__") is None:
+        return None
+    return S.storage_specs(cfg, rules)
 
 
 def loss_and_grads(state: dict, cfg: ModelConfig,
@@ -35,19 +49,31 @@ def loss_and_grads(state: dict, cfg: ModelConfig,
     tree's structure (zeros where no path from the loss reaches a leaf;
     empty when nothing is trainable, as under the "full" variant).
     total = lm + lb_w * lb / num_layers (+ qerr_w * qerr / num_layers).
-    Under a mesh ``batch`` holds this data rank's rows: the loss's sums,
+    Under a mesh ``batch`` holds this data rank's rows and ``state`` this
+    rank's stored parts (train/state.storage_specs): the loss's sums,
     ``qerr`` and ``dropped`` are reduced over the data axes (``lb_loss``
     already is, in dispatch.load_balance_loss or core/ffn_shmap.py), and
-    the gradients are summed over them, so every rank returns the global
-    batch's loss, metrics and gradients."""
+    each gradient is this rank's part of the global batch's: summed over
+    the data axes here for a leaf replicated over them, by the ZeRO-3
+    reduce-scatter of its region's backward for one stored over data.
+    Positions that do not divide the model extent take no sequence-
+    parallel layout: the step gathers the whole parameters
+    (``collectives.gather_whole``) and computes alike on every model
+    rank."""
     pairs = list(P.leaves(state["train"]))
     paths = [p for p, _ in pairs]
     train_vals = [v.detach().requires_grad_(True) for _, v in pairs]
     train = P.unflatten(paths, train_vals)
     params = P.combine(train, state["frozen"])
+    specs = _storage(cfg)
     dp = C.batch_axis()
     tp = transformer.seq_parallel(cfg, batch)
-    with torch.enable_grad():
+    whole = tp is None and C.model_axis() is not None
+    with torch.enable_grad(), (C.replicated_compute() if whole
+                               else contextlib.nullcontext()):
+        if whole:
+            params = C.gather_whole(params, P.combine(specs["train"],
+                                                      specs["frozen"]))
         hidden, aux = S.model_hidden(params, cfg, batch, remat=True)
         lm_loss, stats = lm_cross_entropy(params, cfg, hidden,
                                           batch["labels"], loss_chunk,
@@ -63,8 +89,11 @@ def loss_and_grads(state: dict, cfg: ModelConfig,
         grads = (torch.autograd.grad(total, train_vals, allow_unused=True)
                  if train_vals else [])
     # a leaf no path reaches has a zero gradient, as jax.grad gives it
-    grads = [torch.zeros_like(v) if g is None else C.all_reduce_(g, dp)
-             for v, g in zip(train_vals, grads)]
+    zero = ([None] * len(paths) if specs is None else
+            [C.zero_dim(sp) for _, sp in P.leaves(specs["train"])])
+    grads = [torch.zeros_like(v) if g is None else
+             C.all_reduce_(g, dp if z is None else None)
+             for v, g, z in zip(train_vals, grads, zero)]
     metrics = {"lm_loss": lm_loss, **stats, "lb_loss": aux["lb_loss"],
                "dropped": aux["dropped"]}
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -76,11 +105,14 @@ def build_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
     """train_step(state, batch) -> (new_state, metrics): loss, lm_loss,
     nll_sum, tokens, accuracy, lb_loss, dropped, grad_norm, lr (0-d
     tensors).  batch: {"tokens", "labels"} (B, S) integer tensors on the
-    state's device."""
+    state's device.  Under a mesh the state is this rank's parts, and
+    AdamW updates them in place of the whole leaves."""
     def train_step(state: dict, batch: Dict[str, torch.Tensor]):
         loss, metrics, grads = loss_and_grads(state, cfg, batch, loss_chunk)
+        specs = _storage(cfg)
         new_train, new_opt, om = adamw_update(
-            state["train"], grads, state["opt"], state["step"], ocfg)
+            state["train"], grads, state["opt"], state["step"], ocfg,
+            specs=None if specs is None else specs["train"])
         new_state = {"step": state["step"] + 1, "train": new_train,
                      "frozen": state["frozen"], "opt": new_opt}
         return new_state, {"loss": loss, **metrics, **om}
@@ -148,15 +180,21 @@ def cache_local_shapes(cfg: ModelConfig, abstract_caches, rules,
 
 
 def train_shardings(cfg: ModelConfig, mesh, rules, specs):
-    """(state, batch, new state, metrics) placements of a train step."""
-    st = S.state_specs(cfg, rules)
+    """(state, batch, new state, metrics) placements of a train step: the
+    state as each rank stores it (``S.storage_specs``)."""
+    st = S.storage_specs(cfg, rules)
     return st, batch_specs(cfg, specs, rules), st, ()
 
 
 def decode_shardings(cfg: ModelConfig, mesh, rules, abstract_caches, specs):
-    """(params, caches, batch, logits) placements of a decode step."""
-    logits = spec_for((1, 1, cfg.padded_vocab), ("batch", None, "vocab"),
+    """(params, caches, batch, logits) placements of a decode step: the
+    params as a serving rank stores them (``S.model_storage_specs``; the
+    experts' columns over data as well), JAX's cache placements (the port
+    keeps a cache's sequence whole: ``cache_local_shapes``), and the
+    logits as the decode step returns them, all-gathered over the
+    vocabulary."""
+    logits = spec_for((1, 1, cfg.padded_vocab), ("batch", None, None),
                       rules)
-    return (S.param_specs(cfg, rules),
+    return (S.model_storage_specs(cfg, rules.get("__sizes__", {})),
             cache_specs(cfg, abstract_caches, rules),
             batch_specs(cfg, specs, rules), logits)

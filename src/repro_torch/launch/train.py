@@ -30,7 +30,9 @@ blob (rank 0 alone).  Runs on the card unless ``--device cpu``.
 ``--mesh DATAxMODEL`` (default 1x1) lays the world out as a (data, model)
 mesh (launch/mesh.py): data parallelism over ``data`` (each rank takes its
 rows of --batch), and for stacks of attention blocks tensor and sequence
-parallelism over ``model`` (models/transformer.py).  Under torchrun the
+parallelism over ``model`` (models/transformer.py); each rank stores only
+its part of the parameters, gradients and moments (train/state.py), and
+a checkpoint is written whole.  Under torchrun the
 world is its processes (one card each, NCCL; gloo with --device cpu),
 without it a world of one; a mesh whose product is not the world size is
 refused.

@@ -33,10 +33,11 @@ tokens both divide by n runs the sequence-parallel layout
 (``transformer.seq_parallel``): the encoder's and the decoder's residual
 streams are this rank's chunks, every attention (self and cross) and FFN
 a tensor-parallel region over its local heads or columns, the cross-
-attention reading the encoder output gathered once.  Serving runs
-:class:`ShardedEncDec`: this rank's heads and columns sliced once, the
-self and cross caches over the local kv heads, each split sub-layer's
-partial output summed over the model axis.
+attention reading the encoder output gathered once.  Each rank stores
+its heads, columns and V/n rows of the embedding (``encdec_storage_specs``).
+Serving runs :class:`ShardedEncDec`: this rank's stored part, the self
+and cross caches over the local kv heads, each split sub-layer's partial
+output summed over the model axis, the logits gathered over it.
 """
 from __future__ import annotations
 
@@ -129,27 +130,44 @@ class EncDecLM(nn.Module):
 
 class ShardedEncDec:
     """This rank's part of an :class:`EncDecLM` for serving under a model
-    axis ``ax`` (extent > 1): ``shard`` (``transformer.ServeShard``),
-    ``cfg`` the local config, each layer's attention and FFN params
-    sliced once, the embeddings and norms shared whole."""
+    axis ``ax``: ``shard`` (``transformer.ServeShard``), ``cfg`` the
+    local config, every leaf as the storage rule places it
+    (``encdec_storage_specs``: heads, columns and the vocabulary over
+    ``ax``; positions and norms whole), built from a whole ``model`` (each
+    leaf sliced, then moved to ``device``) or, with ``local``, from the
+    local param tree a rank holds."""
 
-    def __init__(self, model: EncDecLM, cfg: ModelConfig, ax: C.Axis):
-        self.shard = transformer.serve_shard(cfg, ax)
+    def __init__(self, model, cfg: ModelConfig, ax: Optional[C.Axis],
+                 zero: Optional[C.Axis] = None, device=None, *,
+                 local: bool = False):
+        self.shard = transformer.serve_shard(cfg, ax, zero)
         self.cfg = self.shard.cfg
-        n = ax.size
-        specs = {"attn": attention.tp_specs(cfg, n) if self.shard.attn
-                 else None,
-                 "ffn": ffn.tp_specs(cfg, n) if self.shard.ffn else None}
-        kind = {"attn": "attn", "self_attn": "attn", "cross_attn": "attn",
-                "ffn": "ffn"}
-        for key in ("embed", "pos_enc", "pos_dec", "enc_norm", "dec_norm"):
-            setattr(self, key, C.local_tree(getattr(model, key), None, ax))
+        sh = self.shard
+        specs = encdec_storage_specs(cfg, sh.sizes)
+        keys = ("embed", "pos_enc", "pos_dec", "enc_norm", "dec_norm")
+        if local:
+            for key in keys:
+                setattr(self, key, model[key])
+            self.enc_blocks = transformer.unit_views(model["enc_blocks"],
+                                                     cfg.encoder_layers)
+            self.dec_blocks = transformer.unit_views(model["dec_blocks"],
+                                                     cfg.num_layers)
+            return
+        for key in keys:
+            setattr(self, key, transformer.local_params(
+                getattr(model, key), specs[key], sh.sizes, sh.coords,
+                device))
+        for key in ("enc_blocks", "dec_blocks"):
+            one = transformer.unstack_specs(specs[key])
+            setattr(self, key, [transformer.local_params(
+                p, one, sh.sizes, sh.coords, device)
+                for p in getattr(model, key)])
 
-        def layer(p):
-            return {k: C.local_tree(p[k], specs.get(kind.get(k)), ax)
-                    for k in p.keys()}
-        self.enc_blocks = [layer(p) for p in model.enc_blocks]
-        self.dec_blocks = [layer(p) for p in model.dec_blocks]
+    @classmethod
+    def from_local(cls, params: dict, cfg: ModelConfig,
+                   ax: Optional[C.Axis], zero: Optional[C.Axis] = None
+                   ) -> "ShardedEncDec":
+        return cls(params, cfg, ax, zero, local=True)
 
     def __getitem__(self, k: str):
         return getattr(self, k)
@@ -157,6 +175,30 @@ class ShardedEncDec:
     @property
     def device(self) -> torch.device:
         return self.embed["embedding"].device
+
+
+def encdec_storage_specs(cfg: ModelConfig, sizes) -> dict:
+    """The placements the encoder-decoder's params (``encdec_defs``) are
+    stored under on a mesh of axis extents ``sizes``: each attention's
+    heads and each FFN's columns over the model axis where their
+    ``tp_plan`` splits, the vocabulary over it where it divides, every
+    other leaf whole."""
+    n = sizes.get("model", 1)
+    defs = encdec_defs(cfg)
+    out = transformer.whole_specs(defs)
+    attn = (attention.tp_specs(cfg, n) if n > 1
+            and attention.tp_plan(cfg, n) is not None else None)
+    mlp = ffn.tp_specs(cfg, n) if n > 1 and ffn.tp_plan(cfg, n) else None
+    for key in ("enc_blocks", "dec_blocks"):
+        blocks = out[key]
+        for k in blocks:
+            if attn is not None and k in ("attn", "self_attn",
+                                          "cross_attn"):
+                blocks[k] = transformer.stack_specs(attn)
+            elif mlp is not None and k == "ffn":
+                blocks[k] = transformer.stack_specs(mlp)
+    out.update(transformer.vocab_specs(defs, sizes))
+    return transformer.filled_specs(defs, out)
 
 
 def _sums(params):
@@ -312,14 +354,23 @@ def _decode_stack(params, cfg: ModelConfig, x: torch.Tensor, enc_out, *,
 
 
 def _embed_dec(params, cfg: ModelConfig, tokens: torch.Tensor,
-               pos0) -> torch.Tensor:
+               pos0, tp: Optional[C.Axis] = None) -> torch.Tensor:
     """Token embeddings plus the decoder's learned positions pos0 + [0, s)
-    (a scalar pos0, or (B,) per row), clamped as JAX's take(mode="clip")."""
-    x = layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
-                            cfg.d_model)
-    s = tokens.shape[1]
+    (a scalar pos0, or (B,) per row), clamped as JAX's take(mode="clip").
+    A vocabulary-split table's lookups are summed over the model axis:
+    under the sequence-parallel layout ``tp`` by the reduce-scatter that
+    leaves this rank's chunk of the rows (the whole lookup is split
+    there), under a serving shard by an all-reduce."""
+    ax = tp if tp is not None else getattr(
+        getattr(params, "shard", None), "ax", None)
+    x, whole = transformer.vocab_rows(params, cfg, tokens, ax)
+    ar = torch.arange(tokens.shape[1], dtype=torch.long, device=x.device)
+    if tp is not None:
+        x = C.split_seq(x, tp) if whole else C.scatter_seq(x, tp)
+        ar = ar[tp.rank * x.shape[1]:(tp.rank + 1) * x.shape[1]]
+    elif not whole:
+        x = C.model_sum(x, ax)
     p0 = torch.as_tensor(pos0, dtype=torch.long, device=x.device)
-    ar = torch.arange(s, dtype=torch.long, device=x.device)
     pos = p0[:, None] + ar if p0.dim() else p0 + ar
     return x + params["pos_dec"]["pos_embedding"][
         pos.clamp(0, cfg.max_position - 1)]
@@ -338,7 +389,7 @@ def encdec_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tp = transformer.seq_parallel(cfg, batch)
     enc_out = encode(params, cfg, batch["frontend_embeds"], remat=remat,
                      tp=tp)
-    x = C.split_seq(_embed_dec(params, cfg, batch["tokens"], 0), tp)
+    x = _embed_dec(params, cfg, batch["tokens"], 0, tp)
     x, aux = _decode_stack(params, cfg, x, C.gather_seq(enc_out, tp),
                            mode="train", remat=remat, tp=tp)
     return layers.apply_norm(params["dec_norm"], x, cfg.norm), aux

@@ -82,12 +82,16 @@ def _shmap_mesh(cfg: ModelConfig, x: torch.Tensor, seq_lengths,
     """The mesh of the rules when ``grouped_shmap`` takes core/ffn_shmap
     for x (this rank's rows, and with ``tp`` its sequence chunk): the
     residual must be sequence-sharded on the model axis, so a model axis
-    of extent > 1 needs the sequence-parallel layout; else None."""
+    of extent > 1 needs the sequence-parallel layout and the columns
+    stored split over it (``tp_plan``); else None."""
     mesh = (current_rules() or {}).get("__mesh__")
     if mesh is None or x.dim() != 3 or seq_lengths is not None:
         return None
-    if tp is None and C.model_axis() is not None:
+    model = C.mesh_axis(mesh, "model")
+    if tp is None and model is not None:
         return None
+    if model is not None and tp_plan(cfg, model.size) is None:
+        return None                 # stored whole (train/state.py)
     dp = C.batch_axis()
     seq = x.shape[1] * (tp.size if tp else 1)
     batch = x.shape[0] * (dp.size if dp else 1)

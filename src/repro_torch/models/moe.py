@@ -16,7 +16,10 @@ it (``tp_plan``; the router runs alike on every rank, so the choices,
 plans, ``lb_loss`` and ``dropped`` are the unsharded ones): kernels 9
 and 10 run at F/n, and the partial output is reduce-scattered over the
 sequence (train, the sequence-parallel layout) or, serving
-(``transformer.ShardedLM``), summed over the model axis.
+(``transformer.ShardedLM``), summed over the model axis.  A rank stores
+a 1/data share of its columns besides (``storage_specs``, ZeRO-3) and
+all-gathers them over the data axis where a layer uses them, forward
+only for the frozen weights.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.core import collectives as C
 from repro_torch.core import dispatch
 from repro_torch.core.params import ParamDef, leaves, spec_tree
 from repro_torch.core.routed_ffn import ACTIVATIONS
+from repro_torch.sharding.context import current_rules
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -215,20 +219,51 @@ def tp_specs(cfg: ModelConfig, n: int) -> dict:
                                      "__sizes__": {"model": n}})
 
 
+def storage_specs(cfg: ModelConfig, sizes) -> dict:
+    """The placements ``moe_defs(cfg)`` are stored under on a mesh of
+    axis extents ``sizes``: ``tp_specs`` where ``tp_plan`` splits, and
+    the ``expert_ffn`` dims over the data axis as well where the model
+    chunk divides by its extent — JAX's ("data", "model") ZeRO-3 rule,
+    ordered model-major here, so that the data gather at use gives the
+    region's model chunk of the columns (the bytes a rank stores are the
+    same); every leaf whole where the columns do not split over model."""
+    n, dsz = sizes.get("model", 1), sizes.get(C.ZERO_AXIS, 1)
+    defs = moe_defs(cfg)
+    if (n == 1 and dsz == 1) or tp_plan(cfg, n) is None:
+        return spec_tree(defs, {})
+    specs = tp_specs(cfg, n)
+    if dsz == 1 or (cfg.d_ff // n) % dsz:
+        return specs
+
+    def walk(d, sp):
+        if isinstance(d, ParamDef):
+            return tuple(("model", C.ZERO_AXIS) if a == "expert_ffn" else e
+                         for a, e in zip(d.axes, sp))
+        return {k: walk(d[k], sp[k]) for k in d}
+    return walk(defs, specs)
+
+
+def _stored(cfg: ModelConfig) -> Optional[dict]:
+    """``storage_specs`` under the active rules (None without them)."""
+    rules = current_rules()
+    return None if rules is None else storage_specs(
+        cfg, rules.get("__sizes__", {}))
+
+
 def _moe_region(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 tp: C.Axis) -> Tuple[torch.Tensor, dict]:
     """Train-mode moe_apply on this rank's columns: x is this rank's
     sequence chunk, gathered in, the output's chunk out, ``lb_loss``
-    leaving by ``mean_exit``."""
+    leaving by ``mean_exit``; expert columns stored over data are
+    gathered over it on entry."""
     C.train_layout(mode)
     local = tp_plan(cfg, tp.size)
+    xf, p = C.enter_region(x, p, _stored(cfg), tp)
     if local is not None:
-        xf, p = C.enter_region(x, p, tp_specs(cfg, tp.size), tp)
-        y, aux = moe_apply(p, xf, local, mode)
+        y, aux = _moe_local(p, xf, local, mode)
         y = C.scatter_seq(y, tp)
     else:
-        xf, p = C.enter_region(x, p, None, tp)
-        y, aux = moe_apply(p, xf, cfg, mode)
+        y, aux = _moe_local(p, xf, cfg, mode)
         y = C.split_seq(y, tp)
     return y, {**aux, "lb_loss": C.mean_exit(aux["lb_loss"], tp)}
 
@@ -244,6 +279,14 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
     layout (train mode, ``_moe_region``)."""
     if tp is not None:
         return _moe_region(p, x, cfg, mode, tp)
+    if mode == "train":         # a data axis alone: the ZeRO-3 gather
+        x, p = C.enter_region(x, p, _stored(cfg), None)
+    return _moe_local(p, x, cfg, mode, seq_lengths)
+
+
+def _moe_local(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
+               seq_lengths=None) -> Tuple[torch.Tensor, dict]:
+    """moe_apply on the columns ``p`` holds as it uses them."""
     need_aux = mode == "train"
     squeeze = x.dim() == 2
     if squeeze:

@@ -33,14 +33,18 @@ columns, of each routed group or expert) is a tensor-parallel region
 over its local part (models/attention.py, ffn.py, moe.py, rglru.py,
 ssd.py), and the embedding lookup and the loss (train/loss.py) split the
 vocabulary.  A sub-layer whose width does not divide computes replicated
-inside its region.
+inside its region.  Each rank stores only its part of every leaf
+(``lm_storage_specs``, the placements the regions use; train/state.py):
+the params a region gets are already local.
 
-Serving under a model axis runs :class:`ShardedLM`: this rank's slice of
-every block's params, taken once (``ServeShard``: the same splits), its
-caches at the local head / channel counts (``init_caches(...,
-shard=)``), and one all-reduce of each split sub-layer's partial output
-over the model axis (``core/collectives.model_sum``).  The embedding and
-the LM head stay whole on every rank.
+Serving under a mesh runs :class:`ShardedLM`: this rank's stored part of
+every leaf (``ServeShard``: the same splits), its caches at the local
+head / channel counts (``init_caches(..., shard=)``), one all-reduce of
+each split sub-layer's partial output over the model axis
+(``core/collectives.model_sum``), of the vocabulary-split embedding's
+lookups, and one all-gather of the logits over the model axis a step;
+expert columns stored over the data axis are gathered over it per layer
+at use (ZeRO-3).
 
 Frontends are stubs, as in JAX: a VLM's ``batch["frontend_embeds"]``
 (B, F, d) carries precomputed patch embeddings, prepended to the token
@@ -59,9 +63,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
 from repro_torch.core.params import (ParamDef, ParamTree, init_tree,
-                                     leaves, stack_defs, unflatten)
+                                     leaves, spec_tree, stack_defs,
+                                     unflatten)
 from repro_torch.models import attention, ffn, layers, moe, rglru, ssd
 from repro_torch.serving import kv_pages as kvp
+from repro_torch.sharding.context import local_slice
 
 
 AUX_KEYS = ("lb_loss", "dropped", "qerr")
@@ -114,16 +120,23 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 @dataclasses.dataclass(frozen=True)
 class ServeShard:
-    """How one rank's part of a model splits over the model axis ``ax``
-    for serving: ``cfg`` is the rank's config (local heads, hidden
-    columns, RG-LRU width), and each flag says that sub-layer splits (its
-    partial outputs are summed over ``ax``; else it runs whole)."""
-    ax: C.Axis
+    """How one rank's part of a model splits for serving: over the model
+    axis ``ax`` (None: extent 1) ``cfg`` is the rank's config (local
+    heads, hidden columns, RG-LRU width), each flag says that sub-layer
+    splits (its partial outputs are summed over ``ax``; else it runs
+    whole), ``vocab`` that the embedding's rows and the head's columns
+    split; ``zero`` is the data axis that the expert columns of
+    ``ffn_zero`` ((path, dim) pairs of an FFN's leaves) are stored over as
+    well, gathered over it at use (ZeRO-3)."""
+    ax: Optional[C.Axis]
     cfg: ModelConfig
     attn: bool
     ffn: bool
     rec: bool
     ssd: bool
+    vocab: bool = False
+    zero: Optional[C.Axis] = None
+    ffn_zero: Tuple = ()
 
     def mixer_ax(self, kind: str) -> Optional[C.Axis]:
         return self.ax if getattr(self, kind) else None
@@ -132,48 +145,142 @@ class ServeShard:
     def ffn_ax(self) -> Optional[C.Axis]:
         return self.ax if self.ffn else None
 
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return {"model": self.ax.size if self.ax else 1,
+                C.ZERO_AXIS: self.zero.size if self.zero else 1}
 
-def serve_shard(cfg: ModelConfig, ax: C.Axis) -> ServeShard:
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {"model": self.ax.rank if self.ax else 0,
+                C.ZERO_AXIS: self.zero.rank if self.zero else 0}
+
+
+def serve_shard(cfg: ModelConfig, ax: Optional[C.Axis],
+                zero: Optional[C.Axis] = None) -> ServeShard:
     """The splits of ``cfg`` at the model extent ``ax.size``: the query
     heads (with their kv heads, or on one whole kv head), the FFN's or
     each expert's hidden columns, the RG-LRU channels and the SSM heads,
-    each where it divides (``tp_plan`` of each module)."""
-    n = ax.size
+    each where it divides (``tp_plan`` of each module), the vocabulary
+    where it divides; and the expert columns stored over the data axis
+    ``zero`` (``moe.storage_specs``)."""
+    n = ax.size if ax is not None else 1
     local = cfg
-    la = attention.tp_plan(cfg, n) if cfg.num_heads else None
+    la = attention.tp_plan(cfg, n) if cfg.num_heads and n > 1 else None
     if la is not None:
         local = dataclasses.replace(local, num_heads=la.num_heads,
                                     num_kv_heads=la.num_kv_heads,
                                     head_dim=la.head_dim)
     lf = None
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and n > 1:
         lf = (moe if cfg.num_experts > 0 else ffn).tp_plan(cfg, n)
     if lf is not None:
         local = dataclasses.replace(local, d_ff=lf.d_ff)
-    lr = rglru.tp_plan(cfg, n) if "rec" in cfg.pattern else None
+    lr = rglru.tp_plan(cfg, n) if "rec" in cfg.pattern and n > 1 else None
     if lr is not None:
         local = dataclasses.replace(local, lru_width=lr.lru_width)
+    ffn_zero = ()
+    if zero is not None and cfg.num_experts > 0:
+        specs = moe.storage_specs(cfg, {"model": n, C.ZERO_AXIS: zero.size})
+        ffn_zero = tuple((path, C.zero_dim(sp)) for path, sp in
+                         leaves(specs)
+                         if C.zero_dim(sp) is not None)
     return ServeShard(ax=ax, cfg=local, attn=la is not None,
                       ffn=lf is not None, rec=lr is not None,
-                      ssd="ssd" in cfg.pattern and ssd.tp_plan(cfg, n))
+                      ssd=n > 1 and "ssd" in cfg.pattern
+                      and ssd.tp_plan(cfg, n),
+                      vocab=n > 1 and cfg.padded_vocab % n == 0,
+                      zero=zero if ffn_zero else None, ffn_zero=ffn_zero)
 
 
-def shard_block(p, cfg: ModelConfig, kind: str, shard: ServeShard) -> dict:
-    """This rank's copy of one block's params (a dict; the split leaves
-    sliced once, the others shared)."""
-    n, ax = shard.ax.size, shard.ax
-    mixer = {"attn": attention.tp_specs, "rec": rglru.tp_specs,
-             "ssd": ssd.tp_specs}[kind]
-    out = {"norm_mix": C.local_tree(p["norm_mix"], None, ax),
-           "mixer": C.local_tree(p["mixer"], mixer(cfg, n)
-                                 if getattr(shard, kind) else None, ax)}
-    if "ffn" in p:
-        specs = None
-        if shard.ffn:
-            specs = (moe if cfg.num_experts > 0 else ffn).tp_specs(cfg, n)
-        out["norm_ffn"] = C.local_tree(p["norm_ffn"], None, ax)
-        out["ffn"] = C.local_tree(p["ffn"], specs, ax)
+# ------------------------------------------------------- storage placements
+def whole_specs(defs: dict) -> dict:
+    """Every leaf of a def tree replicated."""
+    return spec_tree(defs, {})
+
+
+def stack_specs(specs):
+    """Specs of a layer-stacked tree (``stack_defs``): a leading layer
+    entry, which no rule places."""
+    if isinstance(specs, C.Pick):
+        return C.Pick(specs.dim + 1, specs.index)
+    if isinstance(specs, tuple):
+        return (None, *specs)
+    return {k: stack_specs(v) for k, v in specs.items()}
+
+
+def block_storage_specs(cfg: ModelConfig, kind: str, sizes) -> dict:
+    """The placements one block's params (``block_defs``) are stored
+    under on a mesh of axis extents ``sizes``: each module's ``tp_specs``
+    where its ``tp_plan`` splits at the model extent (the placements its
+    regions and ``ShardedLM`` use), the MoE's ``storage_specs`` (expert
+    columns over data as well), every other leaf whole."""
+    n = sizes.get("model", 1)
+    defs = block_defs(cfg, kind)
+    out = whole_specs(defs)
+    if kind == "attn" and n > 1 and attention.tp_plan(cfg, n) is not None:
+        out["mixer"] = attention.tp_specs(cfg, n)
+    elif kind == "rec" and n > 1 and rglru.tp_plan(cfg, n) is not None:
+        out["mixer"] = rglru.tp_specs(cfg, n)
+    elif kind == "ssd" and n > 1 and ssd.tp_plan(cfg, n):
+        out["mixer"] = ssd.tp_specs(cfg, n)
+    if "ffn" in defs and cfg.num_experts > 0:
+        out["ffn"] = moe.storage_specs(cfg, sizes)
+    elif "ffn" in defs and n > 1 and ffn.tp_plan(cfg, n) is not None:
+        out["ffn"] = ffn.tp_specs(cfg, n)
+    return filled_specs(defs, out)
+
+
+def filled_specs(defs, specs):
+    """``specs`` with each None (replicated) leaf spelled as a tuple of
+    Nones, one a dim."""
+    if isinstance(defs, ParamDef):
+        return (None,) * len(defs.shape) if specs is None else specs
+    return {k: filled_specs(defs[k], specs[k]) for k in defs}
+
+
+def vocab_specs(defs: dict, sizes) -> dict:
+    """``defs``' top-level embedding and head placements: the vocabulary
+    over the model axis where it divides (JAX's "vocab" rule)."""
+    n = sizes.get("model", 1)
+    out = {}
+    if "embed" in defs:
+        v = defs["embed"]["embedding"].shape[0]
+        out["embed"] = {"embedding": ("model", None) if n > 1 and v % n == 0
+                        else (None, None)}
+    if "head" in defs:
+        v = defs["head"]["w"].shape[1]
+        out["head"] = {"w": (None, "model") if n > 1 and v % n == 0
+                       else (None, None)}
     return out
+
+
+def lm_storage_specs(cfg: ModelConfig, sizes) -> dict:
+    """The placements the LM's params (``lm_defs``) are stored under on a
+    mesh of axis extents ``sizes`` (train/state.storage_specs documents
+    where they differ from JAX's)."""
+    defs = lm_defs(cfg)
+    out = whole_specs(defs)
+    out["units"] = stack_specs({f"b{i}_{kind}": block_storage_specs(
+        cfg, kind, sizes) for i, kind in enumerate(cfg.pattern)})
+    if "tail" in defs:
+        out["tail"] = {f"t{i}_{kind}": block_storage_specs(cfg, kind, sizes)
+                       for i, kind in enumerate(_tail_kinds(cfg))}
+    out.update(vocab_specs(defs, sizes))
+    return out
+
+
+def local_params(tree, specs, sizes, coords, device=None):
+    """This rank's part of a whole param tree (dicts, ParamTrees or an
+    LM) under ``specs``: each leaf sliced (``sharding.local_slice``),
+    contiguous, then moved to ``device`` — one leaf at a time, so a whole
+    model on the host never reaches the device."""
+    def walk(t, sp):
+        if isinstance(t, torch.Tensor):
+            out = local_slice(t.detach(), sp, sizes, coords)
+            return out if device is None else out.to(device)
+        return {k: walk(t[k], sp[k]) for k in t.keys()}
+    return walk(tree, specs)
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
@@ -185,7 +292,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     positions, validity or lengths: its state is the whole history.
     tp: the model axis of the sequence-parallel layout (``seq_parallel``;
     x is this rank's sequence chunk).  shard: serving under a model axis
-    (``ServeShard``): p is this rank's slice (``shard_block``), cfg the
+    (``ServeShard``): p is this rank's stored part, cfg the
     local config, and each split sub-layer's output is summed over the
     axis."""
     h = layers.apply_norm(p["norm_mix"], x, cfg.norm)
@@ -214,7 +321,9 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     if "ffn" in p:
         h2 = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
         if cfg.num_experts > 0:
-            y2, f_aux = moe.moe_apply(p["ffn"], h2, cfg, mode=mode,
+            pf = (p["ffn"] if shard is None else
+                  C.zero_gather(p["ffn"], shard.ffn_zero, shard.zero))
+            y2, f_aux = moe.moe_apply(pf, h2, cfg, mode=mode,
                                       seq_lengths=seq_lengths, tp=tp)
         else:
             y2, f_aux = ffn.ffn_apply(p["ffn"], h2, cfg, mode=mode,
@@ -369,27 +478,52 @@ class LM(nn.Module):
 
 
 class ShardedLM:
-    """This rank's part of an :class:`LM` for serving under a model axis
-    ``ax`` (extent > 1): ``shard`` (``ServeShard``), ``cfg`` the local
-    config, every block's params sliced once (``shard_block``), the
-    embedding, final norm, head and positions shared whole.  The decode
-    and prefill functions of this module take it as they take an LM."""
+    """This rank's part of an :class:`LM` for serving under a mesh:
+    ``shard`` (``ServeShard``), ``cfg`` the local config, every leaf as
+    the storage rule places it (``lm_storage_specs``: heads, columns and
+    the vocabulary over the model axis ``ax``, expert columns over the
+    data axis ``zero`` as well), each unit a dict of views.  Built from a
+    whole ``model`` (on the host or a device; each leaf sliced, then moved
+    to ``device``, one at a time) or, by :meth:`from_local`, from the
+    local param tree a rank already holds (a sharded train state's).  The
+    decode and prefill functions of this module take it as they take an
+    LM."""
 
-    def __init__(self, model: LM, cfg: ModelConfig, ax: C.Axis):
-        self.shard = serve_shard(cfg, ax)
+    def __init__(self, model, cfg: ModelConfig, ax: Optional[C.Axis],
+                 zero: Optional[C.Axis] = None, device=None, *,
+                 local: bool = False):
+        self.shard = serve_shard(cfg, ax, zero)
         self.cfg = self.shard.cfg
+        sh = self.shard
+        if not local:
+            specs = lm_storage_specs(cfg, sh.sizes)
+            whole = {k: getattr(model, k) for k in
+                     ("embed", "final_norm", "head", "pos", "tail")
+                     if getattr(model, k, None) is not None}
+            unit = specs["units"]
+            tree = local_params(whole, {k: specs[k] for k in whole},
+                                sh.sizes, sh.coords, device)
+            # per unit: its views' slices under the unstacked specs
+            one = {k: unstack_specs(v) for k, v in unit.items()}
+            units = [local_params(u, one, sh.sizes, sh.coords, device)
+                     for u in model.units]
+        else:
+            tree = {k: v for k, v in model.items() if k != "units"}
+            units = unit_views(model["units"], num_units(cfg))
         for key in ("embed", "final_norm", "head", "pos"):
-            if hasattr(model, key):
-                setattr(self, key, C.local_tree(getattr(model, key), None,
-                                                ax))
-        self.units = [{f"b{i}_{k}": shard_block(unit[f"b{i}_{k}"], cfg, k,
-                                                self.shard)
-                       for i, k in enumerate(cfg.pattern)}
-                      for unit in model.units]
-        self.tail = (None if model.tail is None else
-                     {name: shard_block(model.tail[name], cfg,
-                                        name.split("_", 1)[1], self.shard)
-                      for name in model.tail.keys()})
+            if key in tree:
+                setattr(self, key, tree[key])
+        self.units = units
+        self.tail = tree.get("tail")
+
+    @classmethod
+    def from_local(cls, params: dict, cfg: ModelConfig,
+                   ax: Optional[C.Axis], zero: Optional[C.Axis] = None
+                   ) -> "ShardedLM":
+        """The shard of the local param tree ``params`` (the JAX layout,
+        every leaf already this rank's part: ``train/state.init_state(...,
+        mesh=)``'s, or ``abstract_state``'s for a dry run)."""
+        return cls(params, cfg, ax, zero, local=True)
 
     def __getitem__(self, k: str):
         return getattr(self, k)
@@ -397,6 +531,16 @@ class ShardedLM:
     @property
     def device(self) -> torch.device:
         return self.embed["embedding"].device
+
+
+def unstack_specs(specs):
+    """The specs of one unit of a stacked tree (``stack_specs``'
+    inverse)."""
+    if isinstance(specs, C.Pick):
+        return C.Pick(specs.dim - 1, specs.index)
+    if isinstance(specs, tuple):
+        return specs[1:]
+    return {k: unstack_specs(v) for k, v in specs.items()}
 
 
 def _shard_of(model) -> Optional[ServeShard]:
@@ -455,7 +599,9 @@ def seq_parallel(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     """The model axis when a train step on ``batch`` runs the sequence-
     parallel layout: a mesh whose model axis has extent n > 1 and divides
     the positions (a decoder's frontend rows included; the encoder-
-    decoder's frames and decoder tokens each); None otherwise."""
+    decoder's frames and decoder tokens each); None otherwise (the step
+    then gathers the whole parameters and computes replicated over the
+    model axis: launch/steps.loss_and_grads)."""
     ax = C.model_axis()
     if ax is None:
         return None
@@ -469,37 +615,40 @@ def seq_parallel(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     return ax if s % ax.size == 0 else None
 
 
+def vocab_rows(params, cfg: ModelConfig, tokens: torch.Tensor,
+               ax: Optional[C.Axis]) -> Tuple[torch.Tensor, bool]:
+    """(embeddings of ``tokens``, whole): the lookup in the whole table
+    (whole True), or, where the table's rows split over the model axis
+    ``ax`` (a stored part of V/n rows), in this rank's rows, zeros for the
+    tokens the other ranks hold (whole False: the sum over ``ax`` is the
+    lookup, each row its one nonzero part, so the sum is exact)."""
+    emb = params["embed"]["embedding"]
+    vl = emb.shape[0]
+    if vl == cfg.padded_vocab:
+        return layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
+                                   cfg.d_model), True
+    local = tokens.long() - ax.rank * vl
+    ok = (local >= 0) & (local < vl)
+    x = layers.embed_lookup({"embedding": emb}, local.clamp(0, vl - 1),
+                            cfg.scale_embed, cfg.d_model)
+    return x * ok[..., None].to(x.dtype), False
+
+
 def _embed_seq_parallel(params, cfg: ModelConfig, tokens: torch.Tensor,
                         frontend_embeds, tp: C.Axis) -> torch.Tensor:
     """This rank's chunk of the input rows (B, S/n, d) of a train step.
     With the vocabulary split over the model axis, each rank looks up the
-    tokens in its rows of the embedding (zeros for the others; a
-    frontend's rows ride on rank 0) and one reduce-scatter sums the parts
-    and keeps the rank's chunk: every row is its one nonzero part, so the
-    sum is exact.  Else the whole lookup, split."""
-    emb = params["embed"]["embedding"]
-    v, n = emb.shape[0], tp.size
+    tokens in its rows of the embedding (``vocab_rows``; a frontend's
+    rows ride on rank 0) and one reduce-scatter sums the parts and keeps
+    the rank's chunk.  Else the whole lookup, split."""
+    x, whole = vocab_rows(params, cfg, tokens, tp)
     fe = (frontend_embeds if cfg.frontend_tokens
           and frontend_embeds is not None else None)
-    if v % n == 0:
-        vl, lo = v // n, tp.rank * (v // n)
-        local = tokens.long() - lo
-        ok = (local >= 0) & (local < vl)
-        x = layers.embed_lookup({"embedding": emb[lo:lo + vl]},
-                                local.clamp(0, vl - 1), cfg.scale_embed,
-                                cfg.d_model)
-        x = x * ok[..., None].to(x.dtype)
-        if fe is not None:
-            fe = fe.to(x.dtype)
-            x = torch.cat([fe if tp.rank == 0 else torch.zeros_like(fe), x],
-                          dim=1)
-        x = C.scatter_seq(x, tp)
-    else:
-        x = layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
-                                cfg.d_model)
-        if fe is not None:
-            x = torch.cat([fe.to(x.dtype), x], dim=1)
-        x = C.split_seq(x, tp)
+    if fe is not None:
+        fe = fe.to(x.dtype)
+        x = torch.cat([fe if whole or tp.rank == 0 else torch.zeros_like(fe),
+                       x], dim=1)
+    x = C.split_seq(x, tp) if whole else C.scatter_seq(x, tp)
     if cfg.positional == "learned":
         s = x.shape[1]
         pos = tp.rank * s + torch.arange(s, dtype=torch.long, device=x.device)
@@ -516,9 +665,12 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor, pos0=0,
     position rows when ``cfg.positional == "learned"``: a scalar ``pos0``
     gives positions pos0 + [0, s), a per-slot (B,) ``pos0`` gives (B, s)
     of them; each is clamped to [0, max_position - 1], as JAX's
-    ``take(mode="clip")``."""
-    x = layers.embed_lookup(params["embed"], tokens, cfg.scale_embed,
-                            cfg.d_model)
+    ``take(mode="clip")``.  A serving shard's vocabulary-split table adds
+    its ranks' lookups over the model axis."""
+    ax = getattr(_shard_of(params), "ax", None)
+    x, whole = vocab_rows(params, cfg, tokens, ax)
+    if not whole:
+        x = C.model_sum(x, ax)
     if cfg.frontend_tokens and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     if cfg.positional == "learned":
@@ -639,10 +791,16 @@ def head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 
 def logits_of(model: LM, cfg: ModelConfig, hidden: torch.Tensor
               ) -> torch.Tensor:
+    """Logits (..., V_padded); a serving shard's head of V/n columns
+    gives its part, all-gathered over the model axis (one gather a
+    step)."""
     out = hidden @ head_weight(model, cfg).to(hidden.dtype)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         out = torch.tanh(out / c) * c
+    shard = _shard_of(model)
+    if shard is not None and shard.vocab:
+        out = C.gather(out, out.dim() - 1, shard.ax)
     return out
 
 

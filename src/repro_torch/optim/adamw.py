@@ -14,7 +14,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core import collectives as C
 from repro_torch.core.params import leaves, unflatten
+from repro_torch.sharding.context import Pick, current_rules, entry_axes
+from repro_torch.sharding.rules import mesh_coords, mesh_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,28 +43,66 @@ def adamw_init(train_params: Any) -> dict:
 
 
 @torch.no_grad()
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, specs: Any = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (None leaves add
-    nothing)."""
-    sq = [x.float().square().sum() for _, x in leaves(tree)]
+    nothing).  With ``specs`` (the tree's storage placements under the
+    active mesh, train/state.storage_specs) each leaf is this rank's part
+    and every element of the model counts once: a rank adds the squares
+    it owns (``_owned_squares``) and the sum is all-reduced over the
+    model and data axes."""
+    pairs = list(leaves(tree))
+    if specs is None:
+        sq = [x.float().square().sum() for _, x in pairs]
+    else:
+        mesh = current_rules()["__mesh__"]
+        sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+        spec_of = dict(leaves(specs))
+        sq = [_owned_squares(x, spec_of[path], sizes, coords)
+              for path, x in pairs]
     if not sq:
         return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(sum(sq[1:], sq[0]))
+    total = sum(sq[1:], sq[0])
+    if specs is not None:
+        C.all_reduce_(total, C.model_axis())
+        C.all_reduce_(total, C.batch_axis())
+    return torch.sqrt(total)
+
+
+def _owned_squares(x: torch.Tensor, spec, sizes, coords) -> torch.Tensor:
+    """The sum of squares of the elements of this rank's part ``x`` that
+    it owns: all of a part split over every axis of extent > 1; nothing
+    off index 0 of an axis the leaf is replicated over; of a Pick's
+    columns those no lower model rank holds."""
+    split = ({"model"} if isinstance(spec, Pick) else
+             {a for e in spec for a in entry_axes(e)})
+    if any(n > 1 and a not in split and coords.get(a, 0)
+           for a, n in sizes.items()):
+        return x.new_zeros((), dtype=torch.float32)
+    if isinstance(spec, Pick):
+        r = coords.get("model", 0)
+        lower = {c for q in range(r) for c in spec.index[q]}
+        own = [i for i, c in enumerate(spec.index[r]) if c not in lower]
+        x = x.index_select(spec.dim, torch.as_tensor(own, device=x.device))
+    return x.float().square().sum()
 
 
 @torch.no_grad()
 def adamw_update(train_params: Any, grads: Any, opt_state: dict,
                  step, cfg: OptimizerConfig,
-                 lr: Optional[torch.Tensor] = None) -> Tuple[Any, dict, dict]:
+                 lr: Optional[torch.Tensor] = None,
+                 specs: Any = None) -> Tuple[Any, dict, dict]:
     """One AdamW step.  grads: the train tree's paths, a missing or None
     leaf meaning zero; an empty tree (nothing trainable) stays empty.
+    Under a mesh each leaf, gradient and moment is this rank's part
+    (``specs``: the train tree's storage placements), updated in place of
+    the whole, the clip by the norm of the whole (``global_norm``).
     Returns (new_params, new_opt, {grad_norm, lr})."""
     from repro_torch.optim.schedule import lr_at
     pairs = list(leaves(train_params))
     paths = [path for path, _ in pairs]
     ps = [p for _, p in pairs]
     dev = ps[0].device if ps else torch.as_tensor(step).device
-    gnorm = global_norm(grads).to(dev)
+    gnorm = global_norm(grads, specs).to(dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     scale = (torch.minimum(one, cfg.grad_clip / (gnorm + 1e-12))
              if cfg.grad_clip > 0 else one)

@@ -63,8 +63,10 @@ over decode slots (port of the JAX package's ``serving/engine.py``).
     ``generate``'s per-token loop over models/encdec.py, as in JAX.
   * Under a mesh (``mesh=``: launch/mesh.py; every rank of the world
     runs the engine on the same requests) the slots split over the data
-    axes and each sub-layer's heads or columns over ``model``
-    (``transformer.ShardedLM``).  Each data rank keeps the caches (and,
+    axes and each sub-layer's heads or columns and the vocabulary over
+    ``model`` (``transformer.ShardedLM``: each rank stores only its
+    part; expert columns over ``data`` as well, gathered at use).  Each
+    data rank keeps the caches (and,
     paged, a page pool of the whole size with its own allocator) of its
     own slots and computes their rows of every prefill and decode chunk;
     the scheduler is host code taken alike on every rank from the same
@@ -562,6 +564,54 @@ def _queue_key(it: _QItem) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------- engine
+def serving_axes(cfg: ModelConfig, mesh):
+    """(the model axis, the data axis expert columns are stored over) of
+    a serving rank of ``mesh``; None where nothing splits (the whole
+    model)."""
+    tp = C.mesh_axis(mesh, "model")
+    zero = C.mesh_axis(mesh, C.ZERO_AXIS)
+    if tp is None and (zero is None or cfg.num_experts == 0):
+        return None
+    return tp, zero
+
+
+def shard_model(model, cfg: ModelConfig, mesh, device=None):
+    """``model`` as a rank of ``mesh`` serves it: a ``ShardedLM`` /
+    ``ShardedEncDec`` of its stored part (heads, columns and vocabulary
+    over ``model``, expert columns over ``data`` as well) on ``device``,
+    sliced from a whole model (on the host or a device) one leaf at a
+    time; a shard as it is; the model itself where nothing splits."""
+    axes = serving_axes(cfg, mesh)
+    if hasattr(model, "shard") or axes is None:
+        return model
+    cls = (encdec.ShardedEncDec if cfg.family == "audio"
+           else transformer.ShardedLM)
+    return cls(model, cfg, *axes, device=device)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", mesh=None):
+    """The seeded model (``LM.init`` / ``EncDecLM.init``); under ``mesh``
+    where it splits, this rank's part of it (``shard_model``'s), drawn on
+    ``device`` alone: exactly the slices of the whole draw, with no more
+    than one whole leaf (one layer of a stacked one) on the device at a
+    time (``core/params.init_tree``)."""
+    from repro_torch.core.params import init_tree
+    from repro_torch.train import state as S
+    dev = transformer.resolve_device(device)
+    audio = cfg.family == "audio"
+    axes = serving_axes(cfg, mesh)
+    if axes is None:
+        return (encdec.EncDecLM if audio else transformer.LM).init(
+            cfg, seed=seed, device=dev)
+    shard = transformer.serve_shard(cfg, *axes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_tree(S.model_defs(cfg), gen,
+                       S.model_storage_specs(cfg, shard.sizes), shard.sizes,
+                       shard.coords)
+    return (encdec.ShardedEncDec if audio else
+            transformer.ShardedLM).from_local(params, cfg, *axes)
+
+
 class Engine:
     """Continuous-batching engine over ``num_slots`` decode slots.
 
@@ -584,7 +634,10 @@ class Engine:
     per layer, which is what a launch count is held to (on every rank
     under a mesh).  mesh: a (data, model) DeviceMesh over the started
     process group (launch/mesh.py); every rank builds the engine from the
-    same whole model and serves the same requests (module docstring)."""
+    same whole model (on the host or the device; ``shard_model`` keeps
+    this rank's part on the engine's device) or from its own part
+    (``init_model(..., mesh=)``), and serves the same requests (module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, model: transformer.LM,
                  max_len: int = 512, *, num_slots: int = 8,
@@ -594,16 +647,13 @@ class Engine:
                  prefill_decode_ratio: float = 0.0, device="cuda",
                  mesh=None):
         self.device = transformer.resolve_device(device)
+        self.cfg = cfg
+        # the mesh: heads and columns over model, slots over data
+        dp = C.mesh_axis(mesh, C.BATCH_AXES)
+        model = shard_model(model, cfg, mesh, self.device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
-        self.cfg = cfg
-        # the mesh: heads and columns over model, slots over data
-        tp = C.mesh_axis(mesh, "model")
-        dp = C.mesh_axis(mesh, C.BATCH_AXES)
-        if tp is not None:
-            model = (encdec.ShardedEncDec if cfg.family == "audio"
-                     else transformer.ShardedLM)(model, cfg, tp)
         self.mesh = mesh
         self._world = dist.get_world_size() if mesh is not None else 1
         self._data = dp

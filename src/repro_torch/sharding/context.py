@@ -7,7 +7,9 @@ this rank's local tensor and the collectives are explicit (the region
 functions of core/collectives.py), so ``shard`` only checks the
 annotation (one name per dimension) and returns the tensor unchanged;
 ``spec_for`` gives the placement JAX would constrain it to, as a tuple,
-and ``local_shape`` the part of it one rank holds.
+``local_shape`` the shape of the part one rank holds and ``local_slice``
+that part itself: the one place the port's storage rule
+(train/state.storage_specs) is read.
 ``axis_rules`` sets the rules (``sharding.rules_for_mesh``) for the code
 it wraps: the Trainer runs each step under them, and the collectives read
 the mesh from them.  The rules are one process-wide value, not a context
@@ -19,6 +21,7 @@ it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
@@ -67,16 +70,64 @@ def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
     return tuple(_resolve(d, n, rules, used) for d, n in zip(shape, axes))
 
 
-def local_shape(shape: Sequence[int], spec: Sequence,
+@dataclasses.dataclass(frozen=True)
+class Pick:
+    """A leaf spec (in place of a placement tuple) for a leaf that each
+    rank of the model axis holds by an index set of one dimension, e.g.
+    the columns of a fused projection whose parts split differently: rank
+    r holds ``index[r]`` of dim ``dim``.  Indices shared by several ranks
+    are held by each of them (their partial gradients summed)."""
+    dim: int
+    index: Tuple[Tuple[int, ...], ...]
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def local_shape(shape: Sequence[int], spec,
                 sizes: Mapping[str, int]) -> Tuple[int, ...]:
     """The shape one rank holds of an array of ``shape`` placed by
-    ``spec`` (``spec_for``'s tuple): each dimension divided by the extents
-    of the mesh axes placed on it."""
+    ``spec`` (``spec_for``'s tuple, or a :class:`Pick`): each dimension
+    divided by the extents of the mesh axes placed on it."""
+    if isinstance(spec, Pick):
+        out = list(shape)
+        out[spec.dim] = len(spec.index[0])
+        return tuple(out)
     out = []
-    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
-        flat = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        out.append(dim // math.prod(int(sizes.get(a, 1)) for a in flat))
+    for dim, entry in zip(shape, tuple(spec or ()) + (None,) * len(shape)):
+        out.append(dim // math.prod(int(sizes.get(a, 1))
+                                    for a in entry_axes(entry)))
     return tuple(out)
+
+
+def local_slice(t: torch.Tensor, spec, sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> torch.Tensor:
+    """The part of the whole array ``t`` that the rank at ``coords`` ({mesh
+    axis: its index}) holds under ``spec`` (contiguous): on a dimension
+    placed on axes (a, b) it holds chunk ``coords[a] * sizes[b] +
+    coords[b]`` of ``sizes[a] * sizes[b]`` (the first axis major, as in
+    JAX's PartitionSpec); a :class:`Pick` holds its model index set.
+    A split part is a tensor of its own (a view would keep the whole
+    storage alive); an unsplit leaf is ``t`` itself.  ``local_shape``
+    gives the part's shape."""
+    if isinstance(spec, Pick):
+        idx = torch.as_tensor(spec.index[int(coords.get("model", 0))],
+                              dtype=torch.long, device=t.device)
+        return t.index_select(spec.dim, idx)
+    part = t
+    for dim, entry in enumerate(tuple(spec or ())):
+        axes = entry_axes(entry)
+        n = math.prod(int(sizes.get(a, 1)) for a in axes)
+        if n == 1:
+            continue
+        chunk = 0
+        for a in axes:
+            chunk = chunk * int(sizes.get(a, 1)) + int(coords.get(a, 0))
+        size = part.shape[dim] // n
+        part = part.narrow(dim, chunk * size, size)
+    return (t.contiguous() if part is t
+            else part.clone(memory_format=torch.contiguous_format))
 
 
 def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:

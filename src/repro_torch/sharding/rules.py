@@ -55,6 +55,11 @@ def mesh_sizes(mesh) -> Dict[str, int]:
                     (int(s) for s in mesh.mesh.shape)))
 
 
+def mesh_coords(mesh) -> Dict[str, int]:
+    """{axis name: this rank's index along it} of a DeviceMesh."""
+    return {n: int(mesh.get_local_rank(n)) for n in mesh.mesh_dim_names}
+
+
 def rules_for_mesh(mesh) -> Dict[str, object]:
     """Attach mesh axis sizes (``__sizes__``), drop the axes the mesh does
     not have, and keep the mesh itself (``__mesh__``) for the explicit

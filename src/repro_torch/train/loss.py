@@ -10,8 +10,9 @@ vocabulary (``padded_vocab``, a multiple of 256), whose rows past
 
 Under the sequence-parallel layout (``tp``) the hidden states are this
 rank's chunk of the sequence: they are gathered, and each rank takes the
-logits of its V/n vocabulary rows, with the max, the sum of exponentials
-and the target logit all-reduced over the model axis (JAX: reductions
+logits of the V/n vocabulary rows it stores (train/state.py), with the
+max, the sum of exponentials and the target logit all-reduced over the
+model axis (JAX: reductions
 over the "vocab"-sharded logits under pjit).  Under data parallelism
 (``dp``) the nll and token sums are summed over the data axes before the
 division: the loss is a mean over the global batch's tokens, not a mean
@@ -63,10 +64,9 @@ def lm_cross_entropy(params, cfg: ModelConfig, hidden: torch.Tensor,
     s_lab = labels.shape[1]
     h = hidden[:, -s_lab:, :]
     w = transformer.head_weight(params, cfg).detach().to(h.dtype)
-    split = tp is not None and w.shape[1] % tp.size == 0
+    split = w.shape[1] != cfg.padded_vocab      # a stored part of V/n
     if split:
-        lo = tp.rank * (w.shape[1] // tp.size)
-        w = w[:, lo:lo + w.shape[1] // tp.size]
+        lo = tp.rank * w.shape[1]
     c = min(chunk, s_lab)
     if s_lab % c:
         c = s_lab

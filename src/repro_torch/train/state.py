@@ -7,6 +7,12 @@ package's, so a JAX state loads with ``core.params.from_numpy_state``.
 The step counter is a 0-d int32 tensor on the host whatever the device of
 the rest: the learning rate is computed there from it
 (``optim/schedule.lr_at``), with no device-to-host read in a step.
+
+Under a mesh every rank holds only its part of each parameter, gradient
+and AdamW moment, placed by one storage rule (``storage_specs``, read by
+``sharding.local_slice``): ``init_state(..., mesh=)`` draws the parts,
+``abstract_state(cfg, rules)`` gives their shapes, ``local_state`` cuts
+a whole state (a JAX one, say) down to them.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import params as P
 from repro_torch.models import encdec, transformer
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.sharding.context import local_shape, local_slice
+from repro_torch.sharding.rules import mesh_coords, mesh_sizes
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -35,28 +43,127 @@ def model_hidden(params: dict, cfg: ModelConfig, batch: Dict[str, Any],
     return transformer.lm_hidden(params, cfg, batch, remat=remat)
 
 
-def init_state(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_state(cfg: ModelConfig, seed: int = 0, device="cuda",
+               mesh=None) -> dict:
     """Random weights from a seed on ``device`` (CUDA unless the caller
     asks for the CPU), split into trainable and frozen trees, with zero
-    AdamW moments."""
+    AdamW moments.  Under ``mesh`` this rank's parts only
+    (``storage_specs``): exactly the slices of the state a world of one
+    draws from the seed, with no more than one whole leaf (one layer of a
+    stacked one) drawn at a time (``core/params.init_tree``)."""
     dev = transformer.resolve_device(device)
     defs = model_defs(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = P.init_tree(defs, gen)
+    if mesh is None:
+        params = P.init_tree(defs, gen)
+    else:
+        sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+        params = P.init_tree(defs, gen, model_storage_specs(cfg, sizes),
+                             sizes, coords)
     train, frozen = P.partition(params, P.trainable_mask(defs))
     return {"step": torch.zeros((), dtype=torch.int32),
             "train": train, "frozen": frozen, "opt": adamw_init(train)}
 
 
-def abstract_state(cfg: ModelConfig) -> dict:
+def abstract_state(cfg: ModelConfig, rules=None) -> dict:
     """The state ``init_state`` gives, as meta tensors (no storage, no
-    data): what one rank holds, for a dry run (launch/dryrun.py).  The
-    step counter stays a 0-d CPU tensor, as in every state."""
+    data): what one rank holds, for a dry run (launch/dryrun.py) — the
+    whole state, or under ``rules`` (``sharding.rules_for_mesh``) the
+    parts ``storage_specs`` gives a rank.  The step counter stays a 0-d
+    CPU tensor, as in every state."""
     defs = model_defs(cfg)
-    train, frozen = P.partition(P.abstract_tree(defs),
+    specs = sizes = None
+    if rules is not None:
+        sizes = rules.get("__sizes__", {})
+        specs = model_storage_specs(cfg, sizes)
+    train, frozen = P.partition(P.abstract_tree(defs, specs, sizes),
                                 P.trainable_mask(defs))
     return {"step": torch.zeros((), dtype=torch.int32),
             "train": train, "frozen": frozen, "opt": adamw_init(train)}
+
+
+def model_storage_specs(cfg: ModelConfig, sizes) -> dict:
+    """The placements the model's params are stored under on a mesh of
+    axis extents ``sizes`` (``storage_specs``' parameter tree)."""
+    if cfg.family == "audio":
+        return encdec.encdec_storage_specs(cfg, sizes)
+    return transformer.lm_storage_specs(cfg, sizes)
+
+
+def storage_specs(cfg: ModelConfig, rules) -> dict:
+    """The state's storage placements under ``rules`` (the mesh's extents
+    in ``rules["__sizes__"]``): one tuple per leaf (an entry per dim: a
+    mesh axis, a tuple of them, or None), or a ``sharding.Pick``, as
+    ``sharding.local_slice`` reads them; the AdamW moments as their
+    leaves.  The placements are those the port's regions use
+    (``transformer.block_storage_specs``): heads, kv heads, FFN and
+    expert columns, RG-LRU channels and SSM heads over ``model`` where
+    each module's ``tp_plan`` splits; the embedding's rows and the head's
+    columns over ``model`` (``vocab``); the MoE's ``expert_ffn`` dims over
+    ``model`` and ``data`` (ZeRO-3).  Where they differ from JAX's
+    ``state_specs``, leaf by leaf (the bytes a rank holds differ only in
+    the first four):
+
+      * the SSD block: ``in_proj.w`` and ``in_proj.lora.c`` and ``conv``
+        are a Pick of rank r's z, x and dt columns plus B and C whole
+        (JAX: ``ssm_inner`` splits the fused columns contiguously, and
+        ``conv`` is whole); ``a_log``, ``d_skip``, ``dt_bias`` and
+        ``norm.scale`` split over the heads (JAX: whole);
+      * a module whose ``tp_plan`` does not split keeps every leaf whole
+        where JAX splits a dim that divides: h2o-danube-1.8b's routed FFN
+        at model 16 (54 columns a rank are not kernel rows), heads that
+        split while their kv heads neither split nor are one;
+      * one kv head (recurrentgemma): ``wk`` / ``wv`` whole (JAX splits
+        its head_dim columns); a one-block RG-LRU gate: ``w_a`` / ``w_i``
+        split on their output columns (JAX: whole, one block does not
+        divide);
+      * MoE ``expert_ffn`` dims: ordered ("model", "data"), model-major,
+        so a data gather gives the region's model chunk (JAX:
+        ("data", "model")); over ``model`` alone where the model chunk
+        does not divide by the data extent (JAX: whole unless data x
+        model divides)."""
+    sizes = rules.get("__sizes__", {})
+    defs = model_defs(cfg)
+    train_s, frozen_s = P.partition(model_storage_specs(cfg, sizes),
+                                    P.trainable_mask(defs))
+    return {"step": (), "train": train_s, "frozen": frozen_s,
+            "opt": {"m": train_s, "v": train_s}}
+
+
+def stacked_leaves(cfg: ModelConfig) -> dict:
+    """Per leaf of the state (the tree ``storage_specs`` gives), whether
+    it is layer-stacked (``core/params.stacked``): the checkpoint moves
+    such a leaf a layer at a time."""
+    defs = model_defs(cfg)
+    train, frozen = P.partition(P.stacked_mask(defs), P.trainable_mask(defs))
+    return {"step": False, "train": train, "frozen": frozen,
+            "opt": {"m": train, "v": train}}
+
+
+def local_state(state: dict, cfg: ModelConfig, mesh) -> dict:
+    """This rank's part of ``state`` under ``mesh`` (``storage_specs``): a
+    leaf of its whole shape is sliced (``sharding.local_slice``), one of
+    its stored shape kept."""
+    sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+    specs = storage_specs(cfg, {"__sizes__": sizes})
+
+    def walk(t, sp, whole):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(t[k], sp[k], whole[k]) for k in t}
+        if tuple(t.shape) == tuple(whole.shape):
+            return local_slice(t, sp, sizes, coords)
+        if tuple(t.shape) != local_shape(whole.shape, sp, sizes):
+            raise ValueError(f"a leaf of shape {tuple(t.shape)} is neither "
+                             f"whole {tuple(whole.shape)} nor a part of it "
+                             f"under {sp}")
+        return t
+    whole = abstract_state(cfg)
+    whole["opt"] = {"m": whole["train"], "v": whole["train"]}
+    return {"step": state["step"],
+            **{k: walk(state[k], specs[k], whole[k])
+               for k in ("train", "frozen", "opt")}}
 
 
 def state_device(state: dict) -> torch.device:
@@ -70,10 +177,9 @@ def state_device(state: dict) -> torch.device:
 
 
 def state_specs(cfg: ModelConfig, rules) -> dict:
-    """The state's placement tree under ``rules`` (JAX's ``PartitionSpec``
-    tree read as tuples; core/params.spec_tree).  The port keeps every
-    leaf whole on every rank and slices its shard where it is used, as
-    the JAX Trainer jits its step on whole arrays."""
+    """JAX's placement tree of the state under ``rules`` (its
+    ``PartitionSpec`` tree read as tuples; core/params.spec_tree).  The
+    port stores by ``storage_specs``."""
     defs = model_defs(cfg)
     train_s, frozen_s = P.partition(P.spec_tree(defs, rules),
                                     P.trainable_mask(defs))

@@ -6,9 +6,12 @@ On one device, or under a mesh (``mesh``, ``rules``: launch/mesh.py,
 ``sharding.rules_for_mesh``) through the same code path: each step runs
 under the rules, so the model takes the mesh's data and tensor
 parallelism, and each rank takes its data rank's rows of the global
-batches it is given.  Every rank holds the whole (replicated) state:
-rank 0 alone writes a checkpoint, between two barriers, and every rank
-restores it; a SIGTERM on any rank is agreed by an all-reduce of the stop
+batches it is given.  Every rank holds only its part of the state
+(train/state.storage_specs): it draws its parts from the seed
+(``init_state(..., mesh=)``), keeps its slice of a whole state it is
+given, and restores its slices of a checkpoint; a checkpoint is written
+whole, each leaf gathered in turn and written by rank 0, between two
+barriers.  A SIGTERM on any rank is agreed by an all-reduce of the stop
 flag before each step, so every rank stops after the same step; the
 metrics are the global batch's on every rank (launch/steps.py), and the
 straggler monitor records the slowest rank's step time.
@@ -50,9 +53,9 @@ class TrainerConfig:
 class Trainer:
     """Resumes from the newest checkpoint in ``tcfg.ckpt_dir`` if there is
     one (onto ``state``'s device when a state is given, else ``device``);
-    else starts from ``state`` (e.g. ``from_numpy_state`` of a JAX one),
-    or from ``init_state(cfg, seed)`` on ``device`` (the same on every
-    rank)."""
+    else starts from ``state`` (e.g. ``from_numpy_state`` of a JAX one;
+    whole, or this rank's parts), or from ``init_state(cfg, seed)`` on
+    ``device``.  Under ``mesh`` each rank keeps its parts."""
 
     def __init__(self, cfg: ModelConfig, ocfg: OptimizerConfig,
                  tcfg: TrainerConfig, seed: int = 0, device="cuda",
@@ -71,13 +74,21 @@ class Trainer:
                else transformer.resolve_device(device))
         start = (checkpoint.latest_step(tcfg.ckpt_dir) if tcfg.ckpt_dir
                  else None)
+        self.specs = (S.storage_specs(cfg, self.rules) if mesh is not None
+                      else None)
+        self.stacked = S.stacked_leaves(cfg) if mesh is not None else None
         if start is not None:
-            self.state = checkpoint.restore(tcfg.ckpt_dir, start, device=dev)
+            self.state = checkpoint.restore(tcfg.ckpt_dir, start, device=dev,
+                                            specs=self.specs, mesh=mesh,
+                                            stacked=self.stacked)
             self.start_step = int(start)
-        else:
-            self.state = (state if state is not None
-                          else S.init_state(cfg, seed=seed, device=dev))
+        elif state is not None:
+            self.state = (state if mesh is None
+                          else S.local_state(state, cfg, mesh))
             self.start_step = int(self.state["step"])
+        else:
+            self.state = S.init_state(cfg, seed=seed, device=dev, mesh=mesh)
+            self.start_step = 0
         self.device = S.state_device(self.state)
 
         # preemption-safe: SIGTERM ends the run after the step in flight,
@@ -108,9 +119,9 @@ class Trainer:
             return
         if self.world > 1:
             dist.barrier()
-        if self.world == 1 or dist.get_rank() == 0:
-            checkpoint.save(self.state, step, self.tcfg.ckpt_dir,
-                            keep=self.tcfg.keep_checkpoints)
+        checkpoint.save(self.state, step, self.tcfg.ckpt_dir,
+                        keep=self.tcfg.keep_checkpoints, specs=self.specs,
+                        mesh=self.mesh, stacked=self.stacked)
         if self.world > 1:
             dist.barrier()
 

@@ -7,8 +7,10 @@ kernels/cost.py, core/collectives.py) on the CPU:
     4 host devices, its meshes built with Auto axes: on jax 0.9.0 the
     package's own ``make_mesh`` gives Explicit axes, which its
     ``shard()`` refuses), and the output bytes JAX's for the decode
-    caches and logits and for the train state; at (2, 2) the bytes the
-    port's own constructors give one rank (JAX's beside them, printed);
+    caches and logits and for the train state; at (2, 2), each rank
+    storing its parts, JAX's too, for the qwen3 and mixtral smoke train
+    and decode cells, and the bytes the port's own constructors give one
+    rank;
   * the trace follows the real path: meta traces with target "cpu"
     equal real CPU runs under the counter exactly in FLOPs, HBM bytes,
     kernel calls and peak bytes (three configs x train, prefill,
@@ -43,7 +45,6 @@ from repro_torch import configs
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.shapes import (abstract_inputs, input_specs,
                                         materialize)
-from repro_torch.core import collectives as C
 from repro_torch.core import dispatch
 from repro_torch.core.params import ParamDef, leaves
 from repro_torch.kernels import cost
@@ -72,22 +73,24 @@ from jax.sharding import AxisType
 from repro import configs
 from repro.configs.base import ShapeSpec
 from repro.launch import dryrun
-cfg = configs.get_smoke("qwen3-0.6b")
-cells = [("train", (1, 1), ShapeSpec("t", "train", 64, 4)),
-         ("prefill", (1, 1), ShapeSpec("p", "prefill", 64, 4)),
-         ("decode", (1, 1), ShapeSpec("d", "decode", 128, 4)),
-         ("train", (2, 2), ShapeSpec("t", "train", 64, 4)),
-         ("decode", (2, 2), ShapeSpec("d", "decode", 128, 4))]
+Q, M = "qwen3-0.6b", "mixtral-8x22b"
+cells = [(Q, "train", (1, 1), ShapeSpec("t", "train", 64, 4)),
+         (Q, "prefill", (1, 1), ShapeSpec("p", "prefill", 64, 4)),
+         (Q, "decode", (1, 1), ShapeSpec("d", "decode", 128, 4)),
+         (Q, "train", (2, 2), ShapeSpec("t", "train", 64, 4)),
+         (Q, "decode", (2, 2), ShapeSpec("d", "decode", 128, 4)),
+         (M, "train", (2, 2), ShapeSpec("t", "train", 64, 4)),
+         (M, "decode", (2, 2), ShapeSpec("d", "decode", 128, 4))]
 nbytes = lambda t: sum(math.prod(l.shape) * l.dtype.itemsize
                        for l in jax.tree_util.tree_leaves(t))
 out = []
-for kind, shape, spec in cells:
+for arch, kind, shape, spec in cells:
     mesh = jax.make_mesh(shape, ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
-    lowered = dryrun.lower_cell(cfg, spec, mesh)
+    lowered = dryrun.lower_cell(configs.get_smoke(arch), spec, mesh)
     ma = lowered.compile().memory_analysis()
     info = lowered.out_info
-    out.append({"kind": kind, "mesh": list(shape),
+    out.append({"arch": arch, "kind": kind, "mesh": list(shape),
                 "argument": int(ma.argument_size_in_bytes),
                 "output": int(ma.output_size_in_bytes),
                 "out_leaf_bytes": nbytes(info[0] if kind == "train"
@@ -120,7 +123,10 @@ def jax_cells():
                 raise AssertionError("JAX's lower_cell passed its deadline")
             assert proc.returncode == 0, err[-3000:]
             rows = json.loads(out.strip().splitlines()[-1])
-            box["cells"] = {(r["kind"], tuple(r["mesh"])): r for r in rows}
+            box["cells"] = {(r["kind"], tuple(r["mesh"])): r for r in rows
+                            if r["arch"] == "qwen3-0.6b"}
+            box["cells"].update({(r["arch"], r["kind"], tuple(r["mesh"])): r
+                                 for r in rows})
         return box["cells"]
     yield result
     if proc.poll() is None:
@@ -468,9 +474,9 @@ def test_collectives_only_in_collectives_py():
 
 
 def _region_leaves(defs, specs):
-    """(bytes of the trainable leaves a region slices over "model", bytes
-    of those it keeps whole): their gradients leave the region by an
-    all-gather and an all-reduce."""
+    """(bytes of the trainable leaves stored split over "model", bytes of
+    those stored whole): the gradients of the whole ones leave the region
+    by an all-reduce, the split ones' need none."""
     sliced = whole = 0
 
     def walk(d, sp):
@@ -507,17 +513,18 @@ def test_mesh_collective_bytes():
     want = {
         # the regions' entries in the forward and in the checkpoint's
         # recompute, the loss's gather of the hidden states, the exits'
-        # backward; the sliced trainable leaves' gradients
-        "all-gather": whole * (2 * units * 2 + 1 + 2 * units)
-        + units * (attn[0] + mlp[0]),
+        # backward (a sliced trainable leaf is stored as its slice: its
+        # gradient needs no gather)
+        "all-gather": whole * (2 * units * 2 + 1 + 2 * units),
         # the exits (the recompute stops after the attention's: the FFN's
         # output is not saved for backward), the embedding's vocabulary
         # split, the entries' backward, the loss gather's backward
         "reduce-scatter": chunk * (units * 2 + units + 1 + 2 * units + 1),
         # the vocabulary-split loss: max, sum of exponentials, target
         # (f32 a row) and argmax (int64 a row); the whole trainable
-        # leaves' gradients
-        "all-reduce": rows * (4 + 4 + 4 + 8) + units * (attn[1] + mlp[1]),
+        # leaves' gradients; the global norm's sum of squares (f32)
+        "all-reduce": rows * (4 + 4 + 4 + 8) + units * (attn[1] + mlp[1])
+        + 4,
     }
     with make_dry_mesh((1, n), ("data", "model")) as mesh:
         counter = dryrun.trace_cell(cfg, TRAIN, mesh)
@@ -614,20 +621,21 @@ def test_against_jax_mesh_1x1(jax_cells):
         print(f"{kind} (1, 1): port {mem}, JAX {jx[(kind, (1, 1))]}")
 
 
-def test_against_jax_mesh_2x2(jax_cells):
-    """At (2, 2) each rank holds the port's own layout (the whole train
-    state; the whole model beside its model slices and the caches of its
-    slots): the trace's argument bytes equal what the port's constructors
-    give one rank.  JAX's sharded numbers are printed beside them."""
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b"])
+def test_against_jax_mesh_2x2(jax_cells, arch):
+    """At (2, 2) each rank stores its parts (train/state.storage_specs;
+    the serving model's, ``engine.init_model``) and the caches of its
+    slots: the trace's argument bytes equal what the port's constructors
+    give one rank, and JAX's ``memory_analysis()`` exactly, for the train
+    and the decode cell (mixtral's experts over data and model)."""
     jx = jax_cells()
-    cfg = SMOKE
+    cfg = configs.get_smoke(arch)
     with make_dry_mesh((2, 2), ("data", "model")) as mesh:
         rules = rules_for_mesh(mesh)
         train = dryrun.trace_cell(cfg, TRAIN, mesh).memory()
         decode = dryrun.trace_cell(cfg, DECODE, mesh).memory()
-        tp = C.mesh_axis(mesh, "model")
-        model = transformer.ShardedLM(transformer.LM.init(cfg, 0, "cpu"),
-                                      cfg, tp)
+        state = S.init_state(cfg, 0, "cpu", mesh=mesh)
+        model = engine.init_model(cfg, 0, "cpu", mesh=mesh)
         slots = DECODE.global_batch // 2
         caches = transformer.init_caches(model.cfg, slots, DECODE.seq_len,
                                          "cpu", shard=model.shard)
@@ -639,12 +647,13 @@ def test_against_jax_mesh_2x2(jax_cells):
                 cfg, DECODE.global_batch, DECODE.seq_len), rules)))
     rows = TRAIN.global_batch // 2 * TRAIN.seq_len * 4 * 2   # tokens, labels
     assert train["argument_size_in_bytes"] == roofline.storage_bytes(
-        S.init_state(cfg, 0, "cpu")) + rows
+        state) + rows
     dec = roofline.storage_bytes(model, caches) + slots * 4 + 4
     assert decode["argument_size_in_bytes"] == dec
     assert local == want            # steps.cache_local_shapes' layout
     for kind, port in (("train", train), ("decode", decode)):
-        j = jx[(kind, (2, 2))]["argument"]
-        print(f"{kind} (2, 2): port {port['argument_size_in_bytes']} B a "
-              f"rank, JAX {j} B, ratio "
+        j = jx[(arch, kind, (2, 2))]["argument"]
+        print(f"{arch} {kind} (2, 2): port {port['argument_size_in_bytes']}"
+              f" B a rank, JAX {j} B, ratio "
               f"{port['argument_size_in_bytes'] / j:.3f}")
+        assert port["argument_size_in_bytes"] == j

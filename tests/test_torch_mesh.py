@@ -31,10 +31,12 @@ from repro.train import state as JS
 from repro_torch import configs
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.shapes import input_specs
+from repro_torch.core import params as P
 from repro_torch.core.params import ParamDef, spec_tree, stack_defs
 from repro_torch.launch import steps
 from repro_torch.models import encdec, transformer
 from repro_torch.sharding import axis_rules, rules_for_mesh, shard, spec_for
+from repro_torch.sharding.rules import RULES as RULES_TABLE
 from repro_torch.train import state as S
 
 NAMES = (list(jconfigs.ARCH_NAMES) + list(jpaper.blocks())
@@ -116,7 +118,54 @@ def test_specs_match_jax(shape, names):
             _tuples(jsteps.cache_specs(jcfg, jc, jrules)), name
 
 
+def _stored_differences(name, mesh):
+    """{leaf path: (the port's stored shape, JAX's)} of ``name``'s state
+    on ``mesh`` (data, model) where the two differ."""
+    from repro_torch.sharding import local_shape
+    cfg = configs.get_config(name)
+    sizes = {"data": mesh[0], "model": mesh[1]}
+    rules = {**RULES_ALL, "__sizes__": sizes}
+    mine = dict(P.leaves(S.model_storage_specs(cfg, sizes)))
+    theirs = dict(P.leaves(S.param_specs(cfg, rules)))
+    out = {}
+    for path, t in P.leaves(P.abstract_tree(S.model_defs(cfg))):
+        a = local_shape(t.shape, mine[path], sizes)
+        b = local_shape(t.shape, theirs[path], sizes)
+        if a != b:
+            out[path] = (a, b)
+    return cfg, out
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (16, 16)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("name", NAMES)
+def test_storage_specs_against_jax(name, mesh):
+    """The port stores each leaf as JAX's ``state_specs`` place it, except
+    where train/state.storage_specs says it does not: the SSD mixer's
+    leaves, an attention or FFN whose ``tp_plan`` does not split (kept
+    whole), one kv head (whole), a one-block RG-LRU gate (split on its
+    columns)."""
+    from repro_torch.models import attention, ffn, rglru
+    cfg, diff = _stored_differences(name, mesh)
+    n = mesh[1]
+    for path, (mine, theirs) in diff.items():
+        if any(k.endswith("_ssd") for k in path):
+            continue
+        if "mixer" in path and any(k.endswith("_rec") for k in path):
+            assert path[-1] in ("w_a", "w_i") and rglru._gate_blocks(cfg) == 1
+            continue
+        if "ffn" in path:
+            assert ffn.tp_plan(cfg, n) is None, path
+            continue
+        # an attention: whole where its heads do not split, or one kv head
+        assert attention.tp_plan(cfg, n) is None or (
+            cfg.num_kv_heads == 1 and path[-2:] in (
+                ("wk", "w"), ("wv", "w"), ("lora", "c"))), path
+        assert all(a >= b for a, b in zip(mine, theirs)), path
+
+
 # ------------------- tests/test_sharding_and_roofline.py's four, ported
+RULES_ALL = dict(RULES_TABLE)
 RULES = {"heads": "model", "ffn": "model", "embed": None,
          "batch": ("pod", "data"),
          "__sizes__": {"model": 16, "data": 16, "pod": 2}}

@@ -49,6 +49,7 @@ from repro.serving.engine import Request as JRequest
 from repro_torch import configs
 from repro_torch.core import params as P
 from repro_torch.launch import steps
+from repro_torch.optim.adamw import OptimizerConfig, global_norm
 from repro_torch.train import state as S
 from test_torch_model import (jax_params, keep_sigterm,  # noqa: F401
                               one_torch_thread, perturb_lora, port_cfg,
@@ -73,6 +74,9 @@ def _family_cfg(name):
             configs.get_smoke("recurrentgemma-9b"), lru_width=256))
     return SW.f32(configs.get_smoke(name))
 OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+# the family train steps clip by a norm far below their gradients' norm,
+# so a wrong global norm shows in the first moments
+TRAIN_OCFG = dict(OCFG, grad_clip=1e-3)
 BATCH, SEQ, LOSS_CHUNK = 4, 16, 16
 GEN_STEPS = 5
 
@@ -131,11 +135,21 @@ def _train_setup(arch, seed):
 
 
 def _port_train(cfg, state, batch):
+    """The world of one's loss, gradients and their global norm, and its
+    trainable leaves, first moments and grad_norm after one AdamW step
+    (TRAIN_OCFG)."""
     st = P.from_numpy_state(state, "cpu")
     b = {k: torch.as_tensor(v) for k, v in batch.items()}
     loss, _, grads = steps.loss_and_grads(st, cfg, b, LOSS_CHUNK)
-    return {"loss": float(loss),
-            "grads": {".".join(k): v.numpy() for k, v in P.leaves(grads)}}
+    new, m = steps.build_train_step(cfg, OptimizerConfig(**TRAIN_OCFG),
+                                    loss_chunk=LOSS_CHUNK)(st, b)
+
+    def flat(tree):
+        return {".".join(k): v.numpy() for k, v in P.leaves(tree)}
+    return {"loss": float(loss), "grads": flat(grads),
+            "norm": float(global_norm(grads)), "after": flat(new["train"]),
+            "after_m": flat(new["opt"]["m"]),
+            "grad_norm": float(m["grad_norm"])}
 
 
 def _whisper_generate():
@@ -190,7 +204,7 @@ def runs(tmp_path_factory):
         if mesh == (1, 2):
             cases += [("train_shapes_case", dict(
                 mesh_shape=mesh, cfg=c, state=s, batch=b, chunk=LOSS_CHUNK,
-                ocfg=OCFG, logits=False)) for c, s, b in train.values()]
+                ocfg=TRAIN_OCFG, logits=False)) for c, s, b in train.values()]
             cases.append(("launcher_case", dict(argv=[
                 "--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
                 "--requests", "2", "--slots", "2", "--prompt-len", "8",
@@ -382,17 +396,26 @@ def test_family_serve_matches_world_of_one(runs, name):
 def test_family_train_step_matches_world_of_one(runs, name):
     """At (1, 2): the sequence-parallel regions of the MoE, RG-LRU (one
     gate block and 16), SSD and encoder-decoder blocks give the world of
-    one's loss and gradients; after AdamW both ranks hold the same
-    leaves."""
+    one's loss and each rank the slices of its gradients that it stores;
+    the gradients' global norm is the world of one's, and with it the
+    clip (TRAIN_OCFG binds): after AdamW each rank's parts and first
+    moments are the slices of the world of one's, the replicated leaves
+    and the columns several ranks hold (a Pick's shared index set: the
+    SSD's B and C) bit-equal on both ranks."""
+    from repro_torch.sharding import Pick, local_slice
     ref = runs["train"][name]
     got = runs["train_mesh"][name]
     cfg = _family_cfg(name)
+    sizes = {"data": 1, "model": 2}
+    specs = {".".join(k): v for k, v in P.leaves(S.storage_specs(
+        cfg, {"__sizes__": sizes})["train"])}
     for res in got:
         assert res["tp"][1] == 2
         _close(res["loss"], ref["loss"], "loss")
         assert res["grads"].keys() == ref["grads"].keys()
         for k, g in ref["grads"].items():
-            _close(res["grads"][k], g, k)
+            _close(res["grads"][k], local_slice(
+                torch.as_tensor(g), specs[k], sizes, res["coords"]), k)
         shapes = res["shapes"]
         if name == "mamba2-780m":
             assert {s[0][2] for s in shapes["ssd_scan"]} == {
@@ -406,8 +429,46 @@ def test_family_train_step_matches_world_of_one(runs, name):
             key = "grouped_ffn" if cfg.num_experts else "routed_ffn"
             f = cfg.d_ff // (1 if cfg.num_experts else cfg.spt.ffn_groups)
             assert {s[1][-1] for s in shapes[key]} == {f // 2}
-    for k, v in got[0]["after"].items():
-        assert np.array_equal(got[1]["after"][k], v), k
+        assert ref["grad_norm"] > 10 * TRAIN_OCFG["grad_clip"]
+        for key in ("norm", "grad_norm"):
+            _close(res[key], ref[key], key)
+        for key in ("after", "after_m"):
+            assert res[key].keys() == ref[key].keys()
+            for k, w in ref[key].items():
+                _close(res[key][k], local_slice(
+                    torch.as_tensor(w), specs[k], sizes, res["coords"]),
+                    f"{key} {k}")
+    picks = 0
+    first, second = sorted(got, key=lambda res: res["coords"]["model"])
+    for key in ("after", "after_m"):
+        for k, v in first[key].items():
+            other = second[key][k]
+            spec = specs[k]
+            if spec == (None,) * len(v.shape):    # a replicated leaf
+                assert np.array_equal(other, v), k
+            elif isinstance(spec, Pick):          # its shared columns
+                i0, i1 = spec.index
+                both = sorted(set(i0) & set(i1))
+                assert both, k
+                a = np.take(v, [i0.index(c) for c in both], axis=spec.dim)
+                b = np.take(other, [i1.index(c) for c in both],
+                            axis=spec.dim)
+                assert np.array_equal(a, b), k
+                picks += 1
+    assert picks == (2 if name == "mamba2-780m" else 0)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_serve_stores_its_vocabulary_rows(runs, mesh):
+    """Each rank of a serving mesh stores V/n rows of the embedding (and
+    of an untied head's columns), n the model extent: no whole table."""
+    for name, results in runs["serve_mesh"][mesh].items():
+        cfg = runs["serve_cfg"][name]
+        v = cfg.padded_vocab // mesh[1]
+        for res in results:
+            assert res["vocab"]["embed"] == (v, cfg.d_model), name
+            if not cfg.tie_embeddings and cfg.family != "audio":
+                assert res["vocab"]["head"] == (cfg.d_model, v), name
 
 
 def test_serve_launcher_runs_a_1x2_mesh(runs):
@@ -438,18 +499,18 @@ def test_resume_under_a_world_of_two_matches_uninterrupted(runs):
 
 def test_serving_helpers_cost_nothing_at_extent_one():
     """At extent 1 the serving helpers are the identity (no process
-    group needed); a rank's slice takes its chunk of a placed dim, or its
-    index set of a Pick (rank 1 of 2 here; no collective)."""
+    group needed); a rank's stored part (``sharding.local_slice``, which
+    builds a serving shard from a whole model) is its chunk of a placed
+    dim, or its index set of a Pick (rank 1 of 2 here; no collective)."""
     from repro_torch.core import collectives as C
+    from repro_torch.sharding import local_slice
     x = torch.arange(12.0).reshape(4, 3)
     assert C.model_sum(x, None) is x
     assert C.all_gather_flat(x.flatten(), None).shape == (1, 12)
     assert torch.equal(C.all_reduce_flat(x, None), x)
-    assert C.local_tree({"w": x}, None, None) == {"w": x}
-    ax = C.Axis(group=None, size=2, rank=1)
-    got = C.local_tree({"a": x, "b": x, "c": x},
-                       {"a": ("model", None), "b": None,
-                        "c": C.Pick(0, ((0, 2), (1, 3)))}, ax)
-    assert torch.equal(got["a"], x[2:])
-    assert torch.equal(got["b"], x)
-    assert torch.equal(got["c"], x[[1, 3]])
+    assert C.zero_gather({"w": x}, ((("w",), 0),), None) == {"w": x}
+    sizes, coords = {"model": 2}, {"model": 1}
+    assert torch.equal(local_slice(x, ("model", None), sizes, coords), x[2:])
+    assert local_slice(x, None, sizes, coords) is x
+    assert torch.equal(local_slice(x, C.Pick(0, ((0, 2), (1, 3))), sizes,
+                                   coords), x[[1, 3]])

@@ -143,6 +143,9 @@ def serve(cfg, tree=None, seed=0, mesh=None, reqs=(), engine_kw=None,
                    "device": dict(st.device),
                    "steps_run": eng.last_steps_run, "caches": caches}
     out["shapes"] = rec.by_name()
+    out["vocab"] = {k: tuple(getattr(eng.model, k)[w].shape)
+                    for k, w in (("embed", "embedding"), ("head", "w"))
+                    if getattr(eng.model, k, None) is not None}
     return out
 
 

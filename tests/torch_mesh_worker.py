@@ -145,7 +145,13 @@ class Recorder:
 
 
 def _np(t):
-    return t.detach().cpu().numpy().copy()
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch_bf16() else t).numpy().copy()
+
+
+def torch_bf16():
+    import torch
+    return torch.bfloat16
 
 
 def _tree_np(tree):
@@ -163,29 +169,41 @@ def _mesh(shape):
 # -------------------------------------------------------------- workers
 def train_case(rank, world, mesh_shape, cfg, state, batch, chunk, ocfg,
                logits=True):
-    """One train step's pieces on this rank's rows under the mesh: the
-    loss, metrics and gradients of ``loss_and_grads``, the integer
-    outputs it made, the logits of the rows (sequence gathered), and the
-    trainable leaves after one ``build_train_step`` (AdamW)."""
+    """One train step's pieces on this rank's rows and stored parts under
+    the mesh (the whole ``state`` cut to them by ``local_state``): the
+    loss, metrics and gradients of ``loss_and_grads``, their global norm,
+    the integer outputs it made, the logits of the rows (sequence and
+    vocabulary gathered), the trainable leaves and moments after one
+    ``build_train_step`` (AdamW), the shapes of the stored leaves, the
+    parts ``init_state(..., mesh=)`` draws, and this rank's mesh
+    coordinates."""
     import torch
     from repro_torch.core import collectives as C
     from repro_torch.core import params as P
     from repro_torch.data.pipeline import rank_rows
     from repro_torch.launch import steps
     from repro_torch.models import transformer
-    from repro_torch.optim.adamw import OptimizerConfig
-    from repro_torch.sharding import axis_rules
+    from repro_torch.optim.adamw import OptimizerConfig, global_norm
+    from repro_torch.sharding import axis_rules, mesh_coords
     from repro_torch.train import state as S
     mesh, rules = _mesh(mesh_shape)
-    st = P.from_numpy_state(state, "cpu")
-    out = {}
+    st = S.local_state(P.from_numpy_state(state, "cpu"), cfg, mesh)
+    out = {"coords": mesh_coords(mesh),
+           "stored": {part: {k: tuple(v.shape) for k, v in
+                             _tree_np(st[part]).items()}
+                      for part in ("train", "frozen")},
+           "init": {part: _tree_np(tree) for part, tree in S.init_state(
+               cfg, seed=0, device="cpu", mesh=mesh).items()
+               if part in ("train", "frozen")}}
     with axis_rules(rules):
         dp = C.batch_axis()
         b = rank_rows(batch, dp.rank, dp.size) if dp else batch
         b = {k: torch.as_tensor(v) for k, v in b.items()}
         with Recorder() as rec:
             loss, metrics, grads = steps.loss_and_grads(st, cfg, b, chunk)
+        specs = S.storage_specs(cfg, rules)
         out.update(loss=float(loss), grads=_tree_np(grads), ints=rec.calls,
+                   norm=float(global_norm(grads, specs["train"])),
                    metrics={k: float(v) for k, v in metrics.items()},
                    dp=(dp.rank, dp.size) if dp else (0, 1))
         tp = C.model_axis()
@@ -196,24 +214,55 @@ def train_case(rank, world, mesh_shape, cfg, state, batch, chunk, ocfg,
                 hidden, _ = S.model_hidden(params, cfg, b)
                 hidden = C.gather_seq(hidden, transformer.seq_parallel(cfg,
                                                                        b))
-                out["logits"] = _np(transformer.logits_of(params, cfg,
-                                                          hidden))
-        new, _ = steps.build_train_step(cfg, OptimizerConfig(**ocfg))(st, b)
+                lg = transformer.logits_of(params, cfg, hidden)
+                if lg.shape[-1] != cfg.padded_vocab:
+                    lg = C.gather(lg, lg.dim() - 1, tp)
+                out["logits"] = _np(lg)
+        new, m = steps.build_train_step(cfg, OptimizerConfig(**ocfg),
+                                        loss_chunk=chunk)(st, b)
         out["after"] = _tree_np(new["train"])
+        out["after_m"] = _tree_np(new["opt"]["m"])
+        out["grad_norm"] = float(m["grad_norm"])
     return out
+
+
+def ckpt_case(rank, world, mesh_shape, cfg, state, save_dir, restore_dir):
+    """This rank's parts of ``state`` saved whole under ``save_dir``
+    (step 7), and its parts of the checkpoint in ``restore_dir``."""
+    from repro_torch.core import params as P
+    from repro_torch.train import checkpoint
+    from repro_torch.train import state as S
+    mesh, rules = _mesh(mesh_shape)
+    specs = S.storage_specs(cfg, rules)
+    st = S.local_state(P.from_numpy_state(state, "cpu"), cfg, mesh)
+    stacked = S.stacked_leaves(cfg)
+    checkpoint.save(st, 7, save_dir, specs=specs, mesh=mesh, stacked=stacked)
+    got = checkpoint.restore(restore_dir, device="cpu", specs=specs,
+                             mesh=mesh, stacked=stacked)
+    return {part: _tree_np(got[part]) for part in ("train", "frozen")} | {
+        "opt": {k: _tree_np(v) for k, v in got["opt"].items()},
+        "step": int(got["step"])}
 
 
 def shmap_case(rank, world, mesh_shape, rcfg, lcfg, params, x, lb_weight):
     """core/ffn_shmap.routed_ffn_shmap on this rank's rows and sequence
-    chunk of x: y's chunk, lb_loss, dropped, and the gradients of
-    sum(y^2) + lb_weight * lb_loss summed over the data ranks."""
+    chunk of x and its stored parts of the params (the rules'
+    placements): y's chunk, lb_loss, dropped, and the gradients of this
+    rank's parts of sum(y^2) + lb_weight * lb_loss summed over the data
+    ranks."""
     import torch
     from repro_torch.core import collectives as C
     from repro_torch.core import ffn_shmap
     from repro_torch.core import params as P
     from repro_torch.sharding import axis_rules
+    from repro_torch.core import routed_ffn as rf
+    from repro_torch.sharding import local_slice, mesh_coords, mesh_sizes
     mesh, rules = _mesh(mesh_shape)
-    p = P.from_numpy_tree(params, "cpu")
+    specs = dict(P.leaves(P.spec_tree(rf.param_defs(rcfg, lcfg), rules)))
+    coords = mesh_coords(mesh)
+    p = P.unflatten(*zip(*[
+        (k, local_slice(v, specs[k], mesh_sizes(mesh), coords))
+        for k, v in P.leaves(P.from_numpy_tree(params, "cpu"))]))
     pairs = [(k, v) for k, v in P.leaves(p)
              if "router" in k or any("lora" in s for s in k)]
     vals = [v.requires_grad_(True) for _, v in pairs]
@@ -233,6 +282,7 @@ def shmap_case(rank, world, mesh_shape, rcfg, lcfg, params, x, lb_weight):
     return {"y": _np(y), "lb": float(aux["lb_loss"]),
             "dropped": float(aux["dropped"]),
             "grads": {".".join(k): _np(g) for (k, _), g in zip(pairs, grads)},
+            "coords": coords,
             "dp": (dp.rank, dp.size) if dp else (0, 1),
             "tp": (tp.rank, tp.size) if tp else (0, 1)}
 

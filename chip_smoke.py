@@ -14,6 +14,8 @@
     python3 chip_smoke.py --only mesh      # phases 1-3, 24
     python3 chip_smoke.py --only meshserve # phases 1-3, 25
     python3 chip_smoke.py --only dryrun    # phases 1-3, 26
+    python3 chip_smoke.py --only shard     # phases 1-3, 27
+    python3 chip_smoke.py --only seqsplit  # phases 1-3, 28
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -72,7 +74,7 @@ Phases (each raises on failure; nothing is caught):
   4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
      prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
-  5. the same serve, depth cut to 7 layers, on the paged KV layout
+  5. the same serve, depth cut to 4 layers, on the paged KV layout
      (pages of 128, a pool of 64 pages: a quarter of the contiguous
      footprint): sparse MHA through
      the page table (kernel 7), the two-pass tier over gathered views
@@ -197,7 +199,8 @@ Phases (each raises on failure; nothing is caught):
      128, 4 x 1024) and kernel 9 at each group's 192 and 96 columns,
      against their plain versions, timed beside bound and yardstick; an
      NCCL world of one (the launchers' init_distributed), mesh (1, 1),
-     full-width qwen3-0.6b (28 layers) bf16 spt, 3 steps of 4 x 1024
+     full-width qwen3-0.6b (14 of 28 layers) bf16 spt, 3
+     steps of 4 x 1024
      under deterministic algorithms without the mesh, through the mesh
      path (losses equal bit for bit) and with grouped_shmap (within
      1e-3), launch counts exact; the process group destroyed at the end;
@@ -208,7 +211,7 @@ Phases (each raises on failure; nothing is caught):
      columns (qwen3's 192 and 96, recurrentgemma's 768 and 384), each
      launched twice bit-identically, against its plain version, timed
      beside its bound; an NCCL world of one, mesh (1, 1): qwen3-0.6b at
-     full width (7 of 28 layers, contiguous and paged on the 64-page
+     full width (4 of 28 layers, contiguous and paged on the 64-page
      pool) and recurrentgemma-9b (8 of 38 layers: two units and the
      tail) served through Engine.run (8 requests, prompts 128-1024, 32
      new tokens, 8 slots) without the mesh and through it — the
@@ -236,6 +239,13 @@ Phases (each raises on failure; nothing is caught):
      device time beside the count's t_bound (printed); kernel 9's h
      scratch rule as kernels/cost.py restates it equal to the built
      library's at every (dtype, d, F) kernel 9 launched at in the run;
+  27. sharded storage of the state (its module comment);
+  28. attention placed as JAX places it where the kv heads do not divide
+     the model axis: qwen3-0.6b over model 16 and recurrentgemma-9b over
+     model 2 with the caches' sequence split, every rank a thread (its
+     module comment: the shards' bytes against the dry run, a bf16 serve
+     with launches n x exact, and in f32 every split decode's [t, need],
+     selections and combined output against the whole cache's);
   counters are zeroed just before each counted run and read just after,
   launch counts exact; then one JSON line of the ten kernels (launches
   per path; each with its times at the paper's, the MoE, the hybrid and
@@ -470,7 +480,9 @@ def check_two_pass(torch, gen):
     2048 live slots): kernel 3's [t, need] equal to the plain version's
     and to kernel 6's, kernel 5's output within tolerance of its plain
     version and bit-identical to kernel 6's (bf16 and f32, "qhead" and
-    "kvgroup")."""
+    "kvgroup"); kernel 3's summed histograms equal the plain version's,
+    kernel 5's log-sum-exp within F32_TOL of it (the outputs a sequence
+    split over ranks takes), each also timed."""
     from repro_torch.kernels import cost
     from repro_torch.kernels.sparse_attention import ops, ref
     from repro_torch.kernels.topl_select import ops as topl_ops
@@ -522,10 +534,31 @@ def check_two_pass(torch, gen):
         if bad:
             raise AssertionError(f"decode_topl_thresholds {gran}: {bad} of 101 "
                                  "repeated launches differ")
+        # the outputs a sequence split over ranks takes: kernel 3's summed
+        # histograms, kernel 5's log-sum-exp a row
+        thr_h, hist = topl_ops.decode_topl_thresholds(cq, ck, valid,
+                                                      return_hist=True, **kw)
+        out_l, lse = ops.sparse_decode_attention(
+            q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, return_lse=True,
+            **sel)
+        _, plse = ref.sparse_decode_attention_ref(
+            q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, return_lse=True,
+            **sel)
+        torch.cuda.synchronize()
+        if not (torch.equal(thr_h, thr) and torch.equal(
+                hist, topl_ref.decode_score_hist(
+                    cq, ck, valid, max_score=kw["max_score"], **sel))):
+            raise AssertionError(f"decode_topl_thresholds {gran}: the summed "
+                                 "histograms differ from the plain version's")
+        if not torch.equal(out_l, out):
+            raise AssertionError(f"sparse_decode_attention {dtn} {gran}: the "
+                                 "output beside the log-sum-exp differs")
+        lse_err = close(lse, plse, F32_TOL)
         print(f"  two-pass {dtn} {gran}: [t, need] exact (plain, kernel 6, "
               f"after kernel 6 and 100 launches back to back); kernel 5 "
-              f"max_abs_err {err:.3e}, bit-identical to kernel 6 and twice",
-              flush=True)
+              f"max_abs_err {err:.3e}, bit-identical to kernel 6 and twice; "
+              f"kernel 3's summed histograms exact, kernel 5's log-sum-exp "
+              f"max_abs_err {lse_err:.3e}", flush=True)
         if (dtn, gran) != ("bfloat16", "qhead"):
             continue
         t3 = time_ms(lambda: topl_ops.decode_topl_thresholds(
@@ -541,10 +574,14 @@ def check_two_pass(torch, gen):
             "replaces": "src/repro/kernels/topl_select/topl_select.py:161",
             "max_abs_err": 0.0, "ms": t3, "plain_ms": p3, "bound_ms": bms,
             "bound_by": by, "library_ms": None,
+            "ms_with_hist": time_ms(lambda: topl_ops.decode_topl_thresholds(
+                cq, ck, valid, return_hist=True, **kw), 30),
             "shape": f"codes_q ({g}, {SR}, {SM}), codes_k ({g}, {s}, {SM}) "
                      f"int8, {SLIVE} live slots; max_abs_err counts differing "
                      "[t, need]; bound: the live code rows once, or M int "
-                     "compares per (live slot, row) at the f32 CUDA-core rate"}
+                     "compares per (live slot, row) at the f32 CUDA-core "
+                     "rate; ms_with_hist: the same launch writing the summed "
+                     "histograms (a split sequence's)"}
         t5 = time_ms(lambda: ops.sparse_decode_attention(
             q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5, **sel), 30)
         p5 = time_ms(lambda: ref.sparse_decode_attention_ref(
@@ -559,8 +596,14 @@ def check_two_pass(torch, gen):
             "replaces": "src/repro/kernels/sparse_attention/sparse_attention.py:254",
             "max_abs_err": err, "ms": t5, "plain_ms": p5, "bound_ms": bms,
             "bound_by": by, "library_ms": None,
+            "ms_with_lse": time_ms(lambda: ops.sparse_decode_attention(
+                q, k, v, cq, ck, thr, valid, scale=SDH ** -0.5,
+                return_lse=True, **sel), 30),
+            "lse_max_abs_err": lse_err,
             "shape": f"G={g} (8 slots x 8 kv heads), R={SR}, S={s}, "
-                     f"{SLIVE} live, dh={SDH}, M={SM}, bf16"}
+                     f"{SLIVE} live, dh={SDH}, M={SM}, bf16; ms_with_lse: "
+                     "the same launch writing each row's log-sum-exp (a "
+                     "split sequence's)"}
     return [rows["decode_topl_thresholds"], rows["sparse_decode_attention"]]
 
 
@@ -2062,11 +2105,14 @@ PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
 # The serve loop is host-bound (a decode step's wall time grows with its
 # launches, ~200 a layer), so the script's longest paths cut depth, at
 # full width, to keep the whole run well inside its time limit: qwen3-0.6b
-# 28 -> 7 layers in phase 5 (phase 4 keeps all 28) and -> 4 in phase 12
-# (7 until phase 27 came), opt-2.7b and llama-2.7b 32 -> 4 in phase 10,
-# phi-3-vision-4.2b 32 -> 4 in phase 19 (16 each until phase 25 came, 8
-# until its model shards came)
+# 28 -> 7 layers in phases 26-28 (phase 4 keeps all 28), -> 14 in phase
+# 24 and -> 4 in phase 5 (28 and 7 until phase 28 came) and in phase 12
+# (7 until phase 27 came),
+# opt-2.7b and llama-2.7b 32 -> 4 in phase 10, phi-3-vision-4.2b 32 -> 4
+# in phase 19 (16 each until phase 25 came, 8 until its model shards
+# came)
 CUT_DEPTH = 7
+PAGED_DEPTH = 4
 SERVER_DEPTH = 4
 PAPER_DEPTH = 4
 PHI_DEPTH = 4
@@ -2154,12 +2200,14 @@ def _layer_kinds(cfg):
             + transformer._tail_kinds(cfg))
 
 
-def _want_serve_launches(cfg, launches, steps, prefill_batches):
+def _want_serve_launches(cfg, launches, steps, prefill_batches,
+                         split=False):
     """The launches a serve must make: each executed decode step runs its
-    tier's decode kernels once per attention layer and the decode FFN
-    (routed or MoE) once per layer (every block kind has an FFN); each
-    prefill batch (resume re-prefills included) the grouped FFN once per
-    layer.
+    tier's decode kernels once per attention layer (kernels 3 and 5
+    whatever the tier where the caches' sequence splits over the model
+    axis: ``split``) and the decode FFN (routed or MoE) once per layer
+    (every block kind has an FFN); each prefill batch (resume re-prefills
+    included) the grouped FFN once per layer.
     The ragged prefill takes the oracle attention (as in JAX), so the
     train-path attention kernels stay idle.  An ``ssd`` block has neither
     attention nor an FFN: it launches nothing."""
@@ -2167,7 +2215,10 @@ def _want_serve_launches(cfg, launches, steps, prefill_batches):
     kinds = _layer_kinds(cfg)
     layers = sum(k != "ssd" for k in kinds)          # layers with an FFN
     attn_layers = kinds.count("attn")
-    if dispatch.use_paged_kv(cfg) and dispatch.use_paged_native_decode(cfg):
+    if split:
+        decode_attn = ["decode_topl_thresholds", "sparse_decode_attention"]
+    elif (dispatch.use_paged_kv(cfg)
+          and dispatch.use_paged_native_decode(cfg)):
         decode_attn = (["fused_sparse_decode_attention_paged"]
                        if cfg.spt.sparse_mha
                        else ["dense_decode_attention_paged"])
@@ -2192,7 +2243,7 @@ def serve_full_width(torch):
 
 
 def serve_paged(torch):
-    """Phase 5: the phase-4 serve, depth cut to CUT_DEPTH layers, on the
+    """Phase 5: the phase-4 serve, depth cut to PAGED_DEPTH layers, on the
     paged layout with a 64-page pool: sparse MHA on through the page
     table (kernel 7); the two-pass tier over gathered views (kernels 3
     and 5); sparse MHA off (kernel 8, a model without PQ codebooks from
@@ -2200,7 +2251,7 @@ def serve_paged(torch):
     from repro_torch import configs
     _free(torch)
     base = dataclasses.replace(configs.get_config("qwen3-0.6b"),
-                               num_layers=CUT_DEPTH)
+                               num_layers=PAGED_DEPTH)
     base = base.with_spt(**SERVE_CFG, **PAGED)
     model = _perturbed_model(torch, base, seed=0)
     launches = {"serve_paged": _serve(torch, model, base, "paged serve",
@@ -4092,6 +4143,7 @@ def families_agree_f32(torch):
 # 4 run on the CPU over gloo (tests/test_torch_multigpu.py).
 MESH_TP = (2, 4)
 MESH_STEPS = 3
+MESH_DEPTH = 14          # of qwen3's 28 layers (all 28 until phase 28 came)
 MESH_LOSS_TOL = 1e-3
 
 
@@ -4217,7 +4269,7 @@ def _mesh_run(torch, cfg, mesh, label, steps=MESH_STEPS, keep=False):
 def mesh_train(torch):
     """Phase 24's world of one: an NCCL process group of one rank (the
     launchers' init_distributed), a (1, 1) mesh, full-width qwen3-0.6b at
-    28 layers, spt, bf16, 4 x 1024, under deterministic algorithms:
+    MESH_DEPTH layers, spt, bf16, 4 x 1024, under deterministic algorithms:
     MESH_STEPS steps without the mesh, then through the mesh path with the
     default ffn_impl (losses bit for bit those of the run without it) and
     with "grouped_shmap" (core/ffn_shmap.py; losses within
@@ -4225,7 +4277,7 @@ def mesh_train(torch):
     group is destroyed at the end."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed, make_mesh
-    cfg = _train_cfg(torch)
+    cfg = _train_cfg(torch, num_layers=MESH_DEPTH)
     shmap_cfg = cfg.with_spt(ffn_impl="grouped_shmap")
     torch.use_deterministic_algorithms(True, warn_only=True)
     rank, world, dev = init_distributed("cuda")
@@ -4278,10 +4330,10 @@ MESH_SERVE_EDGES = [
 MESH_SERVE_FFN = [("qwen3-0.6b", 1024, 384, "silu"),
                   ("recurrentgemma-9b", 4096, 1536, "gelu")]
 MESH_SERVE_WORK = dict(n=8, lo=128, hi=1024, gen=32, max_len=2048)
-# depth of the world-of-one serves: phase 5's for qwen3-0.6b (7 of 28
-# layers), and recurrentgemma-9b's first 8 of 38 (two units and the
-# two-layer tail; 14 until the model shards came)
-MESH_QWEN_DEPTH = CUT_DEPTH
+# depth of the world-of-one serves: phase 5's for qwen3-0.6b (4 of 28
+# layers; 7 until phase 28 came), and recurrentgemma-9b's first 8 of 38
+# (two units and the two-layer tail; 14 until the model shards came)
+MESH_QWEN_DEPTH = PAGED_DEPTH
 MESH_HYBRID_DEPTH = 8
 # The model shards of each served case, every rank a thread on the one
 # card (``_Ring``): the extents, a short bf16 serve (4 slots, chunks of
@@ -4448,8 +4500,9 @@ class _Ring:
 def _on_shards(torch, shards, work):
     """``work(r, shard)`` on every rank of the ShardedLMs ``shards`` (one
     _Ring), each in its thread, with the serving path's model-axis
-    collectives (``model_sum``, ``region_sum``, ``gather``) taken over
-    the ring.  Returns the ranks' results; re-raises a rank's error."""
+    collectives (``model_sum``, ``region_sum``, ``gather``, and a split
+    sequence's ``stack_ranks`` and ``model_scatter``) taken over the
+    ring.  Returns the ranks' results; re-raises a rank's error."""
     import threading
     from repro_torch.core import collectives as C
     ring = shards[0].shard.ax.group
@@ -4473,9 +4526,18 @@ def _on_shards(torch, shards, work):
         return x if ax is None else ax.group.exchange(
             ax.rank, x, lambda parts: torch.cat(parts, dim))
 
-    names = ("model_sum", "region_sum", "gather")
+    def stacked(x, ax):
+        return ax.group.exchange(ax.rank, x, torch.stack)
+
+    def scattered(x, dim, ax):
+        return ax.group.exchange(ax.rank, x, ring.sum).chunk(
+            ax.size, dim)[ax.rank].contiguous()
+
+    names = ("model_sum", "region_sum", "gather", "stack_ranks",
+             "model_scatter")
     orig = {k: getattr(C, k) for k in names}
     C.model_sum, C.region_sum, C.gather = total, total, joined
+    C.stack_ranks, C.model_scatter = stacked, scattered
     try:
         threads = [threading.Thread(target=body, args=(r,), daemon=True)
                    for r in range(ring.n)]
@@ -4541,11 +4603,16 @@ def _shard_checks(torch, model, cfg, label, kv_pages):
     shown.  Returns the serves' launches summed over the extents."""
     from repro_torch import kernels
     from repro_torch.core import collectives as C
-    from repro_torch.models import transformer
+    from repro_torch.models import attention, transformer
     from repro_torch.serving.engine import Engine
     w = SHARD_WORK
     reqs = _requests(w["n"], w["lo"], w["hi"], w["gen"], cfg.vocab_size,
                      seed=3)
+
+    def split(n):           # the caches' sequence splits over model n
+        return kv_pages is None and attention.seq_parts(
+            cfg.num_kv_heads, attention.cache_size(w["max_len"], cfg.window),
+            n) > 1
 
     def shards_of(m, c, n):
         ring = _Ring(n)
@@ -4569,7 +4636,7 @@ def _shard_checks(torch, model, cfg, label, kv_pages):
         counts = (lc.num_heads, lc.num_kv_heads, lc.d_ff, lc.lru_width)
         want = (cfg.num_heads // n,
                 cfg.num_kv_heads // n if cfg.num_kv_heads % n == 0
-                else cfg.num_kv_heads, cfg.d_ff // n,
+                else 1, cfg.d_ff // n,
                 cfg.lru_width // n if "rec" in cfg.pattern else
                 cfg.lru_width)
         if counts != want:
@@ -4586,7 +4653,7 @@ def _shard_checks(torch, model, cfg, label, kv_pages):
             raise AssertionError(f"{label} model={n}: the ranks' serves "
                                  "differ")
         one = _want_serve_launches(cfg, launches, steps,
-                                   stats["prefill_batches"])
+                                   stats["prefill_batches"], split(n))
         if launches != {k: n * v for k, v in one.items()}:
             raise AssertionError(f"{label} model={n}: launches {launches} "
                                  f"!= {n} x {one}")
@@ -4626,7 +4693,8 @@ def _shard_checks(torch, model, cfg, label, kv_pages):
             lg = _on_shards(torch, shards, logits)
             torch.cuda.synchronize()
             launches = {wr.__name__: wr.launches for wr in wrappers}
-            one = _want_serve_launches(c32, launches, SHARD_STEPS, 1)
+            one = _want_serve_launches(c32, launches, SHARD_STEPS, 1,
+                                       split(n))
             if launches != {k: n * v for k, v in one.items()}:
                 raise AssertionError(f"{label} model={n} f32: launches "
                                      f"{launches} != {n} x {one}")
@@ -5315,13 +5383,324 @@ def shard_serve(torch):
     _free(torch)
     return {"shard_serve": launches}
 
+# ------------------------------------------------------------ phase 28
+# Attention placed as JAX places it where the kv heads do not divide the
+# model axis (models/attention.py), on one card, every rank a thread
+# (phase 25's _Ring).  SEQ_SPLIT: qwen3-0.6b at full width (CUT_DEPTH
+# layers) over model 16 — one query head a rank, inside kv head r // 2,
+# every cache's 4,096 slots split 16 ways (256 a rank) — and
+# recurrentgemma-9b at full width (3 layers: rec, rec, attn) over model
+# 2, its 2,048-slot ring split in two (1,024 a rank) and wrapped by the
+# prompts.  (a) The shards built on the card from the host model (bf16):
+# the allocated bytes rise by the ranks' stored bytes (within
+# SHARD_MEM_TOL), each rank's equal to the dry run's (a dry (1, n)
+# mesh), and the caches of its slots by exactly the dry run's cache
+# bytes a rank; a burst serve on every rank at once (streams alike,
+# launches n x one rank's exact count with kernels 3 and 5 on every
+# split attention layer's decode, ServeStats counters the unsharded
+# serve's; the streams equal to the unsharded serve's are reported).
+# (b) In f32, at the default top-L and at top fraction 1: one ragged
+# prefill and SEQ_SPLIT_STEPS teacher-forced decode steps on the shards;
+# every decode over a split sequence (each layer, step and rank) is
+# recorded, and on its inputs: each rank's kernel 3 histograms equal
+# their plain version's exactly, kernel 5's output and log-sum-exp are
+# within F32_TOL of their plain version's; the whole row's [t, need]
+# from the ranks' summed histograms equals kernel 3's on the whole
+# cache (the ranks' parts joined) exactly; the union of the ranks'
+# selections equals the whole cache's selection exactly; the parts
+# combined by their log-sum-exps equal kernel 5 on the whole cache
+# within F32_TOL; the logits against the unsharded model's by phase 25's
+# SHARD_TOL rule at top fraction 1 (shown at the default).
+SEQ_SPLIT = [("qwen3-0.6b", CUT_DEPTH, 16,
+              dict(n=4, lo=3072, hi=4032, gen=8, max_len=4096)),
+             ("recurrentgemma-9b", 3, 2,
+              dict(n=4, lo=2112, hi=2560, gen=8, max_len=4096))]
+SEQ_SPLIT_STEPS = 2
+
+
+class _SplitLog:
+    """Records every ``attention.decode_seq_split`` call of the ranks'
+    threads (bound by ``bind``): its inputs, cloned (the caches change in
+    place), and its output, by rank in call order."""
+
+    def __init__(self, torch):
+        import threading
+        self.torch, self.calls, self.rank = torch, {}, {}
+        self._ident = threading.get_ident
+
+    def bind(self, r):
+        self.rank[self._ident()] = r
+        self.calls[r] = []
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self._orig = orig = attention.decode_seq_split
+
+        @functools.wraps(orig)
+        def rec(p, cfg, q, cache, valid, ax, scatter, kernel=None):
+            out = orig(p, cfg, q, cache, valid, ax, scatter, kernel)
+            self.calls[self.rank[self._ident()]].append(dict(
+                cb=p["pq"]["codebooks"], cfg=cfg, q=q.clone(),
+                k=cache["k"].clone(), v=cache["v"].clone(),
+                codes=cache["codes"].clone(), valid=valid.clone(),
+                out=out[0].clone(), scatter=scatter))
+            return out
+        attention.decode_seq_split = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.decode_seq_split = self._orig
+
+
+def _split_call_checks(torch, ranks):
+    """The checks of one decode over a split sequence (``ranks``: every
+    rank's record of the call, in rank order).  Returns (largest error
+    of kernel 5 against its plain version, of the combined output
+    against kernel 5 on the whole cache, selected (row, slot) pairs)."""
+    from repro_torch.core import pq
+    from repro_torch.core import sparse_attention as sa
+    from repro_torch.kernels.sparse_attention import ops, ref
+    from repro_torch.kernels.topl_select import ops as topl_ops
+    from repro_torch.kernels.topl_select import ref as topl_ref
+    from repro_torch.models import attention
+    c0 = ranks[0]
+    cfg, q = c0["cfg"], c0["q"]
+    b, hq, _, d = q.shape
+    _, hk, sl, _ = c0["k"].shape
+    n, r = len(ranks), hq // hk
+    sc = attention._sa_config(cfg)
+    sum_rows = sc.select_granularity == "kvgroup"
+    l = sa.top_l(n * sl, sc, None)
+    m = sc.pq.num_books
+    sel = dict(max_score=m * (r if sum_rows else 1), sum_rows=sum_rows,
+               heads_per_batch=hk)
+    cq = pq.assign(q, c0["cb"]).reshape(b * hk, r, m)
+    qg = q.reshape(b * hk, r, d)
+
+    def grouped(t):
+        return t.reshape(b * hk, t.shape[2], t.shape[3])
+    ck = [grouped(c["codes"]) for c in ranks]
+    kk = [grouped(c["k"]) for c in ranks]
+    vv = [grouped(c["v"]) for c in ranks]
+    va = [c["valid"][:, i * sl:(i + 1) * sl].contiguous()
+          for i, c in enumerate(ranks)]
+    hists = []
+    for i in range(n):
+        _, h = topl_ops.decode_topl_thresholds(cq, ck[i], va[i], l=l,
+                                               return_hist=True, **sel)
+        if not torch.equal(h, topl_ref.decode_score_hist(cq, ck[i], va[i],
+                                                         **sel)):
+            raise AssertionError("kernel 3's histograms differ from the "
+                                 "plain version's")
+        hists.append(h)
+    hists = torch.stack(hists)
+    ck_w, va_w = torch.cat(ck, 1), c0["valid"]
+    k_w, v_w = torch.cat(kk, 1), torch.cat(vv, 1)
+    thr_w = topl_ops.decode_topl_thresholds(cq, ck_w, va_w, l=l, **sel)
+    kw5 = dict(scale=d ** -0.5, sum_rows=sum_rows, heads_per_batch=hk)
+    want = ops.sparse_decode_attention(qg, k_w, v_w, cq, ck_w, thr_w, va_w,
+                                       **kw5)
+    chosen = ref.newest_ties(topl_ref.decode_scores(
+        cq, ck_w, va_w, sum_rows=sum_rows, heads_per_batch=hk), thr_w)
+    sels, outs, lses, err5 = [], [], [], 0.0
+    for i in range(n):
+        whole, thr_r = attention.split_thresholds(hists, l, i)
+        if not torch.equal(whole, thr_w):
+            raise AssertionError("[t, need] from the summed histograms "
+                                 "differ from kernel 3's on the whole cache")
+        args = (qg, kk[i], vv[i], cq, ck[i], thr_r, va[i])
+        o, lse = ops.sparse_decode_attention(*args, **kw5, return_lse=True)
+        po, plse = ref.sparse_decode_attention_ref(*args, **kw5,
+                                                   return_lse=True)
+        err5 = max(err5, close(o, po, F32_TOL))
+        fin = torch.isfinite(plse)
+        if not torch.equal(fin, torch.isfinite(lse)) or (
+                fin.any() and float((lse[fin] - plse[fin]).abs().max())
+                > F32_TOL):
+            raise AssertionError("kernel 5's log-sum-exp differs from the "
+                                 "plain version's")
+        sels.append(ref.newest_ties(topl_ref.decode_scores(
+            cq, ck[i], va[i], sum_rows=sum_rows, heads_per_batch=hk), thr_r))
+        outs.append(o)
+        lses.append(lse)
+    if not torch.equal(torch.cat(sels, -1), chosen):
+        raise AssertionError("the union of the ranks' selections differs "
+                             "from the whole cache's")
+    lse_all = torch.stack(lses)
+    got = sum(o.float() * attention.part_weight(x, lse_all)[..., None]
+              for o, x in zip(outs, lses))
+    err = close(got, want, F32_TOL)
+    # each rank's recorded output: its heads' rows (or all) of the whole
+    flat = want.reshape(b, hq, d)
+    for i, c in enumerate(ranks):
+        mine = (flat[:, i * hq // n:(i + 1) * hq // n] if c["scatter"]
+                else flat)
+        err = max(err, close(c["out"][:, :, 0], mine, F32_TOL))
+    return err5, err, int(chosen.sum())
+
+
+def _seq_split_case(torch, name, layers, n, w):
+    """Phase 28 for one model (module comment above).  Returns the bf16
+    serve's launches."""
+    from repro_torch import configs, kernels
+    from repro_torch.core import collectives as C
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models import attention, transformer
+    from repro_torch.serving.engine import Engine, abstract_decode_caches
+    cfg = dataclasses.replace(configs.get_config(name),
+                              num_layers=layers).with_spt(**SERVE_CFG)
+    size = attention.cache_size(w["max_len"], cfg.window)
+    if attention.seq_parts(cfg.num_kv_heads, size, n) != n:
+        raise AssertionError(f"{name} model={n}: its caches do not split")
+    reqs = _requests(w["n"], w["lo"], w["hi"], w["gen"], cfg.vocab_size,
+                     seed=4)
+    label = f"{name} ({layers} layers) model={n}"
+
+    def serve(m):
+        eng = Engine(cfg, m, max_len=w["max_len"], num_slots=4,
+                     decode_chunk=8)
+        outs = eng.run(reqs)
+        st = eng.last_stats
+        return ([c.tokens for c in outs], eng.last_steps_run,
+                {k: getattr(st, k) for k in _STAT_COUNTS})
+
+    t0 = time.perf_counter()
+    _free(torch)
+    model = _perturbed_model(torch, cfg, seed=0)
+    base = serve(model)
+    model = model.to("cpu")                  # the whole model on the host
+    _free(torch)
+    # (a) the shards on the card, their caches, the bf16 serve
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ring = _Ring(n)
+    shards = [transformer.ShardedLM(model, cfg, C.Axis(ring, n, r),
+                                    device="cuda") for r in range(n)]
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    stored = [roofline.storage_bytes(sh) for sh in shards]
+    before = torch.cuda.memory_allocated()
+    caches = [transformer.init_caches(sh.cfg, 4, w["max_len"], "cuda",
+                                      shard=sh.shard) for sh in shards]
+    torch.cuda.synchronize()
+    rise_c = torch.cuda.memory_allocated() - before
+    with make_dry_mesh((1, n), ("data", "model")) as mesh:
+        dm = dryrun.abstract_model(cfg, mesh)
+        dry = roofline.storage_bytes(dm)
+        dry_c = roofline.storage_bytes(abstract_decode_caches(
+            dm.cfg, 4, w["max_len"], shard=dm.shard))
+    del caches
+    if abs(rise - sum(stored)) > SHARD_MEM_TOL * sum(stored):
+        raise AssertionError(f"{label}: the card's bytes rose {rise}, the "
+                             f"ranks store {stored}")
+    if any(x != dry for x in stored) or rise_c != n * dry_c:
+        raise AssertionError(f"{label}: ranks store {stored} B and caches "
+                             f"of {rise_c} B in all; the dry run counts "
+                             f"{dry} B and {dry_c} B a rank")
+    k_local = shards[0].shard.attn_sh
+    wrappers = kernels.wrappers()
+    torch.cuda.synchronize()
+    for wr in wrappers:
+        wr.launches = 0
+    got = _on_shards(torch, shards, lambda r, sh: serve(sh))
+    torch.cuda.synchronize()
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    streams, steps, stats = got[0]
+    if any(g != got[0] for g in got[1:]):
+        raise AssertionError(f"{label}: the ranks' serves differ")
+    one = _want_serve_launches(cfg, launches, steps,
+                               stats["prefill_batches"], split=True)
+    if launches != {k: n * v for k, v in one.items()}:
+        raise AssertionError(f"{label}: launches {launches} != {n} x {one}")
+    if stats != base[2]:
+        raise AssertionError(f"{label}: ServeStats counters {stats} != "
+                             f"unsharded {base[2]}")
+    same = sum(a == b for a, b in zip(streams, base[0]))
+    print(f"  {label}, bf16: {shards[0].cfg.num_heads} query head(s) a rank "
+          f"inside kv head {k_local.kv_head}, caches of {size // n} of "
+          f"{size} slots a rank; shards built from the host: allocated "
+          f"+{rise} B against the ranks' {stored[0]} B each (= the dry "
+          f"run's {dry} B), caches +{rise_c} B (= {n} x the dry run's "
+          f"{dry_c} B); serve of {len(streams)} requests (prompts "
+          f"{w['lo']}-{w['hi']}) alike on every rank, {same} bf16 streams "
+          f"= unsharded, ServeStats counters equal, launches {n} x exact "
+          f"(kernels 3 and 5 on the split layers); {card_line()}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    del shards
+    _free(torch)
+    # (b) f32: every split decode call checked, the logits
+    model = model.to("cuda").to(torch.float32)
+    prompts = [r_.tokens for r_ in reqs]
+    for frac in (1.0, cfg.spt.attn_top_fraction):
+        c32 = dataclasses.replace(cfg, dtype=torch.float32).with_spt(
+            attn_top_fraction=frac)
+        with torch.no_grad():
+            ref_lg, feed = _teacher_logits(torch, model, c32, prompts,
+                                           SEQ_SPLIT_STEPS, w["max_len"])
+        ring = _Ring(n)
+        shards = [transformer.ShardedLM(model, c32, C.Axis(ring, n, r))
+                  for r in range(n)]
+        with _SplitLog(torch) as log:
+            def logits(r, sh):
+                log.bind(r)
+                return _teacher_logits(torch, sh, sh.cfg, prompts, feed,
+                                       w["max_len"])[0]
+            lg = _on_shards(torch, shards, logits)
+        calls = [log.calls[r] for r in range(n)]
+        want_calls = SEQ_SPLIT_STEPS * _layer_kinds(cfg).count("attn")
+        if any(len(c) != want_calls for c in calls):
+            raise AssertionError(f"{label}: split decodes "
+                                 f"{[len(c) for c in calls]} a rank, want "
+                                 f"{want_calls}")
+        e5 = e = 0.0
+        pairs = 0
+        for i in range(want_calls):
+            a, b_, p_ = _split_call_checks(torch, [c[i] for c in calls])
+            e5, e, pairs = max(e5, a), max(e, b_), pairs + p_
+        del log, calls
+        if not all(torch.equal(x, lg[0]) for x in lg[1:]):
+            raise AssertionError(f"{label}: the ranks' logits differ")
+        err, rel = _logit_errors(lg[0], ref_lg)
+        what = (f"{label}, f32, top-L {frac:g}: {want_calls} split decodes "
+                f"x {n} ranks — kernel 3's histograms exact, kernel 5 within "
+                f"{e5:.3e} of its plain version; whole [t, need] = kernel 3 "
+                f"on the whole cache and the union of the selections "
+                f"({pairs} pairs) = its selection, exactly; combined output "
+                f"vs kernel 5 on the whole cache max abs err {e:.3e} (rule "
+                f"{F32_TOL}); logits vs unsharded max abs {err:.3e}, "
+                f"relative {rel:.3e}; {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        if frac == 1.0 and rel > SHARD_TOL:
+            raise AssertionError(f"{what}; rule <= {SHARD_TOL}")
+        print("  " + what + (f" (rule <= {SHARD_TOL})" if frac == 1.0 else
+                             " (shown: discrete top-L, not held)"),
+              flush=True)
+        del shards, lg
+        _free(torch)
+    del model
+    _free(torch)
+    return launches
+
+
+def seq_split_serve(torch):
+    """Phase 28 (module comment above).  Returns the bf16 serves'
+    launches under "seqsplit_serve"."""
+    total = {}
+    for name, layers, n, w in SEQ_SPLIT:
+        total = _add(total, _seq_split_case(torch, name, layers, n, w))
+    return {"seqsplit_serve": total}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
                                        "families", "infra", "mesh",
-                                       "meshserve", "dryrun", "shard"),
+                                       "meshserve", "dryrun", "shard",
+                                       "seqsplit"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -5332,8 +5711,10 @@ def main() -> int:
                          "and audio families (1-3, 19-22), checkpoint/"
                          "restart (1-3, 23), multi-GPU fine-tuning "
                          "(1-3, 24), serving under a mesh (1-3, 25), "
-                         "the dry run against the card (1-3, 26) or the "
-                         "sharded storage of the state (1-3, 27) alone")
+                         "the dry run against the card (1-3, 26), the "
+                         "sharded storage of the state (1-3, 27) or "
+                         "attention split as JAX splits it (1-3, 28) "
+                         "alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -5433,7 +5814,8 @@ def main() -> int:
                        "mesh_train_shmap", "mesh_serve",
                        "mesh_serve_paged", "mesh_serve_hybrid",
                        "mesh_serve_shards", "dryrun_train",
-                       "dryrun_decode", "shard_train", "shard_serve")}
+                       "dryrun_decode", "shard_train", "shard_serve",
+                       "seqsplit_serve")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -5441,7 +5823,7 @@ def main() -> int:
         paths["serve"] = serve_full_width(torch)
         # 5. the same on the paged layout, sparse and dense, depth cut
         t1 = time.perf_counter()
-        print(f"[5] paged serves at {CUT_DEPTH} layers, pool {PAGED_POOL} "
+        print(f"[5] paged serves at {PAGED_DEPTH} layers, pool {PAGED_POOL} "
               f"pages of 128 (phase 4 took {t1 - t0:.1f} s)", flush=True)
         paths.update(serve_paged(torch))
         # 6. card-side agreement of every decode tier
@@ -5567,7 +5949,8 @@ def main() -> int:
         t0 = time.perf_counter()
         print(f"[24] kernels at qwen3-0.6b's shard shapes (model "
               f"{' and '.join(map(str, MESH_TP))}); an NCCL world of one, "
-              f"mesh (1, 1), full-width qwen3-0.6b bf16, {MESH_STEPS} steps "
+              f"mesh (1, 1), full-width qwen3-0.6b ({MESH_DEPTH} layers) bf16, "
+              f"{MESH_STEPS} steps "
               f"of {TB} x {TS}: no mesh, mesh, mesh with grouped_shmap",
               flush=True)
         mesh_shapes = check_mesh_shapes(
@@ -5620,6 +6003,17 @@ def main() -> int:
         print(f"[27] (a) took {t1 - t0:.1f} s", flush=True)
         paths.update(shard_serve(torch))
         print(f"[27] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "seqsplit"):
+        # 28. attention where the kv heads do not divide the model axis
+        t0 = time.perf_counter()
+        cases = ", ".join(f"{name} ({layers} layers) over model {n}"
+                          for name, layers, n, _ in SEQ_SPLIT)
+        print(f"[28] query heads inside a kv head and the caches' sequence "
+              f"split over model: {cases}, a thread a rank; the shards' "
+              f"bytes against the dry run, a bf16 serve, f32 checks of "
+              f"every split decode", flush=True)
+        paths.update(seq_split_serve(torch))
+        print(f"[28] took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

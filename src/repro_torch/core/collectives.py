@@ -42,6 +42,11 @@ and hand each rank its part of the whole gradient at the region's edges:
                       (replicated compute)      reduce-scatter (data)
   ==================  ========================  =========================
 
+A leaf that a region uses whole while each rank stores a part of it
+(``Gathered``: a k or v projection split inside a kv head) is
+all-gathered over the model axis at the entry, its gradient
+reduce-scattered there.
+
 A region's trainable leaves enter with its activations, in one autograd
 node: a replicated leaf as it is (its gradient all-reduced over the
 model axis), a leaf split over it as this rank's part (its gradient is
@@ -63,7 +68,10 @@ Serving runs forward only, on each rank's stored parts: ``zero_gather``
 gathers expert columns stored over data at use, ``model_sum`` adds a
 sub-layer's partial outputs over the model axis in place, and
 ``all_gather_flat`` brings one flat vector per rank of the data axis to
-every rank (the engine's one host transfer per chunk).  They cost
+every rank (the engine's one host transfer per chunk); ``stack_ranks``
+and ``model_scatter`` serve a decode over a sequence split over the
+model axis (each rank's histograms and log-sum-exps, the combined
+output's heads).  They cost
 nothing at extent 1.  ``gather_stored`` makes a stored leaf whole (a
 checkpoint's save, one leaf at a time).
 
@@ -88,6 +96,14 @@ from repro_torch.sharding.context import Pick, current_rules, entry_axes
 
 BATCH_AXES = ("pod", "data")
 SEQ = 1                     # the sequence dim of a (B, S, d) activation
+
+
+@dataclasses.dataclass(frozen=True)
+class Gathered:
+    """A region's placement of a leaf stored split over the model axis on
+    ``dim`` that the region uses whole: all-gathered at the entry, its
+    gradient (each rank's partial one) reduce-scattered back to parts."""
+    dim: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,9 +372,14 @@ class _EnterRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ax, zero, how, x, *leaves):
         ctx.args = (ax, zero, how)
+        outs = []
+        for t, (mh, zd) in zip(leaves, how):
+            if isinstance(mh, Gathered):
+                t = _all_gather(t, mh.dim, ax)
+            outs.append(t.view_as(t) if zd is None
+                        else _all_gather(t, zd, zero))
         return (x.view_as(x) if ax is None else _all_gather(x, SEQ, ax),
-                *(t.view_as(t) if zd is None else _all_gather(t, zd, zero)
-                  for t, (_, zd) in zip(leaves, how)))
+                *outs)
 
     @staticmethod
     def backward(ctx, gx, *gl):
@@ -369,6 +390,8 @@ class _EnterRegion(torch.autograd.Function):
                 g = _all_reduce(g.contiguous().clone(), ax.group)
             elif ax is not None and isinstance(mh, Pick):
                 g = _pick_sum(g, mh, ax)
+            elif isinstance(mh, Gathered):
+                g = _reduce_scatter(g, mh.dim, ax)
             if zd is not None:
                 g = _reduce_scatter(g, zd, zero)
             out.append(g)
@@ -390,9 +413,9 @@ ZERO_AXIS = "data"          # the axis the ZeRO-3 leaves are also stored over
 
 
 def _slice_dim(spec):
-    """The dim a placement puts "model" on (None: replicated); a Pick is
-    its own answer."""
-    if isinstance(spec, Pick):
+    """The dim a placement puts "model" on (None: replicated); a Pick or
+    a Gathered is its own answer."""
+    if isinstance(spec, (Pick, Gathered)):
         return spec
     for dim, entry in enumerate(spec or ()):
         if "model" in entry_axes(entry):
@@ -403,7 +426,7 @@ def _slice_dim(spec):
 def zero_dim(spec) -> Optional[int]:
     """The dim a placement stores over the data axis as well (ZeRO-3:
     gathered over data where it is used), or None."""
-    if isinstance(spec, Pick):
+    if isinstance(spec, (Pick, Gathered)):
         return None
     for dim, entry in enumerate(spec or ()):
         if ZERO_AXIS in entry_axes(entry):
@@ -412,7 +435,7 @@ def zero_dim(spec) -> Optional[int]:
 
 
 def _has_zero(specs) -> bool:
-    if specs is None or isinstance(specs, (tuple, Pick)):
+    if specs is None or not isinstance(specs, dict):
         return zero_dim(specs) is not None
     return any(_has_zero(v) for v in specs.values())
 
@@ -440,15 +463,17 @@ def enter_region(x: torch.Tensor, p, specs, ax: Optional[Axis]):
             how = (_slice_dim(spec), None if zero is None else zero_dim(spec))
             if t.requires_grad:
                 trainable.append((path, t, how))
-            elif how[1] is None:
-                pairs.append((path, t))
-            else:                      # frozen: the forward's gather only
-                pairs.append((path, _all_gather(t, how[1], zero)))
+                return
+            if isinstance(how[0], Gathered):  # frozen: forward gathers only
+                t = _all_gather(t, how[0].dim, ax)
+            pairs.append((path, t if how[1] is None
+                          else _all_gather(t, how[1], zero)))
             return
         for k in sorted(t.keys()):      # one order on every rank
             walk(t[k], None if spec is None else spec[k], path + (k,))
 
     walk(p, specs, ())
+    del walk            # a recursive closure: its cycle would hold pairs
     outs = _EnterRegion.apply(ax, zero, tuple(h for _, _, h in trainable), x,
                               *(t for _, t, _ in trainable))
     pairs += [(path, o) for (path, _, _), o in zip(trainable, outs[1:])]
@@ -581,6 +606,7 @@ def gather_whole(p, specs):
             walk(t[k], spec[k], path + (k,))
 
     walk(p, specs, ())
+    del walk            # a recursive closure: its cycle would hold pairs
     outs = (_GatherWhole.apply(mesh, tuple(sp for _, _, sp in trainable),
                                *(t for _, t, _ in trainable))
             if trainable else ())
@@ -595,6 +621,18 @@ def model_sum(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
     if ax is None:
         return x
     return _all_reduce(x.contiguous(), ax.group)
+
+
+def stack_ranks(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """Serving: (n, ...) every rank's ``x`` of ``ax`` in rank order, in
+    one all-gather."""
+    return torch.stack(_gather_parts(x, ax))
+
+
+def model_scatter(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    """Serving: this rank's chunk along ``dim`` of the sum over ``ax`` of
+    every rank's ``x``, in one reduce-scatter."""
+    return _reduce_scatter(x, dim, ax)
 
 
 def all_gather_flat(v: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:

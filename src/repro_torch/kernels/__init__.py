@@ -52,8 +52,8 @@ SIGNATURES = {
                               + [_P],
     "repro_fused_sparse_decode_paged": ([_I] + [_P] * 11 + [_I] * 10
                                         + [_F] + [_I] * 3 + [_P]),
-    "repro_decode_thresholds": [_P] * 6 + [_I] * 10 + [_P],
-    "repro_sparse_decode_attention": ([_I] + [_P] * 10 + [_I] * 7
+    "repro_decode_thresholds": [_P] * 7 + [_I] * 10 + [_P],
+    "repro_sparse_decode_attention": ([_I] + [_P] * 11 + [_I] * 7
                                       + [_F] + [_I] * 3 + [_P]),
     "repro_dense_decode_paged": [_I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
                                 + [_P],

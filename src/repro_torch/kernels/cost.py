@@ -148,18 +148,20 @@ def _splits(g: int, s: int) -> int:
 
 def decode_topl_thresholds(codes_q, codes_k, kv_valid, *, l: int,
                            max_score: int, sum_rows: bool,
-                           heads_per_batch: int,
+                           heads_per_batch: int, return_hist: bool = False,
                            live: Optional[int] = None) -> Cost:
     """live: valid (kv group, slot) pairs (default every slot).  R x M
-    compares and M code bytes per live pair; the histogram scratch."""
+    compares and M code bytes per live pair; the histogram scratch; with
+    ``return_hist`` the summed histograms written as well."""
     g, r, m = codes_q.shape
     s = codes_k.shape[1]
     live = g * s if live is None else live
     r_out = 1 if sum_rows else r
     hist = g * _splits(g, s) * r_out * (max_score + 1) * 4
+    written = g * r_out * 2 * 4 + (g * r_out * (max_score + 1) * 4
+                                   if return_hist else 0)
     return Cost({"int": live * r * m},
-                _nb(codes_q, kv_valid) + g * r_out * 2 * 4 + live * m,
-                scratch=hist)
+                _nb(codes_q, kv_valid) + written + live * m, scratch=hist)
 
 
 # ------------------------------------------------------------- kernel 4
@@ -211,13 +213,15 @@ def _attn_ops(q, pairs, r, sum_rows) -> Dict[str, int]:
 
 def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds, kv_valid,
                             *, scale: float, sum_rows: bool,
-                            heads_per_batch: int, l: Optional[int] = None,
+                            heads_per_batch: int, return_lse: bool = False,
+                            l: Optional[int] = None,
                             live: Optional[int] = None,
                             pairs: Optional[int] = None,
                             rows_read: Optional[int] = None) -> Cost:
     """Kernel 5: the live code rows, the selected K/V rows, q, thresholds
-    and mask read, the output written; ties and partials scratch.  ``l``
-    as kernel 4's: by default the thresholds' budget."""
+    and mask read, the output (and with ``return_lse`` each row's f32
+    log-sum-exp) written; ties and partials scratch.  ``l`` as kernel 4's:
+    by default the thresholds' budget."""
     g, r, dh = q.shape
     l = budget_of(thresholds) if l is None else l
     s, m = k.shape[1], codes_q.shape[-1]
@@ -225,7 +229,8 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds, kv_valid,
                                          rows_read)
     r_out = 1 if sum_rows else r
     moved = (_nb(q, codes_q, thresholds, kv_valid) + live * m + _nb(q)
-             + 2 * rows_read * dh * k.dtype.itemsize)
+             + 2 * rows_read * dh * k.dtype.itemsize
+             + (g * r * 4 if return_lse else 0))
     scratch = g * _splits(g, s) * r_out * 4 + _part(g, s, r, dh)
     return Cost(_attn_ops(q, pairs, r, sum_rows), moved, scratch)
 
@@ -399,7 +404,8 @@ def counted(name: str):
                 return fn(*args, **kw)
             out = counter.kernel(name, cost_of(*args, **kw), fn, args, kw)
             if makes_thresholds:
-                _note_budget(out, kw["l"])
+                _note_budget(out[0] if isinstance(out, tuple) else out,
+                             kw["l"])
             return out
         return wrapper
     return deco

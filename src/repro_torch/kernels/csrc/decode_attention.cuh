@@ -18,7 +18,9 @@
 //  hist_kernel   per-split score histograms (M+1 buckets per row for
 //                "qhead", R*M+1 for "kvgroup") into hist_part; for
 //                kernel 3 the last block of each kv group to finish also
-//                reduces them to [t, need] per row (one launch);
+//                reduces them to [t, need] per row (one launch), and
+//                writes the summed histogram where asked (hist_sum: the
+//                row's histogram over a sequence split across ranks);
 //  tie_kernel    per-split count of the ties at t (given [t, need]);
 //  attend_kernel the split's online-softmax partial (acc, max, sum per
 //                row) over the keys it selects.  Selection modes:
@@ -333,13 +335,16 @@ __device__ __forceinline__ void warp_reduce_thr(const int* h, int nb, int l,
 // each row with one warp (warp_reduce_thr) and sets arrive[g] back to
 // zero.  arrive (G,) int32 is zero before the launch and after it, so
 // launches in stream order (and a captured graph's replays) reuse it.
+// hist_sum (G, R_out, max_score + 1), when not null, gets the summed
+// histogram the last block reduced.
 template <typename Addr, int RM>
 __global__ void __launch_bounds__(THREADS) hist_kernel(
     const int32_t* __restrict__ codes_q, const int8_t* __restrict__ codes_k,
     const uint8_t* __restrict__ kv_valid, Addr addr,
     int32_t* __restrict__ hist_part, int32_t* __restrict__ thr,
-    int32_t* __restrict__ arrive, int S, int R, int M, int hk, int max_score,
-    int sum_rows, int l, int SP, int vec) {
+    int32_t* __restrict__ hist_sum, int32_t* __restrict__ arrive, int S,
+    int R, int M, int hk, int max_score, int sum_rows, int l, int SP,
+    int vec) {
   __shared__ uint32_t qw[RM][CW_MAX];         // query codes as bytes
   __shared__ uint32_t qn[RM][CW_MAX];         // books they never match
   __shared__ int hist[hist_room(RM)];
@@ -458,6 +463,9 @@ __global__ void __launch_bounds__(THREADS) hist_kernel(
       if (h[k]) atomicAdd(&hist[(base + k * THREADS) % rn], h[k]);
   }
   __syncthreads();
+  if (hist_sum != nullptr)                                  // uniform
+    for (int i = tid; i < rn; i += THREADS)
+      hist_sum[(size_t)g * rn + i] = hist[i];
   for (int r = warp; r < r_out; r += WARPS) {
     int t, need;
     warp_reduce_thr(hist + r * nb, nb, l, lane, t, need);
@@ -473,18 +481,19 @@ __global__ void __launch_bounds__(THREADS) hist_kernel(
 template <typename Addr>
 cudaError_t launch_hist(const int32_t* cq, const int8_t* ck,
                         const uint8_t* vp, Addr addr, int32_t* hist_part,
-                        int32_t* thr, int32_t* arrive, int G, int S, int R,
-                        int M, int hk, int max_score, int sum_rows, int l,
-                        int ns, int sp, cudaStream_t st) {
+                        int32_t* thr, int32_t* hist_sum, int32_t* arrive,
+                        int G, int S, int R, int M, int hk, int max_score,
+                        int sum_rows, int l, int ns, int sp,
+                        cudaStream_t st) {
   const int vec = code_vec(ck, M);
   if (R <= R_NARROW)
     hist_kernel<Addr, R_NARROW><<<dim3(G, ns), THREADS, 0, st>>>(
-        cq, ck, vp, addr, hist_part, thr, arrive, S, R, M, hk, max_score,
-        sum_rows, l, sp, vec);
+        cq, ck, vp, addr, hist_part, thr, hist_sum, arrive, S, R, M, hk,
+        max_score, sum_rows, l, sp, vec);
   else
     hist_kernel<Addr, R_MAX><<<dim3(G, ns), THREADS, 0, st>>>(
-        cq, ck, vp, addr, hist_part, thr, arrive, S, R, M, hk, max_score,
-        sum_rows, l, sp, vec);
+        cq, ck, vp, addr, hist_part, thr, hist_sum, arrive, S, R, M, hk,
+        max_score, sum_rows, l, sp, vec);
   return cudaGetLastError();
 }
 
@@ -892,11 +901,14 @@ __global__ void __launch_bounds__(THREADS, RT <= 4 ? 4 : 2) attend_kernel(
   }
 }
 
-// grid (G, R): one block per (kv group, query row).
+// grid (G, R): one block per (kv group, query row).  lse (G, R) f32, when
+// not null, gets the row's log-sum-exp of its selected logits (-inf for a
+// row with nothing selected): what a sequence split across ranks combines
+// its parts by.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) combine_kernel(
-    const float* __restrict__ part, T* __restrict__ out, int R, int dh,
-    int ns) {
+    const float* __restrict__ part, T* __restrict__ out,
+    float* __restrict__ lse, int R, int dh, int ns) {
   const int g = blockIdx.x, r = blockIdx.y;
   const size_t stride = (size_t)R * (dh + 2);      // between splits
   const float* p0 = part + ((size_t)g * ns * R + r) * (dh + 2);
@@ -907,6 +919,8 @@ __global__ void __launch_bounds__(THREADS) combine_kernel(
     const float m = p0[s * stride + dh];
     if (m > -INFINITY) den += expf(m - mx) * p0[s * stride + dh + 1];
   }
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[(size_t)g * R + r] = den > 0.f ? mx + logf(den) : -INFINITY;
   for (int d = threadIdx.x; d < dh; d += THREADS) {
     float num = 0.f;
     for (int s = 0; s < ns; ++s) {
@@ -951,7 +965,8 @@ int attend_and_combine(const void* q, const void* k, const void* v,
                        const int32_t* ties, float* part, int32_t* thr_out,
                        void* out, int G, int S, int R, int dh, int M, int hk,
                        int l, int max_score, int sum_rows, float scale,
-                       int ns, int sp, int stages, cudaStream_t st) {
+                       int ns, int sp, int stages, cudaStream_t st,
+                       float* lse = nullptr) {
   if (!ring_ok(stages, dh, (int)sizeof(T))) return (int)cudaErrorInvalidValue;
 #define REPRO_ATTEND(RT)                                                   \
   launch_attend<T, Addr, SEL, RT>(q, k, v, cq, ck, vp, addr, sel, ties,    \
@@ -966,7 +981,7 @@ int attend_and_combine(const void* q, const void* k, const void* v,
 #undef REPRO_ATTEND
   if (err != cudaSuccess) return (int)err;
   combine_kernel<T><<<dim3(G, R), THREADS, 0, st>>>(
-      part, static_cast<T*>(out), R, dh, ns);
+      part, static_cast<T*>(out), lse, R, dh, ns);
   return (int)cudaGetLastError();
 }
 

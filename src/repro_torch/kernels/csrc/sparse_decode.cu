@@ -55,7 +55,7 @@ int launch_fused(const void* q, const void* k, const void* v,
                  float* part, int G, int S, int R, int dh, int M, int hk,
                  int l, int max_score, int sum_rows, float scale, int ns,
                  int sp, int stages, cudaStream_t st) {
-  cudaError_t err = launch_hist(cq, ck, vp, addr, hist_part, nullptr,
+  cudaError_t err = launch_hist(cq, ck, vp, addr, hist_part, nullptr, nullptr,
                                 nullptr, G, S, R, M, hk, max_score,
                                 sum_rows, l, ns, sp, st);
   if (err != cudaSuccess) return (int)err;

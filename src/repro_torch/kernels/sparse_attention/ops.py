@@ -135,18 +135,23 @@ fused_sparse_decode_attention.launches = 0
 @cost.counted("sparse_decode_attention")
 def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
                             kv_valid, *, scale: float, sum_rows: bool,
-                            heads_per_batch: int) -> torch.Tensor:
+                            heads_per_batch: int, return_lse: bool = False):
     """Kernel 5, the two-pass decode's attention half: shapes as
     ``fused_sparse_decode_attention`` plus thresholds (G, R_out, 2) int32
-    [t, need] (from ``decode_topl_thresholds``).  Returns (G, R, dh).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/sparse_decode_two_pass.cu); meta tensors get the output's
-    shape."""
+    [t, need] (from ``decode_topl_thresholds``).  Returns (G, R, dh), and
+    with ``return_lse`` also each row's log-sum-exp of its selected
+    logits (G, R) f32 (-inf where it selects none), by which the parts of
+    a sequence split over ranks combine.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel
+    (csrc/sparse_decode_two_pass.cu); meta tensors get the outputs'
+    shapes."""
     kw = dict(scale=scale, sum_rows=sum_rows, heads_per_batch=heads_per_batch)
     if kernels.target(q) == "cpu":
-        return sparse_decode_attention_ref(q, k, v, codes_q, codes_k,
-                                           thresholds, kv_valid,
-                                           **kw).contiguous()
+        out = sparse_decode_attention_ref(q, k, v, codes_q, codes_k,
+                                          thresholds, kv_valid,
+                                          return_lse=return_lse, **kw)
+        return ((out[0].contiguous(), out[1].contiguous()) if return_lse
+                else out.contiguous())
     name = "sparse_decode_attention"
     kernels.require_cuda(name, q, k, v, codes_q, codes_k, thresholds,
                          kv_valid)
@@ -164,20 +169,24 @@ def sparse_decode_attention(q, k, v, codes_q, codes_k, thresholds,
     ns, sp = kernels.decode_splits(g, s)
     dev = q.device
     out = torch.empty_like(q)
+    lse = (torch.empty((g, r), dtype=torch.float32, device=dev)
+           if return_lse else None)
     ties = torch.empty((g, ns, r_out), dtype=torch.int32, device=dev)
     part = _scratch(g, ns, r, dh, dev)
+    res = (out, lse) if return_lse else out
     if q.is_meta:
-        return out
+        return res
     err = kernels.library().repro_sparse_decode_attention(
         kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
-        kv_valid.data_ptr(), out.data_ptr(), ties.data_ptr(),
+        kv_valid.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), ties.data_ptr(),
         part.data_ptr(), g, s, r, dh, m, heads_per_batch, int(sum_rows),
         float(scale), ns, sp, kernels.decode_stages(dh, q.element_size()),
         kernels.stream_ptr())
     kernels.check(err, name)
     sparse_decode_attention.launches += 1
-    return out
+    return res
 
 
 sparse_decode_attention.launches = 0

@@ -7,7 +7,8 @@ newest keys with score == t.  The decode kernels' functions:
 ``fused_decode_ref`` (csrc/sparse_decode.cu, kernel 6): the [t, need] of
 every row from a histogram of its whole valid code row, then the same
 selection; ``sparse_decode_attention_ref`` (the two-pass attention half,
-kernel 5): the same selection from given [t, need]; the paged forms read
+kernel 5): the same selection from given [t, need], with each row's
+log-sum-exp where asked; the paged forms read
 the pools through a page table (``fused_decode_paged_ref``, kernel 7;
 ``dense_decode_paged_ref``, kernel 8: every valid slot).  All take the
 softmax in f32 and give 0 for a row with nothing selected.  The CPU tests
@@ -38,13 +39,16 @@ def newest_ties(sm: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            eligible: torch.Tensor, scale: float) -> torch.Tensor:
+            eligible: torch.Tensor, scale: float, lse: bool = False):
     """Softmax attention restricted to ``eligible`` (..., nq, nk), in f32;
-    a row with nothing eligible gives 0.  Returns q's dtype."""
+    a row with nothing eligible gives 0.  Returns q's dtype, and with
+    ``lse`` also each row's f32 log-sum-exp of its eligible logits
+    (-inf where none is)."""
     logits = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
     logits = torch.where(eligible, logits, float("-inf"))
     w = torch.where(eligible, torch.softmax(logits, dim=-1), 0.0)
-    return torch.einsum("...qk,...kd->...qd", w, v.float()).to(q.dtype)
+    out = torch.einsum("...qk,...kd->...qd", w, v.float()).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if lse else out
 
 
 def sparse_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,13 +100,15 @@ def sparse_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
                                 codes_k: torch.Tensor,
                                 thresholds: torch.Tensor,
                                 kv_valid: torch.Tensor, *, scale: float,
-                                sum_rows: bool, heads_per_batch: int
-                                ) -> torch.Tensor:
+                                sum_rows: bool, heads_per_batch: int,
+                                return_lse: bool = False):
     """The two-pass attention half: shapes as ``fused_decode_ref`` plus
-    thresholds (G, R_out, 2) [t, need].  Returns (G, R, dh)."""
+    thresholds (G, R_out, 2) [t, need].  Returns (G, R, dh), and with
+    ``return_lse`` also each row's log-sum-exp (G, R) f32."""
     sm = decode_scores(codes_q, codes_k, kv_valid, sum_rows=sum_rows,
                        heads_per_batch=heads_per_batch)
-    return _attend(q, k, v, newest_ties(sm, thresholds), scale)
+    return _attend(q, k, v, newest_ties(sm, thresholds), scale,
+                   lse=return_lse)
 
 
 def _views(page_table: torch.Tensor, *pools):

@@ -11,8 +11,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import cost
-from repro_torch.kernels.topl_select.ref import (decode_topl_thresholds_ref,
-                                                 thresholds_ref)
+from repro_torch.kernels.topl_select.ref import (decode_score_hist,
+                                                 hist_reduce, thresholds_ref)
 
 BOOKS_MAX = 32          # PQ books the threshold kernel takes
 SCORE_MAX = 32          # largest max_score (histogram buckets - 1)
@@ -84,20 +84,23 @@ topl_thresholds.launches = 0
 def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
                            kv_valid: torch.Tensor, *, l: int,
                            max_score: int, sum_rows: bool,
-                           heads_per_batch: int) -> torch.Tensor:
+                           heads_per_batch: int, return_hist: bool = False):
     """The two-pass decode's first half: codes_q (G, R, M) int32 (the R
     query heads of each kv group, G = B * heads_per_batch); codes_k
     (G, S, M) int8 cached codes; kv_valid (B, S) bool.  Returns
     (G, R_out, 2) int32 [t, need] (R_out = 1 when ``sum_rows``, the
-    "kvgroup" selection).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (csrc/sparse_decode_two_pass.cu): one
-    launch, whose last block per kv group reduces the splits; meta
-    tensors get the output's shape."""
-    kw = dict(l=l, max_score=max_score, sum_rows=sum_rows,
-              heads_per_batch=heads_per_batch)
+    "kvgroup" selection), and with ``return_hist`` also each row's score
+    histogram (G, R_out, max_score + 1) int32, summed over the splits (a
+    cache whose sequence splits over ranks adds the ranks' up).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (csrc/sparse_decode_two_pass.cu): one launch, whose last block per kv
+    group reduces the splits; meta tensors get the outputs' shapes."""
     if kernels.target(codes_q) == "cpu":
-        return decode_topl_thresholds_ref(codes_q, codes_k, kv_valid,
-                                          **kw).contiguous()
+        hist = decode_score_hist(codes_q, codes_k, kv_valid,
+                                 max_score=max_score, sum_rows=sum_rows,
+                                 heads_per_batch=heads_per_batch)
+        thr = hist_reduce(hist, l).contiguous()
+        return (thr, hist.contiguous()) if return_hist else thr
     name = "decode_topl_thresholds"
     kernels.require_cuda(name, codes_q, codes_k, kv_valid)
     g, r, m = codes_q.shape
@@ -116,17 +119,21 @@ def decode_topl_thresholds(codes_q: torch.Tensor, codes_k: torch.Tensor,
     thr = torch.empty((g, r_out, 2), dtype=torch.int32, device=dev)
     hist = torch.empty((g, ns, r_out, max_score + 1), dtype=torch.int32,
                        device=dev)
+    hsum = (torch.empty((g, r_out, max_score + 1), dtype=torch.int32,
+                        device=dev) if return_hist else None)
+    out = (thr, hsum) if return_hist else thr
     if codes_q.is_meta:
-        return thr
+        return out
     arrive = kernels.arrival_counters(g, dev)
     err = kernels.library().repro_decode_thresholds(
         codes_q.data_ptr(), codes_k.data_ptr(), kv_valid.data_ptr(),
-        thr.data_ptr(), hist.data_ptr(), arrive.data_ptr(), g, s, r, m,
-        heads_per_batch, l, max_score, int(sum_rows), ns, sp,
+        thr.data_ptr(), hist.data_ptr(),
+        None if hsum is None else hsum.data_ptr(), arrive.data_ptr(), g, s,
+        r, m, heads_per_batch, l, max_score, int(sum_rows), ns, sp,
         kernels.stream_ptr())
     kernels.check(err, name)
     decode_topl_thresholds.launches += 1
-    return thr
+    return out
 
 
 decode_topl_thresholds.launches = 0

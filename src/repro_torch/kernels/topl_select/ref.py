@@ -6,7 +6,8 @@ kernel (csrc/topl_thresholds.cu): the per-query histogram of PQ match
 scores under the causal / window mask, reduced by ``hist_reduce`` to
 [t, need].  ``decode_topl_thresholds_ref`` is the decode kernel's
 (csrc/sparse_decode_two_pass.cu): one histogram per decode row over its
-valid cached code row.  The CPU tests hold both to the JAX kernels;
+valid cached code row (``decode_score_hist``, which the kernel also
+writes out for a cache whose sequence splits over ranks).  The CPU tests hold both to the JAX kernels;
 ``chip_smoke.py`` holds the CUDA kernels to them, exactly.
 """
 from __future__ import annotations
@@ -82,14 +83,23 @@ def decode_scores(codes_q: torch.Tensor, codes_k: torch.Tensor,
     return torch.where(valid[:, None, :], scores, -1)
 
 
+def decode_score_hist(codes_q: torch.Tensor, codes_k: torch.Tensor,
+                      kv_valid: torch.Tensor, *, max_score: int,
+                      sum_rows: bool, heads_per_batch: int) -> torch.Tensor:
+    """(G, R_out, max_score + 1) int32: each decode row's histogram of its
+    valid scores (``decode_scores``)."""
+    sm = decode_scores(codes_q, codes_k, kv_valid, sum_rows=sum_rows,
+                       heads_per_batch=heads_per_batch)
+    return torch.stack([(sm == b).sum(-1) for b in range(max_score + 1)],
+                       dim=-1).to(torch.int32)
+
+
 def decode_topl_thresholds_ref(codes_q: torch.Tensor, codes_k: torch.Tensor,
                                kv_valid: torch.Tensor, *, l: int,
                                max_score: int, sum_rows: bool,
                                heads_per_batch: int) -> torch.Tensor:
     """codes_q (G, R, M), codes_k (G, S, M) int, kv_valid (B, S) ->
     (G, R_out, 2) int32 [t, need] of each row's valid score histogram."""
-    sm = decode_scores(codes_q, codes_k, kv_valid, sum_rows=sum_rows,
-                       heads_per_batch=heads_per_batch)
-    hist = torch.stack([(sm == b).sum(-1) for b in range(max_score + 1)],
-                       dim=-1)
-    return hist_reduce(hist, l)
+    return hist_reduce(decode_score_hist(
+        codes_q, codes_k, kv_valid, max_score=max_score, sum_rows=sum_rows,
+        heads_per_batch=heads_per_batch), l)

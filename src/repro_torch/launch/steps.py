@@ -12,7 +12,8 @@
     trees, each ``PartitionSpec`` read as a tuple; ``train_shardings`` /
     ``decode_shardings`` — the placements the port's state and serving
     params are stored under (train/state.storage_specs, which says
-    where they differ from JAX's), with JAX's batch and cache placements;
+    where they differ from JAX's), with JAX's batch and cache placements,
+    which the port's caches keep;
     ``cache_local_shapes``, the decode caches a rank of a serving mesh
     holds.
 """
@@ -162,11 +163,11 @@ def cache_local_shapes(cfg: ModelConfig, abstract_caches, rules,
     """The shape of every decode cache one rank holds when the engine
     serves under the mesh of ``rules`` (``abstract_caches``: the tree of
     ``init_caches`` / ``init_dec_caches`` for all the slots, e.g. on the
-    meta device): slots over the data axes, kv heads, RG-LRU channels and
-    SSM heads over ``model`` where they divide; the sequence whole (the
-    port's serving layout; JAX shards it where the kv heads do not
-    divide).  An SSD block's conv window is left out: the port splits its
-    x channels and keeps B and C whole, which no spec expresses."""
+    meta device): JAX's ``cache_specs`` — slots over the data axes, kv
+    heads, RG-LRU channels and SSM heads over ``model`` where they divide,
+    else an attention cache's sequence over ``model`` where it divides.
+    An SSD block's conv window is left out: the port splits its x
+    channels and keeps B and C whole, which no spec expresses."""
     sizes = rules.get("__sizes__", {})
 
     def walk(c, ax, path):
@@ -176,7 +177,7 @@ def cache_local_shapes(cfg: ModelConfig, abstract_caches, rules,
                             and k == "conv")}
         return local_shape(c.shape, spec_for(c.shape, ax, rules), sizes)
     return walk(abstract_caches, engine.decode_cache_axes(
-        cfg, kv_paged=kv_paged, seq_shard=False), ())
+        cfg, kv_paged=kv_paged), ())
 
 
 def train_shardings(cfg: ModelConfig, mesh, rules, specs):
@@ -189,8 +190,8 @@ def train_shardings(cfg: ModelConfig, mesh, rules, specs):
 def decode_shardings(cfg: ModelConfig, mesh, rules, abstract_caches, specs):
     """(params, caches, batch, logits) placements of a decode step: the
     params as a serving rank stores them (``S.model_storage_specs``; the
-    experts' columns over data as well), JAX's cache placements (the port
-    keeps a cache's sequence whole: ``cache_local_shapes``), and the
+    experts' columns over data as well), JAX's cache placements (the
+    port's too: ``cache_local_shapes``), and the
     logits as the decode step returns them, all-gathered over the
     vocabulary."""
     logits = spec_for((1, 1, cfg.padded_vocab), ("batch", None, None),

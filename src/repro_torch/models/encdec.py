@@ -36,8 +36,10 @@ a tensor-parallel region over its local heads or columns, the cross-
 attention reading the encoder output gathered once.  Each rank stores
 its heads, columns and V/n rows of the embedding (``encdec_storage_specs``).
 Serving runs :class:`ShardedEncDec`: this rank's stored part, the self
-and cross caches over the local kv heads, each split sub-layer's partial
-output summed over the model axis, the logits gathered over it.
+and cross caches over the local kv heads (or, where the heads do not
+split, their sequence over the model axis where it divides, as JAX's
+``cache_axes`` place them: models/attention.py), each split sub-layer's
+partial output summed over the model axis, the logits gathered over it.
 """
 from __future__ import annotations
 
@@ -267,18 +269,37 @@ def _build_cross_cache(p, cfg: ModelConfig, enc_out: torch.Tensor) -> dict:
     return out
 
 
+def _cross_parts(cfg: ModelConfig, sh, frames: int) -> int:
+    """The parts the cross cache's frames split into over a serving
+    rank's model axis (``sh``: its ``attention.AttnShard``): JAX's rule
+    (``attention.seq_parts``) for the config's frame count, the frames
+    its cache layout is made for; other counts stay whole."""
+    if sh is None or frames != cfg.frontend_tokens:
+        return 1
+    return sh.parts(frames)
+
+
 def _cross_decode(p, x: torch.Tensor, cfg: ModelConfig,
-                  cross: dict) -> torch.Tensor:
+                  cross: dict, sh=None) -> torch.Tensor:
     """One query row per sequence over the cached encoder frames (all
     valid), through the plain decode oracles, as in JAX (under a serving
-    shard: this rank's heads, a partial sum)."""
+    shard: this rank's heads, a partial sum; over frames split over the
+    model axis, ``attention.decode_seq_split`` on this rank's, every
+    rank computing every head)."""
     lc = cfg.spt.lora
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
     q = attention._project(p["wq"], x, lc, cfg.num_heads, hd)
     scale = hd ** -0.5
-    valid = torch.ones((b, cross["k"].shape[2]), dtype=torch.bool,
-                       device=x.device)
+    f = cross["k"].shape[2]
+    n = 1 if sh is None else sh.ax.size
+    if n > 1 and _cross_parts(cfg, sh, f * n) == n:
+        valid = torch.ones((b, f * n), dtype=torch.bool, device=x.device)
+        out, _ = attention.decode_seq_split(p, cfg, q, cross, valid, sh.ax,
+                                            scatter=False, kernel=False)
+        out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * hd)
+        return lora.linear(out, p["wo"], lc)
+    valid = torch.ones((b, f), dtype=torch.bool, device=x.device)
     if attention.sparse_applicable(cfg):
         out = sa.sparse_mha_decode(q, cross["k"], cross["v"], cross["codes"],
                                    p["pq"]["codebooks"],
@@ -292,21 +313,23 @@ def _cross_decode(p, x: torch.Tensor, cfg: ModelConfig,
 
 def _dec_block(p, x: torch.Tensor, cfg: ModelConfig, enc_out, *, mode: str,
                cache=None, pos=None, seq_lengths=None, tp=None,
-               sums=(None, None)):
+               sums=(None, None), sh=None):
     """Returns (x, aux): the FFN's aux.  With a cache (prefill, decode)
     its ``self`` view is written in place, and prefill fills its
-    ``cross`` view.  tp: the sequence-parallel layout (train; enc_out is
-    then whole); sums: a serving shard's axes (``_sums``)."""
+    ``cross`` view (this rank's frames of a split one).  tp: the
+    sequence-parallel layout (train; enc_out is then whole); sums: a
+    serving shard's axes (``_sums``); sh: its attention split
+    (``attention.AttnShard``)."""
     sa_ax, sf_ax = sums
     h = layers.apply_norm(p["norm_self"], x, cfg.norm)
     y, _, _ = attention.attn_apply(
         p["self_attn"], h, cfg, mode=mode, causal=True,
         cache=None if cache is None else cache["self"], pos=pos, rope=False,
-        seq_lengths=seq_lengths, tp=tp)
+        seq_lengths=seq_lengths, tp=tp, serve=sh)
     x = x + C.model_sum(y, sa_ax)
     h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
     if mode == "decode":
-        y = _cross_decode(p["cross_attn"], h, cfg, cache["cross"])
+        y = _cross_decode(p["cross_attn"], h, cfg, cache["cross"], sh)
     else:
         # the cross keys are the encoder frames (all real); a ragged
         # right-padded batch pads only queries, whose outputs are dropped
@@ -314,9 +337,11 @@ def _dec_block(p, x: torch.Tensor, cfg: ModelConfig, enc_out, *, mode: str,
                                        causal=False, kv_x=enc_out, rope=False,
                                        tp=tp)
         if mode == "prefill":
+            f = cache["cross"]["k"].shape[2]        # this rank's frames
+            lo = 0 if sh is None or f == enc_out.shape[1] else sh.ax.rank * f
             for k, v in _build_cross_cache(p["cross_attn"], cfg,
                                            enc_out).items():
-                cache["cross"][k].copy_(v)
+                cache["cross"][k].copy_(v[:, :, lo:lo + f])
     x = x + C.model_sum(y, sa_ax)
     h = layers.apply_norm(p["norm_ffn"], x, cfg.norm)
     y, aux = ffn.ffn_apply(p["ffn"], h, cfg, mode=mode,
@@ -333,6 +358,7 @@ def _decode_stack(params, cfg: ModelConfig, x: torch.Tensor, enc_out, *,
     whole)."""
     train = mode == "train"
     sums = _sums(params)
+    sh = getattr(getattr(params, "shard", None), "attn_sh", None)
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in transformer.AUX_KEYS} if train else {})
 
@@ -342,7 +368,7 @@ def _decode_stack(params, cfg: ModelConfig, x: torch.Tensor, enc_out, *,
             c = {part: {k: v[layer] for k, v in caches[part].items()}
                  for part in ("self", "cross")}
         return _dec_block(p, h, cfg, enc_out, mode=mode, cache=c, pos=pos,
-                          seq_lengths=seq_lengths, tp=tp, sums=sums)
+                          seq_lengths=seq_lengths, tp=tp, sums=sums, sh=sh)
 
     for i, p in enumerate(_layers(params, "dec_blocks", cfg.num_layers)):
         x, aux = _remat(body, remat and train, x, p, i)
@@ -396,31 +422,39 @@ def encdec_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int,
-                    enc_len: int, device) -> dict:
+                    enc_len: int, device, shard=None) -> dict:
     """{"self": the decoder's attention caches, "cross": k, v (and codes
     with sparse MHA) over ``enc_len`` frames}, each stacked on the
-    num_layers decoder layers."""
+    num_layers decoder layers.  shard: a serving rank's
+    (``transformer.ServeShard``; cfg its local config): its kv heads, or
+    its part of a sequence split over the model axis
+    (``transformer.block_cache``; the cross cache's frames by
+    ``_cross_parts``)."""
     n = cfg.num_layers
-    hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    one = attention.init_cache(cfg, batch, max_len, device, cfg.window)
+    hd = cfg.resolved_head_dim
+    one = transformer.block_cache(cfg, "attn", batch, max_len, device, shard)
     self_c = {k: v[None].repeat(n, *(1,) * v.dim())
               for k, v in one.items()}
-    cross = {"k": torch.zeros((n, batch, hk, enc_len, hd), dtype=cfg.dtype,
+    sh = None if shard is None else shard.attn_sh
+    if sh is not None and sh.kv_head is not None:
+        raise NotImplementedError("query heads split inside a kv head: no "
+                                  "encoder-decoder config has them")
+    hk = cfg.num_kv_heads if sh is None else sh.cache_heads(cfg)
+    f = enc_len // _cross_parts(cfg, sh, enc_len)
+    cross = {"k": torch.zeros((n, batch, hk, f, hd), dtype=cfg.dtype,
                               device=device),
-             "v": torch.zeros((n, batch, hk, enc_len, hd), dtype=cfg.dtype,
+             "v": torch.zeros((n, batch, hk, f, hd), dtype=cfg.dtype,
                               device=device)}
     if attention.sparse_applicable(cfg):
         m = attention._pq_config(cfg).num_books
-        cross["codes"] = torch.zeros((n, batch, hk, enc_len, m),
+        cross["codes"] = torch.zeros((n, batch, hk, f, m),
                                      dtype=torch.int8, device=device)
     return {"self": self_c, "cross": cross}
 
 
-def cache_axes(cfg: ModelConfig, seq_shard: bool = True) -> dict:
-    """Logical partition axes mirroring ``init_dec_caches``' tree
-    (``seq_shard`` as in ``transformer.block_cache_axes``)."""
-    kv = ("layer", "batch", "kv_heads", "seq_shard" if seq_shard else None,
-          None)
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical partition axes mirroring ``init_dec_caches``' tree."""
+    kv = ("layer", "batch", "kv_heads", "seq_shard", None)
     self_ax = {"k": kv, "v": kv, "slot_pos": ("layer", "batch", None)}
     cross = {"k": kv, "v": kv}
     if attention.sparse_applicable(cfg):
@@ -438,7 +472,7 @@ def encdec_prefill(model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     enc_out = encode(model, cfg, fe, remat=False)
     caches = init_dec_caches(cfg, tokens.shape[0], max_len, fe.shape[1],
-                             tokens.device)
+                             tokens.device, getattr(model, "shard", None))
     x = _embed_dec(model, cfg, tokens, 0)
     x, _ = _decode_stack(model, cfg, x, enc_out, mode="prefill",
                          caches=caches, pos=0, remat=False)
@@ -462,7 +496,8 @@ def encdec_prefill_ragged(model, cfg: ModelConfig,
     tokens = batch["tokens"]
     bsz = tokens.shape[0]
     enc_out = encode(model, cfg, fe, remat=False)
-    caches = init_dec_caches(cfg, bsz, max_len, fe.shape[1], tokens.device)
+    caches = init_dec_caches(cfg, bsz, max_len, fe.shape[1], tokens.device,
+                             getattr(model, "shard", None))
     x = _embed_dec(model, cfg, tokens, 0)
     sl = lengths if transformer.length_sensitive(cfg) else None
     x, _ = _decode_stack(model, cfg, x, enc_out, mode="prefill",

@@ -39,7 +39,9 @@ the params a region gets are already local.
 
 Serving under a mesh runs :class:`ShardedLM`: this rank's stored part of
 every leaf (``ServeShard``: the same splits), its caches at the local
-head / channel counts (``init_caches(..., shard=)``), one all-reduce of
+head / channel counts, or an attention cache's sequence split over the
+model axis where JAX's ``cache_axes`` split it (``init_caches(...,
+shard=)``; models/attention.py), one all-reduce of
 each split sub-layer's partial output over the model axis
 (``core/collectives.model_sum``), of the vocabulary-split embedding's
 lookups, and one all-gather of the logits over the model axis a step;
@@ -105,11 +107,23 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                device, shard: Optional["ServeShard"] = None) -> dict:
+                device, shard: Optional["ServeShard"] = None,
+                split_seq: bool = True) -> dict:
     """One block's cache; under ``shard`` (cfg its local config) at this
-    rank's kv head / channel / SSM head counts."""
+    rank's kv head / channel / SSM head counts, an attention cache's
+    sequence split over the model axis where JAX splits it (unless
+    ``split_seq`` is False: a paged engine's prefill rows, copied into
+    pools that stay whole)."""
     if kind == "attn":
-        return attention.init_cache(cfg, batch, max_len, device, cfg.window)
+        sh = None if shard is None else shard.attn_sh
+        if sh is None:
+            return attention.init_cache(cfg, batch, max_len, device,
+                                        cfg.window)
+        return attention.init_cache(
+            cfg, batch, max_len, device, cfg.window,
+            kv_heads=sh.cache_heads(cfg),
+            parts=(sh.parts(attention.cache_size(max_len, cfg.window))
+                   if split_seq else 1))
     if kind == "rec":
         return rglru.init_rec_cache(cfg, batch, device)
     if kind == "ssd":
@@ -127,7 +141,9 @@ class ServeShard:
     whole), ``vocab`` that the embedding's rows and the head's columns
     split; ``zero`` is the data axis that the expert columns of
     ``ffn_zero`` ((path, dim) pairs of an FFN's leaves) are stored over as
-    well, gathered over it at use (ZeRO-3)."""
+    well, gathered over it at use (ZeRO-3); ``attn_sh`` the attention
+    layers' split (``attention.AttnShard``: the heads, the kv heads' and
+    the caches' placement)."""
     ax: Optional[C.Axis]
     cfg: ModelConfig
     attn: bool
@@ -137,6 +153,7 @@ class ServeShard:
     vocab: bool = False
     zero: Optional[C.Axis] = None
     ffn_zero: Tuple = ()
+    attn_sh: Optional[attention.AttnShard] = None
 
     def mixer_ax(self, kind: str) -> Optional[C.Axis]:
         return self.ax if getattr(self, kind) else None
@@ -159,7 +176,7 @@ class ServeShard:
 def serve_shard(cfg: ModelConfig, ax: Optional[C.Axis],
                 zero: Optional[C.Axis] = None) -> ServeShard:
     """The splits of ``cfg`` at the model extent ``ax.size``: the query
-    heads (with their kv heads, or on one whole kv head), the FFN's or
+    heads (with their kv heads, or inside one kv head), the FFN's or
     each expert's hidden columns, the RG-LRU channels and the SSM heads,
     each where it divides (``tp_plan`` of each module), the vocabulary
     where it divides; and the expert columns stored over the data axis
@@ -190,7 +207,9 @@ def serve_shard(cfg: ModelConfig, ax: Optional[C.Axis],
                       ssd=n > 1 and "ssd" in cfg.pattern
                       and ssd.tp_plan(cfg, n),
                       vocab=n > 1 and cfg.padded_vocab % n == 0,
-                      zero=zero if ffn_zero else None, ffn_zero=ffn_zero)
+                      zero=zero if ffn_zero else None, ffn_zero=ffn_zero,
+                      attn_sh=attention.serve_plan(cfg, ax if n > 1
+                                                   else None))
 
 
 # ------------------------------------------------------- storage placements
@@ -301,7 +320,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         y, cache, a_aux = attention.attn_apply(
             p["mixer"], h, cfg, mode=mode, causal=True, window=cfg.window,
             cache=cache, pos=pos, kv_valid=kv_valid, page_table=page_table,
-            seq_lengths=seq_lengths, tp=tp)
+            seq_lengths=seq_lengths, tp=tp,
+            serve=None if shard is None else shard.attn_sh)
     elif kind == "rec" and shard is not None:
         y, cache, a_aux = rglru.rec_forward(p["mixer"], h, cfg, mode=mode,
                                             cache=cache, ax=ax)
@@ -370,17 +390,14 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def block_cache_axes(cfg: ModelConfig, kind: str,
-                     kv_paged: bool = False, seq_shard: bool = True) -> dict:
+                     kv_paged: bool = False) -> dict:
     """Logical partition axes mirroring ``block_cache``'s structure (the
-    paged pools' page axis replaces the batch and stays replicated).
-    seq_shard False: the port's serving layout, which keeps a cache's
-    sequence whole where JAX shards it (kv heads that do not divide)."""
+    paged pools' page axis replaces the batch and stays replicated)."""
     if kind == "attn":
         if kv_paged and cfg.window is None:
             kv, sp = (None, "kv_heads", None, None), (None, None)
         else:
-            kv = ("batch", "kv_heads", "seq_shard" if seq_shard else None,
-                  None)
+            kv = ("batch", "kv_heads", "seq_shard", None)
             sp = ("batch", None)
         ax = {"k": kv, "v": kv, "slot_pos": sp}
         if attention.sparse_applicable(cfg):
@@ -394,18 +411,15 @@ def block_cache_axes(cfg: ModelConfig, kind: str,
     raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
-def cache_axes(cfg: ModelConfig, kv_paged: bool = False,
-               seq_shard: bool = True) -> dict:
+def cache_axes(cfg: ModelConfig, kv_paged: bool = False) -> dict:
     """Logical partition axes mirroring ``init_caches``' tree."""
     out = {"units": {
         f"b{i}_{kind}": {k: ("layer", *t) for k, t in
-                         block_cache_axes(cfg, kind, kv_paged,
-                                          seq_shard).items()}
+                         block_cache_axes(cfg, kind, kv_paged).items()}
         for i, kind in enumerate(cfg.pattern)}}
     tail = _tail_kinds(cfg)
     if tail:
-        out["tail"] = {f"t{i}_{kind}": block_cache_axes(cfg, kind, kv_paged,
-                                                        seq_shard)
+        out["tail"] = {f"t{i}_{kind}": block_cache_axes(cfg, kind, kv_paged)
                        for i, kind in enumerate(tail)}
     return out
 
@@ -568,18 +582,24 @@ def paged_applicable(cfg: ModelConfig) -> bool:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                 kv_pages: Optional[int] = None,
-                shard: Optional[ServeShard] = None) -> dict:
+                shard: Optional[ServeShard] = None,
+                split_seq: bool = True) -> dict:
     """Every block's cache: stacked (U, ...) under ``units``, the tail's
     unstacked under ``tail``.  kv_pages: when set, the attention caches
     without a SWA ring are (kv_pages, page_size, ...) pools shared across
     slots instead of per-slot (batch, max_len, ...) strips; recurrent
     states and ring caches keep the per-slot layout.  shard: serving under
     a model axis (cfg is then ``shard.cfg``): this rank's kv heads,
-    channels and SSM heads."""
+    channels and SSM heads, and its part of a sequence split over the
+    axis (``block_cache``; ``split_seq`` False keeps them whole)."""
     def one_cache(kind):
         if _kind_paged(cfg, kind, kv_pages):
-            return attention.init_paged_cache(cfg, kv_pages, device)
-        return block_cache(cfg, kind, batch, max_len, device, shard)
+            sh = None if shard is None else shard.attn_sh
+            return attention.init_paged_cache(
+                cfg, kv_pages, device,
+                None if sh is None else sh.cache_heads(cfg))
+        return block_cache(cfg, kind, batch, max_len, device, shard,
+                           split_seq)
 
     u = num_units(cfg)
     caches = {"units": {
@@ -883,18 +903,21 @@ def _mask_invalid_slots(caches: dict, lengths: torch.Tensor) -> dict:
 @torch.no_grad()
 def lm_prefill_ragged(model: LM, cfg: ModelConfig,
                       batch: Dict[str, torch.Tensor], lengths: torch.Tensor,
-                      max_len: int, return_counters: bool = False):
+                      max_len: int, return_counters: bool = False,
+                      split_seq: bool = True):
     """Prefill a (B, S) batch of right-padded prompts of per-row
     ``lengths`` (model positions: the frontend rows of a frontend config
     count, as in JAX).  Returns (caches, logits (B, 1, V) at each row's
     last real position), and with ``return_counters`` also the telemetry
     counter tree.  Each row's outputs equal an exact-length batch-1
     prefill: the causal mask hides pad keys, and the lengths reach the
-    sparse-MHA budgets and routed-FFN capacities."""
+    sparse-MHA budgets and routed-FFN capacities.  split_seq: as
+    ``init_caches``' (False for rows bound for whole page pools)."""
     tokens = batch["tokens"]
     bsz = tokens.shape[0]
     shard = _shard_of(model)
-    caches = init_caches(cfg, bsz, max_len, tokens.device, shard=shard)
+    caches = init_caches(cfg, bsz, max_len, tokens.device, shard=shard,
+                         split_seq=split_seq)
     x = _embed_inputs(model, cfg, tokens,
                       frontend_embeds=batch.get("frontend_embeds"))
     sl = lengths if length_sensitive(cfg) else None

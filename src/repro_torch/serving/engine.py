@@ -131,24 +131,24 @@ def abstract_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
     tensors (shapes, no data), for a dry run (JAX:
     ``abstract_decode_caches``); under ``shard`` (``transformer.
     serve_shard``; ``cfg`` then its local config) this rank's kv heads,
-    channels and SSM heads, as ``steps.cache_local_shapes`` places them.
+    channels, SSM heads and parts of split sequences, as
+    ``steps.cache_local_shapes`` places them.
     The audio family's cross caches cover ``cfg.frontend_tokens``
     frames."""
     if cfg.family == "audio":
         return encdec.init_dec_caches(cfg, batch, cache_len,
-                                      cfg.frontend_tokens, "meta")
+                                      cfg.frontend_tokens, "meta",
+                                      shard=shard)
     return transformer.init_caches(cfg, batch, cache_len, "meta",
                                    kv_pages=kv_pages, shard=shard)
 
 
-def decode_cache_axes(cfg: ModelConfig, kv_paged: bool = False,
-                      seq_shard: bool = True):
-    """Logical partition axes of the decode caches' tree (``seq_shard``
-    False: the port's serving layout, ``transformer.block_cache_axes``)."""
+def decode_cache_axes(cfg: ModelConfig, kv_paged: bool = False):
+    """Logical partition axes of the decode caches' tree (JAX's, which
+    the port's serving caches keep)."""
     if cfg.family == "audio":
-        return encdec.cache_axes(cfg, seq_shard)
-    return transformer.cache_axes(cfg, kv_paged=kv_paged,
-                                  seq_shard=seq_shard)
+        return encdec.cache_axes(cfg)
+    return transformer.cache_axes(cfg, kv_paged=kv_paged)
 
 
 def _mix32(x):
@@ -793,7 +793,7 @@ class Engine:
         lengths = torch.as_tensor(self.frontend + lens, device=self.device)
         out = transformer.lm_prefill_ragged(
             self.model, self._mcfg, batch, lengths, self.max_len,
-            return_counters=self._tel_counters)
+            return_counters=self._tel_counters, split_seq=not self._paged)
         if self._tel_counters:
             rows, logits, tel = out
         else:

@@ -102,7 +102,7 @@ def storage_specs(cfg: ModelConfig, rules) -> dict:
     columns over ``model`` (``vocab``); the MoE's ``expert_ffn`` dims over
     ``model`` and ``data`` (ZeRO-3).  Where they differ from JAX's
     ``state_specs``, leaf by leaf (the bytes a rank holds differ only in
-    the first four):
+    the first three):
 
       * the SSD block: ``in_proj.w`` and ``in_proj.lora.c`` and ``conv``
         are a Pick of rank r's z, x and dt columns plus B and C whole
@@ -111,17 +111,27 @@ def storage_specs(cfg: ModelConfig, rules) -> dict:
         ``norm.scale`` split over the heads (JAX: whole);
       * a module whose ``tp_plan`` does not split keeps every leaf whole
         where JAX splits a dim that divides: h2o-danube-1.8b's routed FFN
-        at model 16 (54 columns a rank are not kernel rows), heads that
-        split while their kv heads neither split nor are one;
-      * one kv head (recurrentgemma): ``wk`` / ``wv`` whole (JAX splits
-        its head_dim columns); a one-block RG-LRU gate: ``w_a`` / ``w_i``
-        split on their output columns (JAX: whole, one block does not
-        divide);
+        at model 16 (54 columns a rank are not kernel rows), query heads
+        that do not divide the model extent (whisper-base's 8 at 16), kv
+        heads that neither divide it nor divide into it, and kv heads that
+        do not split under "kvgroup" selection;
+      * a one-block RG-LRU gate: ``w_a`` / ``w_i`` split on their output
+        columns (JAX: whole, one block does not divide);
       * MoE ``expert_ffn`` dims: ordered ("model", "data"), model-major,
         so a data gather gives the region's model chunk (JAX:
         ("data", "model")); over ``model`` alone where the model chunk
         does not divide by the data extent (JAX: whole unless data x
-        model divides)."""
+        model divides).
+
+    The attention follows JAX's placement wherever its heads split,
+    also where the query heads split inside a kv head: ``wk`` / ``wv``
+    over their columns (each rank gathers them where it uses them).
+    JAX's compiled decode step takes as arguments only the leaves it
+    reads, the port's the whole serving model: an encoder-decoder's
+    encoder and cross-attention ``wk`` / ``wv`` (read at prefill only)
+    count in the port's decode arguments and not in JAX's
+    (whisper-base's smoke at (1, 4): 172,544 + 28,672 B a rank, the
+    whole of the 201,216 B between the two)."""
     sizes = rules.get("__sizes__", {})
     defs = model_defs(cfg)
     train_s, frozen_s = P.partition(model_storage_specs(cfg, sizes),

@@ -10,7 +10,8 @@ kernels/cost.py, core/collectives.py) on the CPU:
     caches and logits and for the train state; at (2, 2), each rank
     storing its parts, JAX's too, for the qwen3 and mixtral smoke train
     and decode cells, and the bytes the port's own constructors give one
-    rank;
+    rank, and at (1, 4), where the kv heads do not split and the caches'
+    sequence does, the same;
   * the trace follows the real path: meta traces with target "cpu"
     equal real CPU runs under the counter exactly in FLOPs, HBM bytes,
     kernel calls and peak bytes (three configs x train, prefill,
@@ -52,7 +53,7 @@ from repro_torch.launch import dryrun, roofline, steps
 from repro_torch.launch.mesh import make_dry_mesh
 from repro_torch.models import attention, ffn, transformer
 from repro_torch.serving import engine
-from repro_torch.sharding import rules_for_mesh
+from repro_torch.sharding import local_shape, rules_for_mesh
 from repro_torch.train import state as S
 from test_torch_model import one_torch_thread  # noqa: F401
 
@@ -80,7 +81,11 @@ cells = [(Q, "train", (1, 1), ShapeSpec("t", "train", 64, 4)),
          (Q, "train", (2, 2), ShapeSpec("t", "train", 64, 4)),
          (Q, "decode", (2, 2), ShapeSpec("d", "decode", 128, 4)),
          (M, "train", (2, 2), ShapeSpec("t", "train", 64, 4)),
-         (M, "decode", (2, 2), ShapeSpec("d", "decode", 128, 4))]
+         (M, "decode", (2, 2), ShapeSpec("d", "decode", 128, 4)),
+         (Q, "train", (1, 4), ShapeSpec("t", "train", 64, 4)),
+         (Q, "decode", (1, 4), ShapeSpec("d", "decode", 128, 4)),
+         (M, "train", (1, 4), ShapeSpec("t", "train", 64, 4)),
+         (M, "decode", (1, 4), ShapeSpec("d", "decode", 128, 4))]
 nbytes = lambda t: sum(math.prod(l.shape) * l.dtype.itemsize
                        for l in jax.tree_util.tree_leaves(t))
 out = []
@@ -621,39 +626,88 @@ def test_against_jax_mesh_1x1(jax_cells):
         print(f"{kind} (1, 1): port {mem}, JAX {jx[(kind, (1, 1))]}")
 
 
+def _against_jax_mesh(jax_cells, arch, shape):
+    jx = jax_cells()
+    cfg = configs.get_smoke(arch)
+    data = shape[0]
+    with make_dry_mesh(shape, ("data", "model")) as mesh:
+        rules = rules_for_mesh(mesh)
+        train = dryrun.trace_cell(cfg, TRAIN, mesh).memory()
+        decode = dryrun.trace_cell(cfg, DECODE, mesh).memory()
+        state = S.init_state(cfg, 0, "cpu", mesh=mesh)
+        model = engine.init_model(cfg, 0, "cpu", mesh=mesh)
+        slots = DECODE.global_batch // data
+        caches = transformer.init_caches(model.cfg, slots, DECODE.seq_len,
+                                         "cpu", shard=model.shard)
+        local = {p: tuple(v.shape) for p, v in leaves(
+            engine.abstract_decode_caches(model.cfg, slots, DECODE.seq_len,
+                                          shard=model.shard))}
+        # JAX's cache placements (``cache_specs``), each rank's shapes
+        whole = engine.abstract_decode_caches(cfg, DECODE.global_batch,
+                                              DECODE.seq_len)
+        want = {p: local_shape(t.shape, sp, rules["__sizes__"])
+                for (p, t), (_, sp) in zip(
+                    leaves(whole), leaves(steps.cache_specs(cfg, whole,
+                                                            rules)))}
+    rows = TRAIN.global_batch // data * TRAIN.seq_len * 4 * 2  # tokens, labels
+    assert train["argument_size_in_bytes"] == roofline.storage_bytes(
+        state) + rows
+    dec = roofline.storage_bytes(model, caches) + slots * 4 + 4
+    assert decode["argument_size_in_bytes"] == dec
+    assert local == want            # JAX's cache layout
+    assert local == dict(leaves(steps.cache_local_shapes(cfg, whole, rules)))
+    for kind, port in (("train", train), ("decode", decode)):
+        j = jx[(arch, kind, shape)]["argument"]
+        print(f"{arch} {kind} {shape}: port {port['argument_size_in_bytes']}"
+              f" B a rank, JAX {j} B, ratio "
+              f"{port['argument_size_in_bytes'] / j:.3f}")
+        assert port["argument_size_in_bytes"] == j
+    return local
+
+
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b"])
 def test_against_jax_mesh_2x2(jax_cells, arch):
     """At (2, 2) each rank stores its parts (train/state.storage_specs;
     the serving model's, ``engine.init_model``) and the caches of its
     slots: the trace's argument bytes equal what the port's constructors
     give one rank, and JAX's ``memory_analysis()`` exactly, for the train
-    and the decode cell (mixtral's experts over data and model)."""
-    jx = jax_cells()
+    and the decode cell (mixtral's experts over data and model); the
+    caches are laid out as JAX's ``cache_specs`` place them."""
+    _against_jax_mesh(jax_cells, arch, (2, 2))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b"])
+def test_against_jax_mesh_1x4(jax_cells, arch):
+    """At (1, 4) the 2 kv heads do not split over the 4 model ranks: the
+    query heads split inside them, k and v are stored over their columns
+    and the caches' sequence over the ranks, as JAX places them; the
+    argument bytes a rank equal JAX's ``memory_analysis()`` exactly, for
+    the train and the decode cell."""
+    local = _against_jax_mesh(jax_cells, arch, (1, 4))
     cfg = configs.get_smoke(arch)
-    with make_dry_mesh((2, 2), ("data", "model")) as mesh:
-        rules = rules_for_mesh(mesh)
-        train = dryrun.trace_cell(cfg, TRAIN, mesh).memory()
-        decode = dryrun.trace_cell(cfg, DECODE, mesh).memory()
-        state = S.init_state(cfg, 0, "cpu", mesh=mesh)
-        model = engine.init_model(cfg, 0, "cpu", mesh=mesh)
-        slots = DECODE.global_batch // 2
-        caches = transformer.init_caches(model.cfg, slots, DECODE.seq_len,
-                                         "cpu", shard=model.shard)
-        local = {p: tuple(v.shape) for p, v in leaves(
-            engine.abstract_decode_caches(model.cfg, slots, DECODE.seq_len,
-                                          shard=model.shard))}
-        want = dict(leaves(steps.cache_local_shapes(
-            cfg, engine.abstract_decode_caches(
-                cfg, DECODE.global_batch, DECODE.seq_len), rules)))
-    rows = TRAIN.global_batch // 2 * TRAIN.seq_len * 4 * 2   # tokens, labels
-    assert train["argument_size_in_bytes"] == roofline.storage_bytes(
-        state) + rows
-    dec = roofline.storage_bytes(model, caches) + slots * 4 + 4
-    assert decode["argument_size_in_bytes"] == dec
-    assert local == want            # steps.cache_local_shapes' layout
-    for kind, port in (("train", train), ("decode", decode)):
-        j = jx[(arch, kind, (2, 2))]["argument"]
-        print(f"{arch} {kind} (2, 2): port {port['argument_size_in_bytes']}"
-              f" B a rank, JAX {j} B, ratio "
-              f"{port['argument_size_in_bytes'] / j:.3f}")
-        assert port["argument_size_in_bytes"] == j
+    size = min(DECODE.seq_len, cfg.window or DECODE.seq_len)
+    assert local[("units", "b0_attn", "k")][2:4] == (2, size // 4)
+    assert local[("units", "b0_attn", "slot_pos")][2] == size
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b"])
+def test_peak_does_not_wait_for_the_cycle_collector(arch):
+    """A (2, 2) train step's traced peak is the same with Python's cycle
+    collector off: no storage of the step is held by a reference cycle
+    (a region's leaves, the ZeRO-3 gathered expert columns among them,
+    are freed when the region's entry returns, not when the collector
+    runs)."""
+    import gc
+    cfg = configs.get_smoke(arch)
+    peaks = []
+    for collector in (True, False):
+        gc.collect()
+        if not collector:
+            gc.disable()
+        try:
+            with make_dry_mesh((2, 2), ("data", "model")) as mesh:
+                peaks.append(dryrun.trace_cell(cfg, TRAIN, mesh).memory()[
+                    "peak_bytes"])
+        finally:
+            gc.enable()
+    assert peaks[0] == peaks[1]

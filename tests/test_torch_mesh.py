@@ -143,8 +143,9 @@ def test_storage_specs_against_jax(name, mesh):
     """The port stores each leaf as JAX's ``state_specs`` place it, except
     where train/state.storage_specs says it does not: the SSD mixer's
     leaves, an attention or FFN whose ``tp_plan`` does not split (kept
-    whole), one kv head (whole), a one-block RG-LRU gate (split on its
-    columns)."""
+    whole), a one-block RG-LRU gate (split on its columns).  Query heads
+    split inside a kv head (one kv head among them) store k and v as JAX
+    does."""
     from repro_torch.models import attention, ffn, rglru
     cfg, diff = _stored_differences(name, mesh)
     n = mesh[1]
@@ -157,10 +158,8 @@ def test_storage_specs_against_jax(name, mesh):
         if "ffn" in path:
             assert ffn.tp_plan(cfg, n) is None, path
             continue
-        # an attention: whole where its heads do not split, or one kv head
-        assert attention.tp_plan(cfg, n) is None or (
-            cfg.num_kv_heads == 1 and path[-2:] in (
-                ("wk", "w"), ("wv", "w"), ("lora", "c"))), path
+        # an attention: whole where its heads do not split
+        assert attention.tp_plan(cfg, n) is None, path
         assert all(a >= b for a, b in zip(mine, theirs)), path
 
 
@@ -249,3 +248,33 @@ def test_rules_reach_another_thread():
         t.start()
         t.join()
     assert seen == [RULES] and current_rules() is None
+
+
+def test_one_kv_head_differs_from_jax_by_the_gate_alone():
+    """recurrentgemma's smoke at (1, 4): its one kv head's ``wk`` / ``wv``
+    are stored as JAX stores them (over their head_dim columns), so a
+    rank's state (parameters and AdamW moments) differs from what JAX's
+    placement gives it only in the one-block RG-LRU gate's ``w_a`` /
+    ``w_i``, split on their output columns (train/state.storage_specs'
+    list): 98,304 B less."""
+    import math
+    from repro_torch.sharding import local_shape
+    cfg = configs.get_smoke("recurrentgemma-9b")
+    sizes = {"data": 1, "model": 4}
+    mine = S.storage_specs(cfg, {"__sizes__": sizes})
+    theirs = S.state_specs(cfg, {**RULES_ALL, "__sizes__": sizes})
+    whole = S.abstract_state(cfg)
+    whole["opt"] = {"m": whole["train"], "v": whole["train"]}
+
+    def nbytes(t, spec):
+        return math.prod(local_shape(t.shape, spec, sizes)) * t.element_size()
+    total, names = 0, set()
+    for part in ("train", "frozen", "opt"):
+        m, j = dict(P.leaves(mine[part])), dict(P.leaves(theirs[part]))
+        for path, t in P.leaves(whole[part]):
+            d = nbytes(t, m[path]) - nbytes(t, j[path])
+            if d:
+                total += d
+                names.add(path[-1])
+    assert names == {"w_a", "w_i"}
+    assert total == -98304

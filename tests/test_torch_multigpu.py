@@ -135,9 +135,9 @@ def _shmap_setup():
     return lcfg, rcfg, params, x
 
 
-def _jax_train_refs(jcfg, state, batch):
+def _jax_train_refs(jcfg, state, batch, logits=True):
     """value_and_grad of build_train_step's loss on the whole batch, its
-    metrics, and the logits."""
+    metrics, and (with ``logits``) the logits."""
     frozen = jax.tree_util.tree_map(jnp.asarray, state["frozen"])
     b = {k: jnp.asarray(v) for k, v in batch.items()}
 
@@ -154,14 +154,17 @@ def _jax_train_refs(jcfg, state, batch):
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(jax.tree_util.tree_map(jnp.asarray,
                                                         state["train"]))
-    params = JP.combine(jax.tree_util.tree_map(jnp.asarray, state["train"]),
-                        frozen)
-    hidden, _ = JS.model_hidden(params, jcfg, b, remat=False)
-    logits = jtransformer.logits_of(params, jcfg, hidden)
     flat = {".".join(str(k.key) for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_leaves_with_path(grads)}
-    return {"loss": float(loss), "grads": flat, "logits": np.asarray(logits),
-            "metrics": {k: float(v) for k, v in metrics.items()}}
+    out = {"loss": float(loss), "grads": flat,
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    if logits:
+        params = JP.combine(jax.tree_util.tree_map(jnp.asarray,
+                                                   state["train"]), frozen)
+        hidden, _ = JS.model_hidden(params, jcfg, b, remat=False)
+        out["logits"] = np.asarray(jtransformer.logits_of(params, jcfg,
+                                                          hidden))
+    return out
 
 
 def _jax_shmap_refs(lcfg, rcfg, params, x):

@@ -4,8 +4,8 @@ kind, and resume under a world of two, over gloo worlds on the CPU.
 The worlds (tests/torch_mesh_serve_worker.py through
 tests/torch_mesh_worker.py's spawner: all started at once, ``file://``
 rendezvous under tmp_path, 60 s collective timeout, one torch thread per
-rank, every rank killed at the deadline) are (1, 2), (2, 1) and (2, 2).  In f32
-with the kernels' plain versions, each serves:
+rank, every rank killed at the deadline) are (1, 2), (2, 1), (2, 2) and
+(1, 4).  In f32 with the kernels' plain versions, each serves:
 
   * the tiny dense config (the qwen3 smoke: 2 layers, d 64, 4 heads on 2
     kv heads of 16, d_ff 128 in 8 routed groups): ``Engine.run`` of 6
@@ -23,6 +23,18 @@ with the kernels' plain versions, each serves:
     equal the port's world of one (which
     tests/test_torch_moe.py, test_torch_hybrid.py, test_torch_ssd.py and
     test_torch_encdec.py hold to JAX).
+
+At (1, 4) the qwen3 smoke's 2 kv heads do not split over the 4 model
+ranks: each rank's one query head lies inside a kv head, and the caches'
+sequence splits over the ranks (S/4 slots each, as JAX's cache specs
+place it).  The contiguous greedy streams equal JAX's unsharded
+``Engine.run`` under the replay rule (with sparse MHA off, the port's
+world of one's), and one train step's loss and
+every trainable gradient part equal JAX's unsharded ``jax.grad``
+(tests/test_torch_multigpu.py's step and tolerances).  At (1, 2) a smoke
+copy with one kv head and a SWA ring of 16 slots, which its prompts and
+streams wrap, serves streams equal to JAX's unsharded ``Engine.run``
+under the same rule.
 
 At (1, 2) one train step of each of those families matches the
 port's world of one (loss and every trainable gradient to atol 2e-5 /
@@ -49,15 +61,19 @@ from repro.serving.engine import Request as JRequest
 from repro_torch import configs
 from repro_torch.core import params as P
 from repro_torch.launch import steps
+from repro_torch.models.attention import seq_parts
 from repro_torch.optim.adamw import OptimizerConfig, global_norm
 from repro_torch.train import state as S
 from test_torch_model import (jax_params, keep_sigterm,  # noqa: F401
                               one_torch_thread, perturb_lora, port_cfg,
                               smoke_cfg)
 from repro.models import transformer as jtransformer
+import test_torch_multigpu as MG
 
 ATOL, RTOL = 2e-5, 2e-4
 MESHES = [(1, 2), (2, 1), (2, 2)]
+WIDE = (1, 4)                 # query heads inside a kv head, seq split
+RING = dict(num_kv_heads=1, window=16)    # the (1, 2) ring copy
 MAX_LEN, SLOTS, CHUNK = 32, 4, 3
 PAGED = dict(kv_layout="paged", kv_page_size=8)
 KV_PAGES = 8                          # < the 4 slots' 16: admissions stall
@@ -95,6 +111,16 @@ def _dense():
     jcfg = smoke_cfg(attn_impl="sparse_jnp", ffn_impl="grouped")
     cfg = port_cfg(jcfg).with_spt(attn_impl="pallas", ffn_impl="pallas")
     reqs = SW.requests(cfg.vocab_size, [9, 14, 5, 11, 7, 13], 5, seed=5)
+    return jcfg, cfg, jax_params(jcfg), reqs
+
+
+def _ring():
+    """The qwen3 smoke with one kv head and a 16-slot SWA ring (JAX's and
+    the port's config, its params, requests that wrap the ring)."""
+    jcfg = dataclasses.replace(smoke_cfg(attn_impl="sparse_jnp",
+                                         ffn_impl="grouped"), **RING)
+    cfg = port_cfg(jcfg).with_spt(attn_impl="pallas", ffn_impl="pallas")
+    reqs = SW.requests(cfg.vocab_size, [14, 14, 14, 14], 9, seed=13)
     return jcfg, cfg, jax_params(jcfg), reqs
 
 
@@ -193,6 +219,12 @@ def runs(tmp_path_factory):
              "whisper-base": _whisper_generate()}
     train = {a: _train_setup(a, i) for i, a in
              enumerate((*FAMILIES, BLOCKS, "whisper-base"))}
+    rjcfg, rcfg, rtree, rreqs = _ring()
+    ring = dict(cfg=rcfg, tree=rtree, reqs=rreqs, engine_kw=_engine_kw())
+    mjcfg = MG._jcfg()
+    mstate, mbatch = MG._state_np(mjcfg), MG._batch(mjcfg.vocab_size)
+    dense_attn = dict(cfg=cfg.with_spt(sparse_mha=False), reqs=reqs,
+                      engine_kw=_engine_kw())
     tmp = tmp_path_factory.mktemp("worlds")
 
     def world(mesh):
@@ -201,7 +233,15 @@ def runs(tmp_path_factory):
         cases = [("serve_case", dict(mesh_shape=mesh, **kw))
                  for name, kw in serve.items()
                  if name in DENSE or mesh == (2, 2)]
+        if mesh == WIDE:
+            return (4, "torch_mesh_serve_worker:cases", {"cases": [
+                ("serve_case", dict(mesh_shape=mesh, **serve["dense"])),
+                ("serve_case", dict(mesh_shape=mesh, **dense_attn)),
+                ("train_shapes_case", dict(
+                    mesh_shape=mesh, cfg=cfg, state=mstate, batch=mbatch,
+                    chunk=MG.CHUNK, ocfg=MG.OCFG, logits=False))]})
         if mesh == (1, 2):
+            cases.append(("serve_case", dict(mesh_shape=mesh, **ring)))
             cases += [("train_shapes_case", dict(
                 mesh_shape=mesh, cfg=c, state=s, batch=b, chunk=LOSS_CHUNK,
                 ocfg=TRAIN_OCFG, logits=False)) for c, s, b in train.values()]
@@ -214,15 +254,19 @@ def runs(tmp_path_factory):
         return (mesh[0] * mesh[1], "torch_mesh_serve_worker:cases",
                 {"cases": cases})
 
-    started = W.start_worlds([world(m) for m in MESHES], tmp,
+    started = W.start_worlds([world(m) for m in (*MESHES, WIDE)], tmp,
                              preload=["torch_mesh_serve_worker"])
     try:
         refs = {"serve": {k: SW.serve(**kw) for k, kw in serve.items()},
                 "jax": _jax_streams(jcfg, tree, reqs),
+                "jax_ring": _jax_streams(rjcfg, rtree, rreqs),
+                "jax_train": MG._jax_train_refs(mjcfg, mstate, mbatch,
+                                                logits=False),
+                "dense_attn": SW.serve(**dense_attn),
                 "train": {a: _port_train(*t) for a, t in train.items()}}
     finally:
         got = W.join_worlds(started)
-    by_mesh = dict(zip(MESHES, got))
+    by_mesh = dict(zip((*MESHES, WIDE), got))
     names = list(serve)
     dense = [k for k in names if k in DENSE]
     out = {**refs, "jcfg": jcfg, "tree": tree, "reqs": reqs,
@@ -232,11 +276,30 @@ def runs(tmp_path_factory):
                              enumerate(names if m == (2, 2) else dense)}
                          for m in MESHES}
     n = len(dense)
-    out["train_mesh"] = {a: [r[n + i] for r in by_mesh[(1, 2)]]
+    out["ring"] = [r[n] for r in by_mesh[(1, 2)]]
+    out["train_mesh"] = {a: [r[n + 1 + i] for r in by_mesh[(1, 2)]]
                          for i, a in enumerate(train)}
-    out["launcher"] = [r[n + len(train)] for r in by_mesh[(1, 2)]]
+    out["launcher"] = [r[n + 1 + len(train)] for r in by_mesh[(1, 2)]]
     out["resume"] = [r[n] for r in by_mesh[(2, 1)]]
+    out["wide"] = [r[0] for r in by_mesh[WIDE]]
+    out["wide_dense"] = [r[1] for r in by_mesh[WIDE]]
+    out["wide_train"] = [r[2] for r in by_mesh[WIDE]]
+    out["ring_cfg"], out["ring_jcfg"] = rcfg, rjcfg
+    out["ring_tree"], out["ring_reqs"] = rtree, rreqs
+    out["train_cfg"], out["train_mesh_cfg"] = cfg, mjcfg
     return out
+
+
+def _assert_streams(got, want, reqs, jcfg, tree):
+    """Greedy streams equal to JAX's, a difference allowed only at a
+    genuine logit near-tie (``_replay`` within 1e-3)."""
+    for row, ((g, _), exp, (_, prompt, _)) in enumerate(
+            zip(got, want, reqs)):
+        if g == exp:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g, exp)) if a != b)
+        gap = _replay(jcfg, tree, prompt + exp[:i], g[i], exp[i])
+        assert gap <= 1e-3, (row, i, gap)
 
 
 def _replay(jcfg, tree, ctx, a, b):
@@ -266,14 +329,8 @@ def test_dense_serve_matches_unsharded_jax(runs, mesh, layout):
     for res in runs["serve_mesh"][mesh][layout]:
         assert res["stats"] == ref["stats"]
         assert res["steps_run"] == ref["steps_run"]
-        for row, ((got, _), exp, (_, prompt, _)) in enumerate(
-                zip(res["streams"], want, runs["reqs"])):
-            if got == exp:
-                continue
-            i = next(j for j, (a, b) in enumerate(zip(got, exp)) if a != b)
-            gap = _replay(runs["jcfg"], runs["tree"], prompt + exp[:i],
-                          got[i], exp[i])
-            assert gap <= 1e-3, (row, i, gap)
+        _assert_streams(res["streams"], want, runs["reqs"], runs["jcfg"],
+                        runs["tree"])
     if layout == "paged":
         assert ref["stats"]["admission_stalls"] > 0
         assert ref["stats"]["kv_pages_peak"] <= KV_PAGES
@@ -346,6 +403,18 @@ def test_dense_serve_local_shapes(runs, mesh, layout):
         assert all(w[-1] == f for _, w in res["shapes"]["routed_ffn"])
 
 
+def _split_decode_shapes(shapes, slots, cfg, s_local):
+    """A decode over a sequence split over the model axis: kernels 3 and
+    5 (their plain versions) on every query head (R of each of the Hk kv
+    groups) and this rank's s_local slots; no whole-cache decode."""
+    hk, r = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    assert "sparse_mha_decode" not in shapes
+    (cq, ck), = shapes["decode_topl_thresholds"]
+    assert cq[:2] == (slots * hk, r) and ck[:2] == (slots * hk, s_local)
+    (q, k), = shapes["sparse_decode_attention"]
+    assert q[:2] == (slots * hk, r) and k[:2] == (slots * hk, s_local)
+
+
 @pytest.mark.parametrize("name", [*FAMILIES, BLOCKS, "whisper-base"])
 def test_family_serve_matches_world_of_one(runs, name):
     """At (2, 2): slots over data and heads / columns / channels over
@@ -379,8 +448,13 @@ def test_family_serve_matches_world_of_one(runs, name):
         slots, hq, hk, f = _local_counts(cfg, res)
         if name == "whisper-base":
             slots = SLOTS // dn
-        (q, k), = shapes["sparse_mha_decode"]
-        assert q[:2] == (slots, hq) and k[:2] == (slots, hk)
+        size = cfg.window or MAX_LEN
+        if seq_parts(cfg.num_kv_heads, size, tn) > 1:
+            # the one kv head's sequence split: every query head on S/n
+            _split_decode_shapes(shapes, slots, cfg, size // tn)
+        else:
+            (q, k), = shapes["sparse_mha_decode"]
+            assert q[:2] == (slots, hq) and k[:2] == (slots, hk)
         (x, w), = shapes["decode_ffn" if cfg.num_experts else
                          "routed_ffn_decode"]
         assert x[0] == slots and w[-1] == f
@@ -514,3 +588,63 @@ def test_serving_helpers_cost_nothing_at_extent_one():
     assert local_slice(x, None, sizes, coords) is x
     assert torch.equal(local_slice(x, C.Pick(0, ((0, 2), (1, 3))), sizes,
                                    coords), x[[1, 3]])
+
+
+def test_wide_serve_matches_unsharded_jax(runs):
+    """(1, 4): each rank's one query head lies inside one of the 2 kv
+    heads, and every cache holds all kv heads over its S/4 slots (JAX's
+    cache specs); the streams equal JAX's unsharded ones (replay rule)."""
+    cfg = runs["serve_cfg"]["dense"]
+    want = _want_caches(cfg, WIDE)
+    for res in runs["wide"]:
+        assert res["tp"] == (res["tp"][0], 4)
+        _assert_streams(res["streams"], runs["jax"], runs["reqs"],
+                        runs["jcfg"], runs["tree"])
+        assert res["stats"] == runs["serve"]["dense"]["stats"]
+        assert res["caches"] == want
+        attn = res["caches"]["units"]["b0_attn"]
+        assert attn["k"][1:4] == (SLOTS, cfg.num_kv_heads, MAX_LEN // 4)
+        assert attn["slot_pos"][1:] == (SLOTS, MAX_LEN)
+        _split_decode_shapes(res["shapes"], SLOTS, cfg, MAX_LEN // 4)
+
+
+def test_wide_dense_attention_matches_world_of_one(runs):
+    """(1, 4) with sparse MHA off: each rank attends over every valid
+    slot of its part of the sequence and the parts combine by their
+    log-sum-exps; the streams equal the port's world of one's."""
+    ref = runs["dense_attn"]
+    for res in runs["wide_dense"]:
+        assert res["streams"] == ref["streams"]
+        assert res["stats"] == ref["stats"]
+        k = res["caches"]["units"]["b0_attn"]["k"]
+        assert k[1:4] == (SLOTS, 2, MAX_LEN // 4)
+
+
+def test_wide_train_step_matches_unsharded_jax(runs):
+    """(1, 4): one train step's loss and each rank's stored gradient
+    parts (q and o over the heads, k and v over their columns: JAX's
+    placement) against JAX's unsharded ``jax.grad``; each rank's region
+    runs its one query head on its kv head."""
+    ref, cfg = runs["jax_train"], runs["train_cfg"]
+    for res in runs["wide_train"]:
+        _close(res["loss"], ref["loss"], "loss")
+        MG._close_parts(res, cfg, WIDE, res["grads"], ref["grads"], "grad")
+        assert {(q[1], k[1]) for q, k in res["shapes"]["sparse_mha"]} == {
+            (1, 1)}
+
+
+def test_ring_serve_matches_unsharded_jax(runs):
+    """(1, 2), one kv head, a 16-slot SWA ring that the prompts and the
+    streams wrap: each rank holds 8 slots of the ring, the owner of a
+    token's slot writes it, and the streams equal JAX's unsharded ones
+    (replay rule)."""
+    cfg = runs["ring_cfg"]
+    want = _want_caches(cfg, (1, 2))
+    assert all(len(t) + m > cfg.window for _, t, m in runs["ring_reqs"])
+    for res in runs["ring"]:
+        _assert_streams(res["streams"], runs["jax_ring"], runs["ring_reqs"],
+                        runs["ring_jcfg"], runs["ring_tree"])
+        assert res["caches"] == want
+        attn = res["caches"]["units"]["b0_attn"]
+        assert attn["k"][1:4] == (SLOTS, 1, cfg.window // 2)
+        _split_decode_shapes(res["shapes"], SLOTS, cfg, cfg.window // 2)

@@ -29,6 +29,7 @@ class Shapes:
     def __init__(self):
         from repro_torch.kernels.routed_ffn import ops as rffn_ops
         from repro_torch.kernels.sparse_attention import ops as sa_ops
+        from repro_torch.kernels.topl_select import ops as topl_ops
         from repro_torch.models import rglru, ssd
         self.seen = set()
         pick = {
@@ -36,6 +37,8 @@ class Shapes:
             (sa_ops, "sparse_mha_decode"): lambda a: (a[0], a[1]),
             (sa_ops, "sparse_mha_decode_paged"): lambda a: (a[0], a[1]),
             (sa_ops, "dense_mha_decode_paged"): lambda a: (a[0], a[1]),
+            (topl_ops, "decode_topl_thresholds"): lambda a: (a[0], a[1]),
+            (sa_ops, "sparse_decode_attention"): lambda a: (a[0], a[1]),
             (rffn_ops, "routed_ffn"): lambda a: (a[0], a[1]["w_inner"]),
             (rffn_ops, "routed_ffn_decode"):
                 lambda a: (a[0], a[1]["w_inner"]),

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only dryrun    # phases 1-3, 26
     python3 chip_smoke.py --only shard     # phases 1-3, 27
     python3 chip_smoke.py --only seqsplit  # phases 1-3, 28
+    python3 chip_smoke.py --only analysis  # phases 1-3, 29
 
 Phases (each raises on failure; nothing is caught):
   1. environment: torch/CUDA versions, card name and power limit;
@@ -199,7 +200,7 @@ Phases (each raises on failure; nothing is caught):
      128, 4 x 1024) and kernel 9 at each group's 192 and 96 columns,
      against their plain versions, timed beside bound and yardstick; an
      NCCL world of one (the launchers' init_distributed), mesh (1, 1),
-     full-width qwen3-0.6b (14 of 28 layers) bf16 spt, 3
+     full-width qwen3-0.6b (7 of 28 layers) bf16 spt, 3
      steps of 4 x 1024
      under deterministic algorithms without the mesh, through the mesh
      path (losses equal bit for bit) and with grouped_shmap (within
@@ -212,7 +213,7 @@ Phases (each raises on failure; nothing is caught):
      launched twice bit-identically, against its plain version, timed
      beside its bound; an NCCL world of one, mesh (1, 1): qwen3-0.6b at
      full width (4 of 28 layers, contiguous and paged on the 64-page
-     pool) and recurrentgemma-9b (8 of 38 layers: two units and the
+     pool) and recurrentgemma-9b (5 of 38 layers: one unit and the
      tail) served through Engine.run (8 requests, prompts 128-1024, 32
      new tokens, 8 slots) without the mesh and through it — the
      streams, the launch counts and ServeStats' counters equal bit for
@@ -246,6 +247,24 @@ Phases (each raises on failure; nothing is caught):
      module comment: the shards' bytes against the dry run, a bf16 serve
      with launches n x exact, and in f32 every split decode's [t, need],
      selections and combined output against the whole cache's);
+  29. the analysis layer (src/repro_torch/analysis) on the card: (a) the
+     kernel audit of phase 2's build — every kernel function's registers x
+     threads, static + dynamic shared memory and spills against Hopper's
+     limits at every registry config's shapes, the launchers' own
+     shared-memory queries equal to the audit's restatements, one line a
+     function; (b) qwen3-0.6b at full width (PAGED_DEPTH layers, bf16),
+     contiguous and paged, kernels on and under REPRO_DISABLE_KERNELS=1:
+     the first decode chunk of an Engine.run under the op audit (no
+     dispatch buffer, no expanded or gathered cache, one host read in
+     _chunk_sync and none elsewhere, the chunk under set_sync_debug_mode
+     warning only at its slot-state uploads (kernel tier), the kernels
+     reached equal to the CPU audit's), its liveness (peak beside the
+     card's max_memory_allocated rise) and in-place audits, launches
+     exact; then a burst serve of each layout under the sync guard; (c)
+     the four examples (examples/torch_*.py) as child processes run at
+     once, exit 0,
+     each kernel on an example's path launched, launches equal to its
+     serves' and train steps' exact counts;
   counters are zeroed just before each counted run and read just after,
   launch counts exact; then one JSON line of the ten kernels (launches
   per path; each with its times at the paper's, the MoE, the hybrid and
@@ -298,41 +317,6 @@ def sass_counts(lib_path) -> dict:
             for op in ("HGMMA", "HMMA"):
                 counts[fn][op] += op in line
     return counts
-
-
-def ptxas_usage() -> list:
-    """(source, kernel, registers, static shared bytes, spill bytes) of
-    every kernel entry, from the ptxas -v logs the verbose build keeps
-    (names demangled by cu++filt where the toolkit has it)."""
-    import re
-    import shutil
-    from repro_torch import kernels
-    rows = []
-    for log in sorted(kernels.BUILD_DIR.glob("*.log")):
-        fn = spill = None
-        for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                fn, spill = m.group(1), 0
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and fn:
-                spill = int(m.group(1))
-            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-            if m and fn:
-                rows.append([log.stem, fn, int(m.group(1)),
-                             int(m.group(2) or 0), spill])
-                fn = None
-    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
-    if rows and os.path.exists(filt):
-        names = subprocess.run([filt], input="\n".join(r[1] for r in rows),
-                               capture_output=True, text=True,
-                               check=True).stdout.splitlines()
-        for r, name in zip(rows, names):
-            name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "",
-                          name)
-            r[1] = name[:name.index(">(") + 1] if ">(" in name else \
-                name.split("(")[0]
-    return rows
 
 
 def time_ms(fn, reps: int) -> float:
@@ -2105,13 +2089,13 @@ PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
 # The serve loop is host-bound (a decode step's wall time grows with its
 # launches, ~200 a layer), so the script's longest paths cut depth, at
 # full width, to keep the whole run well inside its time limit: qwen3-0.6b
-# 28 -> 7 layers in phases 26-28 (phase 4 keeps all 28), -> 14 in phase
-# 24 and -> 4 in phase 5 (28 and 7 until phase 28 came) and in phase 12
-# (7 until phase 27 came),
+# 28 -> 4 layers in phases 26-28 (7 until phase 29 came; phase 4 keeps
+# all 28), -> 14 in phase 24 and -> 4 in phase 5 (28 and 7 until phase 28
+# came), in phase 12 (7 until phase 27 came) and in phase 29,
 # opt-2.7b and llama-2.7b 32 -> 4 in phase 10, phi-3-vision-4.2b 32 -> 4
 # in phase 19 (16 each until phase 25 came, 8 until its model shards
 # came)
-CUT_DEPTH = 7
+CUT_DEPTH = 4
 PAGED_DEPTH = 4
 SERVER_DEPTH = 4
 PAPER_DEPTH = 4
@@ -4143,7 +4127,8 @@ def families_agree_f32(torch):
 # 4 run on the CPU over gloo (tests/test_torch_multigpu.py).
 MESH_TP = (2, 4)
 MESH_STEPS = 3
-MESH_DEPTH = 14          # of qwen3's 28 layers (all 28 until phase 28 came)
+MESH_DEPTH = 7           # of qwen3's 28 layers (28 until phase 28 came, 14
+                         # until phase 29 came)
 MESH_LOSS_TOL = 1e-3
 
 
@@ -4331,10 +4316,11 @@ MESH_SERVE_FFN = [("qwen3-0.6b", 1024, 384, "silu"),
                   ("recurrentgemma-9b", 4096, 1536, "gelu")]
 MESH_SERVE_WORK = dict(n=8, lo=128, hi=1024, gen=32, max_len=2048)
 # depth of the world-of-one serves: phase 5's for qwen3-0.6b (4 of 28
-# layers; 7 until phase 28 came), and recurrentgemma-9b's first 8 of 38
-# (two units and the two-layer tail; 14 until the model shards came)
+# layers; 7 until phase 28 came), and recurrentgemma-9b's first 5 of 38
+# (one unit and the two-layer tail; 14 until the model shards came, 8
+# until phase 29 came)
 MESH_QWEN_DEPTH = PAGED_DEPTH
-MESH_HYBRID_DEPTH = 8
+MESH_HYBRID_DEPTH = 5
 # The model shards of each served case, every rank a thread on the one
 # card (``_Ring``): the extents, a short bf16 serve (4 slots, chunks of
 # 8) and, in f32 (contiguous cases), the teacher-forced logits of its 4
@@ -5694,13 +5680,240 @@ def seq_split_serve(torch):
     return {"seqsplit_serve": total}
 
 
+# ---------------------------------------------------------------- phase 29
+# The analysis layer on the card (src/repro_torch/analysis): (a) the kernel
+# audit of phase 2's build; (b) the op audit, sync guard, liveness and
+# in-place audits of the decode chunk at qwen3-0.6b's full width, cut to
+# PAGED_DEPTH layers, contiguous and paged, kernels on and under
+# REPRO_DISABLE_KERNELS=1; (c) the four examples as subprocesses.
+ANALYSIS_WORK = dict(slots=4, prompt=64, gen=6, max_len=512, decode_chunk=4)
+ANALYSIS_GUARD = dict(n=8, lo=32, hi=256, gen=12, max_len=512)
+EXAMPLE_CKPT = ROOT / "build" / "examples_ckpt"
+EXAMPLES = [("torch_quickstart.py", []), ("torch_serve_batch.py", []),
+            ("torch_finetune_lm.py", ["--steps", "40", "--resume-demo",
+                                      "--ckpt", str(EXAMPLE_CKPT)]),
+            ("torch_sparsity_tradeoff.py", ["--steps", "20"])]
+# Runs an example as __main__ in a child process and prints, as its last
+# line, its kernels' launches beside the exact counts its serves and train
+# steps must make (_want_serve_launches, _want_train_launches).
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+sys.path[:0] = ["src", "."]
+import chip_smoke as cs
+from repro_torch import kernels
+from repro_torch.serving import engine as E
+from repro_torch.train import trainer as T
+want = {w.__name__: 0 for w in kernels.wrappers()}
+def add(d):
+    for k, v in d.items():
+        want[k] += v
+serve0, run0 = E.Engine.serve, T.Trainer.run
+def serve(self, *a, **kw):
+    out = serve0(self, *a, **kw)
+    add(cs._want_serve_launches(self.cfg, want, self.last_steps_run,
+                                self.last_stats.prefill_batches))
+    return out
+def run(self, *a, **kw):
+    rep = run0(self, *a, **kw)
+    add(cs._want_train_launches(self.cfg, want,
+                                rep["final_step"] - self.start_step))
+    return rep
+E.Engine.serve, T.Trainer.run = serve, run
+path = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(path, run_name="__main__")
+print("LAUNCHES " + json.dumps({"got": {w.__name__: w.launches
+                                        for w in kernels.wrappers()},
+                                "want": want}))
+"""
+
+
+def analysis_kernels(torch, lib):
+    """(a) Every kernel function of the build against Hopper's limits at
+    the registry's shapes, and the launchers' shared-memory queries
+    against the audit's restatements; one line per function."""
+    from repro_torch.analysis import kernel_audit as ka
+    rows, vs = ka.audit_build(lib=lib)
+    launches, _ = ka.registry_sweep()
+    threads = {}
+    for r in rows:
+        t = threads.setdefault(r.source, ka.launch_threads(r.source))
+        print(f"[29] {r.source}: {r.function}: {r.registers} registers x "
+              f"{t.get(r.base)} threads, {r.static_smem} B static + "
+              f"{ka.dynamic_of(r, launches)} B dynamic smem, {r.spill} B "
+              f"spilled", flush=True)
+    if vs:
+        raise AssertionError("kernel audit:\n  " + "\n  ".join(map(str, vs)))
+    return rows
+
+
+def _analysis_cfg(paged):
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                              num_layers=PAGED_DEPTH)
+    return cfg.with_spt(**SERVE_CFG, **(PAGED if paged else {}))
+
+
+def analysis_card(torch):
+    """(b) The decode chunk's op, sync, liveness and in-place audits at
+    qwen3-0.6b's full width on the card, each layout with the kernels on
+    and under the kill switch; the kernels reached equal the CPU audit's;
+    launches exact; then the sync guard over a burst serve of each
+    layout."""
+    from repro_torch import kernels
+    from repro_torch.analysis import donation, liveness
+    from repro_torch.analysis import op_audit as oa
+    from repro_torch.analysis import trace_guard as tg
+    from repro_torch.serving.engine import Engine
+    from repro_torch.launch import roofline
+    wrappers = kernels.wrappers()
+    total = {w.__name__: 0 for w in wrappers}
+    model = _perturbed_model(torch, _analysis_cfg(False), seed=29)
+    w = ANALYSIS_WORK
+    bad = []
+    for paged in (False, True):
+        cfg = _analysis_cfg(paged)
+        for off in (False, True):
+            cpu_name = ("engine.decode_chunk_paged" if paged and not off
+                        else "engine.decode_chunk_kernels_off" if off
+                        else "engine.decode_chunk")
+            entry = (f"engine.decode_chunk[{'paged' if paged else 'contiguous'}"
+                     f"{', kernels off' if off else ''}]")
+            for x in wrappers:
+                x.launches = 0
+            with oa.kill_switch(off):
+                run = oa.engine_chunk_run(
+                    entry, cfg, "cuda", slots=w["slots"], prompt=w["prompt"],
+                    gen=w["gen"], max_len=w["max_len"],
+                    decode_chunk=w["decode_chunk"], model=model,
+                    sync_debug=True)
+            got = {x.__name__: x.launches for x in wrappers}
+            eng = run.info["engine"]
+            want = _want_serve_launches(
+                cfg, got, eng.last_steps_run, eng.last_stats.prefill_batches)
+            if off:
+                want = {k: 0 for k in got}
+            if got != want:
+                raise AssertionError(f"{entry}: launches {got} != {want}")
+            for k, v in got.items():
+                total[k] += v
+            exact = oa.PAGED_KERNELS if paged else oa.DECODE_KERNELS
+            vs = oa._chunk_rules(run, "none" if off else "exact", exact)
+            cpu_set = oa.run_entry(cpu_name, "cpu").log.kernel_set()
+            if run.log.kernel_set() != cpu_set:
+                vs.append(oa.Violation(
+                    "ops.kernel-missing", entry,
+                    f"the card reached {sorted(run.log.kernel_set())}, the "
+                    f"CPU audit {sorted(cpu_set)}"))
+            rep = liveness.report_of(entry, run.log)
+            if rep.signature.peak_live_bytes <= 0:
+                vs.append(oa.Violation("liveness.empty", entry, "no bytes"))
+            if rep.signature.inplace_bytes <= 0:
+                vs.append(oa.Violation("liveness.inplace-unused", entry,
+                                       "no cache written in place"))
+            if not off:
+                caches = roofline.storage_bytes(run.info["caches"])
+                arun = run.info["admit"]
+                vs += donation.copied_violations(run, chunk=True)
+                vs += donation.grown_violations(run, caches, "the caches")
+                vs += donation.copied_violations(arun, chunk=False)
+                vs += donation.grown_violations(
+                    arun, max(arun.info["prefill_peak"],
+                              3 * arun.info["rows_bytes"]), "the admission")
+            print(f"[29] {entry}: kernels {sorted(run.log.kernel_set())} "
+                  f"(CPU audit alike), launches exact, {run.log.aten_ops} "
+                  f"ops; peak {rep.signature.peak_live_bytes:,} B "
+                  f"(temporaries {run.log.peak:,} B) against the card's "
+                  f"max_memory_allocated rise {run.card_growth:,} B over the "
+                  f"chunk; in place {rep.signature.inplace_bytes:,} B; "
+                  f"{len(run.sync_sites)} sync-debug warnings at "
+                  f"{sorted(set(run.sync_sites))}; peak at {rep.peak_at}",
+                  flush=True)
+            bad += vs
+        g = ANALYSIS_GUARD
+        eng = Engine(cfg, model, max_len=g["max_len"], num_slots=8,
+                     decode_chunk=16, device="cuda")
+        for x in wrappers:
+            x.launches = 0
+        with tg.guard_engine(eng, raise_on_violation=False) as guard:
+            eng.run(_requests(g["n"], g["lo"], g["hi"], g["gen"],
+                              cfg.vocab_size, seed=29))
+        got = {x.__name__: x.launches for x in wrappers}
+        want = _want_serve_launches(cfg, got, eng.last_steps_run,
+                                    eng.last_stats.prefill_batches)
+        if got != want:
+            raise AssertionError(f"guarded serve: launches {got} != {want}")
+        for k, v in got.items():
+            total[k] += v
+        its = guard.iterations
+        print(f"[29] sync guard, {'paged' if paged else 'contiguous'}: "
+              f"{len(its)} iterations, {sum(i.syncs for i in its)} host "
+              f"reads for {sum(i.chunks for i in its)} chunks + "
+              f"{sum(i.groups for i in its)} prefill groups"
+              + (" + one peak-pages read an iteration" if paged else "")
+              + f", {len(guard.modules)} modules built", flush=True)
+        bad += guard.violations()
+    if bad:
+        raise AssertionError("analysis on the card:\n  "
+                             + "\n  ".join(map(str, bad)))
+    return total
+
+
+def analysis_examples(torch):
+    """(c) The four examples as subprocesses on the card, all at once (so
+    quickstart's CUDA-event step times are taken beside the other three),
+    each exit code 0, each kernel on its path launched, the launches equal
+    its serves' and train steps' exact counts."""
+    import shutil
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    total = {}
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = [(name, subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUNNER, str(ROOT / "examples" / name),
+         *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for name, args in EXAMPLES]
+    try:
+        for name, p in procs:
+            out, _ = p.communicate(timeout=600)
+            if p.returncode:
+                print(out[-4000:], flush=True)
+                raise AssertionError(f"{name} exited {p.returncode}")
+            lines = out.strip().splitlines()
+            counts = json.loads(lines[-1].split("LAUNCHES ", 1)[1])
+            got, want = counts["got"], counts["want"]
+            if got != want:
+                raise AssertionError(f"{name}: launches {got} != {want}")
+            path = sorted(k for k, v in want.items() if v)
+            if not path or any(got[k] == 0 for k in path):
+                raise AssertionError(f"{name}: kernels {path} not all "
+                                     f"launched: {got}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            shown = [ln for ln in lines[:-1] if "ms/step" in ln
+                     or "final_step" in ln or '"setting"' in ln
+                     or "decode_tok_s" in ln]
+            print(f"[29] {name}: exit 0, launches exact on {path} "
+                  f"({sum(got.values())}); " + " | ".join(
+                      x.strip() for x in shown[:6]), flush=True)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    print(f"[29] the four examples took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
                                        "families", "infra", "mesh",
                                        "meshserve", "dryrun", "shard",
-                                       "seqsplit"),
+                                       "seqsplit", "analysis"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -5712,8 +5925,9 @@ def main() -> int:
                          "restart (1-3, 23), multi-GPU fine-tuning "
                          "(1-3, 24), serving under a mesh (1-3, 25), "
                          "the dry run against the card (1-3, 26), the "
-                         "sharded storage of the state (1-3, 27) or "
-                         "attention split as JAX splits it (1-3, 28) "
+                         "sharded storage of the state (1-3, 27), "
+                         "attention split as JAX splits it (1-3, 28) or "
+                         "the analysis layer and the examples (1-3, 29) "
                          "alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5739,10 +5953,12 @@ def main() -> int:
     lib_path = kernels.build(verbose=True)
     kernels.library()
     print(f"[2] built the kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    usage = ptxas_usage()
-    for src, fn, regs, smem, spill in usage:
-        print(f"[2] ptxas {src}: {fn}: {regs} registers, {smem} bytes static "
-              f"smem, {spill} bytes spilled", flush=True)
+    from repro_torch.analysis import kernel_audit
+    usage = kernel_audit.ptxas_usage()
+    for u in usage:
+        print(f"[2] ptxas {u.source}: {u.function}: {u.registers} registers, "
+              f"{u.static_smem} bytes static smem, {u.spill} bytes spilled",
+              flush=True)
     sass = sass_counts(lib_path)
     for fn, n in sass.items():
         print(f"[2] SASS {fn}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA", flush=True)
@@ -5789,10 +6005,9 @@ def main() -> int:
         row["hybrid_shapes"] = hybrid.get(row["name"], [])
         row["family_shapes"] = families.get(row["name"], [])
     for row in rows[:2]:                # the bodies of kernels 1 and 2
-        row["ptxas"] = [f"{fn}: {regs} registers, {smem} B static smem, "
-                        f"{spill} B spilled"
-                        for src, fn, regs, smem, spill in usage
-                        if src == Path(row["source"]).stem]
+        row["ptxas"] = [f"{u.function}: {u.registers} registers, "
+                        f"{u.static_smem} B static smem, {u.spill} B spilled"
+                        for u in usage if u.source == Path(row["source"]).stem]
     for row in rows:
         lib = ("no single PyTorch call computes it, so library_ms is n/a"
                if row["library_ms"] is None
@@ -5815,7 +6030,7 @@ def main() -> int:
                        "mesh_serve_paged", "mesh_serve_hybrid",
                        "mesh_serve_shards", "dryrun_train",
                        "dryrun_decode", "shard_train", "shard_serve",
-                       "seqsplit_serve")}
+                       "seqsplit_serve", "analysis", "examples")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
@@ -6014,6 +6229,23 @@ def main() -> int:
               f"every split decode", flush=True)
         paths.update(seq_split_serve(torch))
         print(f"[28] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "analysis"):
+        # 29. the analysis layer on the card, and the examples
+        t0 = time.perf_counter()
+        print(f"[29] the analysis layer: (a) the kernel audit of phase 2's "
+              f"build; (b) the decode chunk's op, sync, liveness and "
+              f"in-place audits at qwen3-0.6b's full width ({PAGED_DEPTH} "
+              f"layers), contiguous and paged, kernels on and off, and the "
+              f"sync guard; (c) the four examples", flush=True)
+        analysis_kernels(torch, kernels.library())
+        t1 = time.perf_counter()
+        print(f"[29] (a) took {t1 - t0:.1f} s", flush=True)
+        paths["analysis"].update(analysis_card(torch))
+        t2 = time.perf_counter()
+        print(f"[29] (b) took {t2 - t1:.1f} s", flush=True)
+        paths["examples"].update(analysis_examples(torch))
+        print(f"[29] (c) took {time.perf_counter() - t2:.1f} s; phase 29 "
+              f"took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

@@ -57,6 +57,12 @@ SIGNATURES = {
                                       + [_F] + [_I] * 3 + [_P]),
     "repro_dense_decode_paged": [_I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 3
                                 + [_P],
+    # the dynamic shared memory each launcher asks for (analysis/
+    # kernel_audit.py holds its Python restatements to these)
+    "repro_pq_assign_smem": [_I] * 4,
+    "repro_sparse_attention_smem": [_I] * 3,
+    "repro_grouped_ffn_smem": [_I] * 4,
+    "repro_decode_ffn_smem": [_I] * 7,
 }
 
 _lock = threading.Lock()

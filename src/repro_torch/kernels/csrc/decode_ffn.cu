@@ -550,6 +550,31 @@ __global__ void __launch_bounds__(SMALL) decode_ffn_out(
   y[(size_t)b * d + n] = from_f<T>(o);
 }
 
+// Dynamic shared memory of the three passes (b1 hidden, b3 output part,
+// b4 combine) for B slots of GA choices, x of elem bytes.
+struct Smem {
+  size_t b1, b3, b4;
+  bool x_f32, chunked;
+};
+
+inline Smem smem_of(int B, int d, int GA, int F, int r, size_t elem) {
+  const int BGA = B * GA;
+  const size_t list = sizeof(float) * ((BGA + 4) & ~3);
+  const size_t rest = sizeof(float) * (WARPS * PMAX * HC + WARPS * PMAX * 32 +
+                                       PMAX * 2 * R_MAX + 2 * R_MAX * HC);
+  Smem s;
+  // x staged as f32 where it fits, else as stored (bf16 past d ~6,100)
+  s.x_f32 = list + sizeof(float) * (size_t)PMAX * d + rest <= SMEM_MAX;
+  s.b1 = list + (s.x_f32 ? sizeof(float) : elem) * (size_t)PMAX * d + rest;
+  auto part_bytes = [&](int fc) {
+    return list + sizeof(float) * ((size_t)PMAX * fc + WARPS * PMAX * OC);
+  };
+  s.chunked = part_bytes(F) > SMEM_MAX;
+  s.b3 = part_bytes(s.chunked ? FCH : F);
+  s.b4 = sizeof(float) * ((size_t)GA * r * (1 + cdiv(d, OC)) + r * SMALL);
+  return s;
+}
+
 template <typename T>
 int launch(const void* x, const int32_t* choice, const float* gate,
            const void* wi, const void* wg, const void* wo,
@@ -557,22 +582,12 @@ int launch(const void* x, const int32_t* choice, const float* gate,
            int G, int GA, int F, int r, float scale, int act,
            cudaStream_t st) {
   const int BGA = B * GA;
-  const size_t list = sizeof(float) * ((BGA + 4) & ~3);
-  const size_t rest = sizeof(float) * (WARPS * PMAX * HC + WARPS * PMAX * 32 +
-                                       PMAX * 2 * R_MAX + 2 * R_MAX * HC);
-  // x staged as f32 where it fits, else as stored (bf16 past d ~6,100)
-  const bool x_f32 = list + sizeof(float) * (size_t)PMAX * d + rest <= SMEM_MAX;
-  const size_t b1 = list + (x_f32 ? sizeof(float) : sizeof(T)) * (size_t)PMAX * d + rest;
-  auto hidden = x_f32 ? decode_ffn_hidden<T, float> : decode_ffn_hidden<T, T>;
-  auto part_bytes = [&](int fc) {
-    return list + sizeof(float) * ((size_t)PMAX * fc + WARPS * PMAX * OC);
-  };
-  const bool chunked = part_bytes(F) > SMEM_MAX;
-  const size_t b3 = part_bytes(chunked ? FCH : F);
-  auto part = chunked ? decode_ffn_out_part<T, true>
-                      : decode_ffn_out_part<T, false>;
-  const size_t b4 =
-      sizeof(float) * ((size_t)GA * r * (1 + cdiv(d, OC)) + r * SMALL);
+  const Smem sm = smem_of(B, d, GA, F, r, sizeof(T));
+  const size_t b1 = sm.b1, b3 = sm.b3, b4 = sm.b4;
+  auto hidden = sm.x_f32 ? decode_ffn_hidden<T, float>
+                         : decode_ffn_hidden<T, T>;
+  auto part = sm.chunked ? decode_ffn_out_part<T, true>
+                         : decode_ffn_out_part<T, false>;
   if (b1 > SMEM_MAX || b3 > SMEM_MAX || b4 > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -636,4 +651,12 @@ extern "C" int repro_decode_ffn(
     return launch<__nv_bfloat16>(x, ch, gt, w_inner, w_gate, w_outer, lo, sp,
                                  y, B, d, G, GA, F, lr, scale, act, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory the launcher asks for: which 0 = the hidden pass,
+// 1 = the output part pass, 2 = the combine (r = 0 without LoRA).
+extern "C" int repro_decode_ffn_smem(int dtype, int B, int d, int GA, int F,
+                                     int r, int which) {
+  const Smem s = smem_of(B, d, GA, F, r, dtype == 1 ? 2 : 4);
+  return (int)(which == 0 ? s.b1 : which == 1 ? s.b3 : s.b4);
 }

@@ -1112,3 +1112,15 @@ extern "C" int repro_grouped_ffn(
                       C, F, lr, scale, act, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory the launcher asks for at (dtype, d, F, rank): the
+// bf16 resident body's, or its wide form's where that does not fit; the
+// f32 body's at the largest row tile that fits (r = 0 without LoRA).
+extern "C" int repro_grouped_ffn_smem(int dtype, int d, int F, int r) {
+  if (dtype == 1)
+    return (int)(wg::resident_fits(d, F) ? wg::smem_bytes(d, F)
+                                         : wg::wide_smem_bytes());
+  int rt = 4;
+  while (rt > 1 && smem_bytes(8 * rt, d, F, r) > 232448) rt >>= 1;
+  return (int)smem_bytes(8 * rt, d, F, r);
+}

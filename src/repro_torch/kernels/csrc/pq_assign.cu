@@ -320,3 +320,12 @@ extern "C" int repro_pq_assign(int dtype, const void* x, const void* codebooks,
   if (dtype == 1) return launch<__nv_bfloat16>(x, cb, out, rows, M, E, DP, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory the launcher asks for at (dtype, M, E, d'): the
+// main-path body's attribute, set once at M_FAST books; the general body
+// uses none.
+extern "C" int repro_pq_assign_smem(int dtype, int M, int E, int DP) {
+  if (E == E_FAST && DP == DP_FAST && M <= M_FAST)
+    return (int)fast_smem_bytes(M_FAST, dtype == 1 ? 2 : 4);
+  return 0;
+}

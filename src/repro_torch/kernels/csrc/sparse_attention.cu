@@ -723,3 +723,11 @@ extern "C" int repro_sparse_attention(
 #undef REPRO_SA_BF16
   return (int)err;
 }
+
+// Dynamic shared memory the launcher asks for at (dtype, dh, M): the bf16
+// body's; the f32 body uses none.
+extern "C" int repro_sparse_attention_smem(int dtype, int dh, int M) {
+  if (dtype != 1) return 0;
+  return (int)(M <= 16 ? bf16_smem_bytes<4>(dh, M)
+                       : bf16_smem_bytes<8>(dh, M));
+}

@@ -65,12 +65,13 @@ def apply_variant(cfg: ModelConfig, variant: str) -> ModelConfig:
 
 
 # ------------------------------------------------------------- counting
-def count(step: Callable, args: Sequence, target: str = "cuda"
-          ) -> roofline.Counter:
-    """Run ``step(*args)`` once under a roofline counter: ``args`` held as
-    the arguments, the results counted as the outputs.  Meta tensors
-    stand for ``target``'s path (``kernels.meta_target``)."""
-    counter = roofline.Counter().hold(*args)
+def count(step: Callable, args: Sequence, target: str = "cuda",
+          counter: Optional[roofline.Counter] = None) -> roofline.Counter:
+    """Run ``step(*args)`` once under a roofline counter (a new one, or
+    ``counter``): ``args`` held as the arguments, the results counted as
+    the outputs.  Meta tensors stand for ``target``'s path
+    (``kernels.meta_target``)."""
+    counter = (roofline.Counter() if counter is None else counter).hold(*args)
     with kernels.meta_target(target), counter:
         out = step(*args)
     return counter.outputs(out)
@@ -110,7 +111,8 @@ def cell_step(cfg: ModelConfig, shape: ShapeSpec, model=None,
 
 
 def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
-               loss_chunk: int = 512, target: str = "cuda"
+               loss_chunk: int = 512, target: str = "cuda",
+               counter: Optional[roofline.Counter] = None
                ) -> roofline.Counter:
     """Trace one step of the cell on the meta device at rank 0's shapes
     (JAX: ``lower_cell``).  The train step takes the abstract state rank
@@ -118,7 +120,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     the batch; prefill and decode the model rank 0 stores
     (``abstract_model``), the decode caches of its slots
     (``steps.cache_local_shapes``) and its tokens.  mesh: a
-    ``make_dry_mesh`` (or None: one device).  Returns the counter
+    ``make_dry_mesh`` (or None: one device).  counter: the counter to run
+    under (default a new ``roofline.Counter``).  Returns the counter
     (``roofline.analyze``, ``Counter.memory``)."""
     rules = rules_for_mesh(mesh) if mesh is not None else None
     with axis_rules(rules):
@@ -140,7 +143,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                     model.cfg, ins["token"].shape[0], shape.seq_len,
                     shard=getattr(model, "shard", None))
                 args = (model, caches, ins["token"], ins["pos"])
-        return count(step, args, target)
+        return count(step, args, target, counter)
 
 
 def _unit_config(cfg: ModelConfig, units: int) -> ModelConfig:

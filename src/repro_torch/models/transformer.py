@@ -940,10 +940,8 @@ def write_slot_caches_rows(dst: dict, rows: dict, slots: torch.Tensor
     engine slot, in place; the whole row is replaced, which doubles as the
     slot's recycling reset.  slots: (Bp,) int; -1 marks a bucket-padding
     row, which is dropped."""
-    keep = torch.nonzero(slots >= 0).flatten()
-    dest = slots[keep].long()
     for part, name, blk in _named_blocks(dst):
-        _write_rows(blk, rows[part][name], keep, dest, part == "units")
+        _write_rows(blk, rows[part][name], slots, part == "units")
     return dst
 
 
@@ -954,12 +952,16 @@ def _named_blocks(caches: dict):
             yield part, name, blk
 
 
-def _write_rows(blk: dict, rows: dict, keep, dest, stacked: bool) -> None:
+def _write_rows(blk: dict, rows: dict, slots: torch.Tensor,
+                stacked: bool) -> None:
+    """Row i of each cache into slot ``slots[i]``, -1 rows dropped, by a
+    masked put: no data-dependent shape, so no device sync."""
+    keep = slots >= 0
     for k, v in blk.items():
         if stacked:                                       # (U, B, ...)
-            v[:, dest] = rows[k][:, keep].to(v.dtype)
+            kvp.put_masked(v, (slice(None), slots), rows[k], keep, axis=1)
         else:                                             # (B, ...)
-            v[dest] = rows[k][keep].to(v.dtype)
+            kvp.put_masked(v, (slots,), rows[k], keep)
 
 
 def write_slot_caches_paged_rows(dst: dict, rows: dict, slots: torch.Tensor,
@@ -979,12 +981,10 @@ def write_slot_caches_paged_rows(dst: dict, rows: dict, slots: torch.Tensor,
     pt_rows = torch.where(slots[:, None] >= 0,
                           page_table[slots.clamp(0, ns - 1).long()],
                           -1)                             # (Bp, MP)
-    keep = torch.nonzero(slots >= 0).flatten()
-    dest = slots[keep].long()
     for part, name, blk in _named_blocks(dst):
         if not _kind_paged(cfg, name.split("_", 1)[1], True):
             # recurrent states (the tail's too): per-slot rows
-            _write_rows(blk, rows[part][name], keep, dest, part == "units")
+            _write_rows(blk, rows[part][name], slots, part == "units")
             continue
         for key, pool in blk.items():                     # (U, P, ...)
             seqs = rows[part][name][key]                  # (U, Bp, ...)

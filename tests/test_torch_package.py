@@ -49,8 +49,17 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The package (its analysis layer too), chip_smoke.py, the port's
+    examples and its scripts."""
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py"))
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
     assert len(files) > 20
+    assert {f.name for f in files} >= {
+        "op_audit.py", "kernel_audit.py", "torch_quickstart.py",
+        "torch_serve_batch.py", "torch_finetune_lm.py",
+        "torch_sparsity_tradeoff.py", "torch_update_baselines.py",
+        "torch_kernel_ab.py"}
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] == "jax" or m == "repro"
            or m.startswith("repro.")]
@@ -135,7 +144,9 @@ def test_kernel_modules_import_without_nvcc_and_build_nothing():
                                "fused_sparse_decode",
                                "fused_sparse_decode_paged",
                                "dense_decode_paged", "grouped_ffn",
-                               "grouped_ffn_h_elems", "decode_ffn")}
+                               "grouped_ffn_h_elems", "decode_ffn",
+                               "pq_assign_smem", "sparse_attention_smem",
+                               "grouped_ffn_smem", "decode_ffn_smem")}
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

@@ -72,8 +72,9 @@ Phases (each raises on failure; nothing is caught):
      operations over the peak rate), and for kernels 9 and 10 a torch
      yardstick of the same function in bf16, for kernel 1 one in f32
      (baddbmm + argmin), at the qwen3 and at the paper's shapes;
-  4. full-width qwen3-0.6b served in bf16 through Engine.run (16 requests,
-     prompts of 128-2048 tokens, 64 new tokens, 8 slots, max_len 4096)
+  4. full-width qwen3-0.6b (14 of 28 layers) served in bf16 through
+     Engine.run (16 requests, prompts of 128-2048 tokens, 64 new tokens,
+     8 slots, max_len 4096)
      with the launch counters zeroed just before and read just after;
   5. the same serve, depth cut to 4 layers, on the paged KV layout
      (pages of 128, a pool of 64 pages: a quarter of the contiguous
@@ -97,7 +98,7 @@ Phases (each raises on failure; nothing is caught):
      4096) at full width, one layer, bf16: 3 steps of Trainer.run at 4 x
      1024 under apply_variant "spt" (kernels 1, 2, 4 and 9 exactly 4, 2,
      2 and 2 times per layer per step), then "lora" (no kernel);
-  10. opt-2.7b and llama-2.7b (full width, 4 of 32 layers, bf16): 2
+  10. opt-2.7b and llama-2.7b (full width, 2 of 32 layers, bf16): 2
      steps of Trainer.run
      at 4 x 1024 and a profiled step each; opt-2.7b's lm_prefill at 4 x
      1024 (kernels 1, 2, 4, 9) and a serve of 8 requests (prompts
@@ -147,13 +148,13 @@ Phases (each raises on failure; nothing is caught):
      tokens; the danube configs' last prompt 4,608 tokens, past their
      4,096 window; kernels 6, 9, 10) and one "spt" train step at 2 x
      1024 (kernels 1, 2, 4, 9), launch counts exact;
-  17. recurrentgemma-9b at full width and depth (38 layers), bf16:
-     Engine.serve of a burst of 8 requests (prompts 128-2048, the last
-     3,072, 32 new tokens, max_len 4096; kernel 6 once per attention
-     layer — 12 of 38 — per decode step, kernels 9 and 10 once per layer),
-     a decode step's split, 2 "spt" train steps at 4 x 1024 (the 36 unit
-     layers' kernels twice a step, the 2 tail layers' once) and a
-     profiled step, then 2 "lora" steps (no kernel);
+  17. recurrentgemma-9b at full width, 14 of its 38 layers (four units
+     and the tail), bf16: Engine.serve of a burst of 8 requests (prompts
+     128-2048, the last 3,072, 32 new tokens, max_len 4096; kernel 6 once
+     per attention layer — 4 of 14 — per decode step, kernels 9 and 10
+     once per layer), a decode step's split, 2 "spt" train steps at 4 x
+     1024 (the 12 unit layers' kernels twice a step, the 2 tail layers'
+     once) and a profiled step, then 2 "lora" steps (no kernel);
   18. recurrentgemma-9b cut to 5 layers (one unit and the tail) at d
      1024, 16 query heads of 256 on 1 kv head kept (R = 16), window 64,
      in f32, kernels on against REPRO_DISABLE_KERNELS=1: greedy streams
@@ -183,7 +184,7 @@ Phases (each raises on failure; nothing is caught):
      and again with every key selected; mamba2: identical, no launch),
      kernels 6, 9, 10 held to their plain versions, one train
      step's loss (rel 1e-4) and gradient cosine (>= 0.999);
-  23. checkpoint/restart of full-width qwen3-0.6b (4 of 28 layers;
+  23. checkpoint/restart of full-width qwen3-0.6b (2 of 28 layers;
      bf16, spt, 4 x 1024):
      run A trains 6 steps uninterrupted (checkpoints every 2); run B, a
      child process of this script, the same run, sends itself SIGTERM
@@ -1140,7 +1141,7 @@ def check_sparse_attention(torch, gen):
                                      max_score=M_BOOKS, **sel)
                 kw = dict(scale=dh ** -0.5, **sel)
                 got = _twice(torch, lambda: ops.sparse_attention(
-                    q, k, v, cq, ck, thr, **kw),
+                    q, k, v, cq, ck, thr, codewords=E_WORDS, **kw),
                     f"sparse_attention {dtn} dh={dh} {name}")
                 want = ref.sparse_attention_ref(q, k, v, cq, ck, thr, **kw)
                 err = close(got, want,
@@ -1150,7 +1151,7 @@ def check_sparse_attention(torch, gen):
                 if name != "train" or dt != torch.bfloat16:
                     continue
                 ms_dh[dh] = time_ms(lambda: ops.sparse_attention(
-                    q, k, v, cq, ck, thr, **kw), 20)
+                    q, k, v, cq, ck, thr, codewords=E_WORDS, **kw), 20)
                 if dh != DH:
                     continue
                 plain = time_ms(lambda: ref.sparse_attention_ref(
@@ -1571,11 +1572,12 @@ def check_paper_shapes(torch, gen):
                    heads_per_batch=heads, rep=1)
         akw = dict(scale=dh ** -0.5, **sel)
         got = _twice(torch, lambda: sa_ops.sparse_attention(
-            q, k, v, cq, ck, thr, **akw), f"sparse_attention {case}")
+            q, k, v, cq, ck, thr, codewords=E_WORDS, **akw),
+            f"sparse_attention {case}")
         err = close(got, sa_ref.sparse_attention_ref(q, k, v, cq, ck, thr,
                                                      **akw), BF16_TOL)
         ms = time_ms(lambda: sa_ops.sparse_attention(
-            q, k, v, cq, ck, thr, **akw), 20)
+            q, k, v, cq, ck, thr, codewords=E_WORDS, **akw), 20)
         kept = sa_ref.newest_ties(masked_scores(cq, ck, **sel), thr)
         bnd = cost.sparse_attention(
             q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
@@ -1769,7 +1771,7 @@ def check_moe_shapes(torch, gen):
 
 # recurrentgemma-9b's training step (batch 4 x 1024) through its local
 # attention: 16 query heads of 256 on 1 kv head (rep 16), M = 32 books,
-# max_score 32 (kernel 2's SCORE_MAX), window 2048; and its FFN widths
+# max_score 32, window 2048; and its FFN widths
 # (d 4096, F = 12,288 / 8 groups = 1,536, GeGLU, LoRA r = 16).
 HYB_HEADS, HYB_DH, HYB_M, HYB_WINDOW = 16, 256, 32, 2048
 HYB_D, HYB_F = 4096, 1536
@@ -1839,7 +1841,8 @@ def check_hybrid_shapes(torch, gen):
                                 generator=gen).to(dt) for _ in range(2))
             akw = dict(scale=dh ** -0.5, **sel)
             got = _twice(torch, lambda: sa_ops.sparse_attention(
-                q, k, v, cq, ck, thr, **akw), f"sparse_attention {dtn} {case}")
+                q, k, v, cq, ck, thr, codewords=E_WORDS, **akw),
+                f"sparse_attention {dtn} {case}")
             err = close(got, sa_ref.sparse_attention_ref(
                 q, k, v, cq, ck, thr, **akw),
                 BF16_TOL if dt == bf16 else F32_TOL)
@@ -1848,7 +1851,7 @@ def check_hybrid_shapes(torch, gen):
                       f"{err:.3e}; bit-identical twice", flush=True)
                 continue
             ms = time_ms(lambda: sa_ops.sparse_attention(
-                q, k, v, cq, ck, thr, **akw), 20)
+                q, k, v, cq, ck, thr, codewords=E_WORDS, **akw), 20)
             rows = kept.reshape(gkv, hq * n, n).any(1)
             bnd = cost.sparse_attention(
                 q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
@@ -1984,7 +1987,8 @@ def check_family_shapes(torch, gen):
                                 generator=gen).to(dt) for _ in range(2))
             akw = dict(scale=dh ** -0.5, **sel)
             got = _twice(torch, lambda: sa_ops.sparse_attention(
-                q, k, v, cq, ck, thr, **akw), f"sparse_attention {dtn} {case}")
+                q, k, v, cq, ck, thr, codewords=E_WORDS, **akw),
+                f"sparse_attention {dtn} {case}")
             err = close(got, sa_ref.sparse_attention_ref(
                 q, k, v, cq, ck, thr, **akw),
                 BF16_TOL if dt == bf16 else F32_TOL)
@@ -1993,7 +1997,7 @@ def check_family_shapes(torch, gen):
                       f"{err:.3e}; bit-identical twice", flush=True)
                 continue
             ms = time_ms(lambda: sa_ops.sparse_attention(
-                q, k, v, cq, ck, thr, **akw), 20)
+                q, k, v, cq, ck, thr, codewords=E_WORDS, **akw), 20)
             bnd = cost.sparse_attention(
                 q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
                 rows_read=int(kept.any(1).sum())).bound_ms()
@@ -2089,16 +2093,19 @@ PAGED_POOL = 64          # pages of 128: a quarter of 8 slots x 4096 rows
 # The serve loop is host-bound (a decode step's wall time grows with its
 # launches, ~200 a layer), so the script's longest paths cut depth, at
 # full width, to keep the whole run well inside its time limit: qwen3-0.6b
-# 28 -> 4 layers in phases 26-28 (7 until phase 29 came; phase 4 keeps
-# all 28), -> 14 in phase 24 and -> 4 in phase 5 (28 and 7 until phase 28
-# came), in phase 12 (7 until phase 27 came) and in phase 29,
-# opt-2.7b and llama-2.7b 32 -> 4 in phase 10, phi-3-vision-4.2b 32 -> 4
-# in phase 19 (16 each until phase 25 came, 8 until its model shards
-# came)
+# 28 -> 4 layers in phases 26-28 (7 until phase 29 came), -> 14 in phase
+# 4 (28 until phase 30 came), -> 4 in phase 24 (14 until phase 29 came, 7
+# until phase 30 came) and in phase 5 (28 and 7 until phase 28 came), in
+# phase 12 (7 until phase 27 came) and in phase 29, opt-2.7b and
+# llama-2.7b 32 -> 2 in phase 10 (4 until phase 30 came), phi-3-vision-4.2b
+# 32 -> 4 in phase 19 (16 each until phase 25 came, 8 until its model
+# shards came), recurrentgemma-9b 38 -> 14 in phase 17 (four units and the
+# tail; 38 until phase 30 came)
+SERVE_DEPTH = 14
 CUT_DEPTH = 4
 PAGED_DEPTH = 4
 SERVER_DEPTH = 4
-PAPER_DEPTH = 4
+PAPER_DEPTH = 2
 PHI_DEPTH = 4
 # serve workloads (requests, prompt lengths lo-hi from numpy seed 2, new
 # tokens, max_len) on 8 slots, decode chunks of 16: phases 4-5, and the
@@ -2219,7 +2226,8 @@ def _want_serve_launches(cfg, launches, steps, prefill_batches,
 
 def serve_full_width(torch):
     from repro_torch import configs
-    cfg = configs.get_config("qwen3-0.6b").with_spt(**SERVE_CFG)
+    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                              num_layers=SERVE_DEPTH).with_spt(**SERVE_CFG)
     model = _perturbed_model(torch, cfg, seed=0)
     launches, _ = _serve(torch, model, cfg, "serve")
     decode_step_split(torch, model, cfg)
@@ -2828,9 +2836,9 @@ def _both_modes(fn):
     return out
 
 
-def train_agree_f32(torch):
-    """Four full-width layers in f32, batch 2 x 512, kernels on against
-    REPRO_DISABLE_KERNELS=1.  (a) Each block from the same input and
+def train_agree_f32(torch, cfg=None, rows=2, seq=512):
+    """Four full-width layers of qwen3-0.6b (or ``cfg``) in f32, batch 2 x
+    512 (rows x seq), kernels on against REPRO_DISABLE_KERNELS=1.  (a) Each block from the same input and
     output cotangent: its output to max-abs <= 1e-5 x max |out|, the
     gradient of its input and of every trainable leaf to <= 1e-4 x max
     |g|.  (b) The whole train step: loss to rel 1e-4 and the cosine of
@@ -2846,13 +2854,13 @@ def train_agree_f32(torch):
     from repro_torch.core.params import combine, leaves, unflatten
     from repro_torch.models import transformer
     from repro_torch.train.state import init_state
-    cfg = _train_cfg(torch, num_layers=4, dtype=torch.float32)
+    cfg = cfg or _train_cfg(torch, num_layers=4, dtype=torch.float32)
     state = init_state(cfg, seed=5, device="cuda")
     state["frozen"] = _map_tree(lambda t: t.float(), state["frozen"])
     gen = torch.Generator(device="cuda").manual_seed(6)
     for _, v in _c_leaves(state):
         v.copy_(torch.randn(v.shape, device="cuda", generator=gen) * 0.01)
-    batch = next(_batches(cfg, 2, 512, 1, seed=7))
+    batch = next(_batches(cfg, rows, seq, 1, seed=7))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
     # (a) block by block, teacher-forced by the oracle's hidden states
@@ -2891,11 +2899,12 @@ def train_agree_f32(torch):
                 continue
             worst[1] = max(worst[1], _grad_check(
                 f"block {u} grad {'.'.join(path)}", a, b, 1e-4))
-    print(f"  4 f32 blocks, same inputs: outputs within {worst[0]:.2e} x "
+    n = cfg.num_layers
+    print(f"  {n} f32 blocks, same inputs: outputs within {worst[0]:.2e} x "
           f"max, gradients within {worst[1]:.2e} x max |g|", flush=True)
 
     # (b) the whole train step
-    _step_agreement(torch, cfg, state, batch, gen, "4-layer f32 train step")
+    _step_agreement(torch, cfg, state, batch, gen, f"{n}-layer f32 train step")
 
 
 def _step_agreement(torch, cfg, state, batch, gen, label, min_cos=0.99):
@@ -3633,23 +3642,25 @@ def dense_registry_full_width(torch):
     return paths
 
 
-# phase 17: recurrentgemma-9b at full width and full depth (38 layers: 12
-# units of (rec, rec, attn) and a tail of 2 rec blocks, ~8.5 B
-# parameters): a burst of 8 requests through Engine.serve (prompts
+# phase 17: recurrentgemma-9b at full width, HYBRID_DEPTH of its 38 layers
+# (4 of its 12 units of (rec, rec, attn) and the tail of 2 rec blocks):
+# a burst of 8 requests through Engine.serve (prompts
 # 128-2048 from numpy seed 2, the last one 3,072 tokens so that the 2,048
 # window wraps in prefill; 32 new tokens, 8 slots, max_len 4096, chunks
 # of 16), then "spt" and "lora" training at 4 x 1024.
 HYBRID_WORK = dict(n=8, lo=128, hi=2048, gen=32, max_len=4096, long=3072)
+HYBRID_DEPTH = 14
 
 
 def hybrid_full_width(torch):
-    """Phase 17: recurrentgemma-9b (38 layers, bf16, random weights from
-    a seed): Engine.serve of HYBRID_WORK (kernel 6 once per attention
-    layer per decode step, 12 of 38; kernel 10 once per layer per step;
-    kernel 9 once per layer per prefill group) and a decode step's split;
-    then 2 steps of Trainer.run at 4 x 1024 under "spt" (kernels 1, 2, 4
-    per attention-layer forward, kernel 9 per layer forward: the 36 unit
-    layers twice a step, the 2 tail layers once) and a profiled step,
+    """Phase 17: recurrentgemma-9b (HYBRID_DEPTH layers, bf16, random
+    weights from a seed): Engine.serve of HYBRID_WORK (kernel 6 once per
+    attention layer per decode step, 4 of 14; kernel 10 once per layer
+    per step; kernel 9 once per layer per prefill group) and a decode
+    step's split; then 2 steps of Trainer.run at 4 x 1024 under "spt"
+    (kernels 1, 2, 4 per attention-layer forward, kernel 9 per layer
+    forward: the 12 unit layers twice a step, the 2 tail layers once)
+    and a profiled step,
     and 2 under "lora" (no kernel).  Counters zeroed just before each
     and read just after, launch counts exact.  Returns the launches by
     path."""
@@ -3657,7 +3668,8 @@ def hybrid_full_width(torch):
     from repro_torch.launch.dryrun import apply_variant
     paths = {}
     _free(torch)
-    cfg = configs.get_config("recurrentgemma-9b").with_spt(**SERVE_CFG)
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma-9b"),
+                              num_layers=HYBRID_DEPTH).with_spt(**SERVE_CFG)
     model = _perturbed_model(torch, cfg, seed=0)
     paths["hybrid_serve"], _ = _serve(torch, model, cfg,
                                       "recurrentgemma-9b serve",
@@ -4127,8 +4139,8 @@ def families_agree_f32(torch):
 # 4 run on the CPU over gloo (tests/test_torch_multigpu.py).
 MESH_TP = (2, 4)
 MESH_STEPS = 3
-MESH_DEPTH = 7           # of qwen3's 28 layers (28 until phase 28 came, 14
-                         # until phase 29 came)
+MESH_DEPTH = 4           # of qwen3's 28 layers (28 until phase 28 came, 14
+                         # until phase 29 came, 7 until phase 30 came)
 MESH_LOSS_TOL = 1e-3
 
 
@@ -4187,11 +4199,12 @@ def check_mesh_shapes(torch, gen):
                             generator=gen).to(bf16) for _ in range(2))
         akw = dict(scale=DH ** -0.5, **sel)
         got = _twice(torch, lambda: sa_ops.sparse_attention(
-            q, k, v, cq, ck, thr, **akw), f"sparse_attention {case}")
+            q, k, v, cq, ck, thr, codewords=E_WORDS, **akw),
+            f"sparse_attention {case}")
         err = close(got, sa_ref.sparse_attention_ref(q, k, v, cq, ck, thr,
                                                      **akw), BF16_TOL)
-        ms = time_ms(lambda: sa_ops.sparse_attention(q, k, v, cq, ck, thr,
-                                                     **akw), 20)
+        ms = time_ms(lambda: sa_ops.sparse_attention(
+            q, k, v, cq, ck, thr, codewords=E_WORDS, **akw), 20)
         rows = kept.reshape(TB * hk, hq // hk * TS, TS).any(1)
         bnd = cost.sparse_attention(
             q, k, v, cq, ck, thr, **akw, pairs=int(kept.sum()),
@@ -4785,10 +4798,10 @@ def _map_tree(fn, tree):
 # ~1e-2), so B's and C's losses can be held to A's: within
 # INFRA_LOSS_TOL, the largest difference printed.  Depth cut to
 # INFRA_DEPTH of 28 layers at full width since phase 24, 7 since phase
-# 25, 4 since its model shards (the checks do not depend on depth; the
-# launch counts follow the layers).
+# 25, 4 since its model shards, 2 since phase 30 (the checks do not
+# depend on depth; the launch counts follow the layers).
 INFRA_STEPS, INFRA_STOP, INFRA_LOSS_TOL = 6, 3, 2e-2
-INFRA_DEPTH = 4
+INFRA_DEPTH = 2
 INFRA_DIR = ROOT / "build" / "infra"
 
 
@@ -4984,12 +4997,13 @@ DRY_PEAK_TOL = 0.10          # predicted peak vs max_memory_allocated
 # workspace already, so no workspace term enters
 DRY_GROWTH_ABS = 256 * 1024
 DRY_GROWTH_REL = 1e-3
-_GROUPED_SHAPES = set()      # (dtype, d, F) of every kernel-9 launch
+_GROUPED_SHAPES = set()      # (dtype, d, F, rank) of every kernel-9 launch
 
 
 def record_grouped_shapes():
     """Wrap kernel 9's wrapper (in its module, where every caller looks it
-    up) to note each launch's (dtype, d, F): phase 26 holds the h scratch
+    up) to note each launch's (dtype, d, F, the LoRA rank the kernel runs
+    at): phase 26 holds the h scratch
     rule kernels/cost.py restates to the built library's at every one.
     The wrapper counts ``grouped_ffn.launches`` on the module's global,
     which is then this wrapper, so launch counts stay exact."""
@@ -5000,7 +5014,10 @@ def record_grouped_shapes():
     @functools.wraps(inner)
     def grouped_ffn(x, index, w_inner, *args, **kw):
         if x.is_cuda:
-            _GROUPED_SHAPES.add((x.dtype, x.shape[-1], w_inner.shape[-1]))
+            lp = args[2] if len(args) > 2 else kw.get("lora_params")
+            r = ops.kernel_rank(lp["lora_inner"]["b"].shape[-1] if lp else 0,
+                                x.dtype)
+            _GROUPED_SHAPES.add((x.dtype, x.shape[-1], w_inner.shape[-1], r))
         return inner(x, index, w_inner, *args, **kw)
     ops.grouped_ffn = grouped_ffn
 
@@ -5170,15 +5187,17 @@ def dryrun_check(torch):
     shapes = sorted(_GROUPED_SHAPES, key=str)
     if not shapes:
         raise AssertionError("no kernel-9 launch was recorded")
-    bad = [(str(dt), d, f) for dt, d, f in shapes
-           if cost.grouped_ffn_h_elems(dt, d, f) != lib.repro_grouped_ffn_h_elems(
-               {torch.float32: 0, torch.bfloat16: 1}[dt], d, f)]
+    bad = [(str(dt), d, f, r) for dt, d, f, r in shapes
+           if cost.grouped_ffn_h_elems(dt, d, f, r)
+           != lib.repro_grouped_ffn_h_elems(
+               {torch.float32: 0, torch.bfloat16: 1}[dt], d, f, r)]
     if bad:
         raise AssertionError(f"kernel 9's h scratch rule differs from the "
                              f"library's at {bad}")
-    wide = sum(cost.grouped_ffn_h_elems(dt, d, f) > 0 for dt, d, f in shapes)
+    wide = sum(cost.grouped_ffn_h_elems(dt, d, f, r) > 0
+               for dt, d, f, r in shapes)
     print(f"  kernel 9's h scratch rule equals the library's at the "
-          f"{len(shapes)} (dtype, d, F) launched ({wide} take the wide "
+          f"{len(shapes)} (dtype, d, F, rank) launched ({wide} take the wide "
           f"form)", flush=True)
     return out
 
@@ -5907,13 +5926,248 @@ def analysis_examples(torch):
     return total
 
 
+# ---------------------------------------------------------------- phase 30
+# The training kernels at the JAX kernels' whole contract.  (a) Kernels 1,
+# 2, 4 and 9 at shapes past their earlier limits, each launched twice
+# bit-identically and held to its plain version by phase 3's rule (1: the
+# margin rule; 2: [t, need] equal; 4: BF16_TOL / F32_TOL on the selection
+# its plain version makes from the same [t, need]; 9: the per-element
+# rule), timed beside its bound and phase 3's yardstick.  (b) qwen3-0.6b
+# at full width, CONTRACT_DEPTH layers, LoRA r = 64 and E = 256: 2 train
+# steps at 4 x 1024 and phase 4's burst serve, launches exact; the f32
+# agreement (phase 8's rules) at 2 layers, 2 x 512.  (c) gemma-7b at
+# d' = 4 (M = 64), DENSE_DEPTH layers: a bf16 train step at 2 x 1024,
+# launches exact; the f32 agreement at 1 layer, 2 x 256.
+CONTRACT_DEPTH = 4
+# kernel 1: (M, E, d'); rows of the training step's q (4 x 16 heads x 1024)
+CONTRACT_PQ = [(16, 256, 8), (32, 256, 8), (2, 16, 64), (40, 32, 8)]
+# kernel 2: (books, code kind, nq = nk, window): the packed body at 40 and
+# 64 books (codes in [0, 16), and past 2^16), the general body at 96
+CONTRACT_TOPL = [(40, "e16", TS, None), (64, "e16", TS, None),
+                 (64, "wide", 512, 200), (96, "e16", 512, None)]
+# kernel 4: (label, dh, books, codewords); nq = nk = 512, bf16 and f32,
+# causal and windowed (200): dh 20 (M 5 of d' 4, any-shape body in both
+# dtypes), dh 256 with 64 books (the tensor cores in bf16), dh 320 and 512
+# (the any-shape body), codes in [0, 256) and [0, 1024) at qwen3's dh 128
+CONTRACT_ATTN = [("dh 20 M 5", 20, 5, 16), ("dh 256 M 64", 256, 64, 16),
+                 ("dh 320 M 40", 320, 40, 16), ("dh 512 M 64", 512, 64, 16),
+                 ("dh 128 E 256", 128, 16, 256),
+                 ("dh 128 E 1024", 128, 16, 1024)]
+CONTRACT_NQ = 512
+# kernel 9: (label, dtype, d, F, rank, rows a batch row) at 4 rows, 8
+# groups, 4 active, SwiGLU: ranks 64 and 128 in bf16 at qwen3's d 1024 /
+# F 384 (the resident body) and at d 3072 / F 1024 (the wide form), rank
+# 160 in f32, and d 1000 / F 54 in bf16
+CONTRACT_FFN = [("r64 d1024 F384", "bfloat16", 1024, 384, 64, 1024),
+                ("r128 d1024 F384", "bfloat16", 1024, 384, 128, 1024),
+                ("r64 d3072 F1024", "bfloat16", 3072, 1024, 64, 1024),
+                ("r128 d3072 F1024", "bfloat16", 3072, 1024, 128, 1024),
+                ("r160 f32 d1024 F384", "float32", 1024, 384, 160, 512),
+                ("d1000 F54", "bfloat16", 1000, 54, 16, 512)]
+
+
+def _contract_cfg(name, layers, **spt):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(name),
+                               num_layers=layers).with_spt(**SERVE_CFG, **spt)
+
+
+def contract_kernels(torch, gen):
+    """Phase 30 (a): returns {kernel: [row, ...]} as the other shape
+    phases do."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.pq_quantize import ops as pq_ops
+    from repro_torch.kernels.sparse_attention import ops as sa_ops
+    from repro_torch.kernels.sparse_attention import ref as sa_ref
+    from repro_torch.kernels.topl_select import ops as tp_ops
+    from repro_torch.kernels.topl_select import ref as tp_ref
+    from repro_torch.kernels.topl_select.ref import (masked_scores,
+                                                     thresholds_ref)
+    from repro_torch.kernels.routed_ffn import ops as ffn_ops
+    out = {}
+    for m, e, dp in CONTRACT_PQ:
+        x = torch.randn(TB * HQ, TS, m * dp, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        cb = _codebooks(torch, gen, m, e, dp)
+        got = _twice(torch, lambda: pq_ops.pq_assign(x, cb), "pq_assign")
+        flips, total = _margin_flips(torch, got, x, cb, f"M={m} E={e}")
+        _paper_row(out, "pq_assign", f"(M, E, d') = ({m}, {e}, {dp}), x "
+                   f"{tuple(x.shape)} bf16; {flips} of {total} codes differ "
+                   "(margin rule)",
+                   time_ms(lambda: pq_ops.pq_assign(x, cb), 20),
+                   cost.pq_assign(x, cb).bound_ms(), float(flips),
+                   time_ms(lambda: pq_yardstick(torch, x, cb), 5), "contract")
+    for m, kind, n, window in CONTRACT_TOPL:
+        cq, ck = _topl_codes(torch, gen, n, n, m, kind, HQ // HK)
+        kw = dict(l=_top_l(n, window), max_score=m, causal=True,
+                  window=window, q_offset=0, heads_per_batch=HQ,
+                  rep=HQ // HK)
+        thr = _twice(torch, lambda: tp_ops.topl_thresholds(cq, ck, **kw),
+                     "topl_thresholds")
+        if not torch.equal(thr, tp_ref.thresholds_ref(cq, ck, **kw)):
+            raise AssertionError(f"topl_thresholds M={m} {kind}: [t, need] "
+                                 "differ")
+        _paper_row(out, "topl_thresholds", f"M={m} codes {kind}, nq = nk = "
+                   f"{n}, window {window}; [t, need] exact",
+                   time_ms(lambda: tp_ops.topl_thresholds(cq, ck, **kw), 20),
+                   cost.topl_thresholds(cq, ck, **kw).bound_ms(), 0.0,
+                   tag="contract")
+    n = CONTRACT_NQ
+    for label, dh, m, e in CONTRACT_ATTN:
+        for dtn in ("bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            for window in (None, 200):
+                cq = torch.randint(0, e, (TB * HQ, n, m), device="cuda",
+                                   generator=gen, dtype=torch.int32)
+                ck = torch.randint(0, e, (TB * HK, n, m), device="cuda",
+                                   generator=gen, dtype=torch.int32)
+                q, k, v = (torch.randn(g, n, dh, device="cuda",
+                                       generator=gen).to(dt)
+                           for g in (TB * HQ, TB * HK, TB * HK))
+                sel = dict(causal=True, window=window, q_offset=0,
+                           heads_per_batch=HQ, rep=HQ // HK)
+                thr = thresholds_ref(cq, ck, l=_top_l(n, window),
+                                     max_score=m, **sel)
+                kw = dict(scale=dh ** -0.5, **sel)
+                got = _twice(torch, lambda: sa_ops.sparse_attention(
+                    q, k, v, cq, ck, thr, **kw), f"sparse_attention {label}")
+                want = sa_ref.sparse_attention_ref(q, k, v, cq, ck, thr, **kw)
+                err = close(got, want,
+                            BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+                sm = masked_scores(cq, ck, **sel)
+                kept = sa_ref.newest_ties(sm, thr)
+                rows_read = int(kept.reshape(TB * HK, HQ // HK * n, n)
+                                .any(1).sum())
+                bnd = cost.sparse_attention(
+                    q, k, v, cq, ck, thr, **kw, pairs=int(kept.sum()),
+                    rows_read=rows_read).bound_ms()
+                ms = time_ms(lambda: sa_ops.sparse_attention(
+                    q, k, v, cq, ck, thr, **kw), 10)
+                _paper_row(out, "sparse_attention", f"{label} {dtn} "
+                           f"{'window 200' if window else 'causal'}, q "
+                           f"{tuple(q.shape)}, codes in [0, {e})", ms, bnd,
+                           err, tag="contract")
+                if dt == torch.bfloat16 and window is None:
+                    kv = torch.arange(TB * HQ, device="cuda") // (HQ // HK)
+                    mask = kept.reshape(TB, HQ, n, n)
+                    q4, k4, v4 = (x.reshape(TB, HQ, n, dh) for x in
+                                  (q, k[kv], v[kv]))
+                    sdpa = time_ms(lambda: torch.nn.functional.
+                                   scaled_dot_product_attention(
+                                       q4, k4, v4, attn_mask=mask,
+                                       scale=dh ** -0.5), 10)
+                    out["sparse_attention"][-1]["masked_sdpa_ms"] = sdpa
+                    print(f"    masked SDPA over the same selection "
+                          f"{sdpa:.4f} ms", flush=True)
+                del q, k, v, sm, kept, want, got
+    _contract_decode_e256(torch, gen, out)
+    for label, dtn, d, f, r, s_rows in CONTRACT_FFN:
+        cs = _grouped_case(torch, gen, dtn, b=TB, s=s_rows, d=d, f=f, g=8,
+                           ga=4, r=r, capf=1.25, act="silu", gated=True)
+        args = cs["args"]
+        ms = time_ms(lambda: ffn_ops.grouped_ffn(*args, act="silu"), 10)
+        yard = (time_ms(lambda: grouped_ffn_yardstick(
+            torch, args[0], args[1], cs["wts"], _bf16_lora(torch, cs["lora"]),
+            1.0), 10) if dtn == "bfloat16" else None)
+        _paper_row(out, "grouped_ffn", f"{label} ({dtn}, x "
+                   f"{tuple(args[0].shape)}, C={cs['c']})", ms,
+                   _grouped_bound(cs), cs["err"], yard, "contract")
+        del cs, args
+    _free(torch)
+    return out
+
+
+def _contract_decode_e256(torch, gen, out):
+    """Kernel 6 at the serving decode shape (8 slots x 8 kv heads, R 2, dh
+    128, M 16, S 4096, bf16) with codes of a 256-word codebook: the cache
+    keeps them as int8, so a cached code c >= 128 reads as c - 256 and a
+    query code >= 128 matches no cached code, in JAX (int8 cache, sign
+    extension), in the plain version and in the kernel alike: [t, need]
+    exact, the output within BF16_TOL."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.sparse_attention import ops, ref
+    from repro_torch.kernels.topl_select.ref import decode_scores
+    b, hk, r, dh, m, s = 8, 8, 2, 128, 16, 4096
+    g = b * hk
+    q, k, v = (torch.randn(g, n, dh, device="cuda", generator=gen).to(
+        torch.bfloat16) for n in (r, s, s))
+    cq = torch.randint(0, 256, (g, r, m), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    ck = torch.randint(0, 256, (g, s, m), device="cuda", generator=gen,
+                       dtype=torch.int32).to(torch.int8)    # wraps past 127
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    kw = dict(scale=dh ** -0.5, l=512, max_score=m, sum_rows=False,
+              heads_per_batch=hk)
+    got, thr = _twice(torch, lambda: ops.fused_sparse_decode_attention(
+        q, k, v, cq, ck, valid, return_thresholds=True, **kw),
+        "fused_sparse_decode_attention E 256")
+    want, thr_ref = ref.fused_decode_ref(q, k, v, cq, ck, valid, **kw)
+    if not torch.equal(thr, thr_ref):
+        raise AssertionError("decode at E 256: [t, need] differ")
+    err = close(got, want, BF16_TOL)
+    high = cq >= 128
+    hits = (cq[:, :, None, :] == ck.long()[:, None, :, :]) & high[:, :, None]
+    if bool(hits.any()):
+        raise AssertionError("decode at E 256: a query code >= 128 matched")
+    full = decode_scores(cq, ck, valid, sum_rows=False, heads_per_batch=hk)
+    _paper_row(out, "fused_sparse_decode_attention",
+               f"E 256 codes (int8 cache), G={g}, R={r}, S={s}, bf16; "
+               f"{int(high.sum())} of {high.numel()} query books >= 128 "
+               f"match no cached code; mean score {float(full.float().mean()):.3f}",
+               time_ms(lambda: ops.fused_sparse_decode_attention(
+                   q, k, v, cq, ck, valid, **kw), 20),
+               cost.fused_sparse_decode_attention(q, k, v, cq, ck, valid,
+                                                  **kw).bound_ms(),
+               err, tag="contract")
+
+
+def contract_models(torch):
+    """Phase 30 (b) and (c): returns the launches by path."""
+    paths = {"contract": {}}
+    _free(torch)
+    from repro_torch.core.lora import LoRAConfig
+    spt = dict(lora=LoRAConfig(rank=64, alpha=64.0, enabled=True),
+               pq_codewords=256)
+    cfg = _contract_cfg("qwen3-0.6b", CONTRACT_DEPTH, **spt)
+    launches, rows, peak, trainer = _train_run(
+        torch, cfg, 2, "qwen3 r64 E256 train", profile=False)
+    paths["contract"] = _add(paths["contract"], launches)
+    del trainer
+    _free(torch)
+    model = _perturbed_model(torch, cfg, seed=0)
+    launches, _ = _serve(torch, model, cfg, "qwen3 r64 E256 serve")
+    paths["contract"] = _add(paths["contract"], launches)
+    del model
+    _free(torch)
+    t0 = time.perf_counter()
+    train_agree_f32(torch, dataclasses.replace(
+        _contract_cfg("qwen3-0.6b", 2, **spt), dtype=torch.float32))
+    print(f"  qwen3 r64 E256 f32 agreement took {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    _free(torch)
+    cfg = _contract_cfg("gemma-7b", DENSE_DEPTH, pq_code_dim=4)
+    launches, rows, peak, trainer = _train_run(
+        torch, cfg, 1, "gemma-7b d'4 train", profile=False, batch=2)
+    paths["contract"] = _add(paths["contract"], launches)
+    del trainer
+    _free(torch)
+    t0 = time.perf_counter()
+    train_agree_f32(torch, dataclasses.replace(
+        _contract_cfg("gemma-7b", 1, pq_code_dim=4),
+        dtype=torch.float32), rows=2, seq=256)
+    print(f"  gemma-7b d'4 f32 agreement took {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    _free(torch)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "serve", "train", "paper",
                                        "server", "moe", "hybrid",
                                        "families", "infra", "mesh",
                                        "meshserve", "dryrun", "shard",
-                                       "seqsplit", "analysis"),
+                                       "seqsplit", "analysis", "contract"),
                     default=None,
                     help="stop after the kernel checks (phases 1-3), or "
                          "run the serving phases (1-6), the qwen3 training "
@@ -5926,8 +6180,9 @@ def main() -> int:
                          "(1-3, 24), serving under a mesh (1-3, 25), "
                          "the dry run against the card (1-3, 26), the "
                          "sharded storage of the state (1-3, 27), "
-                         "attention split as JAX splits it (1-3, 28) or "
-                         "the analysis layer and the examples (1-3, 29) "
+                         "attention split as JAX splits it (1-3, 28), "
+                         "the analysis layer and the examples (1-3, 29) or "
+                         "the training kernels' whole contract (1-3, 30) "
                          "alone")
     ap.add_argument("--infra-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6030,11 +6285,13 @@ def main() -> int:
                        "mesh_serve_paged", "mesh_serve_hybrid",
                        "mesh_serve_shards", "dryrun_train",
                        "dryrun_decode", "shard_train", "shard_serve",
-                       "seqsplit_serve", "analysis", "examples")}
+                       "seqsplit_serve", "analysis", "examples",
+                       "contract")}
     if args.only in (None, "serve"):
         # 4. full-width serve
         t0 = time.perf_counter()
-        print("[4] full-width qwen3-0.6b bf16 serve", flush=True)
+        print(f"[4] full-width qwen3-0.6b ({SERVE_DEPTH} layers) bf16 serve",
+              flush=True)
         paths["serve"] = serve_full_width(torch)
         # 5. the same on the paged layout, sparse and dense, depth cut
         t1 = time.perf_counter()
@@ -6113,7 +6370,8 @@ def main() -> int:
         paths.update(dense_registry_full_width(torch))
         # 17. recurrentgemma-9b at full width and depth: serve and train
         t1 = time.perf_counter()
-        print(f"[17] recurrentgemma-9b (38 layers) at full width, bf16: "
+        print(f"[17] recurrentgemma-9b ({HYBRID_DEPTH} layers) at full width, "
+              f"bf16: "
               f"Engine.serve, spt and lora train (phase 16 took "
               f"{t1 - t0:.1f} s)", flush=True)
         paths.update(hybrid_full_width(torch))
@@ -6245,6 +6503,23 @@ def main() -> int:
         print(f"[29] (b) took {t2 - t1:.1f} s", flush=True)
         paths["examples"].update(analysis_examples(torch))
         print(f"[29] (c) took {time.perf_counter() - t2:.1f} s; phase 29 "
+              f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only in (None, "contract"):
+        # 30. the training kernels at the JAX kernels' whole contract
+        t0 = time.perf_counter()
+        print(f"[30] the whole contract: (a) kernels 1, 2, 4, 9 at the new "
+              f"edges; (b) qwen3-0.6b ({CONTRACT_DEPTH} layers) at LoRA r 64, "
+              f"E 256: train, serve, f32 agreement; (c) gemma-7b "
+              f"({DENSE_DEPTH} layers) at d' 4: train, f32 agreement",
+              flush=True)
+        shapes = contract_kernels(
+            torch, torch.Generator(device="cuda").manual_seed(30))
+        for row in rows:
+            row["contract_shapes"] = shapes.get(row["name"], [])
+        t1 = time.perf_counter()
+        print(f"[30] (a) took {t1 - t0:.1f} s", flush=True)
+        paths.update(contract_models(torch))
+        print(f"[30] (b, c) took {time.perf_counter() - t1:.1f} s; phase 30 "
               f"took {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         by_path = {p: paths[p][row["name"]] for p in paths}

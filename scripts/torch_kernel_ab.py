@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """A/B timing of two builds of the PyTorch port's kernels on one CUDA
-card.  Either the train-path code kernels, PQ assignment (kernel 1,
-csrc/pq_assign.cu) and top-L thresholds (kernel 2, csrc/topl_thresholds.cu),
-this tree's against another tree's:
+card.  Either the train-path kernels, PQ assignment (kernel 1,
+csrc/pq_assign.cu), top-L thresholds (kernel 2, csrc/topl_thresholds.cu),
+the thresholded attention (kernel 4, csrc/sparse_attention.cu) and the
+grouped FFN (kernel 9, csrc/grouped_ffn.cu), this tree's against another
+tree's:
 
     python3 scripts/torch_kernel_ab.py --base DIR [--rounds 3]
 
@@ -15,18 +17,23 @@ wide form (h through device memory), built into build/kernel_ab/:
 
 DIR holds another checkout of the repository (for example a parent commit
 unpacked by ``git archive`` into the ignored ``build/`` directory).  Its
-two sources, with its csrc/common.cuh, are built by nvcc into
-build/kernel_ab/ and bound by ctypes with the C signatures this tree uses.
-Both builds are checked first on every case: [t, need] equal to the plain
-version, PQ codes equal to it up to chip_smoke.py's margin rule.  Then
+four sources, with its csrc/common.cuh, are built by nvcc into
+build/kernel_ab/ and bound by ctypes with the C signatures this tree uses
+(a base older than the kernels' whole contract: the two signatures it
+had, ``BASE_SIGNATURES``).  Both builds are checked first on every case:
+[t, need] equal to the plain version, PQ codes equal to it up to
+chip_smoke.py's margin rule, attention and FFN outputs within its bf16
+rule.  Then
 every case is timed in turns, base, this, this, base, in each round (CUDA
 events, L2 flushed: chip_smoke.time_ms), and one JSON line gives the
 medians beside the card's name and power limit.  Cases: the training
 step's shapes of chip_smoke.py phase 3 (q (64, 1024, d_head) bf16; codes
 of 64 query / 32 kv groups, 1024 x 1024 causal, L = 128) at d_head 128,
-64 and 80 (M = 16, 8, 10 books).  Kernel 9's cases: the train step's 4 x
-1024 rows and the (8, 1024) prefill bucket at d 1024, F 384, SwiGLU, LoRA
-r = 16, each form held to the plain version on the kept slots first.
+64 and 80 (M = 16, 8, 10 books); kernel 4 at the first (bf16, its codes
+from 16 codewords, passed as the train path passes them) and kernel 9 as
+below.  Kernel 9's cases: the train step's 4 x 1024 rows and the (8,
+1024) prefill bucket at d 1024, F 384, SwiGLU, LoRA r = 16, each form held
+to the plain version on the kept slots first.
 Imports nothing of JAX.
 """
 import argparse
@@ -43,17 +50,33 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402  (the repository's timing helpers)
 
-ENTRIES = ("repro_pq_assign", "repro_topl_thresholds")
-SOURCES = ("pq_assign.cu", "topl_thresholds.cu")
+ENTRIES = ("repro_pq_assign", "repro_topl_thresholds",
+           "repro_sparse_attention", "repro_grouped_ffn",
+           "repro_grouped_ffn_h_elems")
+SOURCES = ("pq_assign.cu", "topl_thresholds.cu", "sparse_attention.cu",
+           "grouped_ffn.cu")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the two signatures before the kernels' whole contract (no code bound,
+# no LoRA rank in the h scratch query)
+BASE_SIGNATURES = {
+    "repro_sparse_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
+                              + [_P],
+    "repro_grouped_ffn_h_elems": [_I] * 3}
 
 
-def bind(path, entries=ENTRIES):
+def bind(path, entries=ENTRIES, base=False):
+    """The library at ``path`` with its launchers' C signatures: a base
+    whose kernel 4 takes no code bound has BASE_SIGNATURES."""
     from repro_torch import kernels
     lib = ctypes.CDLL(str(path))
+    old = base and "code_bound" not in (
+        Path(path).parent / "base_sparse_attention.cu").read_text()
     for name in entries:
         fn = getattr(lib, name)
-        fn.argtypes = kernels.SIGNATURES[name]
+        fn.argtypes = (BASE_SIGNATURES[name] if old and name in
+                       BASE_SIGNATURES else kernels.SIGNATURES[name])
         fn.restype = ctypes.c_int
+    lib.old_signatures = old
     return lib
 
 
@@ -63,9 +86,16 @@ def build_base(base: Path) -> Path:
     out = ROOT / "build" / "kernel_ab"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "libbase.so"
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I",
-                    str(csrc), "-o", str(lib),
-                    *(str(csrc / s) for s in SOURCES)], check=True)
+    (out / "base_sparse_attention.cu").write_text(
+        (csrc / "sparse_attention.cu").read_text())
+    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-c",
+                               "-I", str(csrc), "-o", str(out / f"{s}.o"),
+                               str(csrc / s)]) for s in SOURCES]
+    if any(p.wait() for p in procs):
+        raise RuntimeError("the base's kernels did not build")
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
+                    str(lib), *(str(out / f"{s}.o") for s in SOURCES)],
+                   check=True)
     return lib
 
 
@@ -87,6 +117,22 @@ def topl_call(lib, cq, ck, thr, kw):
         kw["heads_per_batch"], kw["rep"], kw["l"], kw["max_score"],
         int(kw["causal"]), 0, 0, kernels.stream_ptr()), "topl_thresholds")
     return thr
+
+
+def attn_call(lib, args, out):
+    """Kernel 4 through ``lib`` as ops.sparse_attention launches it on the
+    train path (the code bound passed where the library takes one)."""
+    from repro_torch import kernels
+    q, k, v, cq, ck, thr, kw = args
+    g, nq, dh = q.shape
+    bound = [] if lib.old_signatures else [cs.E_WORDS]
+    kernels.check(lib.repro_sparse_attention(
+        kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cq.data_ptr(), ck.data_ptr(), thr.data_ptr(), out.data_ptr(), g, nq,
+        k.shape[1], dh, cq.shape[-1], kw["heads_per_batch"], kw["rep"],
+        float(kw["scale"]), int(kw["causal"]), 0, 0, *bound,
+        kernels.stream_ptr()), "sparse_attention")
+    return out
 
 
 def cases(torch, gen):
@@ -121,11 +167,31 @@ def cases(torch, gen):
         out.append(("topl_thresholds", f"M={m}",
                     lambda lib, cq=cq, ck=ck, thr=thr, kw=kw: topl_call(
                         lib, cq, ck, thr, kw), check))
-    return out
+    from repro_torch.kernels.sparse_attention import ref as sa_ref
+    cq, ck = cs._train_codes(torch, gen, cs.TS, cs.TS)
+    q = torch.randn(cs.TB * cs.HQ, cs.TS, cs.DH, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(cs.TB * cs.HK, cs.TS, cs.DH, device="cuda",
+                        generator=gen).to(torch.bfloat16) for _ in range(2))
+    sel = dict(causal=True, window=None, q_offset=0, heads_per_batch=cs.HQ,
+               rep=cs.HQ // cs.HK)
+    thr = ref.thresholds_ref(cq, ck, l=cs._top_l(cs.TS),
+                             max_score=cs.M_BOOKS, **sel)
+    kw = dict(scale=cs.DH ** -0.5, **sel)
+    want = sa_ref.sparse_attention_ref(q, k, v, cq, ck, thr, **kw)
+    y = torch.empty_like(q)
+
+    def check(got, want=want):
+        cs.close(got, want, cs.BF16_TOL)
+        return 0
+    out.append(("sparse_attention", f"dh={cs.DH}",
+                lambda lib, a=(q, k, v, cq, ck, thr, kw), y=y: attn_call(
+                    lib, a, y), check))
+    return out + ffn_cases(torch, gen)
 
 
 FFN_ENTRIES = ("repro_grouped_ffn", "repro_grouped_ffn_h_elems")
-RESIDENT_TEST = "bool resident_fits(int d, int F) { return smem_bytes(d, F) <= 232448; }"
+RESIDENT_TEST = "return smem_bytes(d, F) <= 232448 &&"
 
 
 def build_wide() -> Path:
@@ -138,8 +204,7 @@ def build_wide() -> Path:
     out = ROOT / "build" / "kernel_ab"
     out.mkdir(parents=True, exist_ok=True)
     cu = out / "grouped_ffn_wide.cu"
-    cu.write_text(src.replace(RESIDENT_TEST, RESIDENT_TEST.replace(
-        "smem_bytes(d, F) <= 232448", "false")))
+    cu.write_text(src.replace(RESIDENT_TEST, "return false &&"))
     lib = out / "libwide.so"
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I",
                     str(kernels.CSRC), "-o", str(lib), str(cu)], check=True)
@@ -155,7 +220,8 @@ def ffn_call(lib, args):
     _, g, c = index.shape
     f = wi.shape[-1]
     lo, r = ops._lora_leaves(lora, wg is not None, x.dtype, 8)
-    n = lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d, f)
+    n = lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d, f,
+                                      *([] if lib.old_signatures else [r]))
     h = x.new_empty(b * g * c * n) if n else None
     y = x.new_empty((b, g, c, d))
     kernels.check(lib.repro_grouped_ffn(
@@ -194,7 +260,8 @@ def ffn_cases(torch, gen):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", type=Path,
-                    help="checkout whose kernels 1 and 2 are the baseline")
+                    help="checkout whose kernels 1, 2, 4 and 9 are the "
+                         "baseline")
     ap.add_argument("--ffn-forms", action="store_true",
                     help="kernel 9: resident body (base) against the wide "
                          "form (this) at qwen3's widths")
@@ -214,7 +281,7 @@ def main() -> int:
                 "this": bind(build_wide(), FFN_ENTRIES)}
         todo = ffn_cases(torch, gen)
     else:
-        libs = {"base": bind(build_base(args.base.resolve())),
+        libs = {"base": bind(build_base(args.base.resolve()), base=True),
                 "this": bind(kernels.build())}
         todo = cases(torch, gen)
     flips = {}

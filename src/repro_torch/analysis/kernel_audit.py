@@ -32,8 +32,8 @@ dynamic shared memory from the launchers' own formulas, restated here
 template instance a shape runs) at every registry config's shapes on the
 CPU and held on the card to the library's ``extern "C"`` queries
 (``repro_*_smem``: ``smem_query_violations``).  The decode attention
-kernels (3, 5-8) and kernel 2 use static shared memory only (their ring
-is ``DECODE_RING_BYTES``, ``decode_stages``), which ptxas reports.
+kernels (3, 5-8) use static shared memory only (their ring is
+``DECODE_RING_BYTES``, ``decode_stages``), which ptxas reports.
 
 JAX's ``pallas.scalar-prefetch`` does not transfer: a CUDA kernel takes
 its page table or plan as a plain pointer argument.
@@ -52,6 +52,7 @@ import torch
 
 from repro_torch import configs, kernels
 from repro_torch.analysis.registry import Violation, audit
+from repro_torch.core.lora import LoRAConfig
 from repro_torch.launch import roofline
 
 SMEM_BLOCK = 232448          # bytes of shared memory a block may use
@@ -69,8 +70,18 @@ SPILL_BUDGET: Dict[Tuple[str, str], int] = {
      "attend_kernel<__nv_bfloat16, Paged, (int)2, (int)16>"): 28,
     ("dense_decode_paged", "attend_kernel<float, Paged, (int)2, (int)16>"):
         80,
-    ("sparse_attention", "sparse_attention_bf16_kernel<(int)128, (int)4>"):
-        24,
+    # the main path's instance spills what it did before the GEN instances
+    # (the per-tile choice of compare) came; those, and the 64-book packed
+    # threshold kernel, hold a few more live values
+    ("sparse_attention",
+     "sparse_attention_bf16_kernel<(int)128, (int)4, (bool)0>"): 24,
+    ("sparse_attention",
+     "sparse_attention_bf16_kernel<(int)256, (int)8, (bool)1>"): 4,
+    ("sparse_attention",
+     "sparse_attention_bf16_kernel<(int)64, (int)8, (bool)1>"): 32,
+    ("sparse_attention",
+     "sparse_attention_bf16_kernel<(int)64, (int)4, (bool)1>"): 16,
+    ("topl_thresholds", "topl_thresholds_kernel<(int)64>"): 12,
     ("sparse_attention", "sparse_attention_f32_kernel<(int)2, (bool)1>"): 12,
     ("sparse_attention", "sparse_attention_f32_kernel<(int)1, (bool)1>"): 8,
     ("sparse_decode", "attend_kernel<__nv_bfloat16, Paged, (int)0, (int)16>"):
@@ -205,14 +216,69 @@ def pq_assign_smem(elem: int, m: int, e: int, dp: int) -> int:
     return m * 16 * 9 * 4 + 2 * 64 * (m * 8 * elem + 16) + 64 * (m + 1) * 4
 
 
-def sparse_attention_smem(elem: int, dh: int, m: int) -> int:
-    """csrc/sparse_attention.cu, bf16_smem_bytes (BQ = BK = 64, 2 stages,
-    4 warps; CW = 4 code words up to 16 books, else 8); f32 uses none."""
-    if elem != 2:
-        return 0
+def topl_thresholds_smem(m: int) -> int:
+    """csrc/topl_thresholds.cu: the packed body's histogram ((M + 1) x 128
+    ints, up to 64 books), else the general body's histogram, transposed
+    row codes and key tile at its rows and keys (any_tiles)."""
+    if m <= 64:
+        return (m + 1) * 128 * 4
+    rb, bk = topl_any_tiles(m)
+    return _topl_any_bytes(m, rb, bk)
+
+
+def _topl_any_bytes(m: int, rb: int, bk: int) -> int:
+    return ((m + 1) * rb + m * rb + bk * m) * 4
+
+
+def topl_any_tiles(m: int) -> Tuple[int, int]:
+    """The general body's rows a block and keys a tile: 128 and 32,
+    halved (rows to 32, keys, then rows) until they fit a block."""
+    rb, bk = 128, 32
+    while _topl_any_bytes(m, rb, bk) > SMEM_BLOCK and rb > 32:
+        rb >>= 1
+    while _topl_any_bytes(m, rb, bk) > SMEM_BLOCK and bk > 1:
+        bk >>= 1
+    while _topl_any_bytes(m, rb, bk) > SMEM_BLOCK and rb > 1:
+        rb >>= 1
+    return rb, bk
+
+
+def _sa_bf16_bytes(dh: int, m: int) -> int:
+    """bf16_smem_bytes (BQ = BK = 64, 2 stages, 4 warps; CW = 4 code words
+    up to 16 books, else 8)."""
     row = ((dh + 15) & ~15) + 8
     stage = 2 * 64 * row * 2 + 64 * m * 4
     return 64 * row * 2 + 2 * stage + 4 * 64 * (4 if m <= 16 else 8) * 4
+
+
+def sparse_attention_body(elem: int, dh: int, m: int) -> str:
+    """body_of: "f32" (dh a multiple of 8 up to 256, M <= 32), "bf16"
+    (dh a multiple of 8 up to 256 where its shared memory fits) or "any"."""
+    if dh % 8 == 0 and dh <= 256:
+        if elem == 4 and m <= 32:
+            return "f32"
+        if elem == 2 and _sa_bf16_bytes(dh, m) <= SMEM_BLOCK:
+            return "bf16"
+    return "any"
+
+
+def _sa_any_warps(dh: int) -> int:
+    w = 8
+    while w > 1 and w * (2 * dh + 32) * 4 > SMEM_BLOCK:
+        w >>= 1
+    return w
+
+
+def sparse_attention_smem(elem: int, dh: int, m: int) -> int:
+    """csrc/sparse_attention.cu: the bf16 body's (bf16_smem_bytes), the
+    any-shape body's (8 warps, fewer past a block, each 2 dh + 32
+    floats), none for the f32 body."""
+    body = sparse_attention_body(elem, dh, m)
+    if body == "bf16":
+        return _sa_bf16_bytes(dh, m)
+    if body == "any":
+        return _sa_any_warps(dh) * (2 * dh + 32) * 4
+    return 0
 
 
 WIDE_SMEM = 1024 + 8192 + 3 * (8192 + 4 * 64 * 128) + 64 * 4
@@ -224,9 +290,10 @@ def grouped_ffn_smem(elem: int, d: int, f: int, r: int) -> int:
     3-stage ring of 16 KB) or its wide form where that does not fit; the
     f32 body at the largest row tile (8 x 4, 2, 1 rows) that fits."""
     if elem == 2:
+        from repro_torch.kernels.cost import grouped_ffn_resident
         resident = (1024 + (_cdiv(d, 64) + 2 * _cdiv(f, 128)) * 8192
                     + 3 * 16384 + 64 * 4)
-        return resident if resident <= SMEM_BLOCK else WIDE_SMEM
+        return resident if grouped_ffn_resident(d, f, r) else WIDE_SMEM
     return _f32_bytes(8 * max(1, _f32_rows(d, f, r)), d, f, r)
 
 
@@ -272,6 +339,8 @@ class Launch:
         a = self.args
         if self.kernel == "pq_assign":
             return pq_assign_smem(*a)
+        if self.kernel == "topl_thresholds":
+            return topl_thresholds_smem(a[1])
         if self.kernel == "sparse_attention":
             return sparse_attention_smem(*a)
         if self.kernel == "grouped_ffn":
@@ -294,6 +363,8 @@ def launch_of(name: str, args, kw, where: str) -> Optional[Launch]:
     if name == "pq_assign":
         x, cb = args[0], args[1]
         return Launch(name, (x.element_size(), *cb.shape), where)
+    if name == "topl_thresholds":
+        return Launch(name, (4, args[0].shape[-1]), where)
     if name == "sparse_attention":
         q, cq = args[0], args[3]
         return Launch(name, (q.element_size(), q.shape[-1], cq.shape[-1]),
@@ -305,7 +376,8 @@ def launch_of(name: str, args, kw, where: str) -> Optional[Launch]:
         rest.update({k: v for k, v in kw.items() if k in names})
         bf16 = x.dtype == torch.bfloat16
         if name == "grouped_ffn":
-            r = _rank(rest.get("lora_params"), 8 if bf16 else 1)
+            from repro_torch.kernels.routed_ffn.ops import kernel_rank
+            r = kernel_rank(_rank(rest.get("lora_params"), 1), x.dtype)
             return Launch(name, (x.element_size(), x.shape[-1],
                                  w_inner.shape[-1], r), where)
         r = _rank(rest.get("lora_params"), 4)
@@ -341,6 +413,15 @@ def registry_names() -> Tuple[str, ...]:
 # decode step
 FORWARD = configs.ShapeSpec("audit_forward", "prefill", 512, 2)
 DECODE = configs.ShapeSpec("audit_decode", "decode", 1024, 8)
+# SPT settings users choose beside the defaults, traced through the
+# forward (the training kernels 1, 2, 4 and 9, which take the JAX
+# kernels' whole contract): LoRA rank 64, an 8-bit codebook (E = 256),
+# d' = 4 (M = d_head / 4 books).  The decode kernels' whole contract is
+# ROADMAP's next slice, so the decode steps run at the defaults.
+CONTRACT_SPT = (("lora r64", {"lora": LoRAConfig(rank=64, alpha=64.0,
+                                                  enabled=True)}),
+                ("E256", {"pq_codewords": 256}),
+                ("d'4", {"pq_code_dim": 4}))
 _SWEEP: Dict[str, Tuple[List[Launch], List[Violation]]] = {}
 
 
@@ -348,16 +429,19 @@ def config_launches(name: str, cfg) -> Tuple[List[Launch], List[Violation]]:
     """``cfg`` one unit deep with the kernel paths on, traced on the meta
     device along the card's path: the forward of a 2 x 512 training
     batch and a decode step at 8 slots x 1024 on the fused and the
-    two-pass tiers.  Returns the wrappers' call shapes and a
-    ``kernel.contract`` violation for every refusal."""
+    two-pass tiers, and the forward again under each of CONTRACT_SPT.
+    Returns the wrappers' call shapes and a ``kernel.contract``
+    violation for every refusal."""
     from repro_torch.launch import dryrun
     cfg = dryrun._unit_config(cfg, 1).with_spt(attn_impl="pallas",
                                                 ffn_impl="pallas")
     got: List[Launch] = []
     bad: List[Violation] = []
-    for shape, spt in ((FORWARD, {}), (DECODE, {}),
-                       (DECODE, {"decode_attn_fuse": "two_pass"})):
-        where = f"{name} {shape.kind}" + (" two-pass" if spt else "")
+    runs = [(FORWARD, {}, ""), (DECODE, {}, ""),
+            (DECODE, {"decode_attn_fuse": "two_pass"}, " two-pass")]
+    runs += [(FORWARD, spt, f" {label}") for label, spt in CONTRACT_SPT]
+    for shape, spt, tag in runs:
+        where = f"{name} {shape.kind}{tag}"
         rec = _Launches(where)
         try:
             dryrun.trace_cell(cfg.with_spt(**spt), shape, None,
@@ -445,14 +529,29 @@ def instance_smem(row: KernelUsage, ln: "Launch") -> Optional[int]:
     a = ln.args[1:]
     if base == "pq_assign_fast_kernel" and ln.kernel == "pq_assign":
         return pq_assign_smem(_ELEM[args[0]], *a)
+    if base.startswith("topl_thresholds") and ln.kernel == "topl_thresholds":
+        m = a[0]
+        if base == "topl_thresholds_any_kernel":
+            return topl_thresholds_smem(m) if m > 64 else None
+        mb = next(b for b in (8, 16, 32, 64, m) if m <= b)
+        return topl_thresholds_smem(m) if mb == _int_arg(args[0]) else None
     if base == "sparse_attention_bf16_kernel" and ln.kernel == \
             "sparse_attention" and ln.args[0] == 2:
         dh, m = a
+        if sparse_attention_body(2, dh, m) != "bf16":
+            return None
         dp = (dh + 15) & ~15
         db = 64 if dp <= 64 else 128 if dp <= 128 else 256
-        if (db, 4 if m <= 16 else 8) != tuple(map(_int_arg, args)):
-            return None
+        if (db, 4 if m <= 16 else 8) != tuple(map(_int_arg, args[:2])):
+            return None                 # either GEN instance: the same smem
         return sparse_attention_smem(2, dh, m)
+    if base == "sparse_attention_any_kernel" and ln.kernel == \
+            "sparse_attention":
+        dh, m = a
+        if (sparse_attention_body(ln.args[0], dh, m) != "any"
+                or _ELEM[args[0]] != ln.args[0]):
+            return None
+        return sparse_attention_smem(ln.args[0], dh, m)
     if ln.kernel == "grouped_ffn":
         d, f, r = a
         if base == "grouped_ffn_kernel":             # the f32 body
@@ -534,6 +633,11 @@ def smem_query_violations(launches: Sequence[Launch], lib) -> List[Violation]:
         if ln.kernel == "decode_ffn":
             got = [lib.repro_decode_ffn_smem(code, *a, p) for p in range(3)]
             want = list(decode_ffn_smem(*ln.args))
+        elif ln.kernel == "topl_thresholds":
+            if ln.args[0] != 4:
+                continue              # int32 codes only
+            got = [lib.repro_topl_thresholds_smem(*a)]
+            want = [ln.smem()]
         else:
             fn = getattr(lib, f"repro_{ln.kernel}_smem")
             got, want = [fn(code, *a)], [ln.smem()]

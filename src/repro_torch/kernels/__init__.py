@@ -43,12 +43,12 @@ SIGNATURES = {
     "repro_fused_sparse_decode": ([_I] + [_P] * 10 + [_I] * 9
                                   + [_F] + [_I] * 3 + [_P]),
     "repro_grouped_ffn": [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _P],
-    "repro_grouped_ffn_h_elems": [_I] * 3,
+    "repro_grouped_ffn_h_elems": [_I] * 4,
     "repro_decode_ffn": [_I] + [_P] * 14 + [_I] * 6 + [_F, _I, _P],
     "repro_pq_assign": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 3
                        + [_P],
     "repro_topl_thresholds": [_P] * 3 + [_I] * 11 + [_P],
-    "repro_sparse_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3
+    "repro_sparse_attention": [_I] + [_P] * 7 + [_I] * 7 + [_F] + [_I] * 4
                               + [_P],
     "repro_fused_sparse_decode_paged": ([_I] + [_P] * 11 + [_I] * 10
                                         + [_F] + [_I] * 3 + [_P]),
@@ -60,6 +60,7 @@ SIGNATURES = {
     # the dynamic shared memory each launcher asks for (analysis/
     # kernel_audit.py holds its Python restatements to these)
     "repro_pq_assign_smem": [_I] * 4,
+    "repro_topl_thresholds_smem": [_I],
     "repro_sparse_attention_smem": [_I] * 3,
     "repro_grouped_ffn_smem": [_I] * 4,
     "repro_decode_ffn_smem": [_I] * 7,

@@ -168,8 +168,8 @@ def decode_topl_thresholds(codes_q, codes_k, kv_valid, *, l: int,
 def sparse_attention(q, k, v, codes_q, codes_k, thresholds, *, scale: float,
                      causal: bool = True, window: Optional[int] = None,
                      q_offset: int = 0, heads_per_batch: int = 1,
-                     rep: int = 1, l: Optional[int] = None,
-                     pairs: Optional[int] = None,
+                     rep: int = 1, codewords: Optional[int] = None,
+                     l: Optional[int] = None, pairs: Optional[int] = None,
                      rows_read: Optional[int] = None) -> Cost:
     """4 dh operations per selected (query, key) pair (q.k and p.v); q,
     the codes and thresholds read, the selected K and V rows read once,
@@ -313,15 +313,15 @@ def _lora(lora_params, gated: bool):
     return ts, ts[0].shape[-1]
 
 
-def _padded_copies(ts, r: int, multiple: int, dtype) -> int:
+def _padded_copies(ts, r: int, multiple: int, dtype,
+                   rank: Optional[int] = None) -> int:
     """Bytes of the LoRA copies a wrapper makes: the rank padded to a
-    multiple of ``multiple`` and cast to ``dtype`` (none when neither
-    changes a leaf)."""
-    pad = -r % multiple
-    if not pad and dtype == torch.float32:
+    multiple of ``multiple`` (or ``rank``, the rank the kernel runs at)
+    and cast to ``dtype`` (none when neither changes a leaf)."""
+    rank = r + -r % multiple if rank is None else rank
+    if rank == r and dtype == torch.float32:
         return 0
-    return sum(math.prod(t.shape) // r * (r + pad) * dtype.itemsize
-               for t in ts)
+    return sum(math.prod(t.shape) // r * rank * dtype.itemsize for t in ts)
 
 
 # the bf16 body of kernel 9 (csrc/grouped_ffn.cu): its x and h tiles stay
@@ -331,15 +331,24 @@ _SMEM, _ALIGN, _TILE, _STAGES, _STAGE, _TM, _HC = (232448, 1024, 8192, 3,
                                                    16384, 64, 128)
 
 
-def grouped_ffn_h_elems(dtype, d: int, f: int) -> int:
-    """Elements of h scratch per capacity slot kernel 9 needs: F where
-    its bf16 body takes the wide form, else 0 (``repro_grouped_ffn_h_
-    elems`` of csrc/grouped_ffn.cu, restated)."""
-    if dtype != torch.bfloat16:
-        return 0
+def grouped_ffn_resident(d: int, f: int, r: int) -> bool:
+    """Whether kernel 9's bf16 body keeps x and h resident at (d, F) and
+    the LoRA rank r it runs at: its tiles fit a block and r <= 32
+    (``resident_fits`` of csrc/grouped_ffn.cu, restated)."""
     nkt, nht = -(-d // 64), 2 * -(-f // _HC)
     smem = _ALIGN + (nkt + nht) * _TILE + _STAGES * _STAGE + _TM * 4
-    return f if smem > _SMEM else 0
+    return smem <= _SMEM and r <= 32
+
+
+def grouped_ffn_h_elems(dtype, d: int, f: int, r: int = 0) -> int:
+    """Elements of h scratch per capacity slot kernel 9 needs at the LoRA
+    rank r it runs at: where its bf16 body takes the wide form, F, or 2 F
+    in its GEN instances (d or F not a multiple of 8, r > 32: h's bf16
+    halves); else 0 (``repro_grouped_ffn_h_elems`` of
+    csrc/grouped_ffn.cu, restated)."""
+    if dtype != torch.bfloat16 or grouped_ffn_resident(d, f, r):
+        return 0
+    return 2 * f if d % 8 or f % 8 or r > 32 else f
 
 
 def grouped_ffn(x, index, w_inner, w_outer, w_gate=None, lora_params=None,
@@ -360,9 +369,10 @@ def grouped_ffn(x, index, w_inner, w_outer, w_gate=None, lora_params=None,
     moved = (_nb(x, index, w_inner, w_outer, w_gate, *ts)
              + b * g * c * d * x.dtype.itemsize)
     bf16 = x.dtype == torch.bfloat16
-    scratch = (b * g * c * grouped_ffn_h_elems(x.dtype, d, f)
-               * x.dtype.itemsize
-               + _padded_copies(ts, r, 8 if bf16 else 1, x.dtype))
+    from repro_torch.kernels.routed_ffn.ops import kernel_rank
+    rk = kernel_rank(r, x.dtype)
+    scratch = (b * g * c * grouped_ffn_h_elems(x.dtype, d, f, rk)
+               * x.dtype.itemsize + _padded_copies(ts, r, 1, x.dtype, rk))
     return Cost({_kind(x.dtype): kept * per}, moved, scratch)
 
 

@@ -41,19 +41,38 @@
 //   appended to x as extra contraction columns against C_I / C_gate rows;
 //   likewise s (h B_O[g]) against C_O rows.  The wrapper rounds the LoRA
 //   leaves to bf16 for this (an error of ~2^-9 of a LoRA term, well inside
-//   bf16 tolerance) and pads the rank with zeros to a multiple of 8;
-//   r <= 32: s x [B_I | B_gate] waits in the last h tile, which only the
-//   last phase-1 pass writes (a second tile would take ranks to 64, at a
-//   cost to every rank; no config uses a rank above 16).
+//   bf16 tolerance) and pads the rank with zeros to a multiple of 8.
+//   Ranks up to 32: s x [B_I | B_gate] (64 x 2r) waits in the last h
+//   tile, which only the last phase-1 pass writes; there is no room for a
+//   second tile (the x and h tiles take 230,656 of 232,448 bytes at d
+//   1024 / F 384).  Past rank 32 the LoRA term (which grows with the
+//   rank) needs more precision than one bf16 rounding of U, V and h
+//   gives (scripts/torch_ffn_rounding.py emulates the roundings in f32: at
+//   d 3072 / F 1024, rank 128, rounding each once put 481,033 of 50M kept
+//   outputs past the per-element 2e-2 rule, with the LoRA factors as bf16
+//   halves 44,543, with U, V and h as halves too none; rank 64: 5,624,
+//   36, none).  So
+//   ranks past 32 take the wide form's GEN instances, where h is in device
+//   memory anyway: the wrapper hands the LoRA pairs as bf16 halves
+//   (routed_ffn/ops.py, _split_pairs), U and V run through their one tile
+//   64 columns at a time as bf16 halves, and h goes to device memory as
+//   bf16 halves, each contracted in turn (the down pass reads h twice).
 //   What holds it back: each stage waits for its own wgmma (wait_group 0)
 //   before the next barrier, and ptxas reports (C7520) that it serializes
 //   the wgmma instructions behind a compiler-inserted warpgroup arrive;
 //   a warp-specialised producer with mbarriers is the next step.
 //
-//   It needs d and F to be multiples of 8 (16-byte cp.async rows).  The
-//   resident x and h tiles fit a block's 227 KB up to qwen3's d = 1024,
-//   F = 384; wider FFNs (every paper block) run the wide form below: two
-//   tensor-core kernels with h in device memory between them.
+//   Any d and F: rows are copied in 16-byte cp.async pieces where they are
+//   whole and aligned (d and F multiples of 8: every load), and the
+//   pieces of a row that is not (d or F not a multiple of 8, whose rows
+//   start on any 2-byte boundary) are predicated element loads with zeros
+//   past the row's end (ld8), never a padded copy of the weights; outputs
+//   take element stores there (st2).  These and the rank's chunks are
+//   compiled into instances of their own (GEN), so the shapes that need
+//   neither run code without them.  The resident x and h tiles fit a
+//   block's 227 KB up to qwen3's d = 1024, F = 384; wider FFNs (every
+//   paper block) run the wide form below: two tensor-core kernels with h
+//   in device memory between them.
 //
 // f32 — CUDA cores (grouped_ffn_kernel<RT>), the body of the port's first
 //   version, now for f32 data only: the x and h tiles in shared memory as f32,
@@ -176,14 +195,14 @@ __global__ void __launch_bounds__(THREADS) grouped_ffn_kernel(
   }
   // (gemm_acc's leading barrier orders these writes before their reads)
   float acc[RT][4], acc2[RT][4];
-  if (lora) {                                       // x B, rank r <= 128
+  for (int n0 = 0; lora && n0 < r; n0 += COLS) {  // x B, 128 ranks a pass
     zero(acc);
-    gemm_acc(xs, d, li_b, r, d, 0, r, ws, acc);
-    store_smem(xb, r, 0, acc);
+    gemm_acc(xs, d, li_b, r, d, n0, r, ws, acc);
+    store_smem(xb, r, n0, acc);
     if (gated) {
       zero(acc);
-      gemm_acc(xs, d, lg_b, r, d, 0, r, ws, acc);
-      store_smem(xbg, r, 0, acc);
+      gemm_acc(xs, d, lg_b, r, d, n0, r, ws, acc);
+      store_smem(xbg, r, n0, acc);
     }
   }
 
@@ -222,10 +241,10 @@ __global__ void __launch_bounds__(THREADS) grouped_ffn_kernel(
                           : activate(acc[i][j], act);
     store_smem(hs, F, f0, acc);
   }
-  if (lora) {                                       // h B_O
+  for (int n0 = 0; lora && n0 < r; n0 += COLS) {  // h B_O
     zero(acc);
-    gemm_acc(hs, F, lo_b + (size_t)g * F * r, r, F, 0, r, ws, acc);
-    store_smem(hb, r, 0, acc);
+    gemm_acc(hs, F, lo_b + (size_t)g * F * r, r, F, n0, r, ws, acc);
+    store_smem(hb, r, n0, acc);
   }
 
   // y = h W_O + s (h B_O) C_O in column passes over d
@@ -280,7 +299,6 @@ int launch_f32(const void* x, const void* index, const void* wi,
                const void* wg, const void* wo, const void* const* lo,
                void* y, int B, int S, int d, int G, int C, int F, int r,
                float scale, int act, cudaStream_t st) {
-  if (r > COLS) return (int)cudaErrorInvalidValue;
   int rt = 4;
   while (rt > 1 && smem_bytes(8 * rt, d, F, r) > 232448) rt >>= 1;
   const size_t bytes = smem_bytes(8 * rt, d, F, r);
@@ -315,7 +333,6 @@ constexpr int TILE = 8192;         // one 64 x 64 bf16 A tile (K-major)
 constexpr int BLK = KR * 128;      // one 64-column block of a B stage
 constexpr int HC = 128;            // hidden columns per phase-1 pass
 constexpr int OC = 256;            // output columns per phase-2 pass
-constexpr int R_MAX = 32;          // LoRA rank
 constexpr int ALIGN = 1024;        // a 128-byte-swizzle atom
 
 // Byte offset of element (m, k) in K-major A tiles of 64 columns (row m
@@ -350,6 +367,80 @@ __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Eight bf16 at src, the first n of them in range (n <= 0: none), into
+// the 16 bytes of shared memory at dst, zeros past n: one 16-byte cp.async
+// where the eight are whole and src is 16-byte aligned (every load when d,
+// F and the rank are multiples of 8), else element loads and one 16-byte
+// store — the predicated tail of a row whose width is not a multiple of 8
+// (such rows start on any 2-byte boundary).
+__device__ __forceinline__ void ld8(uint32_t dst, const bf16* src, int n,
+                                    const void* dummy) {
+  if (n >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp16(dst, src, true);
+  } else if (n <= 0) {
+    cp16(dst, dummy, false);
+  } else {
+    const unsigned short* e = reinterpret_cast<const unsigned short*>(src);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = 2 * i < n ? __ldg(e + 2 * i) : 0u;
+      const uint32_t hi = 2 * i + 1 < n ? __ldg(e + 2 * i + 1) : 0u;
+      w[i] = lo | hi << 16;
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+// Two adjacent outputs at p, the first n of them in range: one 4-byte
+// store where both are and p is 4-byte aligned, else element stores.
+__device__ __forceinline__ void st2(bf16* p, float a, float b, int n) {
+  if (n >= 2 && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (n >= 1) p[0] = __float2bfloat16(a);
+    if (n >= 2) p[1] = __float2bfloat16(b);
+  }
+}
+// The instances without GEN (d, F multiples of 8, rank <= 32: every load
+// whole and aligned, U one tile) take cp.async and 4-byte stores as they
+// are; with GEN, ld8 and st2.
+template <bool GEN>
+__device__ __forceinline__ void ld16(uint32_t dst, const bf16* src, int n,
+                                     const void* dummy) {
+  if constexpr (GEN)
+    ld8(dst, src, n, dummy);
+  else
+    cp16(dst, n > 0 ? src : dummy, n > 0);
+}
+template <bool GEN>
+__device__ __forceinline__ void st2g(bf16* p, float a, float b, int n) {
+  if constexpr (GEN)
+    st2(p, a, b, n);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// Zeros into rows [c, c + nr) x columns [n0, n0 + nc) of a row-major
+// matrix of width d: 16-byte stores where the span allows, else elements.
+__device__ __forceinline__ void zero_rows(bf16* y, int d, size_t c, int nr,
+                                          int n0, int nc) {
+  const bool vec = d % 8 == 0 && n0 % 8 == 0 && nc % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  if (vec) {
+    const int n8 = nc / 8;
+    for (int e = threadIdx.x; e < nr * n8; e += blockDim.x) {
+      const int m = e / n8;
+      *reinterpret_cast<int4*>(y + (c + m) * d + n0 + (e - m * n8) * 8) =
+          make_int4(0, 0, 0, 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
+      const int m = e / nc;
+      y[(c + m) * d + n0 + (e - m * nc)] = __float2bfloat16(0.f);
+    }
+  }
 }
 __device__ __forceinline__ void cp_wait_stages() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
@@ -474,7 +565,7 @@ __device__ __forceinline__ void pipeline(int n, uint32_t ring, Load load,
   }
 }
 
-template <bool GATED>
+template <bool GATED, bool GEN>
 __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
     const bf16* __restrict__ x, const int32_t* __restrict__ index,
     const bf16* __restrict__ wi, const bf16* __restrict__ wgt,
@@ -493,9 +584,7 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
   // slots first, so these are the trailing tiles of each (b, g) row.
   if (!__syncthreads_or(tid < TM && c0 + tid < C &&
                         index[row0 + c0 + tid] < S)) {
-    const int n16 = min(TM, C - c0) * d / 8;
-    int4* yt = reinterpret_cast<int4*>(y + (row0 + c0) * d);
-    for (int e = tid; e < n16; e += THREADS) yt[e] = make_int4(0, 0, 0, 0);
+    zero_rows(y, d, row0 + c0, min(TM, C - c0), 0, d);
     return;
   }
 
@@ -522,9 +611,8 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
     const int cpr = nkt * 8;
     for (int e = tid; e < TM * cpr; e += THREADS) {
       const int m = e / cpr, k = (e - m * cpr) * 8;
-      const bool ok = k < d;
-      cp16(sb + xs + a_off(m, k),
-           ok ? x + ((size_t)b * S + rows[m]) * d + k : x, ok);
+      ld16<GEN>(sb + xs + a_off(m, k), x + ((size_t)b * S + rows[m]) * d + k,
+                d - k, x);
     }
     cp_commit();
   }
@@ -546,39 +634,55 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
   };
 
   // The LoRA down-projections have one 64-column B block, so their stages
-  // hold 4 blocks of KR rows: 128 contraction rows a stage.  n x 64:
-  // x [B_I | B_gate] (k < kmax = d rounded up to 64) or h B_O[g].
-  auto lora_down = [&](uint32_t a_region, int kmax, auto row_src) {
-    zero(acc_u);
+  // hold 4 blocks of KR rows: 128 contraction rows a stage.  64 columns of
+  // x [B_I | B_gate] (k < kmax = d rounded up to 64) or h B_O[g] into acc
+  // (warpgroup 0).
+  auto lora_down = [&](float (&acc)[32], uint32_t a_region, int kmax,
+                       auto row_src) {
+    zero(acc);
     pipeline(
         (kmax + 4 * KR - 1) / (4 * KR), sb + ring,
         [&](int t, uint32_t buf) {
           for (int e = tid; e < 4 * KR * 8; e += THREADS) {
             const int kr = e >> 3, col = (e & 7) * 8;
             const bf16* src = row_src(t * 4 * KR + kr, col);
-            cp16(buf + (kr / KR) * BLK + b_off(kr % KR, col),
-                 src != nullptr ? src : x, src != nullptr);
+            ld16<GEN>(buf + (kr / KR) * BLK + b_off(kr % KR, col),
+                      src != nullptr ? src : x, src != nullptr ? 8 : 0, x);
           }
         },
         [&](int t, uint32_t buf) {
           if (w != 0) return;
-          reg_fence(acc_u);
+          reg_fence(acc);
           wg_arrive();
 #pragma unroll
           for (int j = 0; j < 8; ++j) {            // k16 steps of the stage
             const int k = t * 4 * KR + j * 16;
             if (k < kmax)
-              wgmma_n64(acc_u,
+              wgmma_n64(acc,
                         desc(sb + a_region + (k >> 6) * TILE + (k & 63) * 2, 16),
                         desc(buf + (j >> 1) * BLK + (j & 1) * 2048, BLK));
           }
           wg_commit_wait();
-          reg_fence(acc_u);
+          reg_fence(acc);
         });
+  };
+  // One contraction stage of KR rows of [C_I ; C_gate] from U column kk0
+  // (C_I rows kk < r, C_gate rows kk - r), hidden columns [f0, f0 + 128).
+  auto load_c = [&](uint32_t buf, int kk0, int f0) {
+    for (int e = tid; e < (GATED ? 2 : 1) * KR * 16; e += THREADS) {
+      const int prod = e / (KR * 16);          // 0: inner, 1: gate
+      const int kr = (e >> 4) & (KR - 1), cc = e & 15;
+      const int col = f0 + cc * 8;
+      const int j = kk0 + kr - (prod ? r : 0);
+      const bool ok = j >= 0 && j < r;
+      ld16<GEN>(buf + prod * 2 * BLK + b_off(kr, cc * 8),
+                (prod ? lgc : lic) + ((size_t)g * r + (ok ? j : 0)) * F + col,
+                ok ? F - col : 0, x);
+    }
   };
 
   if (lora) {                                  // x [B_I | B_gate] (d x 2r)
-    lora_down(xs, nkt * 64, [&](int k, int col) -> const bf16* {
+    lora_down(acc_u, xs, nkt * 64, [&](int k, int col) -> const bf16* {
       if (k >= d || col >= 2 * r || (col >= r && !GATED)) return nullptr;
       return col < r ? lib + (size_t)k * r + col
                      : lgb + (size_t)k * r + col - r;
@@ -595,22 +699,18 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
     pipeline(
         nk1 + nx1, sb + ring,
         [&](int t, uint32_t buf) {
+          if (t >= nk1) {                      // rows of [C_I ; C_gate]
+            load_c(buf, (t - nk1) * KR, f0);
+            return;
+          }
           for (int e = tid; e < (GATED ? 2 : 1) * KR * 16; e += THREADS) {
             const int prod = e / (KR * 16);    // 0: inner, 1: gate
             const int kr = (e >> 4) & (KR - 1), cc = e & 15;
             const int col = f0 + cc * 8;
-            const bf16* src = x;
-            bool ok;
-            if (t < nk1) {
-              const int k = t * KR + kr;
-              ok = k < d && col < F;
-              src = (prod ? wgt : wi) + ((size_t)g * d + k) * F + col;
-            } else {                           // rows of [C_I ; C_gate]
-              const int j = (t - nk1) * KR + kr - (prod ? r : 0);
-              ok = j >= 0 && j < r && col < F;
-              src = (prod ? lgc : lic) + ((size_t)g * r + j) * F + col;
-            }
-            cp16(buf + prod * 2 * BLK + b_off(kr, cc * 8), ok ? src : x, ok);
+            const int k = t * KR + kr;
+            ld16<GEN>(buf + prod * 2 * BLK + b_off(kr, cc * 8),
+                      (prod ? wgt : wi) + ((size_t)g * d + (k < d ? k : 0)) * F + col,
+                      k < d ? F - col : 0, x);
           }
         },
         [&](int t, uint32_t buf) {
@@ -645,7 +745,7 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
   }
 
   if (lora) {                                  // h B_O[g] (F x r)
-    lora_down(hs, nht * 64, [&](int k, int col) -> const bf16* {
+    lora_down(acc_u, hs, nht * 64, [&](int k, int col) -> const bf16* {
       if (k >= F || col >= r) return nullptr;
       return lob + ((size_t)g * F + k) * r + col;
     });
@@ -664,17 +764,12 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
           for (int e = tid; e < KR * 32; e += THREADS) {
             const int kr = e >> 5, cc = e & 31, col = n0 + cc * 8;
             const int k = t * KR + kr;
-            bool ok;
-            const bf16* src;
-            if (t < nk2) {
-              ok = k < F && col < d;
-              src = wo + ((size_t)g * F + k) * d + col;
-            } else {
-              const int j = (t - nk2) * KR + kr;
-              ok = j < r && col < d;
-              src = loc + (size_t)j * d + col;
-            }
-            cp16(buf + b_off(kr, cc * 8), ok ? src : x, ok);
+            const int j = (t - nk2) * KR + kr;        // a row of C_O
+            const bool ok = t < nk2 ? k < F : j < r;
+            ld16<GEN>(buf + b_off(kr, cc * 8),
+                      !ok ? x : t < nk2 ? wo + ((size_t)g * F + k) * d + col
+                                        : loc + (size_t)j * d + col,
+                      ok ? d - col : 0, x);
           }
         },
         [&](int t, uint32_t buf) {
@@ -693,8 +788,7 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
     for (int i = 0; i < 64; i += 2) {
       const int c = c0 + acc_row(i), n = n0 + w * 128 + acc_col(i);
       if (c < C && n < d)
-        *reinterpret_cast<__nv_bfloat162*>(y + (row0 + c) * d + n) =
-            __floats2bfloat162_rn(acc_y[i], acc_y[i + 1]);
+        st2g<GEN>(y + (row0 + c) * d + n, acc_y[i], acc_y[i + 1], d - n);
     }
   }
 }
@@ -712,9 +806,12 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_kernel_wgmma(
 //         x W_I (and x W_gate) by m64n64k16, one warpgroup per 64
 //         columns; LoRA: s x [B_I | B_gate] first (one pass over d),
 //         then one extra stage of [C_I ; C_gate] rows; act (x gate) in
-//         f32, h rounded to bf16 (as the resident body rounds it).
+//         f32, h rounded to bf16 (as the resident body rounds it).  Past
+//         rank 32, 64 of U's columns at a time through the one tile, a
+//         pass over d and a stage of C rows each, after the main product.
 //   down: one block per 256 output columns: h W_O[g] by m64n128k16;
-//         LoRA: s h B_O[g] (one pass over F), then one stage of C_O rows.
+//         LoRA: s h B_O[g] (one pass over F), then one stage of C_O rows;
+//         past rank 64, 64 ranks at a time the same way.
 //         A tile that keeps no slot writes zeros here.
 constexpr int KS = 64;                   // contraction rows per stage
 constexpr int WBLK = KS * 128;           // one 64-column B block (8 KB)
@@ -760,13 +857,22 @@ __device__ __forceinline__ void mma_slice_n64(float (&acc)[32],
   reg_fence(acc);
 }
 
-// s * acc (64 x 64) as a bf16 K-major A tile at `at` (warpgroup 0).
+// s * acc (64 x 64) as a bf16 K-major A tile at `at` (warpgroup 0); lo:
+// the part of s * acc its bf16 rounding leaves out, bf16(v - bf16(v)).
 __device__ __forceinline__ void store_scaled_tile(uint8_t* at, float scale,
-                                                  const float (&acc)[32]) {
+                                                  const float (&acc)[32],
+                                                  bool lo = false) {
 #pragma unroll
-  for (int i = 0; i < 32; i += 2)
+  for (int i = 0; i < 32; i += 2) {
+    float a = scale * acc[i], b = scale * acc[i + 1];
+    if (lo) {
+      const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+      a -= hi.x;
+      b -= hi.y;
+    }
     *reinterpret_cast<__nv_bfloat162*>(at + a_off(acc_row(i), acc_col(i))) =
-        __floats2bfloat162_rn(scale * acc[i], scale * acc[i + 1]);
+        __floats2bfloat162_rn(a, b);
+  }
 }
 
 // Whether any of the 64 slots from c0 is kept (index < S); every thread
@@ -778,14 +884,14 @@ __device__ __forceinline__ bool tile_kept(const int32_t* __restrict__ index,
                           index[row0 + c0 + tid] < S);
 }
 
-template <bool GATED>
+template <bool GATED, bool GEN>
 __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_up_wgmma(
     const bf16* __restrict__ x, const int32_t* __restrict__ index,
     const bf16* __restrict__ wi, const bf16* __restrict__ wgt,
     const bf16* __restrict__ lib, const bf16* __restrict__ lic,
     const bf16* __restrict__ lgb, const bf16* __restrict__ lgc,
-    bf16* __restrict__ h, int S, int d, int G, int C, int F, int r,
-    float scale, int act, int n_ct) {
+    bf16* __restrict__ h, bf16* __restrict__ hl, int S, int d, int G, int C,
+    int F, int r, float scale, int act, int n_ct) {
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x, w = tid >> 7;
   const int c0 = (blockIdx.x % n_ct) * TM, f0 = (blockIdx.x / n_ct) * HC;
@@ -810,76 +916,111 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_up_wgmma(
   auto load_x = [&](int t, uint32_t buf) {        // x columns [64 t, +64)
     for (int e = tid; e < TM * 8; e += THREADS) {
       const int m = e >> 3, k = t * KS + (e & 7) * 8;
-      const bool ok = k < d;
-      cp16(buf + a_off(m, (e & 7) * 8),
-           ok ? x + ((size_t)b * S + rows[m]) * d + k : x, ok);
+      ld16<GEN>(buf + a_off(m, (e & 7) * 8),
+                x + ((size_t)b * S + rows[m]) * d + k, d - k, x);
     }
   };
-
-  float acc_u[32], acc_g[32];
-  if (lora) {                                      // x [B_I | B_gate]
-    zero(acc_u);
+  // s x [B_I | B_gate] columns [c0u, c0u + 64) (B_gate's from column r)
+  // into acc (warpgroup 0), then as a bf16 A tile at XE.
+  auto lora_u = [&](float (&acc)[32], int c0u) {
+    zero(acc);
     pipeline_w(
         nk, sb + ring,
         [&](int t, uint32_t buf) {
           load_x(t, buf);
           for (int e = tid; e < KS * 8; e += THREADS) {
             const int kr = e >> 3, col = (e & 7) * 8, k = t * KS + kr;
-            const bool ok = k < d && (col < r || (GATED && col < 2 * r));
-            const bf16* src = col < r ? lib + (size_t)k * r + col
-                                      : lgb + (size_t)k * r + col - r;
-            cp16(buf + TILE + bw_off(kr, col), ok ? src : x, ok);
+            const int uc = c0u + col;
+            const bool ok = k < d && (uc < r || (GATED && uc < 2 * r));
+            const bf16* src = uc < r ? lib + (size_t)k * r + uc
+                                     : lgb + (size_t)k * r + uc - r;
+            ld16<GEN>(buf + TILE + bw_off(kr, col), ok ? src : x, ok ? 8 : 0, x);
           }
         },
         [&](int t, uint32_t buf) {
-          if (w == 0) mma_slice_n64(acc_u, buf, buf + TILE);
+          if (w == 0) mma_slice_n64(acc, buf, buf + TILE);
         });
-    if (w == 0) store_scaled_tile(base + xe, scale, acc_u);
-  }
+    if (w == 0) store_scaled_tile(base + xe, scale, acc);
+  };
+  // KS rows of [C_I ; C_gate] from U column kk0 (C_I rows kk < r, C_gate
+  // rows kk - r), this block's hidden columns.
+  auto load_c = [&](uint32_t buf, int kk0) {
+    for (int e = tid; e < (GATED ? 2 : 1) * KS * 16; e += THREADS) {
+      const int prod = e / (KS * 16);
+      const int kr = (e >> 4) & (KS - 1), cc = e & 15, col = f0 + cc * 8;
+      const int j = kk0 + kr - (prod ? r : 0);
+      const bool ok = j >= 0 && j < r;
+      ld16<GEN>(buf + TILE + prod * 2 * WBLK + bw_off(kr, cc * 8),
+                (prod ? lgc : lic) + ((size_t)g * r + (ok ? j : 0)) * F + col,
+                ok ? F - col : 0, x);
+    }
+  };
+  // x W (and the C rows) against the A slice or the XE tile at a
+  auto mma_up = [&](float (&au)[32], float (&ag)[32], uint32_t a,
+                    uint32_t buf) {
+    reg_fence(au);
+    reg_fence(ag);
+    wg_arrive();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_n64(au, desc(a + kk * 32, 16),
+                desc(buf + TILE + w * WBLK + kk * 2048, WBLK));
+      if constexpr (GATED)
+        wgmma_n64(ag, desc(a + kk * 32, 16),
+                  desc(buf + TILE + (2 + w) * WBLK + kk * 2048, WBLK));
+    }
+    wg_commit_wait();
+    reg_fence(au);
+    reg_fence(ag);
+  };
+
+  // U = x [B_I | B_gate] (64 x 2r).  Without GEN (ranks up to 32): one
+  // XE tile, computed first, its C rows one stage of the main pipeline.
+  // With GEN: 64 columns at a time after the main product, each a pass
+  // over d, then its C rows against U's bf16 halves in turn (bf16(U), then
+  // bf16(U - bf16(U))), so U enters the sum to ~2^-16 of itself.
+  const int nuc = lora ? (2 * r + 63) / 64 : 0;
+  const bool once = !GEN && nuc == 1;
+  float acc_u[32], acc_g[32];
+  if (once) lora_u(acc_u, 0);
 
   // x W_I (and x W_gate) over d, then the [C_I ; C_gate] rows against
   // the s x B tile; columns [f0 + 64 w, +64) per warpgroup.
   zero(acc_u);
   zero(acc_g);
   pipeline_w(
-      nk + (lora ? 1 : 0), sb + ring,
+      nk + (once ? 1 : 0), sb + ring,
       [&](int t, uint32_t buf) {
-        if (t < nk) load_x(t, buf);
+        if (t >= nk) {                             // rows of [C_I ; C_gate]
+          load_c(buf, 0);
+          return;
+        }
+        load_x(t, buf);
         for (int e = tid; e < (GATED ? 2 : 1) * KS * 16; e += THREADS) {
           const int prod = e / (KS * 16);          // 0: inner, 1: gate
           const int kr = (e >> 4) & (KS - 1), cc = e & 15, col = f0 + cc * 8;
-          const bf16* src;
-          bool ok;
-          if (t < nk) {
-            const int k = t * KS + kr;
-            ok = k < d && col < F;
-            src = (prod ? wgt : wi) + ((size_t)g * d + k) * F + col;
-          } else {                                 // rows of [C_I ; C_gate]
-            const int j = kr - (prod ? r : 0);
-            ok = j >= 0 && j < r && col < F;
-            src = (prod ? lgc : lic) + ((size_t)g * r + j) * F + col;
-          }
-          cp16(buf + TILE + prod * 2 * WBLK + bw_off(kr, cc * 8),
-               ok ? src : x, ok);
+          const int k = t * KS + kr;
+          ld16<GEN>(buf + TILE + prod * 2 * WBLK + bw_off(kr, cc * 8),
+                    (prod ? wgt : wi) + ((size_t)g * d + (k < d ? k : 0)) * F + col,
+                    k < d ? F - col : 0, x);
         }
       },
       [&](int t, uint32_t buf) {
-        const uint32_t a = t < nk ? buf : sb + xe;
-        reg_fence(acc_u);
-        reg_fence(acc_g);
-        wg_arrive();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          wgmma_n64(acc_u, desc(a + kk * 32, 16),
-                    desc(buf + TILE + w * WBLK + kk * 2048, WBLK));
-          if constexpr (GATED)
-            wgmma_n64(acc_g, desc(a + kk * 32, 16),
-                      desc(buf + TILE + (2 + w) * WBLK + kk * 2048, WBLK));
-        }
-        wg_commit_wait();
-        reg_fence(acc_u);
-        reg_fence(acc_g);
+        mma_up(acc_u, acc_g, t < nk ? buf : sb + xe, buf);
       });
+  for (int cu = 0; GEN && cu < nuc; ++cu) {
+    float acc_l[32];
+    lora_u(acc_l, 64 * cu);                        // its hi half at XE
+    for (int half = 0; half < 2; ++half) {
+      if (half) {
+        __syncthreads();                           // XE's hi half read
+        if (w == 0) store_scaled_tile(base + xe, scale, acc_l, true);
+      }
+      pipeline_w(
+          1, sb + ring, [&](int, uint32_t buf) { load_c(buf, 64 * cu); },
+          [&](int, uint32_t buf) { mma_up(acc_u, acc_g, sb + xe, buf); });
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int c = c0 + acc_row(i), f = f0 + w * 64 + acc_col(i);
@@ -890,28 +1031,30 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_up_wgmma(
       h0 *= acc_u[i];
       h1 *= acc_u[i + 1];
     }
-    *reinterpret_cast<__nv_bfloat162*>(h + (row0 + c) * F + f) =
-        __floats2bfloat162_rn(h0, h1);
+    if constexpr (GEN) {             // h's bf16 halves: hi to h, lo to hl
+      const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(h0, h1));
+      st2g<GEN>(h + (row0 + c) * F + f, hi.x, hi.y, F - f);
+      st2g<GEN>(hl + (row0 + c) * F + f, h0 - hi.x, h1 - hi.y, F - f);
+    } else {
+      st2g<GEN>(h + (row0 + c) * F + f, h0, h1, F - f);
+    }
   }
 }
 
+template <bool GEN>
 __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_down_wgmma(
-    const bf16* __restrict__ h, const int32_t* __restrict__ index,
-    const bf16* __restrict__ wo, const bf16* __restrict__ lob,
-    const bf16* __restrict__ loc, bf16* __restrict__ y, int S, int d, int G,
-    int C, int F, int r, float scale, int n_ct) {
+    const bf16* __restrict__ h, const bf16* __restrict__ hl,
+    const int32_t* __restrict__ index, const bf16* __restrict__ wo,
+    const bf16* __restrict__ lob, const bf16* __restrict__ loc,
+    bf16* __restrict__ y, int S, int d, int G, int C, int F, int r,
+    float scale, int n_ct) {
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x, w = tid >> 7;
   const int c0 = (blockIdx.x % n_ct) * TM, n0 = (blockIdx.x / n_ct) * OC;
   const int b = blockIdx.y, g = blockIdx.z;
   const size_t row0 = ((size_t)b * G + g) * C;
   if (!tile_kept(index, row0, c0, C, S)) {         // zero rows, dropped
-    const int nc = min(OC, d - n0) / 8;
-    for (int e = tid; e < min(TM, C - c0) * nc; e += THREADS) {
-      const int m = e / nc, n = n0 + (e - m * nc) * 8;
-      *reinterpret_cast<int4*>(y + (row0 + c0 + m) * d + n) =
-          make_int4(0, 0, 0, 0);
-    }
+    zero_rows(y, d, row0 + c0, min(TM, C - c0), n0, min(OC, d - n0));
     return;
   }
 
@@ -922,71 +1065,105 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_ffn_wide_down_wgmma(
   const uint32_t he = 0, ring = TILE;              // [s h B_O tile] [ring]
   const bool lora = lob != nullptr && r > 0;
   const int nk = (F + KS - 1) / KS;
+  // stages over h: its columns, then with GEN its lo half's (the same W_O
+  // and B_O rows again)
+  const int nkh = GEN ? 2 * nk : nk;
   auto load_h = [&](int t, uint32_t buf) {        // h columns [64 t, +64)
+    const bf16* src = t < nk ? h : hl;
+    t = t < nk ? t : t - nk;
     for (int e = tid; e < TM * 8; e += THREADS) {
       const int m = e >> 3, k = t * KS + (e & 7) * 8, c = c0 + m;
-      const bool ok = k < F && c < C;
-      cp16(buf + a_off(m, (e & 7) * 8), ok ? h + (row0 + c) * F + k : h, ok);
+      ld16<GEN>(buf + a_off(m, (e & 7) * 8),
+                src + (row0 + (c < C ? c : c0)) * F + k, c < C ? F - k : 0, h);
     }
   };
-  if (lora) {                                      // h B_O[g] (F x r)
-    float acc_l[32];
+  // s h B_O[g] ranks [c0v, c0v + 64) into acc_l (warpgroup 0), then as a
+  // bf16 A tile at HE
+  auto lora_v = [&](float (&acc_l)[32], int c0v) {
     zero(acc_l);
     pipeline_w(
-        nk, sb + ring,
+        nkh, sb + ring,
         [&](int t, uint32_t buf) {
           load_h(t, buf);
           for (int e = tid; e < KS * 8; e += THREADS) {
-            const int kr = e >> 3, col = (e & 7) * 8, k = t * KS + kr;
-            const bool ok = k < F && col < r;
-            cp16(buf + TILE + bw_off(kr, col),
-                 ok ? lob + ((size_t)g * F + k) * r + col : h, ok);
+            const int kr = e >> 3, col = (e & 7) * 8;
+            const int k = (t < nk ? t : t - nk) * KS + kr;
+            const int rc = c0v + col;
+            const bool ok = k < F && rc < r;
+            ld16<GEN>(buf + TILE + bw_off(kr, col),
+                      ok ? lob + ((size_t)g * F + k) * r + rc : h, ok ? 8 : 0, h);
           }
         },
         [&](int t, uint32_t buf) {
           if (w == 0) mma_slice_n64(acc_l, buf, buf + TILE);
         });
     if (w == 0) store_scaled_tile(base + he, scale, acc_l);
+  };
+  // KS rows of W_O[g] from row k0, or (co) of C_O from rank k0
+  auto load_w = [&](uint32_t buf, int k0, bool co) {
+    for (int e = tid; e < KS * 32; e += THREADS) {
+      const int kr = e >> 5, cc = e & 31, col = n0 + cc * 8, k = k0 + kr;
+      const bool ok = co ? k < r : k < F;
+      ld16<GEN>(buf + TILE + bw_off(kr, cc * 8),
+                !ok ? h : co ? loc + (size_t)k * d + col
+                             : wo + ((size_t)g * F + k) * d + col,
+                ok ? d - col : 0, h);
+    }
+  };
+  auto mma_down = [&](float (&acc_y)[64], uint32_t a, uint32_t buf) {
+    reg_fence(acc_y);
+    wg_arrive();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_n128(acc_y, desc(a + kk * 32, 16),
+                 desc(buf + TILE + 2 * w * WBLK + kk * 2048, WBLK));
+    wg_commit_wait();
+    reg_fence(acc_y);
+  };
+  // V = s h B_O.  Without GEN (ranks up to 32) one HE tile first, its C_O
+  // rows one stage of the main pipeline.  With GEN: 64 ranks at a time
+  // after it, each a pass over h's halves, then its C_O rows against V's
+  // bf16 halves in turn, as U's above.
+  const int nvc = lora ? (r + 63) / 64 : 0;
+  const bool once = !GEN && nvc == 1;
+  float acc_y[64];
+  if (once) {
+    float acc_l[32];
+    lora_v(acc_l, 0);
   }
 
-  float acc_y[64];
   zero(acc_y);
   pipeline_w(
-      nk + (lora ? 1 : 0), sb + ring,
+      nkh + (once ? 1 : 0), sb + ring,
       [&](int t, uint32_t buf) {
-        if (t < nk) load_h(t, buf);
-        for (int e = tid; e < KS * 32; e += THREADS) {
-          const int kr = e >> 5, cc = e & 31, col = n0 + cc * 8;
-          bool ok;
-          const bf16* src;
-          if (t < nk) {
-            const int k = t * KS + kr;
-            ok = k < F && col < d;
-            src = wo + ((size_t)g * F + k) * d + col;
-          } else {                                 // rows of C_O
-            ok = kr < r && col < d;
-            src = loc + (size_t)kr * d + col;
-          }
-          cp16(buf + TILE + bw_off(kr, cc * 8), ok ? src : h, ok);
+        if (t < nkh) {
+          load_h(t, buf);
+          load_w(buf, (t < nk ? t : t - nk) * KS, false);
+        } else {
+          load_w(buf, 0, true);
         }
       },
       [&](int t, uint32_t buf) {
-        const uint32_t a = t < nk ? buf : sb + he;
-        reg_fence(acc_y);
-        wg_arrive();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_n128(acc_y, desc(a + kk * 32, 16),
-                     desc(buf + TILE + 2 * w * WBLK + kk * 2048, WBLK));
-        wg_commit_wait();
-        reg_fence(acc_y);
+        mma_down(acc_y, t < nkh ? buf : sb + he, buf);
       });
+  for (int cv = 0; GEN && cv < nvc; ++cv) {
+    float acc_l[32];
+    lora_v(acc_l, 64 * cv);                        // its hi half at HE
+    for (int half = 0; half < 2; ++half) {
+      if (half) {
+        __syncthreads();                           // HE's hi half read
+        if (w == 0) store_scaled_tile(base + he, scale, acc_l, true);
+      }
+      pipeline_w(
+          1, sb + ring, [&](int, uint32_t buf) { load_w(buf, 64 * cv, true); },
+          [&](int, uint32_t buf) { mma_down(acc_y, sb + he, buf); });
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 64; i += 2) {
     const int c = c0 + acc_row(i), n = n0 + w * 128 + acc_col(i);
     if (c < C && n < d)
-      *reinterpret_cast<__nv_bfloat162*>(y + (row0 + c) * d + n) =
-          __floats2bfloat162_rn(acc_y[i], acc_y[i + 1]);
+      st2g<GEN>(y + (row0 + c) * d + n, acc_y[i], acc_y[i + 1], d - n);
   }
 }
 
@@ -994,17 +1171,17 @@ size_t wide_smem_bytes() {
   return ALIGN + TILE + (size_t)STAGES * WSTAGE + TM * sizeof(int);
 }
 
-template <bool GATED>
+template <bool GATED, bool GEN>
 int launch_wide(const void* x, const void* index, const void* wi,
                 const void* wgt, const void* wo, const void* const* lo,
                 void* h, void* y, int B, int S, int d, int G, int C, int F,
                 int r, float scale, int act, cudaStream_t st) {
   const size_t bytes = wide_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_ffn_wide_up_wgmma<GATED>,
+      grouped_ffn_wide_up_wgmma<GATED, GEN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(grouped_ffn_wide_down_wgmma,
+    err = cudaFuncSetAttribute(grouped_ffn_wide_down_wgmma<GEN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1012,16 +1189,19 @@ int launch_wide(const void* x, const void* index, const void* wi,
   const int32_t* ix = static_cast<const int32_t*>(index);
   const int n_ct = (C + TM - 1) / TM;
   // a group's blocks adjacent, as in the resident body
-  grouped_ffn_wide_up_wgmma<GATED>
+  // with GEN, h's lo half follows its hi half in the scratch
+  bf16* hh = static_cast<bf16*>(h);
+  bf16* hl = GEN ? hh + (size_t)B * G * C * F : nullptr;
+  grouped_ffn_wide_up_wgmma<GATED, GEN>
       <<<dim3(n_ct * ((F + HC - 1) / HC), B, G), THREADS, bytes, st>>>(
           p(x), ix, p(wi), p(wgt), p(lo[0]), p(lo[1]), p(lo[2]), p(lo[3]),
-          static_cast<bf16*>(h), S, d, G, C, F, r, scale, act, n_ct);
+          hh, hl, S, d, G, C, F, r, scale, act, n_ct);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  grouped_ffn_wide_down_wgmma<<<dim3(n_ct * ((d + OC - 1) / OC), B, G),
-                                THREADS, bytes, st>>>(
-      static_cast<const bf16*>(h), ix, p(wo), p(lo[4]), p(lo[5]),
-      static_cast<bf16*>(y), S, d, G, C, F, r, scale, n_ct);
+  grouped_ffn_wide_down_wgmma<GEN><<<dim3(n_ct * ((d + OC - 1) / OC), B, G),
+                                     THREADS, bytes, st>>>(
+      hh, hl, ix, p(wo), p(lo[4]), p(lo[5]), static_cast<bf16*>(y), S, d, G,
+      C, F, r, scale, n_ct);
   return (int)cudaGetLastError();
 }
 
@@ -1031,64 +1211,77 @@ size_t smem_bytes(int d, int F) {
          TM * sizeof(int);
 }
 
-template <bool GATED>
+template <bool GATED, bool GEN>
 int launch_k(const void* x, const void* index, const void* wi,
              const void* wgt, const void* wo, const void* const* lo, void* y,
              int B, int S, int d, int G, int C, int F, int r, float scale,
              int act, size_t bytes, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_ffn_kernel_wgmma<GATED>,
+      grouped_ffn_kernel_wgmma<GATED, GEN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   auto p = [](const void* q) { return static_cast<const bf16*>(q); };
   dim3 grid((C + TM - 1) / TM, B, G);          // one group's tiles adjacent
-  grouped_ffn_kernel_wgmma<GATED><<<grid, THREADS, bytes, st>>>(
+  grouped_ffn_kernel_wgmma<GATED, GEN><<<grid, THREADS, bytes, st>>>(
       p(x), static_cast<const int32_t*>(index), p(wi), p(wgt), p(wo),
       p(lo[0]), p(lo[1]), p(lo[2]), p(lo[3]), p(lo[4]), p(lo[5]),
       static_cast<bf16*>(y), S, d, G, C, F, r, scale, act);
   return (int)cudaGetLastError();
 }
 
-// The resident body when its x and h tiles fit a block's shared memory.
-bool resident_fits(int d, int F) { return smem_bytes(d, F) <= 232448; }
+// The resident body when its x and h tiles fit a block's shared memory
+// and U fits its one tile (ranks up to 32; past that the wide form).
+bool resident_fits(int d, int F, int r) {
+  return smem_bytes(d, F) <= 232448 && r <= 32;
+}
+
+// The GEN instances: tails (d or F not a multiple of 8), or the rank
+// past one U tile.
+bool gen_of(int d, int F, int r) { return d % 8 || F % 8 || r > 32; }
 
 int launch(const void* x, const void* index, const void* wi, const void* wgt,
            const void* wo, const void* const* lo, void* h, void* y, int B,
            int S, int d, int G, int C, int F, int r, float scale, int act,
            cudaStream_t st) {
-  if (d % 8 || F % 8 || r % 8 || r > R_MAX || B > 65535 || G > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (!resident_fits(d, F)) {
+  if (r % 8 || B > 65535 || G > 65535) return (int)cudaErrorInvalidValue;
+  const bool gen = gen_of(d, F, r);
+  const bool gated = wgt != nullptr;
+  if (!resident_fits(d, F, r)) {
     if (h == nullptr) return (int)cudaErrorInvalidValue;
-    return wgt != nullptr
-               ? launch_wide<true>(x, index, wi, wgt, wo, lo, h, y, B, S, d,
-                                   G, C, F, r, scale, act, st)
-               : launch_wide<false>(x, index, wi, wgt, wo, lo, h, y, B, S, d,
-                                    G, C, F, r, scale, act, st);
+#define REPRO_WIDE(GATED, GEN)                                              \
+  launch_wide<GATED, GEN>(x, index, wi, wgt, wo, lo, h, y, B, S, d, G, C,   \
+                          F, r, scale, act, st)
+    return gated ? (gen ? REPRO_WIDE(true, true) : REPRO_WIDE(true, false))
+                 : (gen ? REPRO_WIDE(false, true) : REPRO_WIDE(false, false));
+#undef REPRO_WIDE
   }
   const size_t bytes = smem_bytes(d, F);
-  return wgt != nullptr
-             ? launch_k<true>(x, index, wi, wgt, wo, lo, y, B, S, d, G, C, F,
-                              r, scale, act, bytes, st)
-             : launch_k<false>(x, index, wi, wgt, wo, lo, y, B, S, d, G, C, F,
-                               r, scale, act, bytes, st);
+#define REPRO_RESIDENT(GATED, GEN)                                          \
+  launch_k<GATED, GEN>(x, index, wi, wgt, wo, lo, y, B, S, d, G, C, F, r,   \
+                       scale, act, bytes, st)
+  return gated ? (gen ? REPRO_RESIDENT(true, true) : REPRO_RESIDENT(true, false))
+               : (gen ? REPRO_RESIDENT(false, true)
+                      : REPRO_RESIDENT(false, false));
+#undef REPRO_RESIDENT
 }
 
 }  // namespace wg
 
 }  // namespace
 
-// Elements of h scratch per capacity slot the launcher needs: F where the
-// bf16 body takes its wide form (h (B, G, C, F) bf16 between its two
-// kernels), else 0.
-extern "C" int repro_grouped_ffn_h_elems(int dtype, int d, int F) {
-  return dtype == 1 && !wg::resident_fits(d, F) ? F : 0;
+// Elements of h scratch per capacity slot the launcher needs at a LoRA
+// rank r (padded to 8; 0 without LoRA): where the bf16 body takes its
+// wide form, F (h (B, G, C, F) bf16 between its two kernels), 2 F in its
+// GEN instances (h's lo half after it); else 0.
+extern "C" int repro_grouped_ffn_h_elems(int dtype, int d, int F, int r) {
+  if (dtype != 1 || wg::resident_fits(d, F, r)) return 0;
+  return wg::gen_of(d, F, r) ? 2 * F : F;
 }
 
 // dtype 0 = float32: x, weights, y and the LoRA leaves in float32 (CUDA-core
-// body, rank <= 128).  dtype 1 = bfloat16: x, weights, y and the LoRA
-// leaves in bfloat16 (tensor-core body; d, F and the rank multiples of 8,
-// rank <= 32, x and the weights 16-byte aligned; h: bf16 scratch of
+// body, any rank).  dtype 1 = bfloat16: x, weights, y and the LoRA leaves
+// in bfloat16 (tensor-core body; any d and F, the rank padded to a
+// multiple of 8, the LoRA leaves 16-byte aligned; h: bf16 scratch of
 // repro_grouped_ffn_h_elems(...) per slot, null when that is 0).  w_gate
 // null = ungated; li_b null = no LoRA (then all LoRA pointers are
 // ignored).  act: 0 relu, 1 gelu (tanh), 2 silu.
@@ -1118,8 +1311,8 @@ extern "C" int repro_grouped_ffn(
 // f32 body's at the largest row tile that fits (r = 0 without LoRA).
 extern "C" int repro_grouped_ffn_smem(int dtype, int d, int F, int r) {
   if (dtype == 1)
-    return (int)(wg::resident_fits(d, F) ? wg::smem_bytes(d, F)
-                                         : wg::wide_smem_bytes());
+    return (int)(wg::resident_fits(d, F, r) ? wg::smem_bytes(d, F)
+                                            : wg::wide_smem_bytes());
   int rt = 4;
   while (rt > 1 && smem_bytes(8 * rt, d, F, r) > 232448) rt >>= 1;
   return (int)smem_bytes(8 * rt, d, F, r);

@@ -32,8 +32,23 @@
 // the tile: all its lanes work on the same book at once, two rows a lane,
 // so every codeword read is a broadcast 16-byte shared load serving 64
 // rows, and the E x d' loop is unrolled.  Codes gather in a shared tile and leave
-// as coalesced stores.  Any other (M, E, d') takes the general body: one
-// (row, book) a lane, the book warp-uniform, loops over E and d'.
+// as coalesced stores.
+//
+// Any other (M, E, d') takes the general body, which has no limit of its
+// own (the JAX kernel stages the whole (M, E, d') codebook in one block
+// and checks only d == M d'; a block here has 227 KB): a block takes 256
+// rows of one book, a row a thread.  It walks the book's codewords in
+// E-tiles of 32 and, inside each, d' in chunks of 32: a chunk of the tile
+// (-2 C) and of the 256 rows' sub-vectors (transposed, so each thread
+// reads its own row's column without bank conflicts) are staged in
+// shared memory, and each thread carries the 32 codewords' partial
+// distances in registers from chunk to chunk.  So every distance is
+// still ||c||^2 + x_0 (-2 c_0) + ... in the order j = 0 .. d'-1, the same
+// fused multiply-adds as the main body; at the end of a tile the thread
+// folds its 32 distances into a running (distance, first index) in
+// codeword order with a strict compare, so a tie still goes to the lowest
+// index.  Both bodies give equal codes, and the margin rule holds as it
+// did.  Shared memory: 36 KB whatever (M, E, d').
 #include "common.cuh"
 
 namespace {
@@ -42,9 +57,10 @@ using namespace repro;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int CB_MAX = 8192;     // M * E * d' floats staged (32 KB)
-constexpr int C2_MAX = 1024;     // M * E squared norms
-constexpr int DP_MAX = 32;       // d'
+// the general body
+constexpr int GR = THREADS;      // rows a block (one book)
+constexpr int GE = 32;           // codewords an E-tile
+constexpr int GD = 32;           // d' columns a chunk
 // the main-path body
 constexpr int TR = 64;           // rows a tile
 constexpr int RL = TR / 32;      // rows a lane
@@ -210,43 +226,62 @@ __global__ void __launch_bounds__(THREADS) pq_assign_fast_kernel(
   }
 }
 
-// Any (M, E, d') within the staged limits: lane = row, the book uniform in
-// a warp; x read from device memory.
+// Any (M, E, d'): 256 rows of one book a block, a row a thread, the
+// codewords in E-tiles of GE and d' in chunks of GD (header).
 template <typename T>
 __global__ void __launch_bounds__(THREADS) pq_assign_general_kernel(
     const T* __restrict__ x, const float* __restrict__ codebooks,
     int32_t* __restrict__ codes, long long rows, int M, int E, int DP) {
-  __shared__ float cbn[CB_MAX];
-  __shared__ float c2[C2_MAX];
-  stage_codebook(codebooks, cbn, c2, M * E * DP, M * E, DP);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int d = M * DP;
-  const long long units = (rows + 31) / 32 * M;  // (32 rows, book) units
-  for (long long u = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
-       u < units; u += ((long long)gridDim.x * THREADS) >> 5) {
+  __shared__ float xs[GD][GR];        // the rows' chunk, transposed
+  __shared__ float cs[GE][GD + 1];    // -2 C of the tile's chunk
+  __shared__ float c2[GE];            // the tile's squared norms
+  const int tid = threadIdx.x;
+  const long long d = (long long)M * DP;
+  const long long tiles = (rows + GR - 1) / GR;
+  for (long long u = blockIdx.x; u < tiles * M; u += gridDim.x) {
     const int m = (int)(u % M);
-    const long long row = u / M * 32 + lane;
-    if (row >= rows) continue;
-    const T* xs = x + row * d + m * DP;
-    float xv[DP_MAX];
-#pragma unroll
-    for (int j = 0; j < DP_MAX; ++j)
-      if (j < DP) xv[j] = to_f(xs[j]);
+    const long long r0 = u / M * GR;
+    const int nr = (int)(rows - r0 < GR ? rows - r0 : GR);
+    const float* cb = codebooks + (size_t)m * E * DP;
     int best = 0;
     float best_d = INFINITY;
-    for (int e = 0; e < E; ++e) {
-      const float* c = cbn + (m * E + e) * DP;
-      float dist = c2[m * E + e];
+    for (int e0 = 0; e0 < E; e0 += GE) {
+      const int ne = min(GE, E - e0);
+      float part[GE];
+      __syncthreads();                      // the last tile's reads are done
+      if (tid < ne) c2[tid] = sq_norm(cb + (size_t)(e0 + tid) * DP, DP);
+      __syncthreads();
 #pragma unroll
-      for (int j = 0; j < DP_MAX; ++j)
-        if (j < DP) dist = fmaf(xv[j], c[j], dist);
-      if (dist < best_d) {            // strict: the first index wins ties
-        best_d = dist;
-        best = e;
+      for (int k = 0; k < GE; ++k) part[k] = c2[k < ne ? k : 0];
+      for (int j0 = 0; j0 < DP; j0 += GD) {
+        const int nd = min(GD, DP - j0);
+        __syncthreads();                    // the last chunk's reads are done
+        for (int i = tid; i < nr * nd; i += THREADS) {
+          const int r = i / nd, j = i - r * nd;
+          xs[j][r] = to_f(x[(r0 + r) * d + (long long)m * DP + j0 + j]);
+        }
+        for (int i = tid; i < ne * nd; i += THREADS) {
+          const int k = i / nd, j = i - k * nd;
+          cs[k][j] = -2.f * __ldg(cb + (size_t)(e0 + k) * DP + j0 + j);
+        }
+        __syncthreads();
+        if (tid < nr) {
+#pragma unroll 4
+          for (int j = 0; j < nd; ++j) {
+            const float xv = xs[j][tid];
+#pragma unroll
+            for (int k = 0; k < GE; ++k) part[k] = fmaf(xv, cs[k][j], part[k]);
+          }
+        }
       }
+#pragma unroll
+      for (int k = 0; k < GE; ++k)
+        if (k < ne && part[k] < best_d) {   // strict: the first index wins
+          best_d = part[k];
+          best = e0 + k;
+        }
     }
-    codes[row * M + m] = best;
+    if (tid < nr) codes[(r0 + tid) * M + m] = best;
   }
 }
 
@@ -291,11 +326,10 @@ int launch(const void* x, const float* cb, int32_t* out, long long rows,
         xt, cb, out, rows, M);
   } else {
     static int per_sm = 0;
-    const long long units = (rows + 31) / 32 * M;
-    const long long want = (units * 32 + THREADS - 1) / THREADS;
+    const long long units = (rows + GR - 1) / GR * M;
     const long long wave =
         wave_blocks(pq_assign_general_kernel<T>, 0, per_sm);
-    pq_assign_general_kernel<T><<<(int)(want < wave ? want : wave), THREADS,
+    pq_assign_general_kernel<T><<<(int)(units < wave ? units : wave), THREADS,
                                   0, st>>>(
         xt, cb, out, rows, M, E, DP);
   }
@@ -310,9 +344,7 @@ int launch(const void* x, const float* cb, int32_t* out, long long rows,
 extern "C" int repro_pq_assign(int dtype, const void* x, const void* codebooks,
                                void* codes, long long rows, int M, int E,
                                int DP, void* stream) {
-  if (rows < 1 || M < 1 || E < 1 || DP < 1 || DP > DP_MAX ||
-      (long long)M * E > C2_MAX || (long long)M * E * DP > CB_MAX)
-    return (int)cudaErrorInvalidValue;
+  if (rows < 1 || M < 1 || E < 1 || DP < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* cb = static_cast<const float*>(codebooks);
   int32_t* out = static_cast<int32_t*>(codes);

@@ -10,8 +10,9 @@
 // causal / window mask is kept when its PQ match score s > t, or when
 // s == t and fewer than `need` keys with s == t sit at newer (higher)
 // positions.  Softmax over the kept keys in f32; a row that keeps nothing
-// outputs 0; the output has q's dtype.  Any head dim dh that is a
-// multiple of 8, up to 256.
+// outputs 0; the output has q's dtype.  Any head dim, any number of PQ
+// books and any int32 codes, as the JAX kernel takes them: three bodies,
+// chosen at the launcher by what fits (never as a fallback), below.
 //
 // What bounds it: per (64-query, 64-key) tile that the mask admits, the M
 // code compares of each of its pairs and, when any pair of the tile is
@@ -31,12 +32,21 @@
 //    2-stage shared-memory ring (the next tile is in flight while one
 //    computes); Q is staged once; rows past nq / nk arrive as zeros, and
 //    the columns that pad dh to the mma depth of 16 are zero;
-//  * each warp packs the tile's key codes four books to a word (codes in
-//    [0, 128), as the int8 caches of the decode path hold them) and
-//    scores its 16 x 64 pairs in the mma accumulator layout (a row's 64
-//    columns spread over a quad of lanes): a byte of q ^ k is nonzero iff
-//    adding 0x7f carries into its top bit, so four words cost one
-//    popcount.  The mask (-1 outside it) is applied per pair only in the
+//  * each warp packs the tile's key codes four books to a word and scores
+//    its 16 x 64 pairs in the mma accumulator layout (a row's 64 columns
+//    spread over a quad of lanes).  The compare takes one of three forms,
+//    chosen per tile and uniform in the warp (every warp packs the same
+//    tile; the query side is its own rows'), from the OR of the codes it
+//    compares, as kernel 2 chooses per tile: codes in [0, 128) (E <= 128,
+//    the main path): a byte of q ^ k is nonzero iff adding 0x7f carries
+//    into its top bit, so four words cost one popcount; codes in
+//    [0, 256) (E = 256): the same with the top bit ORed in; any other
+//    int32 codes, or more than 32 books: one int32 compare a book, the
+//    key codes from the staged tile, the query codes through L1.  Where
+//    the caller vouches that the codes lie in [0, 128) (the train path:
+//    they come from a codebook of at most 128 words) an instance without
+//    the per-tile test runs the first form alone.  The
+//    mask (-1 outside it) is applied per pair only in the
 //    tiles that cross a row's causal / window edge or nq / nk.  Ties at t
 //    are taken newest first: the quad ORs its 64-bit tie masks, a tie's
 //    rank is the popcount of the tie bits at higher columns plus the
@@ -52,20 +62,39 @@
 //  * O / l in f32 at the end, 0 for a row with l = 0.
 // Every sum runs in a fixed order: two launches give identical bits.
 //
+// It takes dh a multiple of 8 up to 256 (o, 16 rows x dh, lives in the
+// accumulator registers; rows come in 16-byte pieces) where its shared
+// memory (Q, a 2-stage ring of K, V and code tiles) fits a block: at dh
+// 256 up to ~64 books.
+//
 // Design, f32 (CUDA cores; no TF32, so the f32 train step holds to the
 // oracle): one warp per query row walks its admitted keys newest first,
 // 32 at a time, one key per lane; a warp ballot and popcounts rank the
 // ties.  For each kept key the warp reads its K row and V row in slices
 // of ND = 1, 2, 4 or 8 floats a lane (lanes past dh idle) and folds it
-// into an f32 online softmax.
+// into an f32 online softmax.  dh a multiple of 8 up to 256, M <= 32
+// (the query codes in registers); any codes.
+//
+// Design, any shape (sparse_attention_any_kernel, either dtype): the f32
+// body's walk with nothing in registers that grows with the shape — any
+// dh (dh 20, 320, 512, ...), any M, any codes.  A warp a query row; its
+// q row and its running output O (dh floats each) live in shared memory,
+// so a lane walks the head dim 32 apart; a key's score compares M int32
+// codes (the query's through broadcast loads); the kept keys' logits are
+// warp sums over dh, their P in shared memory for the PV pass.  All
+// arithmetic in f32 (a bf16 input's P is not rounded to bf16 as on the
+// tensor cores).  dh past 256 has no room on the tensor cores: O of 16
+// rows would need 2 x dh accumulator registers a lane, and a 2-stage K/V
+// ring of 64 keys at dh 512 is 256 KB, past a block's 227 KB.
 #include "common.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int M_MAX = 32;             // PQ books
-constexpr int D_MAX = 256;            // head dim
+constexpr int M_MAX = 32;             // PQ books of the f32 body
+constexpr int D_MAX = 256;            // head dim of the f32 and bf16 bodies
+constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
 // ------------------------------------------------------------- f32 body
 constexpr int F_WARPS = 8;            // query rows per block
@@ -175,6 +204,102 @@ __global__ void __launch_bounds__(F_THREADS) sparse_attention_f32_kernel(
   for (int e = 0; e < ND; ++e) o[e] = acc[e] * inv;
 }
 
+// ----------------------------------------------------- any-shape body
+// Shared memory a warp (a query row): its q row and running O (dh floats
+// each) and the 32 P values of a key tile.
+__host__ __device__ inline size_t any_warp_bytes(int dh) {
+  return ((size_t)2 * dh + 32) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS) sparse_attention_any_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int32_t* __restrict__ codes_q, const int32_t* __restrict__ codes_k,
+    const int32_t* __restrict__ thr, T* __restrict__ out, int nq, int nk,
+    int dh, int M, int hq, int rep, float scale, int causal, int window,
+    int q_offset) {
+  extern __shared__ float any_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const unsigned lane_lt = (1u << lane) - 1u;
+  const int g = blockIdx.y;
+  const int i = blockIdx.x * warps + warp;
+  if (i >= nq) return;                          // whole warp
+  float* qs = any_smem + (size_t)warp * (2 * dh + 32);
+  float* os = qs + dh;
+  float* ps = os + dh;
+  const size_t row = (size_t)g * nq + i;
+  const int kvg = kv_group(g, hq, rep);
+  const T* kg = k + (size_t)kvg * nk * dh;
+  const T* vg = v + (size_t)kvg * nk * dh;
+  const int32_t* ck = codes_k + (size_t)kvg * nk * M;
+  const int32_t* cq = codes_q + row * M;
+  for (int d = lane; d < dh; d += 32) {
+    qs[d] = to_f(q[row * dh + d]);
+    os[d] = 0.f;
+  }
+  __syncwarp();
+  const int t = thr[row * 2], need = thr[row * 2 + 1];
+  const int qpos = q_offset + i;
+  const int k_hi = causal ? min(nk, qpos + 1) : nk;
+  const int k_lo = window > 0 ? max(0, qpos - window + 1) : 0;
+
+  int taken = 0;                                // ties kept at newer keys
+  float m_run = -INFINITY, l_run = 0.f;
+  for (int tile_end = k_hi; tile_end > k_lo; tile_end -= 32) {
+    const int key = tile_end - 1 - lane;        // lane 0 = newest key
+    int s = -1;
+    if (key >= k_lo) {
+      const int32_t* kr = ck + (size_t)key * M;
+      s = 0;
+      for (int m = 0; m < M; ++m) s += kr[m] == __ldg(cq + m);
+    }
+    const bool at = s == t;                     // t >= 0, so s = -1 never
+    const unsigned ties = __ballot_sync(FULL_MASK, at);
+    const bool take_tie = at && taken + __popc(ties & lane_lt) < need;
+    const bool kept = s > t || take_tie;
+    taken += __popc(__ballot_sync(FULL_MASK, take_tie));
+    const unsigned kept_mask = __ballot_sync(FULL_MASK, kept);
+    if (kept_mask == 0) continue;               // uniform: skip the tile
+
+    float lg = -INFINITY;                       // lane j: logit of key j
+    for (unsigned rem = kept_mask; rem; rem &= rem - 1) {
+      const int j = __ffs(rem) - 1;
+      const T* kr = kg + (size_t)(tile_end - 1 - j) * dh;
+      float part = 0.f;
+      for (int d = lane; d < dh; d += 32) part = fmaf(qs[d], to_f(kr[d]), part);
+      const float dot = warp_sum(part);
+      if (lane == j) lg = dot * scale;
+    }
+    const float m_new = fmaxf(m_run, warp_max(lg));   // finite: a key kept
+    const float alpha = expf(m_run - m_new);          // 0 on the first tile
+    const float p = kept ? expf(lg - m_new) : 0.f;
+    l_run = l_run * alpha + warp_sum(p);
+    m_run = m_new;
+    ps[lane] = p;
+    __syncwarp();
+    for (int d = lane; d < dh; d += 32) {
+      float acc = os[d] * alpha;
+      for (unsigned rem = kept_mask; rem; rem &= rem - 1) {
+        const int j = __ffs(rem) - 1;
+        acc = fmaf(ps[j], to_f(vg[(size_t)(tile_end - 1 - j) * dh + d]), acc);
+      }
+      os[d] = acc;                              // only this lane's columns
+    }
+    __syncwarp();                               // ps is rewritten next tile
+  }
+  const float inv = l_run > 0.f ? 1.f / fmaxf(l_run, 1e-30f) : 0.f;
+  for (int d = lane; d < dh; d += 32) out[row * dh + d] = from_f<T>(os[d] * inv);
+}
+
+// Warps a block of the any-shape body: 8, fewer where their shared memory
+// would pass a block's.
+inline int any_warps(int dh) {
+  int w = F_WARPS;
+  while (w > 1 && w * any_warp_bytes(dh) > SMEM_MAX) w >>= 1;
+  return w;
+}
+
 // ------------------------------------------------------------ bf16 body
 constexpr int BQ = 64;                // query rows a block, 16 a warp
 constexpr int BK = 64;                // keys a tile
@@ -239,9 +364,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Books in which the 16 code bytes of a and b differ (codes below 128:
-// a byte of a ^ b is nonzero iff adding 0x7f carries into its top bit).
-template <int CW>
+// Books in which the code bytes of a and b differ.  B8 false (codes below
+// 128): a byte of v = a ^ b is nonzero iff adding 0x7f carries into its
+// top bit.  B8 (codes below 256): the same over the low seven bits, or
+// the top bit set.
+template <int CW, bool B8>
 __device__ __forceinline__ int book_misses(const uint32_t (&a)[CW],
                                            const uint32_t (&b)[CW]) {
   int miss = 0;
@@ -249,8 +376,12 @@ __device__ __forceinline__ int book_misses(const uint32_t (&a)[CW],
   for (int w0 = 0; w0 < CW; w0 += 4) {
     uint32_t m = 0;
 #pragma unroll
-    for (int w = 0; w < 4; ++w)
-      m |= (((a[w0 + w] ^ b[w0 + w]) + 0x7f7f7f7fu) & 0x80808080u) >> w;
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t v = a[w0 + w] ^ b[w0 + w];
+      const uint32_t f =
+          B8 ? (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) : v + 0x7f7f7f7fu;
+      m |= (f & 0x80808080u) >> w;
+    }
     miss += __popc(m);
   }
   return miss;
@@ -283,7 +414,8 @@ inline size_t bf16_smem_bytes(int dh, int M) {
 // at: s == t, placed at bit 8 nt + e of a 64-bit column mask (shifted by
 // 2 qd later).  MASK: apply nq, nk and the causal / window mask per pair
 // (-1 outside it); without it the whole tile is admitted for the warp.
-template <bool MASK, int CW>
+// B8: codes in [0, 256) (else [0, 128)).
+template <bool MASK, int CW, bool B8>
 __device__ __forceinline__ void score_tile(
     const uint32_t* packed, const uint32_t (&qw)[2][CW], const int (&lim)[2],
     const bool (&rok)[2], const int (&qpos)[2], int kb, int qd, int nk,
@@ -304,7 +436,7 @@ __device__ __forceinline__ void score_tile(
       }
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
-        const int miss = book_misses<CW>(qw[ri], kw);
+        const int miss = book_misses<CW, B8>(qw[ri], kw);
         bool ok = true;
         if constexpr (MASK)
           ok = rok[ri] && key < nk && (!causal || key <= qpos[ri]) &&
@@ -315,9 +447,49 @@ __device__ __forceinline__ void score_tile(
     }
 }
 
+// score_tile over raw int32 codes (any values, any M): one compare a
+// book, the key codes from the staged tile (row c at cs + c M), the
+// thread's two query rows through L1; lim = M - t.
+template <bool MASK>
+__device__ __forceinline__ void score_tile_raw(
+    const int32_t* cs, const int32_t* __restrict__ qr0,
+    const int32_t* __restrict__ qr1, int M, const int (&lim)[2],
+    const bool (&rok)[2], const int (&qpos)[2], int kb, int qd, int nk,
+    int causal, int window, uint32_t (&above)[2],
+    unsigned long long (&at)[2]) {
+  above[0] = above[1] = 0;
+  at[0] = at[1] = 0;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = nt * 8 + 2 * qd + e, key = kb + c;
+      const int32_t* kr = cs + c * M;
+      int miss[2] = {0, 0};
+      for (int m = 0; m < M; ++m) {
+        const int kc = kr[m];
+        miss[0] += kc != __ldg(qr0 + m);
+        miss[1] += kc != __ldg(qr1 + m);
+      }
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        bool ok = true;
+        if constexpr (MASK)
+          ok = rok[ri] && key < nk && (!causal || key <= qpos[ri]) &&
+               (window <= 0 || key > qpos[ri] - window);
+        above[ri] |= (uint32_t)(ok && miss[ri] < lim[ri]) << (2 * nt + e);
+        at[ri] |= (unsigned long long)(ok && miss[ri] == lim[ri]) << (8 * nt + e);
+      }
+    }
+}
+
 // DB: head dims up to DB (64, 128 or 256) share the register tiles; CW:
-// code words a row (4 for M <= 16, 8 for M <= 32).
-template <int DB, int CW>
+// code words a row (4 for M <= 16, 8 above: past 32 books only the int32
+// form runs).  GEN: the per-tile choice of the compare's form; without it
+// (the caller vouches that every code lies in [0, 128) and M <= 4 CW:
+// the main path, whose codes come from a codebook of at most 128 words)
+// the body is the 7-bit form alone, with no per-tile test.
+template <int DB, int CW, bool GEN>
 __global__ void __launch_bounds__(B_THREADS) sparse_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ codes_q,
@@ -356,30 +528,39 @@ __global__ void __launch_bounds__(B_THREADS) sparse_attention_bf16_kernel(
 
   // this thread's two rows (fragment rows gr and gr + 8 of its warp):
   // lim = 4 CW - t, so s > t <=> misses < lim and s == t <=> misses == lim
-  int qpos[2], lim[2], need[2];
+  // limr = M - t: the same for the int32 form
+  int qpos[2], lim[2], limr[2], need[2];
   bool rok[2];
   uint32_t qw[2][CW];
+  const int32_t* qrow[2];
+  const bool packable = !GEN || M <= 4 * CW;
+  uint32_t qor = 0;                             // OR of the rows' codes
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const int r = wq + gr + 8 * ri;
     rok[ri] = r < nq;
     qpos[ri] = q_offset + r;
-    lim[ri] = 4 * CW - (rok[ri] ? thr[((size_t)g * nq + r) * 2] : 0);
+    const int t = rok[ri] ? thr[((size_t)g * nq + r) * 2] : 0;
+    lim[ri] = 4 * CW - t;
+    limr[ri] = M - t;
     need[ri] = rok[ri] ? thr[((size_t)g * nq + r) * 2 + 1] : 0;
+    qrow[ri] = codes_q + ((size_t)g * nq + (rok[ri] ? r : 0)) * M;
+    if (GEN && rok[ri] && !packable)
+      for (int m = 0; m < M; ++m) qor |= (uint32_t)qrow[ri][m];
 #pragma unroll
     for (int w = 0; w < CW; ++w) {
       uint32_t word = 0;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int m = 4 * w + b;        // books past M: 0x7f, keys' are 0
-        const uint32_t c =
-            rok[ri] && m < M ? (uint32_t)codes_q[((size_t)g * nq + r) * M + m]
-                             : 0x7fu;
-        word |= (c & 0x7fu) << (8 * b);
+        const uint32_t c = rok[ri] && m < M ? (uint32_t)qrow[ri][m] : 0x7fu;
+        if (GEN && rok[ri] && m < M) qor |= c;
+        word |= (c & 0xffu) << (8 * b);
       }
       qw[ri][w] = word;
     }
   }
+  if (GEN) qor = __reduce_or_sync(FULL_MASK, qor);
 
   float o[NT][4];
 #pragma unroll
@@ -470,23 +651,36 @@ __global__ void __launch_bounds__(B_THREADS) sparse_attention_bf16_kernel(
           reinterpret_cast<const __nv_bfloat16*>(ring + (it & 1) * stage_bytes);
       const int32_t* cs = reinterpret_cast<const int32_t*>(ks + 2 * tile_el);
 
-      // 1. the warp's copy of the tile's key codes, four books a word
-      for (int i = lane; i < BK * CW; i += 32) {
-        const int r = i / CW, w = i - r * CW;
-        uint32_t word = 0;
-        if (M % 4 == 0) {
-          if (4 * w < M) {
-            const int4 c = *reinterpret_cast<const int4*>(cs + r * M + 4 * w);
-            word = (c.x & 0x7f) | (c.y & 0x7f) << 8 | (c.z & 0x7f) << 16 |
-                   (c.w & 0x7f) << 24;
-          }
-        } else {
+      // 1. the warp's copy of the tile's key codes, four books a word, and
+      // the compare's form: 0 codes in [0, 128), 1 in [0, 256), 2 int32
+      uint32_t kor = 0;
+      if (packable) {
+        for (int i = lane; i < BK * CW; i += 32) {
+          const int r = i / CW, w = i - r * CW;
+          uint32_t word = 0;
+          if (M % 4 == 0) {
+            if (4 * w < M) {
+              const int4 c = *reinterpret_cast<const int4*>(cs + r * M + 4 * w);
+              if (GEN) kor |= (uint32_t)(c.x | c.y | c.z | c.w);
+              word = (c.x & 0xff) | (c.y & 0xff) << 8 | (c.z & 0xff) << 16 |
+                     (c.w & 0xff) << 24;
+            }
+          } else {
 #pragma unroll
-          for (int b = 0; b < 4; ++b)
-            if (4 * w + b < M)
-              word |= (uint32_t)(cs[r * M + 4 * w + b] & 0x7f) << (8 * b);
+            for (int b = 0; b < 4; ++b)
+              if (4 * w + b < M) {
+                const int c = cs[r * M + 4 * w + b];
+                if (GEN) kor |= (uint32_t)c;
+                word |= (uint32_t)(c & 0xff) << (8 * b);
+              }
+          }
+          packed[i] = word;
         }
-        packed[i] = word;
+      }
+      int form = 0;
+      if constexpr (GEN) {
+        const uint32_t codes_or = __reduce_or_sync(FULL_MASK, kor) | qor;
+        form = !packable ? 2 : codes_or < 128u ? 0 : codes_or < 256u ? 1 : 2;
       }
       __syncwarp();
 
@@ -496,12 +690,29 @@ __global__ void __launch_bounds__(B_THREADS) sparse_attention_bf16_kernel(
       const bool inside = w_rows && kb + BK <= nk &&
                           (!causal || kb + BK - 1 <= wp_lo) &&
                           (window <= 0 || kb > wp_hi - window);
-      if (inside)                               // uniform in the warp
-        score_tile<false, CW>(packed, qw, lim, rok, qpos, kb, qd, nk, causal,
-                              window, above, at);
-      else
-        score_tile<true, CW>(packed, qw, lim, rok, qpos, kb, qd, nk, causal,
-                             window, above, at);
+      if (form == 0) {                          // uniform in the warp
+        if (inside)
+          score_tile<false, CW, false>(packed, qw, lim, rok, qpos, kb, qd, nk,
+                                       causal, window, above, at);
+        else
+          score_tile<true, CW, false>(packed, qw, lim, rok, qpos, kb, qd, nk,
+                                      causal, window, above, at);
+      } else if constexpr (GEN) {
+        if (form == 1) {
+          if (inside)
+            score_tile<false, CW, true>(packed, qw, lim, rok, qpos, kb, qd,
+                                        nk, causal, window, above, at);
+          else
+            score_tile<true, CW, true>(packed, qw, lim, rok, qpos, kb, qd,
+                                       nk, causal, window, above, at);
+        } else if (inside) {
+          score_tile_raw<false>(cs, qrow[0], qrow[1], M, limr, rok, qpos, kb,
+                                qd, nk, causal, window, above, at);
+        } else {
+          score_tile_raw<true>(cs, qrow[0], qrow[1], M, limr, rok, qpos, kb,
+                               qd, nk, causal, window, above, at);
+        }
+      }
       uint32_t kept[2];
 #pragma unroll
       for (int ri = 0; ri < 2; ++ri) {
@@ -632,7 +843,7 @@ __global__ void __launch_bounds__(B_THREADS) sparse_attention_bf16_kernel(
   }
 }
 
-template <int DB, int CW>
+template <int DB, int CW, bool GEN>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int32_t* cq, const int32_t* ck,
                         const int32_t* thr, void* out, int G, int nq, int nk,
@@ -640,7 +851,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         int causal, int window, int q_offset, int codes_vec,
                         cudaStream_t st) {
   const size_t smem = bf16_smem_bytes<CW>(dh, M);
-  auto kern = sparse_attention_bf16_kernel<DB, CW>;
+  auto kern = sparse_attention_bf16_kernel<DB, CW, GEN>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -683,51 +894,95 @@ int launch_f32(const void* q, const void* k, const void* v, const int32_t* cq,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, const int32_t* cq,
+               const int32_t* ck, const int32_t* thr, void* out, int G, int nq,
+               int nk, int dh, int M, int hq, int rep, float scale, int causal,
+               int window, int q_offset, cudaStream_t st) {
+  const int warps = any_warps(dh);
+  const size_t smem = warps * any_warp_bytes(dh);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_attention_any_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sparse_attention_any_kernel<T>
+      <<<dim3((nq + warps - 1) / warps, G), warps * 32, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), cq, ck, thr, static_cast<T*>(out), nq, nk,
+          dh, M, hq, rep, scale, causal, window, q_offset);
+  return (int)cudaGetLastError();
+}
+
+// The body a shape runs: 0 the f32 body, 1 the bf16 tensor-core body, 2
+// the any-shape body.
+inline int body_of(int dtype, int dh, int M) {
+  if (dh % 8 == 0 && dh <= D_MAX) {
+    if (dtype == 0 && M <= M_MAX) return 0;
+    if (dtype == 1 && (M <= 16 ? bf16_smem_bytes<4>(dh, M)
+                               : bf16_smem_bytes<8>(dh, M)) <= SMEM_MAX)
+      return 1;
+  }
+  return 2;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  q: (G, nq, dh);
 // k, v: (Gk, nk, dh); codes_q: (G, nq, M) and codes_k: (Gk, nk, M) int32
-// (the bf16 body compares codes as 7-bit bytes: they lie in [0, 128));
-// thr: (G, nq, 2) int32 [t, need]; G = B * hq, Gk = B * hq / rep.  dh is a
-// multiple of 8, at most 256; window <= 0 means none.  q, k and v start
-// on 16 bytes.  Returns the cudaError_t of the launch.
+// (any values); thr: (G, nq, 2) int32 [t, need]; G = B * hq, Gk = B * hq /
+// rep.  Any dh and M; window <= 0 means none.  code_bound > 0: the caller
+// vouches that every code lies in [0, code_bound) (0: nothing known).  q,
+// k and v start on 16 bytes.  Returns the cudaError_t of the launch.
 extern "C" int repro_sparse_attention(
     int dtype, const void* q, const void* k, const void* v,
     const void* codes_q, const void* codes_k, const void* thr, void* out,
     int G, int nq, int nk, int dh, int M, int hq, int rep, float scale,
-    int causal, int window, int q_offset, void* stream) {
-  if (G < 1 || G > 65535 || nq < 1 || nk < 1 || M < 1 || M > M_MAX ||
-      hq < 1 || rep < 1 || hq % rep || G % hq || q_offset < 0 || dh < 8 ||
-      dh % 8 || dh > D_MAX)
+    int causal, int window, int q_offset, int code_bound, void* stream) {
+  if (G < 1 || G > 65535 || nq < 1 || nk < 1 || M < 1 || hq < 1 || rep < 1 ||
+      hq % rep || G % hq || q_offset < 0 || dh < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* cq = static_cast<const int32_t*>(codes_q);
   const int32_t* ck = static_cast<const int32_t*>(codes_k);
   const int32_t* tp = static_cast<const int32_t*>(thr);
   const bool vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(ck) % 16 == 0;
-  if (dtype == 0)
+  const int body = body_of(dtype, dh, M);
+  if (body == 2)
+    return dtype == 0
+               ? launch_any<float>(q, k, v, cq, ck, tp, out, G, nq, nk, dh, M,
+                                   hq, rep, scale, causal, window, q_offset, st)
+               : launch_any<__nv_bfloat16>(q, k, v, cq, ck, tp, out, G, nq, nk,
+                                           dh, M, hq, rep, scale, causal,
+                                           window, q_offset, st);
+  if (body == 0)
     return launch_f32(q, k, v, cq, ck, tp, out, G, nq, nk, dh, M, hq, rep,
                       scale, causal, window, q_offset, vec, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-#define REPRO_SA_BF16(DB, CW)                                                \
-  launch_bf16<DB, CW>(q, k, v, cq, ck, tp, out, G, nq, nk, dh, M, hq, rep,   \
-                      scale, causal, window, q_offset, (int)vec, st)
+#define REPRO_SA_BF16(DB, CW, GEN)                                           \
+  launch_bf16<DB, CW, GEN>(q, k, v, cq, ck, tp, out, G, nq, nk, dh, M, hq,   \
+                           rep, scale, causal, window, q_offset, (int)vec, st)
+#define REPRO_SA_BF16_CW(DB, CW)                                             \
+  (seven ? REPRO_SA_BF16(DB, CW, false) : REPRO_SA_BF16(DB, CW, true))
   const int dp = (dh + 15) & ~15;
+  const bool seven = M <= 32 && code_bound > 0 && code_bound <= 128;
   const cudaError_t err =
-      M <= 16 ? (dp <= 64    ? REPRO_SA_BF16(64, 4)
-                 : dp <= 128 ? REPRO_SA_BF16(128, 4)
-                             : REPRO_SA_BF16(256, 4))
-              : (dp <= 64    ? REPRO_SA_BF16(64, 8)
-                 : dp <= 128 ? REPRO_SA_BF16(128, 8)
-                             : REPRO_SA_BF16(256, 8));
+      M <= 16 ? (dp <= 64    ? REPRO_SA_BF16_CW(64, 4)
+                 : dp <= 128 ? REPRO_SA_BF16_CW(128, 4)
+                             : REPRO_SA_BF16_CW(256, 4))
+              : (dp <= 64    ? REPRO_SA_BF16_CW(64, 8)
+                 : dp <= 128 ? REPRO_SA_BF16_CW(128, 8)
+                             : REPRO_SA_BF16_CW(256, 8));
+#undef REPRO_SA_BF16_CW
 #undef REPRO_SA_BF16
   return (int)err;
 }
 
 // Dynamic shared memory the launcher asks for at (dtype, dh, M): the bf16
-// body's; the f32 body uses none.
+// body's or the any-shape body's; the f32 body uses none.
 extern "C" int repro_sparse_attention_smem(int dtype, int dh, int M) {
-  if (dtype != 1) return 0;
+  const int body = body_of(dtype, dh, M);
+  if (body == 2) return (int)(any_warps(dh) * any_warp_bytes(dh));
+  if (body == 0) return 0;
   return (int)(M <= 16 ? bf16_smem_bytes<4>(dh, M)
                        : bf16_smem_bytes<8>(dh, M));
 }

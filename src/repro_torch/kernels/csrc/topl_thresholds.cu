@@ -44,7 +44,18 @@
 //  * the causal / window mask is applied per pair only in the tiles that
 //    cross a row's edge (or nk); blocks are issued heaviest first (the
 //    last query rows, with the longest causal spans) across all kv
-//    groups.
+//    groups;
+//  * up to 64 books the packed words cover the books in chunks of 32 (one
+//    popcount a chunk); the histogram, (M + 1) x 128 ints (33 KB at
+//    M = 64), is dynamic shared memory.
+//
+// Any number of books beyond 64 (the JAX kernel compares int32 codes over
+// any number of books) takes the general body: int32 compares, a row a
+// thread, the rows' codes staged transposed in shared memory beside the
+// histogram and a tile of key codes; a block takes 128 rows and 32 keys a
+// tile, fewer of each where those would pass a block's 227 KB.  Scores
+// above M never occur, so max_score (>= M) changes nothing in either
+// body: buckets above M stay empty.
 #include "common.cuh"
 
 namespace {
@@ -57,8 +68,8 @@ constexpr int THREADS = ROWS * KSPLIT;
 constexpr int BK = 64;                // keys a tile
 constexpr int PART = BK / KSPLIT;     // keys a thread scores per tile
 constexpr int ILP = 4;                // keys scored together
-constexpr int M_MAX = 32;             // PQ books
-constexpr int NB_MAX = 33;            // max_score + 1
+constexpr int M_PACKED = 64;          // books of the packed body
+constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -104,17 +115,23 @@ __device__ __forceinline__ void load_codes8(const int32_t* row, int M, int c,
 // Books in which two rows of byte codes (four books a word) differ: a
 // byte of v = a ^ b is nonzero iff adding 0x7f to its low seven bits
 // carries into its top bit, or the top bit is set; word w's flags are
-// shifted down by w, so eight words share one popcount.
+// shifted down by w % 8, so eight words (32 books) share one popcount.
 template <int CW>
 __device__ __forceinline__ int byte_misses(const uint32_t (&a)[CW],
                                            const uint32_t (&b)[CW]) {
-  uint32_t flags = 0;
+  int n = 0;
 #pragma unroll
-  for (int w = 0; w < CW; ++w) {
-    const uint32_t v = a[w] ^ b[w];
-    flags |= ((((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u) >> w;
+  for (int w0 = 0; w0 < CW; w0 += 8) {
+    uint32_t flags = 0;
+#pragma unroll
+    for (int w = w0; w < CW && w < w0 + 8; ++w) {
+      const uint32_t v = a[w] ^ b[w];
+      flags |= ((((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u) >>
+               (w - w0);
+    }
+    n += __popc(flags);
   }
-  return __popc(flags);
+  return n;
 }
 
 // Books in which two rows of codes in [0, 16) differ, from their nibble
@@ -123,17 +140,23 @@ __device__ __forceinline__ int byte_misses(const uint32_t (&a)[CW],
 // 0-1 of every book (w0 & 0x33.. | (w1 & 0x33..) << 2), B bits 2-3
 // ((w0 >> 2) & 0x33.. | w1 & 0xcc..), two bits a book at the same place
 // in both.  So x = (qA ^ kA) | (qB ^ kB) has a book's two bits nonzero
-// iff it missed, and (x | x >> 1) & 0x55.. keeps one bit a book.
+// iff it missed, and (x | x >> 1) & 0x55.. keeps one bit a book; two
+// slices (32 books) share one popcount.
 template <int S>
 __device__ __forceinline__ int slice_misses(const uint32_t (&a)[2 * S],
                                             const uint32_t (&b)[2 * S]) {
-  uint32_t flags = 0;
+  int n = 0;
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const uint32_t x = (a[2 * s] ^ b[2 * s]) | (a[2 * s + 1] ^ b[2 * s + 1]);
-    flags |= ((x | (x >> 1)) & 0x55555555u) << s;
+  for (int s0 = 0; s0 < S; s0 += 2) {
+    uint32_t flags = 0;
+#pragma unroll
+    for (int s = s0; s < S && s < s0 + 2; ++s) {
+      const uint32_t x = (a[2 * s] ^ b[2 * s]) | (a[2 * s + 1] ^ b[2 * s + 1]);
+      flags |= ((x | (x >> 1)) & 0x55555555u) << (s - s0);
+    }
+    n += __popc(flags);
   }
-  return __popc(flags);
+  return n;
 }
 
 // Nibble slice (A, B) contributions of nibble word c of a row: word 2s is
@@ -207,7 +230,8 @@ __device__ __forceinline__ void score_int32(const int32_t* raw,
   }
 }
 
-// MB: books the packed words hold (8, 16 or 32; M <= MB).
+// MB: books the packed words hold (8, 16, 32 or 64; M <= MB).  Dynamic
+// shared memory: the histogram, (M + 1) x ROWS ints.
 template <int MB>
 __global__ void __launch_bounds__(THREADS, 4) topl_thresholds_kernel(
     const int32_t* __restrict__ codes_q, const int32_t* __restrict__ codes_k,
@@ -218,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, 4) topl_thresholds_kernel(
   __shared__ __align__(16) int32_t ring[2][BK * MB];
   __shared__ __align__(16) uint32_t pk8[BK * C8];
   __shared__ __align__(16) uint32_t pkn[BK * CS];
-  __shared__ int hist[(MB + 1) * ROWS];
+  extern __shared__ int hist[];         // [bucket][row]
   const int tid = threadIdx.x;
   const int part = tid / ROWS;          // warp-uniform
   // heaviest first: blocks of equal rank over all kv groups, last rows first
@@ -374,27 +398,137 @@ __global__ void __launch_bounds__(THREADS, 4) topl_thresholds_kernel(
 }
 
 template <int MB>
-void launch(const int32_t* cq, const int32_t* ck, int32_t* tp, int gk, int nq,
-            int nk, int M, int rep, int l, int causal, int window,
-            int q_offset, int ck_vec, cudaStream_t st) {
+int launch(const int32_t* cq, const int32_t* ck, int32_t* tp, int gk, int nq,
+           int nk, int M, int rep, int l, int causal, int window,
+           int q_offset, int ck_vec, cudaStream_t st) {
+  if (MB > 32) {                 // static + dynamic past 48 KB: opt in once
+    static bool opted = false;
+    if (!opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          topl_thresholds_kernel<MB>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (M_PACKED + 1) * ROWS * (int)sizeof(int));
+      if (err != cudaSuccess) return (int)err;
+      opted = true;
+    }
+  }
   const int row_tiles = (rep * nq + ROWS - 1) / ROWS;
-  topl_thresholds_kernel<MB><<<gk * row_tiles, THREADS, 0, st>>>(
+  topl_thresholds_kernel<MB><<<gk * row_tiles, THREADS,
+                               (M + 1) * ROWS * sizeof(int), st>>>(
       cq, ck, tp, nq, nk, M, gk, rep, l, causal, window, q_offset, ck_vec);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- any number of books
+constexpr int G_ROWS = 128;           // rows a block, at most
+constexpr int G_KEYS = 32;            // keys a tile, at most
+
+// Shared memory of the general body at rb rows and bk keys a tile: the
+// histogram (M + 1) x rb, the rows' codes M x rb, a key tile bk x M.
+__host__ __device__ inline size_t any_smem_bytes(int M, int rb, int bk) {
+  return ((size_t)(M + 1) * rb + (size_t)M * rb + (size_t)bk * M) * 4;
+}
+// Its rows a block and keys a tile: 128 and 32, halved (rows first, to
+// 32) while the three do not fit a block.
+inline void any_tiles(int M, int& rb, int& bk) {
+  rb = G_ROWS;
+  bk = G_KEYS;
+  while (any_smem_bytes(M, rb, bk) > SMEM_MAX && rb > 32) rb >>= 1;
+  while (any_smem_bytes(M, rb, bk) > SMEM_MAX && bk > 1) bk >>= 1;
+  while (any_smem_bytes(M, rb, bk) > SMEM_MAX && rb > 1) rb >>= 1;
+}
+
+__global__ void __launch_bounds__(G_ROWS) topl_thresholds_any_kernel(
+    const int32_t* __restrict__ codes_q, const int32_t* __restrict__ codes_k,
+    int32_t* __restrict__ thr, int nq, int nk, int M, int gk, int rep, int l,
+    int causal, int window, int q_offset, int rb, int bk) {
+  extern __shared__ int smem[];
+  int* hist = smem;                              // [bucket][row]
+  int32_t* qs = smem + (size_t)(M + 1) * rb;     // [book][row]
+  int32_t* ks = qs + (size_t)M * rb;             // [key][book]
+  const int tid = threadIdx.x;
+  const int kvg = blockIdx.x % gk;
+  const int n_row_tiles = gridDim.x / gk;
+  const int j0 = (n_row_tiles - 1 - (int)(blockIdx.x / gk)) * rb;
+  const int rows = rep * nq;
+  const int j = j0 + tid;
+  const bool ok = j < rows;
+  const int i = j / rep;
+  const int g = kvg * rep + (j - i * rep);
+  const int qpos = q_offset + i;
+  int hi = causal ? min(nk, qpos + 1) : nk;
+  int lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  if (!ok) lo = hi = 0;
+  const int i_lo = j0 / rep, i_hi = (min(j0 + rb, rows) - 1) / rep;
+  const int k_hi = causal ? min(nk, q_offset + i_hi + 1) : nk;
+  const int k_lo = window > 0 ? max(0, q_offset + i_lo - window + 1) : 0;
+  int* hcol = hist + tid;
+  for (int b = 0; b <= M; ++b) hcol[(size_t)b * rb] = 0;
+  const int32_t* qrow = codes_q + ((size_t)g * nq + (ok ? i : 0)) * M;
+  for (int m = 0; m < M; ++m) qs[(size_t)m * rb + tid] = ok ? qrow[m] : 0;
+  const int32_t* cg = codes_k + (size_t)kvg * nk * M;
+  for (int kb = k_lo; kb < k_hi; kb += bk) {
+    const int n = min(bk, k_hi - kb);
+    __syncthreads();                  // the last tile's reads are done
+    for (int e = tid; e < n * M; e += blockDim.x)
+      ks[e] = cg[(size_t)kb * M + e];
+    __syncthreads();
+    for (int c = 0; c < n; ++c) {
+      const int key = kb + c;
+      if (key < lo || key >= hi) continue;
+      int s = 0;
+      for (int m = 0; m < M; ++m) s += ks[c * M + m] == qs[(size_t)m * rb + tid];
+      ++hcol[(size_t)(M - s) * rb];   // a row's column is its thread's own
+    }
+  }
+  if (!ok) return;
+  int ge = 0, t = 0, n_above = -1;
+  for (int sc = M; sc >= 0; --sc) {
+    const int h = hcol[(size_t)(M - sc) * rb];
+    if (ge + h >= l) {
+      t = sc;
+      n_above = ge;                   // #(s > t)
+      break;
+    }
+    ge += h;
+  }
+  if (n_above < 0) n_above = ge - hcol[(size_t)M * rb];    // t = 0
+  int32_t* out = thr + ((size_t)g * nq + i) * 2;
+  out[0] = t;
+  out[1] = l - n_above;
+}
+
+int launch_any(const int32_t* cq, const int32_t* ck, int32_t* tp, int gk,
+               int nq, int nk, int M, int rep, int l, int causal, int window,
+               int q_offset, cudaStream_t st) {
+  int rb, bk;
+  any_tiles(M, rb, bk);
+  const size_t smem = any_smem_bytes(M, rb, bk);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      topl_thresholds_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = (rep * nq + rb - 1) / rb;
+  topl_thresholds_any_kernel<<<gk * row_tiles, rb, smem, st>>>(
+      cq, ck, tp, nq, nk, M, gk, rep, l, causal, window, q_offset, rb, bk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // codes_q: (G, nq, M) int32; codes_k: (Gk, nk, M) int32 with G = B * hq and
 // Gk = B * hq / rep (query group g reads kv group g / rep); thr: (G, nq, 2)
-// int32.  window <= 0 means none.  Returns the cudaError_t of the launch.
+// int32.  Any M >= 1 and max_score >= M; window <= 0 means none.  Returns
+// the cudaError_t of the launch.
 extern "C" int repro_topl_thresholds(const void* codes_q, const void* codes_k,
                                      void* thr, int G, int nq, int nk, int M,
                                      int hq, int rep, int l, int max_score,
                                      int causal, int window, int q_offset,
                                      void* stream) {
-  if (G < 1 || nq < 1 || nk < 1 || M < 1 || M > M_MAX || hq < 1 || rep < 1 ||
-      hq % rep || G % hq || l < 1 || max_score < M || max_score >= NB_MAX ||
-      q_offset < 0 || (long long)rep * nq > (1 << 30))
+  if (G < 1 || nq < 1 || nk < 1 || M < 1 || hq < 1 || rep < 1 ||
+      hq % rep || G % hq || l < 1 || max_score < M || q_offset < 0 ||
+      (long long)rep * nq > (1 << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* cq = static_cast<const int32_t*>(codes_q);
@@ -402,14 +536,23 @@ extern "C" int repro_topl_thresholds(const void* codes_q, const void* codes_k,
   int32_t* tp = static_cast<int32_t*>(thr);
   const int ck_vec = M % 4 == 0 && reinterpret_cast<uintptr_t>(ck) % 16 == 0;
   const int gk = G / rep;
-  if (M <= 8)
-    launch<8>(cq, ck, tp, gk, nq, nk, M, rep, l, causal, window, q_offset,
-              ck_vec, st);
-  else if (M <= 16)
-    launch<16>(cq, ck, tp, gk, nq, nk, M, rep, l, causal, window, q_offset,
-               ck_vec, st);
-  else
-    launch<32>(cq, ck, tp, gk, nq, nk, M, rep, l, causal, window, q_offset,
-               ck_vec, st);
-  return (int)cudaGetLastError();
+#define REPRO_TOPL(MB)                                                       \
+  launch<MB>(cq, ck, tp, gk, nq, nk, M, rep, l, causal, window, q_offset,    \
+             ck_vec, st)
+  if (M <= 8) return REPRO_TOPL(8);
+  if (M <= 16) return REPRO_TOPL(16);
+  if (M <= 32) return REPRO_TOPL(32);
+  if (M <= M_PACKED) return REPRO_TOPL(64);
+#undef REPRO_TOPL
+  return launch_any(cq, ck, tp, gk, nq, nk, M, rep, l, causal, window,
+                    q_offset, st);
+}
+
+// Dynamic shared memory the launcher asks for at M books: the packed
+// body's histogram, or the general body's three arrays.
+extern "C" int repro_topl_thresholds_smem(int M) {
+  if (M <= M_PACKED) return (M + 1) * ROWS * (int)sizeof(int);
+  int rb, bk;
+  any_tiles(M, rb, bk);
+  return (int)any_smem_bytes(M, rb, bk);
 }

@@ -43,14 +43,53 @@ def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
+# Past this rank the bf16 grouped kernel takes each LoRA pair (b, c) split
+# into bf16 halves (``_split_pairs``).
+SPLIT_RANK = 32
+
+
+def kernel_rank(r: int, dtype) -> int:
+    """The LoRA rank kernel 9 runs at for a rank-r adapter in x's dtype:
+    r padded to 8 in bf16, three times that past SPLIT_RANK (the split
+    leaves), r itself in f32."""
+    if dtype != torch.bfloat16:
+        return r
+    r8 = r + -r % 8
+    return 3 * r8 if r8 > SPLIT_RANK else r8
+
+
+def _split_pairs(ts):
+    """Each LoRA pair (b, c) as rank-3r bf16 leaves b' = [b_hi | b_lo |
+    b_hi], c' = [c_hi ; c_hi ; c_lo] (hi = bf16(v), lo = bf16(v - hi)):
+    x b' c' = x (b_hi + b_lo) c_hi + x b_hi c_lo, x b c up to the x b_lo
+    c_lo term (~2^-16 of it).  The LoRA term grows with the rank, and past
+    rank 32 one bf16 rounding of each leaf alone puts outputs past the
+    per-element 2e-2 rule (scripts/torch_ffn_rounding.py: at d 1024 / F
+    384, rank 128, 32-37 of 16.8M kept outputs, none with the leaves as
+    halves)."""
+    out = []
+    for i in range(0, 6, 2):
+        b, c = ts[i], ts[i + 1]
+        if b is None:
+            out += [None, None]
+            continue
+        bh, ch = b.to(torch.bfloat16), c.to(torch.bfloat16)
+        bl = (b - bh.float()).to(torch.bfloat16)
+        cl = (c - ch.float()).to(torch.bfloat16)
+        out += [torch.cat([bh, bl, bh], _RANK_AXIS[i]),
+                torch.cat([ch, ch, cl], _RANK_AXIS[i + 1])]
+    return out
+
+
 def _lora_leaves(lora_params, gated: bool, dtype=torch.float32,
                  multiple: int = 1):
     """The six LoRA leaves in launcher order (None = absent), in ``dtype``
-    (the bf16 grouped kernel takes them rounded to bf16), with the rank
+    (the bf16 grouped kernel takes them rounded to bf16; past rank
+    SPLIT_RANK split into bf16 halves, ``_split_pairs``), with the rank
     padded by zeros to a multiple of ``multiple`` (the kernels read rank
     rows as 16-byte vectors; a zero rank adds nothing to the function),
-    16-byte aligned, and the padded rank.  Keep the returned tensors alive
-    until the launch is enqueued."""
+    16-byte aligned, and the rank the kernel runs at.  Keep the returned
+    tensors alive until the launch is enqueued."""
     if lora_params is None:
         return [None] * 6, 0
     ts = [lora_params["lora_inner"]["b"], lora_params["lora_inner"]["c"]]
@@ -69,6 +108,8 @@ def _lora_leaves(lora_params, gated: bool, dtype=torch.float32,
         ts = [None if t is None else
               torch.nn.functional.pad(t, (0, 0) * (-ax - 1) + (0, pad))
               for t, ax in zip(ts, _RANK_AXIS)]
+    if dtype == torch.bfloat16 and r + pad > SPLIT_RANK:
+        return [_aligned(t) for t in _split_pairs(ts)], 3 * (r + pad)
     if dtype != torch.float32:
         ts = [None if t is None else t.to(dtype) for t in ts]
     return [_aligned(t) for t in ts], r + pad
@@ -94,12 +135,11 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
     w_inner/w_gate: (G, d, F); w_outer: (G, F, d).  Returns y (B, G, C, d)
     in x's dtype; empty slots hold finite rows that ``dispatch.combine``
     drops.  Any order of the index is computed right (a 64-slot tile
-    that keeps no slot is skipped).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (csrc/grouped_ffn.cu: bf16 on the
-    tensor cores, d and F multiples of 8 and a LoRA rank of at most 32 —
-    x and h resident in shared memory where they fit, else two passes
-    through an h scratch; f32 on the CUDA cores); meta tensors get the
-    output's shape."""
+    that keeps no slot is skipped).  Any d, F and LoRA rank.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel
+    (csrc/grouped_ffn.cu: bf16 on the tensor cores — x and h resident in
+    shared memory where they fit, else two passes through an h scratch;
+    f32 on the CUDA cores); meta tensors get the output's shape."""
     if kernels.target(x) == "cpu":
         return grouped_ffn_ref(x, index, w_inner, w_outer, w_gate,
                                lora_params, lora_scale, act).contiguous()
@@ -114,23 +154,18 @@ def grouped_ffn(x: torch.Tensor, index: torch.Tensor, w_inner: torch.Tensor,
         raise ValueError(f"{name}: inconsistent shapes or index dtype")
     bf16 = x.dtype == torch.bfloat16    # the tensor-core body's contract
     if bf16:
-        if d % 8 or f % 8:
-            raise ValueError(f"{name}: bf16 needs d={d} and F={f} to be "
-                             "multiples of 8 (16-byte rows)")
         x, w_inner, w_outer, w_gate = map(_aligned,
                                           (x, w_inner, w_outer, w_gate))
     lo, r = _lora_leaves(lora_params, w_gate is not None, x.dtype,
                          8 if bf16 else 1)
-    if bf16 and r > 32:
-        raise ValueError(f"{name}: the bf16 kernel takes a LoRA rank of at "
-                         f"most 32, got {r}")
     y = torch.empty((b, g, c, d), dtype=x.dtype, device=x.device)
     lib = None if x.is_meta else kernels.library()
     # the bf16 body's wide form (x and h tiles past shared memory) keeps h
     # (B, G, C, F) in device memory between its two kernels; a dry run
     # takes the library's rule from its restatement in kernels/cost.py
-    h_elems = (cost.grouped_ffn_h_elems(x.dtype, d, f) if lib is None else
-               lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d, f))
+    h_elems = (cost.grouped_ffn_h_elems(x.dtype, d, f, r) if lib is None
+               else lib.repro_grouped_ffn_h_elems(kernels.dtype_code(x), d,
+                                                  f, r))
     h = (torch.empty(b * g * c * h_elems, dtype=x.dtype, device=x.device)
          if h_elems else None)
     if lib is None:

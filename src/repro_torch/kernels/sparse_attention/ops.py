@@ -383,16 +383,13 @@ def dense_mha_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 # ------------------------------------------------------------ train/prefill
-D_MAX = 256                   # kernel 4's head dims: multiples of 8 up to this
-
-
 def check_sparse_attention_args(q, k, v, codes_q, codes_k, thresholds, *,
                                 heads_per_batch: int, rep: int) -> None:
     """Kernel 4's input contract, checked before anything is built or
     launched: the shapes ``sparse_attention`` names, float q/k/v of one
-    dtype, int32 codes and thresholds, and a head dim that is a multiple
-    of 8 and at most 256 (the kernel pads dh to its mma depth of 16 and
-    keeps the output rows in registers)."""
+    dtype, int32 codes and thresholds.  Any head dim, number of books and
+    code values is taken, as the JAX kernel takes them (the launcher
+    picks the body that fits: csrc/sparse_attention.cu)."""
     name = "sparse_attention"
     g, nq, dh = q.shape
     gk, nk, _ = k.shape
@@ -402,9 +399,8 @@ def check_sparse_attention_args(q, k, v, codes_q, codes_k, thresholds, *,
             or codes_q.shape != (g, nq, m) or codes_k.shape != (gk, nk, m)
             or thresholds.shape != (g, nq, 2)):
         raise ValueError(f"{name}: inconsistent shapes")
-    if dh % 8 or not 8 <= dh <= D_MAX:
-        raise ValueError(f"{name}: head dim {dh} is not a multiple of 8 "
-                         f"in [8, {D_MAX}]")
+    if dh < 1 or m < 1:
+        raise ValueError(f"{name}: empty head dim or codes")
     if not (q.dtype == k.dtype == v.dtype and codes_q.dtype == torch.int32
             and codes_k.dtype == torch.int32
             and thresholds.dtype == torch.int32):
@@ -418,16 +414,20 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      thresholds: torch.Tensor, *, scale: float,
                      causal: bool = True, window: Optional[int] = None,
                      q_offset: int = 0, heads_per_batch: int = 1,
-                     rep: int = 1) -> torch.Tensor:
+                     rep: int = 1,
+                     codewords: Optional[int] = None) -> torch.Tensor:
     """Kernel 4.  q: (G, nq, dh); k, v: (G / rep, nk, dh); codes_q:
-    (G, nq, M) and codes_k: (G / rep, nk, M) int32 codes in [0, 128) (the
-    bf16 kernel compares them as 7-bit bytes); thresholds: (G, nq, 2) int32
-    [t, need].  G = B * heads_per_batch; query head h of batch b reads kv
-    group b * Hk + h // rep.  dh: a multiple of 8 up to 256.  Returns
-    (G, nq, dh) in q's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (csrc/sparse_attention.cu): bf16 on the
-    tensor cores, f32 on the CUDA cores; meta tensors get the output's
-    shape."""
+    (G, nq, M) and codes_k: (G / rep, nk, M) int32 codes of any value;
+    thresholds: (G, nq, 2) int32 [t, need].  G = B * heads_per_batch;
+    query head h of batch b reads kv group b * Hk + h // rep.  Any dh and
+    M.  ``codewords``: where given, the caller vouches that every code
+    lies in [0, codewords) (codes assigned from a codebook of that many
+    words); up to 128 the bf16 body then skips its per-tile choice of
+    compare.  Returns (G, nq, dh) in q's dtype.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (csrc/sparse_attention.cu):
+    bf16 on the tensor cores and f32 on the CUDA cores for dh a multiple
+    of 8 up to 256 (and, in f32, up to 32 books), any other shape on its
+    any-shape body; meta tensors get the output's shape."""
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               heads_per_batch=heads_per_batch, rep=rep)
     if kernels.target(q) == "cpu":
@@ -448,7 +448,7 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         codes_q.data_ptr(), codes_k.data_ptr(), thresholds.data_ptr(),
         out.data_ptr(), g, nq, nk, dh, codes_q.shape[-1], heads_per_batch,
         rep, float(scale), int(causal), 0 if window is None else window,
-        q_offset, kernels.stream_ptr())
+        q_offset, codewords or 0, kernels.stream_ptr())
     kernels.check(err, name)
     sparse_attention.launches += 1
     return out
@@ -471,9 +471,6 @@ def _fused_forward(q, k, v, codebooks, cfg: sa.SparseAttentionConfig,
     kf = k.reshape(b * hk, nk, dh).contiguous()
     vf = v.reshape(b * hk, nk, dh).contiguous()
     cb = codebooks.float().contiguous()
-    if kernels.target(q) == "cuda" and cb.shape[1] > 128:
-        raise ValueError("sparse_mha: kernel 4 takes codes in [0, 128), "
-                         f"got {cb.shape[1]} codewords")
     codes_q = pq_assign(qf, cb)
     codes_k = pq_assign(kf, cb)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
@@ -481,7 +478,7 @@ def _fused_forward(q, k, v, codebooks, cfg: sa.SparseAttentionConfig,
     thr = topl_thresholds(codes_q, codes_k, l=l, max_score=cfg.pq.num_books,
                           **kw)
     out = sparse_attention(qf, kf, vf, codes_q, codes_k, thr, scale=scale,
-                           **kw)
+                           codewords=cb.shape[1], **kw)
     return out.reshape(b, hq, nq, dh)
 
 

@@ -14,17 +14,16 @@ from repro_torch.kernels import cost
 from repro_torch.kernels.topl_select.ref import (decode_score_hist,
                                                  hist_reduce, thresholds_ref)
 
-BOOKS_MAX = 32          # PQ books the threshold kernel takes
-SCORE_MAX = 32          # largest max_score (histogram buckets - 1)
-
 
 def check_topl_args(codes_q: torch.Tensor, codes_k: torch.Tensor, *,
                     l: int, max_score: int, q_offset: int,
                     heads_per_batch: int, rep: int) -> None:
     """Kernel 2's input contract, checked before anything is built or
-    launched: the shapes ``topl_thresholds`` names, int32 codes, 1 to
-    BOOKS_MAX books, M <= max_score <= SCORE_MAX (the kernel's histogram
-    rows), nq, nk, l >= 1 and q_offset >= 0."""
+    launched: the shapes ``topl_thresholds`` names, int32 codes, at
+    least one book, max_score >= M (no model passes less: a score counts
+    matching books), nq, nk, l >= 1 and q_offset >= 0.  Any number of
+    books and any max_score is taken (scores above M never occur, so
+    the kernel's histogram has M + 1 buckets)."""
     name = "topl_thresholds"
     g, nq, m = codes_q.shape
     gk, nk, mk = codes_k.shape
@@ -35,10 +34,9 @@ def check_topl_args(codes_q: torch.Tensor, codes_k: torch.Tensor, *,
                          f"heads per batch, {rep} per kv head")
     if codes_q.dtype != torch.int32 or codes_k.dtype != torch.int32:
         raise TypeError(f"{name}: takes int32 codes")
-    if not (1 <= m <= BOOKS_MAX and m <= max_score <= SCORE_MAX):
-        raise ValueError(f"{name}: takes 1 to {BOOKS_MAX} books and M <= "
-                         f"max_score <= {SCORE_MAX}, got M = {m}, "
-                         f"max_score = {max_score}")
+    if not 1 <= m <= max_score:
+        raise ValueError(f"{name}: takes M >= 1 books and max_score >= M, "
+                         f"got M = {m}, max_score = {max_score}")
     if nq < 1 or nk < 1 or l < 1 or q_offset < 0:
         raise ValueError(f"{name}: needs nq, nk, l >= 1 and q_offset >= 0")
 

@@ -375,7 +375,8 @@ def test_contract_rule_fires_on_a_refused_shape():
     launches, vs = ka.config_launches("qwen3-smoke",
                                       configs.get_smoke("qwen3-0.6b"))
     assert vs == [] and {ln.kernel for ln in launches} == {
-        "pq_assign", "sparse_attention", "grouped_ffn", "decode_ffn"}
+        "pq_assign", "topl_thresholds", "sparse_attention", "grouped_ffn",
+        "decode_ffn"}
 
 
 # ---------------------------------------------------------- trace guard

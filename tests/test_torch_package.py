@@ -145,8 +145,9 @@ def test_kernel_modules_import_without_nvcc_and_build_nothing():
                                "fused_sparse_decode_paged",
                                "dense_decode_paged", "grouped_ffn",
                                "grouped_ffn_h_elems", "decode_ffn",
-                               "pq_assign_smem", "sparse_attention_smem",
-                               "grouped_ffn_smem", "decode_ffn_smem")}
+                               "pq_assign_smem", "topl_thresholds_smem",
+                               "sparse_attention_smem", "grouped_ffn_smem",
+                               "decode_ffn_smem")}
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

@@ -9,9 +9,10 @@
   * The wrappers pad the LoRA rank with zeros to the kernels' 16-byte
     rows, which leaves the function unchanged, and copy data that does
     not start on 16 bytes.
-  * The wrappers raise, before any build or launch, on what the kernels
-    do not take (meta tensors stand in for CUDA ones: they take the
-    kernel path without a card).
+  * Kernel 9's wrapper takes any d, F and LoRA rank, and kernel 10's
+    raises, before any build or launch, on what its kernel does not take
+    (meta tensors stand in for CUDA ones: they take the kernel path
+    without a card).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -90,21 +91,24 @@ def _lora(d, f, g, r):
                            "c": _meta(r, d, dtype=f32)}}
 
 
-@pytest.mark.parametrize("d,f,r,match", [
-    (60, 64, 16, "multiples of 8"),          # d not in 16-byte rows
-    (64, 36, 16, "multiples of 8"),          # F not in 16-byte rows
-    (64, 64, 40, "rank"),                    # rank above 32
+@pytest.mark.parametrize("d,f,r", [
+    (60, 64, 16),                            # d not in 16-byte rows
+    (64, 36, 16),                            # F not in 16-byte rows
+    (64, 64, 40),                            # rank above 32
 ])
-def test_grouped_ffn_bf16_raises_on_what_the_kernel_does_not_take(
-        d, f, r, match):
+def test_grouped_ffn_bf16_raises_on_what_the_kernel_does_not_take(d, f, r):
+    """Kernel 9's bf16 body takes all three (predicated tail loads; past
+    rank 32 the wide form with split LoRA factors), as the JAX kernel
+    does: on meta tensors the wrapper returns y's shape and builds and
+    launches nothing."""
     g, c = 4, 16
     x, wi, wg = _meta(2, 32, d), _meta(g, d, f), _meta(g, d, f)
     wo = _meta(g, f, d)
     index = _meta(2, g, c, dtype=torch.int32)
     before = rffn_ops.grouped_ffn.launches
-    with pytest.raises(ValueError, match=match):
-        rffn_ops.grouped_ffn(x, index, wi, wo, wg, _lora(d, f, g, r), 1.0,
+    y = rffn_ops.grouped_ffn(x, index, wi, wo, wg, _lora(d, f, g, r), 1.0,
                              act="silu")
+    assert y.shape == (2, g, c, d) and y.dtype == torch.bfloat16
     assert rffn_ops.grouped_ffn.launches == before
     assert kernels._lib is None                  # nothing was built
 

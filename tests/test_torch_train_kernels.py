@@ -8,11 +8,11 @@ replace (interpret mode on the CPU), on the same numpy inputs from a seed:
     windowed, q_offset != 0, nq != nk, GQA (the port indexes the kv head,
     JAX repeats the key codes per query head); M = 8, 10 and 16 books, and
     codes in [128, 256) and beyond 256;
-  * the wrappers of kernels 1 and 2 refuse what their kernels do not take
-    (books, histogram rows, d', the staged codebook) before building;
+  * the wrappers of kernels 1 and 2 take any codebook and any number of
+    books, and refuse malformed input (max_score below M) before building;
   * thresholded sparse attention (kernel 4) — GQA, f32, atol=rtol 1e-5,
-    at head dims 16, 64 and 80; its wrapper takes any dh that is a
-    multiple of 8 up to 256 and refuses the rest before building;
+    at head dims 16, 64 and 80; its wrapper takes any dh (84 and 264
+    shown on meta tensors) without building;
   * the ``sparse_mha`` and ``routed_ffn`` autograd Functions — outputs and
     gradients against ``jax.grad`` of the JAX custom_vjp ops, f32 to
     1e-5 (outputs) and 1e-4 (gradients: the backwards differentiate two
@@ -167,18 +167,20 @@ def _i32(*shape):
 
 @pytest.mark.parametrize("m,max_score,ok", [
     (16, 16, True), (32, 32, True), (10, 32, True),
-    (33, 33, False),                    # more books than the kernel packs
-    (16, 33, False),                    # more histogram rows than it keeps
+    (33, 33, True),                     # past 32 books: packed in chunks
+    (16, 33, True),                     # max_score past M: empty buckets
     (16, 15, False),                    # scores above max_score
 ])
 def test_topl_thresholds_contract(m, max_score, ok):
-    """Kernel 2's wrapper refuses what the kernel does not take before
-    anything is built or launched (meta tensors stand in for CUDA ones)."""
+    """Kernel 2's wrapper takes any number of books and any max_score >=
+    M, and refuses malformed input, before anything is built or launched
+    (meta tensors stand in for CUDA ones)."""
     args = (_i32(8, 64, m), _i32(4, 64, m))
     kw = dict(l=8, max_score=max_score, heads_per_batch=4, rep=2)
     before = topl_ops.topl_thresholds.launches
     if ok:
         topl_ops.check_topl_args(*args, q_offset=0, **kw)
+        assert topl_ops.topl_thresholds(*args, **kw).shape == (8, 64, 2)
     else:
         with pytest.raises(ValueError, match="books"):
             topl_ops.topl_thresholds(*args, **kw)
@@ -186,23 +188,22 @@ def test_topl_thresholds_contract(m, max_score, ok):
     assert kernels._lib is None                  # nothing was built
 
 
-@pytest.mark.parametrize("m,e,dp,ok", [
-    (16, 16, 8, True), (8, 64, 8, True), (32, 32, 8, True),
-    (2, 4, 33, False),                  # d' > 32
-    (64, 16, 9, False),                 # M E d' > 8192 floats staged
-    (128, 16, 1, False),                # M E > 1024 norms staged
+@pytest.mark.parametrize("m,e,dp", [
+    (16, 16, 8), (8, 64, 8), (32, 32, 8),
+    (2, 4, 33),                         # d' > 32
+    (64, 16, 9),                        # M E d' > 8192 floats
+    (128, 16, 1),                       # M E > 1024 codewords
 ])
-def test_pq_assign_contract(m, e, dp, ok):
-    """Kernel 1's wrapper refuses codebooks beyond what the kernel stages
-    in shared memory before anything is built or launched."""
+def test_pq_assign_contract(m, e, dp):
+    """Kernel 1's wrapper takes any codebook (M, E, d'), as the JAX kernel
+    does: the general body stages it in E-tiles.  On meta tensors it
+    returns the codes' shape before anything is built or launched."""
     x = _meta(4, 64, m * dp)
     cb = _meta(m, e, dp, dtype=torch.float32)
     before = pq_ops.pq_assign.launches
-    if ok:
-        pq_ops.check_pq_args(x, cb)
-    else:
-        with pytest.raises(ValueError, match="staged limits"):
-            pq_ops.pq_assign(x, cb)
+    pq_ops.check_pq_args(x, cb)
+    codes = pq_ops.pq_assign(x, cb)
+    assert codes.shape == (4, 64, m) and codes.dtype == torch.int32
     assert pq_ops.pq_assign.launches == before
     assert kernels._lib is None                  # nothing was built
 
@@ -240,24 +241,21 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("dh,ok", [(80, True), (72, True), (256, True),
-                                   (84, False), (264, False)])
-def test_sparse_attention_head_dim_contract(dh, ok):
-    """Kernel 4 takes any dh that is a multiple of 8 up to 256 and refuses
-    the rest before anything is built or launched (meta tensors stand in
-    for CUDA ones: they take the kernel path without a card)."""
+@pytest.mark.parametrize("dh", [80, 72, 256, 84, 264])
+def test_sparse_attention_head_dim_contract(dh):
+    """Kernel 4 takes any dh, as the JAX kernel does (84 and 264 run its
+    any-shape body); on meta tensors (they take the kernel path without a
+    card) it returns the output's shape before anything is built or
+    launched."""
     g, gk, n, m = 8, 4, 64, 16
     i32 = torch.int32
     args = (_meta(g, n, dh), _meta(gk, n, dh), _meta(gk, n, dh),
             _meta(g, n, m, dtype=i32), _meta(gk, n, m, dtype=i32),
             _meta(g, n, 2, dtype=i32))
     before = sa_ops.sparse_attention.launches
-    if ok:
-        sa_ops.check_sparse_attention_args(*args, heads_per_batch=4, rep=2)
-    else:
-        with pytest.raises(ValueError, match=f"head dim {dh} "):
-            sa_ops.sparse_attention(*args, scale=1.0, heads_per_batch=4,
-                                    rep=2)
+    sa_ops.check_sparse_attention_args(*args, heads_per_batch=4, rep=2)
+    out = sa_ops.sparse_attention(*args, scale=1.0, heads_per_batch=4, rep=2)
+    assert out.shape == (g, n, dh) and out.dtype == torch.bfloat16
     assert sa_ops.sparse_attention.launches == before
     assert kernels._lib is None                  # nothing was built
 
